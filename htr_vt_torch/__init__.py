@@ -1,0 +1,18 @@
+"""htr_vt_torch — the PyTorch / CUDA port of ``htr_vt_tpu`` for NVIDIA Hopper.
+
+The JAX package stays the reference: every module here is held against its
+JAX counterpart on the same weights and inputs (``tests/test_torch_port_*``).
+Configuration, the text codec, the metrics, the list readers and the
+checkpoint layout are shared with ``htr_vt_tpu`` through its JAX-free
+modules; this package imports ``torch`` and never ``jax``.
+
+Ported so far: the flagship ``model_v1`` serving path —
+``cli/serve.py`` -> ``train/step.py:eval_step`` -> ``models/htr_vt.py:HTRVT``
++ ``ops/ctc.py:ctc_loss_auto``, whose CUDA route runs the CTC alpha
+recursion as a hand-written ``sm_90a`` kernel (``csrc/ctc_alpha.cu``).
+"""
+
+__version__ = "0.1.0"
+
+from htr_vt_tpu.config import ModelConfig  # noqa: F401
+from htr_vt_tpu.text.converter import CTCLabelConverter  # noqa: F401

@@ -1,0 +1,113 @@
+"""The HTR-VT model, eval forward (port of ``htr_vt_tpu/models/htr_vt.py``).
+
+    image [B, H, W, 1] NHWC float32 in [0, 1]
+    -> parameterless LayerNorm over the whole image
+    -> ResNet18 stem -> tokens [B, N, D] + fixed 2-D sin-cos position
+    -> ``depth`` pre-norm ViT blocks -> LayerNorm -> head -> logit LayerNorm
+    -> logits [B, N, nb_cls] float32
+
+Matmuls and convolutions run in ``cfg.compute_dtype``; norms, softmax, the
+head and the logits are float32. Masking, SGM and remat are training
+features and are not ported yet (ROADMAP.md, queue 1).
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Optional
+
+import torch
+from torch import nn
+
+from htr_vt_tpu.config import ModelConfig
+from htr_vt_torch.models.layers import global_layer_norm, sincos_pos_embed_2d
+from htr_vt_torch.models.stem import ResNet18Stem
+from htr_vt_torch.models.vit import Block
+
+
+class HTRVT(nn.Module):
+    """Flagship ``model_v1`` recipe: ``encoder="vit"``, ``stem="resnet18"``,
+    CTC head. ``generator`` seeds the JAX package's init schemes
+    (``init_weights``); without one the weights keep torch's defaults."""
+
+    def __init__(self, cfg: ModelConfig, device=None,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        self.cfg = cfg
+        dtype = getattr(torch, cfg.compute_dtype)
+        self.dtype = dtype
+        d = cfg.embed_dim
+        self.patch_embed = ResNet18Stem(d, dtype, device=device)
+        self.mask_token = nn.Parameter(torch.zeros(1, 1, d, device=device))
+        self.register_buffer(
+            "pos_embed",
+            torch.from_numpy(sincos_pos_embed_2d(d, cfg.grid_size)).to(device),
+            persistent=False)
+        self.blocks = nn.ModuleList(
+            Block(d, cfg.num_heads, cfg.mlp_ratio, cfg.qkv_bias,
+                  cfg.layer_norm_eps, dtype, device=device)
+            for _ in range(cfg.depth))
+        self.norm = nn.LayerNorm(d, eps=cfg.layer_norm_eps, device=device)
+        self.head = nn.Linear(d, cfg.nb_cls, device=device)
+        if generator is not None:
+            self.init_weights(generator)
+
+    @torch.no_grad()
+    def init_weights(self, generator: torch.Generator) -> None:
+        """The JAX package's initialisers: ``variance_scaling(2, fan_out,
+        normal)`` for convolutions (``stem.py:36``), xavier-uniform for
+        dense layers, normal(0.02) for ``mask_token``, ones/zeros for
+        LayerNorms and biases (BatchNorm keeps its constructor state)."""
+        for m in self.modules():
+            if isinstance(m, nn.Conv2d):
+                cout, _, kh, kw = m.weight.shape
+                m.weight.normal_(0.0, math.sqrt(2.0 / (kh * kw * cout)),
+                                 generator=generator)
+            elif isinstance(m, nn.Linear):
+                limit = math.sqrt(6.0 / (m.in_features + m.out_features))
+                m.weight.uniform_(-limit, limit, generator=generator)
+                if m.bias is not None:
+                    m.bias.zero_()
+            elif isinstance(m, nn.LayerNorm):
+                m.weight.fill_(1.0)
+                m.bias.zero_()
+        self.mask_token.normal_(0.0, 0.02, generator=generator)
+
+    def forward(self, image: torch.Tensor) -> torch.Tensor:
+        """[B, H, W, 1] float32 -> logits [B, N, nb_cls] float32."""
+        cfg = self.cfg
+        x = image.float()
+        if cfg.input_layer_norm:
+            x = global_layer_norm(x)
+        x = self.patch_embed(x.permute(0, 3, 1, 2))  # NHWC -> NCHW
+        b = x.shape[0]
+        # NHWC token order, as the JAX reshape of [B, H', W', D]
+        tokens = x.permute(0, 2, 3, 1).reshape(b, -1, cfg.embed_dim)
+        n = tokens.shape[1]
+        if cfg.use_abs_pos_embed:
+            tokens = tokens + self.pos_embed[:n].to(self.dtype)
+        for block in self.blocks:
+            tokens = block(tokens)
+        logits = self.head(self.norm(tokens.float()))
+        if cfg.logit_layer_norm:
+            logits = global_layer_norm(logits)
+        return logits
+
+
+def build_model(cfg: ModelConfig, device=None,
+                generator: Optional[torch.Generator] = None) -> HTRVT:
+    """Model factory. Only the flagship recipe is ported; every other
+    encoder, stem and head is still queued in ROADMAP.md."""
+    if cfg.model_type != "ctc":
+        raise NotImplementedError(
+            f"model_type={cfg.model_type!r} is not ported to htr_vt_torch yet "
+            "(ROADMAP.md queue 1, item 10: variant zoo, encoder_decoder)")
+    if cfg.encoder != "vit" or cfg.stem != "resnet18":
+        raise NotImplementedError(
+            f"encoder={cfg.encoder!r} / stem={cfg.stem!r} is not ported to "
+            "htr_vt_torch yet (ROADMAP.md queue 1, item 10: variant zoo)")
+    if cfg.quant != "none":
+        raise NotImplementedError(
+            f"quant={cfg.quant!r} is not ported to htr_vt_torch yet "
+            "(ROADMAP.md queue 1, item 11: int8 serving)")
+    return HTRVT(cfg, device=device, generator=generator)
