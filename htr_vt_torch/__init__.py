@@ -6,13 +6,20 @@ Configuration, the text codec, the metrics, the list readers and the
 checkpoint layout are shared with ``htr_vt_tpu`` through its JAX-free
 modules; this package imports ``torch`` and never ``jax``.
 
-Ported so far: the flagship ``model_v1`` serving path —
-``cli/serve.py`` -> ``train/step.py:eval_step`` -> ``models/htr_vt.py:HTRVT``
-+ ``ops/ctc.py:ctc_loss_auto``, whose CUDA route runs the CTC alpha
-recursion as a hand-written ``sm_90a`` kernel (``csrc/ctc_alpha.cu``).
+Ported so far, for the flagship ``model_v1`` recipe:
+
+- serving: ``cli/serve.py`` -> ``train/step.py:eval_step`` ->
+  ``models/htr_vt.py:HTRVT`` + ``ops/ctc.py:ctc_loss_auto``;
+- training: ``train/step.py:train_step`` (span masking, train-mode BN, SAM
+  + AdamW on the warmup-cosine schedule, EMA) and ``eval/validate.py``.
+
+On a CUDA tensor the CTC loss runs its alpha recursion, and its gradient
+the beta recursion, as hand-written ``sm_90a`` kernels
+(``csrc/ctc_alpha.cu``, ``csrc/ctc_beta.cu``).
 """
 
 __version__ = "0.1.0"
 
-from htr_vt_tpu.config import ModelConfig  # noqa: F401
+from htr_vt_tpu.config import (ExperimentConfig, MaskConfig,  # noqa: F401
+                               ModelConfig, OptimConfig)
 from htr_vt_tpu.text.converter import CTCLabelConverter  # noqa: F401

@@ -1,8 +1,9 @@
 """Build and load the port's CUDA kernels.
 
-Every ``htr_vt_torch/csrc/*.cu`` is compiled by ``nvcc`` for ``sm_90a`` into
-one shared library with a plain C interface, which ``ctypes`` loads: no
-PyTorch headers, so a build takes seconds. The library goes to
+Every ``htr_vt_torch/csrc/*.cu`` is compiled by its own ``nvcc`` for
+``sm_90a`` (all started together), and the objects are linked into one
+shared library with a plain C interface, which ``ctypes`` loads: no PyTorch
+headers, so a build takes seconds. The library goes to
 ``build/htr_vt_torch/`` at the repository root and is rebuilt when a source
 is newer. A missing ``nvcc`` or a failed build raises with the compiler's
 output; there is no fallback.
@@ -21,8 +22,9 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "htr_vt_torch"
 LIBRARY = BUILD_DIR / "libhtrvt_torch_kernels.so"
-NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
+COMPILE_FLAGS = [*ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
+                 "-Xptxas", "-v"]
 
 
 def _nvcc() -> str:
@@ -34,23 +36,43 @@ def _nvcc() -> str:
                        "none on PATH or under $CUDA_HOME/bin")
 
 
+def _run(procs) -> str:
+    """Wait for every (cmd, Popen); raise with the output of any failure."""
+    log, failed = [], []
+    for cmd, proc in procs:
+        out, _ = proc.communicate()
+        log.append(out)
+        if proc.returncode != 0:
+            failed.append(f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{out}")
+    if failed:
+        raise RuntimeError("\n".join(failed))
+    return "".join(log)
+
+
 def build() -> str:
     """Compile the kernels now; returns nvcc's output (the ptxas register
     and shared-memory report). Raises RuntimeError with it on failure."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    # Compile beside the target and rename, so that a concurrent loader
-    # never sees a half-written library.
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cmd = [_nvcc(), *NVCC_FLAGS, "-I", str(CSRC), "-o", tmp,
-           *map(str, sorted(CSRC.glob("*.cu")))]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n"
-                           f"{proc.stdout}{proc.stderr}")
-    os.replace(tmp, LIBRARY)
-    return proc.stdout + proc.stderr
+    nvcc = _nvcc()
+    sources = sorted(CSRC.glob("*.cu"))
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmpdir:
+        objects = [Path(tmpdir) / f"{src.stem}.o" for src in sources]
+        compiles = []
+        for src, obj in zip(sources, objects):
+            cmd = [nvcc, *COMPILE_FLAGS, "-I", str(CSRC), "-c", str(src),
+                   "-o", str(obj)]
+            compiles.append((cmd, subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                text=True)))
+        log = _run(compiles)
+        # Link beside the target and rename, so that a concurrent loader
+        # never sees a half-written library.
+        tmp = Path(tmpdir) / LIBRARY.name
+        cmd = [nvcc, *ARCH, "-shared", "-o", str(tmp), *map(str, objects)]
+        log += _run([(cmd, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))])
+        os.replace(tmp, LIBRARY)
+    return log
 
 
 def _stale() -> bool:
@@ -67,8 +89,9 @@ def library() -> ctypes.CDLL:
         build()
     lib = ctypes.CDLL(str(LIBRARY))
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
-    lib.htrvt_ctc_alpha.argtypes = [ptr] * 6 + [i32] * 4 + [ptr]
-    lib.htrvt_ctc_alpha.restype = i32
+    for fn in (lib.htrvt_ctc_alpha, lib.htrvt_ctc_beta):
+        fn.argtypes = [ptr] * 6 + [i32] * 4 + [ptr]
+        fn.restype = i32
     lib.htrvt_cuda_error_string.argtypes = [i32]
     lib.htrvt_cuda_error_string.restype = ctypes.c_char_p
     return lib

@@ -1,14 +1,18 @@
-"""The HTR-VT model, eval forward (port of ``htr_vt_tpu/models/htr_vt.py``).
+"""The HTR-VT model (port of ``htr_vt_tpu/models/htr_vt.py``).
 
     image [B, H, W, 1] NHWC float32 in [0, 1]
     -> parameterless LayerNorm over the whole image
-    -> ResNet18 stem -> tokens [B, N, D] + fixed 2-D sin-cos position
+    -> ResNet18 stem -> tokens [B, N, D]
+    -> (train) span masking with the learned mask token
+    -> + fixed 2-D sin-cos position
     -> ``depth`` pre-norm ViT blocks -> LayerNorm -> head -> logit LayerNorm
     -> logits [B, N, nb_cls] float32
 
 Matmuls and convolutions run in ``cfg.compute_dtype``; norms, softmax, the
-head and the logits are float32. Masking, SGM and remat are training
-features and are not ported yet (ROADMAP.md, queue 1).
+head and the logits are float32. ``train`` is an explicit argument, as in
+JAX, and ``module.training`` is never read: train mode means batch-statistic
+BatchNorm, masking and dropout. SGM and remat are not ported yet
+(ROADMAP.md, queue 1).
 """
 
 from __future__ import annotations
@@ -20,6 +24,7 @@ import torch
 from torch import nn
 
 from htr_vt_tpu.config import ModelConfig
+from htr_vt_torch.models import masking
 from htr_vt_torch.models.layers import global_layer_norm, sincos_pos_embed_2d
 from htr_vt_torch.models.stem import ResNet18Stem
 from htr_vt_torch.models.vit import Block
@@ -45,7 +50,7 @@ class HTRVT(nn.Module):
             persistent=False)
         self.blocks = nn.ModuleList(
             Block(d, cfg.num_heads, cfg.mlp_ratio, cfg.qkv_bias,
-                  cfg.layer_norm_eps, dtype, device=device)
+                  cfg.layer_norm_eps, dtype, drop=cfg.drop_rate, device=device)
             for _ in range(cfg.depth))
         self.norm = nn.LayerNorm(d, eps=cfg.layer_norm_eps, device=device)
         self.head = nn.Linear(d, cfg.nb_cls, device=device)
@@ -73,21 +78,35 @@ class HTRVT(nn.Module):
                 m.bias.zero_()
         self.mask_token.normal_(0.0, 0.02, generator=generator)
 
-    def forward(self, image: torch.Tensor) -> torch.Tensor:
-        """[B, H, W, 1] float32 -> logits [B, N, nb_cls] float32."""
+    def forward(self, image: torch.Tensor, *, train: bool = False,
+                keep: Optional[torch.Tensor] = None,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        """[B, H, W, 1] float32 -> logits [B, N, nb_cls] float32.
+
+        ``train``: batch-statistic BatchNorm (moving the running statistics
+        in place), token masking and dropout, drawing from ``generator``.
+        ``keep``: a float [B, N, 1] keep mask to use in place of a drawn one
+        (train mode with masking on only)."""
         cfg = self.cfg
         x = image.float()
         if cfg.input_layer_norm:
             x = global_layer_norm(x)
-        x = self.patch_embed(x.permute(0, 3, 1, 2))  # NHWC -> NCHW
+        x = self.patch_embed(x.permute(0, 3, 1, 2), train=train)  # NHWC -> NCHW
         b = x.shape[0]
         # NHWC token order, as the JAX reshape of [B, H', W', D]
         tokens = x.permute(0, 2, 3, 1).reshape(b, -1, cfg.embed_dim)
         n = tokens.shape[1]
+        if train and cfg.masking.mode != "none":
+            if keep is None:
+                keep = masking.build_keep_mask(generator, b, n, cfg.masking)
+            tokens = masking.apply_mask(tokens, keep, self.mask_token)
+        elif keep is not None:
+            raise ValueError("a keep mask applies only in train mode with "
+                             "masking on")
         if cfg.use_abs_pos_embed:
             tokens = tokens + self.pos_embed[:n].to(self.dtype)
         for block in self.blocks:
-            tokens = block(tokens)
+            tokens = block(tokens, train=train, generator=generator)
         logits = self.head(self.norm(tokens.float()))
         if cfg.logit_layer_norm:
             logits = global_layer_norm(logits)

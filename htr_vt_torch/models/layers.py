@@ -7,7 +7,7 @@ bfloat16 and a float32 model alike.
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
@@ -58,17 +58,52 @@ def dense(layer: nn.Linear, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor
     return y if layer.bias is None else y + layer.bias.to(dtype)
 
 
+def dropout(x: torch.Tensor, rate: float, train: bool,
+            generator: Optional[torch.Generator]) -> torch.Tensor:
+    """flax ``nn.Dropout``: in train mode keep each element with probability
+    ``1 - rate`` and scale it by ``1 / (1 - rate)``, drawing from
+    ``generator``; the identity at rate 0 or in eval."""
+    if not train or rate == 0.0:
+        return x
+    keep = 1.0 - rate
+    mask = torch.rand(x.shape, generator=generator, device=x.device) < keep
+    return torch.where(mask, x / keep, torch.zeros_like(x))
+
+
+class DropPath(nn.Module):
+    """Per-sample stochastic depth (``layers.py:135-148``): in train mode a
+    whole sample's branch is dropped with probability ``rate`` and kept ones
+    are scaled by ``1 / (1 - rate)``; the identity at rate 0 or in eval."""
+
+    def __init__(self, rate: float = 0.0):
+        super().__init__()
+        self.rate = rate
+
+    def forward(self, x: torch.Tensor, *, train: bool = False,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        if not train or self.rate == 0.0:
+            return x
+        keep = 1.0 - self.rate
+        shape = (x.shape[0],) + (1,) * (x.ndim - 1)
+        mask = torch.rand(shape, generator=generator, device=x.device) < keep
+        return torch.where(mask, x / keep, torch.zeros_like(x)).to(x.dtype)
+
+
 class Mlp(nn.Module):
-    """fc1 -> exact-erf GELU -> fc2 (``layers.py:104-132``, float path only;
-    dropout is an eval identity)."""
+    """fc1 -> exact-erf GELU -> dropout -> fc2 -> dropout
+    (``layers.py:104-132``, float path only)."""
 
     def __init__(self, dim: int, hidden_dim: int, dtype: torch.dtype,
-                 device=None):
+                 drop_rate: float = 0.0, device=None):
         super().__init__()
         self.dtype = dtype
+        self.drop_rate = drop_rate
         self.fc1 = nn.Linear(dim, hidden_dim, device=device)
         self.fc2 = nn.Linear(hidden_dim, dim, device=device)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, *, train: bool = False,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
         x = F.gelu(dense(self.fc1, x, self.dtype), approximate="none")
-        return dense(self.fc2, x, self.dtype)
+        x = dropout(x, self.drop_rate, train, generator)
+        x = dense(self.fc2, x, self.dtype)
+        return dropout(x, self.drop_rate, train, generator)

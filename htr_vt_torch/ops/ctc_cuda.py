@@ -1,16 +1,20 @@
-"""CTC loss through the hand-written CUDA alpha kernel (port of
-``htr_vt_tpu/ops/ctc_pallas.py``, forward only).
+"""Differentiable CTC loss through the hand-written CUDA recursions (port of
+``htr_vt_tpu/ops/ctc_pallas.py``).
 
-    logp   = log_softmax(logits)                          (torch)
+    logp   = log_softmax(logits)                          (torch autograd)
     alpha  = ctc_alpha(logp, z, noskip, valid, start2)    (csrc/ctc_alpha.cu)
     loss   = -logsumexp(alpha[:, -1] under endm)          (torch)
+  backward, in ``CTCNegLogP``:
+    beta   = ctc_beta(logp, z, noskip, valid, endm)       (csrc/ctc_beta.cu)
+    dlogp  = ctc_grad_logp(alpha, beta, total, z, g, C)   (torch)
 
-The kernel gathers ``logp[b, t, z[b, s]]`` itself, so the [B, T, S]
-emission cube is never built. ``ctc_alpha`` launches the kernel for a CUDA
-tensor and runs ``ctc_alpha_reference``, the plain version of the same
-recursion, for a CPU tensor; nothing else decides, and a failed build or
-launch raises. ``ctc_loss_cuda`` takes CUDA tensors only: the CPU loss is
-the plain ``ops/ctc.py:ctc_loss``, which ``ctc_loss_auto`` chooses.
+The kernels gather ``logp[b, t, z[b, s]]`` themselves, so the [B, T, S]
+emission cube is never built. ``ctc_alpha`` and ``ctc_beta`` launch their
+kernel for a CUDA tensor and run their plain version
+(``ctc_alpha_reference``, ``ctc_beta_reference``) for a CPU tensor; nothing
+else decides, and a failed build or launch raises. ``ctc_loss_cuda`` takes
+CUDA tensors only: the CPU loss is the plain ``ops/ctc.py:ctc_loss``, which
+``ctc_loss_auto`` chooses.
 """
 
 from __future__ import annotations
@@ -20,6 +24,10 @@ from typing import Tuple
 import torch
 
 from htr_vt_torch.ops.ctc import NEG, logaddexp3, zero_infinity
+
+# A state whose log posterior lies below this gets no gradient
+# (``ctc_pallas.py:270``).
+LOG_GAMMA_CUT = -80.0
 
 
 def extended_masks(labels: torch.Tensor, label_lengths: torch.Tensor,
@@ -43,6 +51,11 @@ def extended_masks(labels: torch.Tensor, label_lengths: torch.Tensor,
     return z, noskip, valid, start2, endm
 
 
+def _emissions(logp: torch.Tensor, z: torch.Tensor) -> torch.Tensor:
+    b, t, _ = logp.shape
+    return torch.gather(logp, 2, z.long()[:, None, :].expand(b, t, z.shape[1]))
+
+
 def ctc_alpha_reference(logp: torch.Tensor, z: torch.Tensor,
                         noskip: torch.Tensor, valid: torch.Tensor,
                         start2: torch.Tensor) -> torch.Tensor:
@@ -50,7 +63,7 @@ def ctc_alpha_reference(logp: torch.Tensor, z: torch.Tensor,
     [B, T, S] float32 alpha cube out (``_alpha_kernel``,
     ``ctc_pallas.py:55-85``)."""
     b, t, _ = logp.shape
-    lp = torch.gather(logp, 2, z.long()[:, None, :].expand(b, t, z.shape[1]))
+    lp = _emissions(logp, z)
     alpha = torch.empty_like(lp)
     row = torch.where(start2 & valid, lp[:, 0], NEG)
     alpha[:, 0] = row
@@ -64,12 +77,64 @@ def ctc_alpha_reference(logp: torch.Tensor, z: torch.Tensor,
     return alpha
 
 
-def _check(name: str, x: torch.Tensor, dtype: torch.dtype, shape) -> None:
+def ctc_beta_reference(logp: torch.Tensor, z: torch.Tensor,
+                       noskip: torch.Tensor, valid: torch.Tensor,
+                       endm: torch.Tensor) -> torch.Tensor:
+    """Plain version of the beta kernel: the same inputs, the full
+    [B, T, S] float32 beta cube out, leaving out each frame's own emission
+    (``_beta_kernel``, ``ctc_pallas.py:88-127``). A skip out of state s
+    lands in s+2 and is allowed iff ``noskip[s+2]`` is false."""
+    b, t, _ = logp.shape
+    lp = _emissions(logp, z)
+    beta = torch.empty_like(lp)
+    row = torch.where(endm & valid, 0.0, NEG).to(lp.dtype)
+    beta[:, t - 1] = row
+    for i in range(t - 2, -1, -1):
+        term = row + lp[:, i + 1]
+        b1 = torch.cat([term[:, 1:], term.new_full((b, 1), NEG)], dim=1)
+        b2 = torch.where(noskip, NEG, term)
+        b2 = torch.cat([b2[:, 2:], term.new_full((b, 2), NEG)], dim=1)
+        row = torch.where(valid, logaddexp3(term, b1, b2), NEG)
+        beta[:, i] = row
+    return beta
+
+
+def _check(fn: str, name: str, x: torch.Tensor, dtype: torch.dtype,
+           shape) -> None:
     if x.dtype != dtype or tuple(x.shape) != tuple(shape):
-        raise ValueError(f"ctc_alpha: {name} must be {dtype} {tuple(shape)}, "
+        raise ValueError(f"{fn}: {name} must be {dtype} {tuple(shape)}, "
                          f"got {x.dtype} {tuple(x.shape)}")
     if not x.is_contiguous():
-        raise ValueError(f"ctc_alpha: {name} must be contiguous")
+        raise ValueError(f"{fn}: {name} must be contiguous")
+
+
+def _launch(fn: str, logp: torch.Tensor, z: torch.Tensor,
+            masks: Tuple[Tuple[str, torch.Tensor], ...]) -> torch.Tensor:
+    """Check the inputs of a recursion kernel, launch ``htrvt_<fn>`` on the
+    current stream and return its [B, T, S] float32 output."""
+    b, t, c = logp.shape
+    s = z.shape[1]
+    _check(fn, "logp", logp, torch.float32, (b, t, c))
+    _check(fn, "z", z, torch.int32, (b, s))
+    for name, m in masks:
+        _check(fn, name, m, torch.bool, (b, s))
+    for x in (z, *(m for _, m in masks)):
+        if x.device != logp.device:
+            raise ValueError(f"{fn}: all inputs must be on one device")
+    if t < 1 or s < 1:
+        raise ValueError(f"{fn}: empty time or state axis (T={t}, S={s})")
+    from htr_vt_torch._build import library
+    lib = library()
+    out = torch.empty((b, t, s), dtype=torch.float32, device=logp.device)
+    with torch.cuda.device(logp.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = getattr(lib, f"htrvt_{fn}")(
+            logp.data_ptr(), z.data_ptr(), *(m.data_ptr() for _, m in masks),
+            out.data_ptr(), b, t, c, s, stream)
+    if err != 0:
+        raise RuntimeError(f"{fn} kernel launch failed: CUDA error {err} "
+                           f"({lib.htrvt_cuda_error_string(err).decode()})")
+    return out
 
 
 def ctc_alpha(logp: torch.Tensor, z: torch.Tensor, noskip: torch.Tensor,
@@ -85,33 +150,35 @@ def ctc_alpha(logp: torch.Tensor, z: torch.Tensor, noskip: torch.Tensor,
         return ctc_alpha_reference(logp, z, noskip, valid, start2)
     if logp.device.type != "cuda":
         raise ValueError(f"ctc_alpha: no kernel for device {logp.device}")
-    b, t, c = logp.shape
-    s = z.shape[1]
-    _check("logp", logp, torch.float32, (b, t, c))
-    _check("z", z, torch.int32, (b, s))
-    for name, m in (("noskip", noskip), ("valid", valid), ("start2", start2)):
-        _check(name, m, torch.bool, (b, s))
-    for x in (z, noskip, valid, start2):
-        if x.device != logp.device:
-            raise ValueError("ctc_alpha: all inputs must be on one device")
-    if t < 1 or s < 1:
-        raise ValueError(f"ctc_alpha: empty time or state axis (T={t}, S={s})")
-    from htr_vt_torch._build import library
-    lib = library()
-    alpha = torch.empty((b, t, s), dtype=torch.float32, device=logp.device)
-    with torch.cuda.device(logp.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = lib.htrvt_ctc_alpha(
-            logp.data_ptr(), z.data_ptr(), noskip.data_ptr(), valid.data_ptr(),
-            start2.data_ptr(), alpha.data_ptr(), b, t, c, s, stream)
-    if err != 0:
-        raise RuntimeError(f"ctc_alpha kernel launch failed: CUDA error {err} "
-                           f"({lib.htrvt_cuda_error_string(err).decode()})")
+    alpha = _launch("ctc_alpha", logp, z, (("noskip", noskip), ("valid", valid),
+                                           ("start2", start2)))
     ctc_alpha.launches += 1
     return alpha
 
 
 ctc_alpha.launches = 0  # kernel launches; the CPU path never counts
+
+
+def ctc_beta(logp: torch.Tensor, z: torch.Tensor, noskip: torch.Tensor,
+             valid: torch.Tensor, endm: torch.Tensor) -> torch.Tensor:
+    """CTC beta recursion, each frame's own emission left out: the inputs of
+    ``ctc_alpha`` with the final-state mask ``endm`` in place of ``start2``
+    -> beta [B, T, S] float32.
+
+    CUDA tensors launch ``csrc/ctc_beta.cu`` on the current stream and add
+    one to ``ctc_beta.launches``; CPU tensors run ``ctc_beta_reference``.
+    Any other device raises."""
+    if logp.device.type == "cpu":
+        return ctc_beta_reference(logp, z, noskip, valid, endm)
+    if logp.device.type != "cuda":
+        raise ValueError(f"ctc_beta: no kernel for device {logp.device}")
+    beta = _launch("ctc_beta", logp, z, (("noskip", noskip), ("valid", valid),
+                                         ("endm", endm)))
+    ctc_beta.launches += 1
+    return beta
+
+
+ctc_beta.launches = 0  # kernel launches; the CPU path never counts
 
 
 def logsumexp_masked(a_last: torch.Tensor, endm: torch.Tensor) -> torch.Tensor:
@@ -121,11 +188,52 @@ def logsumexp_masked(a_last: torch.Tensor, endm: torch.Tensor) -> torch.Tensor:
     return m + torch.log(torch.exp(masked - m[:, None]).sum(dim=1))
 
 
+def ctc_grad_logp(alpha: torch.Tensor, beta: torch.Tensor, total: torch.Tensor,
+                  z: torch.Tensor, g: torch.Tensor, num_classes: int
+                  ) -> torch.Tensor:
+    """d(-total)/d logp [B, T, C] scaled by the upstream gradient g [B]
+    (``_ctc_bwd``, ``ctc_pallas.py:262-272``, and the transpose of the
+    gather at :289-295).
+
+    The state posterior is ``alpha + beta - total`` (beta leaves out its own
+    frame's emission, so no extra ``lp``), clamped at 0 before the exp and
+    cut below -80. States that share a class (every blank, repeated labels)
+    sum into it. On the card ``scatter_add_`` sums them with atomics, in no
+    fixed order: at most a few float32 ulps apart from run to run."""
+    log_gamma = alpha + beta - total[:, None, None]
+    dlp = -torch.exp(torch.clamp_max(log_gamma, 0.0)) * g[:, None, None]
+    dlp = torch.where(log_gamma > LOG_GAMMA_CUT, dlp, 0.0)
+    b, t, _ = alpha.shape
+    dlogp = alpha.new_zeros((b, t, num_classes))
+    return dlogp.scatter_add_(2, z.long()[:, None, :].expand_as(dlp), dlp)
+
+
+class CTCNegLogP(torch.autograd.Function):
+    """-log p(label | logp) per sample [B] over the alpha kernel, with the
+    beta kernel in its backward (``_ctc_neglogp``, ``ctc_pallas.py:239-275``).
+    Differentiable in ``logp`` only; the log-softmax before it stays with
+    autograd."""
+
+    @staticmethod
+    def forward(ctx, logp, z, noskip, valid, start2, endm):
+        alpha = ctc_alpha(logp, z, noskip, valid, start2)
+        total = logsumexp_masked(alpha[:, -1], endm)
+        ctx.save_for_backward(logp, z, noskip, valid, endm, alpha, total)
+        return -total
+
+    @staticmethod
+    def backward(ctx, g):
+        logp, z, noskip, valid, endm, alpha, total = ctx.saved_tensors
+        beta = ctc_beta(logp, z, noskip, valid, endm)
+        dlogp = ctc_grad_logp(alpha, beta, total, z, g, logp.shape[-1])
+        return dlogp, None, None, None, None, None
+
+
 def ctc_loss_cuda(logits: torch.Tensor, labels: torch.Tensor,
                   label_lengths: torch.Tensor, blank: int = 0) -> torch.Tensor:
-    """Per-sample CTC loss over the alpha kernel (``ctc_loss_pallas``,
-    ``ctc_pallas.py:278-304``, forward): [B] float32, zero for infeasible
-    samples. CUDA tensors only."""
+    """Per-sample CTC loss over the alpha and beta kernels
+    (``ctc_loss_pallas``, ``ctc_pallas.py:278-304``): [B] float32, zero loss
+    and zero gradient for infeasible samples. CUDA tensors only."""
     if not logits.is_cuda:
         raise ValueError(f"ctc_loss_cuda: needs a CUDA tensor, got "
                          f"{logits.device} (ctc_loss_auto sends CPU tensors "
@@ -133,5 +241,4 @@ def ctc_loss_cuda(logits: torch.Tensor, labels: torch.Tensor,
     logits = logits.float()
     z, noskip, valid, start2, endm = extended_masks(labels, label_lengths, blank)
     logp = torch.log_softmax(logits, dim=-1).contiguous()
-    alpha = ctc_alpha(logp, z, noskip, valid, start2)
-    return zero_infinity(-logsumexp_masked(alpha[:, -1], endm))
+    return zero_infinity(CTCNegLogP.apply(logp, z, noskip, valid, start2, endm))

@@ -1,11 +1,14 @@
-"""The port's CTC loss and alpha recursion vs the JAX reference.
+"""The port's CTC loss, its gradient and the alpha/beta recursions vs the
+JAX reference.
 
 On the CPU the port's plain loop (``ops/ctc.py:ctc_loss``), the plain
-alpha recursion (``ctc_cuda.ctc_alpha_reference``) and the kernel's torch
-glue over it (``extended_masks``, ``logsumexp_masked``, ``zero_infinity``)
-are held against the JAX scan and against the Pallas kernels in interpret
-mode. The CUDA kernel itself is held against its plain version on the card
-by tests/test_torch_port_cuda.py.
+alpha and beta recursions (``ctc_cuda.ctc_alpha_reference``,
+``ctc_beta_reference``) and the kernels' torch glue over them
+(``extended_masks``, ``logsumexp_masked``, ``zero_infinity``, the
+``CTCNegLogP`` backward) are held against the JAX scan and against the
+Pallas kernels in interpret mode, losses and ``d logits`` both. The CUDA
+kernels themselves are held against their plain versions on the card by
+tests/test_torch_port_cuda.py.
 """
 
 import contextlib
@@ -24,6 +27,9 @@ from test_torch_port_cuda import SENTINEL, ctc_case
 
 # float32 log-space recursions over <= 40 frames, summed in other orders.
 TOL = dict(rtol=1e-5, atol=1e-5)
+# d logits: posteriors exp(alpha + beta - total), summed over the states of
+# a class in another order than JAX's one-hot product.
+GRAD_TOL = dict(rtol=1e-4, atol=1e-5)
 
 
 @contextlib.contextmanager
@@ -101,22 +107,115 @@ def test_alpha_reference_matches_pallas_alpha_cube(case):
     np.testing.assert_allclose(got[finite], want[finite], rtol=1e-5, atol=1e-4)
 
 
+def _lp_and_masks(case):
+    """JAX's emission cube and float masks, the port's logp and bool masks."""
+    logits, labels, lengths = ctc_case(*case)
+    logp = np.array(jax.nn.log_softmax(jnp.asarray(logits), axis=-1))
+    z, noskip, valid, _, endm = cp._extended(
+        jnp.asarray(labels), jnp.asarray(lengths), 0)
+    lp = jnp.take_along_axis(jnp.asarray(logp), z[:, None, :], axis=2)
+    f32 = lambda m: m.astype(jnp.float32)  # noqa: E731
+    port = ctc_cuda.extended_masks(torch.from_numpy(labels),
+                                   torch.from_numpy(lengths))
+    return lp, (f32(noskip), f32(valid), f32(endm)), torch.from_numpy(logp), port
+
+
+# (case, time-panel length): one panel, and case 0's 20 frames in 4 panels
+# of 5 by shrinking the VMEM budget as tests/test_ctc.py does.
+BETA_CASES = [(c, None) for c in CASES] + [(CASES[0], 5)]
+
+
+@pytest.mark.parametrize("case,panel", BETA_CASES)
+def test_beta_reference_matches_pallas_beta_cube(case, panel, monkeypatch):
+    lp, jmasks, logp, (z, noskip, valid, _, endm) = _lp_and_masks(case)
+    s = z.shape[1]
+    if panel:
+        monkeypatch.setattr(cp, "_VMEM_BUDGET", 16 * panel * s)
+        assert cp._panel_len(case[2], s, 1) == panel
+    with pallas_interpret():
+        want = np.asarray(cp._run_recursion(cp._beta_kernel, lp, jmasks,
+                                            tile_b=1, reverse_time=True))
+    got = ctc_cuda.ctc_beta_reference(logp, z, noskip, valid, endm).numpy()
+    assert got.shape == want.shape == (case[1], case[2], s)
+    finite = want > SENTINEL
+    assert finite.any() and (~finite).any()
+    np.testing.assert_array_equal(got > SENTINEL, finite)
+    np.testing.assert_array_equal(got[~finite], want[~finite])
+    np.testing.assert_allclose(got[finite], want[finite], rtol=1e-5, atol=1e-4)
+
+
+def _port_kernel_route_loss(logits, labels, lengths):
+    """``ctc_loss_cuda``'s body on CPU tensors: the autograd Function over
+    the plain alpha and beta recursions."""
+    z, noskip, valid, start2, endm = ctc_cuda.extended_masks(labels, lengths)
+    logp = torch.log_softmax(logits, dim=-1).contiguous()
+    return tctc.zero_infinity(ctc_cuda.CTCNegLogP.apply(
+        logp, z, noskip, valid, start2, endm))
+
+
+@pytest.mark.parametrize("case", CASES)
+def test_ctc_gradients_match_jax_scan_and_pallas(case):
+    """d logits of the summed loss: the plain loop under autograd and the
+    kernels' backward glue over the plain recursions, against jax.grad of
+    the scan and of the Pallas path; length-0 and infeasible rows included
+    (an infeasible row has exactly zero gradient)."""
+    logits, labels, lengths = ctc_case(*case)
+    jl, jy, jn = map(jnp.asarray, (logits, labels, lengths))
+    want = np.asarray(jax.grad(lambda x: jax_ctc_loss(x, jy, jn).sum())(jl))
+    with pallas_interpret():
+        pallas = np.asarray(jax.grad(
+            lambda x: cp.ctc_loss_pallas(x, jy, jn).sum())(jl))
+    np.testing.assert_allclose(pallas, want, **GRAD_TOL)
+    ty, tn = torch.from_numpy(labels), torch.from_numpy(lengths)
+    for loss_fn in (tctc.ctc_loss, _port_kernel_route_loss):
+        x = torch.from_numpy(logits).requires_grad_(True)
+        loss = loss_fn(x, ty, tn)
+        loss.sum().backward()
+        got = x.grad.numpy()
+        assert np.isfinite(got).all()
+        np.testing.assert_allclose(got, want, **GRAD_TOL, err_msg=loss_fn.__name__)
+        np.testing.assert_allclose(got, pallas, **GRAD_TOL, err_msg=loss_fn.__name__)
+        infeasible = loss.detach().numpy() == 0
+        if case[4] > case[2]:
+            assert infeasible[1] and (got[1] == 0).all()
+
+
+def test_grad_glue_sums_the_states_of_a_class():
+    """``ctc_grad_logp`` adds up the posteriors of every state of a class:
+    all blanks, and labels that repeat."""
+    b, t, c = 1, 2, 4
+    z = torch.tensor([[0, 2, 0, 2, 0]], dtype=torch.int32)
+    alpha = torch.log(torch.tensor([[[.1, .2, .3, .4, .5], [.5, .4, .3, .2, .1]]]))
+    beta = torch.zeros_like(alpha)
+    got = ctc_cuda.ctc_grad_logp(alpha, beta, torch.zeros(b), z,
+                                 torch.full((b,), 2.0), c)
+    want = torch.zeros((b, t, c))
+    want[0, 0, 0], want[0, 0, 2] = -2 * (.1 + .3 + .5), -2 * (.2 + .4)
+    want[0, 1, 0], want[0, 1, 2] = -2 * (.5 + .3 + .1), -2 * (.4 + .2)
+    torch.testing.assert_close(got, want, rtol=1e-6, atol=1e-7)
+
+
 def test_cpu_tensors_never_count_a_launch():
     """On the CPU ``ctc_loss_auto`` is the plain loop and ``ctc_alpha`` the
     plain recursion; ``ctc_loss_cuda`` takes no CPU tensor."""
     logits, labels, lengths = (torch.from_numpy(a) for a in ctc_case(*CASES[0]))
-    before = ctc_cuda.ctc_alpha.launches
+    before = ctc_cuda.ctc_alpha.launches, ctc_cuda.ctc_beta.launches
     torch.testing.assert_close(tctc.ctc_loss_auto(logits, labels, lengths),
                                tctc.ctc_loss(logits, labels, lengths),
                                rtol=0, atol=0)
     logp = torch.log_softmax(logits, -1)
-    masks = ctc_cuda.extended_masks(labels, lengths)[:4]
-    torch.testing.assert_close(ctc_cuda.ctc_alpha(logp, *masks),
-                               ctc_cuda.ctc_alpha_reference(logp, *masks),
+    z, noskip, valid, start2, endm = ctc_cuda.extended_masks(labels, lengths)
+    torch.testing.assert_close(ctc_cuda.ctc_alpha(logp, z, noskip, valid, start2),
+                               ctc_cuda.ctc_alpha_reference(
+                                   logp, z, noskip, valid, start2),
+                               rtol=0, atol=0)
+    torch.testing.assert_close(ctc_cuda.ctc_beta(logp, z, noskip, valid, endm),
+                               ctc_cuda.ctc_beta_reference(
+                                   logp, z, noskip, valid, endm),
                                rtol=0, atol=0)
     with pytest.raises(ValueError, match="CUDA"):
         ctc_cuda.ctc_loss_cuda(logits, labels, lengths)
-    assert ctc_cuda.ctc_alpha.launches == before
+    assert (ctc_cuda.ctc_alpha.launches, ctc_cuda.ctc_beta.launches) == before
 
 
 def test_alpha_rejects_a_device_without_a_kernel():
@@ -125,3 +224,11 @@ def test_alpha_rejects_a_device_without_a_kernel():
     with pytest.raises(ValueError, match="no kernel"):
         ctc_cuda.ctc_alpha(logp, torch.zeros((1, 3), dtype=torch.int32,
                                              device="meta"), *masks)
+
+
+def test_beta_rejects_a_device_without_a_kernel():
+    logp = torch.zeros((1, 4, 3), device="meta")
+    masks = [torch.zeros((1, 3), dtype=torch.bool, device="meta")] * 3
+    with pytest.raises(ValueError, match="no kernel"):
+        ctc_cuda.ctc_beta(logp, torch.zeros((1, 3), dtype=torch.int32,
+                                            device="meta"), *masks)
