@@ -3,32 +3,48 @@
 
     python3 chip_smoke.py
 
-Phases, each printing its own lines; any failure exits non-zero before the
-last line:
+Phases, in this order, each printing its own lines; any failure exits
+non-zero before the last line:
 
 0. device: a CUDA device is required (there is no CPU path); prints the
    card's name and power limit as nvidia-smi gives them; TF32 off.
 1. build: compiles ``htr_vt_torch/csrc/*.cu`` with nvcc for sm_90a into the
    git-ignored ``build/htr_vt_torch/``.
-2. kernel vs plain: the CTC alpha kernel against ``ctc_alpha_reference``,
+2. CTC kernels vs plain: the alpha kernel against ``ctc_alpha_reference``,
    the beta kernel against ``ctc_beta_reference``, the loss against the
-   plain ``ctc_loss`` and ``d logits`` through both kernels against autograd
-   through the plain loop, at the labelled train/eval shape (B=128, T=128,
-   C=80, Lmax=96 -> S=193, with length-0 and infeasible rows) and the
-   serving dummies (Lmax=8, all lengths 0 -> S=17), with CUDA-event times.
-3. serve: the flagship ``ModelConfig()`` (64x512, embed 768, depth 4, heads
+   plain ``ctc_loss`` and against ``F.ctc_loss``, and ``d logits`` through
+   both kernels against autograd through the plain loop, at the labelled
+   train/eval shape (B=128, T=128, C=80, Lmax=96 -> S=193, with length-0
+   and infeasible rows) and the serving dummies (Lmax=8, all lengths 0 ->
+   S=17), with CUDA-event times, ``F.ctc_loss`` as the library yardstick,
+   and the bound.
+3. stem kernels vs plain: K2 (``bn_stats``) at the four stem activations of
+   the flagship at bs 128, K3f and K3b (``pool_bn_relu_fwd``/``_bwd``) at
+   the conv1 output [128, 192, 32, 512], bf16 channels-last, against their
+   plain versions, with CUDA-event times of kernel, plain version and the
+   library or stock yardstick, and the bound.
+4. serve: the flagship ``ModelConfig()`` (64x512, embed 768, depth 4, heads
    6, 80 classes, bf16) with seeded random weights serves 3x128+37 line
    images through ``cli.serve.transcribe``, then runs one ``eval_step`` with
-   real labels; the alpha kernel must launch once per ``eval_step`` and the
-   beta kernel never. The same weights in float32 bound the bf16 error.
-   Prints ms/batch, img/s and the peak device memory.
-4. train: the flagship with the IAM recipe's span masking (ratio 0.4, max
+   real labels; the alpha kernel must launch once per ``eval_step`` and
+   nothing else. The same weights in float32 bound the bf16 error. Prints
+   ms/batch, img/s and the peak device memory.
+5. fused-stem serve: the same weights with ``pool_impl="pallas"`` serve the
+   same images and run the labelled ``eval_step``; one K3f launch per
+   ``eval_step``, no K2 or K3b, and the logits and texts equal the stock
+   stem's bit for bit.
+6. train: the flagship with the IAM recipe's span masking (ratio 0.4, max
    span 8) takes 2 warm-up and 10 timed SAM ``train_step``s at bs 128
    (labels of length 1-96, 8 of them infeasible); each step must launch the
    alpha and the beta kernel exactly twice. Then ``validate`` runs the EMA
    model over 2 batches (one alpha launch each, no beta), and a learning
    check trains 20 steps on one fixed batch of 16, whose pass-1 loss must
    fall. Prints ms/step, img/s, the peak device memory and CER/WER.
+7. fused-stem train: phase 6 with ``bn_stats_impl="pallas",
+   pool_impl="pallas"``: the same weights, batch and masks give the stock
+   stem's first pass-1 loss to bf16 noise; each timed step launches K2 32
+   times, K3f, K3b, alpha and beta twice each; EMA ``validate`` launches K3f
+   and alpha once per batch; the learning check's loss must fall.
 
 The second-to-last line is a JSON record of the kernels; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -53,7 +69,10 @@ from htr_vt_torch import (CTCLabelConverter, ExperimentConfig,  # noqa: E402
 from htr_vt_torch.cli.serve import transcribe  # noqa: E402
 from htr_vt_torch.eval.validate import validate  # noqa: E402
 from htr_vt_torch.models.htr_vt import build_model  # noqa: E402
-from htr_vt_torch.ops import ctc_cuda  # noqa: E402
+import torch.nn.functional as F  # noqa: E402
+
+from htr_vt_torch.ops import ctc_cuda, pool_fused  # noqa: E402
+from htr_vt_torch.ops.bn_stats import bn_stats, bn_stats_reference  # noqa: E402
 from htr_vt_torch.ops.ctc import NEG, ctc_loss  # noqa: E402
 from htr_vt_torch.train.state import create_train_state  # noqa: E402
 from htr_vt_torch.train.step import eval_step, train_step  # noqa: E402
@@ -82,6 +101,38 @@ LEARN_BATCH, LEARN_STEPS = 16, 20
 # bf16 vs float32 serving on the same weights: frame-argmax agreement floor.
 MIN_ARGMAX_AGREEMENT = 0.99
 SENTINEL = NEG / 10  # alpha entries below this are the unreachable mark
+# The port's loss against F.ctc_loss: two independent float32 log-space
+# recursions over 128 frames, at losses of up to ~900.
+LIBRARY_LOSS_RTOL = 1e-4
+# The bound: the larger of bytes over the memory rate and float32 operations
+# over the rate outside the tensor cores (H100 SXM data sheet).
+HBM_BYTES_PER_S = 3.35e12
+F32_OPS_PER_S = 67e12
+# Per state and frame, the recursion's logaddexp3 and emission add: three
+# exp, one log, two max, four adds.
+CTC_OPS_PER_STATE = 10
+# The stem activations K2 reads in one forward of the flagship at bs 128
+# (NCHW, stored channels-last): once at the entry, 5 times at each stage.
+STEM_SITES = (("entry", (BATCH, 192, 32, 512), 1), ("stage1", (BATCH, 192, 8, 512), 5),
+              ("stage2", (BATCH, 384, 4, 256), 5), ("stage3", (BATCH, 768, 2, 128), 5))
+# K2 against its plain version: two float32 sums of B*H*W terms in other
+# orders, each within ~1e-6 of sum |x| of the exact sum
+# (tests/test_torch_port_cuda.py holds the kernel to float64).
+STATS_SUM_REL, STATS_SQ_RTOL = 2e-6, 2e-5
+# K3b's dscale/dshift against the plain version: float32 sums of B*H*W terms
+# in other orders, within 1e-5 of the sum of the terms' magnitudes.
+POOL_RED_REL = 1e-5
+FUSED = dict(bn_stats_impl="pallas", pool_impl="pallas")
+# Launches of each kernel per SAM train step with the fused stem.
+FUSED_PER_STEP = {"ctc_alpha": 2, "ctc_beta": 2, "bn_stats": 32,
+                  "pool_bn_relu_fwd": 2, "pool_bn_relu_bwd": 2}
+# Fused vs stock stem, first pass-1 loss on the same weights, batch and
+# masks: the dataflows round to bf16 at other places.
+FUSED_LOSS_RTOL = 1e-2
+COUNTERS = {"ctc_alpha": ctc_cuda.ctc_alpha, "ctc_beta": ctc_cuda.ctc_beta,
+            "bn_stats": bn_stats,
+            "pool_bn_relu_fwd": pool_fused.pool_bn_relu_fwd,
+            "pool_bn_relu_bwd": pool_fused.pool_bn_relu_bwd}
 
 
 def posterior_atol(loss):
@@ -107,6 +158,23 @@ def median_ms(fn, reps, warmup=3):
         end.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+def reset_counts():
+    for fn in COUNTERS.values():
+        fn.launches = 0
+
+
+def read_counts():
+    return {name: fn.launches for name, fn in COUNTERS.items()}
+
+
+def bound(n_bytes, n_ops):
+    """(ms, what bounds it): the least time for moving ``n_bytes`` and doing
+    ``n_ops`` float32 operations on the card."""
+    by_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+    by_ops = n_ops / F32_OPS_PER_S * 1e3
+    return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops, "operations")
 
 
 # ---------------------------------------------------------------------------
@@ -240,7 +308,41 @@ def phase_kernels(device):
                 ctc_cuda.ctc_loss_cuda, logits, labels, lengths), 20),
             grad_plain_ms=median_ms(lambda: _loss_grad(
                 ctc_loss, logits, labels, lengths), 5, warmup=1))
+        # the library yardstick: F.ctc_loss on [T, B, C] log-probs, forward
+        # for the alpha recursion, forward and backward for the beta one
+        lp_tbc = logp.transpose(0, 1).contiguous()
+        t_len = torch.full((BATCH,), logp.shape[1], dtype=torch.long, device=device)
+        targets, target_len = labels.long(), lengths.long()
+
+        def library_loss(lp):
+            return F.ctc_loss(lp, targets, t_len, target_len, blank=0,
+                              reduction="none", zero_infinity=True)
+
+        def library_grad():
+            lp = lp_tbc.detach().requires_grad_(True)
+            library_loss(lp).sum().backward()
+
+        loss_l = library_loss(lp_tbc)
+        lib_finite = loss_l != 0
+        if not torch.equal(lib_finite, loss_k != 0):
+            raise AssertionError(f"[{name}] F.ctc_loss and the port disagree on "
+                                 "which rows are infeasible")
+        torch.testing.assert_close(loss_k[lib_finite], loss_l[lib_finite],
+                                   rtol=LIBRARY_LOSS_RTOL, atol=0.0)
+        lib_rel = ((loss_k - loss_l).abs()[lib_finite]
+                   / loss_l[lib_finite].abs()).max().item()
+        times["alpha_library_ms"] = median_ms(lambda: library_loss(lp_tbc), 50)
+        times["beta_library_ms"] = median_ms(library_grad, 50)
         s = z.shape[1]
+        cube = BATCH * logp.shape[1] * s
+        n_bytes = logp.numel() * 4 + z.numel() * 4 + 3 * noskip.numel() + cube * 4
+        times["bound_ms"], times["bound_by"] = bound(n_bytes, CTC_OPS_PER_STATE * cube)
+        say(f"[kernel {name}] vs F.ctc_loss (reduction none, zero_infinity): "
+            f"{int(lib_finite.sum())} finite rows max rel err {lib_rel:.3e} (rtol "
+            f"{LIBRARY_LOSS_RTOL}), the same {int((~lib_finite).sum())} zero rows; "
+            f"F.ctc_loss forward {times['alpha_library_ms']:.4f} ms, forward + "
+            f"backward {times['beta_library_ms']:.4f} ms; bound "
+            f"{times['bound_ms']:.4f} ms by {times['bound_by']} ({n_bytes} bytes)")
         say(f"[kernel {name}] B=128 T=128 C=80 S={s}: alpha max|err| "
             f"{alpha_err:.3e} over {n_alpha} finite entries, beta max|err| "
             f"{beta_err:.3e} over {n_beta} (rtol {ALPHA_RTOL}, atol "
@@ -255,7 +357,8 @@ def phase_kernels(device):
             f"vs plain {times['beta_plain_ms']:.4f} ms; loss + d logits "
             f"{times['grad_ms']:.4f} ms vs plain {times['grad_plain_ms']:.4f} ms")
         results[name] = dict(alpha_err=alpha_err, beta_err=beta_err,
-                             grad_glue_err=glue_err, grad_err=grad_err, **times)
+                             grad_glue_err=glue_err, grad_err=grad_err,
+                             library_rel_err=lib_rel, **times)
     return results
 
 
@@ -295,23 +398,22 @@ def phase_serve(device):
     # --- the main path, counted ------------------------------------------
     torch.cuda.reset_peak_memory_stats()
     n_steps = math.ceil(N_IMAGES / BATCH) + 1
-    ctc_cuda.ctc_alpha.launches = ctc_cuda.ctc_beta.launches = 0
+    reset_counts()
     t0 = time.perf_counter()
     texts = transcribe(model, images, converter, BATCH)
     out = eval_step(model, test_batch)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = ctc_cuda.ctc_alpha.launches
-    beta_launches = ctc_cuda.ctc_beta.launches
+    counts = read_counts()
+    launches = counts["ctc_alpha"]
     peak = torch.cuda.max_memory_allocated()
     say(f"[serve] served {len(texts)} images in {math.ceil(N_IMAGES / BATCH)} "
         f"requests + 1 labelled eval_step in {wall:.3f} s (first call, "
-        f"cuDNN autotune included); ctc_alpha launches {launches} for "
-        f"{n_steps} eval_step calls, ctc_beta launches {beta_launches}")
-    if launches != n_steps or beta_launches != 0:
-        raise AssertionError(f"ctc_alpha launched {launches} times and "
-                             f"ctc_beta {beta_launches} times for {n_steps} "
-                             "eval_step calls")
+        f"cuDNN autotune included); launches {counts} for {n_steps} eval_step "
+        "calls")
+    if counts != {**dict.fromkeys(COUNTERS, 0), "ctc_alpha": n_steps}:
+        raise AssertionError(f"{n_steps} eval_step calls launched {counts}; "
+                             "each must launch ctc_alpha once and nothing else")
     if len(texts) != N_IMAGES:
         raise AssertionError(f"{len(texts)} texts for {N_IMAGES} images")
     logits = out["logits"]
@@ -364,7 +466,9 @@ def phase_serve(device):
         f"({BATCH / step_ms * 1e3:.1f} img/s, device-resident batch); "
         f"transcribe {serve_ms:.3f} ms/batch ({BATCH / serve_ms * 1e3:.1f} img/s, "
         f"host numpy in, text out)")
-    return launches
+    return launches, dict(model=model, images=images, texts=texts,
+                          test_batch=test_batch, converter=converter,
+                          logits=out["logits"], x_batch=x_batch)
 
 
 # ---------------------------------------------------------------------------
@@ -382,24 +486,43 @@ def train_batch(n, cfg, rng, device, infeasible=0):
             "label_lengths": put(lengths)}
 
 
-def phase_train(device):
+def phase_train(device, switches=None, stock_first_loss=None):
+    """Phase 4 (the stock stem) or, with ``switches``, phase 7 (the stem
+    kernels): the same seed, batches and masks either way."""
+    switches = switches or {}
+    tag = "fused train" if switches else "train"
+    per_step = FUSED_PER_STEP if switches else {"ctc_alpha": 2, "ctc_beta": 2}
+    per_val = {"ctc_alpha": 1}
+    if switches.get("pool_impl") == "pallas":
+        per_val["pool_bn_relu_fwd"] = 1
     model_cfg = ModelConfig(masking=MaskConfig(mode="span", ratio=0.4,
-                                               max_span_length=8))
+                                               max_span_length=8), **switches)
     cfg = ExperimentConfig(model=model_cfg, optim=OptimConfig())
     state = create_train_state(cfg, device,
                                torch.Generator(device=device).manual_seed(SEED))
     rng = np.random.default_rng(SEED + 2)
     batch = train_batch(BATCH, model_cfg, rng, device, infeasible=8)
-    say(f"[train] HTRVT flagship {model_cfg.compute_dtype}, span masking "
+    say(f"[{tag}] HTRVT flagship {model_cfg.compute_dtype}, span masking "
         f"ratio 0.4 span 8, SAM rho {cfg.optim.sam_rho} + AdamW, bs {BATCH}, "
-        f"labels of length 1-{LMAX} (8 infeasible)")
+        f"labels of length 1-{LMAX} (8 infeasible); stem switches "
+        f"{switches or 'stock'}")
 
     # --- the main path, counted ------------------------------------------
     torch.cuda.reset_peak_memory_stats()
-    for _ in range(TRAIN_WARMUP):
+    first_loss = train_step(state, batch)["loss"].item()
+    if stock_first_loss is not None:
+        rel = abs(first_loss - stock_first_loss) / abs(stock_first_loss)
+        say(f"[{tag}] first pass-1 loss {first_loss:.4f} vs the stock stem's "
+            f"{stock_first_loss:.4f} on the same weights, batch and mask: rel "
+            f"diff {rel:.3e} (rtol {FUSED_LOSS_RTOL})")
+        if not rel <= FUSED_LOSS_RTOL:
+            raise AssertionError(f"fused-stem loss {first_loss} vs stock "
+                                 f"{stock_first_loss}")
+    for _ in range(TRAIN_WARMUP - 1):
         train_step(state, batch)
     torch.cuda.synchronize()
-    ctc_cuda.ctc_alpha.launches = ctc_cuda.ctc_beta.launches = 0
+    pool_fused.PoolBNReLU.grad_copies = 0
+    reset_counts()
     times, metrics = [], []
     for _ in range(TRAIN_STEPS):
         start = torch.cuda.Event(enable_timing=True)
@@ -409,26 +532,31 @@ def phase_train(device):
         end.record()
         end.synchronize()
         times.append(start.elapsed_time(end))
-    launches = {"ctc_alpha": ctc_cuda.ctc_alpha.launches,
-                "ctc_beta": ctc_cuda.ctc_beta.launches}
+    launches = read_counts()
+    grad_copies = pool_fused.PoolBNReLU.grad_copies
     peak = torch.cuda.max_memory_allocated()
-    if launches != {"ctc_alpha": 2 * TRAIN_STEPS, "ctc_beta": 2 * TRAIN_STEPS}:
+    want = {**dict.fromkeys(COUNTERS, 0),
+            **{k: n * TRAIN_STEPS for k, n in per_step.items()}}
+    if launches != want:
         raise AssertionError(f"{TRAIN_STEPS} train steps launched {launches}; "
-                             "each must launch alpha and beta twice")
+                             f"each step must launch {per_step} and nothing else")
     values = {k: [m[k].item() for m in metrics] for k in metrics[0]}
     for k, v in values.items():
         if not np.isfinite(v).all():
             raise AssertionError(f"non-finite {k}: {v}")
     ms = statistics.median(times)
-    say(f"[train] {TRAIN_STEPS} steps after {TRAIN_WARMUP} warm-up: median "
+    say(f"[{tag}] {TRAIN_STEPS} steps after {TRAIN_WARMUP} warm-up: median "
         f"{ms:.3f} ms/step ({BATCH / ms * 1e3:.1f} img/s; min {min(times):.3f}, "
         f"max {max(times):.3f}), peak memory {peak / 2**20:.1f} MiB; "
-        f"launches {launches} (2 + 2 per step)")
-    say("[train] loss " + " ".join(f"{v:.3f}" for v in values["loss"])
+        f"launches {launches} ({per_step} per step)")
+    if switches.get("pool_impl") == "pallas":
+        say(f"[{tag}] K3b's incoming gradient was copied to channels-last in "
+            f"{grad_copies} of {launches['pool_bn_relu_bwd']} backward calls")
+    say(f"[{tag}] loss " + " ".join(f"{v:.3f}" for v in values["loss"])
         + "; loss_second " + " ".join(f"{v:.3f}" for v in values["loss_second"])
         + "; grad_norm " + " ".join(f"{v:.3f}" for v in values["grad_norm"]))
 
-    # --- EMA validation: one alpha launch per batch, no beta --------------
+    # --- EMA validation: eval BN, so no K2 and no backward ------------------
     alphabet = [chr(c) for c in range(33, 33 + model_cfg.nb_cls - 1)]
     converter = CTCLabelConverter(alphabet)
     val = []
@@ -438,19 +566,20 @@ def phase_train(device):
         texts = ["".join(alphabet[c - 1] for c in row[:n])
                  for row, n in zip(labels[:n_valid], lengths[:n_valid])]
         val.append((b, n_valid, texts))
-    ctc_cuda.ctc_alpha.launches = ctc_cuda.ctc_beta.launches = 0
+    reset_counts()
     val_loss, cer, wer, preds, _ = validate(state.ema_model, val, converter)
-    val_launches = {"ctc_alpha": ctc_cuda.ctc_alpha.launches,
-                    "ctc_beta": ctc_cuda.ctc_beta.launches}
-    if val_launches != {"ctc_alpha": len(VAL_ROWS), "ctc_beta": 0}:
+    val_launches = read_counts()
+    want = {**dict.fromkeys(COUNTERS, 0),
+            **{k: n * len(VAL_ROWS) for k, n in per_val.items()}}
+    if val_launches != want:
         raise AssertionError(f"validate launched {val_launches} for "
-                             f"{len(VAL_ROWS)} batches")
+                             f"{len(VAL_ROWS)} batches; expected {want}")
     if not math.isfinite(val_loss) or len(preds) != sum(VAL_ROWS):
         raise AssertionError(f"validate: loss {val_loss}, {len(preds)} predictions")
-    say(f"[train] EMA validate over {len(VAL_ROWS)} batches ({len(preds)} valid "
+    say(f"[{tag}] EMA validate over {len(VAL_ROWS)} batches ({len(preds)} valid "
         f"rows): loss {val_loss:.4f}, CER {cer:.4f}, WER {wer:.4f}; launches "
         f"{val_launches}")
-    launches["ctc_alpha"] += val_launches["ctc_alpha"]
+    launches = {k: n + val_launches[k] for k, n in launches.items()}
 
     # --- learning check ---------------------------------------------------
     learn = create_train_state(
@@ -459,12 +588,167 @@ def phase_train(device):
     small = train_batch(LEARN_BATCH, model_cfg, np.random.default_rng(SEED + 4),
                         device)
     losses = [train_step(learn, small)["loss"].item() for _ in range(LEARN_STEPS)]
-    say(f"[train] learning check, {LEARN_STEPS} steps on one batch of "
+    say(f"[{tag}] learning check, {LEARN_STEPS} steps on one batch of "
         f"{LEARN_BATCH} (max_lr 3e-4, warmup 5): pass-1 loss {losses[0]:.4f} "
         f"-> {losses[-1]:.4f}")
     if not losses[-1] < losses[0]:
         raise AssertionError(f"no learning: {losses}")
-    return launches, dict(ms=ms, peak=peak)
+    return launches, dict(ms=ms, peak=peak, first_loss=first_loss,
+                          grad_copies=grad_copies)
+
+
+# ---------------------------------------------------------------------------
+def stem_input(shape, device, seed):
+    """A bf16 channels-last activation of NCHW ``shape``, N(0, 1)."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    x = torch.randn(shape, generator=gen, device=device)
+    return x.to(torch.bfloat16).contiguous(memory_format=torch.channels_last)
+
+
+def phase_stem_kernels(device):
+    """K2 at the four stem sites, K3f and K3b at the entry, against their
+    plain versions; CUDA-event times and bounds."""
+    out = {}
+    sites = {}
+    for name, shape, per_forward in STEM_SITES:
+        x = stem_input(shape, device, seed=shape[1] + shape[2])
+        c = shape[1]
+        s_k, q_k = bn_stats(x)
+        s_2, q_2 = bn_stats(x)
+        s_p, q_p = bn_stats_reference(x)
+        torch.cuda.synchronize()
+        if not (torch.equal(s_k, s_2) and torch.equal(q_k, q_2)):
+            raise AssertionError(f"[K2 {name}] two calls gave different bits")
+        mag = x.float().abs().sum((0, 2, 3))
+        err_s = (s_k - s_p).abs()
+        if not (err_s <= STATS_SUM_REL * mag).all():
+            raise AssertionError(f"[K2 {name}] sum off by "
+                                 f"{(err_s / mag).max().item():.3e} of sum |x|")
+        torch.testing.assert_close(q_k, q_p, rtol=STATS_SQ_RTOL, atol=0.0)
+        n_bytes = x.numel() * 2 + 2 * c * 4
+        site = dict(
+            shape=list(shape), per_forward=per_forward,
+            max_abs_err=max(err_s.max().item(), (q_k - q_p).abs().max().item()),
+            sum_err_of_abs_sum=(err_s / mag).max().item(),
+            sumsq_rel_err=((q_k - q_p).abs() / q_p).max().item(),
+            ms=median_ms(lambda: bn_stats(x), 20),
+            plain_ms=median_ms(lambda: bn_stats_reference(x), 10),
+            library_ms=median_ms(lambda: torch.batch_norm_stats(x, 1e-5), 20))
+        site["bound_ms"], site["bound_by"] = bound(n_bytes, 3 * x.numel())
+        sites[name] = site
+        say(f"[K2 {name}] bn_stats bf16 {list(shape)}: two calls bit-equal; sum "
+            f"max|err| {err_s.max().item():.3e} = {site['sum_err_of_abs_sum']:.3e} "
+            f"of sum |x| (bar {STATS_SUM_REL}), sumsq max rel err "
+            f"{site['sumsq_rel_err']:.3e} (rtol {STATS_SQ_RTOL}); kernel "
+            f"{site['ms']:.4f} ms, plain {site['plain_ms']:.4f} ms, "
+            f"torch.batch_norm_stats {site['library_ms']:.4f} ms, bound "
+            f"{site['bound_ms']:.4f} ms by {site['bound_by']}")
+        del x
+    out["bn_stats"] = sites
+
+    name, shape, _ = STEM_SITES[0]
+    x = stem_input(shape, device, seed=1)
+    b, c, h, w = shape
+    gen = torch.Generator(device=device).manual_seed(2)
+    scale = 1.0 + 0.2 * torch.randn(c, generator=gen, device=device)
+    shift = 0.1 * torch.randn(c, generator=gen, device=device)
+    g = torch.randn((b, c, h // 2, w), generator=gen, device=device).to(
+        torch.bfloat16).contiguous(memory_format=torch.channels_last)
+    y_k = pool_fused.pool_bn_relu_fwd(x, scale, shift)
+    y_p = pool_fused.max_pool_bn_relu_reference(x, scale, shift)
+    torch.cuda.synchronize()
+    if not torch.equal(y_k, y_p):
+        raise AssertionError("[K3f] kernel and plain version differ")
+    n_in, n_out = x.numel(), y_k.numel()
+    fwd = dict(shape=list(shape), max_abs_err=0.0,
+               ms=median_ms(lambda: pool_fused.pool_bn_relu_fwd(x, scale, shift), 20),
+               plain_ms=median_ms(lambda: pool_fused.max_pool_bn_relu_reference(
+                   x, scale, shift), 10))
+    # per input element: multiply, add, ReLU; per output: 8 compares
+    fwd["bound_ms"], fwd["bound_by"] = bound(2 * n_in + 2 * n_out + 2 * c * 4,
+                                             3 * n_in + 8 * n_out)
+    say(f"[K3f] pool_bn_relu_fwd bf16 {list(shape)} -> {list(y_k.shape)}: bit-equal "
+        f"to the plain version; kernel {fwd['ms']:.4f} ms, plain (the stock ops) "
+        f"{fwd['plain_ms']:.4f} ms, bound {fwd['bound_ms']:.4f} ms by "
+        f"{fwd['bound_by']}")
+    del y_k, y_p
+
+    dx_k, ds_k, dt_k = pool_fused.pool_bn_relu_bwd(g, x, scale, shift)
+    dx_p, ds_p, dt_p = pool_fused.pool_bn_relu_bwd_reference(g, x, scale, shift)
+    torch.cuda.synchronize()
+    if not torch.equal(dx_k, dx_p):
+        raise AssertionError("[K3b] dx: kernel and plain version differ")
+    daf = pool_fused.routed_grad_reference(g, x, scale, shift)
+    errs = []
+    for what, got, want, term in (("dscale", ds_k, ds_p, daf * x.float()),
+                                  ("dshift", dt_k, dt_p, daf)):
+        mag = term.abs().sum((0, 2, 3))
+        err = (got - want).abs()
+        if not (err <= POOL_RED_REL * mag + 1e-6).all():
+            raise AssertionError(f"[K3b] {what} off by {(err / mag).max().item():.3e} "
+                                 "of the sum of |terms|")
+        errs.append((err.max().item(), (err / mag).max().item()))
+        del term
+    del daf, dx_k, dx_p
+    xs, ss, ts = (t.detach().clone().requires_grad_(True) for t in (x, scale, shift))
+    y_stock = pool_fused.max_pool_bn_relu_reference(xs, ss, ts)
+    bwd = dict(shape=list(shape), max_abs_err=max(e for e, _ in errs),
+               reduction_err_of_abs_sum=max(r for _, r in errs),
+               ms=median_ms(lambda: pool_fused.pool_bn_relu_bwd(g, x, scale, shift), 20),
+               plain_ms=median_ms(lambda: pool_fused.pool_bn_relu_bwd_reference(
+                   g, x, scale, shift), 5, warmup=1),
+               stock_ms=median_ms(lambda: torch.autograd.grad(
+                   y_stock, (xs, ss, ts), g, retain_graph=True), 10))
+    # per input element: a_pre, the ReLU backward, dx, two sums; per output:
+    # the 9-tap max and argmax recomputed (multiply, add, compare each)
+    bwd["bound_ms"], bwd["bound_by"] = bound(
+        2 * n_out + 4 * n_in + 4 * c * 4, 7 * n_in + 27 * n_out)
+    say(f"[K3b] pool_bn_relu_bwd bf16 g {[b, c, h // 2, w]}: dx bit-equal to the "
+        f"plain version; dscale max|err| {errs[0][0]:.3e} ({errs[0][1]:.3e} of the "
+        f"sum of |terms|), dshift {errs[1][0]:.3e} ({errs[1][1]:.3e}; bar "
+        f"{POOL_RED_REL}); kernel {bwd['ms']:.4f} ms, plain {bwd['plain_ms']:.4f} "
+        f"ms, the stock ops' backward (context, no single library call) "
+        f"{bwd['stock_ms']:.4f} ms, bound {bwd['bound_ms']:.4f} ms by "
+        f"{bwd['bound_by']}")
+    out["pool_bn_relu_fwd"], out["pool_bn_relu_bwd"] = fwd, bwd
+    return out
+
+
+# ---------------------------------------------------------------------------
+def phase_fused_serve(device, stock):
+    """The serve phase's weights with ``pool_impl="pallas"``: the same
+    requests and labelled eval_step through K3f, equal to the stock stem."""
+    cfg = dataclasses.replace(ModelConfig(), pool_impl="pallas")
+    model = build_model(cfg, device=device)
+    model.load_state_dict(stock["model"].state_dict(), strict=True)
+    n_steps = math.ceil(N_IMAGES / BATCH) + 1
+    reset_counts()
+    texts = transcribe(model, stock["images"], stock["converter"], BATCH)
+    out = eval_step(model, stock["test_batch"])
+    torch.cuda.synchronize()
+    counts = read_counts()
+    want = {**dict.fromkeys(COUNTERS, 0), "ctc_alpha": n_steps,
+            "pool_bn_relu_fwd": n_steps}
+    if counts != want:
+        raise AssertionError(f"fused-stem serving launched {counts} for {n_steps} "
+                             f"eval_step calls; expected {want}")
+    if not torch.equal(out["logits"], stock["logits"]):
+        diff = (out["logits"] - stock["logits"]).abs().max().item()
+        raise AssertionError(f"fused-stem logits differ from the stock stem's "
+                             f"(max |d| {diff})")
+    if texts != stock["texts"]:
+        raise AssertionError("fused-stem texts differ from the stock stem's")
+    x_batch = stock["x_batch"]
+    stock_ms = median_ms(lambda: eval_step(stock["model"], x_batch), 10)
+    fused_ms = median_ms(lambda: eval_step(model, x_batch), 10)
+    fused_ms2 = median_ms(lambda: eval_step(model, x_batch), 10)
+    stock_ms2 = median_ms(lambda: eval_step(stock["model"], x_batch), 10)
+    say(f"[fused serve] pool_impl=pallas: {len(texts)} texts and the labelled "
+        f"eval_step's logits equal the stock stem's bit for bit; launches "
+        f"{counts} for {n_steps} eval_step calls; eval_step stock "
+        f"{stock_ms:.3f} / {stock_ms2:.3f} ms, fused {fused_ms:.3f} / "
+        f"{fused_ms2:.3f} ms (stock, fused, fused, stock)")
+    return counts
 
 
 # ---------------------------------------------------------------------------
@@ -473,37 +757,71 @@ def main():
     device = torch.device("cuda", 0)
     build_s = phase_build()
     kernels = phase_kernels(device)
-    serve_launches = phase_serve(device)
-    train_launches, _ = phase_train(device)
+    stem = phase_stem_kernels(device)
+    serve_launches, stock = phase_serve(device)
+    fused_serve = phase_fused_serve(device, stock)
+    del stock
+    train_launches, train = phase_train(device)
+    fused_train, fused = phase_train(device, FUSED, train["first_loss"])
     say(f"[done] build {build_s:.2f} s; {smi_line}")
+    main_path = {k: fused_serve[k] + fused_train[k] + train_launches[k]
+                 for k in COUNTERS}
+    main_path["ctc_alpha"] += serve_launches
     k193, k17 = kernels["S193"], kernels["S17"]
-    say(json.dumps({"kernels": [{
-        "name": "ctc_alpha",
+    entry = stem["bn_stats"]["entry"]
+    ctc = [{
+        "name": f"ctc_{which}",
         "route": "cuda",
-        "source": "htr_vt_torch/csrc/ctc_alpha.cu",
-        "replaces": "htr_vt_tpu/ops/ctc_pallas.py:55",
-        "launches": serve_launches + train_launches["ctc_alpha"],
-        "launches_serve": serve_launches,
-        "launches_train": train_launches["ctc_alpha"],
-        "max_abs_err": max(k["alpha_err"] for k in kernels.values()),
-        "ms": k193["alpha_ms"],
-        "plain_ms": k193["alpha_plain_ms"],
+        "source": f"htr_vt_torch/csrc/ctc_{which}.cu",
+        "replaces": f"htr_vt_tpu/ops/ctc_pallas.py:{line}",
+        "launches": main_path[f"ctc_{which}"],
+        "max_abs_err": max(k[f"{which}_err"] for k in kernels.values()),
+        "ms": k193[f"{which}_ms"],
+        "plain_ms": k193[f"{which}_plain_ms"],
+        "bound_ms": k193["bound_ms"],
+        "bound_by": k193["bound_by"],
+        "library_ms": k193[f"{which}_library_ms"],
+        "library": "F.ctc_loss " + ("forward" if which == "alpha"
+                                    else "forward + backward"),
         "shape": "B128 T128 C80 S193",
-        "ms_s17": k17["alpha_ms"],
-        "plain_ms_s17": k17["alpha_plain_ms"],
-    }, {
-        "name": "ctc_beta",
+        "ms_s17": k17[f"{which}_ms"],
+        "plain_ms_s17": k17[f"{which}_plain_ms"],
+        "library_ms_s17": k17[f"{which}_library_ms"],
+        "bound_ms_s17": k17["bound_ms"],
+    } for which, line in (("alpha", 55), ("beta", 88))]
+    stem_lines = [{
+        "name": "bn_stats",
         "route": "cuda",
-        "source": "htr_vt_torch/csrc/ctc_beta.cu",
-        "replaces": "htr_vt_tpu/ops/ctc_pallas.py:88",
-        "launches": train_launches["ctc_beta"],
-        "max_abs_err": max(k["beta_err"] for k in kernels.values()),
-        "ms": k193["beta_ms"],
-        "plain_ms": k193["beta_plain_ms"],
-        "shape": "B128 T128 C80 S193",
-        "ms_s17": k17["beta_ms"],
-        "plain_ms_s17": k17["beta_plain_ms"],
-    }]}))
+        "source": "htr_vt_torch/csrc/bn_stats.cu",
+        "replaces": "htr_vt_tpu/ops/bn_stats.py:35",
+        "launches": main_path["bn_stats"],
+        "max_abs_err": max(v["max_abs_err"] for v in stem["bn_stats"].values()),
+        "ms": entry["ms"],
+        "plain_ms": entry["plain_ms"],
+        "bound_ms": entry["bound_ms"],
+        "bound_by": entry["bound_by"],
+        "library_ms": entry["library_ms"],
+        "library": "torch.batch_norm_stats",
+        "shape": "bf16 [128, 192, 32, 512] channels-last (the entry site)",
+        "sites": stem["bn_stats"],
+    }] + [{
+        "name": name,
+        "route": "cuda",
+        "source": "htr_vt_torch/csrc/pool_fused.cu",
+        "replaces": f"htr_vt_tpu/ops/pool_fused.py:{line}",
+        "launches": main_path[name],
+        "max_abs_err": stem[name]["max_abs_err"],
+        "ms": stem[name]["ms"],
+        "plain_ms": stem[name]["plain_ms"],
+        "bound_ms": stem[name]["bound_ms"],
+        "bound_by": stem[name]["bound_by"],
+        "library_ms": None,
+        "shape": "bf16 x [128, 192, 32, 512] channels-last",
+        **({"stock_ms": stem[name]["stock_ms"]} if "stock_ms" in stem[name] else {}),
+    } for name, line in (("pool_bn_relu_fwd", 62), ("pool_bn_relu_bwd", 72))]
+    say(json.dumps({"kernels": ctc + stem_lines, "train_ms": train["ms"],
+                    "fused_train_ms": fused["ms"], "train_peak": train["peak"],
+                    "fused_train_peak": fused["peak"]}))
     say(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

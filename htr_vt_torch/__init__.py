@@ -2,16 +2,22 @@
 
 The JAX package stays the reference: every module here is held against its
 JAX counterpart on the same weights and inputs (``tests/test_torch_port_*``).
-Configuration, the text codec, the metrics, the list readers and the
-checkpoint layout are shared with ``htr_vt_tpu`` through its JAX-free
-modules; this package imports ``torch`` and never ``jax``.
+Configuration, the text codec, the metrics, the list readers, the image
+loader and the checkpoint layout are the port's own copies of the JAX
+package's JAX-free modules (``config.py``, ``text/``, ``data/``,
+``utils/torch_convert.py``); this package imports ``torch``, never ``jax``
+and nothing of ``htr_vt_tpu``.
 
 Ported so far, for the flagship ``model_v1`` recipe:
 
 - serving: ``cli/serve.py`` -> ``train/step.py:eval_step`` ->
   ``models/htr_vt.py:HTRVT`` + ``ops/ctc.py:ctc_loss_auto``;
 - training: ``train/step.py:train_step`` (span masking, train-mode BN, SAM
-  + AdamW on the warmup-cosine schedule, EMA) and ``eval/validate.py``.
+  + AdamW on the warmup-cosine schedule, EMA) and ``eval/validate.py``;
+- the fused stem, ``ModelConfig(bn_stats_impl="pallas", pool_impl="pallas")``:
+  the folded train dataflow with its BN statistics (``csrc/bn_stats.cu``)
+  and its entry BN + ReLU + max-pool, forward and backward
+  (``csrc/pool_fused.cu``), as kernels.
 
 On a CUDA tensor the CTC loss runs its alpha recursion, and its gradient
 the beta recursion, as hand-written ``sm_90a`` kernels
@@ -20,6 +26,6 @@ the beta recursion, as hand-written ``sm_90a`` kernels
 
 __version__ = "0.1.0"
 
-from htr_vt_tpu.config import (ExperimentConfig, MaskConfig,  # noqa: F401
-                               ModelConfig, OptimConfig)
-from htr_vt_tpu.text.converter import CTCLabelConverter  # noqa: F401
+from htr_vt_torch.config import (ExperimentConfig, MaskConfig,  # noqa: F401
+                                 ModelConfig, OptimConfig)
+from htr_vt_torch.text.converter import CTCLabelConverter  # noqa: F401

@@ -88,10 +88,24 @@ def library() -> ctypes.CDLL:
     if _stale():
         build()
     lib = ctypes.CDLL(str(LIBRARY))
-    ptr, i32 = ctypes.c_void_p, ctypes.c_int
+    ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     for fn in (lib.htrvt_ctc_alpha, lib.htrvt_ctc_beta):
         fn.argtypes = [ptr] * 6 + [i32] * 4 + [ptr]
+        fn.restype = i32
+    lib.htrvt_bn_stats.argtypes = [ptr] * 4 + [i64] + [i32] * 3 + [ptr]
+    lib.htrvt_pool_bn_relu_fwd.argtypes = [ptr] * 4 + [i32] * 5 + [ptr]
+    lib.htrvt_pool_bn_relu_bwd.argtypes = [ptr] * 8 + [i32] * 6 + [ptr]
+    for fn in (lib.htrvt_bn_stats, lib.htrvt_pool_bn_relu_fwd,
+               lib.htrvt_pool_bn_relu_bwd):
         fn.restype = i32
     lib.htrvt_cuda_error_string.argtypes = [i32]
     lib.htrvt_cuda_error_string.restype = ctypes.c_char_p
     return lib
+
+
+def check_launch(fn: str, err: int) -> None:
+    """Raise if a kernel's C entry point returned a CUDA error: a refused
+    launch never runs, and a later synchronise would not report it."""
+    if err != 0:
+        raise RuntimeError(f"{fn} kernel launch failed: CUDA error {err} "
+                           f"({library().htrvt_cuda_error_string(err).decode()})")

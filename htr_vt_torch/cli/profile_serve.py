@@ -2,13 +2,16 @@
 times and the device time by kernel category.
 
     python -m htr_vt_torch.cli.profile_serve [--train] [--batch-size 128]
-        [--steps 5] [--trace trace.json]
+        [--steps 5] [--trace trace.json] [--bn-stats-impl pallas]
+        [--pool-impl pallas]
 
 Runs the flagship ``ModelConfig()`` (bf16, seeded random weights) on one
 CUDA device. Serving (default) profiles ``eval_step`` with the serving
 step's dummy labels; ``--train`` profiles the SAM ``train_step`` with the
 IAM recipe's span masking (ratio 0.4, max span 8) and labels of length
-1-96 (S = 193):
+1-96 (S = 193). ``--bn-stats-impl`` and ``--pool-impl`` set the stem's
+kernel switches (``ModelConfig.bn_stats_impl``, ``pool_impl``): both
+``pallas`` is the fused-stem configuration.
 
 - per-layer medians by CUDA events: serving, the stem, the ViT blocks, the
   whole forward and ``eval_step``; training, one masked train-mode forward
@@ -25,6 +28,7 @@ The last line of the output is a JSON summary of the same numbers.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import statistics
 import subprocess
@@ -48,6 +52,9 @@ TRAIN_LMAX = 96  # labels of length 1-96: S = 193
 CATEGORIES = (
     ("ctc_alpha kernel", ("ctc_alpha",)),
     ("ctc_beta kernel", ("ctc_beta",)),
+    ("bn_stats kernel (K2)", ("bn_stats_partial",)),
+    ("pool_bn_relu kernels (K3f, K3b)", ("pool_fwd_kernel", "pool_bwd_kernel")),
+    ("stem kernels' partial sums", ("sum_partials",)),
     ("convolutions (cuDNN)", ("conv", "fprop", "dgrad", "wgrad", "implicit")),
     ("GEMMs (cuBLAS)", ("gemm", "nvjet", "cutlass", "cublas")),
     ("max pooling", ("max_pool",)),
@@ -84,9 +91,14 @@ def _device_us(row) -> float:
                    getattr(row, "self_cuda_time_total", 0.0))
 
 
+def _stem_switches(cfg: ModelConfig, args) -> ModelConfig:
+    return dataclasses.replace(cfg, bn_stats_impl=args.bn_stats_impl,
+                               pool_impl=args.pool_impl)
+
+
 def _serve_case(args, device):
     """(per-layer ms, the step to profile) for ``eval_step``."""
-    cfg = ModelConfig()
+    cfg = _stem_switches(ModelConfig(), args)
     model = build_model(cfg, device=device,
                         generator=torch.Generator(device=device).manual_seed(args.seed))
     rng = np.random.default_rng(args.seed)
@@ -120,8 +132,8 @@ def _serve_case(args, device):
 
 def _train_case(args, device):
     """(per-layer ms, the step to profile) for the SAM ``train_step``."""
-    model_cfg = ModelConfig(masking=MaskConfig(mode="span", ratio=0.4,
-                                               max_span_length=8))
+    model_cfg = _stem_switches(ModelConfig(masking=MaskConfig(
+        mode="span", ratio=0.4, max_span_length=8)), args)
     state = create_train_state(ExperimentConfig(model=model_cfg), device,
                                torch.Generator(device=device).manual_seed(args.seed))
     rng = np.random.default_rng(args.seed)
@@ -162,6 +174,11 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict:
     p.add_argument("--reps", type=int, default=10, help="CUDA-event repeats")
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--trace", default=None, help="write a Chrome trace here")
+    p.add_argument("--bn-stats-impl", default="auto",
+                   choices=("auto", "xla", "pallas"),
+                   help="the stem's BN statistics: pallas = the K2 kernel")
+    p.add_argument("--pool-impl", default="auto", choices=("auto", "xla", "pallas"),
+                   help="the stem's entry BN+ReLU+max-pool: pallas = K3f/K3b")
     args = p.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("profile_serve: needs a CUDA device")
@@ -201,13 +218,15 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict:
     for name, ms in kernels:
         by_cat[category(name)] = by_cat.get(category(name), 0.0) + ms
     busy = sum(by_cat.values())
-    print(f"[profile] {args.steps} {what}s at bs {b}: kernels {busy:.3f} "
+    print(f"[profile] {args.steps} {what}s at bs {b} (bn_stats_impl="
+          f"{args.bn_stats_impl}, pool_impl={args.pool_impl}): kernels {busy:.3f} "
           f"ms/step of a {span_ms:.3f} ms span (device busy {busy / span_ms:.1%})")
     for label, ms in sorted(by_cat.items(), key=lambda kv: -kv[1]):
         print(f"[profile] {label:28s} {ms:9.3f} ms/step {ms / busy:6.1%}")
     for name, ms in sorted(kernels, key=lambda kv: -kv[1])[:10]:
         print(f"[kernel] {ms:8.3f} ms/step  {category(name):28s} {name[:110]}")
     summary = {"device": smi.splitlines()[0], "step": what, "batch": b,
+               "bn_stats_impl": args.bn_stats_impl, "pool_impl": args.pool_impl,
                "layers_ms": layers,
                "span_ms": span_ms, "kernel_ms": busy,
                "categories_ms": dict(sorted(by_cat.items(), key=lambda kv: -kv[1]))}

@@ -6,7 +6,7 @@ base width only): transcribe line images to JSONL, one
         --images 'scans/*.png' --batch-size 128 [--out preds.jsonl]
 
 The checkpoint is a state_dict in the reference PyTorch layout (what
-``htr_vt_tpu/utils/torch_convert.py`` reads and writes). Width buckets,
+``htr_vt_torch/utils/torch_convert.py`` reads and writes). Width buckets,
 int8 and beam/LM rescoring are not ported yet (ROADMAP.md, queue 1).
 """
 
@@ -25,7 +25,7 @@ import numpy as np
 import torch
 from torch import nn
 
-from htr_vt_tpu.config import dataset_preset
+from htr_vt_torch.config import dataset_preset
 from htr_vt_torch import CTCLabelConverter
 from htr_vt_torch.models.htr_vt import build_model
 from htr_vt_torch.train.step import eval_step
@@ -64,7 +64,7 @@ def charset(dataset: str, train_list: Optional[str] = None,
     cfg = dataset_preset(dataset).data
     if cfg.dataset == "SYNTH":
         return sorted(set(cfg.synth_alphabet))
-    from htr_vt_tpu.data.lists import LineIndex
+    from htr_vt_torch.data.lists import LineIndex
     index = LineIndex.from_list_file(train_list or cfg.train_list,
                                      data_path or cfg.data_path,
                                      max_label_len=cfg.max_label_len)
@@ -79,7 +79,7 @@ def _image_paths(spec: str) -> Sequence[str]:
 
 
 def main(argv: Optional[Sequence[str]] = None) -> None:
-    from htr_vt_tpu.data.image import load_line_image  # needs PIL
+    from htr_vt_torch.data.image import load_line_image  # needs PIL
 
     p = argparse.ArgumentParser(description="htr_vt_torch batch transcription")
     p.add_argument("dataset", help="IAM | READ | LAM | SYNTH (sets the charset)")

@@ -1,6 +1,6 @@
 """Validation loop (port of ``htr_vt_tpu/eval/validate.py``), single
 process: batch CTC loss, greedy decode and CER/WER with the reference's
-aggregation (``htr_vt_tpu/text/metrics.py``). The train loop passes the EMA
+aggregation (``htr_vt_torch/text/metrics.py``). The train loop passes the EMA
 model, as the reference evaluates its EMA weights."""
 
 from __future__ import annotations
@@ -9,8 +9,8 @@ from typing import Iterable, List, Mapping, Sequence, Tuple
 
 from torch import nn
 
-from htr_vt_tpu.text.converter import CTCLabelConverter
-from htr_vt_tpu.text.metrics import RecognitionMetrics
+from htr_vt_torch.text.converter import CTCLabelConverter
+from htr_vt_torch.text.metrics import RecognitionMetrics
 from htr_vt_torch.train.step import eval_step
 
 

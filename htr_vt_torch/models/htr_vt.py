@@ -23,7 +23,7 @@ from typing import Optional
 import torch
 from torch import nn
 
-from htr_vt_tpu.config import ModelConfig
+from htr_vt_torch.config import ModelConfig
 from htr_vt_torch.models import masking
 from htr_vt_torch.models.layers import global_layer_norm, sincos_pos_embed_2d
 from htr_vt_torch.models.stem import ResNet18Stem
@@ -42,7 +42,9 @@ class HTRVT(nn.Module):
         dtype = getattr(torch, cfg.compute_dtype)
         self.dtype = dtype
         d = cfg.embed_dim
-        self.patch_embed = ResNet18Stem(d, dtype, device=device)
+        self.patch_embed = ResNet18Stem(
+            d, dtype, device=device, dataflow=cfg.conv_dataflow,
+            pool_impl=cfg.pool_impl, bn_stats_impl=cfg.bn_stats_impl)
         self.mask_token = nn.Parameter(torch.zeros(1, 1, d, device=device))
         self.register_buffer(
             "pos_embed",
@@ -113,10 +115,32 @@ class HTRVT(nn.Module):
         return logits
 
 
+STEM_IMPLS = ("auto", "xla", "pallas")
+DATAFLOWS = ("plain", "folded")
+
+
+def check_stem_switches(cfg: ModelConfig) -> None:
+    """The stem's kernel switches, read as in JAX (``config.py:100-111``):
+    ``"pallas"`` names the hand-written kernel that replaces that Pallas
+    kernel, ``"auto"`` and ``"xla"`` the stock ops."""
+    if cfg.conv_impl == "pallas":
+        raise NotImplementedError(
+            "conv_impl='pallas' (the fused conv3x3 with the BN prologue) is not "
+            "ported to htr_vt_torch yet (ROADMAP.md queue 2, K4)")
+    for name, allowed in (("conv_impl", ("auto", "xla")),
+                          ("pool_impl", STEM_IMPLS),
+                          ("bn_stats_impl", STEM_IMPLS),
+                          ("conv_dataflow", DATAFLOWS)):
+        if getattr(cfg, name) not in allowed:
+            raise ValueError(f"{name}={getattr(cfg, name)!r}: expected one of "
+                             f"{allowed}")
+
+
 def build_model(cfg: ModelConfig, device=None,
                 generator: Optional[torch.Generator] = None) -> HTRVT:
-    """Model factory. Only the flagship recipe is ported; every other
-    encoder, stem and head is still queued in ROADMAP.md."""
+    """Model factory, on the card unless ``device`` says otherwise (no card
+    raises). Only the flagship recipe is ported; every other encoder, stem
+    and head is still queued in ROADMAP.md."""
     if cfg.model_type != "ctc":
         raise NotImplementedError(
             f"model_type={cfg.model_type!r} is not ported to htr_vt_torch yet "
@@ -129,4 +153,9 @@ def build_model(cfg: ModelConfig, device=None,
         raise NotImplementedError(
             f"quant={cfg.quant!r} is not ported to htr_vt_torch yet "
             "(ROADMAP.md queue 1, item 11: int8 serving)")
+    check_stem_switches(cfg)
+    device = torch.device("cuda") if device is None else torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("build_model: no CUDA device; pass device='cpu' to "
+                           "build the model on the CPU")
     return HTRVT(cfg, device=device, generator=generator)

@@ -16,7 +16,7 @@ from typing import Optional
 
 import torch
 
-from htr_vt_tpu.config import MaskConfig
+from htr_vt_torch.config import MaskConfig
 
 # Strategies of the tri-masked MMS trainer, not ported yet.
 _MMS_MODES = ("span_old", "random", "block", "span_spacing", "mms")

@@ -6,31 +6,57 @@ Collapses a [B, 1, 64, 512] line image to [B, C, 1, 128]; stride plan
     conv1 (2,1) -> maxpool3 (2,1) -> stage1 (2,1) -> stage2 (2,2)
     -> stage3 (2,2) -> maxpool3 (2,1)
 
-Runs NCHW with channels_last memory. Eval BatchNorm uses the running
-statistics in float32, folded into a per-channel (scale, shift) as
-``FoldedBatchNorm`` gives it (``stem.py:139-143``); for the entry BN, which
-the JAX stem applies in flax's ``(x - mean) * mul + beta`` order, the two
-forms agree to float32 rounding. Train mode is the JAX stem's ``plain``
-dataflow with flax's BatchNorm: batch statistics in float32 with the biased
-variance ``E[x^2] - E[x]^2`` (clamped at 0), the normalised output cast to
-the compute dtype, and the running statistics moved by ``0.9 * ra + 0.1 *
+Runs NCHW with channels_last memory. Two BatchNorm dataflows share one set
+of parameters, as in JAX (``stem.py:174-194``):
+
+- ``folded``: every BN yields a float32 per-channel (scale, shift)
+  (``BatchNorm.fold``, JAX's ``FoldedBatchNorm``, ``stem.py:96-143``) that
+  the next conv's prologue or the block's float32 epilogue applies. Eval
+  always runs it (running statistics); train runs it with batch
+  statistics when ``conv_dataflow="folded"`` or ``bn_stats_impl="pallas"``.
+  Its ReLUs are ``torch.maximum`` against 0, whose gradient at a tie is one
+  half, as ``jnp.maximum``'s.
+- ``plain`` (train only): flax's BatchNorm, normalise then conv, the BN
+  output cast to the compute dtype and the residual sum and ReLU in it.
+
+Train statistics are float32 with the biased variance ``E[x^2] - E[x]^2``
+(clamped at 0), and the running statistics move by ``0.9 * ra + 0.1 *
 batch``; ``nn.BatchNorm2d`` would track the unbiased variance instead.
-Convolutions are ``F.conv2d`` in the compute dtype. Module and parameter
-names follow the reference state_dict (``patch_embed.layer1.0.conv1.weight``,
-...), so a checkpoint converted by ``htr_vt_tpu/utils/torch_convert.py``
-loads with ``strict=True``.
+With ``bn_stats_impl="pallas"`` the sums come from the K2 kernel
+(``ops/bn_stats.py``); with ``pool_impl="pallas"`` the entry's
+BN-apply + ReLU + max-pool is the K3f/K3b kernel pair
+(``ops/pool_fused.py``). ``"auto"`` and ``"xla"`` take the stock ops, as
+``"auto"`` does in JAX (``stem.py:77-78``). Convolutions are ``F.conv2d``
+in the compute dtype. Module and parameter names follow the reference
+state_dict (``patch_embed.layer1.0.conv1.weight``, ...), so a checkpoint
+converted by ``htr_vt_torch/utils/torch_convert.py`` loads with
+``strict=True``.
 """
 
 from __future__ import annotations
 
-from typing import Sequence, Tuple
+from typing import Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
+from htr_vt_torch.ops.bn_stats import BNStats
+from htr_vt_torch.ops.conv_fused import conv3x3_bn_relu_reference
+from htr_vt_torch.ops.pool_fused import max_pool_bn_relu
+
 BN_EPS = 1e-5
 BN_MOMENTUM = 0.9
+
+
+def _c(v: torch.Tensor) -> torch.Tensor:
+    """A per-channel [C] vector shaped to broadcast over NCHW."""
+    return v.view(-1, 1, 1)
+
+
+def _relu_max(x: torch.Tensor) -> torch.Tensor:
+    """``jnp.maximum(x, 0)``: the gradient at an exact 0 is one half."""
+    return torch.maximum(x, x.new_zeros(()))
 
 
 class BatchNorm(nn.Module):
@@ -45,12 +71,34 @@ class BatchNorm(nn.Module):
         self.register_buffer("running_mean", torch.zeros(c, device=device))
         self.register_buffer("running_var", torch.ones(c, device=device))
 
-    def scale_shift(self) -> Tuple[torch.Tensor, torch.Tensor]:
-        """``scale = gamma / sqrt(var + eps)``, ``shift = beta - mean *
-        scale``, float32 per channel, shaped to broadcast over NCHW."""
-        scale = self.weight.float() * torch.rsqrt(self.running_var + BN_EPS)
-        shift = self.bias.float() - self.running_mean * scale
-        return scale[:, None, None], shift[:, None, None]
+    def fold(self, x: Optional[torch.Tensor] = None, *,
+             stats_impl: str = "auto") -> Tuple[torch.Tensor, torch.Tensor]:
+        """JAX's ``FoldedBatchNorm`` (``stem.py:108-143``): ``scale = gamma /
+        sqrt(var + eps)``, ``shift = beta - mean * scale``, float32 [C].
+
+        Without x, the running statistics (eval). With x [B, C, H, W], train
+        mode: the batch statistics ``mu = s / n``, ``var = max(q / n -
+        mu^2, 0)`` from the K2 kernel's sums (``stats_impl="pallas"``) or
+        from float32 means, and the running statistics move in place."""
+        if x is None:
+            mu, var = self.running_mean, self.running_var
+        else:
+            if stats_impl == "pallas":
+                s, q = BNStats.apply(x)
+                n = x.numel() // x.shape[1]
+                mu = s / n
+                var = _relu_max(q / n - mu.square())
+            else:
+                xf = x.float()
+                dims = (0, 2, 3)
+                mu = xf.mean(dims)
+                var = _relu_max(xf.square().mean(dims) - mu.square())
+            with torch.no_grad():
+                m = BN_MOMENTUM
+                self.running_mean.copy_(m * self.running_mean + (1.0 - m) * mu)
+                self.running_var.copy_(m * self.running_var + (1.0 - m) * var)
+        scale = self.weight.float() * torch.rsqrt(var + BN_EPS)
+        return scale, self.bias.float() - mu * scale
 
     def train_forward(self, x: torch.Tensor) -> torch.Tensor:
         """flax ``nn.BatchNorm`` in train mode (float32 out): normalise by
@@ -88,23 +136,29 @@ def _max_pool_3x3(x: torch.Tensor, stride: Tuple[int, int]) -> torch.Tensor:
 
 
 class BasicBlock(nn.Module):
-    """ResNet BasicBlock. Eval, the folded form (``stem.py:262-335``)::
+    """ResNet BasicBlock. The ``folded`` dataflow (``stem.py:215-335``),
+    eval and train, with its float32 epilogue::
 
-        y1 = conv1(x);  y2 = conv2(bf16(relu(y1 * s1 + t1)))
-        out = bf16(relu(y2 * s2 + t2 + (p * sp + tp | x)))   # f32 epilogue
+        y1 = conv1(x);  y2 = conv2(bf16(max(y1 * s1 + t1, 0)))
+        out = bf16(max(y2 * s2 + t2 + (p * sp + tp | x), 0))
 
-    Train, the ``plain`` dataflow (``stem.py:192-214``), whose residual sum
+    The ``plain`` train dataflow (``stem.py:192-214``), whose residual sum
     and ReLU run in the compute dtype::
 
         a = relu(bf16(bn1(conv1(x))));  y = bf16(bn2(conv2(a)))
         out = relu(y + (bf16(proj_bn(proj(x))) | x))
-    """
+
+    Train mode takes ``plain`` only when ``dataflow="plain"`` and
+    ``bn_stats_impl != "pallas"`` (``stem.py:192-194``)."""
 
     def __init__(self, cin: int, cout: int, stride: Tuple[int, int],
-                 use_projection: bool, dtype: torch.dtype, device=None):
+                 use_projection: bool, dtype: torch.dtype, device=None, *,
+                 dataflow: str = "plain", bn_stats_impl: str = "auto"):
         super().__init__()
         self.stride = stride
         self.dtype = dtype
+        self.dataflow = dataflow
+        self.bn_stats_impl = bn_stats_impl
         self.conv1 = nn.Conv2d(cin, cout, 3, bias=False, device=device)
         self.bn1 = BatchNorm(cout, device=device)
         self.conv2 = nn.Conv2d(cout, cout, 3, bias=False, device=device)
@@ -114,24 +168,31 @@ class BasicBlock(nn.Module):
             BatchNorm(cout, device=device)) if use_projection else None)
 
     def forward(self, x: torch.Tensor, *, train: bool = False) -> torch.Tensor:
+        x = x.to(self.dtype)
+        if train and self.dataflow == "plain" and self.bn_stats_impl != "pallas":
+            return self._plain_train_forward(x)
+        return self._folded_forward(x, train)
+
+    def _folded_forward(self, x: torch.Tensor, train: bool) -> torch.Tensor:
         dt = self.dtype
-        x = x.to(dt)
-        if train:
-            return self._train_forward(x)
+
+        def fold(bn: BatchNorm, y: torch.Tensor):
+            return bn.fold(y if train else None, stats_impl=self.bn_stats_impl)
+
         y1 = _conv(self.conv1, x, self.stride, 1, dt)
-        s1, t1 = self.bn1.scale_shift()
-        a = torch.relu(y1.float() * s1 + t1).to(dt)
-        y2 = _conv(self.conv2, a, 1, 1, dt)
-        s2, t2 = self.bn2.scale_shift()
+        s1, t1 = fold(self.bn1, y1)
+        y2 = conv3x3_bn_relu_reference(y1, self.conv2.weight, s1, t1)
+        s2, t2 = fold(self.bn2, y2)
         if self.downsample is not None:
             conv, bn = self.downsample
-            sp, tp = bn.scale_shift()
-            residual = _proj_conv(conv, x, self.stride, dt).float() * sp + tp
+            p = _proj_conv(conv, x, self.stride, dt)
+            sp, tp = fold(bn, p)
+            residual = p.float() * _c(sp) + _c(tp)
         else:
             residual = x.float()
-        return torch.relu(y2.float() * s2 + t2 + residual).to(dt)
+        return _relu_max(y2.float() * _c(s2) + _c(t2) + residual).to(dt)
 
-    def _train_forward(self, x: torch.Tensor) -> torch.Tensor:
+    def _plain_train_forward(self, x: torch.Tensor) -> torch.Tensor:
         dt = self.dtype
         y = _conv(self.conv1, x, self.stride, 1, dt)
         y = torch.relu(self.bn1.train_forward(y).to(dt))
@@ -147,34 +208,55 @@ class BasicBlock(nn.Module):
 
 class ResNet18Stem(nn.Module):
     """[B, 1, H, W] -> [B, embed_dim, H', W'] (``stem.py:347-464``, default
-    widths [D/4, D/2, D] and stage strides)."""
+    widths [D/4, D/2, D] and stage strides).
+
+    The entry BN + ReLU + max-pool takes one of three branches
+    (``stem.py:408-435``): ``pool_impl="pallas"``, the folded BN (its
+    statistics by ``bn_stats_impl``) and the fused K3f/K3b pool;
+    ``bn_stats_impl="pallas"`` alone, the K2 statistics, a stock
+    normalise + ReLU and a stock pool; else flax's BatchNorm (train) or the
+    running statistics (eval, the same fold), ReLU and a stock pool."""
 
     STAGE_STRIDES: Sequence[Tuple[int, int]] = ((2, 1), (2, 2), (2, 2))
 
-    def __init__(self, embed_dim: int, dtype: torch.dtype, device=None):
+    def __init__(self, embed_dim: int, dtype: torch.dtype, device=None, *,
+                 dataflow: str = "plain", pool_impl: str = "auto",
+                 bn_stats_impl: str = "auto"):
         super().__init__()
         self.dtype = dtype
+        self.pool_impl = pool_impl
+        self.bn_stats_impl = bn_stats_impl
         widths = [embed_dim // 4, embed_dim // 2, embed_dim]
         self.conv1 = nn.Conv2d(1, widths[0], 3, bias=False, device=device)
         self.bn1 = BatchNorm(widths[0], device=device)
         cin = widths[0]
         for i, (w, stride) in enumerate(zip(widths, self.STAGE_STRIDES)):
             proj = stride != (1, 1) or cin != w
+            kw = dict(device=device, dataflow=dataflow, bn_stats_impl=bn_stats_impl)
             setattr(self, f"layer{i + 1}", nn.Sequential(
-                BasicBlock(cin, w, stride, proj, dtype, device=device),
-                BasicBlock(w, w, (1, 1), False, dtype, device=device)))
+                BasicBlock(cin, w, stride, proj, dtype, **kw),
+                BasicBlock(w, w, (1, 1), False, dtype, **kw)))
             cin = w
 
     def forward(self, x: torch.Tensor, *, train: bool = False) -> torch.Tensor:
         dt = self.dtype
-        x = x.to(dt).contiguous(memory_format=torch.channels_last)
+        # [B, 1, H, W] with the strides of a channels-last tensor even at
+        # C = 1, where both layouts are contiguous: cuDNN then writes conv1's
+        # output channels-last, as the fused kernels read it.
+        x = x.to(dt).permute(0, 2, 3, 1).contiguous().permute(0, 3, 1, 2)
         x = _conv(self.conv1, x, (2, 1), 1, dt)
-        if train:  # flax BN in f32, cast, then ReLU (stem.py:427-435)
-            x = torch.relu(self.bn1.train_forward(x).to(dt))
+        stats = x if train else None
+        if self.pool_impl == "pallas":
+            s1, t1 = self.bn1.fold(stats, stats_impl=self.bn_stats_impl)
+            x = max_pool_bn_relu(x, s1, t1)
         else:
-            s1, t1 = self.bn1.scale_shift()
-            x = torch.relu(x.float() * s1 + t1).to(dt)
-        x = _max_pool_3x3(x, (2, 1))
+            if train and self.bn_stats_impl != "pallas":
+                # flax BN in f32, cast, then ReLU (stem.py:427-435)
+                x = torch.relu(self.bn1.train_forward(x).to(dt))
+            else:
+                s1, t1 = self.bn1.fold(stats, stats_impl=self.bn_stats_impl)
+                x = _relu_max(x.float() * _c(s1) + _c(t1)).to(dt)
+            x = _max_pool_3x3(x, (2, 1))
         for layer in (self.layer1, self.layer2, self.layer3):
             for block in layer:
                 x = block(x, train=train)

@@ -123,17 +123,14 @@ def _launch(fn: str, logp: torch.Tensor, z: torch.Tensor,
             raise ValueError(f"{fn}: all inputs must be on one device")
     if t < 1 or s < 1:
         raise ValueError(f"{fn}: empty time or state axis (T={t}, S={s})")
-    from htr_vt_torch._build import library
-    lib = library()
+    from htr_vt_torch._build import check_launch, library
     out = torch.empty((b, t, s), dtype=torch.float32, device=logp.device)
     with torch.cuda.device(logp.device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = getattr(lib, f"htrvt_{fn}")(
+        err = getattr(library(), f"htrvt_{fn}")(
             logp.data_ptr(), z.data_ptr(), *(m.data_ptr() for _, m in masks),
             out.data_ptr(), b, t, c, s, stream)
-    if err != 0:
-        raise RuntimeError(f"{fn} kernel launch failed: CUDA error {err} "
-                           f"({lib.htrvt_cuda_error_string(err).decode()})")
+    check_launch(fn, err)
     return out
 
 

@@ -1,7 +1,7 @@
 """Greedy CTC decoding on the device (port of ``htr_vt_tpu/ops/decode.py``).
 
 Only [B, T] ids leave the device; the strings are assembled on the host by
-``htr_vt_tpu.text.converter.CTCLabelConverter``.
+``htr_vt_torch.text.converter.CTCLabelConverter``.
 """
 
 from __future__ import annotations

@@ -12,7 +12,7 @@ from typing import Iterable, List, Optional, Sequence
 
 import torch
 
-from htr_vt_tpu.config import OptimConfig
+from htr_vt_torch.config import OptimConfig
 
 
 def global_grad_norm(grads: Sequence[torch.Tensor],

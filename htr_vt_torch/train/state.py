@@ -13,7 +13,7 @@ from dataclasses import dataclass
 
 import torch
 
-from htr_vt_tpu.config import ExperimentConfig
+from htr_vt_torch.config import ExperimentConfig
 from htr_vt_torch.models.htr_vt import HTRVT, build_model
 from htr_vt_torch.optim.sam import make_base_optimizer
 

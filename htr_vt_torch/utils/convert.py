@@ -1,7 +1,7 @@
 """Weights into the port, through the reference PyTorch layout.
 
 The port's modules are named after the reference ``state_dict`` keys that
-``htr_vt_tpu/utils/torch_convert.py`` maps, so both directions reuse its
+``utils/torch_convert.py`` maps, so both directions reuse its
 numpy functions: a JAX tree goes through ``tree_to_reference_state_dict``,
 and a reference ``.pth`` is normalised by a round trip through the tree
 (which drops ``pos_embed``, ``num_batches_tracked`` and ``module.``
@@ -21,7 +21,7 @@ import numpy as np
 import torch
 from torch import nn
 
-from htr_vt_tpu.utils import torch_convert
+from htr_vt_torch.utils import torch_convert
 
 
 def _tensors(sd: Dict[str, np.ndarray]) -> Dict[str, torch.Tensor]:

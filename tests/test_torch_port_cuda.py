@@ -198,7 +198,8 @@ def test_eval_step_on_the_card_matches_the_cpu(cuda):
     against the CPU one (plain CTC loop) on the same weights and batch."""
     cfg = ModelConfig(nb_cls=8, img_size=(64, 128), embed_dim=64, depth=2,
                       num_heads=2, compute_dtype="float32")
-    cpu_model = build_model(cfg, generator=torch.Generator().manual_seed(3))
+    cpu_model = build_model(cfg, device="cpu",
+                            generator=torch.Generator().manual_seed(3))
     gpu_model = build_model(cfg, device=cuda)
     gpu_model.load_state_dict(cpu_model.state_dict(), strict=True)
     rng = np.random.default_rng(8)
@@ -213,3 +214,198 @@ def test_eval_step_on_the_card_matches_the_cpu(cuda):
                                rtol=1e-4, atol=2e-4)
     torch.testing.assert_close(got["loss_per_sample"].cpu(),
                                want["loss_per_sample"], rtol=1e-4, atol=1e-4)
+
+
+# --- the stem kernels: K2 (bn_stats), K3f/K3b (pool_bn_relu_fwd/bwd) --------
+# The flagship's stem activations at bs 128 (NCHW, stored channels-last):
+# the conv1 output and the stage 1, 2 and 3 block activations.
+STEM_SHAPES = [(128, 192, 32, 512), (128, 192, 8, 512), (128, 384, 4, 256),
+               (128, 768, 2, 128)]
+
+
+def channels_last(shape, dtype, device, seed, ties=False):
+    gen = torch.Generator(device=device).manual_seed(seed)
+    x = torch.randn(shape, generator=gen, device=device)
+    if ties:  # a coarse grid: window ties and exact zeros after the BN
+        x = torch.round(x * 2) / 2
+    return x.to(dtype).contiguous(memory_format=torch.channels_last)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", STEM_SHAPES)
+def test_bn_stats_kernel_at_the_flagship_shapes(cuda, shape):
+    """Against a float64 sum: the sum within 1e-6 of sum |x| (float32
+    partial sums in another order), the sum of squares within rtol 1e-5.
+    No atomics, so two calls give equal bits."""
+    from htr_vt_torch.ops.bn_stats import bn_stats
+    x = channels_last(shape, torch.bfloat16, cuda, seed=shape[1] + shape[2])
+    before = bn_stats.launches
+    s, q = bn_stats(x)
+    s2, q2 = bn_stats(x)
+    torch.cuda.synchronize()
+    assert bn_stats.launches == before + 2
+    assert s.dtype == q.dtype == torch.float32 and s.shape == (shape[1],)
+    assert torch.equal(s, s2) and torch.equal(q, q2)
+    xd = x.double()
+    want_s, want_q = xd.sum((0, 2, 3)), xd.square().sum((0, 2, 3))
+    bound = 1e-6 * xd.abs().sum((0, 2, 3))
+    assert ((s.double() - want_s).abs() <= bound).all()
+    torch.testing.assert_close(q.double(), want_q, rtol=1e-5, atol=0.0)
+
+
+@pytest.mark.cuda
+def test_bn_stats_kernel_float32_and_gradient(cuda):
+    from htr_vt_torch.ops.bn_stats import BNStats, bn_stats_reference
+    x = channels_last((3, 24, 5, 7), torch.float32, cuda, seed=1)
+    got = BNStats.apply(x.requires_grad_(True))
+    want = bn_stats_reference(x.detach())
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, rtol=1e-5, atol=1e-5)
+    cs, cq = torch.randn(24, device=cuda), torch.randn(24, device=cuda)
+    (got[0] * cs).sum().add((got[1] * cq).sum()).backward()
+    torch.testing.assert_close(
+        x.grad, (cs.view(1, -1, 1, 1) + 2 * x.detach() * cq.view(1, -1, 1, 1)),
+        rtol=1e-6, atol=1e-6)
+
+
+def _pool_case(shape, dtype, device, seed, ties):
+    x = channels_last(shape, dtype, device, seed, ties)
+    gen = torch.Generator(device=device).manual_seed(seed + 1)
+    c = shape[1]
+    scale = torch.randn(c, generator=gen, device=device)
+    shift = torch.randn(c, generator=gen, device=device)
+    if ties:
+        scale, shift = torch.round(scale * 2) / 2, torch.round(shift * 2) / 2
+    b, _, h, w = shape
+    g = torch.randn((b, c, h // 2, w), generator=gen, device=device).to(dtype)
+    return x, scale, shift, g.contiguous(memory_format=torch.channels_last)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,dtype,ties", [
+    ((128, 192, 32, 512), torch.bfloat16, False),  # the flagship entry
+    ((4, 16, 8, 45), torch.bfloat16, True),        # ragged W tile, ties
+    ((4, 16, 8, 45), torch.float32, True),
+    ((2, 8, 6, 300), torch.float32, False)])
+def test_pool_kernels_match_plain(cuda, shape, dtype, ties):
+    """K3f and K3b against their plain versions: y and dx bit for bit (the
+    same roundings in the same order). dscale/dshift are float32 sums of
+    B*H*W terms per channel in another order (per-thread chains, block and
+    partial sums vs ATen's tree), held within 1e-5 of the sum of the
+    terms' magnitudes."""
+    from htr_vt_torch.ops import pool_fused as pf
+    x, scale, shift, g = _pool_case(shape, dtype, cuda, seed=shape[3], ties=ties)
+    before = pf.pool_bn_relu_fwd.launches, pf.pool_bn_relu_bwd.launches
+    y = pf.pool_bn_relu_fwd(x, scale, shift)
+    dx, ds, dt = pf.pool_bn_relu_bwd(g, x, scale, shift)
+    torch.cuda.synchronize()
+    assert (pf.pool_bn_relu_fwd.launches, pf.pool_bn_relu_bwd.launches) == (
+        before[0] + 1, before[1] + 1)
+    assert y.is_contiguous(memory_format=torch.channels_last)
+    assert dx.is_contiguous(memory_format=torch.channels_last)
+    assert torch.equal(y, pf.max_pool_bn_relu_reference(x, scale, shift))
+    dx_p, ds_p, dt_p = pf.pool_bn_relu_bwd_reference(g, x, scale, shift)
+    assert torch.equal(dx, dx_p)
+    daf = pf.routed_grad_reference(g, x, scale, shift)
+    for got, want, mag in ((ds, ds_p, (daf * x.float()).abs().sum((0, 2, 3))),
+                           (dt, dt_p, daf.abs().sum((0, 2, 3)))):
+        assert ((got - want).abs() <= 1e-5 * mag + 1e-6).all(), \
+            ((got - want).abs() / mag).max()
+
+
+@pytest.mark.cuda
+def test_pool_autograd_routes_through_both_kernels(cuda):
+    from htr_vt_torch.ops import pool_fused as pf
+    x, scale, shift, g = _pool_case((2, 16, 8, 40), torch.bfloat16, cuda, 3, True)
+    xs = [t.clone().requires_grad_(True) for t in (x, scale, shift)]
+    before = pf.pool_bn_relu_fwd.launches, pf.pool_bn_relu_bwd.launches
+    pf.max_pool_bn_relu(*xs).backward(g)
+    assert (pf.pool_bn_relu_fwd.launches, pf.pool_bn_relu_bwd.launches) == (
+        before[0] + 1, before[1] + 1)
+    dx, ds, dt = pf.pool_bn_relu_bwd_reference(g, x, scale, shift)
+    assert torch.equal(xs[0].grad, dx)
+    torch.testing.assert_close(xs[1].grad, ds, rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(xs[2].grad, dt, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.cuda
+def test_stem_wrappers_reject_what_the_kernels_do_not_take(cuda):
+    from htr_vt_torch.ops import pool_fused as pf
+    from htr_vt_torch.ops.bn_stats import bn_stats
+    x, scale, shift, g = _pool_case((2, 16, 8, 12), torch.bfloat16, cuda, 4, False)
+    with pytest.raises(ValueError, match="channels-last"):
+        bn_stats(x.contiguous())
+    with pytest.raises(ValueError, match="bfloat16 or float32"):
+        bn_stats(x.half())
+    with pytest.raises(ValueError, match="C % 8"):
+        bn_stats(channels_last((2, 12, 8, 12), torch.bfloat16, cuda, 4))
+    with pytest.raises(ValueError, match="channels-last"):
+        pf.pool_bn_relu_fwd(x.contiguous(), scale, shift)
+    with pytest.raises(ValueError, match="H must be even"):
+        pf.pool_bn_relu_fwd(x[:, :, :7].contiguous(memory_format=torch.channels_last),
+                            scale, shift)
+    with pytest.raises(ValueError, match="float32"):
+        pf.pool_bn_relu_fwd(x, scale.double(), shift)
+    with pytest.raises(ValueError, match="one device"):
+        pf.pool_bn_relu_fwd(x, scale.cpu(), shift)
+    with pytest.raises(ValueError, match="g must be"):
+        pf.pool_bn_relu_bwd(g.float().contiguous(memory_format=torch.channels_last),
+                            x, scale, shift)
+
+
+def _fused(cfg):
+    import dataclasses
+    return dataclasses.replace(cfg, bn_stats_impl="pallas", pool_impl="pallas")
+
+
+@pytest.mark.cuda
+def test_fused_stem_train_step_on_the_card_matches_the_cpu(cuda):
+    """One SAM step of a tiny f32 model with the stem kernels switched on:
+    per step 32 bn_stats, 2 + 2 pool and 2 + 2 CTC launches, and the CPU's
+    losses (the CPU runs the kernels' plain versions)."""
+    from htr_vt_torch import ExperimentConfig, MaskConfig, OptimConfig
+    from htr_vt_torch.ops import pool_fused as pf
+    from htr_vt_torch.ops.bn_stats import bn_stats
+    from htr_vt_torch.train.state import create_train_state
+    model_cfg = _fused(ModelConfig(nb_cls=8, img_size=(64, 128), embed_dim=64,
+                                   depth=2, num_heads=2, compute_dtype="float32",
+                                   masking=MaskConfig(mode="none")))
+    cfg = ExperimentConfig(model=model_cfg,
+                           optim=OptimConfig(max_lr=1e-3, warmup_iters=2))
+    cpu = create_train_state(cfg, "cpu", torch.Generator().manual_seed(4))
+    gpu = create_train_state(cfg, cuda, torch.Generator(device=cuda).manual_seed(4))
+    gpu.model.load_state_dict(cpu.model.state_dict(), strict=True)
+    gpu.ema_model.load_state_dict(cpu.ema_model.state_dict(), strict=True)
+    rng = np.random.default_rng(11)
+    _, labels, lengths = ctc_case(11, 4, 32, 8, 10)
+    batch = {"image": rng.random((4, 64, 128, 1), dtype=np.float32),
+             "labels": labels, "label_lengths": lengths}
+    counters = (bn_stats, pf.pool_bn_relu_fwd, pf.pool_bn_relu_bwd,
+                ctc_cuda.ctc_alpha, ctc_cuda.ctc_beta)
+    before = [f.launches for f in counters]
+    got = train_step(gpu, batch)
+    assert [f.launches - b for f, b in zip(counters, before)] == [32, 2, 2, 2, 2]
+    want = train_step(cpu, batch)
+    for key in ("loss", "loss_second", "grad_norm"):
+        torch.testing.assert_close(got[key].cpu(), want[key], rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.cuda
+def test_fused_pool_eval_logits_equal_the_stock_path(cuda):
+    """Eval with pool_impl="pallas" (K3f on the running statistics) gives
+    the stock path's logits bit for bit, in bf16, with one K3f launch."""
+    import dataclasses
+    from htr_vt_torch.ops import pool_fused as pf
+    cfg = ModelConfig(nb_cls=8, img_size=(64, 128), embed_dim=64, depth=2,
+                      num_heads=2)
+    stock = build_model(cfg, device=cuda,
+                        generator=torch.Generator(device=cuda).manual_seed(5))
+    fused = build_model(dataclasses.replace(cfg, pool_impl="pallas"), device=cuda)
+    fused.load_state_dict(stock.state_dict(), strict=True)
+    image = torch.rand((4, 64, 128, 1), device=cuda,
+                       generator=torch.Generator(device=cuda).manual_seed(6))
+    before = pf.pool_bn_relu_fwd.launches
+    with torch.inference_mode():
+        got, want = fused(image), stock(image)
+    assert pf.pool_bn_relu_fwd.launches == before + 1
+    assert torch.equal(got, want)

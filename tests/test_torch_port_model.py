@@ -21,6 +21,7 @@ from htr_vt_tpu.models import layers as jlayers
 from htr_vt_tpu.models import stem as jstem
 from htr_vt_tpu.models import vit as jvit
 from htr_vt_tpu.models.htr_vt import HTRVT as JaxHTRVT
+from htr_vt_torch import config as tconfig
 from htr_vt_torch.models import layers as tlayers
 from htr_vt_torch.models.htr_vt import HTRVT, build_model
 from htr_vt_torch.utils.convert import load_jax_params
@@ -72,8 +73,17 @@ def tiny_jax_weights(cfg=TINY, seed=0):
     return _randomise(v["params"], rng), _randomise(v["batch_stats"], rng)
 
 
+def port_config(cfg):
+    """A JAX config (``htr_vt_tpu.config``, any of its dataclasses) as the
+    port's own type (``htr_vt_torch.config``), field by field."""
+    if not dataclasses.is_dataclass(cfg):
+        return cfg
+    return getattr(tconfig, type(cfg).__name__)(**{
+        f.name: port_config(getattr(cfg, f.name)) for f in dataclasses.fields(cfg)})
+
+
 def tiny_port_model(params, stats, cfg=TINY) -> HTRVT:
-    model = build_model(cfg)
+    model = build_model(port_config(cfg), device="cpu")
     load_jax_params(model, params, stats)
     return model.eval()
 
@@ -276,8 +286,10 @@ def test_bf16_htrvt_logits_match_jax(weights16):
 def test_seeded_init_follows_the_jax_schemes():
     cfg = ModelConfig(nb_cls=8, img_size=(64, 128), embed_dim=192, depth=1,
                       num_heads=2, compute_dtype="float32")
-    a = build_model(cfg, generator=torch.Generator().manual_seed(7))
-    b = build_model(cfg, generator=torch.Generator().manual_seed(7))
+    a = build_model(port_config(cfg), device="cpu",
+                    generator=torch.Generator().manual_seed(7))
+    b = build_model(port_config(cfg), device="cpu",
+                    generator=torch.Generator().manual_seed(7))
     for (k, va), vb in zip(a.state_dict().items(), b.state_dict().values()):
         torch.testing.assert_close(va, vb, rtol=0, atol=0, msg=k)
     # variance_scaling(2, fan_out, normal): std sqrt(2 / (3*3*192))
@@ -296,4 +308,5 @@ def test_seeded_init_follows_the_jax_schemes():
 def test_build_model_rejects_unported_recipes(override):
     import dataclasses
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        build_model(dataclasses.replace(TINY, **override))
+        build_model(port_config(dataclasses.replace(TINY, **override)),
+                    device="cpu")

@@ -23,8 +23,8 @@ from htr_vt_torch.cli.profile_serve import category
 from htr_vt_torch.cli.serve import charset, transcribe
 from htr_vt_torch.ops.decode import collapse_ids
 from htr_vt_torch.train.step import eval_step
-from test_torch_port_model import (LOGITS_TOL, TINY, tiny_jax_weights,
-                                   tiny_port_model)
+from test_torch_port_model import (LOGITS_TOL, TINY, port_config,
+                                   tiny_jax_weights, tiny_port_model)
 
 REPO = Path(__file__).resolve().parent.parent
 # 7 letters + blank = TINY.nb_cls classes
@@ -113,15 +113,16 @@ def test_serve_main_writes_one_record_per_image(tmp_path, monkeypatch):
     from PIL import Image
 
     import htr_vt_torch.cli.serve as serve
-    from htr_vt_tpu.data.image import load_line_image
+    from htr_vt_torch.data.image import load_line_image
     from htr_vt_torch.models.htr_vt import build_model
 
-    small = dataclasses.replace(TINY, depth=1)
+    small = port_config(dataclasses.replace(TINY, depth=1))
     real_preset = serve.dataset_preset
     monkeypatch.setattr(serve, "dataset_preset", lambda name: dataclasses.replace(
         real_preset(name), model=small))
     converter = CTCLabelConverter(charset("SYNTH"))
     model = build_model(dataclasses.replace(small, nb_cls=converter.num_classes),
+                        device="cpu",
                         generator=torch.Generator().manual_seed(4)).eval()
     torch.save(model.state_dict(), tmp_path / "ckpt.pth")
     rng = np.random.default_rng(5)
@@ -160,8 +161,8 @@ def test_profile_sorts_kernels_by_category(kernel, label):
 
 def test_port_imports_no_jax_and_serves_on_cpu():
     """A clean interpreter imports the port, serves a tiny CPU batch, and
-    never loads jax, flax, optax, orbax or cv2; the CPU path counts no
-    kernel launch."""
+    never loads jax, flax, optax, orbax, cv2 or any module of htr_vt_tpu;
+    the CPU path counts no kernel launch."""
     code = textwrap.dedent("""
         import json, sys
         import numpy as np, torch
@@ -175,7 +176,8 @@ def test_port_imports_no_jax_and_serves_on_cpu():
         cfg = htr_vt_torch.ModelConfig(nb_cls=8, img_size=(64, 128),
                                        embed_dim=64, depth=1, num_heads=2,
                                        compute_dtype="float32")
-        model = build_model(cfg, generator=torch.Generator().manual_seed(0))
+        model = build_model(cfg, device="cpu",
+                            generator=torch.Generator().manual_seed(0))
         imgs = np.random.default_rng(0).random((3, 64, 128, 1), np.float32)
         texts = transcribe(model, imgs, CTCLabelConverter("abcdefg"), 2)
         loss = ctc_loss_auto(torch.zeros(2, 5, 8), torch.ones(2, 3),
@@ -184,11 +186,13 @@ def test_port_imports_no_jax_and_serves_on_cpu():
             "texts": len(texts), "loss_finite": bool(torch.isfinite(loss).all()),
             "launches": ctc_cuda.ctc_alpha.launches,
             "banned": sorted(m for m in ("jax", "flax", "optax", "orbax", "cv2")
-                             if m in sys.modules)}))
+                             if m in sys.modules),
+            "htr_vt_tpu": sorted(m for m in sys.modules
+                                 if m.split(".")[0] == "htr_vt_tpu")}))
     """)
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
     out = json.loads(proc.stdout.strip().splitlines()[-1])
     assert out == {"texts": 3, "loss_finite": True, "launches": 0,
-                   "banned": []}
+                   "banned": [], "htr_vt_tpu": []}

@@ -32,8 +32,9 @@ from htr_vt_torch.optim.schedule import warmup_cosine_lr
 from htr_vt_torch.train.state import create_train_state
 from htr_vt_torch.train.step import eval_step, train_step
 from htr_vt_torch.utils.convert import load_jax_train_state, model_to_jax_tree
-from test_torch_port_model import (BF16, BLOCK_CASES, _bf16, strict_jit,
-                                   tiny_jax_weights, tiny_port_model)
+from test_torch_port_model import (BF16, BLOCK_CASES, _bf16, port_config,
+                                   strict_jit, tiny_jax_weights,
+                                   tiny_port_model)
 
 # 64x64 px -> 16 tokens; stem widths 8/16/32.
 TINY = ModelConfig(nb_cls=8, img_size=(64, 64), embed_dim=32, depth=2,
@@ -112,7 +113,8 @@ def test_sam_perturb_matches_jax(adaptive):
 
 
 def test_ema_update_covers_params_and_bn_stats():
-    model = create_train_state(CFG, "cpu", torch.Generator().manual_seed(0)).model
+    model = create_train_state(port_config(CFG), "cpu",
+                               torch.Generator().manual_seed(0)).model
     ema_model = copy.deepcopy(model)
     with torch.no_grad():
         for t in model.state_dict().values():
@@ -184,7 +186,8 @@ def weights():
 
 def _port_state(weights):
     params, stats = weights
-    state = create_train_state(CFG, "cpu", torch.Generator().manual_seed(0))
+    state = create_train_state(port_config(CFG), "cpu",
+                               torch.Generator().manual_seed(0))
     jax_like = JaxTrainState(step=0, params=params, batch_stats=stats,
                              opt_state=None, ema_params=params,
                              ema_batch_stats=stats, rng=None)
@@ -285,7 +288,7 @@ def test_train_forward_draws_batch_shared_spans(weights):
     assert drawn.shape == ones.shape == (B, N, TINY.nb_cls)
     assert not torch.allclose(drawn, ones)
     off = dataclasses.replace(TINY, masking=MaskConfig(mode="none"))
-    model.cfg = off
+    model.cfg = port_config(off)
     torch.testing.assert_close(model(x, train=True), ones, rtol=1e-6, atol=1e-6)
 
 
@@ -406,7 +409,7 @@ def test_train_step_ema_matches_jax(trajectories):
 def test_validate_averages_valid_rows_with_the_ema_model(trajectories):
     """Validation over padded batches: only the first num_valid rows count
     toward the loss and the metrics."""
-    from htr_vt_tpu.text.converter import CTCLabelConverter
+    from htr_vt_torch.text.converter import CTCLabelConverter
     _, _, _, port = trajectories
     converter = CTCLabelConverter(list("abcdefg"))
     b1, b2 = _batch(40), _batch(41)
