@@ -23,28 +23,42 @@ non-zero before the last line:
    the conv1 output [128, 192, 32, 512], bf16 channels-last, against their
    plain versions, with CUDA-event times of kernel, plain version and the
    library or stock yardstick, and the bound.
-4. serve: the flagship ``ModelConfig()`` (64x512, embed 768, depth 4, heads
+4. conv kernels vs plain: K4f, K4d and K4w (``conv3x3_bn_relu_fwd`` /
+   ``_dgrad`` / ``_wgrad``) at the flagship's three stride-1 conv sites at
+   bs 128 (stage 1 [128, 192, 8, 512], stage 2 [128, 384, 4, 256], stage 3
+   [128, 768, 2, 128], C -> C, bf16 channels-last), with and without the
+   BN prologue, against their plain versions; two calls bit-equal;
+   CUDA-event times of kernel, plain version and cuDNN doing the conv alone
+   on the pre-normalised tensor, and the bound.
+5. serve: the flagship ``ModelConfig()`` (64x512, embed 768, depth 4, heads
    6, 80 classes, bf16) with seeded random weights serves 3x128+37 line
    images through ``cli.serve.transcribe``, then runs one ``eval_step`` with
    real labels; the alpha kernel must launch once per ``eval_step`` and
    nothing else. The same weights in float32 bound the bf16 error. Prints
    ms/batch, img/s and the peak device memory.
-5. fused-stem serve: the same weights with ``pool_impl="pallas"`` serve the
+6. fused-stem serve: the same weights with ``pool_impl="pallas"`` serve the
    same images and run the labelled ``eval_step``; one K3f launch per
    ``eval_step``, no K2 or K3b, and the logits and texts equal the stock
    stem's bit for bit.
-6. train: the flagship with the IAM recipe's span masking (ratio 0.4, max
+7. fully fused serve: the same with ``conv_impl="pallas"`` as well; 9 K4f
+   and 1 K3f per ``eval_step``, frame-argmax agreement with the stock bf16
+   logits >= 99% (the kernels sum in another order than cuDNN, so the
+   logits are not bit-equal), the largest logit difference printed.
+8. train: the flagship with the IAM recipe's span masking (ratio 0.4, max
    span 8) takes 2 warm-up and 10 timed SAM ``train_step``s at bs 128
    (labels of length 1-96, 8 of them infeasible); each step must launch the
    alpha and the beta kernel exactly twice. Then ``validate`` runs the EMA
    model over 2 batches (one alpha launch each, no beta), and a learning
    check trains 20 steps on one fixed batch of 16, whose pass-1 loss must
    fall. Prints ms/step, img/s, the peak device memory and CER/WER.
-7. fused-stem train: phase 6 with ``bn_stats_impl="pallas",
+9. fused-stem train: phase 8 with ``bn_stats_impl="pallas",
    pool_impl="pallas"``: the same weights, batch and masks give the stock
    stem's first pass-1 loss to bf16 noise; each timed step launches K2 32
    times, K3f, K3b, alpha and beta twice each; EMA ``validate`` launches K3f
    and alpha once per batch; the learning check's loss must fall.
+10. fully fused train: phase 9 with ``conv_impl="pallas"`` as well; each
+   step also launches K4f, K4d and K4w 18 times each, and EMA ``validate``
+   9 K4f per batch.
 
 The second-to-last line is a JSON record of the kernels; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -71,7 +85,7 @@ from htr_vt_torch.eval.validate import validate  # noqa: E402
 from htr_vt_torch.models.htr_vt import build_model  # noqa: E402
 import torch.nn.functional as F  # noqa: E402
 
-from htr_vt_torch.ops import ctc_cuda, pool_fused  # noqa: E402
+from htr_vt_torch.ops import conv_fused, ctc_cuda, pool_fused  # noqa: E402
 from htr_vt_torch.ops.bn_stats import bn_stats, bn_stats_reference  # noqa: E402
 from htr_vt_torch.ops.ctc import NEG, ctc_loss  # noqa: E402
 from htr_vt_torch.train.state import create_train_state  # noqa: E402
@@ -104,10 +118,12 @@ SENTINEL = NEG / 10  # alpha entries below this are the unreachable mark
 # The port's loss against F.ctc_loss: two independent float32 log-space
 # recursions over 128 frames, at losses of up to ~900.
 LIBRARY_LOSS_RTOL = 1e-4
-# The bound: the larger of bytes over the memory rate and float32 operations
-# over the rate outside the tensor cores (H100 SXM data sheet).
+# The bound: the larger of bytes over the memory rate and operations over
+# the card's peak for their type: float32 outside the tensor cores, bf16
+# dense on them (H100 SXM data sheet).
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
+BF16_TENSOR_OPS_PER_S = 989e12
 # Per state and frame, the recursion's logaddexp3 and emission add: three
 # exp, one log, two max, four adds.
 CTC_OPS_PER_STATE = 10
@@ -123,16 +139,48 @@ STATS_SUM_REL, STATS_SQ_RTOL = 2e-6, 2e-5
 # in other orders, within 1e-5 of the sum of the terms' magnitudes.
 POOL_RED_REL = 1e-5
 FUSED = dict(bn_stats_impl="pallas", pool_impl="pallas")
-# Launches of each kernel per SAM train step with the fused stem.
-FUSED_PER_STEP = {"ctc_alpha": 2, "ctc_beta": 2, "bn_stats": 32,
-                  "pool_bn_relu_fwd": 2, "pool_bn_relu_bwd": 2}
+FULLY_FUSED = dict(FUSED, conv_impl="pallas")
 # Fused vs stock stem, first pass-1 loss on the same weights, batch and
 # masks: the dataflows round to bf16 at other places.
 FUSED_LOSS_RTOL = 1e-2
+# The flagship's stride-1 conv sites at bs 128, C -> C: the block
+# activations of stages 1, 2 and 3 (3 K4f calls each per forward).
+CONV_SITES = (("stage1", (BATCH, 192, 8, 512)), ("stage2", (BATCH, 384, 4, 256)),
+              ("stage3", (BATCH, 768, 2, 128)))
+# K4 against its plain version (the bars of tests/test_torch_port_cuda.py):
+# float32 sums in another order, within CONV_SUM_REL of the sum of the
+# terms' magnitudes, then one bf16 rounding on each side (2^-7 of the value).
+CONV_SUM_REL, BF16_ULP_REL = 1e-5, 2.0**-7
 COUNTERS = {"ctc_alpha": ctc_cuda.ctc_alpha, "ctc_beta": ctc_cuda.ctc_beta,
             "bn_stats": bn_stats,
             "pool_bn_relu_fwd": pool_fused.pool_bn_relu_fwd,
-            "pool_bn_relu_bwd": pool_fused.pool_bn_relu_bwd}
+            "pool_bn_relu_bwd": pool_fused.pool_bn_relu_bwd,
+            "conv3x3_bn_relu_fwd": conv_fused.conv3x3_bn_relu_fwd,
+            "conv3x3_bn_relu_dgrad": conv_fused.conv3x3_bn_relu_dgrad,
+            "conv3x3_bn_relu_wgrad": conv_fused.conv3x3_bn_relu_wgrad}
+
+
+def per_step_launches(switches):
+    """Launches of each kernel per SAM train step with the stem switches."""
+    want = {"ctc_alpha": 2, "ctc_beta": 2}
+    if switches.get("bn_stats_impl") == "pallas":
+        want["bn_stats"] = 32  # every BN of the stem, both passes
+    if switches.get("pool_impl") == "pallas":
+        want.update(pool_bn_relu_fwd=2, pool_bn_relu_bwd=2)
+    if switches.get("conv_impl") == "pallas":  # 9 stride-1 convs a forward
+        want.update(conv3x3_bn_relu_fwd=18, conv3x3_bn_relu_dgrad=18,
+                    conv3x3_bn_relu_wgrad=18)
+    return want
+
+
+def per_eval_launches(switches):
+    """Launches of each kernel per ``eval_step`` with the stem switches."""
+    want = {"ctc_alpha": 1}
+    if switches.get("pool_impl") == "pallas":
+        want["pool_bn_relu_fwd"] = 1
+    if switches.get("conv_impl") == "pallas":
+        want["conv3x3_bn_relu_fwd"] = 9
+    return want
 
 
 def posterior_atol(loss):
@@ -169,11 +217,11 @@ def read_counts():
     return {name: fn.launches for name, fn in COUNTERS.items()}
 
 
-def bound(n_bytes, n_ops):
+def bound(n_bytes, n_ops, ops_per_s=F32_OPS_PER_S):
     """(ms, what bounds it): the least time for moving ``n_bytes`` and doing
-    ``n_ops`` float32 operations on the card."""
+    ``n_ops`` operations at ``ops_per_s`` (float32 by default) on the card."""
     by_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
-    by_ops = n_ops / F32_OPS_PER_S * 1e3
+    by_ops = n_ops / ops_per_s * 1e3
     return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops, "operations")
 
 
@@ -486,15 +534,11 @@ def train_batch(n, cfg, rng, device, infeasible=0):
             "label_lengths": put(lengths)}
 
 
-def phase_train(device, switches=None, stock_first_loss=None):
-    """Phase 4 (the stock stem) or, with ``switches``, phase 7 (the stem
-    kernels): the same seed, batches and masks either way."""
+def phase_train(device, switches=None, stock_first_loss=None, tag="train"):
+    """Phase 8 (the stock stem) or, with ``switches``, phases 9 and 10 (the
+    stem kernels): the same seed, batches and masks either way."""
     switches = switches or {}
-    tag = "fused train" if switches else "train"
-    per_step = FUSED_PER_STEP if switches else {"ctc_alpha": 2, "ctc_beta": 2}
-    per_val = {"ctc_alpha": 1}
-    if switches.get("pool_impl") == "pallas":
-        per_val["pool_bn_relu_fwd"] = 1
+    per_step, per_val = per_step_launches(switches), per_eval_launches(switches)
     model_cfg = ModelConfig(masking=MaskConfig(mode="span", ratio=0.4,
                                                max_span_length=8), **switches)
     cfg = ExperimentConfig(model=model_cfg, optim=OptimConfig())
@@ -521,7 +565,7 @@ def phase_train(device, switches=None, stock_first_loss=None):
     for _ in range(TRAIN_WARMUP - 1):
         train_step(state, batch)
     torch.cuda.synchronize()
-    pool_fused.PoolBNReLU.grad_copies = 0
+    pool_fused.PoolBNReLU.grad_copies = conv_fused.ConvBNReLU.grad_copies = 0
     reset_counts()
     times, metrics = [], []
     for _ in range(TRAIN_STEPS):
@@ -534,6 +578,7 @@ def phase_train(device, switches=None, stock_first_loss=None):
         times.append(start.elapsed_time(end))
     launches = read_counts()
     grad_copies = pool_fused.PoolBNReLU.grad_copies
+    conv_copies = conv_fused.ConvBNReLU.grad_copies
     peak = torch.cuda.max_memory_allocated()
     want = {**dict.fromkeys(COUNTERS, 0),
             **{k: n * TRAIN_STEPS for k, n in per_step.items()}}
@@ -552,6 +597,9 @@ def phase_train(device, switches=None, stock_first_loss=None):
     if switches.get("pool_impl") == "pallas":
         say(f"[{tag}] K3b's incoming gradient was copied to channels-last in "
             f"{grad_copies} of {launches['pool_bn_relu_bwd']} backward calls")
+    if switches.get("conv_impl") == "pallas":
+        say(f"[{tag}] K4d/K4w's incoming gradient was copied to channels-last in "
+            f"{conv_copies} of {launches['conv3x3_bn_relu_dgrad']} backward calls")
     say(f"[{tag}] loss " + " ".join(f"{v:.3f}" for v in values["loss"])
         + "; loss_second " + " ".join(f"{v:.3f}" for v in values["loss_second"])
         + "; grad_norm " + " ".join(f"{v:.3f}" for v in values["grad_norm"]))
@@ -594,7 +642,7 @@ def phase_train(device, switches=None, stock_first_loss=None):
     if not losses[-1] < losses[0]:
         raise AssertionError(f"no learning: {losses}")
     return launches, dict(ms=ms, peak=peak, first_loss=first_loss,
-                          grad_copies=grad_copies)
+                          grad_copies=grad_copies, conv_grad_copies=conv_copies)
 
 
 # ---------------------------------------------------------------------------
@@ -715,6 +763,137 @@ def phase_stem_kernels(device):
 
 
 # ---------------------------------------------------------------------------
+def _held(what, got, want, mag, ulp_rel):
+    """max |got - want| and its largest share of the bar ``CONV_SUM_REL *
+    mag + ulp_rel * max(|got|, |want|)``; raises past the bar."""
+    got, want = got.float(), want.float()
+    err = (got - want).abs()
+    bar = CONV_SUM_REL * mag + ulp_rel * torch.maximum(got.abs(), want.abs())
+    share = (err / bar.clamp_min(1e-30)).max().item()
+    if not share <= 1.0:
+        raise AssertionError(f"{what}: kernel and plain version differ by "
+                             f"{share:.3f} of the bar")
+    return err.max().item(), share
+
+
+def conv_site_inputs(shape, device):
+    """bf16 channels-last x and g, a He-scaled bf16 weight and folded BN
+    terms at a stride-1 conv site (C -> C)."""
+    b, c, h, w = shape
+    x = stem_input(shape, device, seed=c)
+    g = stem_input(shape, device, seed=c + 1)
+    gen = torch.Generator(device=device).manual_seed(c + 2)
+    k = (torch.randn((c, c, 3, 3), generator=gen, device=device)
+         * math.sqrt(2.0 / (9 * c))).to(torch.bfloat16)
+    scale = 1.0 + 0.2 * torch.randn(c, generator=gen, device=device)
+    shift = 0.2 * torch.randn(c, generator=gen, device=device)
+    return x, g, k, scale, shift
+
+
+def check_conv_site(name, x, g, k, scale, shift, prologue):
+    """K4f/K4d/K4w against their plain versions, and two calls bit-equal.
+    Returns the largest |err| and bar share of each kernel."""
+    s, t = (scale, shift) if prologue else (None, None)
+    runs = [(conv_fused.conv3x3_bn_relu_fwd(x, k, s, t),
+             conv_fused.conv3x3_bn_relu_dgrad(g, k, x, s, t),
+             conv_fused.conv3x3_bn_relu_wgrad(x, g, s, t)) for _ in range(2)]
+    torch.cuda.synchronize()
+    (y, (dx, ds, dt), dk), (y2, d2, dk2) = runs
+    if not (torch.equal(y, y2) and torch.equal(dk, dk2)
+            and all(torch.equal(a, b) for a, b in zip((dx, ds, dt), d2))):
+        raise AssertionError(f"[K4 {name}] two calls gave different bits")
+    del runs, y2, d2, dk2
+    xn = conv_fused._prologue(x, scale, shift) if prologue else x
+    kf = k.float()
+    errs = {}
+    mag = F.conv2d(xn.float().abs(), kf.abs(), padding=1)
+    errs["fwd"] = _held(f"[K4f {name}] y", y, conv_fused.conv3x3_bn_relu_reference(
+        x, k, s, t), mag, BF16_ULP_REL)
+    del mag, y
+    dx_p, ds_p, dt_p = conv_fused.conv3x3_dgrad_reference(g, k, x, s, t, prologue)
+    mag = torch.nn.grad.conv2d_input(tuple(x.shape), kf.abs(), g.float().abs(), padding=1)
+    if prologue:
+        mag = mag * scale.abs().view(1, -1, 1, 1)
+    e_dx = _held(f"[K4d {name}] dx", dx, dx_p, mag, BF16_ULP_REL)
+    del mag, dx, dx_p
+    e_red = (0.0, 0.0)
+    if prologue:
+        xf = x.float()
+        da = torch.nn.grad.conv2d_input(tuple(x.shape), kf, g.float(), padding=1)
+        da = torch.where(xf * scale.view(1, -1, 1, 1) + shift.view(1, -1, 1, 1) > 0,
+                         da, 0.0)
+        e_s = _held(f"[K4d {name}] dscale", ds, ds_p, (da * xf).abs().sum((0, 2, 3)), 0.0)
+        e_t = _held(f"[K4d {name}] dshift", dt, dt_p, da.abs().sum((0, 2, 3)), 0.0)
+        e_red = (max(e_s[0], e_t[0]), max(e_s[1], e_t[1]))
+        del da, xf
+    elif ds.any() or dt.any():
+        raise AssertionError(f"[K4d {name}] dscale/dshift without a prologue")
+    errs["dgrad"] = (max(e_dx[0], e_red[0]), max(e_dx[1], e_red[1]))
+    mag = torch.nn.grad.conv2d_weight(xn.float().abs(), tuple(k.shape), g.float().abs(),
+                                      padding=1)
+    errs["wgrad"] = _held(f"[K4w {name}] dk", dk, conv_fused.conv3x3_wgrad_reference(
+        x, g, s, t, prologue), mag, 0.0)
+    return errs
+
+
+def phase_conv_kernels(device):
+    """K4f, K4d and K4w at the three stride-1 conv sites, with and without
+    the prologue, against their plain versions; CUDA-event times of kernel,
+    plain version and cuDNN alone (on the pre-normalised tensor), bounds."""
+    out = {"conv3x3_bn_relu_fwd": {}, "conv3x3_bn_relu_dgrad": {},
+           "conv3x3_bn_relu_wgrad": {}}
+    for name, shape in CONV_SITES:
+        b, c, h, w = shape
+        x, g, k, scale, shift = conv_site_inputs(shape, device)
+        errs = {pro: check_conv_site(name, x, g, k, scale, shift, pro)
+                for pro in (True, False)}
+        xn = conv_fused._prologue(x, scale, shift)
+        n = x.numel()
+        n_ops = 2 * b * h * w * 9 * c * c
+        fwd = dict(
+            ms=median_ms(lambda: conv_fused.conv3x3_bn_relu_fwd(x, k, scale, shift), 10),
+            ms_bare=median_ms(lambda: conv_fused.conv3x3_bn_relu_fwd(x, k), 10),
+            plain_ms=median_ms(lambda: conv_fused.conv3x3_bn_relu_reference(
+                x, k, scale, shift), 10),
+            library_ms=median_ms(lambda: F.conv2d(xn, k, padding=1), 10))
+        fwd["bound_ms"], fwd["bound_by"] = bound(
+            2 * n + 2 * n + 2 * k.numel() + 2 * c * 4, n_ops, BF16_TENSOR_OPS_PER_S)
+        dgrad = dict(
+            ms=median_ms(lambda: conv_fused.conv3x3_bn_relu_dgrad(g, k, x, scale, shift), 10),
+            ms_bare=median_ms(lambda: conv_fused.conv3x3_bn_relu_dgrad(g, k, x), 10),
+            plain_ms=median_ms(lambda: conv_fused.conv3x3_dgrad_reference(
+                g, k, x, scale, shift, True), 5, warmup=1),
+            library_ms=median_ms(lambda: torch.nn.grad.conv2d_input(
+                tuple(x.shape), k, g, padding=1), 10))
+        dgrad["bound_ms"], dgrad["bound_by"] = bound(
+            3 * 2 * n + 2 * k.numel() + 4 * c * 4, n_ops, BF16_TENSOR_OPS_PER_S)
+        wgrad = dict(
+            ms=median_ms(lambda: conv_fused.conv3x3_bn_relu_wgrad(x, g, scale, shift), 10),
+            ms_bare=median_ms(lambda: conv_fused.conv3x3_bn_relu_wgrad(x, g), 10),
+            plain_ms=median_ms(lambda: conv_fused.conv3x3_wgrad_reference(
+                x, g, scale, shift, True), 5, warmup=1),
+            library_ms=median_ms(lambda: torch.nn.grad.conv2d_weight(
+                xn, tuple(k.shape), g, padding=1), 10))
+        wgrad["bound_ms"], wgrad["bound_by"] = bound(
+            2 * 2 * n + 4 * k.numel() + 2 * c * 4, n_ops, BF16_TENSOR_OPS_PER_S)
+        for key, rec in (("fwd", fwd), ("dgrad", dgrad), ("wgrad", wgrad)):
+            rec["max_abs_err"] = max(errs[True][key][0], errs[False][key][0])
+            rec["bar_share"] = max(errs[True][key][1], errs[False][key][1])
+            rec["shape"] = list(shape)
+            out[f"conv3x3_bn_relu_{key}"][name] = rec
+            say(f"[K4{key[0]} {name}] conv3x3_bn_relu_{key} bf16 {list(shape)} -> "
+                f"{c} channels: two calls bit-equal; vs plain max|err| "
+                f"{rec['max_abs_err']:.3e}, {rec['bar_share']:.3f} of the bar; kernel "
+                f"{rec['ms']:.4f} ms with the prologue, {rec['ms_bare']:.4f} ms "
+                f"without; plain {rec['plain_ms']:.4f} ms; cuDNN alone on the "
+                f"pre-normalised tensor {rec['library_ms']:.4f} ms; bound "
+                f"{rec['bound_ms']:.4f} ms by {rec['bound_by']} "
+                f"({n_ops / rec['ms'] / 1e9:.1f} TFLOP/s)")
+        del x, g, k, xn
+    return out
+
+
+# ---------------------------------------------------------------------------
 def phase_fused_serve(device, stock):
     """The serve phase's weights with ``pool_impl="pallas"``: the same
     requests and labelled eval_step through K3f, equal to the stock stem."""
@@ -751,6 +930,51 @@ def phase_fused_serve(device, stock):
     return counts
 
 
+def phase_fully_fused_serve(device, stock):
+    """The serve phase's weights with all three stem switches: the same
+    requests and labelled eval_step through K4f and K3f; the kernels sum in
+    another order than cuDNN, so the logits are held to the stock ones by
+    frame argmax."""
+    cfg = dataclasses.replace(ModelConfig(), **FULLY_FUSED)
+    model = build_model(cfg, device=device)
+    model.load_state_dict(stock["model"].state_dict(), strict=True)
+    n_steps = math.ceil(N_IMAGES / BATCH) + 1
+    reset_counts()
+    texts = transcribe(model, stock["images"], stock["converter"], BATCH)
+    out = eval_step(model, stock["test_batch"])
+    torch.cuda.synchronize()
+    counts = read_counts()
+    want = {**dict.fromkeys(COUNTERS, 0),
+            **{k: n * n_steps for k, n in per_eval_launches(FULLY_FUSED).items()}}
+    if counts != want:
+        raise AssertionError(f"fully fused serving launched {counts} for {n_steps} "
+                             f"eval_step calls; expected {want}")
+    logits, ref = out["logits"], stock["logits"]
+    if tuple(logits.shape) != tuple(ref.shape) or not torch.isfinite(logits).all():
+        raise AssertionError(f"fully fused logits {tuple(logits.shape)}, finite "
+                             f"{bool(torch.isfinite(logits).all())}")
+    dmax = (logits - ref).abs().max().item()
+    agree = (logits.argmax(-1) == ref.argmax(-1)).float().mean().item()
+    same_texts = sum(a == b for a, b in zip(texts, stock["texts"]))
+    say(f"[fully fused serve] {FULLY_FUSED}: launches {counts} for {n_steps} "
+        f"eval_step calls; vs the stock stem's bf16 logits: max |dlogits| "
+        f"{dmax:.4f}, frame argmax agreement {agree:.4%} (floor "
+        f"{MIN_ARGMAX_AGREEMENT:.0%}); {same_texts} of {len(texts)} texts equal")
+    if agree < MIN_ARGMAX_AGREEMENT:
+        raise AssertionError(f"fully fused argmax agreement {agree:.4%} below "
+                             f"{MIN_ARGMAX_AGREEMENT:.0%}")
+    x_batch = stock["x_batch"]
+    stock_ms = median_ms(lambda: eval_step(stock["model"], x_batch), 10)
+    fused_ms = median_ms(lambda: eval_step(model, x_batch), 10)
+    fused_ms2 = median_ms(lambda: eval_step(model, x_batch), 10)
+    stock_ms2 = median_ms(lambda: eval_step(stock["model"], x_batch), 10)
+    say(f"[fully fused serve] eval_step stock {stock_ms:.3f} / {stock_ms2:.3f} ms, "
+        f"fully fused {fused_ms:.3f} / {fused_ms2:.3f} ms (stock, fused, fused, "
+        "stock)")
+    return counts, dict(max_dlogits=dmax, argmax_agreement=agree,
+                        eval_ms=(fused_ms, fused_ms2), stock_ms=(stock_ms, stock_ms2))
+
+
 # ---------------------------------------------------------------------------
 def main():
     smi_line = phase_device()
@@ -758,14 +982,19 @@ def main():
     build_s = phase_build()
     kernels = phase_kernels(device)
     stem = phase_stem_kernels(device)
+    conv = phase_conv_kernels(device)
     serve_launches, stock = phase_serve(device)
     fused_serve = phase_fused_serve(device, stock)
+    full_serve, full_serve_rec = phase_fully_fused_serve(device, stock)
     del stock
     train_launches, train = phase_train(device)
-    fused_train, fused = phase_train(device, FUSED, train["first_loss"])
+    fused_train, fused = phase_train(device, FUSED, train["first_loss"],
+                                     "fused train")
+    full_train, full = phase_train(device, FULLY_FUSED, train["first_loss"],
+                                   "fully fused train")
     say(f"[done] build {build_s:.2f} s; {smi_line}")
-    main_path = {k: fused_serve[k] + fused_train[k] + train_launches[k]
-                 for k in COUNTERS}
+    main_path = {k: fused_serve[k] + full_serve[k] + fused_train[k] + full_train[k]
+                 + train_launches[k] for k in COUNTERS}
     main_path["ctc_alpha"] += serve_launches
     k193, k17 = kernels["S193"], kernels["S17"]
     entry = stem["bn_stats"]["entry"]
@@ -819,9 +1048,35 @@ def main():
         "shape": "bf16 x [128, 192, 32, 512] channels-last",
         **({"stock_ms": stem[name]["stock_ms"]} if "stock_ms" in stem[name] else {}),
     } for name, line in (("pool_bn_relu_fwd", 62), ("pool_bn_relu_bwd", 72))]
-    say(json.dumps({"kernels": ctc + stem_lines, "train_ms": train["ms"],
-                    "fused_train_ms": fused["ms"], "train_peak": train["peak"],
-                    "fused_train_peak": fused["peak"]}))
+    conv_lines = [{
+        "name": name,
+        "route": "cuda",
+        "source": "htr_vt_torch/csrc/conv_fused.cu",
+        "replaces": f"htr_vt_tpu/ops/conv_fused.py:{line}",
+        "launches": main_path[name],
+        "max_abs_err": max(v["max_abs_err"] for v in conv[name].values()),
+        "ms": conv[name]["stage1"]["ms"],
+        "plain_ms": conv[name]["stage1"]["plain_ms"],
+        "bound_ms": conv[name]["stage1"]["bound_ms"],
+        "bound_by": conv[name]["stage1"]["bound_by"],
+        "library_ms": conv[name]["stage1"]["library_ms"],
+        "library": library + " alone on the pre-normalised bf16 tensor (cuDNN)",
+        "shape": "bf16 [128, 192, 8, 512] channels-last, 192 -> 192, with the "
+                 "prologue (stage 1)",
+        "sites": conv[name],
+    } for name, line, library in (
+        ("conv3x3_bn_relu_fwd", 82, "F.conv2d"),
+        ("conv3x3_bn_relu_dgrad", 230, "torch.nn.grad.conv2d_input"),
+        ("conv3x3_bn_relu_wgrad", 286, "torch.nn.grad.conv2d_weight"))]
+    say(json.dumps({"kernels": ctc + stem_lines + conv_lines,
+                    "train_ms": train["ms"], "fused_train_ms": fused["ms"],
+                    "fully_fused_train_ms": full["ms"], "train_peak": train["peak"],
+                    "fused_train_peak": fused["peak"],
+                    "fully_fused_train_peak": full["peak"],
+                    "fully_fused_first_loss": full["first_loss"],
+                    "stock_first_loss": train["first_loss"],
+                    "conv_grad_copies": full["conv_grad_copies"],
+                    "fully_fused_serve": full_serve_rec}))
     say(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

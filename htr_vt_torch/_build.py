@@ -95,9 +95,17 @@ def library() -> ctypes.CDLL:
     lib.htrvt_bn_stats.argtypes = [ptr] * 4 + [i64] + [i32] * 3 + [ptr]
     lib.htrvt_pool_bn_relu_fwd.argtypes = [ptr] * 4 + [i32] * 5 + [ptr]
     lib.htrvt_pool_bn_relu_bwd.argtypes = [ptr] * 8 + [i32] * 6 + [ptr]
+    lib.htrvt_conv3x3_fwd.argtypes = [ptr] * 5 + [i32] * 7 + [ptr]
+    lib.htrvt_conv3x3_dgrad.argtypes = [ptr] * 9 + [i32] * 7 + [ptr]
+    lib.htrvt_conv3x3_wgrad.argtypes = [ptr] * 6 + [i32] * 8 + [ptr]
     for fn in (lib.htrvt_bn_stats, lib.htrvt_pool_bn_relu_fwd,
-               lib.htrvt_pool_bn_relu_bwd):
+               lib.htrvt_pool_bn_relu_bwd, lib.htrvt_conv3x3_fwd,
+               lib.htrvt_conv3x3_dgrad, lib.htrvt_conv3x3_wgrad):
         fn.restype = i32
+    lib.htrvt_conv3x3_dgrad_rows.argtypes = [i64, i32]
+    lib.htrvt_conv3x3_dgrad_rows.restype = i64
+    lib.htrvt_conv3x3_wgrad_splits.argtypes = [i64, i32, i32, i32]
+    lib.htrvt_conv3x3_wgrad_splits.restype = i32
     lib.htrvt_cuda_error_string.argtypes = [i32]
     lib.htrvt_cuda_error_string.restype = ctypes.c_char_p
     return lib

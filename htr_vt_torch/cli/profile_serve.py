@@ -3,15 +3,16 @@ times and the device time by kernel category.
 
     python -m htr_vt_torch.cli.profile_serve [--train] [--batch-size 128]
         [--steps 5] [--trace trace.json] [--bn-stats-impl pallas]
-        [--pool-impl pallas]
+        [--pool-impl pallas] [--conv-impl pallas]
 
 Runs the flagship ``ModelConfig()`` (bf16, seeded random weights) on one
 CUDA device. Serving (default) profiles ``eval_step`` with the serving
 step's dummy labels; ``--train`` profiles the SAM ``train_step`` with the
 IAM recipe's span masking (ratio 0.4, max span 8) and labels of length
-1-96 (S = 193). ``--bn-stats-impl`` and ``--pool-impl`` set the stem's
-kernel switches (``ModelConfig.bn_stats_impl``, ``pool_impl``): both
-``pallas`` is the fused-stem configuration.
+1-96 (S = 193). ``--bn-stats-impl``, ``--pool-impl`` and ``--conv-impl``
+set the stem's kernel switches (``ModelConfig.bn_stats_impl``,
+``pool_impl``, ``conv_impl``): the first two ``pallas`` is the fused-stem
+configuration, all three the fully fused one.
 
 - per-layer medians by CUDA events: serving, the stem, the ViT blocks, the
   whole forward and ``eval_step``; training, one masked train-mode forward
@@ -54,6 +55,9 @@ CATEGORIES = (
     ("ctc_beta kernel", ("ctc_beta",)),
     ("bn_stats kernel (K2)", ("bn_stats_partial",)),
     ("pool_bn_relu kernels (K3f, K3b)", ("pool_fwd_kernel", "pool_bwd_kernel")),
+    ("conv3x3 kernels (K4f, K4d, K4w)", ("conv_mma_kernel", "wgrad_mma_kernel",
+                                         "conv_f32_kernel", "wgrad_f32_kernel",
+                                         "sum_splits")),
     ("stem kernels' partial sums", ("sum_partials",)),
     ("convolutions (cuDNN)", ("conv", "fprop", "dgrad", "wgrad", "implicit")),
     ("GEMMs (cuBLAS)", ("gemm", "nvjet", "cutlass", "cublas")),
@@ -93,7 +97,7 @@ def _device_us(row) -> float:
 
 def _stem_switches(cfg: ModelConfig, args) -> ModelConfig:
     return dataclasses.replace(cfg, bn_stats_impl=args.bn_stats_impl,
-                               pool_impl=args.pool_impl)
+                               pool_impl=args.pool_impl, conv_impl=args.conv_impl)
 
 
 def _serve_case(args, device):
@@ -179,6 +183,8 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict:
                    help="the stem's BN statistics: pallas = the K2 kernel")
     p.add_argument("--pool-impl", default="auto", choices=("auto", "xla", "pallas"),
                    help="the stem's entry BN+ReLU+max-pool: pallas = K3f/K3b")
+    p.add_argument("--conv-impl", default="auto", choices=("auto", "xla", "pallas"),
+                   help="the stem's stride-1 3x3 convs: pallas = K4f/K4d/K4w")
     args = p.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("profile_serve: needs a CUDA device")
@@ -219,7 +225,8 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict:
         by_cat[category(name)] = by_cat.get(category(name), 0.0) + ms
     busy = sum(by_cat.values())
     print(f"[profile] {args.steps} {what}s at bs {b} (bn_stats_impl="
-          f"{args.bn_stats_impl}, pool_impl={args.pool_impl}): kernels {busy:.3f} "
+          f"{args.bn_stats_impl}, pool_impl={args.pool_impl}, conv_impl="
+          f"{args.conv_impl}): kernels {busy:.3f} "
           f"ms/step of a {span_ms:.3f} ms span (device busy {busy / span_ms:.1%})")
     for label, ms in sorted(by_cat.items(), key=lambda kv: -kv[1]):
         print(f"[profile] {label:28s} {ms:9.3f} ms/step {ms / busy:6.1%}")
@@ -227,6 +234,7 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict:
         print(f"[kernel] {ms:8.3f} ms/step  {category(name):28s} {name[:110]}")
     summary = {"device": smi.splitlines()[0], "step": what, "batch": b,
                "bn_stats_impl": args.bn_stats_impl, "pool_impl": args.pool_impl,
+               "conv_impl": args.conv_impl,
                "layers_ms": layers,
                "span_ms": span_ms, "kernel_ms": busy,
                "categories_ms": dict(sorted(by_cat.items(), key=lambda kv: -kv[1]))}

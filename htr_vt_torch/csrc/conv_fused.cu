@@ -1,0 +1,1006 @@
+// 3x3 convolution (stride 1, zero padding 1) with a fused BatchNorm-apply
+// + ReLU prologue, and its two gradients, for Hopper, sm_90a.
+//
+// Replaces the Pallas TPU kernels htr_vt_tpu/ops/conv_fused.py:
+// _conv_kernel (:82-127, K4f), _dgrad_kernel (:230-283, K4d) and
+// _wgrad_kernel (:286-322, K4w). The plain PyTorch versions with the same
+// inputs and outputs are htr_vt_torch/ops/conv_fused.py:
+// conv3x3_bn_relu_reference, conv3x3_dgrad_reference and
+// conv3x3_wgrad_reference.
+//
+// Layout: activations [B, H, W, C] (channels-last NCHW tensors), bf16 or
+// float32; C % 8 == 0 for every channel count; scale, shift [Cin] float32
+// (the folded BN terms). With the prologue on:
+//
+//   xn  = pad0(T(max(x * scale + shift, 0)))       T = the element type
+//   y   = conv3x3(xn, k)                          (K4f, f32 sums -> T)
+//   da  = conv3x3(pad0(g), krot)                  (K4d, float32)
+//   da' = da where x * scale + shift > 0, else 0  (strict: 0 at a tie)
+//   dx  = T(da' * scale), dscale = sum da' * x, dshift = sum da'
+//   dk[tap, ci, co] = sum_p xn[p + tap] * g[p]    (K4w, float32)
+//
+// The pad is applied after the prologue, so halo taps read 0, not
+// relu(shift). x * scale + shift and da' * scale round like the plain
+// versions (__fmul_rn / __fadd_rn, no FMA contraction). Without the
+// prologue xn = x, da' = da and no dscale/dshift are made.
+//
+// What bounds them on this card: operations. Every stride-1 site of the
+// flagship stem at bs 128 does 2 * B*H*W * 9 * C^2 = 347.9 GFLOP per call,
+// 0.352 ms at the H100's 989 TFLOP/s (bf16 dense); the bytes (at most
+// 403 MB at stage 1, 0.120 ms at 3.35 TB/s) are fewer.
+//
+// Design. Each kernel is an implicit GEMM that never builds the im2col
+// matrix or the normalised tensor in memory: the tile loader computes the
+// shifted pixel of each 8-channel vector and copies it (16 bytes of bf16)
+// with cp.async into a ring of four shared-memory stages, three K steps
+// ahead, zero-filling the halo. With the prologue, the thread that copied
+// a vector rewrites it in place (x * scale + shift, bf16, ReLU) one step
+// before it is used, after its own products of the step before, so the
+// rewrite overlaps other warps' products; the pad stays 0. bf16 runs on
+// the tensor cores with mma.sync m16n8k16 (float32 accumulate) fed by
+// ldmatrix from padded, bank-conflict-free tiles of 128 x 192 x 64: 192
+// columns cover a flagship stage's width in whole tiles, and the prologue
+// is redone once per column tile, so wide tiles keep its share small.
+// float32 runs a 64 x 64 FFMA tile (no TF32).
+//   K4f and K4d: M = B*H*W pixels, N = the output channels, K = 9 taps x
+//   the input channels, walked tap by tap within each 64-channel chunk.
+//   K4d is K4f over g with the rotated kernel, plus an epilogue that reads
+//   x for the strict ReLU mask, writes dx and reduces da' * x and da' per
+//   block; the block partials are added in a fixed order
+//   (stem_common.cuh:sum_partials).
+//   K4w: M = 9 * Cin (tap, input channel), N = Cout, K = B*H*W pixels,
+//   which at stage 1 is 524,288 deep for 1728 x 192 outputs: split-K over
+//   pixels, each split writes its own float32 dk, and a second pass adds
+//   the splits in order.
+// The TPU kernels carried dscale/dshift and dk across a sequential batch
+// grid; here nothing uses atomics, so two calls give equal bits.
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+#include "stem_common.cuh"
+
+namespace {
+
+using bf16 = __nv_bfloat16;
+using stem::kVec;
+
+constexpr int kThreads = 256;
+
+// bf16 tensor-core tiles: 8 warps, 4 along M x 2 along N, 32 x 96 each.
+// 192 columns cover a flagship stage's width (192, 384, 768) in whole
+// tiles, and one A tile with its prologue serves 192 output channels.
+constexpr int kBM = 128, kBN = 192, kBK = 64;
+constexpr int kWN = kBN / 2;    // a warp's columns
+constexpr int kNT = kWN / 8;    // its m16n8 tiles along N
+constexpr int kKV = kBK / 8;    // 8-channel vectors in a K step of a row
+constexpr int kRS = kThreads / kKV;        // rows a pass of the threads copies
+constexpr int kAV = kBM / kRS;             // A vectors a thread copies a step
+constexpr int kBV = kBN / kRS;             // B vectors a thread copies a step
+constexpr int kWAV = kBK * (kBM / 8) / kThreads;  // K4w's A vectors a step
+constexpr int kWBV = kBK * (kBN / 8) / kThreads;  // K4w's B vectors a step
+constexpr int kPadK = kBK + 8;  // row pitch of [rows][K] tiles (144 bytes)
+constexpr int kPadM = kBM + 8;  // row pitch of K4w's [K][M] tile (272 bytes)
+constexpr int kPadN = kBN + 8;  // row pitch of K4w's [K][N] tile (400 bytes)
+
+// The cp.async ring of the bf16 kernels: bytes of one stage's A tile, and
+// of the whole ring (dynamic shared memory, over the 48 KB default).
+constexpr int kStages = 4;
+constexpr size_t kConvStageA = sizeof(bf16) * kBM * kPadK;
+constexpr size_t kConvSmem = kStages * sizeof(bf16) * (kBM + kBN) * kPadK;
+constexpr size_t kWgradStageA = sizeof(bf16) * kBK * kPadM;
+constexpr size_t kWgradSmem = kStages * sizeof(bf16) * kBK * (kPadM + kPadN);
+
+// float32 FFMA tiles: 16 x 16 threads, 4 x 4 outputs each.
+constexpr int kFM = 64, kFN = 64, kFK = 16;
+
+// --- small helpers ---------------------------------------------------------
+__device__ __forceinline__ void ldsm_x4(uint32_t r[4], const void* p) {
+  const uint32_t a = static_cast<uint32_t>(__cvta_generic_to_shared(p));
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(a));
+}
+
+__device__ __forceinline__ void ldsm_x4_trans(uint32_t r[4], const void* p) {
+  const uint32_t a = static_cast<uint32_t>(__cvta_generic_to_shared(p));
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(a));
+}
+
+// c += a * b for a 16x16 bf16 A fragment and a 16x8 B fragment.
+__device__ __forceinline__ void mma_bf16(float c[4], const uint32_t a[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ float2 load2(const float* p) {
+  return *reinterpret_cast<const float2*>(p);
+}
+__device__ __forceinline__ float2 load2(const bf16* p) {
+  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
+}
+// Rounds to the element type (nearest even).
+__device__ __forceinline__ void store2(float* p, float a, float b) {
+  *reinterpret_cast<float2*>(p) = make_float2(a, b);
+}
+__device__ __forceinline__ void store2(bf16* p, float a, float b) {
+  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
+}
+
+// 16 bytes global -> shared, asynchronously; zero-filled when !valid (src
+// then is any readable address and no byte of it is read).
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool valid) {
+  const uint32_t d = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+               :: "r"(d), "l"(src), "r"(valid ? 16 : 0) : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int kPending>
+__device__ __forceinline__ void cp_async_wait() {
+  // "memory": the prologue's plain loads of the copied bytes stay after it
+  asm volatile("cp.async.wait_group %0;\n" :: "n"(kPending) : "memory");
+}
+
+// The prologue of 8 channels of a bf16 vector in shared memory, in place:
+// x * scale + shift rounded twice in float32 (as stem::bn_relu), rounded to
+// bf16 two at a time, and the ReLU as a mask of the sign bits (a negative
+// value or -0 becomes +0).
+__device__ __forceinline__ void prologue_smem(bf16* p, const float sc[kVec],
+                                              const float sh[kVec]) {
+  uint4 raw = *reinterpret_cast<const uint4*>(p);
+  uint32_t* w = reinterpret_cast<uint32_t*>(&raw);
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    const float2 f = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&w[j]));
+    const __nv_bfloat162 r =
+        __floats2bfloat162_rn(__fadd_rn(__fmul_rn(f.x, sc[2 * j]), sh[2 * j]),
+                              __fadd_rn(__fmul_rn(f.y, sc[2 * j + 1]), sh[2 * j + 1]));
+    const uint32_t u = *reinterpret_cast<const uint32_t*>(&r);
+    w[j] = u & ~(((u >> 15) & 0x00010001u) * 0xFFFFu);
+  }
+  *reinterpret_cast<uint4*>(p) = raw;
+}
+
+// Epilogue of two neighbouring output channels (col, col + 1) of one pixel:
+// the forward stores T(v); the dgrad epilogue (kBwd) masks by the strict
+// ReLU of x * scale + shift, stores T(da' * scale) and adds da' * x and da'
+// to the thread's sums.
+template <typename T, bool kBwd>
+__device__ __forceinline__ void epilogue_pair(float v0, float v1, long long off,
+                                              int col, const T* __restrict__ ex,
+                                              const float* __restrict__ esc,
+                                              const float* __restrict__ esh,
+                                              T* __restrict__ out, float ds[2],
+                                              float dt[2]) {
+  if (kBwd) {
+    const float2 xv = load2(ex + off);
+    const float s0 = esc[col], s1 = esc[col + 1];
+    const float a0 = __fadd_rn(__fmul_rn(xv.x, s0), esh[col]);
+    const float a1 = __fadd_rn(__fmul_rn(xv.y, s1), esh[col + 1]);
+    const float d0 = a0 > 0.f ? v0 : 0.f;
+    const float d1 = a1 > 0.f ? v1 : 0.f;
+    ds[0] += d0 * xv.x;
+    ds[1] += d1 * xv.y;
+    dt[0] += d0;
+    dt[1] += d1;
+    v0 = __fmul_rn(d0, s0);
+    v1 = __fmul_rn(d1, s1);
+  }
+  store2(out + off, v0, v1);
+}
+
+// --- K4f / K4d, bf16 on the tensor cores -----------------------------------
+// The warp tile's products of one K step from the [rows][K] tiles As (M)
+// and Bs (N): 2 x kNT mma.sync m16n8k16 per 16 of K.
+__device__ __forceinline__ void mma_tile_rows(float acc[2][kNT][4], bf16 (*As)[kPadK],
+                                              bf16 (*Bs)[kPadK], int wm, int wn,
+                                              int lane) {
+#pragma unroll
+  for (int kk = 0; kk < kBK; kk += 16) {
+    uint32_t af[2][4], bfr[kNT / 2][4];
+#pragma unroll
+    for (int mt = 0; mt < 2; ++mt) {
+      ldsm_x4(af[mt], &As[wm * 32 + mt * 16 + (lane & 15)][kk + (lane >> 4) * 8]);
+    }
+#pragma unroll
+    for (int np = 0; np < kNT / 2; ++np) {
+      ldsm_x4(bfr[np], &Bs[wn * kWN + np * 16 + (lane & 7) + ((lane >> 4) << 3)]
+                          [kk + ((lane >> 3) & 1) * 8]);
+    }
+#pragma unroll
+    for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+      for (int nt = 0; nt < kNT; ++nt)
+        mma_bf16(acc[mt][nt], af[mt], bfr[nt >> 1][(nt & 1) * 2],
+                 bfr[nt >> 1][(nt & 1) * 2 + 1]);
+  }
+}
+
+// out[p, n] = sum_{tap, c} A(p, tap, c) * wb[tap, n, c], where A is act
+// [P, C] at the pixel p shifted by the tap (zero outside the image), with
+// the prologue (psc, psh) applied when kPro. kBwd: the dgrad epilogue over
+// ex/esc/esh [., N], writing partial[blockIdx.x, 0:2N] (dscale, dshift).
+// K steps walk the 9 taps of one 64-channel chunk, then the next chunk.
+// Tiles arrive by cp.async in a ring of kStages buffers, kStages - 1 steps
+// ahead; with the prologue, each thread rewrites the vectors it copied
+// (those inside the image: the pad stays 0) before the step's barrier.
+template <bool kPro, bool kBwd>
+__global__ void __launch_bounds__(kThreads, 1)
+conv_mma_kernel(const bf16* __restrict__ act, const bf16* __restrict__ wb,
+                const float* __restrict__ psc, const float* __restrict__ psh,
+                const bf16* __restrict__ ex, const float* __restrict__ esc,
+                const float* __restrict__ esh, bf16* __restrict__ out,
+                float* __restrict__ partial, int H, int W, int C, int N,
+                long long P) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  auto As = reinterpret_cast<bf16 (*)[kBM][kPadK]>(smem);
+  auto Bs = reinterpret_cast<bf16 (*)[kBN][kPadK]>(smem + kConvStageA * kStages);
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int wm = warp & 3, wn = warp >> 2;
+  const long long m0 = static_cast<long long>(blockIdx.x) * kBM;
+  const int n0 = blockIdx.y * kBN;
+  const int kv = tid % kKV;  // this thread's 8-channel group of a K step
+  const int row0 = tid / kKV;
+
+  // The A rows this thread copies are row0 + kRS i, at a_row0 + kRS C i
+  // in act; bit t of a_taps[i] says that tap t of row i's pixel lies inside
+  // the image (none for a row past the last pixel). The B rows are row0 +
+  // kRS j < b_rows, at b_row0 + kRS C j in a tap's [N, C] slab of wb.
+  const bf16* a_row0 = act + (m0 + row0) * C + kv * kVec;
+  unsigned a_taps[kAV];
+#pragma unroll
+  for (int i = 0; i < kAV; ++i) {
+    const long long p = m0 + row0 + i * kRS;
+    const int w = static_cast<int>(p % W), h = static_cast<int>((p / W) % H);
+    unsigned taps = 0;
+#pragma unroll
+    for (int t = 0; t < 9; ++t) {
+      const int hh = h + t / 3 - 1, ww = w + t % 3 - 1;
+      if (hh >= 0 && hh < H && ww >= 0 && ww < W) taps |= 1u << t;
+    }
+    a_taps[i] = p < P ? taps : 0u;
+  }
+  const bf16* b_row0 = wb + static_cast<long long>(n0 + row0) * C + kv * kVec;
+  const int b_rows = (N - n0 - row0 + kRS - 1) / kRS;
+  const long long row_step = static_cast<long long>(kRS) * C;
+  const int steps = 9 * ((C + kBK - 1) / kBK);
+  unsigned inside = 0;  // bit kAV * stage + i: A vector i of that stage is real
+
+  auto load = [&](int s, int stage) {
+    const int chunk = s / 9, tap = s - chunk * 9;
+    const int c0 = chunk * kBK;
+    const bool c_ok = c0 + kv * kVec < C;
+    const long long a_off = static_cast<long long>((tap / 3 - 1) * W + tap % 3 - 1) * C + c0;
+#pragma unroll
+    for (int i = 0; i < kAV; ++i) {
+      const bool ok = c_ok && (a_taps[i] >> tap & 1u);
+      cp_async16(&As[stage][row0 + i * kRS][kv * kVec],
+                 ok ? a_row0 + i * row_step + a_off : act, ok);
+      const unsigned bit = 1u << (kAV * stage + i);
+      inside = ok ? inside | bit : inside & ~bit;
+    }
+    const long long b_off = static_cast<long long>(tap) * N * C + c0;
+#pragma unroll
+    for (int j = 0; j < kBV; ++j) {
+      const bool okb = c_ok && j < b_rows;
+      cp_async16(&Bs[stage][row0 + kRS * j][kv * kVec],
+                 okb ? b_row0 + j * row_step + b_off : wb, okb);
+    }
+  };
+
+  float acc[2][kNT][4];
+#pragma unroll
+  for (int a = 0; a < 2; ++a)
+#pragma unroll
+    for (int b = 0; b < kNT; ++b)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) acc[a][b][c] = 0.f;
+
+  // The prologue of step s rewrites the vectors this thread copied for it
+  // (those inside the image) after the products of step s - 1, so that it
+  // overlaps other warps' products; the barrier of step s publishes it.
+  float sc[kVec], sh[kVec];
+  int sc_chunk = -1;
+  auto prologue = [&](int s) {
+    const int stage = s % kStages;
+    const int chunk = s / 9;
+    const int c = chunk * kBK + kv * kVec;
+    if (chunk != sc_chunk && c < C) {
+      sc_chunk = chunk;
+      stem::load8(psc + c, sc);
+      stem::load8(psh + c, sh);
+    }
+#pragma unroll
+    for (int i = 0; i < kAV; ++i) {
+      if (inside >> (kAV * stage + i) & 1u) {
+        prologue_smem(&As[stage][row0 + i * kRS][kv * kVec], sc, sh);
+      }
+    }
+  };
+#pragma unroll
+  for (int st = 0; st < kStages - 1; ++st) {
+    if (st < steps) load(st, st);
+    cp_async_commit();
+  }
+  if (kPro) {
+    cp_async_wait<kStages - 2>();  // step 0 has landed
+    prologue(0);
+  }
+  for (int s = 0; s < steps; ++s) {
+    const int stage = s % kStages;
+    cp_async_wait<kStages - 3>();  // steps s and s + 1 have landed
+    __syncthreads();
+    const int next = s + kStages - 1;
+    if (next < steps) load(next, next % kStages);
+    cp_async_commit();
+    mma_tile_rows(acc, As[stage], Bs[stage], wm, wn, lane);
+    if (kPro && s + 1 < steps) prologue(s + 1);
+  }
+
+  // Accumulator (m16n8) layout: c0, c1 at row g, columns 2t, 2t + 1;
+  // c2, c3 at row g + 8.
+  const int g = lane >> 2, t = lane & 3;
+  float ds[kNT][2], dt[kNT][2];
+#pragma unroll
+  for (int nt = 0; nt < kNT; ++nt) ds[nt][0] = ds[nt][1] = dt[nt][0] = dt[nt][1] = 0.f;
+#pragma unroll
+  for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+    for (int nt = 0; nt < kNT; ++nt) {
+      const int col = n0 + wn * kWN + nt * 8 + 2 * t;
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        const long long row = m0 + wm * 32 + mt * 16 + g + half * 8;
+        if (row < P && col < N) {
+          epilogue_pair<bf16, kBwd>(acc[mt][nt][2 * half], acc[mt][nt][2 * half + 1],
+                                    row * N + col, col, ex, esc, esh, out,
+                                    ds[nt], dt[nt]);
+        }
+      }
+    }
+  if (kBwd) {
+    __shared__ float red[2][4][kBN];
+#pragma unroll
+    for (int nt = 0; nt < kNT; ++nt)
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        float s = ds[nt][j], d = dt[nt][j];
+#pragma unroll
+        for (int off = 4; off < 32; off <<= 1) {  // over g, a fixed butterfly
+          s += __shfl_xor_sync(0xffffffffu, s, off);
+          d += __shfl_xor_sync(0xffffffffu, d, off);
+        }
+        if (g == 0) {
+          red[0][wm][wn * kWN + nt * 8 + 2 * t + j] = s;
+          red[1][wm][wn * kWN + nt * 8 + 2 * t + j] = d;
+        }
+      }
+    __syncthreads();
+    if (tid < kBN && n0 + tid < N) {
+      float* row = partial + static_cast<size_t>(blockIdx.x) * 2 * N;
+      row[n0 + tid] = ((red[0][0][tid] + red[0][1][tid]) + red[0][2][tid]) + red[0][3][tid];
+      row[N + n0 + tid] = ((red[1][0][tid] + red[1][1][tid]) + red[1][2][tid]) + red[1][3][tid];
+    }
+  }
+}
+
+// --- K4w, bf16 on the tensor cores -----------------------------------------
+// dk[r, n] (r = tap * Cin + ci) = sum over the pixels p of this split of
+// xn[p shifted by tap, ci] * g[p, n]; each split writes its own [9 Cin, Cout]
+// float32 slab of out. The same cp.async ring as conv_mma_kernel; a
+// thread's A vectors keep their (tap, channel) and walk the pixels, so its
+// prologue terms stay in registers and its pixel's (h, w) advance without
+// a division.
+template <bool kPro>
+__global__ void __launch_bounds__(kThreads, 1)
+wgrad_mma_kernel(const bf16* __restrict__ x, const bf16* __restrict__ gr,
+                 const float* __restrict__ scale, const float* __restrict__ shift,
+                 float* __restrict__ out, int H, int W, int Cin, int Cout,
+                 long long P, long long k_per_split) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  auto As = reinterpret_cast<bf16 (*)[kBK][kPadM]>(smem);
+  auto Bs = reinterpret_cast<bf16 (*)[kBK][kPadN]>(smem + kWgradStageA * kStages);
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int wm = warp & 3, wn = warp >> 2;
+  const int M = 9 * Cin;
+  const int m0 = blockIdx.x * kBM, n0 = blockIdx.y * kBN;
+  const long long k_begin = static_cast<long long>(blockIdx.z) * k_per_split;
+  const long long k_end = k_begin + k_per_split < P ? k_begin + k_per_split : P;
+  const int steps = static_cast<int>((k_end - k_begin + kBK - 1) / kBK);
+
+  // A: vectors tid + 256 i of the [kBK pixels][128 rows] tile, 16 per
+  // pixel; their rows r (8 channels of one tap, since Cin % 8 == 0) are
+  // fixed, their pixel moves by kBK a step.
+  const int a_mv = tid & 15;
+  const int a_r = m0 + a_mv * kVec;
+  const int a_tap = a_r / Cin;
+  const int a_ci = a_r - a_tap * Cin;
+  const int a_dh = a_tap / 3 - 1, a_dw = a_tap % 3 - 1;
+  const bool a_rok = a_r < M;
+  long long a_p[kWAV];
+  int a_h[kWAV], a_w[kWAV];
+#pragma unroll
+  for (int i = 0; i < kWAV; ++i) {
+    a_p[i] = k_begin + ((tid + i * kThreads) >> 4);
+    a_w[i] = static_cast<int>(a_p[i] % W);
+    a_h[i] = static_cast<int>((a_p[i] / W) % H);
+  }
+  // B: vectors tid + 256 j of the [kBK pixels][192 channels] tile, 24 per
+  // pixel.
+  int b_pix[kWBV], b_n[kWBV];
+  long long b_p[kWBV];
+#pragma unroll
+  for (int j = 0; j < kWBV; ++j) {
+    const int v = tid + j * kThreads;
+    b_pix[j] = v / (kBN / kVec);
+    b_n[j] = n0 + (v % (kBN / kVec)) * kVec;
+    b_p[j] = k_begin + b_pix[j];
+  }
+  unsigned inside = 0;  // bit kWAV * stage + i: A vector i of that stage is real
+
+  auto load = [&](int stage) {  // the next K step, in order
+#pragma unroll
+    for (int i = 0; i < kWAV; ++i) {
+      const int hh = a_h[i] + a_dh, ww = a_w[i] + a_dw;
+      const bool ok = a_rok && a_p[i] < k_end && hh >= 0 && hh < H && ww >= 0 && ww < W;
+      cp_async16(&As[stage][(tid + i * kThreads) >> 4][a_mv * kVec],
+                 ok ? x + (a_p[i] + a_dh * W + a_dw) * Cin + a_ci : x, ok);
+      const unsigned bit = 1u << (kWAV * stage + i);
+      inside = ok ? inside | bit : inside & ~bit;
+      a_p[i] += kBK;
+      a_w[i] += kBK;
+      while (a_w[i] >= W) {
+        a_w[i] -= W;
+        if (++a_h[i] == H) a_h[i] = 0;
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < kWBV; ++j) {
+      const bool okb = b_n[j] < Cout && b_p[j] < k_end;
+      cp_async16(&Bs[stage][b_pix[j]][b_n[j] - n0], okb ? gr + b_p[j] * Cout + b_n[j] : gr,
+                 okb);
+      b_p[j] += kBK;
+    }
+  };
+
+  float sc[kVec], sh[kVec];
+  if (kPro && a_rok) {
+    stem::load8(scale + a_ci, sc);
+    stem::load8(shift + a_ci, sh);
+  }
+  float acc[2][kNT][4];
+#pragma unroll
+  for (int a = 0; a < 2; ++a)
+#pragma unroll
+    for (int b = 0; b < kNT; ++b)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) acc[a][b][c] = 0.f;
+
+  // The prologue of a step runs after the products of the one before, as
+  // in conv_mma_kernel.
+  auto prologue = [&](int s) {
+    const int stage = s % kStages;
+#pragma unroll
+    for (int i = 0; i < kWAV; ++i) {
+      if (inside >> (kWAV * stage + i) & 1u) {
+        prologue_smem(&As[stage][(tid + i * kThreads) >> 4][a_mv * kVec], sc, sh);
+      }
+    }
+  };
+#pragma unroll
+  for (int st = 0; st < kStages - 1; ++st) {
+    if (st < steps) load(st);
+    cp_async_commit();
+  }
+  if (kPro) {
+    cp_async_wait<kStages - 2>();  // step 0 has landed
+    prologue(0);
+  }
+  for (int s = 0; s < steps; ++s) {
+    const int stage = s % kStages;
+    cp_async_wait<kStages - 3>();  // steps s and s + 1 have landed
+    __syncthreads();
+    if (s + kStages - 1 < steps) load((s + kStages - 1) % kStages);
+    cp_async_commit();
+#pragma unroll
+    for (int kk = 0; kk < kBK; kk += 16) {
+      uint32_t af[2][4], bfr[kNT / 2][4];
+#pragma unroll
+      for (int mt = 0; mt < 2; ++mt) {
+        ldsm_x4_trans(af[mt], &As[stage][kk + (lane & 7) + ((lane >> 4) << 3)]
+                                 [wm * 32 + mt * 16 + ((lane >> 3) & 1) * 8]);
+      }
+#pragma unroll
+      for (int np = 0; np < kNT / 2; ++np) {
+        ldsm_x4_trans(bfr[np], &Bs[stage][kk + (lane & 15)][wn * kWN + np * 16 + (lane >> 4) * 8]);
+      }
+#pragma unroll
+      for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+        for (int nt = 0; nt < kNT; ++nt)
+          mma_bf16(acc[mt][nt], af[mt], bfr[nt >> 1][(nt & 1) * 2],
+                   bfr[nt >> 1][(nt & 1) * 2 + 1]);
+    }
+    if (kPro && s + 1 < steps) prologue(s + 1);
+  }
+
+  float* slab = out + static_cast<size_t>(blockIdx.z) * M * Cout;
+  const int g = lane >> 2, t = lane & 3;
+#pragma unroll
+  for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+    for (int nt = 0; nt < kNT; ++nt) {
+      const int col = n0 + wn * kWN + nt * 8 + 2 * t;
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        const int r = m0 + wm * 32 + mt * 16 + g + half * 8;
+        if (r < M && col < Cout) {
+          store2(slab + static_cast<size_t>(r) * Cout + col, acc[mt][nt][2 * half],
+                 acc[mt][nt][2 * half + 1]);
+        }
+      }
+    }
+}
+
+// --- K4f / K4d / K4w, float32 FFMA -------------------------------------------
+template <bool kPro, bool kBwd>
+__global__ void __launch_bounds__(kThreads)
+conv_f32_kernel(const float* __restrict__ act, const float* __restrict__ wb,
+                const float* __restrict__ psc, const float* __restrict__ psh,
+                const float* __restrict__ ex, const float* __restrict__ esc,
+                const float* __restrict__ esh, float* __restrict__ out,
+                float* __restrict__ partial, int H, int W, int C, int N,
+                long long P) {
+  __shared__ float As[kFK][kFM + 4];
+  __shared__ float Bs[kFK][kFN + 4];
+  const int tid = threadIdx.x, ty = tid >> 4, tx = tid & 15;
+  const long long m0 = static_cast<long long>(blockIdx.x) * kFM;
+  const int n0 = blockIdx.y * kFN;
+  // Threads 0-127 load A (row tid / 2), 128-255 load B (row tid / 2 - 64);
+  // kv picks the 8-channel half of the K step.
+  const int lrow = (tid & 127) >> 1, kv = tid & 1;
+  const bool loads_a = tid < 128;
+  const long long p = m0 + lrow;
+  const int pw = static_cast<int>(p % W), ph = static_cast<int>((p / W) % H);
+  const int nkc = (C + kFK - 1) / kFK;
+  const int steps = 9 * nkc;
+
+  float acc[4][4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
+
+  for (int s = 0; s < steps; ++s) {
+    const int tap = s / nkc;
+    const int dh = tap / 3 - 1, dw = tap % 3 - 1;
+    const int c = (s - tap * nkc) * kFK + kv * kVec;
+    float v[kVec];
+#pragma unroll
+    for (int i = 0; i < kVec; ++i) v[i] = 0.f;
+    if (loads_a) {
+      const int hh = ph + dh, ww = pw + dw;
+      if (p < P && c < C && hh >= 0 && hh < H && ww >= 0 && ww < W) {
+        stem::load8(act + (p + dh * W + dw) * C + c, v);
+        if (kPro) {
+          float sc[kVec], sh[kVec];
+          stem::load8(psc + c, sc);
+          stem::load8(psh + c, sh);
+#pragma unroll
+          for (int i = 0; i < kVec; ++i) v[i] = stem::bn_relu<float>(v[i], sc[i], sh[i]);
+        }
+      }
+#pragma unroll
+      for (int i = 0; i < kVec; ++i) As[kv * kVec + i][lrow] = v[i];
+    } else {
+      const int n = n0 + lrow;
+      if (n < N && c < C) stem::load8(wb + (static_cast<long long>(tap) * N + n) * C + c, v);
+#pragma unroll
+      for (int i = 0; i < kVec; ++i) Bs[kv * kVec + i][lrow] = v[i];
+    }
+    __syncthreads();
+#pragma unroll
+    for (int k = 0; k < kFK; ++k) {
+      float a[4], b[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        a[i] = As[k][ty * 4 + i];
+        b[i] = Bs[k][tx * 4 + i];
+      }
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
+    }
+    __syncthreads();
+  }
+
+  float ds[2][2] = {{0.f, 0.f}, {0.f, 0.f}}, dt[2][2] = {{0.f, 0.f}, {0.f, 0.f}};
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const long long row = m0 + ty * 4 + i;
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+      const int col = n0 + tx * 4 + 2 * j;
+      if (row < P && col < N) {
+        epilogue_pair<float, kBwd>(acc[i][2 * j], acc[i][2 * j + 1], row * N + col, col,
+                                   ex, esc, esh, out, ds[j], dt[j]);
+      }
+    }
+  }
+  if (kBwd) {
+    __shared__ float red[2][16][kFN];
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      red[0][ty][tx * 4 + j] = ds[j >> 1][j & 1];
+      red[1][ty][tx * 4 + j] = dt[j >> 1][j & 1];
+    }
+    __syncthreads();
+    if (tid < kFN && n0 + tid < N) {
+      float s = 0.f, d = 0.f;
+      for (int y = 0; y < 16; ++y) {
+        s += red[0][y][tid];
+        d += red[1][y][tid];
+      }
+      float* row = partial + static_cast<size_t>(blockIdx.x) * 2 * N;
+      row[n0 + tid] = s;
+      row[N + n0 + tid] = d;
+    }
+  }
+}
+
+template <bool kPro>
+__global__ void __launch_bounds__(kThreads)
+wgrad_f32_kernel(const float* __restrict__ x, const float* __restrict__ gr,
+                 const float* __restrict__ scale, const float* __restrict__ shift,
+                 float* __restrict__ out, int H, int W, int Cin, int Cout,
+                 long long P, long long k_per_split) {
+  __shared__ float As[kFK][kFM + 4];
+  __shared__ float Bs[kFK][kFN + 4];
+  const int tid = threadIdx.x, ty = tid >> 4, tx = tid & 15;
+  const int M = 9 * Cin;
+  const int m0 = blockIdx.x * kFM, n0 = blockIdx.y * kFN;
+  const long long k_begin = static_cast<long long>(blockIdx.z) * k_per_split;
+  const long long k_end = k_begin + k_per_split < P ? k_begin + k_per_split : P;
+  // Threads 0-127 load A, 128-255 load B: pixel (tid & 127) / 8 of the step,
+  // 8-channel vector tid % 8 of the tile's 64 columns.
+  const bool loads_a = tid < 128;
+  const int lpix = (tid & 127) >> 3, lv = tid & 7;
+  const int r = m0 + lv * kVec;
+  const int tap = r / Cin, ci = r - (r / Cin) * Cin;
+  const int dh = tap / 3 - 1, dw = tap % 3 - 1;
+  const int n = n0 + lv * kVec;
+
+  float acc[4][4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
+
+  for (long long k0 = k_begin; k0 < k_end; k0 += kFK) {
+    const long long p = k0 + lpix;
+    float v[kVec];
+#pragma unroll
+    for (int i = 0; i < kVec; ++i) v[i] = 0.f;
+    if (loads_a) {
+      if (r < M && p < k_end) {
+        const int w = static_cast<int>(p % W), h = static_cast<int>((p / W) % H);
+        if (h + dh >= 0 && h + dh < H && w + dw >= 0 && w + dw < W) {
+          stem::load8(x + (p + dh * W + dw) * Cin + ci, v);
+          if (kPro) {
+            float sc[kVec], sh[kVec];
+            stem::load8(scale + ci, sc);
+            stem::load8(shift + ci, sh);
+#pragma unroll
+            for (int i = 0; i < kVec; ++i) v[i] = stem::bn_relu<float>(v[i], sc[i], sh[i]);
+          }
+        }
+      }
+#pragma unroll
+      for (int i = 0; i < kVec; ++i) As[lpix][lv * kVec + i] = v[i];
+    } else {
+      if (n < Cout && p < k_end) stem::load8(gr + p * Cout + n, v);
+#pragma unroll
+      for (int i = 0; i < kVec; ++i) Bs[lpix][lv * kVec + i] = v[i];
+    }
+    __syncthreads();
+#pragma unroll
+    for (int k = 0; k < kFK; ++k) {
+      float a[4], b[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        a[i] = As[k][ty * 4 + i];
+        b[i] = Bs[k][tx * 4 + i];
+      }
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
+    }
+    __syncthreads();
+  }
+
+  float* slab = out + static_cast<size_t>(blockIdx.z) * M * Cout;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int row = m0 + ty * 4 + i;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int col = n0 + tx * 4 + j;
+      if (row < M && col < Cout) slab[static_cast<size_t>(row) * Cout + col] = acc[i][j];
+    }
+  }
+}
+
+// K4d's block partials [rows, width] are added in two fixed-order passes:
+// into kGroups rows of consecutive blocks, then (sum_partials) into one.
+constexpr int kGroups = 64;
+
+// groups[g, j] = the sum of partial[r, j] over the rows r of group g, in a
+// fixed order: lane y of a (32, 8) block takes every 8th row, and the 8
+// lanes are added in order.
+__global__ void sum_row_groups(const float* __restrict__ partial, int rows, int width,
+                               float* __restrict__ groups) {
+  __shared__ float lanes[8][32];
+  const int j = blockIdx.x * 32 + threadIdx.x;
+  const int g = blockIdx.y;
+  const int r0 = static_cast<int>(static_cast<long long>(rows) * g / kGroups);
+  const int r1 = static_cast<int>(static_cast<long long>(rows) * (g + 1) / kGroups);
+  float acc = 0.f;
+  if (j < width) {
+    for (int r = r0 + threadIdx.y; r < r1; r += 8) {
+      acc += partial[static_cast<size_t>(r) * width + j];
+    }
+  }
+  lanes[threadIdx.y][threadIdx.x] = acc;
+  __syncthreads();
+  if (threadIdx.y == 0 && j < width) {
+    float total = 0.f;
+#pragma unroll
+    for (int y = 0; y < 8; ++y) total += lanes[y][threadIdx.x];
+    groups[static_cast<size_t>(g) * width + j] = total;
+  }
+}
+
+// out[i] = sum over s of partial[s, i], s in order.
+__global__ void sum_splits(const float* __restrict__ partial, int splits,
+                           long long n, float* __restrict__ out) {
+  for (long long i = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x; i < n;
+       i += static_cast<long long>(gridDim.x) * blockDim.x) {
+    float acc = 0.f;
+    for (int s = 0; s < splits; ++s) acc += partial[static_cast<size_t>(s) * n + i];
+    out[i] = acc;
+  }
+}
+
+// --- launchers ---------------------------------------------------------------
+// Lets `kernel` take `bytes` of dynamic shared memory (over 48 KB needs it).
+template <typename Kernel>
+cudaError_t allow_smem(Kernel kernel, size_t bytes) {
+  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              static_cast<int>(bytes));
+}
+
+template <typename T>
+cudaError_t launch_conv(const void* act, const void* wb, const float* psc,
+                        const float* psh, const void* ex, const float* esc,
+                        const float* esh, void* out, float* partial, int B,
+                        int H, int W, int C, int N, bool pro, bool bwd,
+                        cudaStream_t s) {
+  const long long P = static_cast<long long>(B) * H * W;
+  const T* a = static_cast<const T*>(act);
+  const T* w = static_cast<const T*>(wb);
+  const T* e = static_cast<const T*>(ex);
+  T* o = static_cast<T*>(out);
+  if constexpr (sizeof(T) == 2) {
+    const dim3 grid(static_cast<unsigned>((P + kBM - 1) / kBM), (N + kBN - 1) / kBN);
+    auto kernel = pro ? conv_mma_kernel<true, false>
+                      : (bwd ? conv_mma_kernel<false, true> : conv_mma_kernel<false, false>);
+    const cudaError_t err = allow_smem(kernel, kConvSmem);
+    if (err != cudaSuccess) return err;
+    kernel<<<grid, kThreads, kConvSmem, s>>>(a, w, psc, psh, e, esc, esh, o, partial, H, W,
+                                             C, N, P);
+  } else {
+    const dim3 grid(static_cast<unsigned>((P + kFM - 1) / kFM), (N + kFN - 1) / kFN);
+    if (pro) {
+      conv_f32_kernel<true, false><<<grid, kThreads, 0, s>>>(a, w, psc, psh, e, esc, esh, o,
+                                                             partial, H, W, C, N, P);
+    } else if (bwd) {
+      conv_f32_kernel<false, true><<<grid, kThreads, 0, s>>>(a, w, psc, psh, e, esc, esh, o,
+                                                             partial, H, W, C, N, P);
+    } else {
+      conv_f32_kernel<false, false><<<grid, kThreads, 0, s>>>(a, w, psc, psh, e, esc, esh, o,
+                                                              partial, H, W, C, N, P);
+    }
+  }
+  return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t launch_wgrad(const void* x, const void* g, const float* sc, const float* sh,
+                         float* dk, float* partial, int B, int H, int W, int Cin,
+                         int Cout, int splits, bool pro, cudaStream_t s) {
+  const long long P = static_cast<long long>(B) * H * W;
+  constexpr int bm = sizeof(T) == 2 ? kBM : kFM;
+  constexpr int bn = sizeof(T) == 2 ? kBN : kFN;
+  constexpr int bk = sizeof(T) == 2 ? kBK : kFK;
+  const long long ksteps = (P + bk - 1) / bk;
+  const long long k_per_split = (ksteps + splits - 1) / splits * bk;
+  float* slabs = splits == 1 ? dk : partial;
+  const dim3 grid((9 * Cin + bm - 1) / bm, (Cout + bn - 1) / bn, splits);
+  const T* xx = static_cast<const T*>(x);
+  const T* gg = static_cast<const T*>(g);
+  if constexpr (sizeof(T) == 2) {
+    auto kernel = pro ? wgrad_mma_kernel<true> : wgrad_mma_kernel<false>;
+    const cudaError_t err = allow_smem(kernel, kWgradSmem);
+    if (err != cudaSuccess) return err;
+    kernel<<<grid, kThreads, kWgradSmem, s>>>(xx, gg, sc, sh, slabs, H, W, Cin, Cout, P,
+                                              k_per_split);
+  } else {
+    if (pro) {
+      wgrad_f32_kernel<true><<<grid, kThreads, 0, s>>>(xx, gg, sc, sh, slabs, H, W, Cin, Cout,
+                                                       P, k_per_split);
+    } else {
+      wgrad_f32_kernel<false><<<grid, kThreads, 0, s>>>(xx, gg, sc, sh, slabs, H, W, Cin,
+                                                        Cout, P, k_per_split);
+    }
+  }
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess || splits == 1) return err;
+  const long long n = 9LL * Cin * Cout;
+  const long long blocks = (n + 255) / 256;
+  sum_splits<<<static_cast<unsigned>(blocks < 4096 ? blocks : 4096), 256, 0, s>>>(
+      partial, splits, n, dk);
+  return cudaGetLastError();
+}
+
+bool bad_shape(int B, int H, int W, int Cin, int Cout) {
+  return B <= 0 || H <= 0 || W <= 0 || Cin <= 0 || Cout <= 0 || Cin % kVec ||
+         Cout % kVec;
+}
+
+// K4w's split-K: at least two waves of blocks (one block an SM), the count
+// of splits up to twice that picked to fill the last wave best, and at
+// least 16 K steps a split.
+constexpr long long kMinStepsPerSplit = 16;
+constexpr int kMaxSplits = 64;
+
+}  // namespace
+
+// Pixel tiles of K4d, one partial row each.
+static long long dgrad_blocks(long long P, int dtype) {
+  const int bm = dtype == stem::kBFloat16 ? kBM : kFM;
+  return (P + bm - 1) / bm;
+}
+
+// Rows of the [rows, 2 * Cin] float32 scratch htrvt_conv3x3_dgrad needs:
+// one per pixel tile, and kGroups for the first pass over them.
+extern "C" long long htrvt_conv3x3_dgrad_rows(long long P, int dtype) {
+  return dgrad_blocks(P, dtype) + kGroups;
+}
+
+// The number of pixel splits htrvt_conv3x3_wgrad is to be given.
+extern "C" int htrvt_conv3x3_wgrad_splits(long long P, int Cin, int Cout, int dtype) {
+  const bool bf = dtype == stem::kBFloat16;
+  const long long bm = bf ? kBM : kFM, bn = bf ? kBN : kFN, bk = bf ? kBK : kFK;
+  const long long tiles = ((9LL * Cin + bm - 1) / bm) * ((Cout + bn - 1) / bn);
+  int sms = 132, dev = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess ||
+      cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess) {
+    sms = 132;
+  }
+  long long most = (P + bk - 1) / bk / kMinStepsPerSplit;
+  if (most > kMaxSplits) most = kMaxSplits;
+  if (most < 1) most = 1;
+  const long long least = (2LL * sms + tiles - 1) / tiles;
+  long long best = least < most ? least : most;
+  double best_fill = 0.0;
+  for (long long s = best; s <= 2 * least && s <= most; ++s) {
+    const long long blocks = tiles * s;
+    const double fill = static_cast<double>(blocks) / (((blocks + sms - 1) / sms) * sms);
+    if (fill > best_fill + 1e-9) {
+      best_fill = fill;
+      best = s;
+    }
+  }
+  return static_cast<int>(best);
+}
+
+// K4f. x [B, H, W, Cin] (bf16 if dtype == 1, float32 if 0); wb [9, Cout,
+// Cin] in x's dtype, wb[dh * 3 + dw, co, ci] = k[co, ci, dh, dw]; scale,
+// shift [Cin] float32, read only when prologue != 0; y [B, H, W, Cout]
+// out. Cin and Cout multiples of 8, every pointer 16-byte aligned.
+// Returns cudaGetLastError().
+extern "C" int htrvt_conv3x3_fwd(const void* x, const void* wb, const void* scale,
+                                 const void* shift, void* y, int B, int H, int W,
+                                 int Cin, int Cout, int prologue, int dtype,
+                                 void* stream) {
+  if (bad_shape(B, H, W, Cin, Cout)) return static_cast<int>(cudaErrorInvalidValue);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const float* sc = static_cast<const float*>(scale);
+  const float* sh = static_cast<const float*>(shift);
+  const cudaError_t err =
+      dtype == stem::kBFloat16
+          ? launch_conv<bf16>(x, wb, sc, sh, nullptr, nullptr, nullptr, y, nullptr, B, H,
+                              W, Cin, Cout, prologue != 0, false, s)
+          : launch_conv<float>(x, wb, sc, sh, nullptr, nullptr, nullptr, y, nullptr, B, H,
+                               W, Cin, Cout, prologue != 0, false, s);
+  return static_cast<int>(err);
+}
+
+// K4d. g [B, H, W, Cout]; wb [9, Cin, Cout], wb[dh * 3 + dw, ci, co] =
+// k[co, ci, 2 - dh, 2 - dw] (the rotated kernel); x [B, H, W, Cin] (the
+// forward's raw input) and scale, shift [Cin], read only when prologue !=
+// 0; dx [B, H, W, Cin] out; with the prologue dscale, dshift [Cin] float32
+// out through partial, a float32 scratch of htrvt_conv3x3_dgrad_rows(B*H*W)
+// x 2 * Cin. Returns cudaGetLastError().
+extern "C" int htrvt_conv3x3_dgrad(const void* g, const void* wb, const void* x,
+                                   const void* scale, const void* shift, void* dx,
+                                   void* dscale, void* dshift, void* partial, int B,
+                                   int H, int W, int Cin, int Cout, int prologue,
+                                   int dtype, void* stream) {
+  if (bad_shape(B, H, W, Cin, Cout)) return static_cast<int>(cudaErrorInvalidValue);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const float* sc = static_cast<const float*>(scale);
+  const float* sh = static_cast<const float*>(shift);
+  float* part = static_cast<float*>(partial);
+  const bool pro = prologue != 0;
+  cudaError_t err =
+      dtype == stem::kBFloat16
+          ? launch_conv<bf16>(g, wb, nullptr, nullptr, x, sc, sh, dx, part, B, H, W, Cout,
+                              Cin, false, pro, s)
+          : launch_conv<float>(g, wb, nullptr, nullptr, x, sc, sh, dx, part, B, H, W, Cout,
+                               Cin, false, pro, s);
+  if (err != cudaSuccess || !pro) return static_cast<int>(err);
+  const int rows = static_cast<int>(dgrad_blocks(static_cast<long long>(B) * H * W, dtype));
+  const float* last = part;
+  int last_rows = rows;
+  if (rows > kGroups) {
+    float* groups = part + static_cast<size_t>(rows) * 2 * Cin;
+    const dim3 grid((2 * Cin + 31) / 32, kGroups);
+    sum_row_groups<<<grid, dim3(32, 8), 0, s>>>(part, rows, 2 * Cin, groups);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return static_cast<int>(err);
+    last = groups;
+    last_rows = kGroups;
+  }
+  err = stem::launch_sum_partials(last, last_rows, Cin, static_cast<float*>(dscale),
+                                  static_cast<float*>(dshift), s);
+  return static_cast<int>(err);
+}
+
+// K4w. x [B, H, W, Cin] (raw), g [B, H, W, Cout], scale, shift [Cin] read
+// only when prologue != 0; dk [9, Cin, Cout] float32 out, dk[dh * 3 + dw,
+// ci, co]; the pixels are cut into `splits` parts, and for splits > 1
+// partial is a float32 scratch of splits x 9 * Cin * Cout. Returns
+// cudaGetLastError().
+extern "C" int htrvt_conv3x3_wgrad(const void* x, const void* g, const void* scale,
+                                   const void* shift, void* dk, void* partial, int B,
+                                   int H, int W, int Cin, int Cout, int splits,
+                                   int prologue, int dtype, void* stream) {
+  if (bad_shape(B, H, W, Cin, Cout) || splits <= 0) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const float* sc = static_cast<const float*>(scale);
+  const float* sh = static_cast<const float*>(shift);
+  float* out = static_cast<float*>(dk);
+  float* part = static_cast<float*>(partial);
+  const cudaError_t err =
+      dtype == stem::kBFloat16
+          ? launch_wgrad<bf16>(x, g, sc, sh, out, part, B, H, W, Cin, Cout, splits,
+                               prologue != 0, s)
+          : launch_wgrad<float>(x, g, sc, sh, out, part, B, H, W, Cin, Cout, splits,
+                                prologue != 0, s);
+  return static_cast<int>(err);
+}

@@ -1,4 +1,5 @@
-// Helpers shared by the stem kernels (bn_stats.cu, pool_fused.cu).
+// Helpers shared by the stem kernels (bn_stats.cu, pool_fused.cu,
+// conv_fused.cu).
 //
 // The stem's activations are channels-last: [rows, C] with C innermost.
 // Every thread of these kernels owns kVec = 8 consecutive channels, so it

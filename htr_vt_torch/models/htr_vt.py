@@ -44,7 +44,8 @@ class HTRVT(nn.Module):
         d = cfg.embed_dim
         self.patch_embed = ResNet18Stem(
             d, dtype, device=device, dataflow=cfg.conv_dataflow,
-            pool_impl=cfg.pool_impl, bn_stats_impl=cfg.bn_stats_impl)
+            pool_impl=cfg.pool_impl, bn_stats_impl=cfg.bn_stats_impl,
+            conv_impl=cfg.conv_impl)
         self.mask_token = nn.Parameter(torch.zeros(1, 1, d, device=device))
         self.register_buffer(
             "pos_embed",
@@ -123,11 +124,7 @@ def check_stem_switches(cfg: ModelConfig) -> None:
     """The stem's kernel switches, read as in JAX (``config.py:100-111``):
     ``"pallas"`` names the hand-written kernel that replaces that Pallas
     kernel, ``"auto"`` and ``"xla"`` the stock ops."""
-    if cfg.conv_impl == "pallas":
-        raise NotImplementedError(
-            "conv_impl='pallas' (the fused conv3x3 with the BN prologue) is not "
-            "ported to htr_vt_torch yet (ROADMAP.md queue 2, K4)")
-    for name, allowed in (("conv_impl", ("auto", "xla")),
+    for name, allowed in (("conv_impl", STEM_IMPLS),
                           ("pool_impl", STEM_IMPLS),
                           ("bn_stats_impl", STEM_IMPLS),
                           ("conv_dataflow", DATAFLOWS)):

@@ -25,10 +25,14 @@ batch``; ``nn.BatchNorm2d`` would track the unbiased variance instead.
 With ``bn_stats_impl="pallas"`` the sums come from the K2 kernel
 (``ops/bn_stats.py``); with ``pool_impl="pallas"`` the entry's
 BN-apply + ReLU + max-pool is the K3f/K3b kernel pair
-(``ops/pool_fused.py``). ``"auto"`` and ``"xla"`` take the stock ops, as
-``"auto"`` does in JAX (``stem.py:77-78``). Convolutions are ``F.conv2d``
-in the compute dtype. Module and parameter names follow the reference
-state_dict (``patch_embed.layer1.0.conv1.weight``, ...), so a checkpoint
+(``ops/pool_fused.py``); with ``conv_impl="pallas"`` every stride-1 3x3
+conv of the blocks is the K4f/K4d/K4w kernel trio (``ops/conv_fused.py``),
+conv2 with the (s1, t1) prologue and a second block's conv1 without one.
+``"auto"`` and ``"xla"`` take the stock ops, as ``"auto"`` does in JAX
+(``stem.py:67-79``). The other convolutions (the entry conv, the strided
+conv1s, the 1x1 projections) are ``F.conv2d`` in the compute dtype.
+Module and parameter names follow the reference state_dict
+(``patch_embed.layer1.0.conv1.weight``, ...), so a checkpoint
 converted by ``htr_vt_torch/utils/torch_convert.py`` loads with
 ``strict=True``.
 """
@@ -42,7 +46,8 @@ import torch.nn.functional as F
 from torch import nn
 
 from htr_vt_torch.ops.bn_stats import BNStats
-from htr_vt_torch.ops.conv_fused import conv3x3_bn_relu_reference
+from htr_vt_torch.ops.conv_fused import (conv3x3_bn_relu,
+                                         conv3x3_bn_relu_reference)
 from htr_vt_torch.ops.pool_fused import max_pool_bn_relu
 
 BN_EPS = 1e-5
@@ -148,17 +153,24 @@ class BasicBlock(nn.Module):
         a = relu(bf16(bn1(conv1(x))));  y = bf16(bn2(conv2(a)))
         out = relu(y + (bf16(proj_bn(proj(x))) | x))
 
-    Train mode takes ``plain`` only when ``dataflow="plain"`` and
-    ``bn_stats_impl != "pallas"`` (``stem.py:192-194``)."""
+    Train mode takes ``plain`` only when ``dataflow="plain"``,
+    ``conv_impl != "pallas"`` and ``bn_stats_impl != "pallas"``
+    (``stem.py:192-194``). With ``conv_impl="pallas"`` the folded convs go
+    through ``conv3x3_bn_relu`` (``stem.py:262-267, 281-283``): conv1
+    without a prologue (the kernel at stride 1, ``F.conv2d`` otherwise),
+    conv2 with (s1, t1); the epilogue stays eager, as it stays an XLA
+    fusion in JAX."""
 
     def __init__(self, cin: int, cout: int, stride: Tuple[int, int],
                  use_projection: bool, dtype: torch.dtype, device=None, *,
-                 dataflow: str = "plain", bn_stats_impl: str = "auto"):
+                 dataflow: str = "plain", bn_stats_impl: str = "auto",
+                 conv_impl: str = "auto"):
         super().__init__()
         self.stride = stride
         self.dtype = dtype
         self.dataflow = dataflow
         self.bn_stats_impl = bn_stats_impl
+        self.conv_impl = conv_impl
         self.conv1 = nn.Conv2d(cin, cout, 3, bias=False, device=device)
         self.bn1 = BatchNorm(cout, device=device)
         self.conv2 = nn.Conv2d(cout, cout, 3, bias=False, device=device)
@@ -169,7 +181,8 @@ class BasicBlock(nn.Module):
 
     def forward(self, x: torch.Tensor, *, train: bool = False) -> torch.Tensor:
         x = x.to(self.dtype)
-        if train and self.dataflow == "plain" and self.bn_stats_impl != "pallas":
+        if (train and self.dataflow == "plain" and self.conv_impl != "pallas"
+                and self.bn_stats_impl != "pallas"):
             return self._plain_train_forward(x)
         return self._folded_forward(x, train)
 
@@ -179,9 +192,11 @@ class BasicBlock(nn.Module):
         def fold(bn: BatchNorm, y: torch.Tensor):
             return bn.fold(y if train else None, stats_impl=self.bn_stats_impl)
 
-        y1 = _conv(self.conv1, x, self.stride, 1, dt)
+        conv = (conv3x3_bn_relu if self.conv_impl == "pallas"
+                else conv3x3_bn_relu_reference)
+        y1 = conv(x, self.conv1.weight, stride=self.stride)
         s1, t1 = fold(self.bn1, y1)
-        y2 = conv3x3_bn_relu_reference(y1, self.conv2.weight, s1, t1)
+        y2 = conv(y1, self.conv2.weight, s1, t1)
         s2, t2 = fold(self.bn2, y2)
         if self.downsample is not None:
             conv, bn = self.downsample
@@ -221,7 +236,7 @@ class ResNet18Stem(nn.Module):
 
     def __init__(self, embed_dim: int, dtype: torch.dtype, device=None, *,
                  dataflow: str = "plain", pool_impl: str = "auto",
-                 bn_stats_impl: str = "auto"):
+                 bn_stats_impl: str = "auto", conv_impl: str = "auto"):
         super().__init__()
         self.dtype = dtype
         self.pool_impl = pool_impl
@@ -232,7 +247,8 @@ class ResNet18Stem(nn.Module):
         cin = widths[0]
         for i, (w, stride) in enumerate(zip(widths, self.STAGE_STRIDES)):
             proj = stride != (1, 1) or cin != w
-            kw = dict(device=device, dataflow=dataflow, bn_stats_impl=bn_stats_impl)
+            kw = dict(device=device, dataflow=dataflow, bn_stats_impl=bn_stats_impl,
+                      conv_impl=conv_impl)
             setattr(self, f"layer{i + 1}", nn.Sequential(
                 BasicBlock(cin, w, stride, proj, dtype, **kw),
                 BasicBlock(w, w, (1, 1), False, dtype, **kw)))

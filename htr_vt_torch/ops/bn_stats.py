@@ -48,6 +48,20 @@ def check_channels_last(fn: str, name: str, x: torch.Tensor) -> None:
         raise ValueError(f"{fn}: {name} must be 16-byte aligned")
 
 
+def check_folded_terms(fn: str, x: torch.Tensor, scale: torch.Tensor,
+                       shift: torch.Tensor) -> None:
+    """The folded BN terms a stem kernel applies to x [B, C, H, W]:
+    contiguous float32 [C] on x's device, 16-byte aligned."""
+    c = x.shape[1]
+    for name, v in (("scale", scale), ("shift", shift)):
+        if v.dtype != torch.float32 or tuple(v.shape) != (c,) or not v.is_contiguous():
+            raise ValueError(f"{fn}: {name} must be contiguous float32 ({c},)")
+        if v.device != x.device:
+            raise ValueError(f"{fn}: all inputs must be on one device")
+        if v.data_ptr() % 16:
+            raise ValueError(f"{fn}: {name} must be 16-byte aligned")
+
+
 def bn_stats(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """(sum, sumsq) float32 [C] of x [B, C, H, W] over B, H and W.
 

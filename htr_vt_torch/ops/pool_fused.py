@@ -27,7 +27,7 @@ import torch
 import torch.nn.functional as F
 
 from htr_vt_torch.ops.bn_stats import (_DTYPE_CODES, MAX_BLOCKS,
-                                       check_channels_last)
+                                       check_channels_last, check_folded_terms)
 
 
 def _bn_relu(x: torch.Tensor, scale: torch.Tensor, shift: torch.Tensor
@@ -91,14 +91,7 @@ def _check(fn: str, x: torch.Tensor, scale: torch.Tensor,
     check_channels_last(fn, "x", x)
     if x.shape[2] % 2:
         raise ValueError(f"{fn}: H must be even, got {x.shape[2]}")
-    c = x.shape[1]
-    for name, v in (("scale", scale), ("shift", shift)):
-        if v.dtype != torch.float32 or tuple(v.shape) != (c,) or not v.is_contiguous():
-            raise ValueError(f"{fn}: {name} must be contiguous float32 ({c},)")
-        if v.device != x.device:
-            raise ValueError(f"{fn}: all inputs must be on one device")
-        if v.data_ptr() % 16:
-            raise ValueError(f"{fn}: {name} must be 16-byte aligned")
+    check_folded_terms(fn, x, scale, shift)
 
 
 def pool_bn_relu_fwd(x: torch.Tensor, scale: torch.Tensor,

@@ -409,3 +409,199 @@ def test_fused_pool_eval_logits_equal_the_stock_path(cuda):
         got, want = fused(image), stock(image)
     assert pf.pool_bn_relu_fwd.launches == before + 1
     assert torch.equal(got, want)
+
+
+# --- the conv3x3 + BN-prologue trio: K4f, K4d, K4w ---------------------------
+# The flagship's stride-1 conv sites at bs 128: the block activations of
+# stages 1, 2 and 3, C -> C.
+CONV_SHAPES = [(128, 192, 8, 512), (128, 384, 4, 256), (128, 768, 2, 128)]
+# Bars, each with its reason. Every output is a float32 sum in another order
+# than cuDNN's or ATen's (9 * Cin products for y and dx, B*H*W for dk,
+# dscale and dshift): within CONV_SUM_REL of the sum of the terms'
+# magnitudes (|x| and |w| for y, ...). y and dx are then rounded once to the
+# working type on each side, which can set them one unit of its last place
+# apart: 2^-7 of the value in bf16, 2^-23 in float32.
+CONV_SUM_REL = 1e-5
+ULP_REL = {torch.bfloat16: 2.0**-7, torch.float32: 2.0**-23}
+
+
+def _conv_inputs(shape, cout, dtype, device, seed, ties=False):
+    """x [B, Cin, H, W] channels-last, weight [Cout, Cin, 3, 3] (He-scaled),
+    folded BN terms, and g [B, Cout, H, W] channels-last."""
+    b, cin, h, w = shape
+    x = channels_last(shape, dtype, device, seed, ties)
+    gen = torch.Generator(device=device).manual_seed(seed + 1)
+    k = (torch.randn((cout, cin, 3, 3), generator=gen, device=device)
+         * (2.0 / (9 * cin)) ** 0.5).to(dtype)
+    scale = 1.0 + 0.2 * torch.randn(cin, generator=gen, device=device)
+    shift = 0.2 * torch.randn(cin, generator=gen, device=device)
+    if ties:
+        scale, shift = torch.round(scale * 2) / 2, torch.round(shift * 4) / 4
+    g = torch.randn((b, cout, h, w), generator=gen, device=device).to(dtype)
+    return x, k, scale, shift, g.contiguous(memory_format=torch.channels_last)
+
+
+def _assert_conv_close(got, want, mag, dtype, what):
+    """|got - want| <= CONV_SUM_REL * mag + ULP_REL * max(|got|, |want|)."""
+    err = (got.double() - want.double()).abs()
+    bound = (CONV_SUM_REL * mag.double()
+             + ULP_REL[dtype] * torch.maximum(got.double().abs(), want.double().abs()))
+    assert (err <= bound).all(), (what, (err / mag.double().clamp_min(1e-30)).max())
+
+
+def _check_conv_trio(x, k, scale, shift, g, prologue):
+    from htr_vt_torch.ops import conv_fused as cf
+    dtype = x.dtype
+    s, t = (scale, shift) if prologue else (None, None)
+    counters = (cf.conv3x3_bn_relu_fwd, cf.conv3x3_bn_relu_dgrad,
+                cf.conv3x3_bn_relu_wgrad)
+    before = [f.launches for f in counters]
+    runs = [(cf.conv3x3_bn_relu_fwd(x, k, s, t), cf.conv3x3_bn_relu_dgrad(g, k, x, s, t),
+             cf.conv3x3_bn_relu_wgrad(x, g, s, t)) for _ in range(2)]
+    torch.cuda.synchronize()
+    assert [f.launches - b for f, b in zip(counters, before)] == [2, 2, 2]
+    (y, (dx, ds, dt), dk), again = runs
+    assert torch.equal(y, again[0]) and torch.equal(dk, again[2])
+    assert all(torch.equal(a, b) for a, b in zip((dx, ds, dt), again[1]))
+    assert y.is_contiguous(memory_format=torch.channels_last) and y.dtype == dtype
+    assert dx.is_contiguous(memory_format=torch.channels_last) and dx.dtype == dtype
+    assert dk.dtype == torch.float32 and dk.shape == k.shape
+    del runs, again
+
+    xn = cf._prologue(x, scale, shift) if prologue else x
+    kf = k.float()
+    mag = torch.nn.functional.conv2d(xn.float().abs(), kf.abs(), padding=1)
+    _assert_conv_close(y, cf.conv3x3_bn_relu_reference(x, k, s, t), mag, dtype, "y")
+    dx_p, ds_p, dt_p = cf.conv3x3_dgrad_reference(g, k, x, s, t, prologue)
+    mag = torch.nn.grad.conv2d_input(tuple(x.shape), kf.abs(), g.float().abs(), padding=1)
+    if prologue:
+        mag = mag * scale.abs().view(1, -1, 1, 1)
+    _assert_conv_close(dx, dx_p, mag, dtype, "dx")
+    mag = torch.nn.grad.conv2d_weight(xn.float().abs(), tuple(k.shape), g.float().abs(),
+                                      padding=1)
+    _assert_conv_close(dk, cf.conv3x3_wgrad_reference(x, g, s, t, prologue), mag,
+                       torch.float32, "dk")
+    if prologue:
+        da = torch.nn.grad.conv2d_input(tuple(x.shape), kf, g.float(), padding=1)
+        xf = x.float()
+        da = torch.where(xf * scale.view(1, -1, 1, 1) + shift.view(1, -1, 1, 1) > 0, da, 0.0)
+        for got, want, term in ((ds, ds_p, da * xf), (dt, dt_p, da)):
+            _assert_conv_close(got, want, term.abs().sum((0, 2, 3)) + 1e-30,
+                               torch.float32, "dscale/dshift")
+    else:
+        assert not ds.any() and not dt.any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", CONV_SHAPES)
+def test_conv_kernels_at_the_flagship_shapes(cuda, shape):
+    """K4f, K4d and K4w in bf16 with the prologue against their plain
+    versions (cuDNN, in bf16 for y and in float32 for the gradients), and
+    two calls bit-equal."""
+    _check_conv_trio(*_conv_inputs(shape, shape[1], torch.bfloat16, cuda, shape[1]),
+                     prologue=True)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,cout,dtype,prologue,ties", [
+    ((128, 192, 8, 512), 192, torch.bfloat16, False, False),  # stage 1, bare
+    ((3, 40, 5, 7), 24, torch.bfloat16, True, True),   # ragged K, N and M tiles
+    ((3, 40, 5, 7), 24, torch.bfloat16, False, False),
+    ((2, 16, 7, 9), 24, torch.float32, True, True),    # float32 (FFMA), ties
+    ((2, 16, 7, 9), 24, torch.float32, False, False),
+    ((1, 8, 1, 3), 8, torch.float32, True, False),     # one row: every tap pads
+    ((4, 32, 16, 64), 32, torch.float32, True, False)])  # the tiny model's stage 1
+def test_conv_kernels_at_odd_shapes(cuda, shape, cout, dtype, prologue, ties):
+    """The same checks at shapes that leave every tile ragged, in bf16 and in
+    float32 (cuDNN with TF32 off), with and without the prologue."""
+    _check_conv_trio(*_conv_inputs(shape, cout, dtype, cuda, 7, ties), prologue=prologue)
+
+
+@pytest.mark.cuda
+def test_conv_autograd_routes_through_the_three_kernels(cuda):
+    from htr_vt_torch.ops import conv_fused as cf
+    x, k, scale, shift, g = _conv_inputs((2, 16, 6, 10), 16, torch.float32, cuda, 3)
+    args = [t.clone().requires_grad_(True) for t in (x, k, scale, shift)]
+    counters = (cf.conv3x3_bn_relu_fwd, cf.conv3x3_bn_relu_dgrad,
+                cf.conv3x3_bn_relu_wgrad)
+    before = [f.launches for f in counters]
+    cf.conv3x3_bn_relu(*args).backward(g)
+    assert [f.launches - b for f, b in zip(counters, before)] == [1, 1, 1]
+    dx, ds, dt = cf.conv3x3_bn_relu_dgrad(g, k, x, scale, shift)
+    assert torch.equal(args[0].grad, dx)
+    assert torch.equal(args[1].grad, cf.conv3x3_bn_relu_wgrad(x, g, scale, shift).contiguous())
+    assert torch.equal(args[2].grad, ds) and torch.equal(args[3].grad, dt)
+
+
+@pytest.mark.cuda
+def test_conv_wrappers_reject_what_the_kernels_do_not_take(cuda):
+    from htr_vt_torch.ops import conv_fused as cf
+    x, k, scale, shift, g = _conv_inputs((2, 16, 4, 6), 16, torch.bfloat16, cuda, 4)
+    with pytest.raises(ValueError, match="channels-last"):
+        cf.conv3x3_bn_relu_fwd(x.contiguous(), k, scale, shift)
+    with pytest.raises(ValueError, match="bfloat16 or float32"):
+        cf.conv3x3_bn_relu_fwd(x.half(), k.half())
+    with pytest.raises(ValueError, match="weight must be"):
+        cf.conv3x3_bn_relu_fwd(x, k.float(), scale, shift)
+    with pytest.raises(ValueError, match="weight must be"):
+        cf.conv3x3_bn_relu_fwd(x, k[:, :8].contiguous())
+    with pytest.raises(ValueError, match="Cout % 8"):
+        cf.conv3x3_bn_relu_fwd(x, k[:12].contiguous())
+    with pytest.raises(ValueError, match="float32"):
+        cf.conv3x3_bn_relu_fwd(x, k, scale.double(), shift)
+    with pytest.raises(ValueError, match="one device"):
+        cf.conv3x3_bn_relu_fwd(x, k, scale.cpu(), shift)
+    with pytest.raises(ValueError, match="go together"):
+        cf.conv3x3_bn_relu_fwd(x, k, scale, None)
+    with pytest.raises(ValueError, match="g must be"):
+        cf.conv3x3_bn_relu_dgrad(g.float().contiguous(memory_format=torch.channels_last),
+                                 k, x, scale, shift)
+    with pytest.raises(ValueError, match="g must be"):
+        cf.conv3x3_bn_relu_wgrad(x, g[:, :, :2].contiguous(memory_format=torch.channels_last))
+    with pytest.raises(ValueError, match="channels-last"):
+        cf.conv3x3_bn_relu_wgrad(x, g.contiguous())
+
+
+@pytest.mark.cuda
+def test_fully_fused_train_step_on_the_card_matches_the_cpu(cuda):
+    """One SAM step of a tiny f32 model with all three stem switches on: per
+    step 18 launches each of K4f, K4d and K4w, 32 of K2, 2 each of K3f,
+    K3b, alpha and beta; and the CPU's losses (the CPU runs the kernels'
+    plain versions). Before it, the eval forward: 9 K4f and 1 K3f, and the
+    CPU's logits."""
+    import dataclasses
+
+    from htr_vt_torch import ExperimentConfig, MaskConfig, OptimConfig
+    from htr_vt_torch.ops import conv_fused as cf
+    from htr_vt_torch.ops import pool_fused as pf
+    from htr_vt_torch.ops.bn_stats import bn_stats
+    from htr_vt_torch.train.state import create_train_state
+    model_cfg = dataclasses.replace(
+        _fused(ModelConfig(nb_cls=8, img_size=(64, 128), embed_dim=64, depth=2,
+                           num_heads=2, compute_dtype="float32",
+                           masking=MaskConfig(mode="none"))), conv_impl="pallas")
+    cfg = ExperimentConfig(model=model_cfg,
+                           optim=OptimConfig(max_lr=1e-3, warmup_iters=2))
+    cpu = create_train_state(cfg, "cpu", torch.Generator().manual_seed(4))
+    gpu = create_train_state(cfg, cuda, torch.Generator(device=cuda).manual_seed(4))
+    gpu.model.load_state_dict(cpu.model.state_dict(), strict=True)
+    gpu.ema_model.load_state_dict(cpu.ema_model.state_dict(), strict=True)
+    rng = np.random.default_rng(11)
+    _, labels, lengths = ctc_case(11, 4, 32, 8, 10)
+    batch = {"image": rng.random((4, 64, 128, 1), dtype=np.float32),
+             "labels": labels, "label_lengths": lengths}
+    counters = (cf.conv3x3_bn_relu_fwd, cf.conv3x3_bn_relu_dgrad,
+                cf.conv3x3_bn_relu_wgrad, bn_stats, pf.pool_bn_relu_fwd,
+                pf.pool_bn_relu_bwd, ctc_cuda.ctc_alpha, ctc_cuda.ctc_beta)
+    before = [f.launches for f in counters]
+    x = torch.from_numpy(batch["image"])
+    with torch.inference_mode():  # eval first: a step moves the two apart
+        got, want = gpu.model(x.to(cuda)), cpu.model(x)
+    assert [f.launches - b for f, b in zip(counters, before)] == [9, 0, 0, 0, 1, 0, 0, 0]
+    torch.testing.assert_close(got.cpu(), want, rtol=1e-4, atol=2e-4)
+    before = [f.launches for f in counters]
+    got = train_step(gpu, batch)
+    assert [f.launches - b for f, b in zip(counters, before)] == [18, 18, 18, 32, 2, 2, 2, 2]
+    want = train_step(cpu, batch)
+    for key in ("loss", "loss_second", "grad_norm"):
+        torch.testing.assert_close(got[key].cpu(), want[key], rtol=1e-4, atol=1e-4)

@@ -582,12 +582,6 @@ def test_image_loader_copy_matches_the_jax_one(tmp_path):
 
 
 # --- build_model's switches and device ---------------------------------------
-def test_build_model_refuses_the_conv_kernel():
-    with pytest.raises(NotImplementedError, match="queue 2, K4"):
-        build_model(port_config(dataclasses.replace(TINY, conv_impl="pallas")),
-                    device="cpu")
-
-
 @pytest.mark.parametrize("switch,value", [
     ("conv_impl", "cuda"), ("pool_impl", "triton"), ("bn_stats_impl", "fast"),
     ("conv_dataflow", "fused")])
