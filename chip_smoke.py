@@ -59,6 +59,28 @@ non-zero before the last line:
 10. fully fused train: phase 9 with ``conv_impl="pallas"`` as well; each
    step also launches K4f, K4d and K4w 18 times each, and EMA ``validate``
    9 K4f per batch.
+11. flash-attention kernels vs plain: K5f (``flash_attention_fwd``) at the
+   serving shapes [128, 6, 256, 128] and [128, 6, 512, 128] (the 1024- and
+   2048-px buckets), and K5f, K5dkv and K5dq at the training shapes [64, 6,
+   256, 128] and [64, 6, 512, 128], in bf16 and float32 (TF32 off), on the
+   strided q, k, v views of a fused qkv projection, against their plain
+   versions; two calls bit-equal; CUDA-event times of kernel, plain version
+   and ``F.scaled_dot_product_attention`` (forward, and forward + backward)
+   on the same q, k and v, never on the path; the bounds.
+12. bucket serve: the serve phase's weights (stock stem) serve 421
+   synthetic lines of natural widths ``n_chars * 24 + 32`` px (the JAX
+   selftest ramp, 4-96 characters: 128-2336 px) through
+   ``cli.serve.transcribe_buckets``, routed to 512, 1024 and 2048 px at bs
+   128; ``depth`` = 4 K5f per ``eval_step`` at 1024 and 2048 and none at
+   512; per bucket the lines, batches, ``eval_step`` ms, img/s and peak
+   memory, and at 1024 and 2048 the logits against the same weights with
+   ``attn_impl="xla"`` (frame argmax agreement >= 99%).
+13. wide train: the multi-width recipe's step (one ``TrainState``, bs 64,
+   IAM span masking, ``OptimConfig()``), 12 SAM ``train_step``s alternating
+   1024 and 2048 px with labels of up to 56 and 112 characters; exactly 8
+   K5f, 8 K5dkv, 8 K5dq, 2 alpha and 2 beta launches per step; EMA
+   ``validate`` at 2048 px; ms/step, img/s and peak memory per width; a
+   20-step learning check at bs 16 and 2048 px.
 
 The second-to-last line is a JSON record of the kernels; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -80,12 +102,13 @@ sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
 from htr_vt_torch import (CTCLabelConverter, ExperimentConfig,  # noqa: E402
                           MaskConfig, ModelConfig, OptimConfig, _build)
-from htr_vt_torch.cli.serve import transcribe  # noqa: E402
+from htr_vt_torch.cli.serve import transcribe, transcribe_buckets  # noqa: E402
 from htr_vt_torch.eval.validate import validate  # noqa: E402
 from htr_vt_torch.models.htr_vt import build_model  # noqa: E402
 import torch.nn.functional as F  # noqa: E402
 
-from htr_vt_torch.ops import conv_fused, ctc_cuda, pool_fused  # noqa: E402
+from htr_vt_torch.ops import (conv_fused, ctc_cuda, flash_attn,  # noqa: E402
+                              pool_fused)
 from htr_vt_torch.ops.bn_stats import bn_stats, bn_stats_reference  # noqa: E402
 from htr_vt_torch.ops.ctc import NEG, ctc_loss  # noqa: E402
 from htr_vt_torch.train.state import create_train_state  # noqa: E402
@@ -157,7 +180,30 @@ COUNTERS = {"ctc_alpha": ctc_cuda.ctc_alpha, "ctc_beta": ctc_cuda.ctc_beta,
             "pool_bn_relu_bwd": pool_fused.pool_bn_relu_bwd,
             "conv3x3_bn_relu_fwd": conv_fused.conv3x3_bn_relu_fwd,
             "conv3x3_bn_relu_dgrad": conv_fused.conv3x3_bn_relu_dgrad,
-            "conv3x3_bn_relu_wgrad": conv_fused.conv3x3_bn_relu_wgrad}
+            "conv3x3_bn_relu_wgrad": conv_fused.conv3x3_bn_relu_wgrad,
+            "flash_attention_fwd": flash_attn.flash_attention_fwd,
+            "flash_attention_bwd_dkv": flash_attn.flash_attention_bwd_dkv,
+            "flash_attention_bwd_dq": flash_attn.flash_attention_bwd_dq}
+# K5 at the width buckets' shapes, [B, H, N, D] (name, shape, backward too):
+# bs 128 serving and the multi-width recipe's bs 64 training, N = 256 at
+# 1024 px and 512 at 2048 px, head_dim 768 / 6.
+FLASH_SHAPES = (("serve1024", (BATCH, 6, 256, 128), False),
+                ("serve2048", (BATCH, 6, 512, 128), False),
+                ("train1024", (64, 6, 256, 128), True),
+                ("train2048", (64, 6, 512, 128), True))
+# K5 against its plain version (the bars of tests/test_torch_port_cuda.py):
+# float32, 1e-4 of the value and 1e-5 of the tensor's largest (float32 sums
+# in other orders); bf16, one bf16 ulp of the value (2^-7) and 2^-8 of the
+# largest (p and ds are rounded to bf16 before each product, and a few
+# float32 ulps can move a value across a rounding boundary).
+FLASH_TOL = {torch.float32: (1e-4, 1e-5), torch.bfloat16: (2.0**-7, 2.0**-8)}
+SERVE_WIDTHS = (512, 1024, 2048)  # cli/serve.py --width-buckets
+N_LINES = 421
+# The JAX serve selftest's line widths (htr_vt_tpu/data/synthetic.py:64-75)
+SELFTEST_PX_PER_CHAR, SELFTEST_PAD_PX = 24, 32
+WIDE_BATCH = 64  # tools/train_multiwidth.py --bs
+WIDE_LMAX = {1024: 56, 2048: 112}  # max(6, 28 * w / 512) characters
+WIDE_STEPS = 12
 
 
 def per_step_launches(switches):
@@ -411,14 +457,14 @@ def phase_kernels(device):
 
 
 # ---------------------------------------------------------------------------
-def line_images(n, rng):
-    """[n, 64, 512, 1] float32 "handwriting": dark random strokes on white
+def line_images(n, rng, width=512):
+    """[n, 64, width, 1] float32 "handwriting": dark random strokes on white
     over a random-length stretch of a text band."""
-    img = np.ones((n, 64, 512), np.float32)
-    ink_len = rng.integers(64, 513, n)
-    cols = np.arange(512)[None, None, :] < ink_len[:, None, None]
+    img = np.ones((n, 64, width), np.float32)
+    ink_len = rng.integers(64, width + 1, n)
+    cols = np.arange(width)[None, None, :] < ink_len[:, None, None]
     rows = (np.arange(64) >= 16) & (np.arange(64) < 48)
-    ink = (rng.random((n, 64, 512)) < 0.2) & cols & rows[None, :, None]
+    ink = (rng.random((n, 64, width)) < 0.2) & cols & rows[None, :, None]
     img[ink] = rng.uniform(0.0, 0.4, int(ink.sum())).astype(np.float32)
     return img[..., None]
 
@@ -976,6 +1022,376 @@ def phase_fully_fused_serve(device, stock):
 
 
 # ---------------------------------------------------------------------------
+def flash_inputs(shape, dtype, device, seed):
+    """q, k, v [B, H, N, D] as the strided views of a fused qkv projection's
+    [B, N, 3, H, D] output (as the model makes them), and a contiguous do;
+    N(0, 1) in ``dtype``."""
+    b, h, n, d = shape
+    gen = torch.Generator(device=device).manual_seed(seed)
+    qkv = torch.randn((b, n, 3, h, d), generator=gen, device=device).to(dtype)
+    q, k, v = qkv.permute(2, 0, 3, 1, 4)
+    do = torch.randn(shape, generator=gen, device=device).to(dtype)
+    return q, k, v, do
+
+
+def _flash_held(what, got, want):
+    """max |got - want| within FLASH_TOL; raises past it."""
+    rtol, of_max = FLASH_TOL[want.dtype]
+    got, want = got.float(), want.float()
+    err = (got - want).abs()
+    bar = rtol * want.abs() + of_max * want.abs().max()
+    share = (err / bar.clamp_min(1e-30)).max().item()
+    if not share <= 1.0:
+        raise AssertionError(f"{what}: kernel and plain version differ by {share:.3f} "
+                             "of the bar")
+    return err.max().item(), share
+
+
+def _sdpa_ms(fn):
+    """CUDA-event median of an SDPA call, or None where no backend takes
+    the shape (then said so)."""
+    try:
+        return median_ms(fn, 10)
+    except RuntimeError as err:
+        say(f"[K5] F.scaled_dot_product_attention: no backend for this call "
+            f"({str(err).splitlines()[0][:120]})")
+        return None
+
+
+def flash_case(name, shape, backward, dtype, device):
+    """K5f (and K5dkv, K5dq) at one shape and dtype against the plain
+    versions, two calls bit-equal; times and bounds."""
+    b, h, n, d = shape
+    q, k, v, do = flash_inputs(shape, dtype, device, seed=n + b)
+    scale = d**-0.5
+    fa = flash_attn
+    runs = [fa.flash_attention_fwd(q, k, v, scale) for _ in range(2)]
+    torch.cuda.synchronize()
+    if not all(torch.equal(x, y) for x, y in zip(*runs)):
+        raise AssertionError(f"[K5f {name}] two calls gave different bits")
+    o, l, m = runs[0]
+    del runs
+    o_p, l_p, m_p = fa.flash_attention_reference(q, k, v, scale)
+    rec = {"fwd": {}}
+    rec["fwd"]["max_abs_err"], rec["fwd"]["bar_share"] = _flash_held(
+        f"[K5f {name}] o", o, o_p)
+    torch.testing.assert_close(m, m_p, rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(l, l_p, rtol=1e-4, atol=0.0)
+    bh_n, size = b * h * n, q.element_size()
+    rate = BF16_TENSOR_OPS_PER_S if dtype == torch.bfloat16 else F32_OPS_PER_S
+    flops = 4 * b * h * n * n * d
+    fwd = rec["fwd"]
+    fwd.update(ms=median_ms(lambda: fa.flash_attention_fwd(q, k, v, scale), 10),
+               plain_ms=median_ms(lambda: fa.flash_attention_reference(q, k, v, scale), 5))
+    fwd["library_ms"] = _sdpa_ms(lambda: F.scaled_dot_product_attention(
+        q, k, v, scale=scale))
+    fwd["bound_ms"], fwd["bound_by"] = bound(4 * q.numel() * size + 2 * bh_n * 4,
+                                             flops, rate)
+    del o_p
+    if backward:
+        di = fa.attention_delta(o, do)
+        runs = [(*fa.flash_attention_bwd_dkv(q, k, v, l, m, do, di, scale),
+                 fa.flash_attention_bwd_dq(q, k, v, l, m, do, di, scale))
+                for _ in range(2)]
+        torch.cuda.synchronize()
+        if not all(torch.equal(x, y) for x, y in zip(*runs)):
+            raise AssertionError(f"[K5dkv/K5dq {name}] two calls gave different bits")
+        dk, dv, dq = runs[0]
+        del runs
+        dk_p, dv_p = fa.flash_attention_dkv_reference(q, k, v, l, m, do, di, scale)
+        e_k, e_v = _flash_held(f"[K5dkv {name}] dk", dk, dk_p), _flash_held(
+            f"[K5dkv {name}] dv", dv, dv_p)
+        del dk_p, dv_p
+        e_q = _flash_held(f"[K5dq {name}] dq", dq, fa.flash_attention_dq_reference(
+            q, k, v, l, m, do, di, scale))
+        leaves = [t.detach().clone().requires_grad_(True) for t in (q, k, v)]
+
+        def sdpa_fwd_bwd():
+            F.scaled_dot_product_attention(*leaves, scale=scale).backward(do)
+
+        library = _sdpa_ms(sdpa_fwd_bwd)
+        io = 4 * q.numel() * size + 3 * bh_n * 4  # q, k, v, do; l, m, di
+        rec["dkv"] = dict(
+            max_abs_err=max(e_k[0], e_v[0]), bar_share=max(e_k[1], e_v[1]),
+            ms=median_ms(lambda: fa.flash_attention_bwd_dkv(q, k, v, l, m, do, di,
+                                                            scale), 10),
+            plain_ms=median_ms(lambda: fa.flash_attention_dkv_reference(
+                q, k, v, l, m, do, di, scale), 3, warmup=1),
+            library_ms=library)
+        rec["dkv"]["bound_ms"], rec["dkv"]["bound_by"] = bound(
+            io + 2 * q.numel() * size, 2 * flops, rate)
+        rec["dq"] = dict(
+            max_abs_err=e_q[0], bar_share=e_q[1],
+            ms=median_ms(lambda: fa.flash_attention_bwd_dq(q, k, v, l, m, do, di,
+                                                           scale), 10),
+            plain_ms=median_ms(lambda: fa.flash_attention_dq_reference(
+                q, k, v, l, m, do, di, scale), 3, warmup=1),
+            library_ms=library)
+        rec["dq"]["bound_ms"], rec["dq"]["bound_by"] = bound(
+            io + q.numel() * size, 3 * flops // 2, rate)
+    tag = "bf16" if dtype == torch.bfloat16 else "f32"
+    for key, kernel in (("fwd", "K5f"), ("dkv", "K5dkv"), ("dq", "K5dq")):
+        if key not in rec:
+            continue
+        r = rec[key]
+        lib = ("none" if r["library_ms"] is None else f"{r['library_ms']:.4f} ms")
+        say(f"[{kernel} {name} {tag}] {list(shape)}: two calls bit-equal; vs plain "
+            f"max|err| {r['max_abs_err']:.3e}, {r['bar_share']:.3f} of the bar; kernel "
+            f"{r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, SDPA "
+            f"{'forward' if key == 'fwd' else 'forward + backward'} {lib}; bound "
+            f"{r['bound_ms']:.4f} ms by {r['bound_by']}")
+    return rec
+
+
+def phase_flash_kernels(device):
+    """K5f at the serving shapes, K5f/K5dkv/K5dq at the training shapes, in
+    bf16 and float32, against their plain versions."""
+    out = {}
+    for name, shape, backward in FLASH_SHAPES:
+        for dtype in (torch.bfloat16, torch.float32):
+            tag = "bf16" if dtype == torch.bfloat16 else "f32"
+            out[f"{name}_{tag}"] = flash_case(name, shape, backward, dtype, device)
+            torch.cuda.empty_cache()
+    return out
+
+
+# ---------------------------------------------------------------------------
+def selftest_lines(n, rng):
+    """Character counts of the JAX serve selftest's ramp (``random_text``
+    with ``selftest_max_len``: 4 to 6 + 90 i / (n - 1) characters) and the
+    natural widths ``n_chars * 24 + 32`` px."""
+    chars = np.array([rng.integers(4, max(5, 6 + (i * 90) // (n - 1)) + 1)
+                      for i in range(n)])
+    return chars, np.maximum(64, chars * SELFTEST_PX_PER_CHAR + SELFTEST_PAD_PX)
+
+
+def synthetic_line(i, natural, width):
+    """Line i as float32 [64, width, 1]: strokes over its natural width,
+    cut at the bucket's width (the widest bucket caps longer lines), white
+    after it."""
+    rng = np.random.default_rng(SEED + 1000 + i)
+    img = np.ones((64, width), np.float32)
+    w = min(int(natural), width)
+    ink = rng.random((32, w)) < 0.2
+    band = img[16:48, :w]
+    band[ink] = rng.uniform(0.0, 0.4, int(ink.sum())).astype(np.float32)
+    return img[..., None]
+
+
+def phase_bucket_serve(device, stock):
+    """421 lines of the selftest ramp through ``transcribe_buckets`` at
+    512/1024/2048 px with the serve phase's weights; K5f counts, per-bucket
+    speed and the flash logits against ``attn_impl="xla"``."""
+    model, converter = stock["model"], stock["converter"]
+    depth = model.cfg.depth
+    chars, widths = selftest_lines(N_LINES, np.random.default_rng(SEED + 5))
+    buckets = {}
+    for w in widths:
+        b = next((s for s in SERVE_WIDTHS if w <= s), SERVE_WIDTHS[-1])
+        buckets[b] = buckets.get(b, 0) + 1
+    batches = {b: math.ceil(n / BATCH) for b, n in buckets.items()}
+    wide = sum(n for b, n in batches.items() if b > 512)
+    say(f"[bucket serve] {N_LINES} lines of {chars.min()}-{chars.max()} characters, "
+        f"{widths.min()}-{widths.max()} px, routed to {SERVE_WIDTHS} at bs {BATCH}: "
+        f"lines {buckets}, batches {batches}")
+
+    # --- the main path, counted ------------------------------------------
+    load = lambda i, width: synthetic_line(i, widths[i], width)  # noqa: E731
+    reset_counts()
+    t0 = time.perf_counter()
+    texts = transcribe_buckets(model, load, widths, SERVE_WIDTHS, converter, BATCH)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = read_counts()
+    n_steps = sum(batches.values())
+    want = {**dict.fromkeys(COUNTERS, 0), "ctc_alpha": n_steps,
+            "flash_attention_fwd": depth * wide}
+    if counts != want:
+        raise AssertionError(f"bucket serving launched {counts}; expected {want}")
+    if len(texts) != N_LINES or any(t is None for t in texts):
+        raise AssertionError(f"{len(texts)} texts for {N_LINES} lines")
+    say(f"[bucket serve] served {N_LINES} lines in {n_steps} eval_step calls in "
+        f"{wall:.3f} s (first calls, cuDNN autotune included); launches {counts}")
+
+    # --- per bucket: one eval_step's launches, speed, memory; flash vs xla --
+    xla_model = build_model(dataclasses.replace(model.cfg, attn_impl="xla"),
+                            device=device)
+    xla_model.load_state_dict(model.state_dict(), strict=True)
+    rec = {}
+    for width in SERVE_WIDTHS:
+        rows = [i for i, w in enumerate(widths)
+                if next((s for s in SERVE_WIDTHS if w <= s), SERVE_WIDTHS[-1]) == width]
+        image = np.ones((BATCH, 64, width, 1), np.float32)
+        for j, i in enumerate(rows[:BATCH]):
+            image[j] = load(i, width)
+        batch = {"image": torch.from_numpy(image).to(device),
+                 "labels": torch.zeros((BATCH, SERVE_LMAX), dtype=torch.int32,
+                                       device=device),
+                 "label_lengths": torch.zeros(BATCH, dtype=torch.int32, device=device)}
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        out = eval_step(model, batch)
+        torch.cuda.synchronize()
+        one = read_counts()
+        peak = torch.cuda.max_memory_allocated()
+        k5 = depth if width > 512 else 0
+        if one != {**dict.fromkeys(COUNTERS, 0), "ctc_alpha": 1, "flash_attention_fwd": k5}:
+            raise AssertionError(f"one eval_step at {width} px launched {one}; expected "
+                                 f"{k5} K5f and one alpha")
+        logits = out["logits"]
+        if tuple(logits.shape) != (BATCH, width // 4, model.cfg.nb_cls) or \
+                not torch.isfinite(logits).all():
+            raise AssertionError(f"{width} px logits {tuple(logits.shape)}")
+        r = dict(lines=buckets.get(width, 0), batches=batches.get(width, 0),
+                 k5f_per_eval_step=one["flash_attention_fwd"], peak_mib=peak / 2**20)
+        r["eval_ms"] = median_ms(lambda: eval_step(model, batch), 10)
+        if width > 512:
+            with torch.inference_mode():
+                ref = xla_model(batch["image"])
+            r["max_dlogits"] = (logits - ref).abs().max().item()
+            r["argmax_agreement"] = (logits.argmax(-1) == ref.argmax(-1)).float().mean().item()
+            torch.cuda.reset_peak_memory_stats()
+            r["xla_eval_ms"] = median_ms(lambda: eval_step(xla_model, batch), 10)
+            r["xla_peak_mib"] = torch.cuda.max_memory_allocated() / 2**20
+            r["eval_ms_2"] = median_ms(lambda: eval_step(model, batch), 10)
+            del ref
+        r["img_s"] = BATCH / r["eval_ms"] * 1e3
+        say(f"[bucket serve {width}] {r['lines']} lines in {r['batches']} batches; "
+            f"{r['k5f_per_eval_step']} K5f per eval_step; eval_step {r['eval_ms']:.3f} "
+            f"ms ({r['img_s']:.1f} img/s), peak memory {r['peak_mib']:.1f} MiB"
+            + ("" if width == 512 else
+               f"; attn_impl=xla on the same weights: eval_step {r['xla_eval_ms']:.3f}"
+               f" ms (flash again {r['eval_ms_2']:.3f} ms), peak {r['xla_peak_mib']:.1f}"
+               f" MiB; frame argmax agreement {r['argmax_agreement']:.4%} (floor "
+               f"{MIN_ARGMAX_AGREEMENT:.0%}), max |dlogits| {r['max_dlogits']:.4f}"))
+        if width > 512 and r["argmax_agreement"] < MIN_ARGMAX_AGREEMENT:
+            raise AssertionError(f"flash vs xla argmax agreement at {width} px "
+                                 f"{r['argmax_agreement']:.4%}")
+        rec[width] = r
+        del batch, out, logits
+    del xla_model
+    return counts, rec
+
+
+# ---------------------------------------------------------------------------
+def wide_batch(n, width, rng, device):
+    """n line images at ``width`` px with labels of length 1 to the
+    recipe's maximum at that width (S up to 2 * 112 + 1 = 225 at 2048)."""
+    lmax = WIDE_LMAX[width]
+    labels = rng.integers(1, ModelConfig().nb_cls, (n, lmax)).astype(np.int32)
+    lengths = rng.integers(1, lmax + 1, n).astype(np.int32)
+    labels[np.arange(lmax)[None] >= lengths[:, None]] = 0
+    put = lambda a: torch.from_numpy(a).to(device)  # noqa: E731
+    return {"image": put(line_images(n, rng, width)), "labels": put(labels),
+            "label_lengths": put(lengths)}
+
+
+def phase_wide_train(device):
+    """The multi-width recipe's SAM step at 1024 and 2048 px, bs 64, one
+    TrainState; K5 launches per step, speed and memory per width; EMA
+    validate at 2048; a learning check at 2048."""
+    model_cfg = ModelConfig(masking=MaskConfig(mode="span", ratio=0.4,
+                                               max_span_length=8))
+    cfg = ExperimentConfig(model=model_cfg, optim=OptimConfig())
+    state = create_train_state(cfg, device,
+                               torch.Generator(device=device).manual_seed(SEED + 6))
+    rng = np.random.default_rng(SEED + 7)
+    widths = (1024, 2048)
+    batches = {w: wide_batch(WIDE_BATCH, w, rng, device) for w in widths}
+    depth = model_cfg.depth
+    per_step = {**dict.fromkeys(COUNTERS, 0), "ctc_alpha": 2, "ctc_beta": 2,
+                "flash_attention_fwd": 2 * depth, "flash_attention_bwd_dkv": 2 * depth,
+                "flash_attention_bwd_dq": 2 * depth}
+    say(f"[wide train] HTRVT flagship {model_cfg.compute_dtype}, span masking ratio "
+        f"0.4 span 8, SAM + AdamW (OptimConfig()), one TrainState, bs {WIDE_BATCH}, "
+        f"{WIDE_STEPS} steps alternating {widths} px, labels up to "
+        f"{[WIDE_LMAX[w] for w in widths]} characters")
+
+    # --- the main path, counted ------------------------------------------
+    torch.cuda.synchronize()
+    reset_counts()
+    times = {w: [] for w in widths}
+    peaks, losses = {}, []
+    for i in range(WIDE_STEPS):
+        w = widths[i % 2]
+        before = read_counts()
+        if i >= WIDE_STEPS - 2:
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        metrics = train_step(state, batches[w])
+        end.record()
+        end.synchronize()
+        times[w].append(start.elapsed_time(end))
+        if i >= WIDE_STEPS - 2:
+            peaks[w] = torch.cuda.max_memory_allocated()
+        after = read_counts()
+        step = {k: after[k] - before[k] for k in after}
+        if step != per_step:
+            raise AssertionError(f"a train step at {w} px launched {step}; expected "
+                                 f"{per_step}")
+        losses.append({k: v.item() for k, v in metrics.items()})
+    launches = read_counts()
+    for m in losses:
+        if not all(math.isfinite(v) for v in m.values()):
+            raise AssertionError(f"non-finite train metrics: {m}")
+    rec = {}
+    for w in widths:
+        ms = statistics.median(times[w][1:])  # the first step of a width warms up
+        rec[w] = dict(ms=ms, img_s=WIDE_BATCH / ms * 1e3, first_ms=times[w][0],
+                      min_ms=min(times[w][1:]), peak_mib=peaks[w] / 2**20)
+        say(f"[wide train {w}] {len(times[w]) - 1} steps after 1 warm-up: median "
+            f"{ms:.3f} ms/step ({rec[w]['img_s']:.1f} img/s; min {rec[w]['min_ms']:.3f}"
+            f", first {times[w][0]:.3f}), peak memory {rec[w]['peak_mib']:.1f} MiB")
+    say(f"[wide train] launches {launches} ({per_step['flash_attention_fwd']} K5f, "
+        f"K5dkv and K5dq, 2 alpha and 2 beta per step); loss "
+        + " ".join(f"{m['loss']:.3f}" for m in losses))
+
+    # --- EMA validation at 2048 px: 4 K5f and 1 alpha per batch -------------
+    alphabet = [chr(c) for c in range(33, 33 + model_cfg.nb_cls - 1)]
+    converter = CTCLabelConverter(alphabet)
+    val, val_rows = [], (WIDE_BATCH, WIDE_BATCH - 5)
+    for n_valid in val_rows:
+        b = wide_batch(WIDE_BATCH, 2048, rng, device)
+        labels, lengths = b["labels"].cpu().numpy(), b["label_lengths"].cpu().numpy()
+        texts = ["".join(alphabet[c - 1] for c in row[:n])
+                 for row, n in zip(labels[:n_valid], lengths[:n_valid])]
+        val.append((b, n_valid, texts))
+    reset_counts()
+    val_loss, cer, wer, preds, _ = validate(state.ema_model, val, converter)
+    val_launches = read_counts()
+    want = {**dict.fromkeys(COUNTERS, 0), "ctc_alpha": 2,
+            "flash_attention_fwd": 2 * depth}
+    if val_launches != want:
+        raise AssertionError(f"validate at 2048 px launched {val_launches}; expected "
+                             f"{want}")
+    if not math.isfinite(val_loss) or len(preds) != sum(val_rows):
+        raise AssertionError(f"validate: loss {val_loss}, {len(preds)} predictions")
+    say(f"[wide train] EMA validate at 2048 px over 2 batches ({len(preds)} valid "
+        f"rows): loss {val_loss:.4f}, CER {cer:.4f}, WER {wer:.4f}; launches "
+        f"{val_launches}")
+    launches = {k: n + val_launches[k] for k, n in launches.items()}
+    del state, batches
+
+    # --- learning check at 2048 px ------------------------------------------
+    learn = create_train_state(
+        dataclasses.replace(cfg, optim=OptimConfig(max_lr=3e-4, warmup_iters=5)),
+        device, torch.Generator(device=device).manual_seed(SEED + 8))
+    small = wide_batch(LEARN_BATCH, 2048, np.random.default_rng(SEED + 9), device)
+    curve = [train_step(learn, small)["loss"].item() for _ in range(LEARN_STEPS)]
+    say(f"[wide train] learning check, {LEARN_STEPS} steps on one batch of "
+        f"{LEARN_BATCH} at 2048 px (max_lr 3e-4, warmup 5): pass-1 loss "
+        f"{curve[0]:.4f} -> {curve[-1]:.4f}")
+    if not curve[-1] < curve[0]:
+        raise AssertionError(f"no learning at 2048 px: {curve}")
+    rec["learn"] = (curve[0], curve[-1])
+    return launches, rec
+
+
+# ---------------------------------------------------------------------------
 def main():
     smi_line = phase_device()
     device = torch.device("cuda", 0)
@@ -983,18 +1399,22 @@ def main():
     kernels = phase_kernels(device)
     stem = phase_stem_kernels(device)
     conv = phase_conv_kernels(device)
+    flash = phase_flash_kernels(device)
     serve_launches, stock = phase_serve(device)
     fused_serve = phase_fused_serve(device, stock)
     full_serve, full_serve_rec = phase_fully_fused_serve(device, stock)
+    bucket_serve, bucket_rec = phase_bucket_serve(device, stock)
     del stock
     train_launches, train = phase_train(device)
     fused_train, fused = phase_train(device, FUSED, train["first_loss"],
                                      "fused train")
     full_train, full = phase_train(device, FULLY_FUSED, train["first_loss"],
                                    "fully fused train")
+    wide_train, wide_rec = phase_wide_train(device)
     say(f"[done] build {build_s:.2f} s; {smi_line}")
     main_path = {k: fused_serve[k] + full_serve[k] + fused_train[k] + full_train[k]
-                 + train_launches[k] for k in COUNTERS}
+                 + train_launches[k] + bucket_serve[k] + wide_train[k]
+                 for k in COUNTERS}
     main_path["ctc_alpha"] += serve_launches
     k193, k17 = kernels["S193"], kernels["S17"]
     entry = stem["bn_stats"]["entry"]
@@ -1068,7 +1488,37 @@ def main():
         ("conv3x3_bn_relu_fwd", 82, "F.conv2d"),
         ("conv3x3_bn_relu_dgrad", 230, "torch.nn.grad.conv2d_input"),
         ("conv3x3_bn_relu_wgrad", 286, "torch.nn.grad.conv2d_weight"))]
-    say(json.dumps({"kernels": ctc + stem_lines + conv_lines,
+    flash_lines = [{
+        "name": name,
+        "route": "cuda",
+        "source": "htr_vt_torch/csrc/flash_attn.cu",
+        "replaces": replaces,
+        "launches": main_path[name],
+        "max_abs_err": max(r[key]["max_abs_err"] for r in flash.values() if key in r),
+        "ms": flash[case][key]["ms"],
+        "plain_ms": flash[case][key]["plain_ms"],
+        "bound_ms": flash[case][key]["bound_ms"],
+        "bound_by": flash[case][key]["bound_by"],
+        "library_ms": flash[case][key]["library_ms"],
+        "library": "F.scaled_dot_product_attention " + (
+            "forward" if key == "fwd" else "forward + backward"),
+        "shape": shape,
+        "cases": {c: r[key] for c, r in flash.items() if key in r},
+    } for name, key, case, shape, replaces in (
+        ("flash_attention_fwd", "fwd", "serve2048_bf16",
+         "bf16 [128, 6, 512, 128] (serving, 2048 px)",
+         "jax/experimental/pallas/ops/tpu/flash_attention.py:758 via "
+         "htr_vt_tpu/models/vit.py:67"),
+        ("flash_attention_bwd_dkv", "dkv", "train2048_bf16",
+         "bf16 [64, 6, 512, 128] (training, 2048 px)",
+         "jax/experimental/pallas/ops/tpu/flash_attention.py:1121 via "
+         "htr_vt_tpu/models/vit.py:67"),
+        ("flash_attention_bwd_dq", "dq", "train2048_bf16",
+         "bf16 [64, 6, 512, 128] (training, 2048 px)",
+         "jax/experimental/pallas/ops/tpu/flash_attention.py:1456 via "
+         "htr_vt_tpu/models/vit.py:67"))]
+    say(json.dumps({"kernels": ctc + stem_lines + conv_lines + flash_lines,
+                    "bucket_serve": bucket_rec, "wide_train": wide_rec,
                     "train_ms": train["ms"], "fused_train_ms": fused["ms"],
                     "fully_fused_train_ms": full["ms"], "train_peak": train["peak"],
                     "fused_train_peak": fused["peak"],

@@ -17,7 +17,11 @@ Ported so far, for the flagship ``model_v1`` recipe:
 - the fused stem, ``ModelConfig(bn_stats_impl="pallas", pool_impl="pallas")``:
   the folded train dataflow with its BN statistics (``csrc/bn_stats.cu``)
   and its entry BN + ReLU + max-pool, forward and backward
-  (``csrc/pool_fused.cu``), as kernels.
+  (``csrc/pool_fused.cu``), as kernels; with ``conv_impl="pallas"`` too,
+  its stride-1 3x3 convs with the BN prologue (``csrc/conv_fused.cu``);
+- the wide-width path: width-bucket serving (``cli/serve.py``) and the
+  multi-width train step at 1024 and 2048 px, where ``attn_impl="auto"``
+  takes flash attention, forward and backward (``csrc/flash_attn.cu``).
 
 On a CUDA tensor the CTC loss runs its alpha recursion, and its gradient
 the beta recursion, as hand-written ``sm_90a`` kernels

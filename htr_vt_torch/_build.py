@@ -102,6 +102,12 @@ def library() -> ctypes.CDLL:
                lib.htrvt_pool_bn_relu_bwd, lib.htrvt_conv3x3_fwd,
                lib.htrvt_conv3x3_dgrad, lib.htrvt_conv3x3_wgrad):
         fn.restype = i32
+    strides, f32 = ctypes.POINTER(i64), ctypes.c_float
+    lib.htrvt_flash_fwd.argtypes = [ptr] * 6 + [strides, f32] + [i32] * 5 + [ptr]
+    lib.htrvt_flash_bwd_dkv.argtypes = [ptr] * 9 + [strides, f32] + [i32] * 5 + [ptr]
+    lib.htrvt_flash_bwd_dq.argtypes = [ptr] * 8 + [strides, f32] + [i32] * 5 + [ptr]
+    for fn in (lib.htrvt_flash_fwd, lib.htrvt_flash_bwd_dkv, lib.htrvt_flash_bwd_dq):
+        fn.restype = i32
     lib.htrvt_conv3x3_dgrad_rows.argtypes = [i64, i32]
     lib.htrvt_conv3x3_dgrad_rows.restype = i64
     lib.htrvt_conv3x3_wgrad_splits.argtypes = [i64, i32, i32, i32]

@@ -1,13 +1,20 @@
-"""Batch serving with the PyTorch port (port of ``htr_vt_tpu/cli/serve.py``,
-base width only): transcribe line images to JSONL, one
-{"image", "text"} record per line.
+"""Batch serving with the PyTorch port (port of ``htr_vt_tpu/cli/serve.py``):
+transcribe line images to JSONL, one {"image", "text"} record per line.
 
     python -m htr_vt_torch.cli.serve IAM --checkpoint best_CER.pth \\
-        --images 'scans/*.png' --batch-size 128 [--out preds.jsonl]
+        --images 'scans/*.png' --batch-size 128 [--out preds.jsonl] \\
+        [--width-buckets 512,1024,2048]
 
 The checkpoint is a state_dict in the reference PyTorch layout (what
-``htr_vt_torch/utils/torch_convert.py`` reads and writes). Width buckets,
-int8 and beam/LM rescoring are not ported yet (ROADMAP.md, queue 1).
+``htr_vt_torch/utils/torch_convert.py`` reads and writes). Width buckets
+(``serve.py:142-159``): each line goes, by its natural aspect-resized
+width, to the smallest bucket that holds it (the widest catches the rest,
+capped there), and each bucket runs fixed-size batches at its width
+through the same model and weights; without buckets every line is capped
+at the configured width, as the reference does. At 1024 and 2048 px (N =
+256 and 512 tokens) ``attn_impl="auto"`` takes the flash-attention
+kernels on the card. int8 and beam/LM rescoring are not ported yet
+(ROADMAP.md, queue 1).
 """
 
 from __future__ import annotations
@@ -19,7 +26,7 @@ import json
 import os
 import sys
 import time
-from typing import List, Optional, Sequence
+from typing import Callable, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -27,6 +34,7 @@ from torch import nn
 
 from htr_vt_torch.config import dataset_preset
 from htr_vt_torch import CTCLabelConverter
+from htr_vt_torch.data.image import assign_width_buckets
 from htr_vt_torch.models.htr_vt import build_model
 from htr_vt_torch.train.step import eval_step
 from htr_vt_torch.utils.convert import load_reference_checkpoint
@@ -57,6 +65,43 @@ def transcribe(model: nn.Module, images: np.ndarray,
     return texts
 
 
+def route_to_buckets(widths: Sequence[int], buckets: Sequence[int],
+                     stride: int) -> Tuple[List[int], List[int]]:
+    """(sorted bucket widths, each line's bucket index) for natural line
+    ``widths``. Bucket widths are rounded up to multiples of ``stride`` (the
+    stem's width stride, ``patch_size[0]``), with the JAX CLI's note for
+    each one that moved (``serve.py:146-155``)."""
+    fixed = [-(-w // stride) * stride for w in buckets]
+    for w, fw in zip(buckets, fixed):
+        if w != fw:
+            print(f"width bucket {w} rounded up to {fw} "
+                  f"(widths must be multiples of {stride})")
+    return assign_width_buckets(widths, fixed)
+
+
+def transcribe_buckets(model: nn.Module, load: Callable[[int, int], np.ndarray],
+                       widths: Sequence[int], buckets: Sequence[int],
+                       converter: CTCLabelConverter, batch_size: int) -> List[str]:
+    """Greedy transcriptions of lines of natural ``widths``, in input order.
+
+    ``load(i, width)`` returns line i as float32 [H, width, 1] at its
+    bucket's width. Each bucket runs ``eval_step`` on fixed-size batches of
+    its lines (``transcribe``: the last batch white-padded), loading one
+    batch at a time (``serve.py:236-254``)."""
+    bucket_widths, owner = route_to_buckets(widths, buckets,
+                                            model.cfg.patch_size[0])
+    texts: List[Optional[str]] = [None] * len(widths)
+    for bi, width in enumerate(bucket_widths):
+        idxs = [i for i, o in enumerate(owner) if o == bi]
+        for start in range(0, len(idxs), batch_size):
+            sel = idxs[start:start + batch_size]
+            images = np.stack([load(i, width) for i in sel])
+            for i, text in zip(sel, transcribe(model, images, converter,
+                                               batch_size)):
+                texts[i] = text
+    return texts
+
+
 def charset(dataset: str, train_list: Optional[str] = None,
             data_path: Optional[str] = None) -> List[str]:
     """The codec alphabet the JAX serve CLI derives: the sorted synthetic
@@ -79,7 +124,8 @@ def _image_paths(spec: str) -> Sequence[str]:
 
 
 def main(argv: Optional[Sequence[str]] = None) -> None:
-    from htr_vt_torch.data.image import load_line_image  # needs PIL
+    from htr_vt_torch.data.image import (load_line_image,  # needs PIL
+                                         natural_line_width)
 
     p = argparse.ArgumentParser(description="htr_vt_torch batch transcription")
     p.add_argument("dataset", help="IAM | READ | LAM | SYNTH (sets the charset)")
@@ -93,6 +139,11 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
     p.add_argument("--train-list", default=None,
                    help="training list for the charset (default: the preset's)")
     p.add_argument("--data-path", default=None)
+    p.add_argument("--width-buckets", default=None,
+                   help="comma-separated widths (e.g. 512,1024,2048), each a "
+                        "multiple of the stem's width stride (patch_size[0], "
+                        "default 4; off-multiples are rounded up); default: "
+                        "the configured width only")
     args = p.parse_args(argv)
 
     paths = _image_paths(args.images)
@@ -106,17 +157,21 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
     model.load_state_dict(load_reference_checkpoint(args.checkpoint),
                           strict=True)
     h, w = cfg.img_size
+    if args.width_buckets:
+        buckets = [int(x) for x in args.width_buckets.split(",") if x.strip()]
+        widths = [natural_line_width(path, h) for path in paths]
+    else:
+        buckets, widths = [w], [w] * len(paths)
     t0 = time.perf_counter()
+    # one batch of a bucket at a time: host memory stays at one batch
+    texts = transcribe_buckets(
+        model, lambda i, width: load_line_image(paths[i], width, h), widths,
+        buckets, converter, args.batch_size)
     sink = open(args.out, "w") if args.out else sys.stdout
     try:
-        # one request at a time: host memory stays at one batch of images
-        for start in range(0, len(paths), args.batch_size):
-            chunk = paths[start:start + args.batch_size]
-            images = np.stack([load_line_image(path, w, h) for path in chunk])
-            for path, text in zip(chunk, transcribe(model, images, converter,
-                                                    args.batch_size)):
-                sink.write(json.dumps({"image": path, "text": text},
-                                      ensure_ascii=False) + "\n")
+        for path, text in zip(paths, texts):
+            sink.write(json.dumps({"image": path, "text": text},
+                                  ensure_ascii=False) + "\n")
     finally:
         if args.out:
             sink.close()

@@ -6,20 +6,22 @@ grayscale -> aspect-preserving resize to height 64 (PIL default bicubic for
 (1.0) to exactly 512. The fixed [64, 512] canvas is what gives the model its
 static 128-token grid — a feature on TPU (one XLA program, §5 of SURVEY).
 
-The port's own copy of ``htr_vt_tpu/data/image.py``. It needs PIL, which
-the card's machine lacks: ``cli/serve.py`` imports it only inside ``main``.
+The port's own copy of ``htr_vt_tpu/data/image.py``, with one change: PIL,
+which the card's machine lacks, is imported inside the three functions that
+read or resize an image, so the bucket router ``assign_width_buckets``
+imports without it.
 """
 
 from __future__ import annotations
 
 import numpy as np
-from PIL import Image
 
 
 def resize_keep_aspect(img: np.ndarray, max_w: int, max_h: int) -> np.ndarray:
     """Reference ``npThum``: new_h = max_h, new_w = min(w * max_h / h, max_w).
     Degenerate ultra-narrow inputs are clamped to 1 px (the reference would
     crash PIL with width 0)."""
+    from PIL import Image
     h, w = img.shape[:2]
     new_w = max(1, min(int(w * max_h / h), max_w))
     return np.array(Image.fromarray(img).resize((new_w, max_h)))
@@ -27,6 +29,7 @@ def resize_keep_aspect(img: np.ndarray, max_w: int, max_h: int) -> np.ndarray:
 
 def load_line_image(path: str, max_w: int = 512, max_h: int = 64) -> np.ndarray:
     """Load + resize + pad one line image. Returns float32 [max_h, max_w, 1]."""
+    from PIL import Image
     img = np.array(Image.open(path).convert("L"))
     return prepare_line_image(img, max_w, max_h)
 
@@ -47,6 +50,7 @@ def natural_line_width(path: str, max_h: int = 64) -> int:
     """Width the line would occupy after the aspect-preserving resize to
     ``max_h``, UNCAPPED — used to assign images to serving width buckets
     (cli/serve.py --width-buckets). Reads only the image header."""
+    from PIL import Image
     with Image.open(path) as im:
         w, h = im.size
     return max(1, int(w * max_h / h))

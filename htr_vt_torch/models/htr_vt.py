@@ -18,7 +18,7 @@ BatchNorm, masking and dropout. SGM and remat are not ported yet
 from __future__ import annotations
 
 import math
-from typing import Optional
+from typing import Dict, Optional, Tuple
 
 import torch
 from torch import nn
@@ -27,7 +27,7 @@ from htr_vt_torch.config import ModelConfig
 from htr_vt_torch.models import masking
 from htr_vt_torch.models.layers import global_layer_norm, sincos_pos_embed_2d
 from htr_vt_torch.models.stem import ResNet18Stem
-from htr_vt_torch.models.vit import Block
+from htr_vt_torch.models.vit import ATTN_IMPLS, Block
 
 
 class HTRVT(nn.Module):
@@ -47,13 +47,13 @@ class HTRVT(nn.Module):
             pool_impl=cfg.pool_impl, bn_stats_impl=cfg.bn_stats_impl,
             conv_impl=cfg.conv_impl)
         self.mask_token = nn.Parameter(torch.zeros(1, 1, d, device=device))
-        self.register_buffer(
-            "pos_embed",
-            torch.from_numpy(sincos_pos_embed_2d(d, cfg.grid_size)).to(device),
-            persistent=False)
+        # fixed sin-cos tables, one per (grid, device), outside the state_dict
+        self._pos_tables: Dict[Tuple, torch.Tensor] = {}
         self.blocks = nn.ModuleList(
             Block(d, cfg.num_heads, cfg.mlp_ratio, cfg.qkv_bias,
-                  cfg.layer_norm_eps, dtype, drop=cfg.drop_rate, device=device)
+                  cfg.layer_norm_eps, dtype, drop=cfg.drop_rate,
+                  attn_drop=cfg.attn_drop_rate, attn_impl=cfg.attn_impl,
+                  device=device)
             for _ in range(cfg.depth))
         self.norm = nn.LayerNorm(d, eps=cfg.layer_norm_eps, device=device)
         self.head = nn.Linear(d, cfg.nb_cls, device=device)
@@ -81,10 +81,31 @@ class HTRVT(nn.Module):
                 m.bias.zero_()
         self.mask_token.normal_(0.0, 0.02, generator=generator)
 
+    def pos_table(self, grid: Tuple[int, int]) -> torch.Tensor:
+        """The float32 [gh * gw, D] sin-cos table of ``grid`` on the model's
+        device, made once per grid: one module serves every width, as the
+        JAX package's per-width modules share one parameter set
+        (``htr_vt.py:114-116``, ``tools/train_multiwidth.py:109-124``)."""
+        device = self.mask_token.device
+        key = (tuple(grid), device)
+        table = self._pos_tables.get(key)
+        if table is None:
+            table = torch.from_numpy(
+                sincos_pos_embed_2d(self.cfg.embed_dim, grid)).to(device)
+            self._pos_tables[key] = table
+        return table
+
+    @property
+    def pos_embed(self) -> torch.Tensor:
+        """The table of the configured width's grid (``cfg.grid_size``)."""
+        return self.pos_table(self.cfg.grid_size)
+
     def forward(self, image: torch.Tensor, *, train: bool = False,
                 keep: Optional[torch.Tensor] = None,
                 generator: Optional[torch.Generator] = None) -> torch.Tensor:
-        """[B, H, W, 1] float32 -> logits [B, N, nb_cls] float32.
+        """[B, H, W, 1] float32 -> logits [B, N, nb_cls] float32, at any
+        width the stem takes: the position table follows the image's grid,
+        ``(H // patch_size[0], W // patch_size[1])``.
 
         ``train``: batch-statistic BatchNorm (moving the running statistics
         in place), token masking and dropout, drawing from ``generator``.
@@ -107,7 +128,9 @@ class HTRVT(nn.Module):
             raise ValueError("a keep mask applies only in train mode with "
                              "masking on")
         if cfg.use_abs_pos_embed:
-            tokens = tokens + self.pos_embed[:n].to(self.dtype)
+            grid = (image.shape[1] // cfg.patch_size[0],
+                    image.shape[2] // cfg.patch_size[1])
+            tokens = tokens + self.pos_table(grid)[:n].to(self.dtype)
         for block in self.blocks:
             tokens = block(tokens, train=train, generator=generator)
         logits = self.head(self.norm(tokens.float()))
@@ -120,14 +143,16 @@ STEM_IMPLS = ("auto", "xla", "pallas")
 DATAFLOWS = ("plain", "folded")
 
 
-def check_stem_switches(cfg: ModelConfig) -> None:
-    """The stem's kernel switches, read as in JAX (``config.py:100-111``):
-    ``"pallas"`` names the hand-written kernel that replaces that Pallas
-    kernel, ``"auto"`` and ``"xla"`` the stock ops."""
+def check_switches(cfg: ModelConfig) -> None:
+    """The kernel switches, read as in JAX (``config.py:100-122``): for the
+    stem, ``"pallas"`` names the hand-written kernel that replaces that
+    Pallas kernel, ``"auto"`` and ``"xla"`` the stock ops; ``attn_impl``
+    is ``auto | xla | flash`` (``models/vit.py:resolve_attn_impl``)."""
     for name, allowed in (("conv_impl", STEM_IMPLS),
                           ("pool_impl", STEM_IMPLS),
                           ("bn_stats_impl", STEM_IMPLS),
-                          ("conv_dataflow", DATAFLOWS)):
+                          ("conv_dataflow", DATAFLOWS),
+                          ("attn_impl", ATTN_IMPLS)):
         if getattr(cfg, name) not in allowed:
             raise ValueError(f"{name}={getattr(cfg, name)!r}: expected one of "
                              f"{allowed}")
@@ -150,7 +175,7 @@ def build_model(cfg: ModelConfig, device=None,
         raise NotImplementedError(
             f"quant={cfg.quant!r} is not ported to htr_vt_torch yet "
             "(ROADMAP.md queue 1, item 11: int8 serving)")
-    check_stem_switches(cfg)
+    check_switches(cfg)
     device = torch.device("cuda") if device is None else torch.device(device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("build_model: no CUDA device; pass device='cpu' to "

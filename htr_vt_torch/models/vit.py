@@ -4,6 +4,10 @@ Train mode adds the projection and MLP dropout and drop-path, each drawing
 from an explicit ``torch.Generator``; the JAX attention has no dropout on
 the attention weights, so neither has this one. The flagship ``vit`` recipe
 has no LayerScale and a drop-path rate of 0.
+
+``attn_impl`` picks the attention of each block as ``resolve_attn_impl``
+decides: ``multi_head_attention`` (plain torch, the stock ops) or
+``flash_mha`` (the K5 kernels, ``ops/flash_attn.py``).
 """
 
 from __future__ import annotations
@@ -14,6 +18,53 @@ import torch
 from torch import nn
 
 from htr_vt_torch.models.layers import DropPath, Mlp, dense, dropout
+from htr_vt_torch.ops.flash_attn import flash_attention
+
+ATTN_IMPLS = ("auto", "xla", "flash")
+
+
+def resolve_attn_impl(impl: str, n: int, head_dim: int, fused: bool = False,
+                      on_cuda: bool = False) -> str:
+    """Pick the attention of a global-attention site (``vit.py:28-64``):
+    ``"flash"`` (K5, streaming softmax over 128-key blocks, so the [B, H, N,
+    N] matrix never reaches device memory) or ``"xla"`` (the stock ops).
+
+    The JAX decisions, with "on a TPU" read as "the tensor is on CUDA":
+    ``"auto"`` takes flash on CUDA when N >= 256 (the 1024/2048-px width
+    buckets; the flagship's N = 128 stays on the stock ops) and N and
+    head_dim are multiples of 128, and never where something is fused
+    (dropout on the attention weights). An explicit ``"flash"`` is held to
+    the same shape and fusion gates and raises on a shape it cannot take.
+    One difference from JAX, which raises on an explicit ``"flash"`` off a
+    TPU: here it is allowed on any device, and a CPU tensor runs the
+    kernels' plain versions, as ``conv_impl="pallas"`` does on the CPU."""
+    if impl == "xla":
+        return "xla"
+    if impl == "flash":
+        if fused:
+            raise ValueError("attn_impl='flash' cannot fuse bias/mask/dropout "
+                             "inside attention at this site; use 'xla' or "
+                             "'auto' (auto routes fused sites to the stock ops)")
+        if n % 128 or head_dim % 128:
+            raise ValueError(
+                f"attn_impl='flash' needs N and head_dim to be multiples of "
+                f"128 (kernel block constraint); got N={n}, head_dim="
+                f"{head_dim} — use 'auto' to take the stock ops on such shapes")
+        return "flash"
+    if impl != "auto":
+        raise ValueError(f"unknown attn_impl {impl!r} (auto | xla | flash)")
+    if fused or n < 256 or n % 128 or head_dim % 128:
+        return "xla"
+    return "flash" if on_cuda else "xla"
+
+
+def flash_mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: float,
+              out_dtype: torch.dtype) -> torch.Tensor:
+    """Flash attention with ``multi_head_attention``'s contract, bias- and
+    mask-free (``vit.py:67-74``): q, k, v [B, H, N, D] -> [B, N, H*D]."""
+    out = flash_attention(q, k, v, scale)
+    b, h, n, d = out.shape
+    return out.transpose(1, 2).reshape(b, n, h * d).to(out_dtype)
 
 
 def multi_head_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -33,14 +84,18 @@ def multi_head_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 class Attention(nn.Module):
     """Global multi-head self-attention with a fused qkv projection
-    (``vit.py:96-146``; no rel-bias, no int8)."""
+    (``vit.py:96-146``; no rel-bias, no int8). ``attn_drop`` only steers
+    ``resolve_attn_impl``, as in JAX: no dropout acts on the weights."""
 
     def __init__(self, dim: int, num_heads: int, qkv_bias: bool,
-                 dtype: torch.dtype, proj_drop: float = 0.0, device=None):
+                 dtype: torch.dtype, proj_drop: float = 0.0,
+                 attn_drop: float = 0.0, attn_impl: str = "auto", device=None):
         super().__init__()
         self.num_heads = num_heads
         self.dtype = dtype
         self.proj_drop = proj_drop
+        self.attn_drop = attn_drop
+        self.attn_impl = attn_impl
         self.qkv = nn.Linear(dim, 3 * dim, bias=qkv_bias, device=device)
         self.proj = nn.Linear(dim, dim, device=device)
 
@@ -52,7 +107,11 @@ class Attention(nn.Module):
         # [B, N, 3, H, D] -> 3 x [B, H, N, D]
         q, k, v = qkv.reshape(b, n, 3, self.num_heads, head_dim).permute(
             2, 0, 3, 1, 4)
-        out = multi_head_attention(q, k, v, head_dim**-0.5, self.dtype)
+        impl = resolve_attn_impl(self.attn_impl, n, head_dim,
+                                 fused=self.attn_drop > 0 and train,
+                                 on_cuda=x.is_cuda)
+        mha = flash_mha if impl == "flash" else multi_head_attention
+        out = mha(q, k, v, head_dim**-0.5, self.dtype)
         out = dense(self.proj, out, self.dtype)
         return dropout(out, self.proj_drop, train, generator)
 
@@ -63,11 +122,13 @@ class Block(nn.Module):
 
     def __init__(self, dim: int, num_heads: int, mlp_ratio: float,
                  qkv_bias: bool, layer_norm_eps: float, dtype: torch.dtype,
-                 drop: float = 0.0, drop_path: float = 0.0, device=None):
+                 drop: float = 0.0, drop_path: float = 0.0,
+                 attn_drop: float = 0.0, attn_impl: str = "auto", device=None):
         super().__init__()
         self.dtype = dtype
         self.norm1 = nn.LayerNorm(dim, eps=layer_norm_eps, device=device)
         self.attn = Attention(dim, num_heads, qkv_bias, dtype, proj_drop=drop,
+                              attn_drop=attn_drop, attn_impl=attn_impl,
                               device=device)
         self.norm2 = nn.LayerNorm(dim, eps=layer_norm_eps, device=device)
         self.mlp = Mlp(dim, int(dim * mlp_ratio), dtype, drop_rate=drop,

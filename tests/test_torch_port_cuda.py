@@ -605,3 +605,168 @@ def test_fully_fused_train_step_on_the_card_matches_the_cpu(cuda):
     want = train_step(cpu, batch)
     for key in ("loss", "loss_second", "grad_norm"):
         torch.testing.assert_close(got[key].cpu(), want[key], rtol=1e-4, atol=1e-4)
+
+
+# --- K5: flash attention forward (K5f) and backward (K5dkv, K5dq) ---------------
+# Kernel vs plain version: the same operations and rounding points, float32
+# sums in other orders (mma.sync or FFMA against cuBLAS). float32: within
+# 1e-4 of the value plus 1e-5 of the tensor's largest. bf16: p and ds are
+# rounded to bf16 before each product and the result once, so a float32
+# difference of a few ulps may set an element one bf16 ulp apart (2^-7 of
+# its value), or a term of a sum that cancels one ulp apart (2^-8 of the
+# tensor's largest value).
+FLASH_TOL = {torch.float32: (1e-4, 1e-5), torch.bfloat16: (2.0**-7, 2.0**-8)}
+
+
+def _attn_inputs(b, h, n, dtype, device, seed, strided):
+    """q, k, v [b, h, n, 128] (with ``strided``, the views of a fused qkv
+    projection's [b, n, 3, h, 128] output, as the model makes them) and
+    do, N(0, 1)."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    if strided:
+        qkv = torch.randn((b, n, 3, h, 128), generator=gen, device=device).to(dtype)
+        q, k, v = qkv.permute(2, 0, 3, 1, 4)
+    else:
+        q, k, v = (torch.randn((b, h, n, 128), generator=gen, device=device).to(dtype)
+                   for _ in range(3))
+    do = torch.randn((b, h, n, 128), generator=gen, device=device).to(dtype)
+    return q, k, v, do
+
+
+def _assert_flash_close(got, want, what):
+    rtol, of_max = FLASH_TOL[want.dtype]
+    assert got.dtype == want.dtype and got.shape == want.shape, what
+    torch.testing.assert_close(got.float(), want.float(), rtol=rtol,
+                               atol=of_max * want.float().abs().max().item(), msg=what)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,b,h,n,strided", [
+    (torch.bfloat16, 3, 5, 128, False),   # one key block: the single-step path
+    (torch.bfloat16, 3, 5, 256, True),
+    (torch.bfloat16, 2, 3, 512, True),
+    (torch.bfloat16, 1, 6, 384, False),
+    (torch.float32, 3, 5, 128, False),
+    (torch.float32, 1, 3, 256, True),
+    (torch.float32, 2, 1, 512, False)])
+def test_flash_kernels_match_plain(cuda, dtype, b, h, n, strided):
+    """K5f, K5dkv and K5dq against their plain versions at odd batch and
+    head counts, and two calls of each bit-equal."""
+    from htr_vt_torch.ops import flash_attn as fa
+    q, k, v, do = _attn_inputs(b, h, n, dtype, cuda, n + b, strided)
+    scale = 128**-0.5
+    counters = (fa.flash_attention_fwd, fa.flash_attention_bwd_dkv,
+                fa.flash_attention_bwd_dq)
+    before = [f.launches for f in counters]
+    runs = []
+    for _ in range(2):
+        o, l, m = fa.flash_attention_fwd(q, k, v, scale)
+        di = fa.attention_delta(o, do)
+        runs.append((o, l, m, *fa.flash_attention_bwd_dkv(q, k, v, l, m, do, di, scale),
+                     fa.flash_attention_bwd_dq(q, k, v, l, m, do, di, scale)))
+    torch.cuda.synchronize()
+    assert [f.launches - c for f, c in zip(counters, before)] == [2, 2, 2]
+    assert all(torch.equal(x, y) for x, y in zip(*runs))
+    o, l, m, dk, dv, dq = runs[0]
+    assert o.transpose(1, 2).is_contiguous()  # heads merge back without a copy
+    o_p, l_p, m_p = fa.flash_attention_reference(q, k, v, scale)
+    _assert_flash_close(o, o_p, "o")
+    torch.testing.assert_close(m, m_p, rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(l, l_p, rtol=1e-4, atol=0.0)
+    # both backward kernels from the same (plain) l, m and di
+    di = fa.attention_delta(o_p, do)
+    dk_p, dv_p = fa.flash_attention_dkv_reference(q, k, v, l_p, m_p, do, di, scale)
+    dk, dv = fa.flash_attention_bwd_dkv(q, k, v, l_p, m_p, do, di, scale)
+    _assert_flash_close(dk, dk_p, "dk")
+    _assert_flash_close(dv, dv_p, "dv")
+    _assert_flash_close(fa.flash_attention_bwd_dq(q, k, v, l_p, m_p, do, di, scale),
+                        fa.flash_attention_dq_reference(q, k, v, l_p, m_p, do, di, scale),
+                        "dq")
+
+
+@pytest.mark.cuda
+def test_flash_gradients_match_autograd_through_the_plain_version(cuda):
+    """flash_attention's gradients (K5dkv and K5dq, one launch each) against
+    autograd through the plain forward, float32."""
+    from htr_vt_torch.ops import flash_attn as fa
+    q, k, v, do = _attn_inputs(2, 3, 256, torch.float32, cuda, 9, True)
+    leaves = [t.detach().clone().requires_grad_(True) for t in (q, k, v)]
+    plain = [t.detach().clone().requires_grad_(True) for t in (q, k, v)]
+    counters = (fa.flash_attention_fwd, fa.flash_attention_bwd_dkv,
+                fa.flash_attention_bwd_dq)
+    before = [f.launches for f in counters]
+    fa.flash_attention(*leaves, 128**-0.5).backward(do)
+    assert [f.launches - c for f, c in zip(counters, before)] == [1, 1, 1]
+    fa.flash_attention_reference(*plain, 128**-0.5)[0].backward(do)
+    for name, got, want in zip(("dq", "dk", "dv"), leaves, plain):
+        _assert_flash_close(got.grad, want.grad, name)
+
+
+@pytest.mark.cuda
+def test_flash_wrappers_reject_what_the_kernels_do_not_take(cuda):
+    from htr_vt_torch.ops import flash_attn as fa
+    q, k, v, do = _attn_inputs(1, 2, 256, torch.bfloat16, cuda, 1, False)
+    o, l, m = fa.flash_attention_fwd(q, k, v, 0.1)
+    di = fa.attention_delta(o, do)
+    with pytest.raises(ValueError, match="bfloat16 or float32"):
+        fa.flash_attention_fwd(q.half(), k.half(), v.half(), 0.1)
+    with pytest.raises(ValueError, match="k must be"):
+        fa.flash_attention_fwd(q, k.float(), v, 0.1)
+    with pytest.raises(ValueError, match="one \\[B, H, N, D\\] shape"):
+        fa.flash_attention_fwd(q, k[:, :1], v, 0.1)
+    with pytest.raises(ValueError, match="multiple of 128"):
+        fa.flash_attention_fwd(q[:, :, :200], k[:, :, :200], v[:, :, :200], 0.1)
+    for d in (64, 256):  # 256: head_dim at embed 1536 / 6, which the gate admits
+        x = torch.zeros((1, 2, 256, d), dtype=torch.bfloat16, device=cuda)
+        with pytest.raises(ValueError, match="head_dim 128 only.*ROADMAP"):
+            fa.flash_attention_fwd(x, x, x, 0.1)
+    with pytest.raises(ValueError, match="one device"):
+        fa.flash_attention_fwd(q, k.cpu(), v, 0.1)
+    with pytest.raises(ValueError, match="one device"):
+        fa.flash_attention_bwd_dq(q, k, v, l.cpu(), m, do, di, 0.1)
+    with pytest.raises(ValueError, match="l must be"):
+        fa.flash_attention_bwd_dkv(q, k, v, l.double(), m, do, di, 0.1)
+    with pytest.raises(ValueError, match="do must be"):
+        fa.flash_attention_bwd_dkv(q, k, v, l, m, do.float(), di, 0.1)
+    wide = torch.zeros((1, 2, 256, 256), dtype=torch.bfloat16, device=cuda)[..., ::2]
+    with pytest.raises(ValueError, match="contiguous last dim"):
+        fa.flash_attention_fwd(wide, k, v, 0.1)
+
+
+@pytest.mark.cuda
+def test_wide_train_step_on_the_card_matches_the_cpu(cuda):
+    """A tiny float32 model (embed 128, one head: head_dim 128) at 64 x 1024
+    px, N = 256: the eval forward takes K5f once a block and gives the CPU's
+    logits (the CPU runs the plain versions); one SAM step launches 4 K5f,
+    4 K5dkv, 4 K5dq and 2 each of alpha and beta, and gives the CPU's
+    losses."""
+    from htr_vt_torch import ExperimentConfig, MaskConfig, OptimConfig
+    from htr_vt_torch.ops import flash_attn as fa
+    from htr_vt_torch.train.state import create_train_state
+    model_cfg = ModelConfig(nb_cls=8, img_size=(64, 1024), embed_dim=128, depth=2,
+                            num_heads=1, compute_dtype="float32", attn_impl="flash",
+                            masking=MaskConfig(mode="none"))
+    cfg = ExperimentConfig(model=model_cfg,
+                           optim=OptimConfig(max_lr=1e-3, warmup_iters=2))
+    cpu = create_train_state(cfg, "cpu", torch.Generator().manual_seed(4))
+    gpu = create_train_state(cfg, cuda, torch.Generator(device=cuda).manual_seed(4))
+    gpu.model.load_state_dict(cpu.model.state_dict(), strict=True)
+    gpu.ema_model.load_state_dict(cpu.ema_model.state_dict(), strict=True)
+    rng = np.random.default_rng(12)
+    _, labels, lengths = ctc_case(12, 2, 256, 8, 40)
+    batch = {"image": rng.random((2, 64, 1024, 1), dtype=np.float32),
+             "labels": labels, "label_lengths": lengths}
+    counters = (fa.flash_attention_fwd, fa.flash_attention_bwd_dkv,
+                fa.flash_attention_bwd_dq, ctc_cuda.ctc_alpha, ctc_cuda.ctc_beta)
+    before = [f.launches for f in counters]
+    x = torch.from_numpy(batch["image"])
+    with torch.inference_mode():
+        got, want = gpu.model(x.to(cuda)), cpu.model(x)
+    assert [f.launches - c for f, c in zip(counters, before)] == [2, 0, 0, 0, 0]
+    torch.testing.assert_close(got.cpu(), want, rtol=1e-4, atol=2e-4)
+    before = [f.launches for f in counters]
+    got = train_step(gpu, batch)
+    assert [f.launches - c for f, c in zip(counters, before)] == [4, 4, 4, 2, 2]
+    want = train_step(cpu, batch)
+    for key in ("loss", "loss_second", "grad_norm"):
+        torch.testing.assert_close(got[key].cpu(), want[key], rtol=1e-3, atol=1e-3)

@@ -140,7 +140,48 @@ def test_serve_main_writes_one_record_per_image(tmp_path, monkeypatch):
         paths, transcribe(model, images, converter, batch_size=2))]
 
 
+def test_serve_main_routes_lines_to_width_buckets(tmp_path, monkeypatch, capsys):
+    """With ``--width-buckets``, ``main`` routes each line by its natural
+    width (rounding the buckets up to the stem's stride, with the JAX CLI's
+    note) and writes ``transcribe_buckets``'s texts in input order."""
+    from PIL import Image
+
+    import htr_vt_torch.cli.serve as serve
+    from htr_vt_torch.data.image import load_line_image, natural_line_width
+    from htr_vt_torch.models.htr_vt import build_model
+
+    small = port_config(dataclasses.replace(TINY, depth=1))
+    real_preset = serve.dataset_preset
+    monkeypatch.setattr(serve, "dataset_preset", lambda name: dataclasses.replace(
+        real_preset(name), model=small))
+    converter = CTCLabelConverter(charset("SYNTH"))
+    model = build_model(dataclasses.replace(small, nb_cls=converter.num_classes),
+                        device="cpu",
+                        generator=torch.Generator().manual_seed(6)).eval()
+    torch.save(model.state_dict(), tmp_path / "ckpt.pth")
+    rng = np.random.default_rng(7)
+    paths = []
+    for i, width in enumerate((100, 300, 150, 600)):  # at height 64: 2x wider
+        paths.append(str(tmp_path / f"line{i}.png"))
+        Image.fromarray(rng.integers(0, 256, (32, width), np.uint8)).save(paths[-1])
+    out = tmp_path / "preds.jsonl"
+    serve.main(["SYNTH", "--checkpoint", str(tmp_path / "ckpt.pth"), "--images",
+                str(tmp_path / "line*.png"), "--batch-size", "2", "--out", str(out),
+                "--device", "cpu", "--width-buckets", "254,512"])
+    assert "width bucket 254 rounded up to 256" in capsys.readouterr().out
+    widths = [natural_line_width(p, 64) for p in paths]
+    assert widths == [200, 600, 300, 1200]
+    want = serve.transcribe_buckets(
+        model, lambda i, w: load_line_image(paths[i], w, 64), widths, [256, 512],
+        converter, 2)
+    records = [json.loads(line) for line in out.read_text().splitlines()]
+    assert records == [{"image": p, "text": t} for p, t in zip(paths, want)]
+
+
 @pytest.mark.parametrize("kernel,label", [
+    ("void (anonymous namespace)::flash_dkv_mma(__nv_bfloat16 const*, __nv_bfloat16 "
+     "const*, __nv_bfloat16 const*, float const*)",
+     "flash attention kernels (K5f, K5dkv, K5dq)"),
     ("ctc_alpha_kernel(float const*, int const*, bool const*)", "ctc_alpha kernel"),
     ("sm90_xmma_fprop_implicit_gemm_bf16bf16_bf16f32_f32_nhwckrsc_nhwc",
      "convolutions (cuDNN)"),
