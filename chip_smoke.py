@@ -28,8 +28,10 @@ non-zero before the last line:
    bs 128 (stage 1 [128, 192, 8, 512], stage 2 [128, 384, 4, 256], stage 3
    [128, 768, 2, 128], C -> C, bf16 channels-last), with and without the
    BN prologue, against their plain versions; two calls bit-equal;
-   CUDA-event times of kernel, plain version and cuDNN doing the conv alone
-   on the pre-normalised tensor, and the bound.
+   CUDA-event times of kernel (with and without the prologue), plain
+   version, cuDNN doing the conv alone on the pre-normalised tensor, and
+   for K4f the stock two-call route (the eager prologue, then ``F.conv2d``),
+   and the bound.
 5. serve: the flagship ``ModelConfig()`` (64x512, embed 768, depth 4, heads
    6, 80 classes, bf16) with seeded random weights serves 3x128+37 line
    images through ``cli.serve.transcribe``, then runs one ``eval_step`` with
@@ -62,11 +64,14 @@ non-zero before the last line:
 11. flash-attention kernels vs plain: K5f (``flash_attention_fwd``) at the
    serving shapes [128, 6, 256, 128] and [128, 6, 512, 128] (the 1024- and
    2048-px buckets), and K5f, K5dkv and K5dq at the training shapes [64, 6,
-   256, 128] and [64, 6, 512, 128], in bf16 and float32 (TF32 off), on the
-   strided q, k, v views of a fused qkv projection, against their plain
-   versions; two calls bit-equal; CUDA-event times of kernel, plain version
-   and ``F.scaled_dot_product_attention`` (forward, and forward + backward)
-   on the same q, k and v, never on the path; the bounds.
+   256, 128] and [64, 6, 512, 128], in bf16 and float32 (TF32 off); at
+   head_dim 256 (embed 1536 over 6 heads) K5f at [128, 6, 512, 256] and the
+   three at [64, 6, 512, 256] in bf16, and the three in float32 at [2, 3,
+   256, 256]; on the strided q, k, v views of a fused qkv projection,
+   against their plain versions; two calls bit-equal; CUDA-event times of
+   kernel, plain version and ``F.scaled_dot_product_attention`` (forward,
+   and forward + backward) on the same q, k and v, never on the path; the
+   bounds.
 12. bucket serve: the serve phase's weights (stock stem) serve 421
    synthetic lines of natural widths ``n_chars * 24 + 32`` px (the JAX
    selftest ramp, 4-96 characters: 128-2336 px) through
@@ -184,13 +189,18 @@ COUNTERS = {"ctc_alpha": ctc_cuda.ctc_alpha, "ctc_beta": ctc_cuda.ctc_beta,
             "flash_attention_fwd": flash_attn.flash_attention_fwd,
             "flash_attention_bwd_dkv": flash_attn.flash_attention_bwd_dkv,
             "flash_attention_bwd_dq": flash_attn.flash_attention_bwd_dq}
-# K5 at the width buckets' shapes, [B, H, N, D] (name, shape, backward too):
-# bs 128 serving and the multi-width recipe's bs 64 training, N = 256 at
-# 1024 px and 512 at 2048 px, head_dim 768 / 6.
-FLASH_SHAPES = (("serve1024", (BATCH, 6, 256, 128), False),
-                ("serve2048", (BATCH, 6, 512, 128), False),
-                ("train1024", (64, 6, 256, 128), True),
-                ("train2048", (64, 6, 512, 128), True))
+# K5 at the width buckets' shapes, [B, H, N, D] (name, shape, backward too,
+# dtypes): bs 128 serving and the multi-width recipe's bs 64 training, N =
+# 256 at 1024 px and 512 at 2048 px, head_dim 768 / 6; and head_dim 256
+# (embed 1536 / 6) at the 2048-px shapes, float32 at one small shape.
+BOTH = (torch.bfloat16, torch.float32)
+FLASH_SHAPES = (("serve1024", (BATCH, 6, 256, 128), False, BOTH),
+                ("serve2048", (BATCH, 6, 512, 128), False, BOTH),
+                ("train1024", (64, 6, 256, 128), True, BOTH),
+                ("train2048", (64, 6, 512, 128), True, BOTH),
+                ("serve2048_d256", (BATCH, 6, 512, 256), False, (torch.bfloat16,)),
+                ("train2048_d256", (64, 6, 512, 256), True, (torch.bfloat16,)),
+                ("small_d256", (2, 3, 256, 256), True, (torch.float32,)))
 # K5 against its plain version (the bars of tests/test_torch_port_cuda.py):
 # float32, 1e-4 of the value and 1e-5 of the tensor's largest (float32 sums
 # in other orders); bf16, one bf16 ulp of the value (2^-7) and 2^-8 of the
@@ -295,7 +305,8 @@ def phase_build():
     seconds = time.perf_counter() - t0
     _build.library()
     for line in log.splitlines():
-        if "ptxas info" in line and ("Used" in line or "Compiling" in line):
+        if ("ptxas info" in line and ("Used" in line or "Compiling" in line)
+                or "spill stores" in line):
             say(f"[build] {line.strip()}")
     say(f"[build] nvcc sm_90a -> {os.path.relpath(_build.LIBRARY)} in "
         f"{seconds:.2f} s")
@@ -901,7 +912,9 @@ def phase_conv_kernels(device):
             ms_bare=median_ms(lambda: conv_fused.conv3x3_bn_relu_fwd(x, k), 10),
             plain_ms=median_ms(lambda: conv_fused.conv3x3_bn_relu_reference(
                 x, k, scale, shift), 10),
-            library_ms=median_ms(lambda: F.conv2d(xn, k, padding=1), 10))
+            library_ms=median_ms(lambda: F.conv2d(xn, k, padding=1), 10),
+            stock_ms=median_ms(lambda: F.conv2d(conv_fused._prologue(x, scale, shift), k,
+                                                padding=1), 10))
         fwd["bound_ms"], fwd["bound_by"] = bound(
             2 * n + 2 * n + 2 * k.numel() + 2 * c * 4, n_ops, BF16_TENSOR_OPS_PER_S)
         dgrad = dict(
@@ -932,7 +945,10 @@ def phase_conv_kernels(device):
                 f"{rec['max_abs_err']:.3e}, {rec['bar_share']:.3f} of the bar; kernel "
                 f"{rec['ms']:.4f} ms with the prologue, {rec['ms_bare']:.4f} ms "
                 f"without; plain {rec['plain_ms']:.4f} ms; cuDNN alone on the "
-                f"pre-normalised tensor {rec['library_ms']:.4f} ms; bound "
+                f"pre-normalised tensor {rec['library_ms']:.4f} ms"
+                + (f"; the stock two calls (eager prologue + F.conv2d) "
+                   f"{rec['stock_ms']:.4f} ms" if "stock_ms" in rec else "")
+                + "; bound "
                 f"{rec['bound_ms']:.4f} ms by {rec['bound_by']} "
                 f"({n_ops / rec['ms'] / 1e9:.1f} TFLOP/s)")
         del x, g, k, xn
@@ -1147,8 +1163,8 @@ def phase_flash_kernels(device):
     """K5f at the serving shapes, K5f/K5dkv/K5dq at the training shapes, in
     bf16 and float32, against their plain versions."""
     out = {}
-    for name, shape, backward in FLASH_SHAPES:
-        for dtype in (torch.bfloat16, torch.float32):
+    for name, shape, backward, dtypes in FLASH_SHAPES:
+        for dtype in dtypes:
             tag = "bf16" if dtype == torch.bfloat16 else "f32"
             out[f"{name}_{tag}"] = flash_case(name, shape, backward, dtype, device)
             torch.cuda.empty_cache()
@@ -1481,6 +1497,10 @@ def main():
         "bound_by": conv[name]["stage1"]["bound_by"],
         "library_ms": conv[name]["stage1"]["library_ms"],
         "library": library + " alone on the pre-normalised bf16 tensor (cuDNN)",
+        "ms_bare": conv[name]["stage1"]["ms_bare"],
+        **({"stock_ms": conv[name]["stage1"]["stock_ms"],
+            "stock": "conv_fused._prologue (eager) + F.conv2d"}
+           if name == "conv3x3_bn_relu_fwd" else {}),
         "shape": "bf16 [128, 192, 8, 512] channels-last, 192 -> 192, with the "
                  "prologue (stage 1)",
         "sites": conv[name],

@@ -30,28 +30,32 @@
 // 403 MB at stage 1, 0.120 ms at 3.35 TB/s) are fewer.
 //
 // Design. Each kernel is an implicit GEMM that never builds the im2col
-// matrix or the normalised tensor in memory: the tile loader computes the
-// shifted pixel of each 8-channel vector and copies it (16 bytes of bf16)
-// with cp.async into a ring of four shared-memory stages, three K steps
-// ahead, zero-filling the halo. With the prologue, the thread that copied
-// a vector rewrites it in place (x * scale + shift, bf16, ReLU) one step
-// before it is used, after its own products of the step before, so the
-// rewrite overlaps other warps' products; the pad stays 0. bf16 runs on
-// the tensor cores with mma.sync m16n8k16 (float32 accumulate) fed by
-// ldmatrix from padded, bank-conflict-free tiles of 128 x 192 x 64: 192
-// columns cover a flagship stage's width in whole tiles, and the prologue
-// is redone once per column tile, so wide tiles keep its share small.
-// float32 runs a 64 x 64 FFMA tile (no TF32).
-//   K4f and K4d: M = B*H*W pixels, N = the output channels, K = 9 taps x
-//   the input channels, walked tap by tap within each 64-channel chunk.
-//   K4d is K4f over g with the rotated kernel, plus an epilogue that reads
-//   x for the strict ReLU mask, writes dx and reduces da' * x and da' per
-//   block; the block partials are added in a fixed order
-//   (stem_common.cuh:sum_partials).
-//   K4w: M = 9 * Cin (tap, input channel), N = Cout, K = B*H*W pixels,
-//   which at stage 1 is 524,288 deep for 1728 x 192 outputs: split-K over
-//   pixels, each split writes its own float32 dk, and a second pass adds
-//   the splits in order.
+// matrix or the normalised tensor in memory.
+//   K4f, bf16: M = B*H*W pixels, N = the output channels, K = 9 taps x the
+//   input channels. A persistent, warp-specialised wgmma kernel fed by TMA
+//   (conv_fwd_wgmma below): a block loads a tile of 256 output pixels' input
+//   with its one-pixel halo, 64 channels at a time; three warps apply the
+//   prologue to it once per pixel, a chunk ahead of the products; the nine
+//   taps read shifted windows of that one normalised tile into registers
+//   (ldmatrix) as the A operand of wgmma, with the tap's weights arriving
+//   by TMA as B. The halo and weight buffers are rings with mbarriers, so
+//   the next tile's loads overlap this tile's epilogue.
+//   K4d, bf16: the tile loader computes the shifted pixel of each 8-channel
+//   vector and copies it (16 bytes) with cp.async into a ring of four
+//   shared-memory stages, three K steps ahead, zero-filling the halo;
+//   mma.sync m16n8k16 (float32 accumulate) fed by ldmatrix from padded,
+//   bank-conflict-free tiles of 128 x 192 x 64. It is K4f over g with the
+//   rotated kernel, plus an epilogue that reads x for the strict ReLU mask,
+//   writes dx and reduces da' * x and da' per block; the block partials are
+//   added in a fixed order (stem_common.cuh:sum_partials).
+//   K4w, bf16: M = 9 * Cin (tap, input channel), N = Cout, K = B*H*W
+//   pixels, which at stage 1 is 524,288 deep for 1728 x 192 outputs:
+//   split-K over pixels, each split writes its own float32 dk, and a second
+//   pass adds the splits in order. The same cp.async ring as K4d; with the
+//   prologue, the thread that copied a vector rewrites it in place (x *
+//   scale + shift, bf16, ReLU) one step before it is used, after its own
+//   products of the step before; the pad stays 0.
+//   float32 (all three): a 64 x 64 FFMA tile (no TF32).
 // The TPU kernels carried dscale/dshift and dk across a sequential batch
 // grid; here nothing uses atomics, so two calls give equal bits.
 
@@ -59,6 +63,7 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "hopper.cuh"
 #include "stem_common.cuh"
 
 namespace {
@@ -67,6 +72,7 @@ using bf16 = __nv_bfloat16;
 using stem::kVec;
 
 constexpr int kThreads = 256;
+constexpr int kWarpRowsFwd = 16;  // a warp's pixels in each of K4f's m64 halves
 
 // bf16 tensor-core tiles: 8 warps, 4 along M x 2 along N, 32 x 96 each.
 // 192 columns cover a flagship stage's width (192, 384, 768) in whole
@@ -109,6 +115,12 @@ __device__ __forceinline__ void ldsm_x4_trans(uint32_t r[4], const void* p) {
       "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
       : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
       : "r"(a));
+}
+
+__device__ __forceinline__ void ldsm_x4_addr(uint32_t r[4], uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr));
 }
 
 // c += a * b for a 16x16 bf16 A fragment and a 16x8 B fragment.
@@ -226,18 +238,15 @@ __device__ __forceinline__ void mma_tile_rows(float acc[2][kNT][4], bf16 (*As)[k
   }
 }
 
-// out[p, n] = sum_{tap, c} A(p, tap, c) * wb[tap, n, c], where A is act
-// [P, C] at the pixel p shifted by the tap (zero outside the image), with
-// the prologue (psc, psh) applied when kPro. kBwd: the dgrad epilogue over
-// ex/esc/esh [., N], writing partial[blockIdx.x, 0:2N] (dscale, dshift).
-// K steps walk the 9 taps of one 64-channel chunk, then the next chunk.
-// Tiles arrive by cp.async in a ring of kStages buffers, kStages - 1 steps
-// ahead; with the prologue, each thread rewrites the vectors it copied
-// (those inside the image: the pad stays 0) before the step's barrier.
-template <bool kPro, bool kBwd>
+// K4d: out[p, n] = sum_{tap, c} A(p, tap, c) * wb[tap, n, c], where A is
+// act [P, C] at the pixel p shifted by the tap (zero outside the image).
+// kBwd: the dgrad epilogue over ex/esc/esh [., N], writing
+// partial[blockIdx.x, 0:2N] (dscale, dshift). K steps walk the 9 taps of
+// one 64-channel chunk, then the next chunk. Tiles arrive by cp.async in a
+// ring of kStages buffers, kStages - 1 steps ahead.
+template <bool kBwd>
 __global__ void __launch_bounds__(kThreads, 1)
 conv_mma_kernel(const bf16* __restrict__ act, const bf16* __restrict__ wb,
-                const float* __restrict__ psc, const float* __restrict__ psh,
                 const bf16* __restrict__ ex, const float* __restrict__ esc,
                 const float* __restrict__ esh, bf16* __restrict__ out,
                 float* __restrict__ partial, int H, int W, int C, int N,
@@ -274,7 +283,6 @@ conv_mma_kernel(const bf16* __restrict__ act, const bf16* __restrict__ wb,
   const int b_rows = (N - n0 - row0 + kRS - 1) / kRS;
   const long long row_step = static_cast<long long>(kRS) * C;
   const int steps = 9 * ((C + kBK - 1) / kBK);
-  unsigned inside = 0;  // bit kAV * stage + i: A vector i of that stage is real
 
   auto load = [&](int s, int stage) {
     const int chunk = s / 9, tap = s - chunk * 9;
@@ -286,8 +294,6 @@ conv_mma_kernel(const bf16* __restrict__ act, const bf16* __restrict__ wb,
       const bool ok = c_ok && (a_taps[i] >> tap & 1u);
       cp_async16(&As[stage][row0 + i * kRS][kv * kVec],
                  ok ? a_row0 + i * row_step + a_off : act, ok);
-      const unsigned bit = 1u << (kAV * stage + i);
-      inside = ok ? inside | bit : inside & ~bit;
     }
     const long long b_off = static_cast<long long>(tap) * N * C + c0;
 #pragma unroll
@@ -306,35 +312,10 @@ conv_mma_kernel(const bf16* __restrict__ act, const bf16* __restrict__ wb,
 #pragma unroll
       for (int c = 0; c < 4; ++c) acc[a][b][c] = 0.f;
 
-  // The prologue of step s rewrites the vectors this thread copied for it
-  // (those inside the image) after the products of step s - 1, so that it
-  // overlaps other warps' products; the barrier of step s publishes it.
-  float sc[kVec], sh[kVec];
-  int sc_chunk = -1;
-  auto prologue = [&](int s) {
-    const int stage = s % kStages;
-    const int chunk = s / 9;
-    const int c = chunk * kBK + kv * kVec;
-    if (chunk != sc_chunk && c < C) {
-      sc_chunk = chunk;
-      stem::load8(psc + c, sc);
-      stem::load8(psh + c, sh);
-    }
-#pragma unroll
-    for (int i = 0; i < kAV; ++i) {
-      if (inside >> (kAV * stage + i) & 1u) {
-        prologue_smem(&As[stage][row0 + i * kRS][kv * kVec], sc, sh);
-      }
-    }
-  };
 #pragma unroll
   for (int st = 0; st < kStages - 1; ++st) {
     if (st < steps) load(st, st);
     cp_async_commit();
-  }
-  if (kPro) {
-    cp_async_wait<kStages - 2>();  // step 0 has landed
-    prologue(0);
   }
   for (int s = 0; s < steps; ++s) {
     const int stage = s % kStages;
@@ -344,7 +325,6 @@ conv_mma_kernel(const bf16* __restrict__ act, const bf16* __restrict__ wb,
     if (next < steps) load(next, next % kStages);
     cp_async_commit();
     mma_tile_rows(acc, As[stage], Bs[stage], wm, wn, lane);
-    if (kPro && s + 1 < steps) prologue(s + 1);
   }
 
   // Accumulator (m16n8) layout: c0, c1 at row g, columns 2t, 2t + 1;
@@ -390,6 +370,276 @@ conv_mma_kernel(const bf16* __restrict__ act, const bf16* __restrict__ wb,
       float* row = partial + static_cast<size_t>(blockIdx.x) * 2 * N;
       row[n0 + tid] = ((red[0][0][tid] + red[0][1][tid]) + red[0][2][tid]) + red[0][3][tid];
       row[N + n0 + tid] = ((red[1][0][tid] + red[1][1][tid]) + red[1][2][tid]) + red[1][3][tid];
+    }
+  }
+}
+
+// --- K4f, bf16: wgmma fed by TMA --------------------------------------------
+// A persistent block per SM walks output tiles of 256 pixels (TH image
+// rows x TW columns of one image, TH * TW = 256) x 96 output channels, the
+// channels innermost so that neighbouring blocks share the input tile in
+// L2. Warpgroup 2 loads and normalises (its first thread issues TMA, its
+// warps 1-3 run the prologue); warpgroups 0 and 1 multiply, each owning
+// 128 of the tile's pixels as two m64 halves (224 registers; 56 for
+// warpgroup 2). Per 64-channel chunk of the input the loader brings the
+// tile's halo ((TH + 2) x (TW + 2) pixels x 64 channels, one TMA box,
+// out-of-bounds pixels and channels zero-filled) into one of two halo
+// buffers, then the chunk's nine taps of the weights ([96 co][64 ci] boxes)
+// into a ring of seven stages. The prologue warps apply x * scale + shift,
+// the bf16 cast and the ReLU once to each halo pixel inside the image (the
+// zero pad stays zero) while the multipliers still work on the chunk
+// before. The multipliers then, for each tap, load every warp's A
+// fragments from the halo shifted by the tap with ldmatrix (while the
+// previous tap's products run) and issue wgmma m64n96k16 with A from
+// registers and the tap's weights as B from shared memory. A one-pixel
+// shift is no multiple of a core matrix's 8 rows, so a shared-memory
+// descriptor cannot address a tap's window of a swizzled tile; ldmatrix
+// takes one address a row and can. Accumulators float32, cast once.
+constexpr int kFwdThreads = 384;
+constexpr int kFwdWarps = 8;                       // consumer warps
+constexpr int kTilePx = 256;                       // output pixels a tile
+constexpr int kTileCo = 96;                        // output channels a tile
+constexpr int kChunk = 64;                         // input channels a halo / weight box
+constexpr int kHaloRowsMax = 4 * 130;              // (TH + 2)(TW + 2), largest at TH = 2
+constexpr int kHaloBytes = kHaloRowsMax * hopper::kSwizzleBytes;  // 66,560
+constexpr int kWStage = kTileCo * hopper::kSwizzleBytes;          // 12,288
+constexpr int kWStages = 7;
+constexpr int kPrologueWarps = 3;                  // warps 1-3 of the producer group
+constexpr int kPrologueThreads = 32 * kPrologueWarps;
+constexpr size_t kFwdSmem = hopper::kSwizzleAlign + 2 * static_cast<size_t>(kHaloBytes) +
+                            kWStages * static_cast<size_t>(kWStage) +
+                            sizeof(uint64_t) * (6 + 2 * kWStages);
+
+// The tile sizes for an image of H rows: TH = 8, 4 or 2 rows (an image of
+// one row takes a tile of two), TW = 256 / TH columns.
+__host__ __device__ __forceinline__ int tile_rows(int H) { return H >= 8 ? 8 : H >= 4 ? 4 : 2; }
+
+struct ConvTiles {
+  int th, tw, tiles_h, tiles_w, tiles_n;
+  long long count;
+};
+
+// Tile t's image, first row, first column and first output channel.
+__device__ __forceinline__ void tile_origin(const ConvTiles& g, long long t, int& b, int& h0,
+                                            int& w0, int& n0) {
+  n0 = static_cast<int>(t % g.tiles_n) * kTileCo;
+  t /= g.tiles_n;
+  w0 = static_cast<int>(t % g.tiles_w) * g.tw;
+  t /= g.tiles_w;
+  h0 = static_cast<int>(t % g.tiles_h) * g.th;
+  b = static_cast<int>(t / g.tiles_h);
+}
+
+template <bool kPro>
+__global__ void __launch_bounds__(kFwdThreads, 1)
+conv_fwd_wgmma(const __grid_constant__ CUtensorMap tx, const __grid_constant__ CUtensorMap tw,
+               const float* __restrict__ psc, const float* __restrict__ psh,
+               bf16* __restrict__ out, int H, int W, int C, int N, ConvTiles g) {
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* halo = hopper::align_swizzle(smem_raw);
+  unsigned char* wring = halo + 2 * kHaloBytes;
+  uint64_t* halo_full = reinterpret_cast<uint64_t*>(wring + kWStages * kWStage);
+  uint64_t* halo_ready = halo_full + 2;
+  uint64_t* halo_empty = halo_ready + 2;
+  uint64_t* w_full = halo_empty + 2;
+  uint64_t* w_empty = w_full + kWStages;
+  const int tid = threadIdx.x, wg = tid >> 7, lane = tid & 31;
+  const int chunks = (C + kChunk - 1) / kChunk;
+  const int halo_w = g.tw + 2;
+  const int halo_px = (g.th + 2) * halo_w;
+  if (tid == 0) {
+    for (int i = 0; i < 2; ++i) {
+      hopper::mbar_init(&halo_full[i], 1);
+      hopper::mbar_init(&halo_ready[i], kPrologueWarps);
+      hopper::mbar_init(&halo_empty[i], kFwdWarps);
+    }
+    for (int i = 0; i < kWStages; ++i) {
+      hopper::mbar_init(&w_full[i], 1);
+      hopper::mbar_init(&w_empty[i], kFwdWarps);
+    }
+    hopper::mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (wg == 2) {
+    hopper::setmaxnreg_dec<56>();
+    const int pt = tid - 2 * 128 - 32;  // the prologue threads: warps 1-3 of this group
+    if (tid == 2 * 128) {
+      // TMA: per tile and chunk, the chunk's nine taps, with the next
+      // chunk's halo (of this tile or the next) issued after the third tap:
+      // its buffer is then being released by the chunk before, so the halo
+      // lands, and is normalised, while this chunk's products run.
+      hopper::Ring hr(2), wr(kWStages);
+      auto load_halo = [&](long long t, int c) {
+        int b, h0, w0, n0;
+        tile_origin(g, t, b, h0, w0, n0);
+        hopper::mbar_wait(&halo_empty[hr.slot], hr.phase ^ 1u);
+        hopper::mbar_expect_tx(&halo_full[hr.slot], halo_px * hopper::kSwizzleBytes);
+        hopper::tma_load_4d(halo + hr.slot * kHaloBytes, &tx, &halo_full[hr.slot],
+                            c * kChunk, w0 - 1, h0 - 1, b);
+        hr.next();
+      };
+      if (blockIdx.x < g.count) load_halo(blockIdx.x, 0);
+      for (long long t = blockIdx.x; t < g.count; t += gridDim.x) {
+        int b, h0, w0, n0;
+        tile_origin(g, t, b, h0, w0, n0);
+        for (int c = 0; c < chunks; ++c) {
+          for (int tap = 0; tap < 9; ++tap) {
+            hopper::mbar_wait(&w_empty[wr.slot], wr.phase ^ 1u);
+            hopper::mbar_expect_tx(&w_full[wr.slot], kWStage);
+            hopper::tma_load_3d(wring + wr.slot * kWStage, &tw, &w_full[wr.slot], c * kChunk,
+                                n0, tap);
+            wr.next();
+            if (tap == 2) {
+              if (c + 1 < chunks) {
+                load_halo(t, c + 1);
+              } else if (t + gridDim.x < g.count) {
+                load_halo(t + gridDim.x, 0);
+              }
+            }
+          }
+        }
+      }
+    } else if (kPro && pt >= 0) {
+      // The prologue, a chunk ahead of the products: x * scale + shift,
+      // bf16, ReLU, once per halo pixel inside the image and channel below
+      // C (the zero-filled pad stays zero). Thread pt owns the 8-channel
+      // group pt % 8 of every 12th pixel.
+      const int q8 = pt & 7;
+      constexpr int kStep = kPrologueThreads / 8;  // pixels between a thread's vectors
+      hopper::Ring hr(2);
+      for (long long t = blockIdx.x; t < g.count; t += gridDim.x) {
+        int b, h0, w0, n0;
+        tile_origin(g, t, b, h0, w0, n0);
+        // the halo rows and columns inside the image
+        const int hh_lo = h0 == 0 ? 1 : 0, hh_hi = H - h0 + 1;
+        const int ww_lo = w0 == 0 ? 1 : 0, ww_hi = W - w0 + 1;
+        for (int c = 0; c < chunks; ++c) {
+          const int ch = c * kChunk + q8 * stem::kVec;
+          float sc[stem::kVec], sh[stem::kVec];
+          if (ch < C) {  // loaded while the halo is still on its way
+            stem::load8(psc + ch, sc);
+            stem::load8(psh + ch, sh);
+          }
+          hopper::mbar_wait(&halo_full[hr.slot], hr.phase);
+          unsigned char* hb = halo + hr.slot * kHaloBytes;
+          if (ch < C) {
+            int px = pt >> 3;
+            int hh = px / halo_w, ww = px - hh * halo_w;
+            for (; px < halo_px; px += kStep) {
+              if (hh >= hh_lo && hh < hh_hi && ww >= ww_lo && ww < ww_hi) {
+                prologue_smem(reinterpret_cast<bf16*>(hb + px * hopper::kSwizzleBytes +
+                                                      ((q8 ^ (px & 7)) << 4)),
+                              sc, sh);
+              }
+              ww += kStep;  // < halo_w: at most one new row
+              if (ww >= halo_w) {
+                ww -= halo_w;
+                ++hh;
+              }
+            }
+          }
+          hopper::fence_proxy_async();  // before TMA refills this buffer
+          __syncwarp();
+          if (lane == 0) hopper::mbar_arrive(&halo_ready[hr.slot]);
+          hr.next();
+        }
+      }
+    }
+  } else {
+    hopper::setmaxnreg_inc<224>();
+    const int warp = (tid >> 5) & 3;
+    // the tile pixel (its row, column) whose address this lane gives
+    // ldmatrix in each m64 half
+    int a_row[2], a_col[2];
+#pragma unroll
+    for (int mt = 0; mt < 2; ++mt) {
+      const int p = wg * 128 + mt * 64 + warp * kWarpRowsFwd + (lane & 15);
+      a_row[mt] = p / g.tw;
+      a_col[mt] = p % g.tw;
+    }
+    const uint32_t halo_addr = hopper::smem_u32(halo);
+    const uint32_t w_addr = hopper::smem_u32(wring);
+    uint64_t* halo_in = kPro ? halo_ready : halo_full;
+    hopper::Ring hr(2), wr(kWStages);
+    for (long long t = blockIdx.x; t < g.count; t += gridDim.x) {
+      int b, h0, w0, n0;
+      tile_origin(g, t, b, h0, w0, n0);
+      float acc[2][kTileCo / 2];
+#pragma unroll
+      for (int mt = 0; mt < 2; ++mt) {
+#pragma unroll
+        for (int i = 0; i < kTileCo / 2; ++i) acc[mt][i] = 0.f;
+        hopper::fence_regs(acc[mt]);
+      }
+      for (int c = 0; c < chunks; ++c) {
+        hopper::mbar_wait(&halo_in[hr.slot], hr.phase);
+        const uint32_t hbase = halo_addr + hr.slot * kHaloBytes;
+        // Tap t's A fragments go to af[t % 2]: they are loaded while tap
+        // t - 1's products run, and its weights' stage is released once
+        // they are done.
+        uint32_t af[2][2][4][4];
+        int pending = -1;
+#pragma unroll
+        for (int tap = 0; tap < 9; ++tap) {
+          const int dh = tap / 3, dw = tap % 3;
+#pragma unroll
+          for (int mt = 0; mt < 2; ++mt) {
+            const int px = (a_row[mt] + dh) * halo_w + a_col[mt] + dw;
+            const uint32_t row_addr = hbase + px * hopper::kSwizzleBytes;
+#pragma unroll
+            for (int kk = 0; kk < 4; ++kk) {
+              const int chunk16 = kk * 2 + (lane >> 4);
+              ldsm_x4_addr(af[tap & 1][mt][kk], row_addr + ((chunk16 ^ (px & 7)) << 4));
+            }
+          }
+          hopper::mbar_wait(&w_full[wr.slot], wr.phase);
+          const uint32_t wbase = w_addr + wr.slot * kWStage;
+          hopper::wgmma_fence();
+#pragma unroll
+          for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+            for (int mt = 0; mt < 2; ++mt)
+              hopper::wgmma_m64n96k16_rs(acc[mt], af[tap & 1][mt][kk],
+                                         hopper::sw128_desc(wbase + kk * 32), 1);
+          hopper::wgmma_commit();
+          hopper::wgmma_wait<1>();
+          if (pending >= 0) {
+            __syncwarp();
+            if (lane == 0) hopper::mbar_arrive(&w_empty[pending]);
+          }
+          pending = wr.slot;
+          wr.next();
+        }
+        hopper::wgmma_wait<0>();
+        __syncwarp();
+        if (lane == 0) {
+          hopper::mbar_arrive(&w_empty[pending]);
+          hopper::mbar_arrive(&halo_empty[hr.slot]);
+        }
+        hr.next();
+      }
+#pragma unroll
+      for (int mt = 0; mt < 2; ++mt) hopper::fence_regs(acc[mt]);
+      // epilogue: T(acc); accumulator row g (e < 2) or g + 8 of each warp,
+      // columns 8 nt + 2 t and + 1
+      const int gq = lane >> 2, t4 = lane & 3;
+#pragma unroll
+      for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+        for (int half = 0; half < 2; ++half) {
+          const int p = wg * 128 + mt * 64 + warp * kWarpRowsFwd + gq + half * 8;
+          const int gh = h0 + p / g.tw, gw = w0 + p % g.tw;
+          if (gh >= H || gw >= W) continue;
+          bf16* row = out + ((static_cast<long long>(b) * H + gh) * W + gw) * N;
+#pragma unroll
+          for (int nt = 0; nt < kTileCo / 8; ++nt) {
+            const int col = n0 + nt * 8 + 2 * t4;
+            if (col < N) {
+              store2(row + col, acc[mt][4 * nt + 2 * half], acc[mt][4 * nt + 2 * half + 1]);
+            }
+          }
+        }
     }
   }
 }
@@ -804,12 +1054,10 @@ cudaError_t launch_conv(const void* act, const void* wb, const float* psc,
   T* o = static_cast<T*>(out);
   if constexpr (sizeof(T) == 2) {
     const dim3 grid(static_cast<unsigned>((P + kBM - 1) / kBM), (N + kBN - 1) / kBN);
-    auto kernel = pro ? conv_mma_kernel<true, false>
-                      : (bwd ? conv_mma_kernel<false, true> : conv_mma_kernel<false, false>);
+    auto kernel = bwd ? conv_mma_kernel<true> : conv_mma_kernel<false>;
     const cudaError_t err = allow_smem(kernel, kConvSmem);
     if (err != cudaSuccess) return err;
-    kernel<<<grid, kThreads, kConvSmem, s>>>(a, w, psc, psh, e, esc, esh, o, partial, H, W,
-                                             C, N, P);
+    kernel<<<grid, kThreads, kConvSmem, s>>>(a, w, e, esc, esh, o, partial, H, W, C, N, P);
   } else {
     const dim3 grid(static_cast<unsigned>((P + kFM - 1) / kFM), (N + kFN - 1) / kFN);
     if (pro) {
@@ -823,6 +1071,48 @@ cudaError_t launch_conv(const void* act, const void* wb, const float* psc,
                                                               partial, H, W, C, N, P);
     }
   }
+  return cudaGetLastError();
+}
+
+// K4f in bf16: a 4-D tensor map of x (C, W, H, B) with a box of the
+// tile's halo, a 3-D one of wb (Cin, Cout, 9) with [96][64] boxes; a grid of
+// at most one block per SM walks the tiles.
+cudaError_t launch_conv_fwd(const void* x, const void* wb, const float* sc, const float* sh,
+                            void* y, int B, int H, int W, int C, int N, bool pro,
+                            cudaStream_t s) {
+  ConvTiles g;
+  g.th = tile_rows(H);
+  g.tw = kTilePx / g.th;
+  g.tiles_h = (H + g.th - 1) / g.th;
+  g.tiles_w = (W + g.tw - 1) / g.tw;
+  g.tiles_n = (N + kTileCo - 1) / kTileCo;
+  g.count = static_cast<long long>(B) * g.tiles_h * g.tiles_w * g.tiles_n;
+  CUtensorMap mx, mw;
+  const size_t e = sizeof(bf16);
+  const uint64_t xdims[4] = {static_cast<uint64_t>(C), static_cast<uint64_t>(W),
+                             static_cast<uint64_t>(H), static_cast<uint64_t>(B)};
+  const uint64_t xstrides[3] = {C * e, static_cast<uint64_t>(W) * C * e,
+                                static_cast<uint64_t>(H) * W * C * e};
+  const uint32_t xbox[4] = {kChunk, static_cast<uint32_t>(g.tw + 2),
+                            static_cast<uint32_t>(g.th + 2), 1};
+  const uint64_t wdims[3] = {static_cast<uint64_t>(C), static_cast<uint64_t>(N), 9};
+  const uint64_t wstrides[2] = {C * e, static_cast<uint64_t>(N) * C * e};
+  const uint32_t wbox[3] = {kChunk, kTileCo, 1};
+  if (!hopper::make_map(&mx, x, 4, xdims, xstrides, xbox) ||
+      !hopper::make_map(&mw, wb, 3, wdims, wstrides, wbox)) {
+    return cudaErrorInvalidValue;
+  }
+  int sms = 132, dev = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess ||
+      cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess) {
+    sms = 132;
+  }
+  const unsigned grid = static_cast<unsigned>(g.count < sms ? g.count : sms);
+  auto kernel = pro ? conv_fwd_wgmma<true> : conv_fwd_wgmma<false>;
+  const cudaError_t err = allow_smem(kernel, kFwdSmem);
+  if (err != cudaSuccess) return err;
+  kernel<<<grid, kFwdThreads, kFwdSmem, s>>>(mx, mw, sc, sh, static_cast<bf16*>(y), H, W, C,
+                                             N, g);
   return cudaGetLastError();
 }
 
@@ -931,8 +1221,7 @@ extern "C" int htrvt_conv3x3_fwd(const void* x, const void* wb, const void* scal
   const float* sh = static_cast<const float*>(shift);
   const cudaError_t err =
       dtype == stem::kBFloat16
-          ? launch_conv<bf16>(x, wb, sc, sh, nullptr, nullptr, nullptr, y, nullptr, B, H,
-                              W, Cin, Cout, prologue != 0, false, s)
+          ? launch_conv_fwd(x, wb, sc, sh, y, B, H, W, Cin, Cout, prologue != 0, s)
           : launch_conv<float>(x, wb, sc, sh, nullptr, nullptr, nullptr, y, nullptr, B, H,
                                W, Cin, Cout, prologue != 0, false, s);
   return static_cast<int>(err);

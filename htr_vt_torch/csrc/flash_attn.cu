@@ -10,11 +10,11 @@
 // outputs are htr_vt_torch/ops/flash_attn.py: flash_attention_reference,
 // flash_attention_dkv_reference and flash_attention_dq_reference.
 //
-// Shapes: q, k, v, o, do [B, H, N, D] with D = 128 and N a multiple of 128,
-// read through element strides (b, h, n) with the last dim contiguous, so
-// the strided views of a fused qkv projection need no copy; dq, dk, dv
-// contiguous [B, H, N, D]; l, m, di float32 [B, H, N]. T = the element type
-// (bf16, or float32), every sum float32:
+// Shapes: q, k, v, o, do [B, H, N, D] with D = 128 or 256 and N a multiple
+// of 128, read through element strides (b, h, n) with the last dim
+// contiguous, so the strided views of a fused qkv projection need no copy;
+// dq, dk, dv contiguous [B, H, N, D]; l, m, di float32 [B, H, N]. T = the
+// element type (bf16, or float32), every sum float32:
 //
 //   K5f, per 128-key block j:   s = (q k_j^T) * scale
 //       m' = max(m, rowmax s), p = exp(s - m'), l_corr = exp(m - m') * l,
@@ -25,39 +25,71 @@
 //       dv += T(p)^T do, dk += T(ds)^T q, dq += T(ds) k,   cast once at the end.
 //
 // The scale multiply, the l update and the accumulator rescale round as
-// the library does (__fmul_rn / __fadd_rn: no FMA contraction).
+// the library does (__fmul_rn / __fadd_rn: no FMA contraction). The key
+// step is the library's 128 keys in every kernel: the running max, sum and
+// rescale happen once per 128 keys, so a different step would give other
+// bits.
 //
 // What bounds them on this card. At the 2048-px serving shape [128, 6, 512,
 // 128] K5f does 4 * B*H*N^2*D = 103.1 GFLOP (0.104 ms at the H100's 989
 // TFLOP/s bf16 dense) and moves 402.7 MB (0.120 ms at 3.35 TB/s): bytes by
 // a little, so the kernel has to read each byte once and keep the tensor
-// cores busy. At the 2048-px training shape [64, 6, 512, 128] K5dkv (8 *
-// B*H*N^2*D = 103.1 GFLOP, 0.104 ms) and K5dq (6 * B*H*N^2*D = 77.3 GFLOP,
-// 0.078 ms) are bound by operations. The plain version writes the float32
-// score matrix, [B, H, N, N]: 805 MB a layer at the serving shape.
+// cores busy while it does. At the 2048-px training shape [64, 6, 512, 128]
+// K5dkv (8 * B*H*N^2*D = 103.1 GFLOP, 0.104 ms) and K5dq (6 * B*H*N^2*D =
+// 77.3 GFLOP, 0.078 ms) are bound by operations. The plain version writes
+// the float32 score matrix, [B, H, N, N]: 805 MB a layer at the serving
+// shape.
 //
-// Design. One block of 8 warps per (b, h, 128-row tile): K5f and K5dq own
-// 128 queries and walk the key blocks; K5dkv owns 128 keys and walks the
-// query blocks, so dk and dv need no atomics and dq stays a kernel of its
-// own, as in the library: two calls give equal bits. Each warp owns 16 of
-// the 128 rows. Tiles arrive in shared memory by cp.async (row pitch 136
-// bf16: ldmatrix without bank conflicts); bf16 products run on the tensor
-// cores with mma.sync m16n8k16 (float32 accumulate) from ldmatrix
-// fragments, and the score tile, the running max and sum, the accumulator
-// and the probabilities stay in registers: a score tile's accumulator
-// fragment is the next product's A fragment once packed to bf16, so nothing
-// of size [N, N] leaves the chip. K5dkv computes the transposed tiles (s^T =
-// k q^T, dp^T = v do^T) so that p^T and ds^T are A fragments too, and walks
-// the queries 64 at a time (K5dq the keys), which keeps two float32
-// accumulators (dk, dv) and two 64-wide score tiles within the register
-// file. float32 runs a 128 x 128 FFMA tile (8 x 8 outputs a thread) with
-// the probabilities in shared memory (no TF32).
-// wgmma, TMA and a warp-specialised pipeline are later work.
+// K5f, bf16: a warp-specialised wgmma kernel fed by TMA. A block owns 128
+// queries of one (b, h) and has three warpgroups:
+// - the producer (one thread of warpgroup 2, 40 registers after
+//   setmaxnreg) loads the q tile once and then k_j and v_j for every key
+//   block by TMA into a ring of 32 KB units (128 keys x 128 of D; six units
+//   at D = 128, five at D = 256), each unit with a full and an empty
+//   mbarrier, so block j + 1 (and more) loads while block j computes. The
+//   tensor maps are 4-D (D, N, H, B) over the element strides, so the qkv
+//   views load without a copy; boxes are 64 columns wide with the 128-byte
+//   swizzle, wgmma's canonical layout.
+// - two consumer warpgroups (232 registers) own 64 query rows each:
+//   s = q k^T is wgmma m64n128k16 from shared memory (q and k K-major); the
+//   softmax runs on the accumulator fragments; T(p) is packed in registers
+//   into the A operand of p v, which is wgmma m64n64k16 with A from
+//   registers and v as an MN-major (transposed) B from shared memory, one
+//   64-column slice of D at a time (two in flight at D = 128). Each slice
+//   has an accumulator of its own that starts at zero (scale-d = 0) and is
+//   then folded into acc as acc + (p v) * (1 / l'): (p v) / l' is a
+//   product of its own, never accumulated into acc.
+// o is written from the registers as [B, N, H, D] seen as [B, H, N, D], so
+// the heads merge without a copy; l and m are float32 [B, H, N].
+//
+// K5dkv and K5dq, bf16: one block of 8 warps per (b, h, 128-row tile,
+// 128-column slice of D): K5dq owns 128 queries and walks the keys; K5dkv
+// owns 128 keys and walks the queries, so dk and dv need no atomics and dq
+// stays a kernel of its own, as in the library: two calls give equal bits.
+// Each warp owns 16 of the 128 rows. Tiles arrive in shared memory by
+// cp.async (row pitch D + 8 bf16: ldmatrix without bank conflicts); the
+// products run on the tensor cores with mma.sync m16n8k16 (float32
+// accumulate) from ldmatrix fragments, and the score tile, the
+// probabilities and the accumulators stay in registers: a score tile's
+// accumulator fragment is the next product's A fragment once packed to
+// bf16, so nothing of size [N, N] leaves the chip. K5dkv computes the
+// transposed tiles (s^T = k q^T, dp^T = v do^T) so that p^T and ds^T are A
+// fragments too, and walks the queries 64 at a time (K5dq the keys), which
+// keeps two float32 accumulators (dk, dv) and two 64-wide score tiles
+// within the register file. At D = 256 a warp's 16 x 256 accumulators would
+// not fit, so a block makes one 128-column slice of its outputs (gridDim.z
+// = D / 128), recomputing the scores over the whole of D; K5dq then loads
+// 64 keys at a time to stay within shared memory.
+// float32 (every kernel) runs a 128 x 128 FFMA tile (8 x 8 outputs a
+// thread) with the probabilities in shared memory (no TF32), one
+// 128-column slice of the output a block, the scores recomputed for each.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include "hopper.cuh"
 
 namespace {
 
@@ -65,20 +97,36 @@ using bf16 = __nv_bfloat16;
 
 enum DType : int { kFloat32 = 0, kBFloat16 = 1 };
 
-constexpr int kD = 128;          // head_dim
 constexpr int kBlock = 128;      // queries or keys a block owns; the library's blocks
-constexpr int kThreads = 256;    // 8 warps
+constexpr int kThreads = 256;    // 8 warps (K5dkv, K5dq, float32)
 constexpr int kWarpRows = 16;    // a warp's rows: one m16 tile
-constexpr int kPitch = kD + 8;   // bf16 row pitch in shared memory (272 bytes)
+constexpr int kDO = 128;         // output columns a backward / float32 block makes
 constexpr int kSub = 64;         // K5dkv's queries, K5dq's keys, per step
 constexpr int kFP = 129;         // float32 row pitch in shared memory
 constexpr int kFK = 32;          // float32 staging chunk
 
-constexpr size_t kTile = sizeof(bf16) * kBlock * kPitch;  // 34,816 bytes
-constexpr size_t kSubTile = sizeof(bf16) * kSub * kPitch;
-constexpr size_t kFwdSmem = 3 * kTile;                    // q, k, v
-constexpr size_t kDqSmem = 4 * kTile;                     // q, do, k, v
-constexpr size_t kDkvSmem = 2 * kTile + 2 * kSubTile + 3 * sizeof(float) * kSub;
+// bf16 row pitch in shared memory: ldmatrix without bank conflicts
+template <int D>
+__host__ __device__ constexpr int pitch() {
+  return D + 8;
+}
+template <int D>
+__host__ __device__ constexpr size_t rows_bytes(int rows) {
+  return sizeof(bf16) * rows * pitch<D>();
+}
+// keys a K5dq load brings: 64 at D = 256, to stay within shared memory
+template <int D>
+__host__ __device__ constexpr int dq_keys() {
+  return D == 128 ? kBlock : kSub;
+}
+template <int D>
+__host__ __device__ constexpr size_t dq_smem() {  // q, do; k, v
+  return 2 * rows_bytes<D>(kBlock) + 2 * rows_bytes<D>(dq_keys<D>());
+}
+template <int D>
+__host__ __device__ constexpr size_t dkv_smem() {  // k, v; q, do; m, 1 / l, di
+  return 2 * rows_bytes<D>(kBlock) + 2 * rows_bytes<D>(kSub) + 3 * sizeof(float) * kSub;
+}
 constexpr size_t kF32Smem = sizeof(float) * (kBlock * kFP + 2 * kFK * kFP + 3 * kBlock);
 
 // Element strides of a [B, H, N, D] tensor; the last dim is contiguous.
@@ -158,12 +206,12 @@ __device__ __forceinline__ void zero(float (*acc)[4]) {
     for (int e = 0; e < 4; ++e) acc[i][e] = 0.f;
 }
 
-// kRows rows of 128 bf16 from `src` (rows `stride` elements apart) to
-// shared memory [kRows][kPitch], 16 bytes a copy, asynchronously.
-template <int kRows>
-__device__ __forceinline__ void copy_rows(bf16 (*dst)[kPitch], const bf16* src,
+// kRows rows of D bf16 from `src` (rows `stride` elements apart) to shared
+// memory [kRows][pitch], 16 bytes a copy, asynchronously.
+template <int D, int kRows>
+__device__ __forceinline__ void copy_rows(bf16 (*dst)[pitch<D>()], const bf16* src,
                                           long long stride, int tid) {
-  constexpr int kVecs = kD / 8;
+  constexpr int kVecs = D / 8;
 #pragma unroll
   for (int i = 0; i < kRows * kVecs / kThreads; ++i) {
     const int idx = tid + i * kThreads;
@@ -172,14 +220,14 @@ __device__ __forceinline__ void copy_rows(bf16 (*dst)[kPitch], const bf16* src,
   }
 }
 
-// acc[nt] (16 rows x 8 kNT columns) += A B^T over the 128 of D, where A is
+// acc[nt] (16 rows x 8 kNT columns) += A B^T over the D columns, where A is
 // rows a0..a0+15 of As and B rows b0..b0 + 8 kNT - 1 of Bs, both [rows][D]:
 // a score tile q k^T (or its transpose k q^T).
-template <int kNT>
-__device__ __forceinline__ void rows_dot_rows(float (*acc)[4], bf16 (*As)[kPitch], int a0,
-                                              bf16 (*Bs)[kPitch], int b0, int lane) {
+template <int D, int kNT>
+__device__ __forceinline__ void rows_dot_rows(float (*acc)[4], bf16 (*As)[pitch<D>()], int a0,
+                                              bf16 (*Bs)[pitch<D>()], int b0, int lane) {
 #pragma unroll
-  for (int kk = 0; kk < kD; kk += 16) {
+  for (int kk = 0; kk < D; kk += 16) {
     uint32_t af[4];
     ldsm_x4(af, &As[a0 + (lane & 15)][kk + (lane >> 4) * 8]);
 #pragma unroll
@@ -207,10 +255,10 @@ __device__ __forceinline__ void to_a_fragments(uint32_t (*pa)[4], float (*s)[4])
 }
 
 // acc[nt] (16 rows x 8 kNT columns from column c0) += P B, P the 16 x 16 kKS
-// A fragments `pa`, B rows b0.. of Bs [rows][D]: p v, p^T do, ds^T q, ds k.
-template <int kKS, int kNT>
+// A fragments `pa`, B rows b0.. of Bs [rows][D]: p^T do, ds^T q, ds k.
+template <int D, int kKS, int kNT>
 __device__ __forceinline__ void frags_dot_rows(float (*acc)[4], uint32_t (*pa)[4],
-                                               bf16 (*Bs)[kPitch], int b0, int c0,
+                                               bf16 (*Bs)[pitch<D>()], int b0, int c0,
                                                int lane) {
 #pragma unroll
   for (int ks = 0; ks < kKS; ++ks) {
@@ -224,13 +272,13 @@ __device__ __forceinline__ void frags_dot_rows(float (*acc)[4], uint32_t (*pa)[4
   }
 }
 
-// Stores a warp's 16 x 128 float32 accumulators as bf16 rows (row stride
+// Stores a warp's 16 x kDO float32 accumulators as bf16 rows (row stride
 // `stride`), two columns a store.
 __device__ __forceinline__ void store_rows(bf16* out, long long stride, float (*acc)[4],
                                            int lane) {
   const int g = lane >> 2, t = lane & 3;
 #pragma unroll
-  for (int nt = 0; nt < kD / 8; ++nt) {
+  for (int nt = 0; nt < kDO / 8; ++nt) {
     const int c = nt * 8 + 2 * t;
     *reinterpret_cast<uint32_t*>(out + g * stride + c) = pack_bf16(acc[nt][0], acc[nt][1]);
     *reinterpret_cast<uint32_t*>(out + (g + 8) * stride + c) =
@@ -238,136 +286,252 @@ __device__ __forceinline__ void store_rows(bf16* out, long long stride, float (*
   }
 }
 
-// --- K5f, bf16 on the tensor cores -----------------------------------------
-__global__ void __launch_bounds__(kThreads, 1)
-flash_fwd_mma(const bf16* __restrict__ q, const bf16* __restrict__ k,
-              const bf16* __restrict__ v, bf16* __restrict__ o, float* __restrict__ l_out,
-              float* __restrict__ m_out, Layout lay, int H, int N, float scale) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  bf16 (*Qs)[kPitch] = reinterpret_cast<bf16 (*)[kPitch]>(smem);
-  bf16 (*Ks)[kPitch] = Qs + kBlock;
-  bf16 (*Vs)[kPitch] = Ks + kBlock;
-  const int tid = threadIdx.x, lane = tid & 31, r0 = (tid >> 5) * kWarpRows;
+// --- K5f, bf16: wgmma fed by TMA --------------------------------------------------
+constexpr int kFwdThreads = 384;  // consumer warpgroups 0 and 1, producer warpgroup 2
+constexpr int kConsumerWarps = 8;
+constexpr int kBox = kBlock * hopper::kSwizzleBytes;  // 16 KB: 128 rows x 64 columns
+constexpr int kUnit = 2 * kBox;                       // 32 KB: 128 rows x 128 columns
+
+template <int D>
+struct Fwd {
+  static constexpr int kBoxes = D / 64;                 // boxes of a [128, D] tile
+  static constexpr int kUnits = D / 128;                // units of a k (or v) block
+  static constexpr int kRing = D == 128 ? 6 : 5;        // units in flight
+  static constexpr int kPvInFlight = D == 128 ? 2 : 1;  // 64-column p v slices at once
+  static constexpr size_t kSmem = hopper::kSwizzleAlign + static_cast<size_t>(kBoxes) * kBox +
+                                  static_cast<size_t>(kRing) * kUnit +
+                                  sizeof(uint64_t) * (1 + 2 * kRing);
+};
+
+template <int D>
+__global__ void __launch_bounds__(kFwdThreads, 1)
+flash_fwd_wgmma(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
+                const __grid_constant__ CUtensorMap tv, bf16* __restrict__ o,
+                float* __restrict__ l_out, float* __restrict__ m_out, Strides so, int H,
+                int N, float scale) {
+  using C = Fwd<D>;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* qs = hopper::align_swizzle(smem_raw);
+  unsigned char* ring = qs + C::kBoxes * kBox;
+  uint64_t* q_full = reinterpret_cast<uint64_t*>(ring + C::kRing * kUnit);
+  uint64_t* full = q_full + 1;
+  uint64_t* empty = full + C::kRing;
+  const int tid = threadIdx.x, wg = tid >> 7;
   const int b = blockIdx.y / H, h = blockIdx.y % H;
-  const long long q0 = static_cast<long long>(blockIdx.x) * kBlock;
+  const int q0 = blockIdx.x * kBlock;
   const int nk = N / kBlock;
-
-  copy_rows<kBlock>(Qs, rows_of(q, lay.t[0], b, h, q0), lay.t[0].n, tid);
-  cp_async_commit();
-
-  float acc[kD / 8][4];
-  zero<kD / 8>(acc);
-  float m_run[2] = {-INFINITY, -INFINITY}, l_run[2] = {0.f, 0.f};
-  for (int j = 0; j < nk; ++j) {
-    __syncthreads();  // every warp is done with the last block's k and v
-    copy_rows<kBlock>(Ks, rows_of(k, lay.t[1], b, h, static_cast<long long>(j) * kBlock),
-                      lay.t[1].n, tid);
-    cp_async_commit();
-    copy_rows<kBlock>(Vs, rows_of(v, lay.t[2], b, h, static_cast<long long>(j) * kBlock),
-                      lay.t[2].n, tid);
-    cp_async_commit();
-    cp_async_wait<1>();  // q and k have landed; v may still be in flight
-    __syncthreads();
-
-    float s[kBlock / 8][4];
-    zero<kBlock / 8>(s);
-    rows_dot_rows<kBlock / 8>(s, Qs, r0, Ks, 0, lane);
-    float mx[2] = {-INFINITY, -INFINITY};
-#pragma unroll
-    for (int nt = 0; nt < kBlock / 8; ++nt)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        s[nt][e] = __fmul_rn(s[nt][e], scale);
-        mx[e >> 1] = fmaxf(mx[e >> 1], s[nt][e]);
-      }
-    float corr[2], inv[2];
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      mx[i] = quad_max(mx[i]);
-      if (nk > 1) mx[i] = fmaxf(m_run[i], mx[i]);  // m'
+  if (tid == 0) {
+    hopper::mbar_init(q_full, 1);
+    for (int i = 0; i < C::kRing; ++i) {
+      hopper::mbar_init(&full[i], 1);
+      hopper::mbar_init(&empty[i], kConsumerWarps);
     }
-    float sum[2] = {0.f, 0.f};
-#pragma unroll
-    for (int nt = 0; nt < kBlock / 8; ++nt)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        s[nt][e] = expf(__fsub_rn(s[nt][e], mx[e >> 1]));
-        sum[e >> 1] += s[nt][e];
-      }
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      sum[i] = quad_sum(sum[i]);
-      if (nk == 1) {  // the single-step kernel: p / l, then the cast
-        corr[i] = 0.f;
-        inv[i] = 1.f;
-        l_run[i] = sum[i];
-      } else {
-        const float l_corr = __fmul_rn(expf(__fsub_rn(m_run[i], mx[i])), l_run[i]);
-        const float l_next = __fadd_rn(sum[i], l_corr);
-        inv[i] = l_next == 0.f ? 1.f : 1.f / l_next;
-        corr[i] = __fmul_rn(l_corr, inv[i]);
-        l_run[i] = l_next;
-      }
-      m_run[i] = mx[i];
-    }
-    if (nk == 1) {
-#pragma unroll
-      for (int nt = 0; nt < kBlock / 8; ++nt)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) s[nt][e] = s[nt][e] / sum[e >> 1];
-    }
-    uint32_t pa[kBlock / 16][4];
-    to_a_fragments<kBlock / 16>(pa, s);
-#pragma unroll
-    for (int nt = 0; nt < kD / 8; ++nt)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[nt][e] = __fmul_rn(acc[nt][e], corr[e >> 1]);
-    cp_async_wait<0>();
-    __syncthreads();
-    // (p v) / l' in two halves of D, so one float32 [16, 64] partial is live
-#pragma unroll
-    for (int dh = 0; dh < 2; ++dh) {
-      float oc[kD / 16][4];
-      zero<kD / 16>(oc);
-      frags_dot_rows<kBlock / 16, kD / 16>(oc, pa, Vs, 0, dh * (kD / 2), lane);
-#pragma unroll
-      for (int nt = 0; nt < kD / 16; ++nt)
-#pragma unroll
-        for (int e = 0; e < 4; ++e)
-          acc[dh * (kD / 16) + nt][e] =
-              __fadd_rn(acc[dh * (kD / 16) + nt][e], __fmul_rn(oc[nt][e], inv[e >> 1]));
-    }
+    hopper::mbar_fence_init();
   }
-  const Strides so = lay.t[3];
-  store_rows(o + b * so.b + h * so.h + (q0 + r0) * so.n, so.n, acc, lane);
-  if ((lane & 3) == 0) {
-    const long long row = static_cast<long long>(blockIdx.y) * N + q0 + r0 + (lane >> 2);
-    l_out[row] = l_run[0];
-    l_out[row + 8] = l_run[1];
-    m_out[row] = m_run[0];
-    m_out[row + 8] = m_run[1];
+  __syncthreads();
+
+  if (wg == 2) {
+    // Producer: q once, then per key block k's units and v's units, in the
+    // order the consumers take them.
+    hopper::setmaxnreg_dec<40>();
+    if (tid == 2 * 128) {
+      hopper::mbar_expect_tx(q_full, C::kBoxes * kBox);
+      for (int x = 0; x < C::kBoxes; ++x) {
+        hopper::tma_load_4d(qs + x * kBox, &tq, q_full, x * 64, q0, h, b);
+      }
+      hopper::Ring r(C::kRing);
+      for (int j = 0; j < nk; ++j) {
+        for (int kv = 0; kv < 2; ++kv) {
+          const CUtensorMap* map = kv ? &tv : &tk;
+          for (int u = 0; u < C::kUnits; ++u) {
+            hopper::mbar_wait(&empty[r.slot], r.phase ^ 1u);
+            hopper::mbar_expect_tx(&full[r.slot], kUnit);
+            for (int x = 0; x < 2; ++x) {
+              hopper::tma_load_4d(ring + r.slot * kUnit + x * kBox, map, &full[r.slot],
+                                  (2 * u + x) * 64, j * kBlock, h, b);
+            }
+            r.next();
+          }
+        }
+      }
+    }
+  } else {
+    // Consumers: warpgroup wg owns rows 64 wg .. 64 wg + 63 of the tile; its
+    // warp w rows 16 w .. 16 w + 15 of those (accumulator rows g, g + 8).
+    hopper::setmaxnreg_inc<232>();
+    const int lane = tid & 31, warp = (tid >> 5) & 3;
+    const int row0 = wg * 64 + warp * kWarpRows;
+    const uint32_t q_addr = hopper::smem_u32(qs) + wg * 64 * hopper::kSwizzleBytes;
+    const uint32_t ring_addr = hopper::smem_u32(ring);
+    float acc[D / 2];  // [D / 8 column octets][4], the m64nD accumulator layout
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+    float m_run[2] = {-INFINITY, -INFINITY}, l_run[2] = {0.f, 0.f};
+    hopper::Ring r(C::kRing);
+    hopper::mbar_wait(q_full, 0);
+    for (int j = 0; j < nk; ++j) {
+      int slots[C::kUnits];
+#pragma unroll
+      for (int u = 0; u < C::kUnits; ++u) {
+        slots[u] = r.slot;
+        hopper::mbar_wait(&full[r.slot], r.phase);
+        r.next();
+      }
+      // s = q k_j^T over D, 16 columns of D a product
+      float s[64];
+      hopper::wgmma_fence();
+#pragma unroll
+      for (int u = 0; u < C::kUnits; ++u)
+#pragma unroll
+        for (int x = 0; x < 2; ++x)
+#pragma unroll
+          for (int kk = 0; kk < 4; ++kk) {
+            const uint32_t off = x * kBox + kk * 32;
+            hopper::wgmma_m64n128k16_ss(
+                s, hopper::sw128_desc(q_addr + (2 * u) * kBox + off),
+                hopper::sw128_desc(ring_addr + slots[u] * kUnit + off), (u | x | kk) != 0);
+          }
+      hopper::wgmma_commit();
+      hopper::wgmma_wait<0>();
+      hopper::fence_regs(s);
+      __syncwarp();
+      if (lane == 0) {
+#pragma unroll
+        for (int u = 0; u < C::kUnits; ++u) hopper::mbar_arrive(&empty[slots[u]]);
+      }
+
+      // the streaming softmax; s[4 nt + e] is row g (e < 2) or g + 8 (e >= 2)
+      float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+      for (int i = 0; i < 64; ++i) {
+        s[i] = __fmul_rn(s[i], scale);
+        mx[(i >> 1) & 1] = fmaxf(mx[(i >> 1) & 1], s[i]);
+      }
+      float corr[2], inv[2];
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        mx[i] = quad_max(mx[i]);
+        if (nk > 1) mx[i] = fmaxf(m_run[i], mx[i]);  // m'
+      }
+      float sum[2] = {0.f, 0.f};
+#pragma unroll
+      for (int i = 0; i < 64; ++i) {
+        s[i] = expf(__fsub_rn(s[i], mx[(i >> 1) & 1]));
+        sum[(i >> 1) & 1] += s[i];
+      }
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        sum[i] = quad_sum(sum[i]);
+        if (nk == 1) {  // the single-step kernel: p / l, then the cast
+          corr[i] = 0.f;
+          inv[i] = 1.f;
+          l_run[i] = sum[i];
+        } else {
+          const float l_corr = __fmul_rn(expf(__fsub_rn(m_run[i], mx[i])), l_run[i]);
+          const float l_next = __fadd_rn(sum[i], l_corr);
+          inv[i] = l_next == 0.f ? 1.f : 1.f / l_next;
+          corr[i] = __fmul_rn(l_corr, inv[i]);
+          l_run[i] = l_next;
+        }
+        m_run[i] = mx[i];
+      }
+      if (nk == 1) {
+#pragma unroll
+        for (int i = 0; i < 64; ++i) s[i] = s[i] / sum[(i >> 1) & 1];
+      }
+      // T(p) as the A fragments of p v: 16 keys a fragment
+      uint32_t pa[kBlock / 16][4];
+#pragma unroll
+      for (int ks = 0; ks < kBlock / 16; ++ks) {
+        pa[ks][0] = pack_bf16(s[8 * ks + 0], s[8 * ks + 1]);
+        pa[ks][1] = pack_bf16(s[8 * ks + 2], s[8 * ks + 3]);
+        pa[ks][2] = pack_bf16(s[8 * ks + 4], s[8 * ks + 5]);
+        pa[ks][3] = pack_bf16(s[8 * ks + 6], s[8 * ks + 7]);
+      }
+#pragma unroll
+      for (int i = 0; i < D / 2; ++i) acc[i] = __fmul_rn(acc[i], corr[(i >> 1) & 1]);
+
+      // acc += (p v_j) * (1 / l'), 64 columns of D a slice
+#pragma unroll
+      for (int u = 0; u < C::kUnits; ++u) {
+        slots[u] = r.slot;
+        hopper::mbar_wait(&full[r.slot], r.phase);
+        r.next();
+      }
+#pragma unroll
+      for (int c0 = 0; c0 < D / 64; c0 += C::kPvInFlight) {
+        float pv[C::kPvInFlight][32];
+        hopper::wgmma_fence();
+#pragma unroll
+        for (int f = 0; f < C::kPvInFlight; ++f) {
+          const int c = c0 + f;
+          const uint32_t base = ring_addr + slots[c >> 1] * kUnit + (c & 1) * kBox;
+#pragma unroll
+          for (int ks = 0; ks < kBlock / 16; ++ks) {
+            hopper::wgmma_m64n64k16_rs_tb(
+                pv[f], pa[ks], hopper::sw128_desc(base + ks * 16 * hopper::kSwizzleBytes),
+                ks != 0);
+          }
+        }
+        hopper::wgmma_commit();
+        hopper::wgmma_wait<0>();
+#pragma unroll
+        for (int f = 0; f < C::kPvInFlight; ++f) {
+          hopper::fence_regs(pv[f]);
+#pragma unroll
+          for (int i = 0; i < 32; ++i) {
+            float& a = acc[(c0 + f) * 32 + i];
+            a = __fadd_rn(a, __fmul_rn(pv[f][i], inv[(i >> 1) & 1]));
+          }
+        }
+      }
+      __syncwarp();
+      if (lane == 0) {
+#pragma unroll
+        for (int u = 0; u < C::kUnits; ++u) hopper::mbar_arrive(&empty[slots[u]]);
+      }
+    }
+    const int g = lane >> 2, t4 = lane & 3;
+    bf16* out = o + b * so.b + h * so.h + static_cast<long long>(q0 + row0) * so.n;
+#pragma unroll
+    for (int nt = 0; nt < D / 8; ++nt) {
+      const int c = nt * 8 + 2 * t4;
+      *reinterpret_cast<uint32_t*>(out + g * so.n + c) =
+          pack_bf16(acc[4 * nt], acc[4 * nt + 1]);
+      *reinterpret_cast<uint32_t*>(out + (g + 8) * so.n + c) =
+          pack_bf16(acc[4 * nt + 2], acc[4 * nt + 3]);
+    }
+    if (t4 == 0) {
+      const long long row = static_cast<long long>(blockIdx.y) * N + q0 + row0 + g;
+      l_out[row] = l_run[0];
+      l_out[row + 8] = l_run[1];
+      m_out[row] = m_run[0];
+      m_out[row + 8] = m_run[1];
+    }
   }
 }
 
 // --- K5dq, bf16 ----------------------------------------------------------------
+template <int D>
 __global__ void __launch_bounds__(kThreads, 1)
 flash_dq_mma(const bf16* __restrict__ q, const bf16* __restrict__ k,
              const bf16* __restrict__ v, const float* __restrict__ l,
              const float* __restrict__ m, const bf16* __restrict__ dout,
              const float* __restrict__ di, bf16* __restrict__ dq, Layout lay, int H, int N,
              float scale) {
+  constexpr int kKeys = dq_keys<D>();
   extern __shared__ __align__(16) unsigned char smem[];
-  bf16 (*Qs)[kPitch] = reinterpret_cast<bf16 (*)[kPitch]>(smem);
-  bf16 (*Os)[kPitch] = Qs + kBlock;  // do
-  bf16 (*Ks)[kPitch] = Os + kBlock;
-  bf16 (*Vs)[kPitch] = Ks + kBlock;
+  bf16 (*Qs)[pitch<D>()] = reinterpret_cast<bf16 (*)[pitch<D>()]>(smem);
+  bf16 (*Os)[pitch<D>()] = Qs + kBlock;  // do
+  bf16 (*Ks)[pitch<D>()] = Os + kBlock;
+  bf16 (*Vs)[pitch<D>()] = Ks + kKeys;
   const int tid = threadIdx.x, lane = tid & 31, r0 = (tid >> 5) * kWarpRows;
   const int b = blockIdx.y / H, h = blockIdx.y % H;
   const long long q0 = static_cast<long long>(blockIdx.x) * kBlock;
-  const int nk = N / kBlock;
+  const int c0 = blockIdx.z * kDO;
 
-  copy_rows<kBlock>(Qs, rows_of(q, lay.t[0], b, h, q0), lay.t[0].n, tid);
-  copy_rows<kBlock>(Os, rows_of(dout, lay.t[3], b, h, q0), lay.t[3].n, tid);
+  copy_rows<D, kBlock>(Qs, rows_of(q, lay.t[0], b, h, q0), lay.t[0].n, tid);
+  copy_rows<D, kBlock>(Os, rows_of(dout, lay.t[3], b, h, q0), lay.t[3].n, tid);
   cp_async_commit();
   // this thread's two rows: m, 1 / l and di
   const long long row = static_cast<long long>(blockIdx.y) * N + q0 + r0 + (lane >> 2);
@@ -375,24 +539,22 @@ flash_dq_mma(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const float il[2] = {1.f / l[row], 1.f / l[row + 8]};
   const float dr[2] = {di[row], di[row + 8]};
 
-  float acc[kD / 8][4];
-  zero<kD / 8>(acc);
-  for (int j = 0; j < nk; ++j) {
+  float acc[kDO / 8][4];
+  zero<kDO / 8>(acc);
+  for (int j0 = 0; j0 < N; j0 += kKeys) {
     __syncthreads();
-    copy_rows<kBlock>(Ks, rows_of(k, lay.t[1], b, h, static_cast<long long>(j) * kBlock),
-                      lay.t[1].n, tid);
-    copy_rows<kBlock>(Vs, rows_of(v, lay.t[2], b, h, static_cast<long long>(j) * kBlock),
-                      lay.t[2].n, tid);
+    copy_rows<D, kKeys>(Ks, rows_of(k, lay.t[1], b, h, j0), lay.t[1].n, tid);
+    copy_rows<D, kKeys>(Vs, rows_of(v, lay.t[2], b, h, j0), lay.t[2].n, tid);
     cp_async_commit();
     cp_async_wait<0>();
     __syncthreads();
 #pragma unroll
-    for (int kh = 0; kh < kBlock / kSub; ++kh) {
+    for (int kh = 0; kh < kKeys / kSub; ++kh) {
       float s[kSub / 8][4], dp[kSub / 8][4];
       zero<kSub / 8>(s);
       zero<kSub / 8>(dp);
-      rows_dot_rows<kSub / 8>(s, Qs, r0, Ks, kh * kSub, lane);
-      rows_dot_rows<kSub / 8>(dp, Os, r0, Vs, kh * kSub, lane);
+      rows_dot_rows<D, kSub / 8>(s, Qs, r0, Ks, kh * kSub, lane);
+      rows_dot_rows<D, kSub / 8>(dp, Os, r0, Vs, kh * kSub, lane);
 #pragma unroll
       for (int nt = 0; nt < kSub / 8; ++nt)
 #pragma unroll
@@ -403,13 +565,14 @@ flash_dq_mma(const bf16* __restrict__ q, const bf16* __restrict__ k,
         }
       uint32_t pa[kSub / 16][4];
       to_a_fragments<kSub / 16>(pa, dp);
-      frags_dot_rows<kSub / 16, kD / 8>(acc, pa, Ks, kh * kSub, 0, lane);
+      frags_dot_rows<D, kSub / 16, kDO / 8>(acc, pa, Ks, kh * kSub, c0, lane);
     }
   }
-  store_rows(dq + (static_cast<long long>(blockIdx.y) * N + q0 + r0) * kD, kD, acc, lane);
+  store_rows(dq + (static_cast<long long>(blockIdx.y) * N + q0 + r0) * D + c0, D, acc, lane);
 }
 
 // --- K5dkv, bf16 ---------------------------------------------------------------
+template <int D>
 __global__ void __launch_bounds__(kThreads, 1)
 flash_dkv_mma(const bf16* __restrict__ q, const bf16* __restrict__ k,
               const bf16* __restrict__ v, const float* __restrict__ l,
@@ -417,10 +580,10 @@ flash_dkv_mma(const bf16* __restrict__ q, const bf16* __restrict__ k,
               const float* __restrict__ di, bf16* __restrict__ dk, bf16* __restrict__ dv,
               Layout lay, int H, int N, float scale) {
   extern __shared__ __align__(16) unsigned char smem[];
-  bf16 (*Ks)[kPitch] = reinterpret_cast<bf16 (*)[kPitch]>(smem);
-  bf16 (*Vs)[kPitch] = Ks + kBlock;
-  bf16 (*Qs)[kPitch] = Vs + kBlock;  // kSub rows
-  bf16 (*Os)[kPitch] = Qs + kSub;    // do, kSub rows
+  bf16 (*Ks)[pitch<D>()] = reinterpret_cast<bf16 (*)[pitch<D>()]>(smem);
+  bf16 (*Vs)[pitch<D>()] = Ks + kBlock;
+  bf16 (*Qs)[pitch<D>()] = Vs + kBlock;  // kSub rows
+  bf16 (*Os)[pitch<D>()] = Qs + kSub;    // do, kSub rows
   float* ms = reinterpret_cast<float*>(Os + kSub);
   float* ils = ms + kSub;
   float* dis = ils + kSub;
@@ -429,18 +592,19 @@ flash_dkv_mma(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const int b = blockIdx.y / H, h = blockIdx.y % H;
   const long long k0 = static_cast<long long>(blockIdx.x) * kBlock;
   const long long stats = static_cast<long long>(blockIdx.y) * N;
+  const int c0 = blockIdx.z * kDO;
 
-  copy_rows<kBlock>(Ks, rows_of(k, lay.t[1], b, h, k0), lay.t[1].n, tid);
-  copy_rows<kBlock>(Vs, rows_of(v, lay.t[2], b, h, k0), lay.t[2].n, tid);
+  copy_rows<D, kBlock>(Ks, rows_of(k, lay.t[1], b, h, k0), lay.t[1].n, tid);
+  copy_rows<D, kBlock>(Vs, rows_of(v, lay.t[2], b, h, k0), lay.t[2].n, tid);
   cp_async_commit();
 
-  float dk_acc[kD / 8][4], dv_acc[kD / 8][4];
-  zero<kD / 8>(dk_acc);
-  zero<kD / 8>(dv_acc);
+  float dk_acc[kDO / 8][4], dv_acc[kDO / 8][4];
+  zero<kDO / 8>(dk_acc);
+  zero<kDO / 8>(dv_acc);
   for (int i0 = 0; i0 < N; i0 += kSub) {
     __syncthreads();  // every warp is done with the last step's q and do
-    copy_rows<kSub>(Qs, rows_of(q, lay.t[0], b, h, i0), lay.t[0].n, tid);
-    copy_rows<kSub>(Os, rows_of(dout, lay.t[3], b, h, i0), lay.t[3].n, tid);
+    copy_rows<D, kSub>(Qs, rows_of(q, lay.t[0], b, h, i0), lay.t[0].n, tid);
+    copy_rows<D, kSub>(Os, rows_of(dout, lay.t[3], b, h, i0), lay.t[3].n, tid);
     cp_async_commit();
     if (tid < kSub) {
       ms[tid] = m[stats + i0 + tid];
@@ -453,7 +617,7 @@ flash_dkv_mma(const bf16* __restrict__ q, const bf16* __restrict__ k,
     // p^T: rows = this warp's keys, columns = the step's queries
     float st[kSub / 8][4];
     zero<kSub / 8>(st);
-    rows_dot_rows<kSub / 8>(st, Ks, r0, Qs, 0, lane);
+    rows_dot_rows<D, kSub / 8>(st, Ks, r0, Qs, 0, lane);
 #pragma unroll
     for (int nt = 0; nt < kSub / 8; ++nt)
 #pragma unroll
@@ -463,11 +627,11 @@ flash_dkv_mma(const bf16* __restrict__ q, const bf16* __restrict__ k,
       }
     uint32_t pa[kSub / 16][4];
     to_a_fragments<kSub / 16>(pa, st);
-    frags_dot_rows<kSub / 16, kD / 8>(dv_acc, pa, Os, 0, 0, lane);
+    frags_dot_rows<D, kSub / 16, kDO / 8>(dv_acc, pa, Os, 0, c0, lane);
     // ds^T = p^T (dp^T - di) scale, dp^T = v do^T
     float dpt[kSub / 8][4];
     zero<kSub / 8>(dpt);
-    rows_dot_rows<kSub / 8>(dpt, Vs, r0, Os, 0, lane);
+    rows_dot_rows<D, kSub / 8>(dpt, Vs, r0, Os, 0, lane);
 #pragma unroll
     for (int nt = 0; nt < kSub / 8; ++nt)
 #pragma unroll
@@ -476,11 +640,11 @@ flash_dkv_mma(const bf16* __restrict__ q, const bf16* __restrict__ k,
         dpt[nt][e] = __fmul_rn(__fmul_rn(__fsub_rn(dpt[nt][e], dis[c]), st[nt][e]), scale);
       }
     to_a_fragments<kSub / 16>(pa, dpt);
-    frags_dot_rows<kSub / 16, kD / 8>(dk_acc, pa, Qs, 0, 0, lane);
+    frags_dot_rows<D, kSub / 16, kDO / 8>(dk_acc, pa, Qs, 0, c0, lane);
   }
-  const long long out = (static_cast<long long>(blockIdx.y) * N + k0 + r0) * kD;
-  store_rows(dk + out, kD, dk_acc, lane);
-  store_rows(dv + out, kD, dv_acc, lane);
+  const long long out = (static_cast<long long>(blockIdx.y) * N + k0 + r0) * D + c0;
+  store_rows(dk + out, D, dk_acc, lane);
+  store_rows(dv + out, D, dv_acc, lane);
 }
 
 // --- float32 on FFMA -----------------------------------------------------------
@@ -491,12 +655,13 @@ flash_dkv_mma(const bf16* __restrict__ q, const bf16* __restrict__ k,
 // acc[i][j] += sum_d A[ty + 16 i, d] * Bt[tx + 16 j, d] for two [128, D]
 // row sets (rows sa, sb elements apart), staged 32 of D at a time,
 // transposed, in Ac and Bc.
+template <int D>
 __device__ __forceinline__ void nt_product_f32(float acc[8][8], const float* A,
                                                long long sa, const float* Bt,
                                                long long sb, float* Ac, float* Bc,
                                                int tid) {
   const int tx = tid & 15, ty = tid >> 4;
-  for (int d0 = 0; d0 < kD; d0 += kFK) {
+  for (int d0 = 0; d0 < D; d0 += kFK) {
 #pragma unroll
     for (int i = 0; i < kBlock * kFK / 4 / kThreads; ++i) {
       const int idx = tid + i * kThreads;
@@ -530,17 +695,17 @@ __device__ __forceinline__ void nt_product_f32(float acc[8][8], const float* A,
 }
 
 // acc[i][j] += sum_r P[ty + 16 i, r] * B[r, tx + 16 j] over the 128 rows r
-// of B ([128, D], rows sb elements apart), P in shared memory [128][kFP];
-// B staged 32 rows at a time in Bc.
+// of B ([128, kDO] from B, rows sb elements apart), P in shared memory
+// [128][kFP]; B staged 32 rows at a time in Bc.
 __device__ __forceinline__ void p_product_f32(float acc[8][8], const float* Ps,
                                               const float* B, long long sb, float* Bc,
                                               int tid) {
   const int tx = tid & 15, ty = tid >> 4;
   for (int r0 = 0; r0 < kBlock; r0 += kFK) {
 #pragma unroll
-    for (int i = 0; i < kFK * kD / 4 / kThreads; ++i) {
+    for (int i = 0; i < kFK * kDO / 4 / kThreads; ++i) {
       const int idx = tid + i * kThreads;
-      const int r = idx / (kD / 4), c = (idx % (kD / 4)) * 4;
+      const int r = idx / (kDO / 4), c = (idx % (kDO / 4)) * 4;
       const float4 bb = *reinterpret_cast<const float4*>(B + (r0 + r) * sb + c);
       Bc[r * kFP + c + 0] = bb.x;
       Bc[r * kFP + c + 1] = bb.y;
@@ -602,6 +767,10 @@ __device__ __forceinline__ void stage_stats(float* ms, float* ils, float* dis,
   }
 }
 
+// Each block makes the 128 output columns from c0 = 128 blockIdx.z; the
+// scores and the softmax statistics are recomputed for each, identically,
+// and the first writes l and m.
+template <int D>
 __global__ void __launch_bounds__(kThreads, 1)
 flash_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
               const float* __restrict__ v, float* __restrict__ o, float* __restrict__ l_out,
@@ -613,6 +782,7 @@ flash_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
   const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
   const int b = blockIdx.y / H, h = blockIdx.y % H;
   const long long q0 = static_cast<long long>(blockIdx.x) * kBlock;
+  const int c0 = blockIdx.z * kDO;
   const int nk = N / kBlock;
   const float* qb = rows_of(q, lay.t[0], b, h, q0);
 
@@ -628,8 +798,8 @@ flash_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
     const long long k0 = static_cast<long long>(j) * kBlock;
     float s[8][8];
     zero88(s);
-    nt_product_f32(s, qb, lay.t[0].n, rows_of(k, lay.t[1], b, h, k0), lay.t[1].n, Ac, Bc,
-                   tid);
+    nt_product_f32<D>(s, qb, lay.t[0].n, rows_of(k, lay.t[1], b, h, k0), lay.t[1].n, Ac, Bc,
+                      tid);
     float corr[8], inv[8];
 #pragma unroll
     for (int i = 0; i < 8; ++i) {
@@ -667,7 +837,7 @@ flash_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
     }
     float oc[8][8];
     zero88(oc);
-    p_product_f32(oc, Ps, rows_of(v, lay.t[2], b, h, k0), lay.t[2].n, Bc, tid);
+    p_product_f32(oc, Ps, rows_of(v, lay.t[2], b, h, k0) + c0, lay.t[2].n, Bc, tid);
 #pragma unroll
     for (int i = 0; i < 8; ++i)
 #pragma unroll
@@ -675,8 +845,8 @@ flash_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
         acc[i][jj] = __fadd_rn(__fmul_rn(acc[i][jj], corr[i]), __fmul_rn(oc[i][jj], inv[i]));
   }
   const Strides so = lay.t[3];
-  store_f32(o + b * so.b + h * so.h + q0 * so.n, so.n, acc, tid);
-  if (tx == 0) {
+  store_f32(o + b * so.b + h * so.h + q0 * so.n + c0, so.n, acc, tid);
+  if (tx == 0 && blockIdx.z == 0) {
     const long long row = static_cast<long long>(blockIdx.y) * N + q0 + ty;
 #pragma unroll
     for (int i = 0; i < 8; ++i) {
@@ -686,6 +856,7 @@ flash_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
   }
 }
 
+template <int D>
 __global__ void __launch_bounds__(kThreads, 1)
 flash_dq_f32(const float* __restrict__ q, const float* __restrict__ k,
              const float* __restrict__ v, const float* __restrict__ l,
@@ -702,6 +873,7 @@ flash_dq_f32(const float* __restrict__ q, const float* __restrict__ k,
   const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
   const int b = blockIdx.y / H, h = blockIdx.y % H;
   const long long q0 = static_cast<long long>(blockIdx.x) * kBlock;
+  const int c0 = blockIdx.z * kDO;
   const int nk = N / kBlock;
   stage_stats(ms, ils, dis, m, l, di, static_cast<long long>(blockIdx.y) * N + q0, tid);
   __syncthreads();
@@ -715,7 +887,7 @@ flash_dq_f32(const float* __restrict__ q, const float* __restrict__ k,
     const float* kb = rows_of(k, lay.t[1], b, h, k0);
     float s[8][8];
     zero88(s);
-    nt_product_f32(s, qb, lay.t[0].n, kb, lay.t[1].n, Ac, Bc, tid);
+    nt_product_f32<D>(s, qb, lay.t[0].n, kb, lay.t[1].n, Ac, Bc, tid);
 #pragma unroll
     for (int i = 0; i < 8; ++i) {
       const int r = ty + 16 * i;
@@ -725,8 +897,8 @@ flash_dq_f32(const float* __restrict__ q, const float* __restrict__ k,
             __fmul_rn(expf(__fsub_rn(__fmul_rn(s[i][jj], scale), ms[r])), ils[r]);
     }
     zero88(s);  // now dp = do v^T
-    nt_product_f32(s, ob, lay.t[3].n, rows_of(v, lay.t[2], b, h, k0), lay.t[2].n, Ac, Bc,
-                   tid);
+    nt_product_f32<D>(s, ob, lay.t[3].n, rows_of(v, lay.t[2], b, h, k0), lay.t[2].n, Ac, Bc,
+                      tid);
 #pragma unroll
     for (int i = 0; i < 8; ++i) {
       const int r = ty + 16 * i;
@@ -736,11 +908,12 @@ flash_dq_f32(const float* __restrict__ q, const float* __restrict__ k,
         *p = __fmul_rn(__fmul_rn(__fsub_rn(s[i][jj], dis[r]), *p), scale);
       }
     }
-    p_product_f32(acc, Ps, kb, lay.t[1].n, Bc, tid);
+    p_product_f32(acc, Ps, kb + c0, lay.t[1].n, Bc, tid);
   }
-  store_f32(dq + (static_cast<long long>(blockIdx.y) * N + q0) * kD, kD, acc, tid);
+  store_f32(dq + (static_cast<long long>(blockIdx.y) * N + q0) * D + c0, D, acc, tid);
 }
 
+template <int D>
 __global__ void __launch_bounds__(kThreads, 1)
 flash_dkv_f32(const float* __restrict__ q, const float* __restrict__ k,
               const float* __restrict__ v, const float* __restrict__ l,
@@ -757,6 +930,7 @@ flash_dkv_f32(const float* __restrict__ q, const float* __restrict__ k,
   const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
   const int b = blockIdx.y / H, h = blockIdx.y % H;
   const long long k0 = static_cast<long long>(blockIdx.x) * kBlock;
+  const int c0 = blockIdx.z * kDO;
   const float* kb = rows_of(k, lay.t[1], b, h, k0);
   const float* vb = rows_of(v, lay.t[2], b, h, k0);
 
@@ -771,7 +945,7 @@ flash_dkv_f32(const float* __restrict__ q, const float* __restrict__ k,
     const float* ob = rows_of(dout, lay.t[3], b, h, i0);
     float s[8][8];  // s^T = k q^T: rows keys, columns queries
     zero88(s);
-    nt_product_f32(s, kb, lay.t[1].n, qb, lay.t[0].n, Ac, Bc, tid);
+    nt_product_f32<D>(s, kb, lay.t[1].n, qb, lay.t[0].n, Ac, Bc, tid);
 #pragma unroll
     for (int i = 0; i < 8; ++i)
 #pragma unroll
@@ -780,9 +954,9 @@ flash_dkv_f32(const float* __restrict__ q, const float* __restrict__ k,
         Ps[(ty + 16 * i) * kFP + c] =
             __fmul_rn(expf(__fsub_rn(__fmul_rn(s[i][jj], scale), ms[c])), ils[c]);
       }
-    p_product_f32(dv_acc, Ps, ob, lay.t[3].n, Bc, tid);
+    p_product_f32(dv_acc, Ps, ob + c0, lay.t[3].n, Bc, tid);
     zero88(s);  // now dp^T = v do^T
-    nt_product_f32(s, vb, lay.t[2].n, ob, lay.t[3].n, Ac, Bc, tid);
+    nt_product_f32<D>(s, vb, lay.t[2].n, ob, lay.t[3].n, Ac, Bc, tid);
 #pragma unroll
     for (int i = 0; i < 8; ++i)
 #pragma unroll
@@ -791,11 +965,11 @@ flash_dkv_f32(const float* __restrict__ q, const float* __restrict__ k,
         float* p = &Ps[(ty + 16 * i) * kFP + c];
         *p = __fmul_rn(__fmul_rn(__fsub_rn(s[i][jj], dis[c]), *p), scale);
       }
-    p_product_f32(dk_acc, Ps, qb, lay.t[0].n, Bc, tid);
+    p_product_f32(dk_acc, Ps, qb + c0, lay.t[0].n, Bc, tid);
   }
-  const long long out = (static_cast<long long>(blockIdx.y) * N + k0) * kD;
-  store_f32(dk + out, kD, dk_acc, tid);
-  store_f32(dv + out, kD, dv_acc, tid);
+  const long long out = (static_cast<long long>(blockIdx.y) * N + k0) * D + c0;
+  store_f32(dk + out, D, dk_acc, tid);
+  store_f32(dv + out, D, dv_acc, tid);
 }
 
 // --- launchers -------------------------------------------------------------------
@@ -806,7 +980,7 @@ cudaError_t allow_smem(Kernel kernel, size_t bytes) {
 }
 
 bool bad_shape(int B, int H, int N, int D, int dtype) {
-  return B <= 0 || H <= 0 || N < kBlock || N % kBlock || D != kD ||
+  return B <= 0 || H <= 0 || N < kBlock || N % kBlock || (D != 128 && D != 256) ||
          static_cast<long long>(B) * H > 65535 || (dtype != kFloat32 && dtype != kBFloat16);
 }
 
@@ -817,36 +991,117 @@ Layout layout_of(const long long* strides) {
   return lay;
 }
 
+// K5f in bf16: a 4-D tensor map (D, N, H, B) of each of q, k and v over
+// its element strides, boxes of 64 columns x 128 rows.
+template <int D>
+cudaError_t launch_fwd_bf16(const void* q, const void* k, const void* v, void* o, float* l,
+                            float* m, const Layout& lay, int B, int H, int N, float scale,
+                            cudaStream_t s) {
+  CUtensorMap maps[3];
+  const void* bases[3] = {q, k, v};
+  for (int i = 0; i < 3; ++i) {
+    const uint64_t dims[4] = {static_cast<uint64_t>(D), static_cast<uint64_t>(N),
+                              static_cast<uint64_t>(H), static_cast<uint64_t>(B)};
+    const uint64_t strides[3] = {static_cast<uint64_t>(lay.t[i].n) * sizeof(bf16),
+                                 static_cast<uint64_t>(lay.t[i].h) * sizeof(bf16),
+                                 static_cast<uint64_t>(lay.t[i].b) * sizeof(bf16)};
+    const uint32_t box[4] = {64, kBlock, 1, 1};
+    if (!hopper::make_map(&maps[i], bases[i], 4, dims, strides, box)) {
+      return cudaErrorInvalidValue;
+    }
+  }
+  const cudaError_t err = allow_smem(flash_fwd_wgmma<D>, Fwd<D>::kSmem);
+  if (err != cudaSuccess) return err;
+  flash_fwd_wgmma<D><<<dim3(N / kBlock, B * H), kFwdThreads, Fwd<D>::kSmem, s>>>(
+      maps[0], maps[1], maps[2], static_cast<bf16*>(o), l, m, lay.t[3], H, N, scale);
+  return cudaGetLastError();
+}
+
+template <int D>
+cudaError_t launch_fwd_f32(const void* q, const void* k, const void* v, void* o, float* l,
+                           float* m, const Layout& lay, int B, int H, int N, float scale,
+                           cudaStream_t s) {
+  const cudaError_t err = allow_smem(flash_fwd_f32<D>, kF32Smem);
+  if (err != cudaSuccess) return err;
+  flash_fwd_f32<D><<<dim3(N / kBlock, B * H, D / kDO), kThreads, kF32Smem, s>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<float*>(o), l, m, lay, H, N, scale);
+  return cudaGetLastError();
+}
+
+template <int D>
+cudaError_t launch_dkv(const void* q, const void* k, const void* v, const float* l,
+                       const float* m, const void* dout, const float* di, void* dk, void* dv,
+                       const Layout& lay, int B, int H, int N, float scale, int dtype,
+                       cudaStream_t s) {
+  const dim3 grid(N / kBlock, B * H, D / kDO);
+  cudaError_t err;
+  if (dtype == kBFloat16) {
+    err = allow_smem(flash_dkv_mma<D>, dkv_smem<D>());
+    if (err != cudaSuccess) return err;
+    flash_dkv_mma<D><<<grid, kThreads, dkv_smem<D>(), s>>>(
+        static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
+        l, m, static_cast<const bf16*>(dout), di, static_cast<bf16*>(dk),
+        static_cast<bf16*>(dv), lay, H, N, scale);
+  } else {
+    err = allow_smem(flash_dkv_f32<D>, kF32Smem);
+    if (err != cudaSuccess) return err;
+    flash_dkv_f32<D><<<grid, kThreads, kF32Smem, s>>>(
+        static_cast<const float*>(q), static_cast<const float*>(k),
+        static_cast<const float*>(v), l, m, static_cast<const float*>(dout), di,
+        static_cast<float*>(dk), static_cast<float*>(dv), lay, H, N, scale);
+  }
+  return cudaGetLastError();
+}
+
+template <int D>
+cudaError_t launch_dq(const void* q, const void* k, const void* v, const float* l,
+                      const float* m, const void* dout, const float* di, void* dq,
+                      const Layout& lay, int B, int H, int N, float scale, int dtype,
+                      cudaStream_t s) {
+  const dim3 grid(N / kBlock, B * H, D / kDO);
+  cudaError_t err;
+  if (dtype == kBFloat16) {
+    err = allow_smem(flash_dq_mma<D>, dq_smem<D>());
+    if (err != cudaSuccess) return err;
+    flash_dq_mma<D><<<grid, kThreads, dq_smem<D>(), s>>>(
+        static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
+        l, m, static_cast<const bf16*>(dout), di, static_cast<bf16*>(dq), lay, H, N, scale);
+  } else {
+    err = allow_smem(flash_dq_f32<D>, kF32Smem);
+    if (err != cudaSuccess) return err;
+    flash_dq_f32<D><<<grid, kThreads, kF32Smem, s>>>(
+        static_cast<const float*>(q), static_cast<const float*>(k),
+        static_cast<const float*>(v), l, m, static_cast<const float*>(dout), di,
+        static_cast<float*>(dq), lay, H, N, scale);
+  }
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 // K5f. q, k, v [B, H, N, D] through `strides` (host array: b, h, n of q, k,
 // v, then o); o out in the same dtype through its strides; l, m float32
-// [B, H, N] out. D = 128, N a multiple of 128; dtype 1 = bf16, 0 =
-// float32. Returns cudaGetLastError().
+// [B, H, N] out. D = 128 or 256, N a multiple of 128; dtype 1 = bf16, 0 =
+// float32. Returns cudaGetLastError() (cudaErrorInvalidValue if
+// cuTensorMapEncodeTiled refuses a tensor map).
 extern "C" int htrvt_flash_fwd(const void* q, const void* k, const void* v, void* o,
                                void* l, void* m, const long long* strides, float scale,
                                int B, int H, int N, int D, int dtype, void* stream) {
   if (bad_shape(B, H, N, D, dtype)) return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const Layout lay = layout_of(strides);
-  const dim3 grid(N / kBlock, B * H);
   float* lo = static_cast<float*>(l);
   float* mo = static_cast<float*>(m);
   cudaError_t err;
   if (dtype == kBFloat16) {
-    err = allow_smem(flash_fwd_mma, kFwdSmem);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    flash_fwd_mma<<<grid, kThreads, kFwdSmem, s>>>(
-        static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
-        static_cast<bf16*>(o), lo, mo, lay, H, N, scale);
+    err = D == 128 ? launch_fwd_bf16<128>(q, k, v, o, lo, mo, lay, B, H, N, scale, s)
+                   : launch_fwd_bf16<256>(q, k, v, o, lo, mo, lay, B, H, N, scale, s);
   } else {
-    err = allow_smem(flash_fwd_f32, kF32Smem);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    flash_fwd_f32<<<grid, kThreads, kF32Smem, s>>>(
-        static_cast<const float*>(q), static_cast<const float*>(k),
-        static_cast<const float*>(v), static_cast<float*>(o), lo, mo, lay, H, N, scale);
+    err = D == 128 ? launch_fwd_f32<128>(q, k, v, o, lo, mo, lay, B, H, N, scale, s)
+                   : launch_fwd_f32<256>(q, k, v, o, lo, mo, lay, B, H, N, scale, s);
   }
-  return static_cast<int>(cudaGetLastError());
+  return static_cast<int>(err);
 }
 
 // K5dkv. q, k, v, do [B, H, N, D] through `strides` (b, h, n of q, k, v,
@@ -860,27 +1115,13 @@ extern "C" int htrvt_flash_bwd_dkv(const void* q, const void* k, const void* v,
   if (bad_shape(B, H, N, D, dtype)) return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const Layout lay = layout_of(strides);
-  const dim3 grid(N / kBlock, B * H);
   const float* lf = static_cast<const float*>(l);
   const float* mf = static_cast<const float*>(m);
   const float* df = static_cast<const float*>(di);
-  cudaError_t err;
-  if (dtype == kBFloat16) {
-    err = allow_smem(flash_dkv_mma, kDkvSmem);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    flash_dkv_mma<<<grid, kThreads, kDkvSmem, s>>>(
-        static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
-        lf, mf, static_cast<const bf16*>(dout), df, static_cast<bf16*>(dk),
-        static_cast<bf16*>(dv), lay, H, N, scale);
-  } else {
-    err = allow_smem(flash_dkv_f32, kF32Smem);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    flash_dkv_f32<<<grid, kThreads, kF32Smem, s>>>(
-        static_cast<const float*>(q), static_cast<const float*>(k),
-        static_cast<const float*>(v), lf, mf, static_cast<const float*>(dout), df,
-        static_cast<float*>(dk), static_cast<float*>(dv), lay, H, N, scale);
-  }
-  return static_cast<int>(cudaGetLastError());
+  const cudaError_t err =
+      D == 128 ? launch_dkv<128>(q, k, v, lf, mf, dout, df, dk, dv, lay, B, H, N, scale, dtype, s)
+               : launch_dkv<256>(q, k, v, lf, mf, dout, df, dk, dv, lay, B, H, N, scale, dtype, s);
+  return static_cast<int>(err);
 }
 
 // K5dq. The inputs of K5dkv; dq contiguous [B, H, N, D] out. Returns
@@ -893,24 +1134,11 @@ extern "C" int htrvt_flash_bwd_dq(const void* q, const void* k, const void* v,
   if (bad_shape(B, H, N, D, dtype)) return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const Layout lay = layout_of(strides);
-  const dim3 grid(N / kBlock, B * H);
   const float* lf = static_cast<const float*>(l);
   const float* mf = static_cast<const float*>(m);
   const float* df = static_cast<const float*>(di);
-  cudaError_t err;
-  if (dtype == kBFloat16) {
-    err = allow_smem(flash_dq_mma, kDqSmem);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    flash_dq_mma<<<grid, kThreads, kDqSmem, s>>>(
-        static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
-        lf, mf, static_cast<const bf16*>(dout), df, static_cast<bf16*>(dq), lay, H, N, scale);
-  } else {
-    err = allow_smem(flash_dq_f32, kF32Smem);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    flash_dq_f32<<<grid, kThreads, kF32Smem, s>>>(
-        static_cast<const float*>(q), static_cast<const float*>(k),
-        static_cast<const float*>(v), lf, mf, static_cast<const float*>(dout), df,
-        static_cast<float*>(dq), lay, H, N, scale);
-  }
-  return static_cast<int>(cudaGetLastError());
+  const cudaError_t err =
+      D == 128 ? launch_dq<128>(q, k, v, lf, mf, dout, df, dq, lay, B, H, N, scale, dtype, s)
+               : launch_dq<256>(q, k, v, lf, mf, dout, df, dq, lay, B, H, N, scale, dtype, s);
+  return static_cast<int>(err);
 }

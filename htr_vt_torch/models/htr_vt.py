@@ -175,6 +175,10 @@ def build_model(cfg: ModelConfig, device=None,
         raise NotImplementedError(
             f"quant={cfg.quant!r} is not ported to htr_vt_torch yet "
             "(ROADMAP.md queue 1, item 11: int8 serving)")
+    if cfg.remat != "none":
+        raise NotImplementedError(
+            f"remat={cfg.remat!r} is not ported to htr_vt_torch yet "
+            "(ROADMAP.md queue 1, item 13: memory levers (remat))")
     check_switches(cfg)
     device = torch.device("cuda") if device is None else torch.device(device)
     if device.type == "cuda" and not torch.cuda.is_available():

@@ -8,7 +8,8 @@ stride 1, the zero pad applied after the prologue. Without scale/shift
 there is no prologue: ``y = conv3x3(pad0(x), k)``.
 
 - ``conv3x3_bn_relu_fwd`` (K4f, ``csrc/conv_fused.cu``) reads raw x and
-  applies the prologue as it loads each tile; the normalised tensor never
+  applies the prologue once per pixel of each tile it loads (in bf16, a
+  wgmma kernel fed by TMA; in float32, FFMA); the normalised tensor never
   exists in memory.
 - ``conv3x3_bn_relu_dgrad`` (K4d) is the conv of g with the rotated kernel,
   float32 da, then the prologue's backward as ``_dgrad_kernel`` computes it

@@ -25,6 +25,8 @@ def check_ported(cfg: ExperimentConfig) -> None:
         item = "item 10: the tri-masked MMS trainer"
     elif cfg.train.grad_accum > 1:
         item = "item 13: memory levers (grad_accum)"
+    elif cfg.model.remat != "none":
+        item = "item 13: memory levers (remat)"
     elif cfg.model.sgm.enable:
         item = "item 10: the SGM head"
     if item:

@@ -50,6 +50,7 @@ from test_torch_port_model import (LOGITS_TOL, port_config, tiny_jax_weights,
 from test_torch_port_train import _leaves
 
 SCALE = 128**-0.5
+HEAD_DIMS = [128, 256]  # the head dims the K5 kernels take (768 / 6, 1536 / 6)
 # float32: the plain version and the interpret-mode kernel do the same
 # float32 operations, summed in other orders (measured <= 3.6e-7).
 F32_TOL = dict(rtol=1e-5, atol=1e-5)
@@ -60,10 +61,12 @@ F32_TOL = dict(rtol=1e-5, atol=1e-5)
 # the tensor's largest value. Measured: 99.3-99.9% of the elements
 # bit-equal, the rest one ulp apart.
 BF16_RTOL, BF16_ATOL_OF_MAX, BF16_MIN_EQUAL = 2.0**-7, 2.0**-8, 0.99
-# Tiny wide configs: embed 128 over 1 head gives head_dim 128, the one the
-# kernels take; 64 x 1024 px is N = 256 tokens, 64 x 2048 px N = 512.
+# Tiny wide configs: embed 128 over 1 head gives head_dim 128, embed 256
+# over 1 head head_dim 256, the two the kernels take; 64 x 1024 px is N =
+# 256 tokens, 64 x 2048 px N = 512.
 TINY = ModelConfig(nb_cls=8, img_size=(64, 512), embed_dim=128, depth=2,
                    num_heads=1, compute_dtype="float32", attn_impl="flash")
+TINY_256 = dataclasses.replace(TINY, embed_dim=256)
 TRAIN = dataclasses.replace(TINY, img_size=(64, 1024), masking=MaskConfig(
     mode="span", ratio=0.4, max_span_length=4))
 OPTIM = OptimConfig(max_lr=1e-3, warmup_iters=2, total_iters=12)
@@ -90,16 +93,16 @@ def jax_on_the_flash_path():
 
 # --- the plain versions against the library kernel ---------------------------
 @functools.lru_cache(maxsize=None)
-def library_case(n, dtype):
+def library_case(n, dtype, d):
     """q, k, v, do (float32 numpy, on the dtype's grid) and the library's o,
-    dq, dk, dv at [1, 2, n, 128] in ``dtype``."""
+    dq, dk, dv at [1, 2, n, d] in ``dtype``, scale d^-1/2."""
     jdt = {"float32": jnp.float32, "bfloat16": jnp.bfloat16}[dtype]
-    rng = np.random.default_rng(n)
-    arrays = [np.asarray(jnp.asarray(rng.standard_normal((1, 2, n, 128)), jdt)
+    rng = np.random.default_rng(n * d // 128)
+    arrays = [np.asarray(jnp.asarray(rng.standard_normal((1, 2, n, d)), jdt)
                          .astype(jnp.float32)) for _ in range(4)]
     with pltpu.force_tpu_interpret_mode():
         q, k, v, do = (jnp.asarray(a, jdt) for a in arrays)
-        o, vjp = jax.vjp(lambda a, b, c: jax_flash(a, b, c, sm_scale=SCALE), q, k, v)
+        o, vjp = jax.vjp(lambda a, b, c: jax_flash(a, b, c, sm_scale=d**-0.5), q, k, v)
         grads = vjp(do)
         out = [np.asarray(t.astype(jnp.float32)) for t in (o, *grads)]
     return arrays, out
@@ -119,23 +122,26 @@ def _assert_matches(got, want, dtype, what):
     assert (got == want).mean() >= BF16_MIN_EQUAL, (what, (got == want).mean())
 
 
+@pytest.mark.parametrize("head_dim", HEAD_DIMS)
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("n", [256, 512])
-def test_plain_forward_matches_the_library_kernel(n, dtype):
-    (q, k, v, _), (o, *_) = library_case(n, dtype)
+def test_plain_forward_matches_the_library_kernel(n, dtype, head_dim):
+    (q, k, v, _), (o, *_) = library_case(n, dtype, head_dim)
     got, l, m = fa.flash_attention_reference(*(_torch(a, dtype) for a in (q, k, v)),
-                                             SCALE)
+                                             head_dim**-0.5)
     assert got.dtype == getattr(torch, dtype) and l.shape == m.shape == (1, 2, n)
     _assert_matches(got, o, dtype, "o")
 
 
+@pytest.mark.parametrize("head_dim", HEAD_DIMS)
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("n", [256, 512])
-def test_plain_backward_matches_the_library_vjp(n, dtype):
-    arrays, (_, dq, dk, dv) = library_case(n, dtype)
+def test_plain_backward_matches_the_library_vjp(n, dtype, head_dim):
+    arrays, (_, dq, dk, dv) = library_case(n, dtype, head_dim)
     q, k, v, do = (_torch(a, dtype) for a in arrays)
-    o, l, m = fa.flash_attention_reference(q, k, v, SCALE)
-    got = fa.flash_attention_bwd_reference(q, k, v, o, l, m, do, SCALE)
+    scale = head_dim**-0.5
+    o, l, m = fa.flash_attention_reference(q, k, v, scale)
+    got = fa.flash_attention_bwd_reference(q, k, v, o, l, m, do, scale)
     for name, g, w in zip(("dq", "dk", "dv"), got, (dq, dk, dv)):
         assert g.dtype == q.dtype
         _assert_matches(g, w, dtype, name)
@@ -183,7 +189,11 @@ DECISIONS = [("auto", 512, 128, False), ("auto", 256, 128, False),
              ("auto", 512, 128, True), ("xla", 64, 128, False),
              ("xla", 512, 128, False), ("flash", 512, 128, False),
              ("flash", 320, 128, False), ("flash", 512, 64, False),
-             ("flash", 512, 128, True), ("pallas", 128, 128, False)]
+             ("flash", 512, 128, True), ("pallas", 128, 128, False),
+             # head_dim 256 (embed 1536 over 6 heads) takes flash as 128 does
+             ("auto", 512, 256, False), ("auto", 256, 256, False),
+             ("auto", 128, 256, False), ("auto", 512, 256, True),
+             ("flash", 256, 256, False), ("xla", 512, 256, False)]
 
 
 def _decide(fn, *args, **kwargs):
@@ -261,6 +271,31 @@ def test_wide_logits_match_jax_on_the_flash_path(wide_weights, width):
     with torch.inference_mode():
         got = model(torch.from_numpy(image))
     assert got.shape == (B, width // 4, TINY.nb_cls)
+    np.testing.assert_allclose(got.numpy(), want, **LOGITS_TOL)
+
+
+def test_wide_logits_match_jax_on_the_flash_path_at_head_dim_256():
+    """Embed 256 over one head (head_dim 256, as embed 1536 over 6 heads) at
+    1024 px: the port's flash path (the plain K5 versions on the CPU) meets
+    JAX's HTRVT on the library kernel."""
+    with jax_on_the_flash_path():
+        params, stats = tiny_jax_weights(TINY_256, seed=3)
+    model = tiny_port_model(params, stats, TINY_256)
+    image = np.random.default_rng(256).random((B, 64, 1024, 1), dtype=np.float32)
+    cfg = dataclasses.replace(TINY_256, img_size=(64, 1024))
+    with jax_on_the_flash_path() as decisions:
+        want = jax.jit(lambda v, x: JaxHTRVT(cfg).apply(v, x, train=False))(
+            {"params": params, "batch_stats": stats}, jnp.asarray(image))
+        want = np.asarray(want)
+    assert decisions == ["flash"] * TINY_256.depth
+    calls = []
+    with mock.patch.object(fa, "flash_attention_reference",
+                           lambda *a, _o=fa.flash_attention_reference: (
+                               calls.append(a[0].shape), _o(*a))[1]), \
+            torch.inference_mode():
+        got = model(torch.from_numpy(image))
+    assert calls == [(B, 1, 256, 256)] * TINY_256.depth
+    assert got.shape == (B, 256, TINY_256.nb_cls)
     np.testing.assert_allclose(got.numpy(), want, **LOGITS_TOL)
 
 

@@ -507,6 +507,12 @@ def test_conv_kernels_at_the_flagship_shapes(cuda, shape):
     ((128, 192, 8, 512), 192, torch.bfloat16, False, False),  # stage 1, bare
     ((3, 40, 5, 7), 24, torch.bfloat16, True, True),   # ragged K, N and M tiles
     ((3, 40, 5, 7), 24, torch.bfloat16, False, False),
+    # K4f's tile geometry: one-row images (a two-row tile, 128 columns, W over
+    # three tiles); a second row of 8-row tiles with a partial channel chunk
+    # and a partial 96-channel tile; 2-row tiles two tiles wide
+    ((2, 64, 1, 300), 96, torch.bfloat16, True, False),
+    ((1, 136, 9, 33), 200, torch.bfloat16, True, True),
+    ((2, 16, 2, 130), 8, torch.bfloat16, False, False),
     ((2, 16, 7, 9), 24, torch.float32, True, True),    # float32 (FFMA), ties
     ((2, 16, 7, 9), 24, torch.float32, False, False),
     ((1, 8, 1, 3), 8, torch.float32, True, False),     # one row: every tap pads
@@ -618,18 +624,18 @@ def test_fully_fused_train_step_on_the_card_matches_the_cpu(cuda):
 FLASH_TOL = {torch.float32: (1e-4, 1e-5), torch.bfloat16: (2.0**-7, 2.0**-8)}
 
 
-def _attn_inputs(b, h, n, dtype, device, seed, strided):
-    """q, k, v [b, h, n, 128] (with ``strided``, the views of a fused qkv
-    projection's [b, n, 3, h, 128] output, as the model makes them) and
-    do, N(0, 1)."""
+def _attn_inputs(b, h, n, dtype, device, seed, strided, d=128):
+    """q, k, v [b, h, n, d] (with ``strided``, the views of a fused qkv
+    projection's [b, n, 3, h, d] output, as the model makes them) and do,
+    N(0, 1)."""
     gen = torch.Generator(device=device).manual_seed(seed)
     if strided:
-        qkv = torch.randn((b, n, 3, h, 128), generator=gen, device=device).to(dtype)
+        qkv = torch.randn((b, n, 3, h, d), generator=gen, device=device).to(dtype)
         q, k, v = qkv.permute(2, 0, 3, 1, 4)
     else:
-        q, k, v = (torch.randn((b, h, n, 128), generator=gen, device=device).to(dtype)
+        q, k, v = (torch.randn((b, h, n, d), generator=gen, device=device).to(dtype)
                    for _ in range(3))
-    do = torch.randn((b, h, n, 128), generator=gen, device=device).to(dtype)
+    do = torch.randn((b, h, n, d), generator=gen, device=device).to(dtype)
     return q, k, v, do
 
 
@@ -641,20 +647,26 @@ def _assert_flash_close(got, want, what):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("dtype,b,h,n,strided", [
-    (torch.bfloat16, 3, 5, 128, False),   # one key block: the single-step path
-    (torch.bfloat16, 3, 5, 256, True),
-    (torch.bfloat16, 2, 3, 512, True),
-    (torch.bfloat16, 1, 6, 384, False),
-    (torch.float32, 3, 5, 128, False),
-    (torch.float32, 1, 3, 256, True),
-    (torch.float32, 2, 1, 512, False)])
-def test_flash_kernels_match_plain(cuda, dtype, b, h, n, strided):
+@pytest.mark.parametrize("dtype,b,h,n,strided,d", [
+    (torch.bfloat16, 3, 5, 128, False, 128),   # one key block: the single-step path
+    (torch.bfloat16, 3, 5, 256, True, 128),
+    (torch.bfloat16, 2, 3, 512, True, 128),
+    (torch.bfloat16, 1, 6, 384, False, 128),
+    (torch.float32, 3, 5, 128, False, 128),
+    (torch.float32, 1, 3, 256, True, 128),
+    (torch.float32, 2, 1, 512, False, 128),
+    # head_dim 256 (embed 1536 over 6 heads)
+    (torch.bfloat16, 2, 3, 128, False, 256),
+    (torch.bfloat16, 2, 3, 512, True, 256),
+    (torch.bfloat16, 1, 2, 384, False, 256),
+    (torch.float32, 1, 2, 128, True, 256),
+    (torch.float32, 2, 1, 256, True, 256)])
+def test_flash_kernels_match_plain(cuda, dtype, b, h, n, strided, d):
     """K5f, K5dkv and K5dq against their plain versions at odd batch and
     head counts, and two calls of each bit-equal."""
     from htr_vt_torch.ops import flash_attn as fa
-    q, k, v, do = _attn_inputs(b, h, n, dtype, cuda, n + b, strided)
-    scale = 128**-0.5
+    q, k, v, do = _attn_inputs(b, h, n, dtype, cuda, n + b, strided, d)
+    scale = d**-0.5
     counters = (fa.flash_attention_fwd, fa.flash_attention_bwd_dkv,
                 fa.flash_attention_bwd_dq)
     before = [f.launches for f in counters]
@@ -716,10 +728,11 @@ def test_flash_wrappers_reject_what_the_kernels_do_not_take(cuda):
         fa.flash_attention_fwd(q, k[:, :1], v, 0.1)
     with pytest.raises(ValueError, match="multiple of 128"):
         fa.flash_attention_fwd(q[:, :, :200], k[:, :, :200], v[:, :, :200], 0.1)
-    for d in (64, 256):  # 256: head_dim at embed 1536 / 6, which the gate admits
-        x = torch.zeros((1, 2, 256, d), dtype=torch.bfloat16, device=cuda)
-        with pytest.raises(ValueError, match="head_dim 128 only.*ROADMAP"):
-            fa.flash_attention_fwd(x, x, x, 0.1)
+    x = torch.zeros((1, 2, 256, 64), dtype=torch.bfloat16, device=cuda)
+    with pytest.raises(ValueError, match="head_dim 128 or 256 only, got head_dim 64"):
+        fa.flash_attention_fwd(x, x, x, 0.1)
+    x = torch.zeros((1, 2, 256, 256), dtype=torch.bfloat16, device=cuda)
+    assert fa.flash_attention_fwd(x, x, x, 0.1)[0].shape == x.shape  # embed 1536 / 6
     with pytest.raises(ValueError, match="one device"):
         fa.flash_attention_fwd(q, k.cpu(), v, 0.1)
     with pytest.raises(ValueError, match="one device"):
@@ -731,6 +744,44 @@ def test_flash_wrappers_reject_what_the_kernels_do_not_take(cuda):
     wide = torch.zeros((1, 2, 256, 256), dtype=torch.bfloat16, device=cuda)[..., ::2]
     with pytest.raises(ValueError, match="contiguous last dim"):
         fa.flash_attention_fwd(wide, k, v, 0.1)
+
+
+def _kernel_body(source, name):
+    """The text of the kernel ``name`` in ``source``: from its name to the
+    next ``__global__``."""
+    start = source.index(f"\n{name}(")
+    end = source.find("__global__", start)
+    return source[start:] if end < 0 else source[start:end]
+
+
+@pytest.mark.cuda
+def test_k5f_and_k4f_are_wgmma_fed_by_tma(cuda):
+    """The bf16 K5f and K4f are built on wgmma with TMA loads: their sources
+    call the wgmma and TMA helpers and no mma.sync, and the compiled library
+    holds HGMMA (wgmma) and UTMALDG (TMA load) instructions in both."""
+    import pathlib
+    import shutil
+    import subprocess
+    from htr_vt_torch import _build
+    helpers = (_build.CSRC / "hopper.cuh").read_text()
+    assert "wgmma.mma_async" in helpers and "cp.async.bulk.tensor" in helpers
+    for src, kernel in (("flash_attn.cu", "flash_fwd_wgmma"), ("conv_fused.cu", "conv_fwd_wgmma")):
+        body = _kernel_body((_build.CSRC / src).read_text(), kernel)
+        assert "hopper::wgmma_m64n" in body and "hopper::tma_load_" in body, kernel
+        assert "mma_bf16" not in body and "cp_async16" not in body, kernel
+    _build.library()
+    cuobjdump = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    if not pathlib.Path(cuobjdump).exists():
+        pytest.skip("no cuobjdump to read the compiled kernels")
+    sass = subprocess.run([cuobjdump, "-sass", str(_build.LIBRARY)], capture_output=True,
+                          text=True, check=True).stdout
+    functions = sass.split("Function : ")
+    for kernel in ("flash_fwd_wgmma", "conv_fwd_wgmma"):
+        bodies = [f for f in functions if kernel in f.splitlines()[0]]
+        assert bodies, kernel
+        for body in bodies:
+            assert "HGMMA" in body and "UTMALDG" in body, kernel
+            assert "HMMA" not in body.replace("HGMMA", ""), kernel
 
 
 @pytest.mark.cuda

@@ -27,6 +27,7 @@ from htr_vt_tpu.train.state import TrainState as JaxTrainState
 from htr_vt_tpu.train.step import jit_train_step
 from htr_vt_torch.eval.validate import validate
 from htr_vt_torch.models import masking
+from htr_vt_torch.models.htr_vt import build_model
 from htr_vt_torch.optim import ema, sam
 from htr_vt_torch.optim.schedule import warmup_cosine_lr
 from htr_vt_torch.train.state import create_train_state
@@ -155,6 +156,18 @@ def test_span_mask_statistics_match_jax(length, ratio, span):
     np.testing.assert_allclose(masked.mean(), (1.0 - want).mean(), atol=0.03)
     np.testing.assert_allclose(masked.mean(axis=0), (1.0 - want[:, 0, :, 0]).mean(axis=0),
                                atol=0.12)
+
+
+@pytest.mark.parametrize("remat", ["blocks", "all"])
+def test_remat_is_refused_until_it_is_ported(remat):
+    """``remat`` is not ported (ROADMAP.md queue 1, item 13): building a
+    model or a train state with it raises instead of running without it."""
+    model = dataclasses.replace(TINY, remat=remat)
+    with pytest.raises(NotImplementedError, match="item 13: memory levers \\(remat\\)"):
+        build_model(port_config(model), device="cpu")
+    with pytest.raises(NotImplementedError, match="item 13: memory levers \\(remat\\)"):
+        create_train_state(port_config(dataclasses.replace(CFG, model=model)), "cpu",
+                           torch.Generator().manual_seed(0))
 
 
 def test_build_keep_mask_modes():
