@@ -29,8 +29,10 @@ non-zero before the last line:
    [128, 768, 2, 128], C -> C, bf16 channels-last), with and without the
    BN prologue, against their plain versions; two calls bit-equal;
    CUDA-event times of kernel (with and without the prologue), plain
-   version, cuDNN doing the conv alone on the pre-normalised tensor, and
-   for K4f the stock two-call route (the eager prologue, then ``F.conv2d``),
+   version, cuDNN doing the conv alone on the pre-normalised tensor (the
+   yardstick of the kernel without the prologue), for K4f and K4w the stock
+   two-call route (the eager prologue, then ``F.conv2d`` or
+   ``torch.nn.grad.conv2d_weight``: the yardstick of the kernel with it),
    and the bound.
 5. serve: the flagship ``ModelConfig()`` (64x512, embed 768, depth 4, heads
    6, 80 classes, bf16) with seeded random weights serves 3x128+37 line
@@ -70,8 +72,8 @@ non-zero before the last line:
    256, 256]; on the strided q, k, v views of a fused qkv projection,
    against their plain versions; two calls bit-equal; CUDA-event times of
    kernel, plain version and ``F.scaled_dot_product_attention`` (forward,
-   and forward + backward) on the same q, k and v, never on the path; the
-   bounds.
+   forward + backward, and the backward alone, its forward run outside the
+   timed window) on the same q, k and v, never on the path; the bounds.
 12. bucket serve: the serve phase's weights (stock stem) serve 421
    synthetic lines of natural widths ``n_chars * 24 + 32`` px (the JAX
    selftest ramp, 4-96 characters: 128-2336 px) through
@@ -932,7 +934,9 @@ def phase_conv_kernels(device):
             plain_ms=median_ms(lambda: conv_fused.conv3x3_wgrad_reference(
                 x, g, scale, shift, True), 5, warmup=1),
             library_ms=median_ms(lambda: torch.nn.grad.conv2d_weight(
-                xn, tuple(k.shape), g, padding=1), 10))
+                xn, tuple(k.shape), g, padding=1), 10),
+            stock_ms=median_ms(lambda: torch.nn.grad.conv2d_weight(
+                conv_fused._prologue(x, scale, shift), tuple(k.shape), g, padding=1), 10))
         wgrad["bound_ms"], wgrad["bound_by"] = bound(
             2 * 2 * n + 4 * k.numel() + 2 * c * 4, n_ops, BF16_TENSOR_OPS_PER_S)
         for key, rec in (("fwd", fwd), ("dgrad", dgrad), ("wgrad", wgrad)):
@@ -944,10 +948,13 @@ def phase_conv_kernels(device):
                 f"{c} channels: two calls bit-equal; vs plain max|err| "
                 f"{rec['max_abs_err']:.3e}, {rec['bar_share']:.3f} of the bar; kernel "
                 f"{rec['ms']:.4f} ms with the prologue, {rec['ms_bare']:.4f} ms "
-                f"without; plain {rec['plain_ms']:.4f} ms; cuDNN alone on the "
+                f"without (like with like: against cuDNN alone); plain "
+                f"{rec['plain_ms']:.4f} ms; cuDNN alone on the "
                 f"pre-normalised tensor {rec['library_ms']:.4f} ms"
-                + (f"; the stock two calls (eager prologue + F.conv2d) "
-                   f"{rec['stock_ms']:.4f} ms" if "stock_ms" in rec else "")
+                + (f"; the stock two calls (eager prologue + "
+                   f"{'F.conv2d' if key == 'fwd' else 'conv2d_weight'}) "
+                   f"{rec['stock_ms']:.4f} ms (like with like: against the kernel with "
+                   f"the prologue)" if "stock_ms" in rec else "")
                 + "; bound "
                 f"{rec['bound_ms']:.4f} ms by {rec['bound_by']} "
                 f"({n_ops / rec['ms'] / 1e9:.1f} TFLOP/s)")
@@ -1126,6 +1133,12 @@ def flash_case(name, shape, backward, dtype, device):
             F.scaled_dot_product_attention(*leaves, scale=scale).backward(do)
 
         library = _sdpa_ms(sdpa_fwd_bwd)
+        library_bwd = None
+        if library is not None:  # the backward alone: the forward runs outside the window
+            out = F.scaled_dot_product_attention(*leaves, scale=scale)
+            library_bwd = _sdpa_ms(lambda: torch.autograd.grad(out, leaves, do,
+                                                               retain_graph=True))
+            del out
         io = 4 * q.numel() * size + 3 * bh_n * 4  # q, k, v, do; l, m, di
         rec["dkv"] = dict(
             max_abs_err=max(e_k[0], e_v[0]), bar_share=max(e_k[1], e_v[1]),
@@ -1133,7 +1146,7 @@ def flash_case(name, shape, backward, dtype, device):
                                                             scale), 10),
             plain_ms=median_ms(lambda: fa.flash_attention_dkv_reference(
                 q, k, v, l, m, do, di, scale), 3, warmup=1),
-            library_ms=library)
+            library_ms=library, library_bwd_ms=library_bwd)
         rec["dkv"]["bound_ms"], rec["dkv"]["bound_by"] = bound(
             io + 2 * q.numel() * size, 2 * flops, rate)
         rec["dq"] = dict(
@@ -1142,7 +1155,7 @@ def flash_case(name, shape, backward, dtype, device):
                                                            scale), 10),
             plain_ms=median_ms(lambda: fa.flash_attention_dq_reference(
                 q, k, v, l, m, do, di, scale), 3, warmup=1),
-            library_ms=library)
+            library_ms=library, library_bwd_ms=library_bwd)
         rec["dq"]["bound_ms"], rec["dq"]["bound_by"] = bound(
             io + q.numel() * size, 3 * flops // 2, rate)
     tag = "bf16" if dtype == torch.bfloat16 else "f32"
@@ -1151,6 +1164,13 @@ def flash_case(name, shape, backward, dtype, device):
             continue
         r = rec[key]
         lib = ("none" if r["library_ms"] is None else f"{r['library_ms']:.4f} ms")
+        if key != "fwd":
+            lib += ", backward alone " + ("none" if r["library_bwd_ms"] is None
+                                          else f"{r['library_bwd_ms']:.4f} ms")
+            if key == "dq" and r["library_bwd_ms"] is not None:
+                pair = r["ms"] + rec["dkv"]["ms"]
+                lib += (f" (K5dkv + K5dq {pair:.4f} ms, "
+                        f"{pair / r['library_bwd_ms']:.2f}x of it)")
         say(f"[{kernel} {name} {tag}] {list(shape)}: two calls bit-equal; vs plain "
             f"max|err| {r['max_abs_err']:.3e}, {r['bar_share']:.3f} of the bar; kernel "
             f"{r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, SDPA "
@@ -1499,8 +1519,8 @@ def main():
         "library": library + " alone on the pre-normalised bf16 tensor (cuDNN)",
         "ms_bare": conv[name]["stage1"]["ms_bare"],
         **({"stock_ms": conv[name]["stage1"]["stock_ms"],
-            "stock": "conv_fused._prologue (eager) + F.conv2d"}
-           if name == "conv3x3_bn_relu_fwd" else {}),
+            "stock": "conv_fused._prologue (eager) + " + library}
+           if "stock_ms" in conv[name]["stage1"] else {}),
         "shape": "bf16 [128, 192, 8, 512] channels-last, 192 -> 192, with the "
                  "prologue (stage 1)",
         "sites": conv[name],
@@ -1522,6 +1542,10 @@ def main():
         "library_ms": flash[case][key]["library_ms"],
         "library": "F.scaled_dot_product_attention " + (
             "forward" if key == "fwd" else "forward + backward"),
+        **({"library_bwd_ms": flash[case][key]["library_bwd_ms"],
+            "library_bwd": "its backward alone (torch.autograd.grad on a graph whose "
+                           "forward ran outside the timed window)"}
+           if key != "fwd" else {}),
         "shape": shape,
         "cases": {c: r[key] for c, r in flash.items() if key in r},
     } for name, key, case, shape, replaces in (

@@ -110,7 +110,7 @@ def library() -> ctypes.CDLL:
         fn.restype = i32
     lib.htrvt_conv3x3_dgrad_rows.argtypes = [i64, i32]
     lib.htrvt_conv3x3_dgrad_rows.restype = i64
-    lib.htrvt_conv3x3_wgrad_splits.argtypes = [i64, i32, i32, i32]
+    lib.htrvt_conv3x3_wgrad_splits.argtypes = [i32] * 6
     lib.htrvt_conv3x3_wgrad_splits.restype = i32
     lib.htrvt_cuda_error_string.argtypes = [i32]
     lib.htrvt_cuda_error_string.restype = ctypes.c_char_p

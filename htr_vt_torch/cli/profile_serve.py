@@ -73,7 +73,7 @@ CATEGORIES = (
     ("bn_stats kernel (K2)", ("bn_stats_partial",)),
     ("pool_bn_relu kernels (K3f, K3b)", ("pool_fwd_kernel", "pool_bwd_kernel")),
     ("conv3x3 kernels (K4f, K4d, K4w)", ("conv_fwd_wgmma", "conv_mma_kernel",
-                                         "wgrad_mma_kernel", "conv_f32_kernel",
+                                         "wgrad_wgmma", "conv_f32_kernel",
                                          "wgrad_f32_kernel", "sum_splits")),
     ("stem kernels' partial sums", ("sum_partials",)),
     ("convolutions (cuDNN)", ("conv", "fprop", "dgrad", "wgrad", "implicit")),

@@ -48,13 +48,16 @@
 //   rotated kernel, plus an epilogue that reads x for the strict ReLU mask,
 //   writes dx and reduces da' * x and da' per block; the block partials are
 //   added in a fixed order (stem_common.cuh:sum_partials).
-//   K4w, bf16: M = 9 * Cin (tap, input channel), N = Cout, K = B*H*W
-//   pixels, which at stage 1 is 524,288 deep for 1728 x 192 outputs:
-//   split-K over pixels, each split writes its own float32 dk, and a second
-//   pass adds the splits in order. The same cp.async ring as K4d; with the
-//   prologue, the thread that copied a vector rewrites it in place (x *
-//   scale + shift, bf16, ReLU) one step before it is used, after its own
-//   products of the step before; the pad stays 0.
+//   K4w, bf16: per tap M = the input channels, N = the output channels,
+//   K = B*H*W pixels (524,288 deep at stage 1). A warp-specialised wgmma
+//   kernel fed by TMA (wgrad_wgmma below), on K4f's pixel tiles: a block
+//   owns a 64 x 64 (input x output channel) tile of all nine taps and a
+//   split of whole pixel tiles; TMA brings each pixel tile's halo of x and
+//   the tile's g, three warps apply the prologue once per halo pixel, and
+//   three consumer warpgroups (three taps each) read the taps' shifted
+//   windows with ldmatrix.trans as the A operand of wgmma m64n64k16, g as
+//   an MN-major B shared by the three. Each split writes its own float32
+//   dk and a second pass adds the splits in order.
 //   float32 (all three): a 64 x 64 FFMA tile (no TF32).
 // The TPU kernels carried dscale/dshift and dk across a sequential batch
 // grid; here nothing uses atomics, so two calls give equal bits.
@@ -74,9 +77,9 @@ using stem::kVec;
 constexpr int kThreads = 256;
 constexpr int kWarpRowsFwd = 16;  // a warp's pixels in each of K4f's m64 halves
 
-// bf16 tensor-core tiles: 8 warps, 4 along M x 2 along N, 32 x 96 each.
-// 192 columns cover a flagship stage's width (192, 384, 768) in whole
-// tiles, and one A tile with its prologue serves 192 output channels.
+// K4d's bf16 tensor-core tiles: 8 warps, 4 along M x 2 along N, 32 x 96
+// each. 192 columns cover a flagship stage's width (192, 384, 768) in
+// whole tiles.
 constexpr int kBM = 128, kBN = 192, kBK = 64;
 constexpr int kWN = kBN / 2;    // a warp's columns
 constexpr int kNT = kWN / 8;    // its m16n8 tiles along N
@@ -84,19 +87,13 @@ constexpr int kKV = kBK / 8;    // 8-channel vectors in a K step of a row
 constexpr int kRS = kThreads / kKV;        // rows a pass of the threads copies
 constexpr int kAV = kBM / kRS;             // A vectors a thread copies a step
 constexpr int kBV = kBN / kRS;             // B vectors a thread copies a step
-constexpr int kWAV = kBK * (kBM / 8) / kThreads;  // K4w's A vectors a step
-constexpr int kWBV = kBK * (kBN / 8) / kThreads;  // K4w's B vectors a step
 constexpr int kPadK = kBK + 8;  // row pitch of [rows][K] tiles (144 bytes)
-constexpr int kPadM = kBM + 8;  // row pitch of K4w's [K][M] tile (272 bytes)
-constexpr int kPadN = kBN + 8;  // row pitch of K4w's [K][N] tile (400 bytes)
 
-// The cp.async ring of the bf16 kernels: bytes of one stage's A tile, and
+// K4d's cp.async ring: bytes of one stage's A tile, and
 // of the whole ring (dynamic shared memory, over the 48 KB default).
 constexpr int kStages = 4;
 constexpr size_t kConvStageA = sizeof(bf16) * kBM * kPadK;
 constexpr size_t kConvSmem = kStages * sizeof(bf16) * (kBM + kBN) * kPadK;
-constexpr size_t kWgradStageA = sizeof(bf16) * kBK * kPadM;
-constexpr size_t kWgradSmem = kStages * sizeof(bf16) * kBK * (kPadM + kPadN);
 
 // float32 FFMA tiles: 16 x 16 threads, 4 x 4 outputs each.
 constexpr int kFM = 64, kFN = 64, kFK = 16;
@@ -109,12 +106,11 @@ __device__ __forceinline__ void ldsm_x4(uint32_t r[4], const void* p) {
                : "r"(a));
 }
 
-__device__ __forceinline__ void ldsm_x4_trans(uint32_t r[4], const void* p) {
-  const uint32_t a = static_cast<uint32_t>(__cvta_generic_to_shared(p));
+__device__ __forceinline__ void ldsm_x4_trans_addr(uint32_t r[4], uint32_t addr) {
   asm volatile(
       "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
       : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(a));
+      : "r"(addr));
 }
 
 __device__ __forceinline__ void ldsm_x4_addr(uint32_t r[4], uint32_t addr) {
@@ -163,13 +159,12 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" :: "n"(kPending) : "memory");
 }
 
-// The prologue of 8 channels of a bf16 vector in shared memory, in place:
-// x * scale + shift rounded twice in float32 (as stem::bn_relu), rounded to
-// bf16 two at a time, and the ReLU as a mask of the sign bits (a negative
-// value or -0 becomes +0).
-__device__ __forceinline__ void prologue_smem(bf16* p, const float sc[kVec],
-                                              const float sh[kVec]) {
-  uint4 raw = *reinterpret_cast<const uint4*>(p);
+// The prologue of 8 channels of a bf16 vector, in registers: x * scale +
+// shift rounded twice in float32 (as stem::bn_relu), rounded to bf16 two at
+// a time, and the ReLU as a mask of the sign bits (a negative value or -0
+// becomes +0).
+__device__ __forceinline__ void prologue_vec(uint4& raw, const float sc[kVec],
+                                             const float sh[kVec]) {
   uint32_t* w = reinterpret_cast<uint32_t*>(&raw);
 #pragma unroll
   for (int j = 0; j < 4; ++j) {
@@ -180,7 +175,6 @@ __device__ __forceinline__ void prologue_smem(bf16* p, const float sc[kVec],
     const uint32_t u = *reinterpret_cast<const uint32_t*>(&r);
     w[j] = u & ~(((u >> 15) & 0x00010001u) * 0xFFFFu);
   }
-  *reinterpret_cast<uint4*>(p) = raw;
 }
 
 // Epilogue of two neighbouring output channels (col, col + 1) of one pixel:
@@ -410,6 +404,50 @@ constexpr size_t kFwdSmem = hopper::kSwizzleAlign + 2 * static_cast<size_t>(kHal
                             kWStages * static_cast<size_t>(kWStage) +
                             sizeof(uint64_t) * (6 + 2 * kWStages);
 
+// The prologue over one halo buffer of halo_px pixels, halo_w a row: x *
+// scale + shift, bf16, ReLU, once per pixel inside the image (halo rows
+// [hh_lo, hh_hi), columns [ww_lo, ww_hi); the bounds may pass the halo's)
+// for one 8-channel group; the zero-filled pad stays zero. Prologue thread
+// pt owns the group pt % 8 of every 12th pixel of the inside, from pt / 8,
+// and takes kU of them an iteration (all loads before any store).
+template <int kU>
+__device__ __forceinline__ void prologue_halo(unsigned char* hb, int halo_px, int halo_w,
+                                              int hh_lo, int hh_hi, int ww_lo, int ww_hi,
+                                              int pt, const float sc[stem::kVec],
+                                              const float sh[stem::kVec]) {
+  constexpr int kStep = kPrologueThreads / 8;  // pixels between a thread's vectors
+  const int q8 = pt & 7;
+  const int rows = (hh_hi < halo_px / halo_w ? hh_hi : halo_px / halo_w) - hh_lo;
+  const int cols = (ww_hi < halo_w ? ww_hi : halo_w) - ww_lo;
+  const int n = rows * cols;
+  if (rows <= 0 || cols <= 0) return;
+  int i = pt >> 3;
+  int r = i / cols, c = i - r * cols;  // i's row and column in the inside
+  while (i < n) {
+    uint4 raw[kU];
+    uint4* at[kU];
+    bool ok[kU];
+#pragma unroll
+    for (int u = 0; u < kU; ++u) {
+      const int px = (hh_lo + r) * halo_w + ww_lo + c;
+      ok[u] = i < n;
+      at[u] = reinterpret_cast<uint4*>(hb + px * hopper::kSwizzleBytes + ((q8 ^ (px & 7)) << 4));
+      raw[u] = ok[u] ? *at[u] : make_uint4(0, 0, 0, 0);
+      i += kStep;
+      c += kStep;
+      while (c >= cols) {
+        c -= cols;
+        ++r;
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < kU; ++u) {
+      prologue_vec(raw[u], sc, sh);
+      if (ok[u]) *at[u] = raw[u];
+    }
+  }
+}
+
 // The tile sizes for an image of H rows: TH = 8, 4 or 2 rows (an image of
 // one row takes a tile of two), TW = 256 / TH columns.
 __host__ __device__ __forceinline__ int tile_rows(int H) { return H >= 8 ? 8 : H >= 4 ? 4 : 2; }
@@ -419,8 +457,10 @@ struct ConvTiles {
   long long count;
 };
 
-// Tile t's image, first row, first column and first output channel.
-__device__ __forceinline__ void tile_origin(const ConvTiles& g, long long t, int& b, int& h0,
+// Tile t's image, first row, first column and first output channel (K4w
+// counts its tiles in int: 32-bit divisions).
+template <typename Index>
+__device__ __forceinline__ void tile_origin(const ConvTiles& g, Index t, int& b, int& h0,
                                             int& w0, int& n0) {
   n0 = static_cast<int>(t % g.tiles_n) * kTileCo;
   t /= g.tiles_n;
@@ -501,12 +541,8 @@ conv_fwd_wgmma(const __grid_constant__ CUtensorMap tx, const __grid_constant__ C
         }
       }
     } else if (kPro && pt >= 0) {
-      // The prologue, a chunk ahead of the products: x * scale + shift,
-      // bf16, ReLU, once per halo pixel inside the image and channel below
-      // C (the zero-filled pad stays zero). Thread pt owns the 8-channel
-      // group pt % 8 of every 12th pixel.
+      // The prologue, a chunk ahead of the products.
       const int q8 = pt & 7;
-      constexpr int kStep = kPrologueThreads / 8;  // pixels between a thread's vectors
       hopper::Ring hr(2);
       for (long long t = blockIdx.x; t < g.count; t += gridDim.x) {
         int b, h0, w0, n0;
@@ -522,22 +558,9 @@ conv_fwd_wgmma(const __grid_constant__ CUtensorMap tx, const __grid_constant__ C
             stem::load8(psh + ch, sh);
           }
           hopper::mbar_wait(&halo_full[hr.slot], hr.phase);
-          unsigned char* hb = halo + hr.slot * kHaloBytes;
           if (ch < C) {
-            int px = pt >> 3;
-            int hh = px / halo_w, ww = px - hh * halo_w;
-            for (; px < halo_px; px += kStep) {
-              if (hh >= hh_lo && hh < hh_hi && ww >= ww_lo && ww < ww_hi) {
-                prologue_smem(reinterpret_cast<bf16*>(hb + px * hopper::kSwizzleBytes +
-                                                      ((q8 ^ (px & 7)) << 4)),
-                              sc, sh);
-              }
-              ww += kStep;  // < halo_w: at most one new row
-              if (ww >= halo_w) {
-                ww -= halo_w;
-                ++hh;
-              }
-            }
+            prologue_halo<2>(halo + hr.slot * kHaloBytes, halo_px, halo_w, hh_lo, hh_hi,
+                             ww_lo, ww_hi, pt, sc, sh);
           }
           hopper::fence_proxy_async();  // before TMA refills this buffer
           __syncwarp();
@@ -644,162 +667,196 @@ conv_fwd_wgmma(const __grid_constant__ CUtensorMap tx, const __grid_constant__ C
   }
 }
 
-// --- K4w, bf16 on the tensor cores -----------------------------------------
-// dk[r, n] (r = tap * Cin + ci) = sum over the pixels p of this split of
-// xn[p shifted by tap, ci] * g[p, n]; each split writes its own [9 Cin, Cout]
-// float32 slab of out. The same cp.async ring as conv_mma_kernel; a
-// thread's A vectors keep their (tap, channel) and walk the pixels, so its
-// prologue terms stay in registers and its pixel's (h, w) advance without
-// a division.
+// --- K4w, bf16: wgmma fed by TMA --------------------------------------------
+// dk[tap, ci, co] = sum over the pixels p of this split of xn[p + tap, ci] *
+// g[p, co]: per tap a product with M = 64 input channels, N = 64 output
+// channels and K = the pixels. A block owns one 64-channel chunk of the
+// input, one 64-channel tile of the output and one split: a run of whole
+// pixel tiles (K4f's TH x TW = 256 pixels of one image), so a split never
+// ends inside a tile, and pixels of a tile past the image's last row or
+// column have g = 0 (TMA's zero fill) and add nothing. Warpgroup 3 loads and
+// normalises: its first thread brings each tile's halo of x ((TH + 2) x (TW
+// + 2) pixels x the chunk, one TMA box) and the same tile's g ([256 px][64
+// co], one box) into rings (three halos where shared memory holds them,
+// else two; two g tiles); its warps 1-3 apply the prologue to the halo once
+// per pixel (K4f's prologue_halo), ahead of the products.
+// Consumer warpgroup dh (0-2) owns the three taps (dh, 0..2): per 16
+// pixels it loads each tap's A fragment (channels x pixels) from the halo
+// shifted by the tap with ldmatrix.trans, and multiplies by wgmma
+// m64n64k16 with A from registers and g as an MN-major B from shared
+// memory, the same B for its three taps. 96 float32 accumulators a thread
+// (144 registers with the prologue, which takes four vectors at a time in
+// 80 in warpgroup 3; 152 without) live over the whole split; each split
+// writes its own float32 slab and sum_splits adds them in order. x is read
+// once per halo pixel and g once per pixel for each (chunk, tile) pair.
+constexpr int kWgradThreads = 512;
+constexpr int kWgradWarps = 12;                                    // consumer warps
+constexpr int kWgradCo = 64;                                       // output channels a block
+constexpr int kGBytes = kTilePx * hopper::kSwizzleBytes;           // 32,768
+constexpr long long kMinTilesPerSplit = 4;
+constexpr int kMaxHaloSlots = 3;
+constexpr size_t kWgradBars = sizeof(uint64_t) * (3 * kMaxHaloSlots + 4);
+constexpr size_t kSmemMax = 232448;  // a block's dynamic shared memory on the H100
+
 template <bool kPro>
-__global__ void __launch_bounds__(kThreads, 1)
-wgrad_mma_kernel(const bf16* __restrict__ x, const bf16* __restrict__ gr,
-                 const float* __restrict__ scale, const float* __restrict__ shift,
-                 float* __restrict__ out, int H, int W, int Cin, int Cout,
-                 long long P, long long k_per_split) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  auto As = reinterpret_cast<bf16 (*)[kBK][kPadM]>(smem);
-  auto Bs = reinterpret_cast<bf16 (*)[kBK][kPadN]>(smem + kWgradStageA * kStages);
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int wm = warp & 3, wn = warp >> 2;
-  const int M = 9 * Cin;
-  const int m0 = blockIdx.x * kBM, n0 = blockIdx.y * kBN;
-  const long long k_begin = static_cast<long long>(blockIdx.z) * k_per_split;
-  const long long k_end = k_begin + k_per_split < P ? k_begin + k_per_split : P;
-  const int steps = static_cast<int>((k_end - k_begin + kBK - 1) / kBK);
-
-  // A: vectors tid + 256 i of the [kBK pixels][128 rows] tile, 16 per
-  // pixel; their rows r (8 channels of one tap, since Cin % 8 == 0) are
-  // fixed, their pixel moves by kBK a step.
-  const int a_mv = tid & 15;
-  const int a_r = m0 + a_mv * kVec;
-  const int a_tap = a_r / Cin;
-  const int a_ci = a_r - a_tap * Cin;
-  const int a_dh = a_tap / 3 - 1, a_dw = a_tap % 3 - 1;
-  const bool a_rok = a_r < M;
-  long long a_p[kWAV];
-  int a_h[kWAV], a_w[kWAV];
-#pragma unroll
-  for (int i = 0; i < kWAV; ++i) {
-    a_p[i] = k_begin + ((tid + i * kThreads) >> 4);
-    a_w[i] = static_cast<int>(a_p[i] % W);
-    a_h[i] = static_cast<int>((a_p[i] / W) % H);
+__global__ void __launch_bounds__(kWgradThreads, 1)
+wgrad_wgmma(const __grid_constant__ CUtensorMap tx, const __grid_constant__ CUtensorMap tg,
+            const float* __restrict__ psc, const float* __restrict__ psh,
+            float* __restrict__ slabs, int H, int W, int Cin, int Cout, ConvTiles g,
+            int co_tiles, int tiles_per_split, int halo_slots, int halo_stride) {
+  // registers a thread: the prologue's four vectors in flight take 80 in
+  // warpgroup 3; without it the consumers take 152
+  constexpr int kLoaderRegs = kPro ? 80 : 56;
+  constexpr int kConsumerRegs = kPro ? 144 : 152;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* gbuf = hopper::align_swizzle(smem_raw);
+  unsigned char* halo = gbuf + 2 * kGBytes;
+  uint64_t* halo_full = reinterpret_cast<uint64_t*>(halo + halo_slots * halo_stride);
+  uint64_t* halo_ready = halo_full + kMaxHaloSlots;
+  uint64_t* halo_empty = halo_ready + kMaxHaloSlots;
+  uint64_t* g_full = halo_empty + kMaxHaloSlots;
+  uint64_t* g_empty = g_full + 2;
+  const int tid = threadIdx.x, wg = tid >> 7, lane = tid & 31;
+  const int c0 = static_cast<int>(blockIdx.x / co_tiles) * kChunk;
+  const int n0 = static_cast<int>(blockIdx.x % co_tiles) * kWgradCo;
+  const int t_begin = static_cast<int>(blockIdx.y) * tiles_per_split;
+  const int t_end = t_begin + tiles_per_split < g.count ? t_begin + tiles_per_split
+                                                        : static_cast<int>(g.count);
+  const int halo_w = g.tw + 2;
+  const int halo_px = (g.th + 2) * halo_w;
+  if (tid == 0) {
+    for (int i = 0; i < halo_slots; ++i) {
+      hopper::mbar_init(&halo_full[i], 1);
+      hopper::mbar_init(&halo_ready[i], kPrologueWarps);
+      hopper::mbar_init(&halo_empty[i], kWgradWarps);
+    }
+    for (int i = 0; i < 2; ++i) {
+      hopper::mbar_init(&g_full[i], 1);
+      hopper::mbar_init(&g_empty[i], kWgradWarps);
+    }
+    hopper::mbar_fence_init();
   }
-  // B: vectors tid + 256 j of the [kBK pixels][192 channels] tile, 24 per
-  // pixel.
-  int b_pix[kWBV], b_n[kWBV];
-  long long b_p[kWBV];
-#pragma unroll
-  for (int j = 0; j < kWBV; ++j) {
-    const int v = tid + j * kThreads;
-    b_pix[j] = v / (kBN / kVec);
-    b_n[j] = n0 + (v % (kBN / kVec)) * kVec;
-    b_p[j] = k_begin + b_pix[j];
-  }
-  unsigned inside = 0;  // bit kWAV * stage + i: A vector i of that stage is real
+  __syncthreads();
 
-  auto load = [&](int stage) {  // the next K step, in order
-#pragma unroll
-    for (int i = 0; i < kWAV; ++i) {
-      const int hh = a_h[i] + a_dh, ww = a_w[i] + a_dw;
-      const bool ok = a_rok && a_p[i] < k_end && hh >= 0 && hh < H && ww >= 0 && ww < W;
-      cp_async16(&As[stage][(tid + i * kThreads) >> 4][a_mv * kVec],
-                 ok ? x + (a_p[i] + a_dh * W + a_dw) * Cin + a_ci : x, ok);
-      const unsigned bit = 1u << (kWAV * stage + i);
-      inside = ok ? inside | bit : inside & ~bit;
-      a_p[i] += kBK;
-      a_w[i] += kBK;
-      while (a_w[i] >= W) {
-        a_w[i] -= W;
-        if (++a_h[i] == H) a_h[i] = 0;
+  if (wg == 3) {
+    hopper::setmaxnreg_dec<kLoaderRegs>();
+    const int pt = tid - 3 * 128 - 32;  // the prologue threads: warps 1-3 of this group
+    if (tid == 3 * 128) {
+      hopper::Ring hr(halo_slots), gr(2);
+      for (int t = t_begin; t < t_end; ++t) {
+        int b, h0, w0, unused;
+        tile_origin(g, t, b, h0, w0, unused);
+        hopper::mbar_wait(&halo_empty[hr.slot], hr.phase ^ 1u);
+        hopper::mbar_expect_tx(&halo_full[hr.slot], halo_px * hopper::kSwizzleBytes);
+        hopper::tma_load_4d(halo + hr.slot * halo_stride, &tx, &halo_full[hr.slot], c0, w0 - 1,
+                            h0 - 1, b);
+        hr.next();
+        hopper::mbar_wait(&g_empty[gr.slot], gr.phase ^ 1u);
+        hopper::mbar_expect_tx(&g_full[gr.slot], kGBytes);
+        hopper::tma_load_4d(gbuf + gr.slot * kGBytes, &tg, &g_full[gr.slot], n0, w0, h0, b);
+        gr.next();
+      }
+    } else if (kPro && pt >= 0) {
+      const int ch = c0 + (pt & 7) * stem::kVec;
+      float sc[stem::kVec], sh[stem::kVec];
+      if (ch < Cin) {
+        stem::load8(psc + ch, sc);
+        stem::load8(psh + ch, sh);
+      }
+      hopper::Ring hr(halo_slots);
+      for (int t = t_begin; t < t_end; ++t) {
+        int b, h0, w0, unused;
+        tile_origin(g, t, b, h0, w0, unused);
+        hopper::mbar_wait(&halo_full[hr.slot], hr.phase);
+        if (ch < Cin) {
+          prologue_halo<4>(halo + hr.slot * halo_stride, halo_px, halo_w, h0 == 0 ? 1 : 0,
+                           H - h0 + 1, w0 == 0 ? 1 : 0, W - w0 + 1, pt, sc, sh);
+        }
+        hopper::fence_proxy_async();  // before TMA refills this buffer
+        __syncwarp();
+        if (lane == 0) hopper::mbar_arrive(&halo_ready[hr.slot]);
+        hr.next();
       }
     }
+  } else {
+    hopper::setmaxnreg_inc<kConsumerRegs>();
+    const int warp = (tid >> 5) & 3;
+    // This lane gives ldmatrix the row of pixel `lo` of each 16-pixel step
+    // (in the tile) and of the channel group `cg` (of the chunk's eight):
+    // the four 8 x 8 matrices are (channels 0-7 | 8-15) x (pixels 0-7 |
+    // 8-15) of the warp's 16 channels, transposed into the A fragment.
+    const int lo = (lane & 7) + ((lane >> 4) << 3);
+    const int cg = 2 * warp + ((lane >> 3) & 1);
+    const int tw_shift = __ffs(g.tw) - 1;  // TW = 32, 64 or 128
+    const uint32_t halo_addr = hopper::smem_u32(halo);
+    const uint32_t g_addr = hopper::smem_u32(gbuf);
+    uint64_t* halo_in = kPro ? halo_ready : halo_full;
+    float acc[3][32];
 #pragma unroll
-    for (int j = 0; j < kWBV; ++j) {
-      const bool okb = b_n[j] < Cout && b_p[j] < k_end;
-      cp_async16(&Bs[stage][b_pix[j]][b_n[j] - n0], okb ? gr + b_p[j] * Cout + b_n[j] : gr,
-                 okb);
-      b_p[j] += kBK;
+    for (int j = 0; j < 3; ++j) {
+#pragma unroll
+      for (int i = 0; i < 32; ++i) acc[j][i] = 0.f;
+      hopper::fence_regs(acc[j]);
     }
-  };
-
-  float sc[kVec], sh[kVec];
-  if (kPro && a_rok) {
-    stem::load8(scale + a_ci, sc);
-    stem::load8(shift + a_ci, sh);
-  }
-  float acc[2][kNT][4];
+    hopper::Ring hr(halo_slots), gr(2);
+    for (int t = t_begin; t < t_end; ++t) {
+      hopper::mbar_wait(&halo_in[hr.slot], hr.phase);
+      hopper::mbar_wait(&g_full[gr.slot], gr.phase);
+      const uint32_t hbase = halo_addr + hr.slot * halo_stride;
+      const uint32_t gbase = g_addr + gr.slot * kGBytes;
+      // Step ks's A fragments go to af[ks % 2]: loaded while step ks - 1's
+      // products run. Two steps an iteration: the buffer is fixed in each,
+      // and no step's addresses are kept across the loop.
+      uint32_t af[2][3][4];
+      auto step = [&](int ks, uint32_t (&a)[3][4]) {
+        const int p0 = ks * 16;  // 16 pixels of one tile row (TW % 16 == 0)
+        const int row0 = ((p0 >> tw_shift) + wg) * halo_w + (p0 & (g.tw - 1)) + lo;
 #pragma unroll
-  for (int a = 0; a < 2; ++a)
+        for (int j = 0; j < 3; ++j) {
+          const int hp = row0 + j;
+          ldsm_x4_trans_addr(a[j], hbase + hp * hopper::kSwizzleBytes + ((cg ^ (hp & 7)) << 4));
+        }
+        hopper::wgmma_fence();
+        const uint64_t db = hopper::sw128_desc(gbase + p0 * hopper::kSwizzleBytes);
 #pragma unroll
-    for (int b = 0; b < kNT; ++b)
-#pragma unroll
-      for (int c = 0; c < 4; ++c) acc[a][b][c] = 0.f;
-
-  // The prologue of a step runs after the products of the one before, as
-  // in conv_mma_kernel.
-  auto prologue = [&](int s) {
-    const int stage = s % kStages;
-#pragma unroll
-    for (int i = 0; i < kWAV; ++i) {
-      if (inside >> (kWAV * stage + i) & 1u) {
-        prologue_smem(&As[stage][(tid + i * kThreads) >> 4][a_mv * kVec], sc, sh);
+        for (int j = 0; j < 3; ++j) hopper::wgmma_m64n64k16_rs_tb(acc[j], a[j], db, 1);
+        hopper::wgmma_commit();
+        hopper::wgmma_wait<1>();
+      };
+#pragma unroll 1
+      for (int ks = 0; ks < kTilePx / 16; ks += 2) {
+        step(ks, af[0]);
+        step(ks + 1, af[1]);
       }
+      hopper::wgmma_wait<0>();
+      __syncwarp();
+      if (lane == 0) {
+        hopper::mbar_arrive(&halo_empty[hr.slot]);
+        hopper::mbar_arrive(&g_empty[gr.slot]);
+      }
+      hr.next();
+      gr.next();
     }
-  };
 #pragma unroll
-  for (int st = 0; st < kStages - 1; ++st) {
-    if (st < steps) load(st);
-    cp_async_commit();
-  }
-  if (kPro) {
-    cp_async_wait<kStages - 2>();  // step 0 has landed
-    prologue(0);
-  }
-  for (int s = 0; s < steps; ++s) {
-    const int stage = s % kStages;
-    cp_async_wait<kStages - 3>();  // steps s and s + 1 have landed
-    __syncthreads();
-    if (s + kStages - 1 < steps) load((s + kStages - 1) % kStages);
-    cp_async_commit();
+    for (int j = 0; j < 3; ++j) hopper::fence_regs(acc[j]);
+    // epilogue: accumulator row (input channel) g or g + 8 of the warp's 16,
+    // columns (output channels) 8 nt + 2 t and + 1
+    float* slab = slabs + static_cast<size_t>(blockIdx.y) * 9 * Cin * Cout;
+    const int gq = lane >> 2, t4 = lane & 3;
 #pragma unroll
-    for (int kk = 0; kk < kBK; kk += 16) {
-      uint32_t af[2][4], bfr[kNT / 2][4];
-#pragma unroll
-      for (int mt = 0; mt < 2; ++mt) {
-        ldsm_x4_trans(af[mt], &As[stage][kk + (lane & 7) + ((lane >> 4) << 3)]
-                                 [wm * 32 + mt * 16 + ((lane >> 3) & 1) * 8]);
-      }
-#pragma unroll
-      for (int np = 0; np < kNT / 2; ++np) {
-        ldsm_x4_trans(bfr[np], &Bs[stage][kk + (lane & 15)][wn * kWN + np * 16 + (lane >> 4) * 8]);
-      }
-#pragma unroll
-      for (int mt = 0; mt < 2; ++mt)
-#pragma unroll
-        for (int nt = 0; nt < kNT; ++nt)
-          mma_bf16(acc[mt][nt], af[mt], bfr[nt >> 1][(nt & 1) * 2],
-                   bfr[nt >> 1][(nt & 1) * 2 + 1]);
-    }
-    if (kPro && s + 1 < steps) prologue(s + 1);
-  }
-
-  float* slab = out + static_cast<size_t>(blockIdx.z) * M * Cout;
-  const int g = lane >> 2, t = lane & 3;
-#pragma unroll
-  for (int mt = 0; mt < 2; ++mt)
-#pragma unroll
-    for (int nt = 0; nt < kNT; ++nt) {
-      const int col = n0 + wn * kWN + nt * 8 + 2 * t;
+    for (int j = 0; j < 3; ++j)
 #pragma unroll
       for (int half = 0; half < 2; ++half) {
-        const int r = m0 + wm * 32 + mt * 16 + g + half * 8;
-        if (r < M && col < Cout) {
-          store2(slab + static_cast<size_t>(r) * Cout + col, acc[mt][nt][2 * half],
-                 acc[mt][nt][2 * half + 1]);
+        const int ci = c0 + warp * 16 + gq + half * 8;
+        if (ci >= Cin) continue;
+        float* row = slab + (static_cast<size_t>(wg * 3 + j) * Cin + ci) * Cout;
+#pragma unroll
+        for (int nt = 0; nt < kWgradCo / 8; ++nt) {
+          const int co = n0 + nt * 8 + 2 * t4;
+          if (co < Cout) store2(row + co, acc[j][4 * nt + 2 * half], acc[j][4 * nt + 2 * half + 1]);
         }
       }
-    }
+  }
 }
 
 // --- K4f / K4d / K4w, float32 FFMA -------------------------------------------
@@ -1074,39 +1131,57 @@ cudaError_t launch_conv(const void* act, const void* wb, const float* psc,
   return cudaGetLastError();
 }
 
+int sm_count() {
+  int sms = 132, dev = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess ||
+      cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess) {
+    sms = 132;
+  }
+  return sms;
+}
+
+// K4f's and K4w's tiles of B images of H x W pixels, tiles_n channel tiles
+// each.
+ConvTiles pixel_tiles(int B, int H, int W, int tiles_n) {
+  ConvTiles g;
+  g.th = tile_rows(H);
+  g.tw = kTilePx / g.th;
+  g.tiles_h = (H + g.th - 1) / g.th;
+  g.tiles_w = (W + g.tw - 1) / g.tw;
+  g.tiles_n = tiles_n;
+  g.count = static_cast<long long>(B) * g.tiles_h * g.tiles_w * g.tiles_n;
+  return g;
+}
+
+// A 4-D tensor map (C, W, H, B) of a channels-last bf16 activation with
+// boxes of 64 channels x bw columns x bh rows of one image.
+bool image_map(CUtensorMap* map, const void* base, int B, int H, int W, int C, int bw, int bh) {
+  const size_t e = sizeof(bf16);
+  const uint64_t dims[4] = {static_cast<uint64_t>(C), static_cast<uint64_t>(W),
+                            static_cast<uint64_t>(H), static_cast<uint64_t>(B)};
+  const uint64_t strides[3] = {C * e, static_cast<uint64_t>(W) * C * e,
+                               static_cast<uint64_t>(H) * W * C * e};
+  const uint32_t box[4] = {kChunk, static_cast<uint32_t>(bw), static_cast<uint32_t>(bh), 1};
+  return hopper::make_map(map, base, 4, dims, strides, box);
+}
+
 // K4f in bf16: a 4-D tensor map of x (C, W, H, B) with a box of the
 // tile's halo, a 3-D one of wb (Cin, Cout, 9) with [96][64] boxes; a grid of
 // at most one block per SM walks the tiles.
 cudaError_t launch_conv_fwd(const void* x, const void* wb, const float* sc, const float* sh,
                             void* y, int B, int H, int W, int C, int N, bool pro,
                             cudaStream_t s) {
-  ConvTiles g;
-  g.th = tile_rows(H);
-  g.tw = kTilePx / g.th;
-  g.tiles_h = (H + g.th - 1) / g.th;
-  g.tiles_w = (W + g.tw - 1) / g.tw;
-  g.tiles_n = (N + kTileCo - 1) / kTileCo;
-  g.count = static_cast<long long>(B) * g.tiles_h * g.tiles_w * g.tiles_n;
+  const ConvTiles g = pixel_tiles(B, H, W, (N + kTileCo - 1) / kTileCo);
   CUtensorMap mx, mw;
   const size_t e = sizeof(bf16);
-  const uint64_t xdims[4] = {static_cast<uint64_t>(C), static_cast<uint64_t>(W),
-                             static_cast<uint64_t>(H), static_cast<uint64_t>(B)};
-  const uint64_t xstrides[3] = {C * e, static_cast<uint64_t>(W) * C * e,
-                                static_cast<uint64_t>(H) * W * C * e};
-  const uint32_t xbox[4] = {kChunk, static_cast<uint32_t>(g.tw + 2),
-                            static_cast<uint32_t>(g.th + 2), 1};
   const uint64_t wdims[3] = {static_cast<uint64_t>(C), static_cast<uint64_t>(N), 9};
   const uint64_t wstrides[2] = {C * e, static_cast<uint64_t>(N) * C * e};
   const uint32_t wbox[3] = {kChunk, kTileCo, 1};
-  if (!hopper::make_map(&mx, x, 4, xdims, xstrides, xbox) ||
+  if (!image_map(&mx, x, B, H, W, C, g.tw + 2, g.th + 2) ||
       !hopper::make_map(&mw, wb, 3, wdims, wstrides, wbox)) {
     return cudaErrorInvalidValue;
   }
-  int sms = 132, dev = 0;
-  if (cudaGetDevice(&dev) != cudaSuccess ||
-      cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess) {
-    sms = 132;
-  }
+  const int sms = sm_count();
   const unsigned grid = static_cast<unsigned>(g.count < sms ? g.count : sms);
   auto kernel = pro ? conv_fwd_wgmma<true> : conv_fwd_wgmma<false>;
   const cudaError_t err = allow_smem(kernel, kFwdSmem);
@@ -1116,35 +1191,9 @@ cudaError_t launch_conv_fwd(const void* x, const void* wb, const float* sc, cons
   return cudaGetLastError();
 }
 
-template <typename T>
-cudaError_t launch_wgrad(const void* x, const void* g, const float* sc, const float* sh,
-                         float* dk, float* partial, int B, int H, int W, int Cin,
-                         int Cout, int splits, bool pro, cudaStream_t s) {
-  const long long P = static_cast<long long>(B) * H * W;
-  constexpr int bm = sizeof(T) == 2 ? kBM : kFM;
-  constexpr int bn = sizeof(T) == 2 ? kBN : kFN;
-  constexpr int bk = sizeof(T) == 2 ? kBK : kFK;
-  const long long ksteps = (P + bk - 1) / bk;
-  const long long k_per_split = (ksteps + splits - 1) / splits * bk;
-  float* slabs = splits == 1 ? dk : partial;
-  const dim3 grid((9 * Cin + bm - 1) / bm, (Cout + bn - 1) / bn, splits);
-  const T* xx = static_cast<const T*>(x);
-  const T* gg = static_cast<const T*>(g);
-  if constexpr (sizeof(T) == 2) {
-    auto kernel = pro ? wgrad_mma_kernel<true> : wgrad_mma_kernel<false>;
-    const cudaError_t err = allow_smem(kernel, kWgradSmem);
-    if (err != cudaSuccess) return err;
-    kernel<<<grid, kThreads, kWgradSmem, s>>>(xx, gg, sc, sh, slabs, H, W, Cin, Cout, P,
-                                              k_per_split);
-  } else {
-    if (pro) {
-      wgrad_f32_kernel<true><<<grid, kThreads, 0, s>>>(xx, gg, sc, sh, slabs, H, W, Cin, Cout,
-                                                       P, k_per_split);
-    } else {
-      wgrad_f32_kernel<false><<<grid, kThreads, 0, s>>>(xx, gg, sc, sh, slabs, H, W, Cin,
-                                                        Cout, P, k_per_split);
-    }
-  }
+// Adds the split slabs into dk in a fixed order (none to add for one).
+cudaError_t add_splits(const float* partial, int splits, int Cin, int Cout, float* dk,
+                       cudaStream_t s) {
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess || splits == 1) return err;
   const long long n = 9LL * Cin * Cout;
@@ -1154,6 +1203,58 @@ cudaError_t launch_wgrad(const void* x, const void* g, const float* sc, const fl
   return cudaGetLastError();
 }
 
+// K4w in bf16: K4f's 4-D map of x with the halo box, one of g (Cout, W, H,
+// B) with [TH][TW][64] boxes; a block per (input chunk, output tile) pair
+// and split.
+cudaError_t launch_wgrad_bf16(const void* x, const void* gr, const float* sc, const float* sh,
+                              float* dk, float* partial, int B, int H, int W, int Cin,
+                              int Cout, int splits, bool pro, cudaStream_t s) {
+  const ConvTiles g = pixel_tiles(B, H, W, 1);
+  CUtensorMap mx, mg;
+  if (!image_map(&mx, x, B, H, W, Cin, g.tw + 2, g.th + 2) ||
+      !image_map(&mg, gr, B, H, W, Cout, g.tw, g.th)) {
+    return cudaErrorInvalidValue;
+  }
+  const int co_tiles = (Cout + kWgradCo - 1) / kWgradCo;
+  const int chunks = (Cin + kChunk - 1) / kChunk;
+  const int per_split = static_cast<int>((g.count + splits - 1) / splits);
+  // halo slots 1024-byte aligned, as many as fit (at most three)
+  const int halo_stride = ((g.th + 2) * (g.tw + 2) * hopper::kSwizzleBytes +
+                           hopper::kSwizzleAlign - 1) / hopper::kSwizzleAlign *
+                          hopper::kSwizzleAlign;
+  const size_t fixed = hopper::kSwizzleAlign + 2 * static_cast<size_t>(kGBytes) + kWgradBars;
+  int slots = static_cast<int>((kSmemMax - fixed) / halo_stride);
+  if (slots > kMaxHaloSlots) slots = kMaxHaloSlots;
+  const size_t smem = fixed + static_cast<size_t>(slots) * halo_stride;
+  auto kernel = pro ? wgrad_wgmma<true> : wgrad_wgmma<false>;
+  const cudaError_t err = allow_smem(kernel, smem);
+  if (err != cudaSuccess) return err;
+  kernel<<<dim3(chunks * co_tiles, splits), kWgradThreads, smem, s>>>(
+      mx, mg, sc, sh, splits == 1 ? dk : partial, H, W, Cin, Cout, g, co_tiles, per_split,
+      slots, halo_stride);
+  return add_splits(partial, splits, Cin, Cout, dk, s);
+}
+
+cudaError_t launch_wgrad_f32(const void* x, const void* g, const float* sc, const float* sh,
+                             float* dk, float* partial, int B, int H, int W, int Cin,
+                             int Cout, int splits, bool pro, cudaStream_t s) {
+  const long long P = static_cast<long long>(B) * H * W;
+  const long long ksteps = (P + kFK - 1) / kFK;
+  const long long k_per_split = (ksteps + splits - 1) / splits * kFK;
+  float* slabs = splits == 1 ? dk : partial;
+  const dim3 grid((9 * Cin + kFM - 1) / kFM, (Cout + kFN - 1) / kFN, splits);
+  const float* xx = static_cast<const float*>(x);
+  const float* gg = static_cast<const float*>(g);
+  if (pro) {
+    wgrad_f32_kernel<true><<<grid, kThreads, 0, s>>>(xx, gg, sc, sh, slabs, H, W, Cin, Cout, P,
+                                                     k_per_split);
+  } else {
+    wgrad_f32_kernel<false><<<grid, kThreads, 0, s>>>(xx, gg, sc, sh, slabs, H, W, Cin, Cout,
+                                                      P, k_per_split);
+  }
+  return add_splits(partial, splits, Cin, Cout, dk, s);
+}
+
 bool bad_shape(int B, int H, int W, int Cin, int Cout) {
   return B <= 0 || H <= 0 || W <= 0 || Cin <= 0 || Cout <= 0 || Cin % kVec ||
          Cout % kVec;
@@ -1161,7 +1262,8 @@ bool bad_shape(int B, int H, int W, int Cin, int Cout) {
 
 // K4w's split-K: at least two waves of blocks (one block an SM), the count
 // of splits up to twice that picked to fill the last wave best, and at
-// least 16 K steps a split.
+// least 16 K steps (float32) or kMinTilesPerSplit pixel tiles (bf16) a
+// split.
 constexpr long long kMinStepsPerSplit = 16;
 constexpr int kMaxSplits = 64;
 
@@ -1180,16 +1282,20 @@ extern "C" long long htrvt_conv3x3_dgrad_rows(long long P, int dtype) {
 }
 
 // The number of pixel splits htrvt_conv3x3_wgrad is to be given.
-extern "C" int htrvt_conv3x3_wgrad_splits(long long P, int Cin, int Cout, int dtype) {
-  const bool bf = dtype == stem::kBFloat16;
-  const long long bm = bf ? kBM : kFM, bn = bf ? kBN : kFN, bk = bf ? kBK : kFK;
-  const long long tiles = ((9LL * Cin + bm - 1) / bm) * ((Cout + bn - 1) / bn);
-  int sms = 132, dev = 0;
-  if (cudaGetDevice(&dev) != cudaSuccess ||
-      cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess) {
-    sms = 132;
+extern "C" int htrvt_conv3x3_wgrad_splits(int B, int H, int W, int Cin, int Cout, int dtype) {
+  long long tiles, steps, least_steps;
+  if (dtype == stem::kBFloat16) {
+    tiles = static_cast<long long>((Cin + kChunk - 1) / kChunk) *
+            ((Cout + kWgradCo - 1) / kWgradCo);
+    steps = pixel_tiles(B, H, W, 1).count;
+    least_steps = kMinTilesPerSplit;
+  } else {
+    tiles = ((9LL * Cin + kFM - 1) / kFM) * ((Cout + kFN - 1) / kFN);
+    steps = (static_cast<long long>(B) * H * W + kFK - 1) / kFK;
+    least_steps = kMinStepsPerSplit;
   }
-  long long most = (P + bk - 1) / bk / kMinStepsPerSplit;
+  const int sms = sm_count();
+  long long most = steps / least_steps;
   if (most > kMaxSplits) most = kMaxSplits;
   if (most < 1) most = 1;
   const long long least = (2LL * sms + tiles - 1) / tiles;
@@ -1287,9 +1393,9 @@ extern "C" int htrvt_conv3x3_wgrad(const void* x, const void* g, const void* sca
   float* part = static_cast<float*>(partial);
   const cudaError_t err =
       dtype == stem::kBFloat16
-          ? launch_wgrad<bf16>(x, g, sc, sh, out, part, B, H, W, Cin, Cout, splits,
-                               prologue != 0, s)
-          : launch_wgrad<float>(x, g, sc, sh, out, part, B, H, W, Cin, Cout, splits,
-                                prologue != 0, s);
+          ? launch_wgrad_bf16(x, g, sc, sh, out, part, B, H, W, Cin, Cout, splits,
+                              prologue != 0, s)
+          : launch_wgrad_f32(x, g, sc, sh, out, part, B, H, W, Cin, Cout, splits,
+                             prologue != 0, s);
   return static_cast<int>(err);
 }

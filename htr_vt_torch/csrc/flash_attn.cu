@@ -62,24 +62,24 @@
 // o is written from the registers as [B, N, H, D] seen as [B, H, N, D], so
 // the heads merge without a copy; l and m are float32 [B, H, N].
 //
-// K5dkv and K5dq, bf16: one block of 8 warps per (b, h, 128-row tile,
-// 128-column slice of D): K5dq owns 128 queries and walks the keys; K5dkv
-// owns 128 keys and walks the queries, so dk and dv need no atomics and dq
-// stays a kernel of its own, as in the library: two calls give equal bits.
-// Each warp owns 16 of the 128 rows. Tiles arrive in shared memory by
+// K5dkv, bf16: the same shape of kernel (flash_dkv_wgmma below). A block
+// owns 128 keys of one (b, h) and walks the queries 64 at a time, so dk and
+// dv need no atomics and dq stays a kernel of its own, as in the library:
+// two calls give equal bits. The producer loads k and v once, then q, do
+// (the same 4-D strided maps as K5f) and the softmax statistics of each
+// query step into rings; two consumer warpgroups own 64 keys each and
+// compute the transposed tiles s^T = k q^T and dp^T = v do^T (wgmma from
+// shared memory), so that p^T and ds^T, packed to bf16 in registers, are
+// the A operands of dv += p^T do and dk += ds^T q (do and q as MN-major B).
+// K5dq, bf16: one block of 8 warps per (b, h, 128 queries) walks the keys;
+// each warp owns 16 of the 128 rows. Tiles arrive in shared memory by
 // cp.async (row pitch D + 8 bf16: ldmatrix without bank conflicts); the
-// products run on the tensor cores with mma.sync m16n8k16 (float32
-// accumulate) from ldmatrix fragments, and the score tile, the
-// probabilities and the accumulators stay in registers: a score tile's
-// accumulator fragment is the next product's A fragment once packed to
-// bf16, so nothing of size [N, N] leaves the chip. K5dkv computes the
-// transposed tiles (s^T = k q^T, dp^T = v do^T) so that p^T and ds^T are A
-// fragments too, and walks the queries 64 at a time (K5dq the keys), which
-// keeps two float32 accumulators (dk, dv) and two 64-wide score tiles
-// within the register file. At D = 256 a warp's 16 x 256 accumulators would
-// not fit, so a block makes one 128-column slice of its outputs (gridDim.z
-// = D / 128), recomputing the scores over the whole of D; K5dq then loads
-// 64 keys at a time to stay within shared memory.
+// products run on mma.sync m16n8k16 (float32 accumulate) from ldmatrix
+// fragments, and a score tile's accumulator fragment is the next product's
+// A fragment once packed to bf16, so nothing of size [N, N] leaves the
+// chip. At D = 256 a block of either makes one 128-column slice of its
+// output (gridDim.z = D / 128), recomputing the scores over the whole of D;
+// K5dq then loads 64 keys at a time to stay within shared memory.
 // float32 (every kernel) runs a 128 x 128 FFMA tile (8 x 8 outputs a
 // thread) with the probabilities in shared memory (no TF32), one
 // 128-column slice of the output a block, the scores recomputed for each.
@@ -98,7 +98,7 @@ using bf16 = __nv_bfloat16;
 enum DType : int { kFloat32 = 0, kBFloat16 = 1 };
 
 constexpr int kBlock = 128;      // queries or keys a block owns; the library's blocks
-constexpr int kThreads = 256;    // 8 warps (K5dkv, K5dq, float32)
+constexpr int kThreads = 256;    // 8 warps (K5dq, float32)
 constexpr int kWarpRows = 16;    // a warp's rows: one m16 tile
 constexpr int kDO = 128;         // output columns a backward / float32 block makes
 constexpr int kSub = 64;         // K5dkv's queries, K5dq's keys, per step
@@ -122,10 +122,6 @@ __host__ __device__ constexpr int dq_keys() {
 template <int D>
 __host__ __device__ constexpr size_t dq_smem() {  // q, do; k, v
   return 2 * rows_bytes<D>(kBlock) + 2 * rows_bytes<D>(dq_keys<D>());
-}
-template <int D>
-__host__ __device__ constexpr size_t dkv_smem() {  // k, v; q, do; m, 1 / l, di
-  return 2 * rows_bytes<D>(kBlock) + 2 * rows_bytes<D>(kSub) + 3 * sizeof(float) * kSub;
 }
 constexpr size_t kF32Smem = sizeof(float) * (kBlock * kFP + 2 * kFK * kFP + 3 * kBlock);
 
@@ -222,7 +218,7 @@ __device__ __forceinline__ void copy_rows(bf16 (*dst)[pitch<D>()], const bf16* s
 
 // acc[nt] (16 rows x 8 kNT columns) += A B^T over the D columns, where A is
 // rows a0..a0+15 of As and B rows b0..b0 + 8 kNT - 1 of Bs, both [rows][D]:
-// a score tile q k^T (or its transpose k q^T).
+// K5dq's score tiles q k^T and do v^T.
 template <int D, int kNT>
 __device__ __forceinline__ void rows_dot_rows(float (*acc)[4], bf16 (*As)[pitch<D>()], int a0,
                                               bf16 (*Bs)[pitch<D>()], int b0, int lane) {
@@ -255,7 +251,7 @@ __device__ __forceinline__ void to_a_fragments(uint32_t (*pa)[4], float (*s)[4])
 }
 
 // acc[nt] (16 rows x 8 kNT columns from column c0) += P B, P the 16 x 16 kKS
-// A fragments `pa`, B rows b0.. of Bs [rows][D]: p^T do, ds^T q, ds k.
+// A fragments `pa`, B rows b0.. of Bs [rows][D]: K5dq's ds k.
 template <int D, int kKS, int kNT>
 __device__ __forceinline__ void frags_dot_rows(float (*acc)[4], uint32_t (*pa)[4],
                                                bf16 (*Bs)[pitch<D>()], int b0, int c0,
@@ -571,80 +567,250 @@ flash_dq_mma(const bf16* __restrict__ q, const bf16* __restrict__ k,
   store_rows(dq + (static_cast<long long>(blockIdx.y) * N + q0 + r0) * D + c0, D, acc, lane);
 }
 
-// --- K5dkv, bf16 ---------------------------------------------------------------
+// --- K5dkv, bf16: wgmma fed by TMA -------------------------------------------------
+// A block owns 128 keys of one (b, h) and one 128-column slice of dk and dv
+// (gridDim.z = D / 128) and walks the queries 64 at a time. Warpgroup 2's
+// first thread loads k and v once, then for each query step the softmax
+// statistics (m, l, di of the 64 queries: three bulk copies into a ring of
+// four) and q and do as 16 KB units (64 queries x 128 of D, two boxes)
+// into a ring, so the next steps load while this one computes. Consumer
+// warpgroups 0 and 1 own 64 keys each:
+// s^T = k q^T and dp^T = v do^T are wgmma m64n64k16 from shared memory
+// (both operands K-major); p^T and ds^T are computed on the accumulator
+// fragments and packed to bf16 in registers as the A operands of dv +=
+// p^T do and dk += ds^T q, wgmma m64n64k16 with do and q as MN-major B
+// (two 64-column halves of the slice). Within a warpgroup p^T is computed
+// while dp^T's products run. 232 registers a consumer thread (dk and dv
+// 128, s^T and dp^T 64; 40 for warpgroup 2).
+constexpr int kQBox = kSub * hopper::kSwizzleBytes;  // 8 KB: 64 rows x 64 columns
+constexpr int kQUnit = 2 * kQBox;                    // 16 KB: 64 rows x 128 columns
+constexpr int kStatRing = 4;
+
 template <int D>
-__global__ void __launch_bounds__(kThreads, 1)
-flash_dkv_mma(const bf16* __restrict__ q, const bf16* __restrict__ k,
-              const bf16* __restrict__ v, const float* __restrict__ l,
-              const float* __restrict__ m, const bf16* __restrict__ dout,
-              const float* __restrict__ di, bf16* __restrict__ dk, bf16* __restrict__ dv,
-              Layout lay, int H, int N, float scale) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  bf16 (*Ks)[pitch<D>()] = reinterpret_cast<bf16 (*)[pitch<D>()]>(smem);
-  bf16 (*Vs)[pitch<D>()] = Ks + kBlock;
-  bf16 (*Qs)[pitch<D>()] = Vs + kBlock;  // kSub rows
-  bf16 (*Os)[pitch<D>()] = Qs + kSub;    // do, kSub rows
-  float* ms = reinterpret_cast<float*>(Os + kSub);
-  float* ils = ms + kSub;
-  float* dis = ils + kSub;
-  const int tid = threadIdx.x, lane = tid & 31, r0 = (tid >> 5) * kWarpRows;
-  const int t = lane & 3;
+struct Dkv {
+  static constexpr int kKvBoxes = D / 64;          // boxes of a [128, D] k (or v) tile
+  static constexpr int kUnits = D / 128;           // units of a q (or do) step
+  static constexpr int kRing = D == 128 ? 6 : 5;   // units in flight
+  static constexpr size_t kSmem = hopper::kSwizzleAlign +
+                                  2 * static_cast<size_t>(kKvBoxes) * kBox +
+                                  static_cast<size_t>(kRing) * kQUnit +
+                                  sizeof(float) * kStatRing * 3 * kSub +
+                                  sizeof(uint64_t) * (1 + 2 * kRing + 2 * kStatRing);
+};
+
+template <int D>
+__global__ void __launch_bounds__(kFwdThreads, 1)
+flash_dkv_wgmma(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
+                const __grid_constant__ CUtensorMap tv, const __grid_constant__ CUtensorMap tdo,
+                const float* __restrict__ l, const float* __restrict__ m,
+                const float* __restrict__ di, bf16* __restrict__ dk, bf16* __restrict__ dv,
+                int H, int N, float scale) {
+  using C = Dkv<D>;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* kvs = hopper::align_swizzle(smem_raw);  // k's boxes, then v's
+  unsigned char* ring = kvs + 2 * C::kKvBoxes * kBox;
+  float* stats = reinterpret_cast<float*>(ring + C::kRing * kQUnit);  // [slot][m, l, di][64]
+  uint64_t* kv_full = reinterpret_cast<uint64_t*>(stats + kStatRing * 3 * kSub);
+  uint64_t* full = kv_full + 1;
+  uint64_t* empty = full + C::kRing;
+  uint64_t* st_full = empty + C::kRing;
+  uint64_t* st_empty = st_full + kStatRing;
+  const int tid = threadIdx.x, wg = tid >> 7;
   const int b = blockIdx.y / H, h = blockIdx.y % H;
-  const long long k0 = static_cast<long long>(blockIdx.x) * kBlock;
-  const long long stats = static_cast<long long>(blockIdx.y) * N;
-  const int c0 = blockIdx.z * kDO;
-
-  copy_rows<D, kBlock>(Ks, rows_of(k, lay.t[1], b, h, k0), lay.t[1].n, tid);
-  copy_rows<D, kBlock>(Vs, rows_of(v, lay.t[2], b, h, k0), lay.t[2].n, tid);
-  cp_async_commit();
-
-  float dk_acc[kDO / 8][4], dv_acc[kDO / 8][4];
-  zero<kDO / 8>(dk_acc);
-  zero<kDO / 8>(dv_acc);
-  for (int i0 = 0; i0 < N; i0 += kSub) {
-    __syncthreads();  // every warp is done with the last step's q and do
-    copy_rows<D, kSub>(Qs, rows_of(q, lay.t[0], b, h, i0), lay.t[0].n, tid);
-    copy_rows<D, kSub>(Os, rows_of(dout, lay.t[3], b, h, i0), lay.t[3].n, tid);
-    cp_async_commit();
-    if (tid < kSub) {
-      ms[tid] = m[stats + i0 + tid];
-      ils[tid] = 1.f / l[stats + i0 + tid];
-      dis[tid] = di[stats + i0 + tid];
+  const int k0 = blockIdx.x * kBlock;
+  const int steps = N / kSub;
+  if (tid == 0) {
+    hopper::mbar_init(kv_full, 1);
+    for (int i = 0; i < C::kRing; ++i) {
+      hopper::mbar_init(&full[i], 1);
+      hopper::mbar_init(&empty[i], kConsumerWarps);
     }
-    cp_async_wait<0>();
-    __syncthreads();
-
-    // p^T: rows = this warp's keys, columns = the step's queries
-    float st[kSub / 8][4];
-    zero<kSub / 8>(st);
-    rows_dot_rows<D, kSub / 8>(st, Ks, r0, Qs, 0, lane);
-#pragma unroll
-    for (int nt = 0; nt < kSub / 8; ++nt)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int c = nt * 8 + 2 * t + (e & 1);
-        st[nt][e] = __fmul_rn(expf(__fsub_rn(__fmul_rn(st[nt][e], scale), ms[c])), ils[c]);
-      }
-    uint32_t pa[kSub / 16][4];
-    to_a_fragments<kSub / 16>(pa, st);
-    frags_dot_rows<D, kSub / 16, kDO / 8>(dv_acc, pa, Os, 0, c0, lane);
-    // ds^T = p^T (dp^T - di) scale, dp^T = v do^T
-    float dpt[kSub / 8][4];
-    zero<kSub / 8>(dpt);
-    rows_dot_rows<D, kSub / 8>(dpt, Vs, r0, Os, 0, lane);
-#pragma unroll
-    for (int nt = 0; nt < kSub / 8; ++nt)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int c = nt * 8 + 2 * t + (e & 1);
-        dpt[nt][e] = __fmul_rn(__fmul_rn(__fsub_rn(dpt[nt][e], dis[c]), st[nt][e]), scale);
-      }
-    to_a_fragments<kSub / 16>(pa, dpt);
-    frags_dot_rows<D, kSub / 16, kDO / 8>(dk_acc, pa, Qs, 0, c0, lane);
+    for (int i = 0; i < kStatRing; ++i) {
+      hopper::mbar_init(&st_full[i], 1);
+      hopper::mbar_init(&st_empty[i], kConsumerWarps);
+    }
+    hopper::mbar_fence_init();
   }
-  const long long out = (static_cast<long long>(blockIdx.y) * N + k0 + r0) * D + c0;
-  store_rows(dk + out, D, dk_acc, lane);
-  store_rows(dv + out, D, dv_acc, lane);
+  __syncthreads();
+
+  if (wg == 2) {
+    hopper::setmaxnreg_dec<40>();
+    if (tid == 2 * 128) {
+      hopper::mbar_expect_tx(kv_full, 2 * C::kKvBoxes * kBox);
+      for (int x = 0; x < C::kKvBoxes; ++x) {
+        hopper::tma_load_4d(kvs + x * kBox, &tk, kv_full, x * 64, k0, h, b);
+        hopper::tma_load_4d(kvs + (C::kKvBoxes + x) * kBox, &tv, kv_full, x * 64, k0, h, b);
+      }
+      hopper::Ring r(C::kRing), sr(kStatRing);
+      for (int i = 0; i < steps; ++i) {
+        const long long row = static_cast<long long>(blockIdx.y) * N + i * kSub;
+        hopper::mbar_wait(&st_empty[sr.slot], sr.phase ^ 1u);
+        hopper::mbar_expect_tx(&st_full[sr.slot], 3 * kSub * sizeof(float));
+        float* st = stats + sr.slot * 3 * kSub;
+        hopper::bulk_load(st, m + row, kSub * sizeof(float), &st_full[sr.slot]);
+        hopper::bulk_load(st + kSub, l + row, kSub * sizeof(float), &st_full[sr.slot]);
+        hopper::bulk_load(st + 2 * kSub, di + row, kSub * sizeof(float), &st_full[sr.slot]);
+        sr.next();
+        for (int t = 0; t < 2; ++t) {  // q, then do
+          const CUtensorMap* map = t ? &tdo : &tq;
+          for (int u = 0; u < C::kUnits; ++u) {
+            hopper::mbar_wait(&empty[r.slot], r.phase ^ 1u);
+            hopper::mbar_expect_tx(&full[r.slot], kQUnit);
+            for (int x = 0; x < 2; ++x) {
+              hopper::tma_load_4d(ring + r.slot * kQUnit + x * kQBox, map, &full[r.slot],
+                                  (2 * u + x) * 64, i * kSub, h, b);
+            }
+            r.next();
+          }
+        }
+      }
+    }
+  } else {
+    hopper::setmaxnreg_inc<232>();
+    const int lane = tid & 31, warp = (tid >> 5) & 3;
+    const int t4 = lane & 3;
+    const uint32_t k_addr = hopper::smem_u32(kvs) + wg * 64 * hopper::kSwizzleBytes;
+    const uint32_t v_addr = k_addr + C::kKvBoxes * kBox;
+    const uint32_t ring_addr = hopper::smem_u32(ring);
+    // dk and dv: [two 64-column halves of the slice][the m64n64 layout]
+    float dk_acc[2][32], dv_acc[2][32];
+#pragma unroll
+    for (int x = 0; x < 2; ++x) {
+#pragma unroll
+      for (int i = 0; i < 32; ++i) dk_acc[x][i] = dv_acc[x][i] = 0.f;
+      hopper::fence_regs(dk_acc[x]);
+      hopper::fence_regs(dv_acc[x]);
+    }
+    hopper::Ring r(C::kRing), sr(kStatRing);
+    hopper::mbar_wait(kv_full, 0);
+    for (int i = 0; i < steps; ++i) {
+      hopper::mbar_wait(&st_full[sr.slot], sr.phase);
+      int qs[C::kUnits], os[C::kUnits];
+#pragma unroll
+      for (int u = 0; u < C::kUnits; ++u) {
+        qs[u] = r.slot;
+        hopper::mbar_wait(&full[r.slot], r.phase);
+        r.next();
+      }
+#pragma unroll
+      for (int u = 0; u < C::kUnits; ++u) {
+        os[u] = r.slot;
+        hopper::mbar_wait(&full[r.slot], r.phase);
+        r.next();
+      }
+      // s^T = k q^T, then dp^T = v do^T, over D: 16 columns of D a
+      // product, each a commit group of its own
+      float s[32], dp[32];
+      hopper::wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk) {
+        const uint32_t koff = (kk >> 2) * kBox + (kk & 3) * 32;
+        const uint32_t qoff = ((kk >> 2) & 1) * kQBox + (kk & 3) * 32;
+        hopper::wgmma_m64n64k16_ss(s, hopper::sw128_desc(k_addr + koff),
+                                   hopper::sw128_desc(ring_addr + qs[kk >> 3] * kQUnit + qoff),
+                                   kk != 0);
+      }
+      hopper::wgmma_commit();
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk) {
+        const uint32_t koff = (kk >> 2) * kBox + (kk & 3) * 32;
+        const uint32_t qoff = ((kk >> 2) & 1) * kQBox + (kk & 3) * 32;
+        hopper::wgmma_m64n64k16_ss(dp, hopper::sw128_desc(v_addr + koff),
+                                   hopper::sw128_desc(ring_addr + os[kk >> 3] * kQUnit + qoff),
+                                   kk != 0);
+      }
+      hopper::wgmma_commit();
+      hopper::wgmma_wait<1>();  // s^T is in
+      hopper::fence_regs(s);
+
+      // p^T = exp(s^T * scale - m) * (1 / l); s[4 nt + e] is key row g
+      // (e < 2) or g + 8 and query column 8 nt + 2 t + e % 2, whose
+      // statistics are the column's
+      const float* st = stats + sr.slot * 3 * kSub;
+#pragma unroll
+      for (int nt = 0; nt < kSub / 8; ++nt)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int c = nt * 8 + 2 * t4 + e;
+          const float mc = st[c], il = 1.f / st[kSub + c];
+#pragma unroll
+          for (int half = 0; half < 2; ++half) {
+            float& v = s[4 * nt + 2 * half + e];
+            v = __fmul_rn(expf(__fsub_rn(__fmul_rn(v, scale), mc)), il);
+          }
+        }
+      hopper::wgmma_wait<0>();  // dp^T is in
+      hopper::fence_regs(dp);
+      // ds^T = (dp^T - di) p^T scale
+#pragma unroll
+      for (int nt = 0; nt < kSub / 8; ++nt)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const float dc = st[2 * kSub + nt * 8 + 2 * t4 + e];
+#pragma unroll
+          for (int half = 0; half < 2; ++half) {
+            const int idx = 4 * nt + 2 * half + e;
+            dp[idx] = __fmul_rn(__fmul_rn(__fsub_rn(dp[idx], dc), s[idx]), scale);
+          }
+        }
+      __syncwarp();
+      if (lane == 0) hopper::mbar_arrive(&st_empty[sr.slot]);
+      sr.next();
+      // T(p^T) and T(ds^T) as A fragments, 16 queries a fragment; dv +=
+      // T(p^T) do and dk += T(ds^T) q over the slice's 128 columns
+      uint32_t pa[kSub / 16][4], da[kSub / 16][4];
+#pragma unroll
+      for (int ks = 0; ks < kSub / 16; ++ks)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          pa[ks][j] = pack_bf16(s[8 * ks + 2 * j], s[8 * ks + 2 * j + 1]);
+          da[ks][j] = pack_bf16(dp[8 * ks + 2 * j], dp[8 * ks + 2 * j + 1]);
+        }
+      const bool hi = C::kUnits > 1 && blockIdx.z > 0;  // the slice's unit (no dynamic index)
+      const uint32_t o_unit = ring_addr + (hi ? os[C::kUnits - 1] : os[0]) * kQUnit;
+      const uint32_t q_unit = ring_addr + (hi ? qs[C::kUnits - 1] : qs[0]) * kQUnit;
+      hopper::wgmma_fence();
+#pragma unroll
+      for (int x = 0; x < 2; ++x)
+#pragma unroll
+        for (int ks = 0; ks < kSub / 16; ++ks) {
+          const uint32_t off = x * kQBox + ks * 16 * hopper::kSwizzleBytes;
+          hopper::wgmma_m64n64k16_rs_tb(dv_acc[x], pa[ks], hopper::sw128_desc(o_unit + off), 1);
+          hopper::wgmma_m64n64k16_rs_tb(dk_acc[x], da[ks], hopper::sw128_desc(q_unit + off), 1);
+        }
+      hopper::wgmma_commit();
+      hopper::wgmma_wait<0>();
+      __syncwarp();
+      if (lane == 0) {
+#pragma unroll
+        for (int u = 0; u < C::kUnits; ++u) {
+          hopper::mbar_arrive(&empty[qs[u]]);
+          hopper::mbar_arrive(&empty[os[u]]);
+        }
+      }
+    }
+#pragma unroll
+    for (int x = 0; x < 2; ++x) {
+      hopper::fence_regs(dk_acc[x]);
+      hopper::fence_regs(dv_acc[x]);
+    }
+    const int g = lane >> 2;
+    const long long out = (static_cast<long long>(blockIdx.y) * N + k0 + wg * 64 +
+                           warp * kWarpRows + g) * D + blockIdx.z * kDO;
+#pragma unroll
+    for (int x = 0; x < 2; ++x)
+#pragma unroll
+      for (int nt = 0; nt < 8; ++nt) {
+        const int c = x * 64 + nt * 8 + 2 * t4;
+#pragma unroll
+        for (int half = 0; half < 2; ++half) {
+          const long long at = out + half * 8 * D + c;
+          const int e = 4 * nt + 2 * half;
+          *reinterpret_cast<uint32_t*>(dk + at) = pack_bf16(dk_acc[x][e], dk_acc[x][e + 1]);
+          *reinterpret_cast<uint32_t*>(dv + at) = pack_bf16(dv_acc[x][e], dv_acc[x][e + 1]);
+        }
+      }
+  }
 }
 
 // --- float32 on FFMA -----------------------------------------------------------
@@ -991,8 +1157,20 @@ Layout layout_of(const long long* strides) {
   return lay;
 }
 
-// K5f in bf16: a 4-D tensor map (D, N, H, B) of each of q, k and v over
-// its element strides, boxes of 64 columns x 128 rows.
+// A 4-D tensor map (D, N, H, B) of a [B, H, N, D] bf16 tensor over its
+// element strides, boxes of 64 columns x `rows` rows.
+bool head_map(CUtensorMap* map, const void* base, const Strides& st, int B, int H, int N, int D,
+              int rows) {
+  const uint64_t dims[4] = {static_cast<uint64_t>(D), static_cast<uint64_t>(N),
+                            static_cast<uint64_t>(H), static_cast<uint64_t>(B)};
+  const uint64_t strides[3] = {static_cast<uint64_t>(st.n) * sizeof(bf16),
+                               static_cast<uint64_t>(st.h) * sizeof(bf16),
+                               static_cast<uint64_t>(st.b) * sizeof(bf16)};
+  const uint32_t box[4] = {64, static_cast<uint32_t>(rows), 1, 1};
+  return hopper::make_map(map, base, 4, dims, strides, box);
+}
+
+// K5f in bf16: a map of each of q, k and v, boxes of 64 columns x 128 rows.
 template <int D>
 cudaError_t launch_fwd_bf16(const void* q, const void* k, const void* v, void* o, float* l,
                             float* m, const Layout& lay, int B, int H, int N, float scale,
@@ -1000,13 +1178,7 @@ cudaError_t launch_fwd_bf16(const void* q, const void* k, const void* v, void* o
   CUtensorMap maps[3];
   const void* bases[3] = {q, k, v};
   for (int i = 0; i < 3; ++i) {
-    const uint64_t dims[4] = {static_cast<uint64_t>(D), static_cast<uint64_t>(N),
-                              static_cast<uint64_t>(H), static_cast<uint64_t>(B)};
-    const uint64_t strides[3] = {static_cast<uint64_t>(lay.t[i].n) * sizeof(bf16),
-                                 static_cast<uint64_t>(lay.t[i].h) * sizeof(bf16),
-                                 static_cast<uint64_t>(lay.t[i].b) * sizeof(bf16)};
-    const uint32_t box[4] = {64, kBlock, 1, 1};
-    if (!hopper::make_map(&maps[i], bases[i], 4, dims, strides, box)) {
+    if (!head_map(&maps[i], bases[i], lay.t[i], B, H, N, D, kBlock)) {
       return cudaErrorInvalidValue;
     }
   }
@@ -1037,12 +1209,18 @@ cudaError_t launch_dkv(const void* q, const void* k, const void* v, const float*
   const dim3 grid(N / kBlock, B * H, D / kDO);
   cudaError_t err;
   if (dtype == kBFloat16) {
-    err = allow_smem(flash_dkv_mma<D>, dkv_smem<D>());
+    // q and do in boxes of 64 rows, k and v of 128
+    CUtensorMap maps[4];
+    const void* bases[4] = {q, k, v, dout};
+    for (int i = 0; i < 4; ++i) {
+      const int rows = i == 1 || i == 2 ? kBlock : kSub;
+      if (!head_map(&maps[i], bases[i], lay.t[i], B, H, N, D, rows)) return cudaErrorInvalidValue;
+    }
+    err = allow_smem(flash_dkv_wgmma<D>, Dkv<D>::kSmem);
     if (err != cudaSuccess) return err;
-    flash_dkv_mma<D><<<grid, kThreads, dkv_smem<D>(), s>>>(
-        static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
-        l, m, static_cast<const bf16*>(dout), di, static_cast<bf16*>(dk),
-        static_cast<bf16*>(dv), lay, H, N, scale);
+    flash_dkv_wgmma<D><<<grid, kFwdThreads, Dkv<D>::kSmem, s>>>(
+        maps[0], maps[1], maps[2], maps[3], l, m, di, static_cast<bf16*>(dk),
+        static_cast<bf16*>(dv), H, N, scale);
   } else {
     err = allow_smem(flash_dkv_f32<D>, kF32Smem);
     if (err != cudaSuccess) return err;

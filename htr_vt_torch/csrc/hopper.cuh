@@ -1,6 +1,6 @@
 // Hopper building blocks shared by the kernels that are fed by the Tensor
-// Memory Accelerator and multiply on wgmma (flash_attn.cu: K5f;
-// conv_fused.cu: K4f), sm_90a only.
+// Memory Accelerator and multiply on wgmma (flash_attn.cu: K5f, K5dkv;
+// conv_fused.cu: K4f, K4w), sm_90a only.
 //
 // - TMA: a tensor map (CUtensorMap) describes a global tensor by its dims,
 //   byte strides and a box; one thread asks for a box to be copied into
@@ -9,13 +9,21 @@
 //   (16-byte chunk c of a 128-byte line i goes to chunk c ^ (i % 8)), so
 //   that they are wgmma's canonical layout and ldmatrix reads them without
 //   bank conflicts. Every swizzled buffer starts on a 1024-byte boundary.
-//   Out-of-bounds elements of a box are filled with zeros.
+//   Out-of-bounds elements of a box are filled with zeros. A plain bulk
+//   copy (no tensor map, no swizzle) brings small contiguous rows (K5dkv's
+//   softmax statistics) and reports to an mbarrier the same way.
 // - mbarriers: a "full" barrier per buffer that the copy completes, and an
 //   "empty" barrier that each consumer warp arrives at when it is done with
 //   the buffer; waits are by phase parity.
 // - wgmma: a warpgroup (4 warps, 128 threads) multiplies a 64-row A tile
 //   (from shared memory or registers) by a B tile from shared memory into
-//   float32 registers, asynchronously (fence, commit, wait).
+//   float32 registers, asynchronously (fence, commit, wait). The forms
+//   here: m64n128 and m64n64 with both operands K-major in shared memory
+//   (SS: K5f's q k^T, K5dkv's k q^T and v do^T); m64n64 with A from
+//   registers and B MN-major (RS, transposed B: K5f's p v, K5dkv's p^T do
+//   and ds^T q, K4w's xn^T g); m64n96 RS with B K-major (K4f). An RS A
+//   operand is each warp's m16n8k16 A fragment of its 16 rows, as mma.sync
+//   takes it, so ldmatrix (.trans for a [K][M] tile) loads it.
 // - setmaxnreg: the producer warpgroup gives registers up, the consumer
 //   warpgroups take them.
 //
@@ -115,6 +123,16 @@ __device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map, u
          "r"(c0), "r"(c1), "r"(c2), "r"(c3)
       : "memory");
 }
+// `bytes` (a multiple of 16) contiguous bytes from global `src` (16-byte
+// aligned) to shared `dst`, reported to `bar` like a TMA load.
+__device__ __forceinline__ void bulk_load(void* dst, const void* src, uint32_t bytes,
+                                          uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n"
+      :: "r"(smem_u32(dst)), "l"(reinterpret_cast<uint64_t>(src)), "r"(bytes),
+         "r"(smem_u32(bar))
+      : "memory");
+}
 // Orders this thread's generic-proxy writes to shared memory before later
 // async-proxy (TMA) accesses of it.
 __device__ __forceinline__ void fence_proxy_async() {
@@ -185,6 +203,25 @@ __device__ __forceinline__ void wgmma_m64n128k16_ss(float (&d)[64], uint64_t da,
         "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
         "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
         "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+// d[32] (+)= A B, m64n64k16: A and B from shared memory through their
+// descriptors, both K-major.
+__device__ __forceinline__ void wgmma_m64n64k16_ss(float (&d)[32], uint64_t da, uint64_t db,
+                                                 int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
       : "l"(da), "l"(db), "r"(scale_d));
 }
 

@@ -17,7 +17,9 @@ there is no prologue: ``y = conv3x3(pad0(x), k)``.
   (strict, so 0 at a tie), ``dx = T(da' * scale)``, ``dscale = sum da' *
   x``, ``dshift = sum da'``; da is never rounded to T first.
 - ``conv3x3_bn_relu_wgrad`` (K4w): ``dk = sum_p xn[p + tap] * g[p]`` in
-  float32, the prologue applied to the raw x on load.
+  float32, the prologue applied to the raw x on load (in bf16, a wgmma
+  kernel fed by TMA that normalises each halo pixel once for all nine
+  taps; in float32, FFMA).
 
 ``conv3x3_bn_relu`` is the differentiable entry (``ConvBNReLU``): stride 1
 takes the kernels, any other stride the stock ``F.conv2d`` route, as JAX
@@ -245,7 +247,7 @@ def conv3x3_bn_relu_wgrad(x: torch.Tensor, g: torch.Tensor,
         check_folded_terms("conv3x3_bn_relu_wgrad", x, scale, shift)
     from htr_vt_torch._build import check_launch, library
     code = _DTYPE_CODES[x.dtype]
-    splits = library().htrvt_conv3x3_wgrad_splits(b * h * w, cin, cout, code)
+    splits = library().htrvt_conv3x3_wgrad_splits(b, h, w, cin, cout, code)
     dk = torch.empty((3, 3, cin, cout), dtype=torch.float32, device=x.device)
     partial = (torch.empty((splits, 9 * cin * cout), dtype=torch.float32,
                            device=x.device) if splits > 1 else None)

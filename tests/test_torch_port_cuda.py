@@ -513,6 +513,13 @@ def test_conv_kernels_at_the_flagship_shapes(cuda, shape):
     ((2, 64, 1, 300), 96, torch.bfloat16, True, False),
     ((1, 136, 9, 33), 200, torch.bfloat16, True, True),
     ((2, 16, 2, 130), 8, torch.bfloat16, False, False),
+    # K4w's: 8-row pixel tiles straddling each image's last row (H = 11),
+    # three tiles a row (the last partial), splits ending inside an image,
+    # a partial 64-channel chunk (72) and a partial 64-channel output tile
+    # (88); 4-row tiles over a partial second column tile
+    ((3, 72, 11, 70), 88, torch.bfloat16, True, False),
+    ((3, 72, 11, 70), 88, torch.bfloat16, False, False),
+    ((2, 64, 4, 96), 64, torch.bfloat16, True, True),
     ((2, 16, 7, 9), 24, torch.float32, True, True),    # float32 (FFMA), ties
     ((2, 16, 7, 9), 24, torch.float32, False, False),
     ((1, 8, 1, 3), 8, torch.float32, True, False),     # one row: every tap pads
@@ -659,6 +666,10 @@ def _assert_flash_close(got, want, what):
     (torch.bfloat16, 2, 3, 128, False, 256),
     (torch.bfloat16, 2, 3, 512, True, 256),
     (torch.bfloat16, 1, 2, 384, False, 256),
+    # K5dkv's query ring: one query block, an odd count of 64-query steps'
+    # pairs, strided views, at both head dims
+    (torch.bfloat16, 2, 3, 384, True, 128),
+    (torch.bfloat16, 1, 2, 128, True, 256),
     (torch.float32, 1, 2, 128, True, 256),
     (torch.float32, 2, 1, 256, True, 256)])
 def test_flash_kernels_match_plain(cuda, dtype, b, h, n, strided, d):
@@ -756,19 +767,24 @@ def _kernel_body(source, name):
 
 @pytest.mark.cuda
 def test_k5f_and_k4f_are_wgmma_fed_by_tma(cuda):
-    """The bf16 K5f and K4f are built on wgmma with TMA loads: their sources
-    call the wgmma and TMA helpers and no mma.sync, and the compiled library
-    holds HGMMA (wgmma) and UTMALDG (TMA load) instructions in both."""
+    """The bf16 K5f, K5dkv, K4f and K4w are built on wgmma with TMA loads:
+    their sources call the wgmma and TMA helpers and no mma.sync, the
+    mma.sync bodies they replaced are gone, and the compiled library holds
+    HGMMA (wgmma) and UTMALDG (TMA load) instructions in each."""
     import pathlib
     import shutil
     import subprocess
     from htr_vt_torch import _build
     helpers = (_build.CSRC / "hopper.cuh").read_text()
     assert "wgmma.mma_async" in helpers and "cp.async.bulk.tensor" in helpers
-    for src, kernel in (("flash_attn.cu", "flash_fwd_wgmma"), ("conv_fused.cu", "conv_fwd_wgmma")):
+    kernels = (("flash_attn.cu", "flash_fwd_wgmma"), ("flash_attn.cu", "flash_dkv_wgmma"),
+               ("conv_fused.cu", "conv_fwd_wgmma"), ("conv_fused.cu", "wgrad_wgmma"))
+    for src, kernel in kernels:
         body = _kernel_body((_build.CSRC / src).read_text(), kernel)
         assert "hopper::wgmma_m64n" in body and "hopper::tma_load_" in body, kernel
         assert "mma_bf16" not in body and "cp_async16" not in body, kernel
+    for src, gone in (("flash_attn.cu", "flash_dkv_mma"), ("conv_fused.cu", "wgrad_mma_kernel")):
+        assert gone not in (_build.CSRC / src).read_text(), gone
     _build.library()
     cuobjdump = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     if not pathlib.Path(cuobjdump).exists():
@@ -776,7 +792,7 @@ def test_k5f_and_k4f_are_wgmma_fed_by_tma(cuda):
     sass = subprocess.run([cuobjdump, "-sass", str(_build.LIBRARY)], capture_output=True,
                           text=True, check=True).stdout
     functions = sass.split("Function : ")
-    for kernel in ("flash_fwd_wgmma", "conv_fwd_wgmma"):
+    for _, kernel in kernels:
         bodies = [f for f in functions if kernel in f.splitlines()[0]]
         assert bodies, kernel
         for body in bodies:
