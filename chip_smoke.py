@@ -895,6 +895,24 @@ def check_conv_site(name, x, g, k, scale, shift, prologue):
     return errs
 
 
+# The stock eager chains that compute each K4 kernel's function with the
+# prologue (``stock_ms``).
+STOCK = {"fwd": "two calls (eager prologue + F.conv2d)",
+         "dgrad": "chain (conv2d_input + eager strict mask, dx and the two sums)",
+         "wgrad": "two calls (eager prologue + conv2d_weight)"}
+
+
+def dgrad_stock_chain(g, k, x, scale, shift):
+    """K4d's function with the prologue as stock eager calls: cuDNN's input
+    gradient in the working dtype, then the strict mask from ``x * scale +
+    shift > 0``, ``dx = T(da' * scale)`` and the two per-channel sums."""
+    c = (1, -1, 1, 1)
+    da = torch.nn.grad.conv2d_input(tuple(x.shape), k, g, padding=1).float()
+    xf = x.float()
+    da = torch.where(xf * scale.view(c) + shift.view(c) > 0, da, 0.0)
+    return (da * scale.view(c)).to(x.dtype), (da * xf).sum((0, 2, 3)), da.sum((0, 2, 3))
+
+
 def phase_conv_kernels(device):
     """K4f, K4d and K4w at the three stride-1 conv sites, with and without
     the prologue, against their plain versions; CUDA-event times of kernel,
@@ -925,7 +943,8 @@ def phase_conv_kernels(device):
             plain_ms=median_ms(lambda: conv_fused.conv3x3_dgrad_reference(
                 g, k, x, scale, shift, True), 5, warmup=1),
             library_ms=median_ms(lambda: torch.nn.grad.conv2d_input(
-                tuple(x.shape), k, g, padding=1), 10))
+                tuple(x.shape), k, g, padding=1), 10),
+            stock_ms=median_ms(lambda: dgrad_stock_chain(g, k, x, scale, shift), 10))
         dgrad["bound_ms"], dgrad["bound_by"] = bound(
             3 * 2 * n + 2 * k.numel() + 4 * c * 4, n_ops, BF16_TENSOR_OPS_PER_S)
         wgrad = dict(
@@ -949,12 +968,12 @@ def phase_conv_kernels(device):
                 f"{rec['max_abs_err']:.3e}, {rec['bar_share']:.3f} of the bar; kernel "
                 f"{rec['ms']:.4f} ms with the prologue, {rec['ms_bare']:.4f} ms "
                 f"without (like with like: against cuDNN alone); plain "
-                f"{rec['plain_ms']:.4f} ms; cuDNN alone on the "
-                f"pre-normalised tensor {rec['library_ms']:.4f} ms"
-                + (f"; the stock two calls (eager prologue + "
-                   f"{'F.conv2d' if key == 'fwd' else 'conv2d_weight'}) "
-                   f"{rec['stock_ms']:.4f} ms (like with like: against the kernel with "
-                   f"the prologue)" if "stock_ms" in rec else "")
+                f"{rec['plain_ms']:.4f} ms; cuDNN alone"
+                f"{'' if key == 'dgrad' else ' on the pre-normalised tensor'} "
+                f"{rec['library_ms']:.4f} ms"
+                + (f"; the stock {STOCK[key]} {rec['stock_ms']:.4f} ms (like with "
+                   f"like: against the kernel with the prologue)" if "stock_ms" in rec
+                   else "")
                 + "; bound "
                 f"{rec['bound_ms']:.4f} ms by {rec['bound_by']} "
                 f"({n_ops / rec['ms'] / 1e9:.1f} TFLOP/s)")
@@ -1518,16 +1537,18 @@ def main():
         "library_ms": conv[name]["stage1"]["library_ms"],
         "library": library + " alone on the pre-normalised bf16 tensor (cuDNN)",
         "ms_bare": conv[name]["stage1"]["ms_bare"],
-        **({"stock_ms": conv[name]["stage1"]["stock_ms"],
-            "stock": "conv_fused._prologue (eager) + " + library}
-           if "stock_ms" in conv[name]["stage1"] else {}),
+        "stock_ms": conv[name]["stage1"]["stock_ms"],
+        "stock": stock,
         "shape": "bf16 [128, 192, 8, 512] channels-last, 192 -> 192, with the "
                  "prologue (stage 1)",
         "sites": conv[name],
-    } for name, line, library in (
-        ("conv3x3_bn_relu_fwd", 82, "F.conv2d"),
-        ("conv3x3_bn_relu_dgrad", 230, "torch.nn.grad.conv2d_input"),
-        ("conv3x3_bn_relu_wgrad", 286, "torch.nn.grad.conv2d_weight"))]
+    } for name, line, library, stock in (
+        ("conv3x3_bn_relu_fwd", 82, "F.conv2d", "conv_fused._prologue (eager) + F.conv2d"),
+        ("conv3x3_bn_relu_dgrad", 230, "torch.nn.grad.conv2d_input",
+         "torch.nn.grad.conv2d_input + the eager strict mask, dx and the two sums "
+         "(chip_smoke.dgrad_stock_chain)"),
+        ("conv3x3_bn_relu_wgrad", 286, "torch.nn.grad.conv2d_weight",
+         "conv_fused._prologue (eager) + torch.nn.grad.conv2d_weight"))]
     flash_lines = [{
         "name": name,
         "route": "cuda",

@@ -72,7 +72,7 @@ CATEGORIES = (
                                                      "flash_dq")),
     ("bn_stats kernel (K2)", ("bn_stats_partial",)),
     ("pool_bn_relu kernels (K3f, K3b)", ("pool_fwd_kernel", "pool_bwd_kernel")),
-    ("conv3x3 kernels (K4f, K4d, K4w)", ("conv_fwd_wgmma", "conv_mma_kernel",
+    ("conv3x3 kernels (K4f, K4d, K4w)", ("conv_fwd_wgmma", "conv_dgrad_wgmma",
                                          "wgrad_wgmma", "conv_f32_kernel",
                                          "wgrad_f32_kernel", "sum_splits")),
     ("stem kernels' partial sums", ("sum_partials",)),

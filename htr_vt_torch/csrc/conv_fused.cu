@@ -33,21 +33,20 @@
 // matrix or the normalised tensor in memory.
 //   K4f, bf16: M = B*H*W pixels, N = the output channels, K = 9 taps x the
 //   input channels. A persistent, warp-specialised wgmma kernel fed by TMA
-//   (conv_fwd_wgmma below): a block loads a tile of 256 output pixels' input
-//   with its one-pixel halo, 64 channels at a time; three warps apply the
-//   prologue to it once per pixel, a chunk ahead of the products; the nine
-//   taps read shifted windows of that one normalised tile into registers
-//   (ldmatrix) as the A operand of wgmma, with the tap's weights arriving
-//   by TMA as B. The halo and weight buffers are rings with mbarriers, so
-//   the next tile's loads overlap this tile's epilogue.
-//   K4d, bf16: the tile loader computes the shifted pixel of each 8-channel
-//   vector and copies it (16 bytes) with cp.async into a ring of four
-//   shared-memory stages, three K steps ahead, zero-filling the halo;
-//   mma.sync m16n8k16 (float32 accumulate) fed by ldmatrix from padded,
-//   bank-conflict-free tiles of 128 x 192 x 64. It is K4f over g with the
-//   rotated kernel, plus an epilogue that reads x for the strict ReLU mask,
-//   writes dx and reduces da' * x and da' per block; the block partials are
-//   added in a fixed order (stem_common.cuh:sum_partials).
+//   (conv_wgmma, launched as conv_fwd_wgmma below): a block loads a tile of 256
+//   output pixels' input with its one-pixel halo, 64 channels at a time; three
+//   warps apply the prologue to it once per pixel, a chunk ahead of the
+//   products; the nine taps read shifted windows of that one normalised tile
+//   into registers (ldmatrix) as the A operand of wgmma, with the tap's weights
+//   arriving by TMA as B. The halo and weight buffers are rings with mbarriers,
+//   so the next tile's loads overlap this tile's epilogue.
+//   K4d, bf16: K4f over g with the rotated kernel and no prologue, plus
+//   the dgrad epilogue (conv_dgrad_wgmma below, the same main loop): M =
+//   B*H*W pixels, N = the input channels, K = 9 taps x the output
+//   channels. The consumers read x at each output pixel for the strict
+//   ReLU mask, write dx and reduce da' * x and da' over the tile's pixels
+//   in a fixed order into one partial row per pixel tile; the rows are
+//   added in a fixed order (sum_row_groups, stem_common.cuh:sum_partials).
 //   K4w, bf16: per tap M = the input channels, N = the output channels,
 //   K = B*H*W pixels (524,288 deep at stage 1). A warp-specialised wgmma
 //   kernel fed by TMA (wgrad_wgmma below), on K4f's pixel tiles: a block
@@ -77,35 +76,10 @@ using stem::kVec;
 constexpr int kThreads = 256;
 constexpr int kWarpRowsFwd = 16;  // a warp's pixels in each of K4f's m64 halves
 
-// K4d's bf16 tensor-core tiles: 8 warps, 4 along M x 2 along N, 32 x 96
-// each. 192 columns cover a flagship stage's width (192, 384, 768) in
-// whole tiles.
-constexpr int kBM = 128, kBN = 192, kBK = 64;
-constexpr int kWN = kBN / 2;    // a warp's columns
-constexpr int kNT = kWN / 8;    // its m16n8 tiles along N
-constexpr int kKV = kBK / 8;    // 8-channel vectors in a K step of a row
-constexpr int kRS = kThreads / kKV;        // rows a pass of the threads copies
-constexpr int kAV = kBM / kRS;             // A vectors a thread copies a step
-constexpr int kBV = kBN / kRS;             // B vectors a thread copies a step
-constexpr int kPadK = kBK + 8;  // row pitch of [rows][K] tiles (144 bytes)
-
-// K4d's cp.async ring: bytes of one stage's A tile, and
-// of the whole ring (dynamic shared memory, over the 48 KB default).
-constexpr int kStages = 4;
-constexpr size_t kConvStageA = sizeof(bf16) * kBM * kPadK;
-constexpr size_t kConvSmem = kStages * sizeof(bf16) * (kBM + kBN) * kPadK;
-
 // float32 FFMA tiles: 16 x 16 threads, 4 x 4 outputs each.
 constexpr int kFM = 64, kFN = 64, kFK = 16;
 
 // --- small helpers ---------------------------------------------------------
-__device__ __forceinline__ void ldsm_x4(uint32_t r[4], const void* p) {
-  const uint32_t a = static_cast<uint32_t>(__cvta_generic_to_shared(p));
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(a));
-}
-
 __device__ __forceinline__ void ldsm_x4_trans_addr(uint32_t r[4], uint32_t addr) {
   asm volatile(
       "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
@@ -119,44 +93,17 @@ __device__ __forceinline__ void ldsm_x4_addr(uint32_t r[4], uint32_t addr) {
                : "r"(addr));
 }
 
-// c += a * b for a 16x16 bf16 A fragment and a 16x8 B fragment.
-__device__ __forceinline__ void mma_bf16(float c[4], const uint32_t a[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+// The 128-byte line holding p into L2, asynchronously.
+__device__ __forceinline__ void prefetch_l2(const void* p) {
+  asm volatile("prefetch.global.L2 [%0];\n" :: "l"(p));
 }
 
-__device__ __forceinline__ float2 load2(const float* p) {
-  return *reinterpret_cast<const float2*>(p);
-}
-__device__ __forceinline__ float2 load2(const bf16* p) {
-  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
-}
 // Rounds to the element type (nearest even).
 __device__ __forceinline__ void store2(float* p, float a, float b) {
   *reinterpret_cast<float2*>(p) = make_float2(a, b);
 }
 __device__ __forceinline__ void store2(bf16* p, float a, float b) {
   *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
-}
-
-// 16 bytes global -> shared, asynchronously; zero-filled when !valid (src
-// then is any readable address and no byte of it is read).
-__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool valid) {
-  const uint32_t d = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
-               :: "r"(d), "l"(src), "r"(valid ? 16 : 0) : "memory");
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-template <int kPending>
-__device__ __forceinline__ void cp_async_wait() {
-  // "memory": the prologue's plain loads of the copied bytes stay after it
-  asm volatile("cp.async.wait_group %0;\n" :: "n"(kPending) : "memory");
 }
 
 // The prologue of 8 channels of a bf16 vector, in registers: x * scale +
@@ -177,218 +124,65 @@ __device__ __forceinline__ void prologue_vec(uint4& raw, const float sc[kVec],
   }
 }
 
-// Epilogue of two neighbouring output channels (col, col + 1) of one pixel:
-// the forward stores T(v); the dgrad epilogue (kBwd) masks by the strict
-// ReLU of x * scale + shift, stores T(da' * scale) and adds da' * x and da'
-// to the thread's sums.
-template <typename T, bool kBwd>
+// The prologue's backward on two neighbouring channels of one pixel: v =
+// da where x * scale + shift > 0 (strict), else 0, is added to dt and v * x
+// to ds, and v becomes da' * scale.
+__device__ __forceinline__ void dgrad_pair(float& v0, float& v1, float2 xv, float s0, float s1,
+                                           float h0, float h1, float ds[2], float dt[2]) {
+  const float d0 = __fadd_rn(__fmul_rn(xv.x, s0), h0) > 0.f ? v0 : 0.f;
+  const float d1 = __fadd_rn(__fmul_rn(xv.y, s1), h1) > 0.f ? v1 : 0.f;
+  ds[0] += d0 * xv.x;
+  ds[1] += d1 * xv.y;
+  dt[0] += d0;
+  dt[1] += d1;
+  v0 = __fmul_rn(d0, s0);
+  v1 = __fmul_rn(d1, s1);
+}
+
+// The float32 kernel's epilogue of two neighbouring output channels (col,
+// col + 1) of one pixel: the forward stores v; the dgrad epilogue (kBwd)
+// masks by the strict ReLU of x * scale + shift, stores da' * scale and
+// adds da' * x and da' to the thread's sums.
+template <bool kBwd>
 __device__ __forceinline__ void epilogue_pair(float v0, float v1, long long off,
-                                              int col, const T* __restrict__ ex,
+                                              int col, const float* __restrict__ ex,
                                               const float* __restrict__ esc,
                                               const float* __restrict__ esh,
-                                              T* __restrict__ out, float ds[2],
+                                              float* __restrict__ out, float ds[2],
                                               float dt[2]) {
   if (kBwd) {
-    const float2 xv = load2(ex + off);
-    const float s0 = esc[col], s1 = esc[col + 1];
-    const float a0 = __fadd_rn(__fmul_rn(xv.x, s0), esh[col]);
-    const float a1 = __fadd_rn(__fmul_rn(xv.y, s1), esh[col + 1]);
-    const float d0 = a0 > 0.f ? v0 : 0.f;
-    const float d1 = a1 > 0.f ? v1 : 0.f;
-    ds[0] += d0 * xv.x;
-    ds[1] += d1 * xv.y;
-    dt[0] += d0;
-    dt[1] += d1;
-    v0 = __fmul_rn(d0, s0);
-    v1 = __fmul_rn(d1, s1);
+    const float2 xv = *reinterpret_cast<const float2*>(ex + off);
+    dgrad_pair(v0, v1, xv, esc[col], esc[col + 1], esh[col], esh[col + 1], ds, dt);
   }
   store2(out + off, v0, v1);
 }
 
-// --- K4f / K4d, bf16 on the tensor cores -----------------------------------
-// The warp tile's products of one K step from the [rows][K] tiles As (M)
-// and Bs (N): 2 x kNT mma.sync m16n8k16 per 16 of K.
-__device__ __forceinline__ void mma_tile_rows(float acc[2][kNT][4], bf16 (*As)[kPadK],
-                                              bf16 (*Bs)[kPadK], int wm, int wn,
-                                              int lane) {
-#pragma unroll
-  for (int kk = 0; kk < kBK; kk += 16) {
-    uint32_t af[2][4], bfr[kNT / 2][4];
-#pragma unroll
-    for (int mt = 0; mt < 2; ++mt) {
-      ldsm_x4(af[mt], &As[wm * 32 + mt * 16 + (lane & 15)][kk + (lane >> 4) * 8]);
-    }
-#pragma unroll
-    for (int np = 0; np < kNT / 2; ++np) {
-      ldsm_x4(bfr[np], &Bs[wn * kWN + np * 16 + (lane & 7) + ((lane >> 4) << 3)]
-                          [kk + ((lane >> 3) & 1) * 8]);
-    }
-#pragma unroll
-    for (int mt = 0; mt < 2; ++mt)
-#pragma unroll
-      for (int nt = 0; nt < kNT; ++nt)
-        mma_bf16(acc[mt][nt], af[mt], bfr[nt >> 1][(nt & 1) * 2],
-                 bfr[nt >> 1][(nt & 1) * 2 + 1]);
-  }
-}
-
-// K4d: out[p, n] = sum_{tap, c} A(p, tap, c) * wb[tap, n, c], where A is
-// act [P, C] at the pixel p shifted by the tap (zero outside the image).
-// kBwd: the dgrad epilogue over ex/esc/esh [., N], writing
-// partial[blockIdx.x, 0:2N] (dscale, dshift). K steps walk the 9 taps of
-// one 64-channel chunk, then the next chunk. Tiles arrive by cp.async in a
-// ring of kStages buffers, kStages - 1 steps ahead.
-template <bool kBwd>
-__global__ void __launch_bounds__(kThreads, 1)
-conv_mma_kernel(const bf16* __restrict__ act, const bf16* __restrict__ wb,
-                const bf16* __restrict__ ex, const float* __restrict__ esc,
-                const float* __restrict__ esh, bf16* __restrict__ out,
-                float* __restrict__ partial, int H, int W, int C, int N,
-                long long P) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  auto As = reinterpret_cast<bf16 (*)[kBM][kPadK]>(smem);
-  auto Bs = reinterpret_cast<bf16 (*)[kBN][kPadK]>(smem + kConvStageA * kStages);
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int wm = warp & 3, wn = warp >> 2;
-  const long long m0 = static_cast<long long>(blockIdx.x) * kBM;
-  const int n0 = blockIdx.y * kBN;
-  const int kv = tid % kKV;  // this thread's 8-channel group of a K step
-  const int row0 = tid / kKV;
-
-  // The A rows this thread copies are row0 + kRS i, at a_row0 + kRS C i
-  // in act; bit t of a_taps[i] says that tap t of row i's pixel lies inside
-  // the image (none for a row past the last pixel). The B rows are row0 +
-  // kRS j < b_rows, at b_row0 + kRS C j in a tap's [N, C] slab of wb.
-  const bf16* a_row0 = act + (m0 + row0) * C + kv * kVec;
-  unsigned a_taps[kAV];
-#pragma unroll
-  for (int i = 0; i < kAV; ++i) {
-    const long long p = m0 + row0 + i * kRS;
-    const int w = static_cast<int>(p % W), h = static_cast<int>((p / W) % H);
-    unsigned taps = 0;
-#pragma unroll
-    for (int t = 0; t < 9; ++t) {
-      const int hh = h + t / 3 - 1, ww = w + t % 3 - 1;
-      if (hh >= 0 && hh < H && ww >= 0 && ww < W) taps |= 1u << t;
-    }
-    a_taps[i] = p < P ? taps : 0u;
-  }
-  const bf16* b_row0 = wb + static_cast<long long>(n0 + row0) * C + kv * kVec;
-  const int b_rows = (N - n0 - row0 + kRS - 1) / kRS;
-  const long long row_step = static_cast<long long>(kRS) * C;
-  const int steps = 9 * ((C + kBK - 1) / kBK);
-
-  auto load = [&](int s, int stage) {
-    const int chunk = s / 9, tap = s - chunk * 9;
-    const int c0 = chunk * kBK;
-    const bool c_ok = c0 + kv * kVec < C;
-    const long long a_off = static_cast<long long>((tap / 3 - 1) * W + tap % 3 - 1) * C + c0;
-#pragma unroll
-    for (int i = 0; i < kAV; ++i) {
-      const bool ok = c_ok && (a_taps[i] >> tap & 1u);
-      cp_async16(&As[stage][row0 + i * kRS][kv * kVec],
-                 ok ? a_row0 + i * row_step + a_off : act, ok);
-    }
-    const long long b_off = static_cast<long long>(tap) * N * C + c0;
-#pragma unroll
-    for (int j = 0; j < kBV; ++j) {
-      const bool okb = c_ok && j < b_rows;
-      cp_async16(&Bs[stage][row0 + kRS * j][kv * kVec],
-                 okb ? b_row0 + j * row_step + b_off : wb, okb);
-    }
-  };
-
-  float acc[2][kNT][4];
-#pragma unroll
-  for (int a = 0; a < 2; ++a)
-#pragma unroll
-    for (int b = 0; b < kNT; ++b)
-#pragma unroll
-      for (int c = 0; c < 4; ++c) acc[a][b][c] = 0.f;
-
-#pragma unroll
-  for (int st = 0; st < kStages - 1; ++st) {
-    if (st < steps) load(st, st);
-    cp_async_commit();
-  }
-  for (int s = 0; s < steps; ++s) {
-    const int stage = s % kStages;
-    cp_async_wait<kStages - 3>();  // steps s and s + 1 have landed
-    __syncthreads();
-    const int next = s + kStages - 1;
-    if (next < steps) load(next, next % kStages);
-    cp_async_commit();
-    mma_tile_rows(acc, As[stage], Bs[stage], wm, wn, lane);
-  }
-
-  // Accumulator (m16n8) layout: c0, c1 at row g, columns 2t, 2t + 1;
-  // c2, c3 at row g + 8.
-  const int g = lane >> 2, t = lane & 3;
-  float ds[kNT][2], dt[kNT][2];
-#pragma unroll
-  for (int nt = 0; nt < kNT; ++nt) ds[nt][0] = ds[nt][1] = dt[nt][0] = dt[nt][1] = 0.f;
-#pragma unroll
-  for (int mt = 0; mt < 2; ++mt)
-#pragma unroll
-    for (int nt = 0; nt < kNT; ++nt) {
-      const int col = n0 + wn * kWN + nt * 8 + 2 * t;
-#pragma unroll
-      for (int half = 0; half < 2; ++half) {
-        const long long row = m0 + wm * 32 + mt * 16 + g + half * 8;
-        if (row < P && col < N) {
-          epilogue_pair<bf16, kBwd>(acc[mt][nt][2 * half], acc[mt][nt][2 * half + 1],
-                                    row * N + col, col, ex, esc, esh, out,
-                                    ds[nt], dt[nt]);
-        }
-      }
-    }
-  if (kBwd) {
-    __shared__ float red[2][4][kBN];
-#pragma unroll
-    for (int nt = 0; nt < kNT; ++nt)
-#pragma unroll
-      for (int j = 0; j < 2; ++j) {
-        float s = ds[nt][j], d = dt[nt][j];
-#pragma unroll
-        for (int off = 4; off < 32; off <<= 1) {  // over g, a fixed butterfly
-          s += __shfl_xor_sync(0xffffffffu, s, off);
-          d += __shfl_xor_sync(0xffffffffu, d, off);
-        }
-        if (g == 0) {
-          red[0][wm][wn * kWN + nt * 8 + 2 * t + j] = s;
-          red[1][wm][wn * kWN + nt * 8 + 2 * t + j] = d;
-        }
-      }
-    __syncthreads();
-    if (tid < kBN && n0 + tid < N) {
-      float* row = partial + static_cast<size_t>(blockIdx.x) * 2 * N;
-      row[n0 + tid] = ((red[0][0][tid] + red[0][1][tid]) + red[0][2][tid]) + red[0][3][tid];
-      row[N + n0 + tid] = ((red[1][0][tid] + red[1][1][tid]) + red[1][2][tid]) + red[1][3][tid];
-    }
-  }
-}
-
-// --- K4f, bf16: wgmma fed by TMA --------------------------------------------
-// A persistent block per SM walks output tiles of 256 pixels (TH image
-// rows x TW columns of one image, TH * TW = 256) x 96 output channels, the
-// channels innermost so that neighbouring blocks share the input tile in
-// L2. Warpgroup 2 loads and normalises (its first thread issues TMA, its
-// warps 1-3 run the prologue); warpgroups 0 and 1 multiply, each owning
-// 128 of the tile's pixels as two m64 halves (224 registers; 56 for
-// warpgroup 2). Per 64-channel chunk of the input the loader brings the
-// tile's halo ((TH + 2) x (TW + 2) pixels x 64 channels, one TMA box,
-// out-of-bounds pixels and channels zero-filled) into one of two halo
-// buffers, then the chunk's nine taps of the weights ([96 co][64 ci] boxes)
-// into a ring of seven stages. The prologue warps apply x * scale + shift,
-// the bf16 cast and the ReLU once to each halo pixel inside the image (the
-// zero pad stays zero) while the multipliers still work on the chunk
-// before. The multipliers then, for each tap, load every warp's A
-// fragments from the halo shifted by the tap with ldmatrix (while the
-// previous tap's products run) and issue wgmma m64n96k16 with A from
-// registers and the tap's weights as B from shared memory. A one-pixel
-// shift is no multiple of a core matrix's 8 rows, so a shared-memory
-// descriptor cannot address a tap's window of a swizzled tile; ldmatrix
-// takes one address a row and can. Accumulators float32, cast once.
+// --- K4f and K4d, bf16: wgmma fed by TMA ------------------------------------
+// A persistent block per SM walks output tiles of 256 pixels (TH image rows x
+// TW columns of one image, TH * TW = 256) x 96 output channels, the channels
+// innermost so that neighbouring blocks share the input tile in L2. Warpgroup 2
+// loads and normalises (its first thread issues TMA, its warps 1-3 run the
+// prologue); warpgroups 0 and 1 multiply, each owning 128 of the tile's pixels
+// as two m64 halves (224 registers; 56 for warpgroup 2, or 232 and 40 without
+// the prologue). Per 64-channel chunk of the input the loader brings the tile's
+// halo ((TH + 2) x (TW + 2) pixels x 64 channels, one TMA box, out-of-bounds
+// pixels and channels zero-filled) into one of two halo buffers, then the
+// chunk's nine taps of the weights ([96 co][64 ci] boxes) into a ring of seven
+// stages. The prologue warps apply x * scale + shift, the bf16 cast and the
+// ReLU once to each halo pixel inside the image (the zero pad stays zero) while
+// the multipliers still work on the chunk before. The multipliers then, for
+// each tap, load every warp's A fragments from the halo shifted by the tap with
+// ldmatrix (while the previous tap's products run) and issue wgmma m64n96k16
+// with A from registers and the tap's weights as B from shared memory. A
+// one-pixel shift is no multiple of a core matrix's 8 rows, so a shared-memory
+// descriptor cannot address a tap's window of a swizzled tile; ldmatrix takes
+// one address a row and can. Accumulators float32, cast once.
+// K4d (conv_dgrad_wgmma) runs the same body over g with the rotated
+// kernel, and with the mask its epilogue reads x at each output pixel,
+// writes dx = T(da' * scale) and sums da' * x and da' per column: over a
+// thread's four pixels, over the warp by a fixed butterfly, then over the
+// eight consumer warps in order through shared memory, one partial row per
+// pixel tile (its channel tiles write disjoint columns of the row).
 constexpr int kFwdThreads = 384;
 constexpr int kFwdWarps = 8;                       // consumer warps
 constexpr int kTilePx = 256;                       // output pixels a tile
@@ -403,6 +197,8 @@ constexpr int kPrologueThreads = 32 * kPrologueWarps;
 constexpr size_t kFwdSmem = hopper::kSwizzleAlign + 2 * static_cast<size_t>(kHaloBytes) +
                             kWStages * static_cast<size_t>(kWStage) +
                             sizeof(uint64_t) * (6 + 2 * kWStages);
+// K4d's per-warp column sums of da' * x and da': [2][consumer warp][column]
+constexpr size_t kRedBytes = sizeof(float) * 2 * kFwdWarps * kTileCo;
 
 // The prologue over one halo buffer of halo_px pixels, halo_w a row: x *
 // scale + shift, bf16, ReLU, once per pixel inside the image (halo rows
@@ -470,11 +266,27 @@ __device__ __forceinline__ void tile_origin(const ConvTiles& g, Index t, int& b,
   b = static_cast<int>(t / g.tiles_h);
 }
 
-template <bool kPro>
-__global__ void __launch_bounds__(kFwdThreads, 1)
-conv_fwd_wgmma(const __grid_constant__ CUtensorMap tx, const __grid_constant__ CUtensorMap tw,
-               const float* __restrict__ psc, const float* __restrict__ psh,
-               bf16* __restrict__ out, int H, int W, int C, int N, ConvTiles g) {
+// K4d's epilogue inputs: the forward's raw x [P, N], the folded BN terms
+// [N], and the partial sums [pixel tiles, 2 N] (dscale's columns, then
+// dshift's).
+struct DgradEpilogue {
+  const bf16* x;
+  const float* scale;
+  const float* shift;
+  float* partial;
+};
+
+// The body of K4f (kPro: the prologue on the halo) and K4d (kBwd: the dgrad
+// epilogue). tx maps the activation read (x, or g), tw the weights.
+template <bool kPro, bool kBwd>
+__device__ __forceinline__ void
+conv_wgmma(const CUtensorMap* tx, const CUtensorMap* tw, const float* __restrict__ psc,
+           const float* __restrict__ psh, bf16* __restrict__ out, int H, int W, int C, int N,
+           const ConvTiles& g, const DgradEpilogue& e) {
+  // registers a thread: the prologue warps take 56; without them the
+  // producer keeps 40 and the consumers take 232 (K4d's x in registers)
+  constexpr int kLoaderRegs = kPro ? 56 : 40;
+  constexpr int kConsumerRegs = kPro ? 224 : 232;
   extern __shared__ unsigned char smem_raw[];
   unsigned char* halo = hopper::align_swizzle(smem_raw);
   unsigned char* wring = halo + 2 * kHaloBytes;
@@ -483,6 +295,8 @@ conv_fwd_wgmma(const __grid_constant__ CUtensorMap tx, const __grid_constant__ C
   uint64_t* halo_empty = halo_ready + 2;
   uint64_t* w_full = halo_empty + 2;
   uint64_t* w_empty = w_full + kWStages;
+  float (*red)[kFwdWarps][kTileCo] =
+      reinterpret_cast<float (*)[kFwdWarps][kTileCo]>(w_empty + kWStages);
   const int tid = threadIdx.x, wg = tid >> 7, lane = tid & 31;
   const int chunks = (C + kChunk - 1) / kChunk;
   const int halo_w = g.tw + 2;
@@ -502,7 +316,7 @@ conv_fwd_wgmma(const __grid_constant__ CUtensorMap tx, const __grid_constant__ C
   __syncthreads();
 
   if (wg == 2) {
-    hopper::setmaxnreg_dec<56>();
+    hopper::setmaxnreg_dec<kLoaderRegs>();
     const int pt = tid - 2 * 128 - 32;  // the prologue threads: warps 1-3 of this group
     if (tid == 2 * 128) {
       // TMA: per tile and chunk, the chunk's nine taps, with the next
@@ -515,7 +329,7 @@ conv_fwd_wgmma(const __grid_constant__ CUtensorMap tx, const __grid_constant__ C
         tile_origin(g, t, b, h0, w0, n0);
         hopper::mbar_wait(&halo_empty[hr.slot], hr.phase ^ 1u);
         hopper::mbar_expect_tx(&halo_full[hr.slot], halo_px * hopper::kSwizzleBytes);
-        hopper::tma_load_4d(halo + hr.slot * kHaloBytes, &tx, &halo_full[hr.slot],
+        hopper::tma_load_4d(halo + hr.slot * kHaloBytes, tx, &halo_full[hr.slot],
                             c * kChunk, w0 - 1, h0 - 1, b);
         hr.next();
       };
@@ -527,7 +341,7 @@ conv_fwd_wgmma(const __grid_constant__ CUtensorMap tx, const __grid_constant__ C
           for (int tap = 0; tap < 9; ++tap) {
             hopper::mbar_wait(&w_empty[wr.slot], wr.phase ^ 1u);
             hopper::mbar_expect_tx(&w_full[wr.slot], kWStage);
-            hopper::tma_load_3d(wring + wr.slot * kWStage, &tw, &w_full[wr.slot], c * kChunk,
+            hopper::tma_load_3d(wring + wr.slot * kWStage, tw, &w_full[wr.slot], c * kChunk,
                                 n0, tap);
             wr.next();
             if (tap == 2) {
@@ -570,7 +384,7 @@ conv_fwd_wgmma(const __grid_constant__ CUtensorMap tx, const __grid_constant__ C
       }
     }
   } else {
-    hopper::setmaxnreg_inc<224>();
+    hopper::setmaxnreg_inc<kConsumerRegs>();
     const int warp = (tid >> 5) & 3;
     // the tile pixel (its row, column) whose address this lane gives
     // ldmatrix in each m64 half
@@ -588,6 +402,18 @@ conv_fwd_wgmma(const __grid_constant__ CUtensorMap tx, const __grid_constant__ C
     for (long long t = blockIdx.x; t < g.count; t += gridDim.x) {
       int b, h0, w0, n0;
       tile_origin(g, t, b, h0, w0, n0);
+      if (kBwd) {
+        // x of the tile's pixels into L2 for the epilogue: consumer thread
+        // p the 96 channels (192 bytes) of pixel p
+        const int gh = h0 + tid / g.tw, gw = w0 + tid % g.tw;
+        if (gh < H && gw < W) {
+          const bf16* px = e.x + ((static_cast<long long>(b) * H + gh) * W + gw) * N + n0;
+          const int last = (N - n0 < kTileCo ? N - n0 : kTileCo) - 1;
+          prefetch_l2(px);
+          prefetch_l2(px + (last < 64 ? last : 64));
+          prefetch_l2(px + last);
+        }
+      }
       float acc[2][kTileCo / 2];
 #pragma unroll
       for (int mt = 0; mt < 2; ++mt) {
@@ -644,27 +470,116 @@ conv_fwd_wgmma(const __grid_constant__ CUtensorMap tx, const __grid_constant__ C
       }
 #pragma unroll
       for (int mt = 0; mt < 2; ++mt) hopper::fence_regs(acc[mt]);
-      // epilogue: T(acc); accumulator row g (e < 2) or g + 8 of each warp,
-      // columns 8 nt + 2 t and + 1
+      // epilogue: accumulator row g (e < 2) or g + 8 of each warp, columns
+      // 8 nt + 2 t and + 1
       const int gq = lane >> 2, t4 = lane & 3;
+      if (kBwd) {
+        // this thread's four pixels (their index in the batch, or -1 past
+        // the image's last row or column: they write and add nothing) and
+        // their x at the thread's 24 columns, every load issued before any
+        // is used (the tile's x was prefetched into L2)
+        int px[2][2];
+        uint32_t xr[2][2][kTileCo / 8];
 #pragma unroll
-      for (int mt = 0; mt < 2; ++mt)
+        for (int mt = 0; mt < 2; ++mt)
 #pragma unroll
-        for (int half = 0; half < 2; ++half) {
-          const int p = wg * 128 + mt * 64 + warp * kWarpRowsFwd + gq + half * 8;
-          const int gh = h0 + p / g.tw, gw = w0 + p % g.tw;
-          if (gh >= H || gw >= W) continue;
-          bf16* row = out + ((static_cast<long long>(b) * H + gh) * W + gw) * N;
+          for (int half = 0; half < 2; ++half) {
+            const int p = wg * 128 + mt * 64 + warp * kWarpRowsFwd + gq + half * 8;
+            const int gh = h0 + p / g.tw, gw = w0 + p % g.tw;
+            px[mt][half] = gh < H && gw < W ? (b * H + gh) * W + gw : -1;
+            const bf16* xrow = e.x + static_cast<long long>(px[mt][half]) * N;
 #pragma unroll
-          for (int nt = 0; nt < kTileCo / 8; ++nt) {
-            const int col = n0 + nt * 8 + 2 * t4;
-            if (col < N) {
-              store2(row + col, acc[mt][4 * nt + 2 * half], acc[mt][4 * nt + 2 * half + 1]);
+            for (int nt = 0; nt < kTileCo / 8; ++nt) {
+              const int col = n0 + nt * 8 + 2 * t4;
+              xr[mt][half][nt] = px[mt][half] >= 0 && col < N
+                                     ? *reinterpret_cast<const uint32_t*>(xrow + col)
+                                     : 0u;
+            }
+          }
+        const int cw = wg * 4 + warp;  // consumer warp 0-7
+        hopper::named_barrier_sync(1, 32 * kFwdWarps);  // the last tile's sums are read
+#pragma unroll
+        for (int nt = 0; nt < kTileCo / 8; ++nt) {
+          const int col = n0 + nt * 8 + 2 * t4;
+          float ds[2] = {0.f, 0.f}, dt[2] = {0.f, 0.f};
+          if (col < N) {
+            const float2 sc = make_float2(e.scale[col], e.scale[col + 1]);
+            const float2 sh = make_float2(e.shift[col], e.shift[col + 1]);
+#pragma unroll
+            for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+              for (int half = 0; half < 2; ++half) {
+                if (px[mt][half] >= 0) {
+                  float v0 = acc[mt][4 * nt + 2 * half], v1 = acc[mt][4 * nt + 2 * half + 1];
+                  dgrad_pair(v0, v1,
+                             __bfloat1622float2(
+                                 *reinterpret_cast<const __nv_bfloat162*>(&xr[mt][half][nt])),
+                             sc.x, sc.y, sh.x, sh.y, ds, dt);
+                  store2(out + static_cast<long long>(px[mt][half]) * N + col, v0, v1);
+                }
+              }
+          }
+#pragma unroll
+          for (int j = 0; j < 2; ++j) {
+#pragma unroll
+            for (int off = 4; off < 32; off <<= 1) {  // over g, a fixed butterfly
+              ds[j] += __shfl_xor_sync(0xffffffffu, ds[j], off);
+              dt[j] += __shfl_xor_sync(0xffffffffu, dt[j], off);
+            }
+            if (gq == 0) {
+              red[0][cw][nt * 8 + 2 * t4 + j] = ds[j];
+              red[1][cw][nt * 8 + 2 * t4 + j] = dt[j];
             }
           }
         }
+        hopper::named_barrier_sync(1, 32 * kFwdWarps);  // every warp's sums are in
+        if (tid < 2 * kTileCo) {
+          const int which = tid / kTileCo, col = tid % kTileCo;
+          if (n0 + col < N) {
+            float v = 0.f;
+#pragma unroll
+            for (int w = 0; w < kFwdWarps; ++w) v += red[which][w][col];
+            e.partial[(t / g.tiles_n) * 2 * N + which * N + n0 + col] = v;
+          }
+        }
+      } else {
+#pragma unroll
+        for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+          for (int half = 0; half < 2; ++half) {
+            const int p = wg * 128 + mt * 64 + warp * kWarpRowsFwd + gq + half * 8;
+            const int gh = h0 + p / g.tw, gw = w0 + p % g.tw;
+            if (gh >= H || gw >= W) continue;
+            bf16* row = out + ((static_cast<long long>(b) * H + gh) * W + gw) * N;
+#pragma unroll
+            for (int nt = 0; nt < kTileCo / 8; ++nt) {
+              const int col = n0 + nt * 8 + 2 * t4;
+              if (col < N) {
+                store2(row + col, acc[mt][4 * nt + 2 * half], acc[mt][4 * nt + 2 * half + 1]);
+              }
+            }
+          }
+      }
     }
   }
+}
+
+template <bool kPro>
+__global__ void __launch_bounds__(kFwdThreads, 1)
+conv_fwd_wgmma(const __grid_constant__ CUtensorMap tx, const __grid_constant__ CUtensorMap tw,
+               const float* __restrict__ psc, const float* __restrict__ psh,
+               bf16* __restrict__ out, int H, int W, int C, int N, ConvTiles g) {
+  conv_wgmma<kPro, false>(&tx, &tw, psc, psh, out, H, W, C, N, g, DgradEpilogue{});
+}
+
+// K4d: tg maps g (C = Cout channels), tw the rotated kernel [9, Cin, Cout];
+// dx [P, N = Cin]. kMask: the prologue's backward in the epilogue.
+template <bool kMask>
+__global__ void __launch_bounds__(kFwdThreads, 1)
+conv_dgrad_wgmma(const __grid_constant__ CUtensorMap tg, const __grid_constant__ CUtensorMap tw,
+                 bf16* __restrict__ dx, int H, int W, int C, int N, ConvTiles g,
+                 DgradEpilogue e) {
+  conv_wgmma<false, kMask>(&tg, &tw, nullptr, nullptr, dx, H, W, C, N, g, e);
 }
 
 // --- K4w, bf16: wgmma fed by TMA --------------------------------------------
@@ -940,8 +855,8 @@ conv_f32_kernel(const float* __restrict__ act, const float* __restrict__ wb,
     for (int j = 0; j < 2; ++j) {
       const int col = n0 + tx * 4 + 2 * j;
       if (row < P && col < N) {
-        epilogue_pair<float, kBwd>(acc[i][2 * j], acc[i][2 * j + 1], row * N + col, col,
-                                   ex, esc, esh, out, ds[j], dt[j]);
+        epilogue_pair<kBwd>(acc[i][2 * j], acc[i][2 * j + 1], row * N + col, col, ex, esc,
+                            esh, out, ds[j], dt[j]);
       }
     }
   }
@@ -1098,35 +1013,27 @@ cudaError_t allow_smem(Kernel kernel, size_t bytes) {
                               static_cast<int>(bytes));
 }
 
-template <typename T>
-cudaError_t launch_conv(const void* act, const void* wb, const float* psc,
-                        const float* psh, const void* ex, const float* esc,
-                        const float* esh, void* out, float* partial, int B,
-                        int H, int W, int C, int N, bool pro, bool bwd,
-                        cudaStream_t s) {
+// The float32 FFMA kernel: K4f (pro), K4d (bwd: the dgrad epilogue over
+// ex/esc/esh into partial, one row per 64-pixel block) or the bare conv.
+cudaError_t launch_conv_f32(const void* act, const void* wb, const float* psc,
+                            const float* psh, const void* ex, const float* esc,
+                            const float* esh, void* out, float* partial, int B, int H, int W,
+                            int C, int N, bool pro, bool bwd, cudaStream_t s) {
   const long long P = static_cast<long long>(B) * H * W;
-  const T* a = static_cast<const T*>(act);
-  const T* w = static_cast<const T*>(wb);
-  const T* e = static_cast<const T*>(ex);
-  T* o = static_cast<T*>(out);
-  if constexpr (sizeof(T) == 2) {
-    const dim3 grid(static_cast<unsigned>((P + kBM - 1) / kBM), (N + kBN - 1) / kBN);
-    auto kernel = bwd ? conv_mma_kernel<true> : conv_mma_kernel<false>;
-    const cudaError_t err = allow_smem(kernel, kConvSmem);
-    if (err != cudaSuccess) return err;
-    kernel<<<grid, kThreads, kConvSmem, s>>>(a, w, e, esc, esh, o, partial, H, W, C, N, P);
+  const float* a = static_cast<const float*>(act);
+  const float* w = static_cast<const float*>(wb);
+  const float* e = static_cast<const float*>(ex);
+  float* o = static_cast<float*>(out);
+  const dim3 grid(static_cast<unsigned>((P + kFM - 1) / kFM), (N + kFN - 1) / kFN);
+  if (pro) {
+    conv_f32_kernel<true, false><<<grid, kThreads, 0, s>>>(a, w, psc, psh, e, esc, esh, o,
+                                                           partial, H, W, C, N, P);
+  } else if (bwd) {
+    conv_f32_kernel<false, true><<<grid, kThreads, 0, s>>>(a, w, psc, psh, e, esc, esh, o,
+                                                           partial, H, W, C, N, P);
   } else {
-    const dim3 grid(static_cast<unsigned>((P + kFM - 1) / kFM), (N + kFN - 1) / kFN);
-    if (pro) {
-      conv_f32_kernel<true, false><<<grid, kThreads, 0, s>>>(a, w, psc, psh, e, esc, esh, o,
-                                                             partial, H, W, C, N, P);
-    } else if (bwd) {
-      conv_f32_kernel<false, true><<<grid, kThreads, 0, s>>>(a, w, psc, psh, e, esc, esh, o,
-                                                             partial, H, W, C, N, P);
-    } else {
-      conv_f32_kernel<false, false><<<grid, kThreads, 0, s>>>(a, w, psc, psh, e, esc, esh, o,
-                                                              partial, H, W, C, N, P);
-    }
+    conv_f32_kernel<false, false><<<grid, kThreads, 0, s>>>(a, w, psc, psh, e, esc, esh, o,
+                                                            partial, H, W, C, N, P);
   }
   return cudaGetLastError();
 }
@@ -1165,29 +1072,40 @@ bool image_map(CUtensorMap* map, const void* base, int B, int H, int W, int C, i
   return hopper::make_map(map, base, 4, dims, strides, box);
 }
 
-// K4f in bf16: a 4-D tensor map of x (C, W, H, B) with a box of the
-// tile's halo, a 3-D one of wb (Cin, Cout, 9) with [96][64] boxes; a grid of
-// at most one block per SM walks the tiles.
-cudaError_t launch_conv_fwd(const void* x, const void* wb, const float* sc, const float* sh,
-                            void* y, int B, int H, int W, int C, int N, bool pro,
-                            cudaStream_t s) {
+// K4f and K4d in bf16: a 4-D tensor map of the activation read (x, or g;
+// C, W, H, B) with a box of the tile's halo, a 3-D one of wb (C, N, 9)
+// with [96][64] boxes; a grid of at most one block per SM walks the tiles.
+// pro: K4f applies the prologue to x; K4d (dgrad) its backward in the
+// epilogue, over e.
+cudaError_t launch_conv_wgmma(const void* act, const void* wb, const float* sc,
+                              const float* sh, void* out, int B, int H, int W, int C, int N,
+                              bool pro, bool dgrad, const DgradEpilogue& e, cudaStream_t s) {
   const ConvTiles g = pixel_tiles(B, H, W, (N + kTileCo - 1) / kTileCo);
-  CUtensorMap mx, mw;
-  const size_t e = sizeof(bf16);
+  CUtensorMap ma, mw;
+  const size_t es = sizeof(bf16);
   const uint64_t wdims[3] = {static_cast<uint64_t>(C), static_cast<uint64_t>(N), 9};
-  const uint64_t wstrides[2] = {C * e, static_cast<uint64_t>(N) * C * e};
+  const uint64_t wstrides[2] = {C * es, static_cast<uint64_t>(N) * C * es};
   const uint32_t wbox[3] = {kChunk, kTileCo, 1};
-  if (!image_map(&mx, x, B, H, W, C, g.tw + 2, g.th + 2) ||
+  if (!image_map(&ma, act, B, H, W, C, g.tw + 2, g.th + 2) ||
       !hopper::make_map(&mw, wb, 3, wdims, wstrides, wbox)) {
     return cudaErrorInvalidValue;
   }
   const int sms = sm_count();
   const unsigned grid = static_cast<unsigned>(g.count < sms ? g.count : sms);
-  auto kernel = pro ? conv_fwd_wgmma<true> : conv_fwd_wgmma<false>;
-  const cudaError_t err = allow_smem(kernel, kFwdSmem);
-  if (err != cudaSuccess) return err;
-  kernel<<<grid, kFwdThreads, kFwdSmem, s>>>(mx, mw, sc, sh, static_cast<bf16*>(y), H, W, C,
-                                             N, g);
+  bf16* o = static_cast<bf16*>(out);
+  cudaError_t err;
+  if (dgrad) {
+    const size_t smem = kFwdSmem + (pro ? kRedBytes : 0);
+    auto kernel = pro ? conv_dgrad_wgmma<true> : conv_dgrad_wgmma<false>;
+    err = allow_smem(kernel, smem);
+    if (err != cudaSuccess) return err;
+    kernel<<<grid, kFwdThreads, smem, s>>>(ma, mw, o, H, W, C, N, g, e);
+  } else {
+    auto kernel = pro ? conv_fwd_wgmma<true> : conv_fwd_wgmma<false>;
+    err = allow_smem(kernel, kFwdSmem);
+    if (err != cudaSuccess) return err;
+    kernel<<<grid, kFwdThreads, kFwdSmem, s>>>(ma, mw, sc, sh, o, H, W, C, N, g);
+  }
   return cudaGetLastError();
 }
 
@@ -1255,9 +1173,10 @@ cudaError_t launch_wgrad_f32(const void* x, const void* g, const float* sc, cons
   return add_splits(partial, splits, Cin, Cout, dk, s);
 }
 
+// Pixels are counted in int (K4d's epilogue), so B * H * W < 2^31.
 bool bad_shape(int B, int H, int W, int Cin, int Cout) {
   return B <= 0 || H <= 0 || W <= 0 || Cin <= 0 || Cout <= 0 || Cin % kVec ||
-         Cout % kVec;
+         Cout % kVec || static_cast<long long>(B) * H * W > 0x7fffffffLL;
 }
 
 // K4w's split-K: at least two waves of blocks (one block an SM), the count
@@ -1269,16 +1188,17 @@ constexpr int kMaxSplits = 64;
 
 }  // namespace
 
-// Pixel tiles of K4d, one partial row each.
-static long long dgrad_blocks(long long P, int dtype) {
-  const int bm = dtype == stem::kBFloat16 ? kBM : kFM;
-  return (P + bm - 1) / bm;
+// Pixel tiles of K4d, one partial row each: K4f's tiles in bf16, 64-pixel
+// blocks in float32.
+static long long dgrad_tiles(int B, int H, int W, int dtype) {
+  if (dtype == stem::kBFloat16) return pixel_tiles(B, H, W, 1).count;
+  return (static_cast<long long>(B) * H * W + kFM - 1) / kFM;
 }
 
 // Rows of the [rows, 2 * Cin] float32 scratch htrvt_conv3x3_dgrad needs:
 // one per pixel tile, and kGroups for the first pass over them.
-extern "C" long long htrvt_conv3x3_dgrad_rows(long long P, int dtype) {
-  return dgrad_blocks(P, dtype) + kGroups;
+extern "C" long long htrvt_conv3x3_dgrad_rows(int B, int H, int W, int dtype) {
+  return dgrad_tiles(B, H, W, dtype) + kGroups;
 }
 
 // The number of pixel splits htrvt_conv3x3_wgrad is to be given.
@@ -1327,9 +1247,10 @@ extern "C" int htrvt_conv3x3_fwd(const void* x, const void* wb, const void* scal
   const float* sh = static_cast<const float*>(shift);
   const cudaError_t err =
       dtype == stem::kBFloat16
-          ? launch_conv_fwd(x, wb, sc, sh, y, B, H, W, Cin, Cout, prologue != 0, s)
-          : launch_conv<float>(x, wb, sc, sh, nullptr, nullptr, nullptr, y, nullptr, B, H,
-                               W, Cin, Cout, prologue != 0, false, s);
+          ? launch_conv_wgmma(x, wb, sc, sh, y, B, H, W, Cin, Cout, prologue != 0, false,
+                              DgradEpilogue{}, s)
+          : launch_conv_f32(x, wb, sc, sh, nullptr, nullptr, nullptr, y, nullptr, B, H, W,
+                            Cin, Cout, prologue != 0, false, s);
   return static_cast<int>(err);
 }
 
@@ -1337,8 +1258,8 @@ extern "C" int htrvt_conv3x3_fwd(const void* x, const void* wb, const void* scal
 // k[co, ci, 2 - dh, 2 - dw] (the rotated kernel); x [B, H, W, Cin] (the
 // forward's raw input) and scale, shift [Cin], read only when prologue !=
 // 0; dx [B, H, W, Cin] out; with the prologue dscale, dshift [Cin] float32
-// out through partial, a float32 scratch of htrvt_conv3x3_dgrad_rows(B*H*W)
-// x 2 * Cin. Returns cudaGetLastError().
+// out through partial, a float32 scratch of htrvt_conv3x3_dgrad_rows(B, H,
+// W, dtype) x 2 * Cin. Returns cudaGetLastError().
 extern "C" int htrvt_conv3x3_dgrad(const void* g, const void* wb, const void* x,
                                    const void* scale, const void* shift, void* dx,
                                    void* dscale, void* dshift, void* partial, int B,
@@ -1352,12 +1273,12 @@ extern "C" int htrvt_conv3x3_dgrad(const void* g, const void* wb, const void* x,
   const bool pro = prologue != 0;
   cudaError_t err =
       dtype == stem::kBFloat16
-          ? launch_conv<bf16>(g, wb, nullptr, nullptr, x, sc, sh, dx, part, B, H, W, Cout,
-                              Cin, false, pro, s)
-          : launch_conv<float>(g, wb, nullptr, nullptr, x, sc, sh, dx, part, B, H, W, Cout,
-                               Cin, false, pro, s);
+          ? launch_conv_wgmma(g, wb, nullptr, nullptr, dx, B, H, W, Cout, Cin, pro, true,
+                              DgradEpilogue{static_cast<const bf16*>(x), sc, sh, part}, s)
+          : launch_conv_f32(g, wb, nullptr, nullptr, x, sc, sh, dx, part, B, H, W, Cout, Cin,
+                            false, pro, s);
   if (err != cudaSuccess || !pro) return static_cast<int>(err);
-  const int rows = static_cast<int>(dgrad_blocks(static_cast<long long>(B) * H * W, dtype));
+  const int rows = static_cast<int>(dgrad_tiles(B, H, W, dtype));
   const float* last = part;
   int last_rows = rows;
   if (rows > kGroups) {

@@ -71,15 +71,16 @@
 // compute the transposed tiles s^T = k q^T and dp^T = v do^T (wgmma from
 // shared memory), so that p^T and ds^T, packed to bf16 in registers, are
 // the A operands of dv += p^T do and dk += ds^T q (do and q as MN-major B).
-// K5dq, bf16: one block of 8 warps per (b, h, 128 queries) walks the keys;
-// each warp owns 16 of the 128 rows. Tiles arrive in shared memory by
-// cp.async (row pitch D + 8 bf16: ldmatrix without bank conflicts); the
-// products run on mma.sync m16n8k16 (float32 accumulate) from ldmatrix
-// fragments, and a score tile's accumulator fragment is the next product's
-// A fragment once packed to bf16, so nothing of size [N, N] leaves the
-// chip. At D = 256 a block of either makes one 128-column slice of its
-// output (gridDim.z = D / 128), recomputing the scores over the whole of D;
-// K5dq then loads 64 keys at a time to stay within shared memory.
+// K5dq, bf16: K5dkv with the roles of queries and keys swapped
+// (flash_dq_wgmma below). A block owns 128 queries of one (b, h): the
+// producer loads q and do once and k and v for each 64-key step into a
+// ring; two consumer warpgroups own 64 queries each, compute s = q k^T and
+// dp = do v^T (wgmma from shared memory), form p and ds on the accumulator
+// fragments with each query row's statistics held in registers, and
+// multiply T(ds), packed in registers, by k as an MN-major B into dq.
+// Nothing of size [N, N] leaves the chip. At D = 256 a block of either
+// makes one 128-column slice of its output (gridDim.z = D / 128),
+// recomputing the scores over the whole of D.
 // float32 (every kernel) runs a 128 x 128 FFMA tile (8 x 8 outputs a
 // thread) with the probabilities in shared memory (no TF32), one
 // 128-column slice of the output a block, the scores recomputed for each.
@@ -98,31 +99,13 @@ using bf16 = __nv_bfloat16;
 enum DType : int { kFloat32 = 0, kBFloat16 = 1 };
 
 constexpr int kBlock = 128;      // queries or keys a block owns; the library's blocks
-constexpr int kThreads = 256;    // 8 warps (K5dq, float32)
+constexpr int kThreads = 256;    // 8 warps (float32)
 constexpr int kWarpRows = 16;    // a warp's rows: one m16 tile
 constexpr int kDO = 128;         // output columns a backward / float32 block makes
 constexpr int kSub = 64;         // K5dkv's queries, K5dq's keys, per step
 constexpr int kFP = 129;         // float32 row pitch in shared memory
 constexpr int kFK = 32;          // float32 staging chunk
 
-// bf16 row pitch in shared memory: ldmatrix without bank conflicts
-template <int D>
-__host__ __device__ constexpr int pitch() {
-  return D + 8;
-}
-template <int D>
-__host__ __device__ constexpr size_t rows_bytes(int rows) {
-  return sizeof(bf16) * rows * pitch<D>();
-}
-// keys a K5dq load brings: 64 at D = 256, to stay within shared memory
-template <int D>
-__host__ __device__ constexpr int dq_keys() {
-  return D == 128 ? kBlock : kSub;
-}
-template <int D>
-__host__ __device__ constexpr size_t dq_smem() {  // q, do; k, v
-  return 2 * rows_bytes<D>(kBlock) + 2 * rows_bytes<D>(dq_keys<D>());
-}
 constexpr size_t kF32Smem = sizeof(float) * (kBlock * kFP + 2 * kFK * kFP + 3 * kBlock);
 
 // Element strides of a [B, H, N, D] tensor; the last dim is contiguous.
@@ -141,43 +124,6 @@ __device__ __forceinline__ const T* rows_of(const T* base, const Strides& s, int
 }
 
 // --- small helpers ---------------------------------------------------------
-__device__ __forceinline__ void ldsm_x4(uint32_t r[4], const void* p) {
-  const uint32_t a = static_cast<uint32_t>(__cvta_generic_to_shared(p));
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(a));
-}
-
-__device__ __forceinline__ void ldsm_x4_trans(uint32_t r[4], const void* p) {
-  const uint32_t a = static_cast<uint32_t>(__cvta_generic_to_shared(p));
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(a));
-}
-
-// c += a * b for a 16x16 bf16 A fragment and a 16x8 B fragment.
-__device__ __forceinline__ void mma_bf16(float c[4], const uint32_t a[4], uint32_t b0,
-                                         uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
-  const uint32_t d = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" :: "r"(d), "l"(src) : "memory");
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-template <int kPending>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" :: "n"(kPending) : "memory");
-}
-
 // Two floats rounded to bf16 (nearest even), lo in the low half.
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
@@ -192,94 +138,6 @@ __device__ __forceinline__ float quad_max(float v) {
 __device__ __forceinline__ float quad_sum(float v) {
   v += __shfl_xor_sync(0xffffffffu, v, 1);
   return v + __shfl_xor_sync(0xffffffffu, v, 2);
-}
-
-template <int kN>
-__device__ __forceinline__ void zero(float (*acc)[4]) {
-#pragma unroll
-  for (int i = 0; i < kN; ++i)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) acc[i][e] = 0.f;
-}
-
-// kRows rows of D bf16 from `src` (rows `stride` elements apart) to shared
-// memory [kRows][pitch], 16 bytes a copy, asynchronously.
-template <int D, int kRows>
-__device__ __forceinline__ void copy_rows(bf16 (*dst)[pitch<D>()], const bf16* src,
-                                          long long stride, int tid) {
-  constexpr int kVecs = D / 8;
-#pragma unroll
-  for (int i = 0; i < kRows * kVecs / kThreads; ++i) {
-    const int idx = tid + i * kThreads;
-    const int r = idx / kVecs, c = (idx % kVecs) * 8;
-    cp_async16(&dst[r][c], src + r * stride + c);
-  }
-}
-
-// acc[nt] (16 rows x 8 kNT columns) += A B^T over the D columns, where A is
-// rows a0..a0+15 of As and B rows b0..b0 + 8 kNT - 1 of Bs, both [rows][D]:
-// K5dq's score tiles q k^T and do v^T.
-template <int D, int kNT>
-__device__ __forceinline__ void rows_dot_rows(float (*acc)[4], bf16 (*As)[pitch<D>()], int a0,
-                                              bf16 (*Bs)[pitch<D>()], int b0, int lane) {
-#pragma unroll
-  for (int kk = 0; kk < D; kk += 16) {
-    uint32_t af[4];
-    ldsm_x4(af, &As[a0 + (lane & 15)][kk + (lane >> 4) * 8]);
-#pragma unroll
-    for (int np = 0; np < kNT / 2; ++np) {
-      uint32_t bfr[4];
-      ldsm_x4(bfr, &Bs[b0 + np * 16 + (lane & 7) + ((lane >> 4) << 3)]
-                      [kk + ((lane >> 3) & 1) * 8]);
-      mma_bf16(acc[2 * np], af, bfr[0], bfr[1]);
-      mma_bf16(acc[2 * np + 1], af, bfr[2], bfr[3]);
-    }
-  }
-}
-
-// A score tile's accumulators (16 rows x 16 kKS columns, float32) as the
-// bf16 A fragments of the product over those columns.
-template <int kKS>
-__device__ __forceinline__ void to_a_fragments(uint32_t (*pa)[4], float (*s)[4]) {
-#pragma unroll
-  for (int ks = 0; ks < kKS; ++ks) {
-    pa[ks][0] = pack_bf16(s[2 * ks][0], s[2 * ks][1]);
-    pa[ks][1] = pack_bf16(s[2 * ks][2], s[2 * ks][3]);
-    pa[ks][2] = pack_bf16(s[2 * ks + 1][0], s[2 * ks + 1][1]);
-    pa[ks][3] = pack_bf16(s[2 * ks + 1][2], s[2 * ks + 1][3]);
-  }
-}
-
-// acc[nt] (16 rows x 8 kNT columns from column c0) += P B, P the 16 x 16 kKS
-// A fragments `pa`, B rows b0.. of Bs [rows][D]: K5dq's ds k.
-template <int D, int kKS, int kNT>
-__device__ __forceinline__ void frags_dot_rows(float (*acc)[4], uint32_t (*pa)[4],
-                                               bf16 (*Bs)[pitch<D>()], int b0, int c0,
-                                               int lane) {
-#pragma unroll
-  for (int ks = 0; ks < kKS; ++ks) {
-#pragma unroll
-    for (int np = 0; np < kNT / 2; ++np) {
-      uint32_t bfr[4];
-      ldsm_x4_trans(bfr, &Bs[b0 + ks * 16 + (lane & 15)][c0 + np * 16 + (lane >> 4) * 8]);
-      mma_bf16(acc[2 * np], pa[ks], bfr[0], bfr[1]);
-      mma_bf16(acc[2 * np + 1], pa[ks], bfr[2], bfr[3]);
-    }
-  }
-}
-
-// Stores a warp's 16 x kDO float32 accumulators as bf16 rows (row stride
-// `stride`), two columns a store.
-__device__ __forceinline__ void store_rows(bf16* out, long long stride, float (*acc)[4],
-                                           int lane) {
-  const int g = lane >> 2, t = lane & 3;
-#pragma unroll
-  for (int nt = 0; nt < kDO / 8; ++nt) {
-    const int c = nt * 8 + 2 * t;
-    *reinterpret_cast<uint32_t*>(out + g * stride + c) = pack_bf16(acc[nt][0], acc[nt][1]);
-    *reinterpret_cast<uint32_t*>(out + (g + 8) * stride + c) =
-        pack_bf16(acc[nt][2], acc[nt][3]);
-  }
 }
 
 // --- K5f, bf16: wgmma fed by TMA --------------------------------------------------
@@ -505,66 +363,6 @@ flash_fwd_wgmma(const __grid_constant__ CUtensorMap tq, const __grid_constant__ 
       m_out[row + 8] = m_run[1];
     }
   }
-}
-
-// --- K5dq, bf16 ----------------------------------------------------------------
-template <int D>
-__global__ void __launch_bounds__(kThreads, 1)
-flash_dq_mma(const bf16* __restrict__ q, const bf16* __restrict__ k,
-             const bf16* __restrict__ v, const float* __restrict__ l,
-             const float* __restrict__ m, const bf16* __restrict__ dout,
-             const float* __restrict__ di, bf16* __restrict__ dq, Layout lay, int H, int N,
-             float scale) {
-  constexpr int kKeys = dq_keys<D>();
-  extern __shared__ __align__(16) unsigned char smem[];
-  bf16 (*Qs)[pitch<D>()] = reinterpret_cast<bf16 (*)[pitch<D>()]>(smem);
-  bf16 (*Os)[pitch<D>()] = Qs + kBlock;  // do
-  bf16 (*Ks)[pitch<D>()] = Os + kBlock;
-  bf16 (*Vs)[pitch<D>()] = Ks + kKeys;
-  const int tid = threadIdx.x, lane = tid & 31, r0 = (tid >> 5) * kWarpRows;
-  const int b = blockIdx.y / H, h = blockIdx.y % H;
-  const long long q0 = static_cast<long long>(blockIdx.x) * kBlock;
-  const int c0 = blockIdx.z * kDO;
-
-  copy_rows<D, kBlock>(Qs, rows_of(q, lay.t[0], b, h, q0), lay.t[0].n, tid);
-  copy_rows<D, kBlock>(Os, rows_of(dout, lay.t[3], b, h, q0), lay.t[3].n, tid);
-  cp_async_commit();
-  // this thread's two rows: m, 1 / l and di
-  const long long row = static_cast<long long>(blockIdx.y) * N + q0 + r0 + (lane >> 2);
-  const float mr[2] = {m[row], m[row + 8]};
-  const float il[2] = {1.f / l[row], 1.f / l[row + 8]};
-  const float dr[2] = {di[row], di[row + 8]};
-
-  float acc[kDO / 8][4];
-  zero<kDO / 8>(acc);
-  for (int j0 = 0; j0 < N; j0 += kKeys) {
-    __syncthreads();
-    copy_rows<D, kKeys>(Ks, rows_of(k, lay.t[1], b, h, j0), lay.t[1].n, tid);
-    copy_rows<D, kKeys>(Vs, rows_of(v, lay.t[2], b, h, j0), lay.t[2].n, tid);
-    cp_async_commit();
-    cp_async_wait<0>();
-    __syncthreads();
-#pragma unroll
-    for (int kh = 0; kh < kKeys / kSub; ++kh) {
-      float s[kSub / 8][4], dp[kSub / 8][4];
-      zero<kSub / 8>(s);
-      zero<kSub / 8>(dp);
-      rows_dot_rows<D, kSub / 8>(s, Qs, r0, Ks, kh * kSub, lane);
-      rows_dot_rows<D, kSub / 8>(dp, Os, r0, Vs, kh * kSub, lane);
-#pragma unroll
-      for (int nt = 0; nt < kSub / 8; ++nt)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int i = e >> 1;
-          const float p = __fmul_rn(expf(__fsub_rn(__fmul_rn(s[nt][e], scale), mr[i])), il[i]);
-          dp[nt][e] = __fmul_rn(__fmul_rn(__fsub_rn(dp[nt][e], dr[i]), p), scale);
-        }
-      uint32_t pa[kSub / 16][4];
-      to_a_fragments<kSub / 16>(pa, dp);
-      frags_dot_rows<D, kSub / 16, kDO / 8>(acc, pa, Ks, kh * kSub, c0, lane);
-    }
-  }
-  store_rows(dq + (static_cast<long long>(blockIdx.y) * N + q0 + r0) * D + c0, D, acc, lane);
 }
 
 // --- K5dkv, bf16: wgmma fed by TMA -------------------------------------------------
@@ -808,6 +606,208 @@ flash_dkv_wgmma(const __grid_constant__ CUtensorMap tq, const __grid_constant__ 
           const int e = 4 * nt + 2 * half;
           *reinterpret_cast<uint32_t*>(dk + at) = pack_bf16(dk_acc[x][e], dk_acc[x][e + 1]);
           *reinterpret_cast<uint32_t*>(dv + at) = pack_bf16(dv_acc[x][e], dv_acc[x][e + 1]);
+        }
+      }
+  }
+}
+
+// --- K5dq, bf16: wgmma fed by TMA --------------------------------------------------
+// A block owns 128 queries of one (b, h) and one 128-column slice of dq
+// (gridDim.z = D / 128) and walks the keys 64 at a time. Warpgroup 2's first
+// thread loads q and do once (K5f's 4-D strided maps, 128-row boxes), then for
+// each key step k and v as 16 KB units (64 keys x 128 of D, two boxes) into a
+// ring, so the next steps load while this one computes. Consumer warpgroups 0
+// and 1 own 64 queries each and hold each query row's m, 1 / l and di in
+// registers: s = q k^T and dp = do v^T are wgmma m64n64k16 from shared memory
+// (all operands K-major), p is computed while dp's products run, and ds, packed
+// to bf16 in registers, is the A operand of dq += T(ds) k, wgmma m64n64k16 with
+// k as an MN-major B (two 64-column halves of the slice). v's units are
+// released once dp is in, k's once dq's products are done. 232 registers a
+// consumer thread (dq 64, s and dp 64; 40 for warpgroup 2).
+template <int D>
+struct Dq {
+  static constexpr int kQBoxes = D / 64;          // boxes of a [128, D] q (or do) tile
+  static constexpr int kUnits = D / 128;          // units of a k (or v) step
+  static constexpr int kRing = D == 128 ? 8 : 6;  // units in flight
+  static constexpr size_t kSmem = hopper::kSwizzleAlign +
+                                  2 * static_cast<size_t>(kQBoxes) * kBox +
+                                  static_cast<size_t>(kRing) * kQUnit +
+                                  sizeof(uint64_t) * (1 + 2 * kRing);
+};
+
+template <int D>
+__global__ void __launch_bounds__(kFwdThreads, 1)
+flash_dq_wgmma(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
+               const __grid_constant__ CUtensorMap tv, const __grid_constant__ CUtensorMap tdo,
+               const float* __restrict__ l, const float* __restrict__ m,
+               const float* __restrict__ di, bf16* __restrict__ dq, int H, int N,
+               float scale) {
+  using C = Dq<D>;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* qos = hopper::align_swizzle(smem_raw);  // q's boxes, then do's
+  unsigned char* ring = qos + 2 * C::kQBoxes * kBox;
+  uint64_t* qo_full = reinterpret_cast<uint64_t*>(ring + C::kRing * kQUnit);
+  uint64_t* full = qo_full + 1;
+  uint64_t* empty = full + C::kRing;
+  const int tid = threadIdx.x, wg = tid >> 7;
+  const int b = blockIdx.y / H, h = blockIdx.y % H;
+  const int q0 = blockIdx.x * kBlock;
+  const int steps = N / kSub;
+  if (tid == 0) {
+    hopper::mbar_init(qo_full, 1);
+    for (int i = 0; i < C::kRing; ++i) {
+      hopper::mbar_init(&full[i], 1);
+      hopper::mbar_init(&empty[i], kConsumerWarps);
+    }
+    hopper::mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (wg == 2) {
+    hopper::setmaxnreg_dec<40>();
+    if (tid == 2 * 128) {
+      hopper::mbar_expect_tx(qo_full, 2 * C::kQBoxes * kBox);
+      for (int x = 0; x < C::kQBoxes; ++x) {
+        hopper::tma_load_4d(qos + x * kBox, &tq, qo_full, x * 64, q0, h, b);
+        hopper::tma_load_4d(qos + (C::kQBoxes + x) * kBox, &tdo, qo_full, x * 64, q0, h, b);
+      }
+      hopper::Ring r(C::kRing);
+      for (int i = 0; i < steps; ++i) {
+        for (int t = 0; t < 2; ++t) {  // k, then v
+          const CUtensorMap* map = t ? &tv : &tk;
+          for (int u = 0; u < C::kUnits; ++u) {
+            hopper::mbar_wait(&empty[r.slot], r.phase ^ 1u);
+            hopper::mbar_expect_tx(&full[r.slot], kQUnit);
+            for (int x = 0; x < 2; ++x) {
+              hopper::tma_load_4d(ring + r.slot * kQUnit + x * kQBox, map, &full[r.slot],
+                                  (2 * u + x) * 64, i * kSub, h, b);
+            }
+            r.next();
+          }
+        }
+      }
+    }
+  } else {
+    hopper::setmaxnreg_inc<232>();
+    const int lane = tid & 31, warp = (tid >> 5) & 3;
+    const int g = lane >> 2, t4 = lane & 3;
+    const uint32_t q_addr = hopper::smem_u32(qos) + wg * 64 * hopper::kSwizzleBytes;
+    const uint32_t o_addr = q_addr + C::kQBoxes * kBox;
+    const uint32_t ring_addr = hopper::smem_u32(ring);
+    // this thread's two query rows (accumulator rows g and g + 8): m, 1 / l
+    // and di
+    const long long first = static_cast<long long>(blockIdx.y) * N + q0 + wg * 64 +
+                            warp * kWarpRows + g;
+    const long long out = first * D + blockIdx.z * kDO;
+    const float mr[2] = {m[first], m[first + 8]};
+    const float il[2] = {1.f / l[first], 1.f / l[first + 8]};
+    const float dr[2] = {di[first], di[first + 8]};
+    // dq: [two 64-column halves of the slice][the m64n64 layout]
+    float dq_acc[2][32];
+#pragma unroll
+    for (int x = 0; x < 2; ++x) {
+#pragma unroll
+      for (int i = 0; i < 32; ++i) dq_acc[x][i] = 0.f;
+      hopper::fence_regs(dq_acc[x]);
+    }
+    hopper::Ring r(C::kRing);
+    hopper::mbar_wait(qo_full, 0);
+    for (int i = 0; i < steps; ++i) {
+      int ks[C::kUnits], vs[C::kUnits];
+#pragma unroll
+      for (int u = 0; u < C::kUnits; ++u) {
+        ks[u] = r.slot;
+        hopper::mbar_wait(&full[r.slot], r.phase);
+        r.next();
+      }
+#pragma unroll
+      for (int u = 0; u < C::kUnits; ++u) {
+        vs[u] = r.slot;
+        hopper::mbar_wait(&full[r.slot], r.phase);
+        r.next();
+      }
+      // s = q k^T, then dp = do v^T, over D: 16 columns of D a product,
+      // each a commit group of its own
+      float s[32], dp[32];
+      hopper::wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk) {
+        const uint32_t qoff = (kk >> 2) * kBox + (kk & 3) * 32;
+        const uint32_t koff = ((kk >> 2) & 1) * kQBox + (kk & 3) * 32;
+        hopper::wgmma_m64n64k16_ss(s, hopper::sw128_desc(q_addr + qoff),
+                                   hopper::sw128_desc(ring_addr + ks[kk >> 3] * kQUnit + koff),
+                                   kk != 0);
+      }
+      hopper::wgmma_commit();
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk) {
+        const uint32_t qoff = (kk >> 2) * kBox + (kk & 3) * 32;
+        const uint32_t koff = ((kk >> 2) & 1) * kQBox + (kk & 3) * 32;
+        hopper::wgmma_m64n64k16_ss(dp, hopper::sw128_desc(o_addr + qoff),
+                                   hopper::sw128_desc(ring_addr + vs[kk >> 3] * kQUnit + koff),
+                                   kk != 0);
+      }
+      hopper::wgmma_commit();
+      hopper::wgmma_wait<1>();  // s is in
+      hopper::fence_regs(s);
+      // p = exp(s * scale - m) * (1 / l); s[4 nt + e] is query row g (e <
+      // 2) or g + 8 and key column 8 nt + 2 t + e % 2
+#pragma unroll
+      for (int j = 0; j < 32; ++j) {
+        const int hh = (j >> 1) & 1;
+        s[j] = __fmul_rn(expf(__fsub_rn(__fmul_rn(s[j], scale), mr[hh])), il[hh]);
+      }
+      hopper::wgmma_wait<0>();  // dp is in
+      hopper::fence_regs(dp);
+      __syncwarp();
+      if (lane == 0) {
+#pragma unroll
+        for (int u = 0; u < C::kUnits; ++u) hopper::mbar_arrive(&empty[vs[u]]);
+      }
+      // ds = (dp - di) p scale, as T(ds) the A fragments of ds k, 16 keys a
+      // fragment
+      uint32_t da[kSub / 16][4];
+#pragma unroll
+      for (int j = 0; j < 32; ++j) {
+        const int hh = (j >> 1) & 1;
+        dp[j] = __fmul_rn(__fmul_rn(__fsub_rn(dp[j], dr[hh]), s[j]), scale);
+      }
+#pragma unroll
+      for (int kk = 0; kk < kSub / 16; ++kk)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          da[kk][j] = pack_bf16(dp[8 * kk + 2 * j], dp[8 * kk + 2 * j + 1]);
+        }
+      const bool hi = C::kUnits > 1 && blockIdx.z > 0;  // the slice's unit (no dynamic index)
+      const uint32_t k_unit = ring_addr + (hi ? ks[C::kUnits - 1] : ks[0]) * kQUnit;
+      hopper::wgmma_fence();
+#pragma unroll
+      for (int x = 0; x < 2; ++x)
+#pragma unroll
+        for (int kk = 0; kk < kSub / 16; ++kk) {
+          const uint32_t off = x * kQBox + kk * 16 * hopper::kSwizzleBytes;
+          hopper::wgmma_m64n64k16_rs_tb(dq_acc[x], da[kk], hopper::sw128_desc(k_unit + off), 1);
+        }
+      hopper::wgmma_commit();
+      hopper::wgmma_wait<0>();
+      __syncwarp();
+      if (lane == 0) {
+#pragma unroll
+        for (int u = 0; u < C::kUnits; ++u) hopper::mbar_arrive(&empty[ks[u]]);
+      }
+    }
+#pragma unroll
+    for (int x = 0; x < 2; ++x) hopper::fence_regs(dq_acc[x]);
+#pragma unroll
+    for (int x = 0; x < 2; ++x)
+#pragma unroll
+      for (int nt = 0; nt < 8; ++nt) {
+        const int c = x * 64 + nt * 8 + 2 * t4;
+#pragma unroll
+        for (int half = 0; half < 2; ++half) {
+          const int e = 4 * nt + 2 * half;
+          *reinterpret_cast<uint32_t*>(dq + out + half * 8 * D + c) =
+              pack_bf16(dq_acc[x][e], dq_acc[x][e + 1]);
         }
       }
   }
@@ -1240,11 +1240,17 @@ cudaError_t launch_dq(const void* q, const void* k, const void* v, const float* 
   const dim3 grid(N / kBlock, B * H, D / kDO);
   cudaError_t err;
   if (dtype == kBFloat16) {
-    err = allow_smem(flash_dq_mma<D>, dq_smem<D>());
+    // q and do in boxes of 128 rows, k and v of 64
+    CUtensorMap maps[4];
+    const void* bases[4] = {q, k, v, dout};
+    for (int i = 0; i < 4; ++i) {
+      const int rows = i == 1 || i == 2 ? kSub : kBlock;
+      if (!head_map(&maps[i], bases[i], lay.t[i], B, H, N, D, rows)) return cudaErrorInvalidValue;
+    }
+    err = allow_smem(flash_dq_wgmma<D>, Dq<D>::kSmem);
     if (err != cudaSuccess) return err;
-    flash_dq_mma<D><<<grid, kThreads, dq_smem<D>(), s>>>(
-        static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
-        l, m, static_cast<const bf16*>(dout), di, static_cast<bf16*>(dq), lay, H, N, scale);
+    flash_dq_wgmma<D><<<grid, kFwdThreads, Dq<D>::kSmem, s>>>(
+        maps[0], maps[1], maps[2], maps[3], l, m, di, static_cast<bf16*>(dq), H, N, scale);
   } else {
     err = allow_smem(flash_dq_f32<D>, kF32Smem);
     if (err != cudaSuccess) return err;

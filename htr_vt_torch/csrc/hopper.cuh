@@ -1,6 +1,6 @@
 // Hopper building blocks shared by the kernels that are fed by the Tensor
-// Memory Accelerator and multiply on wgmma (flash_attn.cu: K5f, K5dkv;
-// conv_fused.cu: K4f, K4w), sm_90a only.
+// Memory Accelerator and multiply on wgmma (flash_attn.cu: K5f, K5dkv,
+// K5dq; conv_fused.cu: K4f, K4d, K4w), sm_90a only.
 //
 // - TMA: a tensor map (CUtensorMap) describes a global tensor by its dims,
 //   byte strides and a box; one thread asks for a box to be copied into
@@ -19,13 +19,15 @@
 //   (from shared memory or registers) by a B tile from shared memory into
 //   float32 registers, asynchronously (fence, commit, wait). The forms
 //   here: m64n128 and m64n64 with both operands K-major in shared memory
-//   (SS: K5f's q k^T, K5dkv's k q^T and v do^T); m64n64 with A from
-//   registers and B MN-major (RS, transposed B: K5f's p v, K5dkv's p^T do
-//   and ds^T q, K4w's xn^T g); m64n96 RS with B K-major (K4f). An RS A
-//   operand is each warp's m16n8k16 A fragment of its 16 rows, as mma.sync
-//   takes it, so ldmatrix (.trans for a [K][M] tile) loads it.
+//   (SS: K5f's q k^T, K5dkv's k q^T and v do^T, K5dq's q k^T and do v^T);
+//   m64n64 with A from registers and B MN-major (RS, transposed B: K5f's
+//   p v, K5dkv's p^T do and ds^T q, K5dq's ds k, K4w's xn^T g); m64n96 RS
+//   with B K-major (K4f, K4d). An RS A operand is each warp's m16n8k16 A
+//   fragment of its 16 rows, as mma.sync takes it, so ldmatrix (.trans for
+//   a [K][M] tile) loads it.
 // - setmaxnreg: the producer warpgroup gives registers up, the consumer
-//   warpgroups take them.
+//   warpgroups take them; a named barrier (bar.sync with a thread count)
+//   synchronises the consumers alone (K4d's epilogue sums).
 //
 // cuTensorMapEncodeTiled lives in libcuda; it is fetched once through
 // cudaGetDriverEntryPoint, so the library links without -lcuda.
@@ -169,6 +171,13 @@ template <int kN>
 __device__ __forceinline__ void fence_regs(float (&d)[kN]) {
 #pragma unroll
   for (int i = 0; i < kN; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// A barrier of `threads` threads (a multiple of 32) under the hardware
+// barrier `id` (1-15; __syncthreads takes 0): the consumer warpgroups
+// synchronise among themselves while the producer runs on.
+__device__ __forceinline__ void named_barrier_sync(int id, int threads) {
+  asm volatile("bar.sync %0, %1;\n" :: "r"(id), "r"(threads) : "memory");
 }
 
 template <int kRegs>

@@ -15,7 +15,9 @@ there is no prologue: ``y = conv3x3(pad0(x), k)``.
   float32 da, then the prologue's backward as ``_dgrad_kernel`` computes it
   (``conv_fused.py:230-283``): da' = da where ``x * scale + shift > 0``
   (strict, so 0 at a tie), ``dx = T(da' * scale)``, ``dscale = sum da' *
-  x``, ``dshift = sum da'``; da is never rounded to T first.
+  x``, ``dshift = sum da'``; da is never rounded to T first (in bf16, K4f's
+  wgmma kernel over g with the prologue's backward as its epilogue; in
+  float32, FFMA).
 - ``conv3x3_bn_relu_wgrad`` (K4w): ``dk = sum_p xn[p + tap] * g[p]`` in
   float32, the prologue applied to the raw x on load (in bf16, a wgmma
   kernel fed by TMA that normalises each halo pixel once for all nine
@@ -185,7 +187,7 @@ def conv3x3_bn_relu_dgrad(g: torch.Tensor, weight: torch.Tensor, x: torch.Tensor
     the prologue).
 
     CUDA tensors launch K4d on the current stream (with the prologue, and
-    its fixed-order second pass over the block partials) and add one to
+    its fixed-order second pass over the pixel tiles' partial sums) and add one to
     ``conv3x3_bn_relu_dgrad.launches``; CPU tensors run
     ``conv3x3_dgrad_reference``. Any other device raises."""
     prologue = scale is not None
@@ -205,7 +207,7 @@ def conv3x3_bn_relu_dgrad(g: torch.Tensor, weight: torch.Tensor, x: torch.Tensor
     sums = torch.zeros((2, cin), dtype=torch.float32, device=x.device)
     partial = None
     if prologue:
-        rows = library().htrvt_conv3x3_dgrad_rows(b * h * w, code)
+        rows = library().htrvt_conv3x3_dgrad_rows(b, h, w, code)
         partial = torch.empty((rows, 2 * cin), dtype=torch.float32, device=x.device)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream

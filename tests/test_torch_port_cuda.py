@@ -520,6 +520,11 @@ def test_conv_kernels_at_the_flagship_shapes(cuda, shape):
     ((3, 72, 11, 70), 88, torch.bfloat16, True, False),
     ((3, 72, 11, 70), 88, torch.bfloat16, False, False),
     ((2, 64, 4, 96), 64, torch.bfloat16, True, True),
+    # K4d's: a partial 96-channel tile of its output (Cin = 200) and a
+    # partial 64-channel chunk of g (Cout = 72), exact ties on 8-row tiles
+    # straddling each image's last row (H = 11)
+    ((2, 200, 11, 40), 72, torch.bfloat16, True, True),
+    ((2, 200, 11, 40), 72, torch.bfloat16, False, False),
     ((2, 16, 7, 9), 24, torch.float32, True, True),    # float32 (FFMA), ties
     ((2, 16, 7, 9), 24, torch.float32, False, False),
     ((1, 8, 1, 3), 8, torch.float32, True, False),     # one row: every tap pads
@@ -671,6 +676,11 @@ def _assert_flash_close(got, want, what):
     (torch.bfloat16, 2, 3, 384, True, 128),
     (torch.bfloat16, 1, 2, 128, True, 256),
     (torch.float32, 1, 2, 128, True, 256),
+    # K5dq's key ring: two 64-key steps, six (past the ring's four), strided
+    # views, and head_dim 256 at N = 512
+    (torch.bfloat16, 2, 3, 128, True, 128),
+    (torch.bfloat16, 1, 3, 384, True, 128),
+    (torch.bfloat16, 1, 2, 512, False, 256),
     (torch.float32, 2, 1, 256, True, 256)])
 def test_flash_kernels_match_plain(cuda, dtype, b, h, n, strided, d):
     """K5f, K5dkv and K5dq against their plain versions at odd batch and
@@ -767,23 +777,34 @@ def _kernel_body(source, name):
 
 @pytest.mark.cuda
 def test_k5f_and_k4f_are_wgmma_fed_by_tma(cuda):
-    """The bf16 K5f, K5dkv, K4f and K4w are built on wgmma with TMA loads:
-    their sources call the wgmma and TMA helpers and no mma.sync, the
-    mma.sync bodies they replaced are gone, and the compiled library holds
-    HGMMA (wgmma) and UTMALDG (TMA load) instructions in each."""
+    """Every bf16 kernel of K5 and K4 (K5f, K5dkv, K5dq, K4f, K4d, K4w) is
+    built on wgmma with TMA loads: the source of its main loop calls the
+    wgmma and TMA helpers and no mma.sync, the mma.sync bodies they replaced
+    are gone, and the compiled library holds HGMMA (wgmma) and UTMALDG (TMA
+    load) instructions in each."""
     import pathlib
     import shutil
     import subprocess
     from htr_vt_torch import _build
     helpers = (_build.CSRC / "hopper.cuh").read_text()
     assert "wgmma.mma_async" in helpers and "cp.async.bulk.tensor" in helpers
-    kernels = (("flash_attn.cu", "flash_fwd_wgmma"), ("flash_attn.cu", "flash_dkv_wgmma"),
-               ("conv_fused.cu", "conv_fwd_wgmma"), ("conv_fused.cu", "wgrad_wgmma"))
-    for src, kernel in kernels:
-        body = _kernel_body((_build.CSRC / src).read_text(), kernel)
+    # (source, the function holding the main loop, the kernel): K4f and K4d
+    # share conv_fused.cu's conv_wgmma
+    kernels = (("flash_attn.cu", "flash_fwd_wgmma", "flash_fwd_wgmma"),
+               ("flash_attn.cu", "flash_dkv_wgmma", "flash_dkv_wgmma"),
+               ("flash_attn.cu", "flash_dq_wgmma", "flash_dq_wgmma"),
+               ("conv_fused.cu", "conv_wgmma", "conv_fwd_wgmma"),
+               ("conv_fused.cu", "conv_wgmma", "conv_dgrad_wgmma"),
+               ("conv_fused.cu", "wgrad_wgmma", "wgrad_wgmma"))
+    for src, body_of, kernel in kernels:
+        text = (_build.CSRC / src).read_text()
+        assert f"\n{kernel}(" in text, kernel
+        body = _kernel_body(text, body_of)
         assert "hopper::wgmma_m64n" in body and "hopper::tma_load_" in body, kernel
         assert "mma_bf16" not in body and "cp_async16" not in body, kernel
-    for src, gone in (("flash_attn.cu", "flash_dkv_mma"), ("conv_fused.cu", "wgrad_mma_kernel")):
+    for src, gone in (("flash_attn.cu", "flash_dkv_mma"), ("conv_fused.cu", "wgrad_mma_kernel"),
+                      ("flash_attn.cu", "flash_dq_mma"), ("conv_fused.cu", "conv_mma_kernel"),
+                      ("flash_attn.cu", "mma.sync"), ("conv_fused.cu", "mma.sync")):
         assert gone not in (_build.CSRC / src).read_text(), gone
     _build.library()
     cuobjdump = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
@@ -792,7 +813,7 @@ def test_k5f_and_k4f_are_wgmma_fed_by_tma(cuda):
     sass = subprocess.run([cuobjdump, "-sass", str(_build.LIBRARY)], capture_output=True,
                           text=True, check=True).stdout
     functions = sass.split("Function : ")
-    for _, kernel in kernels:
+    for _, _, kernel in kernels:
         bodies = [f for f in functions if kernel in f.splitlines()[0]]
         assert bodies, kernel
         for body in bodies:

@@ -194,6 +194,12 @@ def test_serve_main_routes_lines_to_width_buckets(tmp_path, monkeypatch, capsys)
     ("void (anonymous namespace)::wgrad_wgmma<true>(CUtensorMap_st, CUtensorMap_st, "
      "float const*, float const*, float*, int, int, int, int)",
      "conv3x3 kernels (K4f, K4d, K4w)"),
+    ("void (anonymous namespace)::flash_dq_wgmma<128>(CUtensorMap_st, CUtensorMap_st, "
+     "CUtensorMap_st, CUtensorMap_st, float const*)",
+     "flash attention kernels (K5f, K5dkv, K5dq)"),
+    ("void (anonymous namespace)::conv_dgrad_wgmma<true>(CUtensorMap_st, CUtensorMap_st, "
+     "__nv_bfloat16*, int, int, int, int)",
+     "conv3x3 kernels (K4f, K4d, K4w)"),
     ("ctc_alpha_kernel(float const*, int const*, bool const*)", "ctc_alpha kernel"),
     ("sm90_xmma_fprop_implicit_gemm_bf16bf16_bf16f32_f32_nhwckrsc_nhwc",
      "convolutions (cuDNN)"),
