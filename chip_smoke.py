@@ -21,7 +21,9 @@ non-zero before the last line:
 3. stem kernels vs plain: K2 (``bn_stats``) at the four stem activations of
    the flagship at bs 128, K3f and K3b (``pool_bn_relu_fwd``/``_bwd``) at
    the conv1 output [128, 192, 32, 512], bf16 channels-last, against their
-   plain versions, with CUDA-event times of kernel, plain version and the
+   plain versions (two calls bit-equal; K3b also with g as contiguous NCHW,
+   the layout the step hands it, bit-equal to the channels-last g), with
+   CUDA-event times of kernel (K3b with either g), plain version and the
    library or stock yardstick, and the bound.
 4. conv kernels vs plain: K4f, K4d and K4w (``conv3x3_bn_relu_fwd`` /
    ``_dgrad`` / ``_wgrad``) at the flagship's three stride-1 conv sites at
@@ -58,8 +60,10 @@ non-zero before the last line:
 9. fused-stem train: phase 8 with ``bn_stats_impl="pallas",
    pool_impl="pallas"``: the same weights, batch and masks give the stock
    stem's first pass-1 loss to bf16 noise; each timed step launches K2 32
-   times, K3f, K3b, alpha and beta twice each; EMA ``validate`` launches K3f
-   and alpha once per batch; the learning check's loss must fall.
+   times, K3f, K3b, alpha and beta twice each, and K3b's incoming gradient
+   is never copied (``PoolBNReLU.grad_copies`` == 0); EMA ``validate``
+   launches K3f and alpha once per batch; the learning check's loss must
+   fall.
 10. fully fused train: phase 9 with ``conv_impl="pallas"`` as well; each
    step also launches K4f, K4d and K4w 18 times each, and EMA ``validate``
    9 K4f per batch.
@@ -656,6 +660,9 @@ def phase_train(device, switches=None, stock_first_loss=None, tag="train"):
     if switches.get("pool_impl") == "pallas":
         say(f"[{tag}] K3b's incoming gradient was copied to channels-last in "
             f"{grad_copies} of {launches['pool_bn_relu_bwd']} backward calls")
+        if grad_copies:
+            raise AssertionError(f"[{tag}] K3b's gradient was copied {grad_copies} "
+                                 "times; K3b reads the step's NCHW gradient as it comes")
     if switches.get("conv_impl") == "pallas":
         say(f"[{tag}] K4d/K4w's incoming gradient was copied to channels-last in "
             f"{conv_copies} of {launches['conv3x3_bn_relu_dgrad']} backward calls")
@@ -762,10 +769,12 @@ def phase_stem_kernels(device):
     g = torch.randn((b, c, h // 2, w), generator=gen, device=device).to(
         torch.bfloat16).contiguous(memory_format=torch.channels_last)
     y_k = pool_fused.pool_bn_relu_fwd(x, scale, shift)
+    y_2 = pool_fused.pool_bn_relu_fwd(x, scale, shift)
     y_p = pool_fused.max_pool_bn_relu_reference(x, scale, shift)
     torch.cuda.synchronize()
-    if not torch.equal(y_k, y_p):
-        raise AssertionError("[K3f] kernel and plain version differ")
+    if not (torch.equal(y_k, y_p) and torch.equal(y_k, y_2)):
+        raise AssertionError("[K3f] kernel and plain version differ, or two calls do")
+    del y_2
     n_in, n_out = x.numel(), y_k.numel()
     fwd = dict(shape=list(shape), max_abs_err=0.0,
                ms=median_ms(lambda: pool_fused.pool_bn_relu_fwd(x, scale, shift), 20),
@@ -780,11 +789,19 @@ def phase_stem_kernels(device):
         f"{fwd['bound_by']}")
     del y_k, y_p
 
+    # K3b reads g channels-last or, as the step hands it, contiguous NCHW
+    g_nchw = g.contiguous()
     dx_k, ds_k, dt_k = pool_fused.pool_bn_relu_bwd(g, x, scale, shift)
+    again = pool_fused.pool_bn_relu_bwd(g, x, scale, shift)
+    nchw = pool_fused.pool_bn_relu_bwd(g_nchw, x, scale, shift)
     dx_p, ds_p, dt_p = pool_fused.pool_bn_relu_bwd_reference(g, x, scale, shift)
     torch.cuda.synchronize()
     if not torch.equal(dx_k, dx_p):
         raise AssertionError("[K3b] dx: kernel and plain version differ")
+    for what, run in (("two calls", again), ("an NCHW g and a channels-last g", nchw)):
+        if not all(torch.equal(a, b) for a, b in zip((dx_k, ds_k, dt_k), run)):
+            raise AssertionError(f"[K3b] {what} gave different bits")
+    del again, nchw
     daf = pool_fused.routed_grad_reference(g, x, scale, shift)
     errs = []
     for what, got, want, term in (("dscale", ds_k, ds_p, daf * x.float()),
@@ -802,6 +819,8 @@ def phase_stem_kernels(device):
     bwd = dict(shape=list(shape), max_abs_err=max(e for e, _ in errs),
                reduction_err_of_abs_sum=max(r for _, r in errs),
                ms=median_ms(lambda: pool_fused.pool_bn_relu_bwd(g, x, scale, shift), 20),
+               ms_nchw=median_ms(lambda: pool_fused.pool_bn_relu_bwd(
+                   g_nchw, x, scale, shift), 20),
                plain_ms=median_ms(lambda: pool_fused.pool_bn_relu_bwd_reference(
                    g, x, scale, shift), 5, warmup=1),
                stock_ms=median_ms(lambda: torch.autograd.grad(
@@ -813,7 +832,9 @@ def phase_stem_kernels(device):
     say(f"[K3b] pool_bn_relu_bwd bf16 g {[b, c, h // 2, w]}: dx bit-equal to the "
         f"plain version; dscale max|err| {errs[0][0]:.3e} ({errs[0][1]:.3e} of the "
         f"sum of |terms|), dshift {errs[1][0]:.3e} ({errs[1][1]:.3e}; bar "
-        f"{POOL_RED_REL}); kernel {bwd['ms']:.4f} ms, plain {bwd['plain_ms']:.4f} "
+        f"{POOL_RED_REL}); two calls, and g channels-last or NCHW, bit-equal; "
+        f"kernel {bwd['ms']:.4f} ms (g NCHW, the step's layout, "
+        f"{bwd['ms_nchw']:.4f} ms), plain {bwd['plain_ms']:.4f} "
         f"ms, the stock ops' backward (context, no single library call) "
         f"{bwd['stock_ms']:.4f} ms, bound {bwd['bound_ms']:.4f} ms by "
         f"{bwd['bound_by']}")
@@ -1521,7 +1542,7 @@ def main():
         "bound_by": stem[name]["bound_by"],
         "library_ms": None,
         "shape": "bf16 x [128, 192, 32, 512] channels-last",
-        **({"stock_ms": stem[name]["stock_ms"]} if "stock_ms" in stem[name] else {}),
+        **{k: stem[name][k] for k in ("stock_ms", "ms_nchw") if k in stem[name]},
     } for name, line in (("pool_bn_relu_fwd", 62), ("pool_bn_relu_bwd", 72))]
     conv_lines = [{
         "name": name,
@@ -1591,6 +1612,7 @@ def main():
                     "fully_fused_first_loss": full["first_loss"],
                     "stock_first_loss": train["first_loss"],
                     "conv_grad_copies": full["conv_grad_copies"],
+                    "pool_grad_copies": fused["grad_copies"] + full["grad_copies"],
                     "fully_fused_serve": full_serve_rec}))
     say(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -49,17 +49,18 @@ def _run(procs) -> str:
     return "".join(log)
 
 
-def build() -> str:
-    """Compile the kernels now; returns nvcc's output (the ptxas register
-    and shared-memory report). Raises RuntimeError with it on failure."""
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+def build(csrc: Path = CSRC, target: Path = LIBRARY) -> str:
+    """Compile the kernels of ``csrc`` into ``target`` now; returns nvcc's
+    output (the ptxas register and shared-memory report). Raises
+    RuntimeError with it on failure."""
+    target.parent.mkdir(parents=True, exist_ok=True)
     nvcc = _nvcc()
-    sources = sorted(CSRC.glob("*.cu"))
-    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmpdir:
+    sources = sorted(csrc.glob("*.cu"))
+    with tempfile.TemporaryDirectory(dir=target.parent) as tmpdir:
         objects = [Path(tmpdir) / f"{src.stem}.o" for src in sources]
         compiles = []
         for src, obj in zip(sources, objects):
-            cmd = [nvcc, *COMPILE_FLAGS, "-I", str(CSRC), "-c", str(src),
+            cmd = [nvcc, *COMPILE_FLAGS, "-I", str(csrc), "-c", str(src),
                    "-o", str(obj)]
             compiles.append((cmd, subprocess.Popen(
                 cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
@@ -67,11 +68,11 @@ def build() -> str:
         log = _run(compiles)
         # Link beside the target and rename, so that a concurrent loader
         # never sees a half-written library.
-        tmp = Path(tmpdir) / LIBRARY.name
+        tmp = Path(tmpdir) / target.name
         cmd = [nvcc, *ARCH, "-shared", "-o", str(tmp), *map(str, objects)]
         log += _run([(cmd, subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))])
-        os.replace(tmp, LIBRARY)
+        os.replace(tmp, target)
     return log
 
 
@@ -87,14 +88,19 @@ def library() -> ctypes.CDLL:
     """The loaded kernel library, built first if missing or stale."""
     if _stale():
         build()
-    lib = ctypes.CDLL(str(LIBRARY))
+    return load(LIBRARY)
+
+
+def load(path: Path) -> ctypes.CDLL:
+    """A built kernel library with its C functions' signatures set."""
+    lib = ctypes.CDLL(str(path))
     ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     for fn in (lib.htrvt_ctc_alpha, lib.htrvt_ctc_beta):
         fn.argtypes = [ptr] * 6 + [i32] * 4 + [ptr]
         fn.restype = i32
     lib.htrvt_bn_stats.argtypes = [ptr] * 4 + [i64] + [i32] * 3 + [ptr]
     lib.htrvt_pool_bn_relu_fwd.argtypes = [ptr] * 4 + [i32] * 5 + [ptr]
-    lib.htrvt_pool_bn_relu_bwd.argtypes = [ptr] * 8 + [i32] * 6 + [ptr]
+    lib.htrvt_pool_bn_relu_bwd.argtypes = [ptr] * 8 + [i32] * 7 + [ptr]
     lib.htrvt_conv3x3_fwd.argtypes = [ptr] * 5 + [i32] * 7 + [ptr]
     lib.htrvt_conv3x3_dgrad.argtypes = [ptr] * 9 + [i32] * 7 + [ptr]
     lib.htrvt_conv3x3_wgrad.argtypes = [ptr] * 6 + [i32] * 8 + [ptr]

@@ -1,6 +1,7 @@
 // Hopper building blocks shared by the kernels that are fed by the Tensor
 // Memory Accelerator and multiply on wgmma (flash_attn.cu: K5f, K5dkv,
-// K5dq; conv_fused.cu: K4f, K4d, K4w), sm_90a only.
+// K5dq; conv_fused.cu: K4f, K4d, K4w), sm_90a only. pool_fused.cu (K3f,
+// K3b) uses the TMA and mbarrier parts alone.
 //
 // - TMA: a tensor map (CUtensorMap) describes a global tensor by its dims,
 //   byte strides and a box; one thread asks for a box to be copied into
@@ -300,19 +301,22 @@ EncodeTiled encode_tiled() {
   return fn;
 }
 
-// A tiled bf16 tensor map of `rank` dims (innermost first; byte strides of
-// dims 1..rank-1) with a box of `box` elements a dim and the 128-byte
-// swizzle. Returns false if cuTensorMapEncodeTiled refuses it.
+// A tiled tensor map of `rank` dims (innermost first; byte strides of dims
+// 1..rank-1) with a box of `box` elements a dim, bf16 with the 128-byte
+// swizzle unless told otherwise. Returns false if cuTensorMapEncodeTiled
+// refuses it.
 bool make_map(CUtensorMap* map, const void* base, int rank, const uint64_t* dims,
-              const uint64_t* strides, const uint32_t* box) {
+              const uint64_t* strides, const uint32_t* box,
+              CUtensorMapDataType dtype = CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
+              CUtensorMapSwizzle swizzle = CU_TENSOR_MAP_SWIZZLE_128B) {
   const EncodeTiled encode = encode_tiled();
   if (encode == nullptr) return false;
   const cuuint32_t ones[5] = {1, 1, 1, 1, 1};
-  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, static_cast<cuuint32_t>(rank),
-                const_cast<void*>(base), reinterpret_cast<const cuuint64_t*>(dims),
+  return encode(map, dtype, static_cast<cuuint32_t>(rank), const_cast<void*>(base),
+                reinterpret_cast<const cuuint64_t*>(dims),
                 reinterpret_cast<const cuuint64_t*>(strides),
                 reinterpret_cast<const cuuint32_t*>(box), ones, CU_TENSOR_MAP_INTERLEAVE_NONE,
-                CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                swizzle, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 

@@ -13,10 +13,11 @@ emits dx with the dscale/dshift reductions. ``max_pool_bn_relu`` is the
 differentiable composition (``PoolBNReLU``).
 
 Each wrapper launches its kernel for a CUDA tensor and runs its plain
-version for a CPU tensor; nothing else decides. x and g must be
-channels-last: the wrappers never copy x, and the backward makes only the
-incoming gradient channels-last (``PoolBNReLU.grad_copies`` counts the
-times that was a copy).
+version for a CPU tensor; nothing else decides. x must be channels-last.
+K3b reads g channels-last or as contiguous NCHW, the layout the stem's
+backward hands it (the strided projection's backward writes NCHW), so
+neither wrapper copies; ``PoolBNReLU`` copies g only when it has another
+layout (``PoolBNReLU.grad_copies`` counts those copies).
 """
 
 from __future__ import annotations
@@ -125,11 +126,19 @@ def pool_bn_relu_fwd(x: torch.Tensor, scale: torch.Tensor,
 pool_bn_relu_fwd.launches = 0  # kernel launches; the CPU path never counts
 
 
+def nchw_grad_ok(g: torch.Tensor) -> bool:
+    """Whether K3b reads ``g`` [B, C, H/2, W] as contiguous NCHW: its
+    tensor map needs rows of a multiple of 16 bytes and a 16-byte-aligned
+    base."""
+    return (g.dim() == 4 and g.is_contiguous()
+            and g.shape[3] * g.element_size() % 16 == 0 and g.data_ptr() % 16 == 0)
+
+
 def pool_bn_relu_bwd(g: torch.Tensor, x: torch.Tensor, scale: torch.Tensor,
                      shift: torch.Tensor) -> Tuple[torch.Tensor, ...]:
-    """Backward of ``pool_bn_relu_fwd``: g [B, C, H/2, W] and x as the
-    forward's, both channels-last and of one dtype -> (dx channels-last in
-    x.dtype, dscale, dshift float32 [C]).
+    """Backward of ``pool_bn_relu_fwd``: g [B, C, H/2, W] channels-last or
+    contiguous NCHW (``nchw_grad_ok``) and x as the forward's, of one dtype
+    -> (dx channels-last in x.dtype, dscale, dshift float32 [C]).
 
     CUDA tensors launch K3b (``csrc/pool_fused.cu``) on the current stream
     and add one to ``pool_bn_relu_bwd.launches``; CPU tensors run
@@ -140,10 +149,17 @@ def pool_bn_relu_bwd(g: torch.Tensor, x: torch.Tensor, scale: torch.Tensor,
         raise ValueError(f"pool_bn_relu_bwd: no kernel for device {x.device}")
     _check("pool_bn_relu_bwd", x, scale, shift)
     b, c, h, w = x.shape
-    check_channels_last("pool_bn_relu_bwd", "g", g)
     if tuple(g.shape) != (b, c, h // 2, w) or g.dtype != x.dtype or g.device != x.device:
         raise ValueError(f"pool_bn_relu_bwd: g must be {x.dtype} {(b, c, h // 2, w)} "
                          f"on {x.device}, got {g.dtype} {tuple(g.shape)} on {g.device}")
+    # A tensor that is both is laid out alike either way.
+    g_nchw = not g.is_contiguous(memory_format=torch.channels_last)
+    if g_nchw and not nchw_grad_ok(g):
+        raise ValueError("pool_bn_relu_bwd: g must be channels-last, or contiguous NCHW "
+                         "with W * itemsize % 16 == 0 and a 16-byte-aligned base "
+                         f"(strides {g.stride()}, W {w}); no copy is made")
+    if g.data_ptr() % 16:
+        raise ValueError("pool_bn_relu_bwd: g must be 16-byte aligned")
     from htr_vt_torch._build import check_launch, library
     dx = torch.empty_like(x, memory_format=torch.channels_last)
     out = torch.empty((2, c), dtype=torch.float32, device=x.device)
@@ -154,8 +170,8 @@ def pool_bn_relu_bwd(g: torch.Tensor, x: torch.Tensor, scale: torch.Tensor,
         err = library().htrvt_pool_bn_relu_bwd(
             g.data_ptr(), x.data_ptr(), scale.data_ptr(), shift.data_ptr(),
             dx.data_ptr(), out[0].data_ptr(), out[1].data_ptr(),
-            partial.data_ptr(), b, h, w, c, MAX_BLOCKS, _DTYPE_CODES[x.dtype],
-            stream)
+            partial.data_ptr(), b, h, w, c, MAX_BLOCKS, int(g_nchw),
+            _DTYPE_CODES[x.dtype], stream)
     check_launch("pool_bn_relu_bwd", err)
     pool_bn_relu_bwd.launches += 1
     return dx, out[0], out[1]
@@ -168,7 +184,7 @@ class PoolBNReLU(torch.autograd.Function):
     """``max_pool_bn_relu`` with K3f forward and K3b backward, differentiable
     in x, scale and shift (``_pool_op``, ``pool_fused.py:266-280``)."""
 
-    grad_copies = 0  # backward calls whose g had to be copied to channels-last
+    grad_copies = 0  # backward calls whose g K3b could not read as it came
 
     @staticmethod
     def forward(ctx, x, scale, shift):
@@ -178,7 +194,8 @@ class PoolBNReLU(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         x, scale, shift = ctx.saved_tensors
-        if not g.is_contiguous(memory_format=torch.channels_last):
+        if (g.is_cuda and not g.is_contiguous(memory_format=torch.channels_last)
+                and not nchw_grad_ok(g)):
             PoolBNReLU.grad_copies += 1
             g = g.contiguous(memory_format=torch.channels_last)
         return pool_bn_relu_bwd(g, x, scale, shift)

@@ -281,36 +281,118 @@ def _pool_case(shape, dtype, device, seed, ties):
     return x, scale, shift, g.contiguous(memory_format=torch.channels_last)
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("shape,dtype,ties", [
-    ((128, 192, 32, 512), torch.bfloat16, False),  # the flagship entry
-    ((4, 16, 8, 45), torch.bfloat16, True),        # ragged W tile, ties
-    ((4, 16, 8, 45), torch.float32, True),
-    ((2, 8, 6, 300), torch.float32, False)])
-def test_pool_kernels_match_plain(cuda, shape, dtype, ties):
-    """K3f and K3b against their plain versions: y and dx bit for bit (the
-    same roundings in the same order). dscale/dshift are float32 sums of
-    B*H*W terms per channel in another order (per-thread chains, block and
-    partial sums vs ATen's tree), held within 1e-5 of the sum of the
-    terms' magnitudes."""
+def _hold_pool_bwd(got, g, x, scale, shift):
+    """K3b's (dx, dscale, dshift) against the plain version: dx bit for
+    bit; dscale/dshift, float32 sums of B*H*W terms per channel in another
+    order (per-thread chains, block and partial sums vs ATen's tree),
+    within 1e-5 of the sum of the terms' magnitudes."""
     from htr_vt_torch.ops import pool_fused as pf
-    x, scale, shift, g = _pool_case(shape, dtype, cuda, seed=shape[3], ties=ties)
-    before = pf.pool_bn_relu_fwd.launches, pf.pool_bn_relu_bwd.launches
-    y = pf.pool_bn_relu_fwd(x, scale, shift)
-    dx, ds, dt = pf.pool_bn_relu_bwd(g, x, scale, shift)
-    torch.cuda.synchronize()
-    assert (pf.pool_bn_relu_fwd.launches, pf.pool_bn_relu_bwd.launches) == (
-        before[0] + 1, before[1] + 1)
-    assert y.is_contiguous(memory_format=torch.channels_last)
-    assert dx.is_contiguous(memory_format=torch.channels_last)
-    assert torch.equal(y, pf.max_pool_bn_relu_reference(x, scale, shift))
+    dx, ds, dt = got
     dx_p, ds_p, dt_p = pf.pool_bn_relu_bwd_reference(g, x, scale, shift)
+    assert dx.is_contiguous(memory_format=torch.channels_last)
     assert torch.equal(dx, dx_p)
     daf = pf.routed_grad_reference(g, x, scale, shift)
     for got, want, mag in ((ds, ds_p, (daf * x.float()).abs().sum((0, 2, 3))),
                            (dt, dt_p, daf.abs().sum((0, 2, 3)))):
         assert ((got - want).abs() <= 1e-5 * mag + 1e-6).all(), \
             ((got - want).abs() / mag).max()
+
+
+# K3f tiles 8 window rows x 32 columns, K3b 8 x 16, both x 128 bytes of
+# channels (64 bf16, 32 float32).
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,dtype,ties", [
+    ((128, 192, 32, 512), torch.bfloat16, False),  # the flagship entry
+    ((4, 16, 8, 45), torch.bfloat16, True),        # ragged W tile, ties
+    ((4, 16, 8, 45), torch.float32, True),
+    ((2, 8, 6, 300), torch.float32, False),
+    ((3, 24, 10, 50), torch.bfloat16, True),       # W not a multiple of either strip
+    ((2, 16, 6, 7), torch.bfloat16, False),        # W under both strips
+    ((2, 16, 6, 7), torch.float32, True),
+    ((2, 8, 4, 20), torch.bfloat16, True),         # C = 8: one partial chunk
+    ((2, 40, 4, 24), torch.bfloat16, False),       # C = 40 of 64
+    ((2, 40, 6, 33), torch.float32, True),         # C = 40 of 32 + 32
+    ((3, 16, 2, 19), torch.bfloat16, True),        # H = 2: one window row
+    ((2, 16, 2, 24), torch.float32, False),
+    ((2, 24, 36, 40), torch.bfloat16, True),       # Ho = 18: three bands
+    ((1, 16, 70, 20), torch.float32, False)])      # Ho = 35: five bands
+def test_pool_kernels_match_plain(cuda, shape, dtype, ties):
+    """K3f and K3b against their plain versions: y and dx bit for bit (the
+    same roundings in the same order); dscale/dshift as
+    ``_hold_pool_bwd`` holds them."""
+    from htr_vt_torch.ops import pool_fused as pf
+    x, scale, shift, g = _pool_case(shape, dtype, cuda, seed=shape[3], ties=ties)
+    before = pf.pool_bn_relu_fwd.launches, pf.pool_bn_relu_bwd.launches
+    y = pf.pool_bn_relu_fwd(x, scale, shift)
+    got = pf.pool_bn_relu_bwd(g, x, scale, shift)
+    torch.cuda.synchronize()
+    assert (pf.pool_bn_relu_fwd.launches, pf.pool_bn_relu_bwd.launches) == (
+        before[0] + 1, before[1] + 1)
+    assert y.is_contiguous(memory_format=torch.channels_last)
+    assert torch.equal(y, pf.max_pool_bn_relu_reference(x, scale, shift))
+    _hold_pool_bwd(got, g, x, scale, shift)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,dtype", [
+    ((128, 192, 32, 512), torch.bfloat16),  # the flagship entry, the step's layout
+    ((2, 16, 6, 24), torch.bfloat16),
+    ((2, 40, 36, 16), torch.float32),
+    ((3, 8, 2, 8), torch.bfloat16)])
+def test_pool_bwd_reads_an_nchw_gradient(cuda, shape, dtype):
+    """g as contiguous NCHW (its own tensor map, transposed in shared
+    memory) gives the channels-last g's dx, dscale and dshift bit for bit,
+    and both meet the plain version."""
+    from htr_vt_torch.ops import pool_fused as pf
+    x, scale, shift, g = _pool_case(shape, dtype, cuda, seed=shape[2], ties=True)
+    g_nchw = g.contiguous()
+    assert not g_nchw.is_contiguous(memory_format=torch.channels_last)
+    cl = pf.pool_bn_relu_bwd(g, x, scale, shift)
+    nchw = pf.pool_bn_relu_bwd(g_nchw, x, scale, shift)
+    torch.cuda.synchronize()
+    for a, b in zip(cl, nchw):
+        assert torch.equal(a, b)
+    _hold_pool_bwd(nchw, g_nchw, x, scale, shift)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_pool_bwd_border_windows_of_relu_zeros(cuda, dtype):
+    """Every window at the image border holds only ReLU zeros (x = 0 there
+    and shift = 0, so a_pre is an exact 0 and dx shows the half gradient):
+    the first tap in scan order that lies in the image must claim, never a
+    tap past the border, which the kernel masks by its coordinates."""
+    from htr_vt_torch.ops import pool_fused as pf
+    shape = (2, 16, 20, 37)
+    x, scale, shift, g = _pool_case(shape, dtype, cuda, seed=11, ties=True)
+    x = x.clone()
+    x[:, :, :3] = 0
+    x[:, :, -3:] = 0
+    x[:, :, :, :3] = 0
+    x[:, :, :, -3:] = 0
+    shift = torch.zeros_like(shift)
+    y = pf.pool_bn_relu_fwd(x, scale, shift)
+    got = pf.pool_bn_relu_bwd(g, x, scale, shift)
+    torch.cuda.synchronize()
+    assert torch.equal(y, pf.max_pool_bn_relu_reference(x, scale, shift))
+    assert (got[0][:, :, 0, 0] != 0).any()  # the corner takes its windows' half gradient
+    _hold_pool_bwd(got, g, x, scale, shift)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,dtype", [((128, 192, 32, 512), torch.bfloat16),
+                                         ((3, 40, 36, 48), torch.float32)])
+def test_pool_bwd_two_calls_give_equal_bits(cuda, shape, dtype):
+    """No atomics: the per-block partials add in a fixed order, so two calls
+    give equal dx, dscale and dshift, with g in either layout."""
+    from htr_vt_torch.ops import pool_fused as pf
+    x, scale, shift, g = _pool_case(shape, dtype, cuda, seed=7, ties=False)
+    runs = [pf.pool_bn_relu_bwd(gg, x, scale, shift)
+            for gg in (g, g, g.contiguous(), g.contiguous())]
+    torch.cuda.synchronize()
+    for run in runs[1:]:
+        for a, b in zip(runs[0], run):
+            assert torch.equal(a, b)
 
 
 @pytest.mark.cuda
@@ -326,6 +408,24 @@ def test_pool_autograd_routes_through_both_kernels(cuda):
     assert torch.equal(xs[0].grad, dx)
     torch.testing.assert_close(xs[1].grad, ds, rtol=1e-5, atol=1e-5)
     torch.testing.assert_close(xs[2].grad, dt, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.cuda
+def test_pool_autograd_copies_only_a_gradient_k3b_cannot_read(cuda):
+    """``PoolBNReLU`` hands K3b a channels-last or a contiguous NCHW g as it
+    comes, and copies (and counts) only a g in another layout: here NCHW
+    rows of 12 bf16, 24 bytes, which K3b's tensor map cannot take."""
+    from htr_vt_torch.ops import pool_fused as pf
+    for w, copies in ((40, 0), (12, 1)):
+        x, scale, shift, g = _pool_case((2, 16, 8, w), torch.bfloat16, cuda, 3, True)
+        want = pf.pool_bn_relu_bwd_reference(g, x, scale, shift)[0]
+        for gg, copied in ((g, 0), (g.contiguous(), copies)):
+            xs = x.clone().requires_grad_(True)
+            before = pf.PoolBNReLU.grad_copies, pf.pool_bn_relu_bwd.launches
+            pf.max_pool_bn_relu(xs, scale, shift).backward(gg)
+            assert (pf.PoolBNReLU.grad_copies, pf.pool_bn_relu_bwd.launches) == (
+                before[0] + copied, before[1] + 1)
+            assert torch.equal(xs.grad, want)
 
 
 @pytest.mark.cuda
@@ -351,6 +451,10 @@ def test_stem_wrappers_reject_what_the_kernels_do_not_take(cuda):
     with pytest.raises(ValueError, match="g must be"):
         pf.pool_bn_relu_bwd(g.float().contiguous(memory_format=torch.channels_last),
                             x, scale, shift)
+    with pytest.raises(ValueError, match="W \\* itemsize % 16"):  # 12 bf16: 24-byte rows
+        pf.pool_bn_relu_bwd(g.contiguous(), x, scale, shift)
+    with pytest.raises(ValueError, match="g must be channels-last"):
+        pf.pool_bn_relu_bwd(g.transpose(2, 3).contiguous().transpose(2, 3), x, scale, shift)
 
 
 def _fused(cfg):
@@ -819,6 +923,39 @@ def test_k5f_and_k4f_are_wgmma_fed_by_tma(cuda):
         for body in bodies:
             assert "HGMMA" in body and "UTMALDG" in body, kernel
             assert "HMMA" not in body.replace("HGMMA", ""), kernel
+
+
+@pytest.mark.cuda
+def test_k3_kernels_are_fed_by_tma(cuda):
+    """K3f and K3b stage their tiles by TMA (the source of each kernel calls
+    the TMA helper, and the compiled library holds UTMALDG in each); the
+    per-thread global loads of the kernels they replaced are gone."""
+    import pathlib
+    import shutil
+    import subprocess
+    from htr_vt_torch import _build
+    text = (_build.CSRC / "pool_fused.cu").read_text()
+    for kernel in ("pool_fwd_kernel", "pool_bwd_kernel"):
+        body = _kernel_body(text, kernel)
+        assert "hopper::mbar_wait" in body and "stem::load8" not in body, kernel
+    assert "hopper::tma_load_4d" in _kernel_body(text, "pool_fwd_kernel")
+    # K3b's loads (x and g, into either buffer) are issued through bwd_load
+    assert "bwd_load<T, kNchw>(" in _kernel_body(text, "pool_bwd_kernel")
+    loader = text[text.index("void bwd_load("):]
+    assert loader[:loader.index("\n}\n")].count("hopper::tma_load_4d") == 3
+    assert "window_argmax" not in text
+    _build.library()
+    cuobjdump = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    if not pathlib.Path(cuobjdump).exists():
+        pytest.skip("no cuobjdump to read the compiled kernels")
+    sass = subprocess.run([cuobjdump, "-sass", str(_build.LIBRARY)], capture_output=True,
+                          text=True, check=True).stdout
+    functions = sass.split("Function : ")
+    for kernel in ("pool_fwd_kernel", "pool_bwd_kernel"):
+        bodies = [f for f in functions if kernel in f.splitlines()[0]]
+        assert bodies, kernel
+        for body in bodies:
+            assert "UTMALDG" in body, kernel
 
 
 @pytest.mark.cuda

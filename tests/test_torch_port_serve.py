@@ -200,6 +200,9 @@ def test_serve_main_routes_lines_to_width_buckets(tmp_path, monkeypatch, capsys)
     ("void (anonymous namespace)::conv_dgrad_wgmma<true>(CUtensorMap_st, CUtensorMap_st, "
      "__nv_bfloat16*, int, int, int, int)",
      "conv3x3 kernels (K4f, K4d, K4w)"),
+    ("void (anonymous namespace)::pool_bwd_kernel<__nv_bfloat16, true>(CUtensorMap_st, "
+     "CUtensorMap_st, float const*, float const*, __nv_bfloat16*, float*, int, int, int)",
+     "pool_bn_relu kernels (K3f, K3b)"),
     ("ctc_alpha_kernel(float const*, int const*, bool const*)", "ctc_alpha kernel"),
     ("sm90_xmma_fprop_implicit_gemm_bf16bf16_bf16f32_f32_nhwckrsc_nhwc",
      "convolutions (cuDNN)"),
@@ -216,6 +219,18 @@ def test_serve_main_routes_lines_to_width_buckets(tmp_path, monkeypatch, capsys)
     ("Memset (Device)", "other")])
 def test_profile_sorts_kernels_by_category(kernel, label):
     assert category(kernel) == label
+
+
+@pytest.mark.parametrize("variant", ["clocks", "loads_only"])
+def test_pool_breakdown_patches_the_kernel_it_measures(variant):
+    """``cli/pool_breakdown.py`` builds its K3b variants by patching fixed
+    lines of ``csrc/pool_fused.cu``: every line it needs is there once."""
+    from htr_vt_torch.cli import pool_breakdown
+    text = pool_breakdown.patched(variant)
+    if variant == "clocks":  # the start, six phase ends and the summing store
+        assert text.count("clock64()") == 7 and "atomicAdd(&g_pool_clocks" in text
+    else:  # the normalise, argmax and gather passes cut
+        assert "line < 0;" in text and "if (false) {" in text and "kw < 0;" in text
 
 
 def test_port_imports_no_jax_and_serves_on_cpu():

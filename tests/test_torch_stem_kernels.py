@@ -246,6 +246,26 @@ def test_pool_autograd_function_is_the_twins():
         assert torch.equal(got, want)
 
 
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_pool_autograd_takes_an_nchw_gradient_without_a_copy(dtype):
+    """The stem hands ``PoolBNReLU`` a contiguous NCHW gradient (the strided
+    projection's backward writes NCHW): it gives the grads of a
+    channels-last one and counts no copy."""
+    _, (xt, st, tt, gt) = _pool_case(5, dtype, ties=True)
+    g_nchw = gt.contiguous()
+    assert not g_nchw.is_contiguous(memory_format=torch.channels_last)
+    assert pf.nchw_grad_ok(g_nchw) and not pf.nchw_grad_ok(gt)
+    grads = []
+    before = pf.PoolBNReLU.grad_copies
+    for g in (gt, g_nchw):
+        args = [a.clone().requires_grad_(True) for a in (xt, st, tt)]
+        pf.max_pool_bn_relu(*args).backward(g)
+        grads.append([a.grad for a in args])
+    assert pf.PoolBNReLU.grad_copies == before
+    for got, want in zip(*grads):
+        assert torch.equal(got, want)
+
+
 # --- FoldedBatchNorm in train mode -------------------------------------------
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("stats_impl", ["pallas", "xla"])
