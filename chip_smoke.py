@@ -11,13 +11,14 @@ non-zero before the last line:
 1. build: compiles ``htr_vt_torch/csrc/*.cu`` with nvcc for sm_90a into the
    git-ignored ``build/htr_vt_torch/``.
 2. CTC kernels vs plain: the alpha kernel against ``ctc_alpha_reference``,
-   the beta kernel against ``ctc_beta_reference``, the loss against the
-   plain ``ctc_loss`` and against ``F.ctc_loss``, and ``d logits`` through
-   both kernels against autograd through the plain loop, at the labelled
-   train/eval shape (B=128, T=128, C=80, Lmax=96 -> S=193, with length-0
-   and infeasible rows) and the serving dummies (Lmax=8, all lengths 0 ->
-   S=17), with CUDA-event times, ``F.ctc_loss`` as the library yardstick,
-   and the bound.
+   the beta kernel against ``ctc_beta_reference`` (two calls bit-equal),
+   the loss against the plain ``ctc_loss`` and against ``F.ctc_loss``, and
+   ``d logits`` through both kernels against autograd through the plain
+   loop, at the labelled train/eval shape (B=128, T=128, C=80, Lmax=96 ->
+   S=193, with length-0 and infeasible rows), the serving dummies (Lmax=8,
+   all lengths 0 -> S=17) and the wide steps' shapes (B=64, T=256 and 512,
+   Lmax 56 and 112 -> S=113 and 225), with times, ``F.ctc_loss`` as the
+   library yardstick, the bound and the cycles a frame.
 3. stem kernels vs plain: K2 (``bn_stats``) at the four stem activations of
    the flagship at bs 128, K3f and K3b (``pool_bn_relu_fwd``/``_bwd``) at
    the conv1 output [128, 192, 32, 512], bf16 channels-last, against their
@@ -93,6 +94,15 @@ non-zero before the last line:
    ``validate`` at 2048 px; ms/step, img/s and peak memory per width; a
    20-step learning check at bs 16 and 2048 px.
 
+Kernel times (phases 2, 3, 4 and 11) are read two ways: ``median_ms``, one
+wrapper call between two CUDA events (host work in the wrapper included;
+the times of earlier runs), and ``device_ms``, the device time a launch: a
+run of back-to-back calls queued behind a spin kernel, so that the window
+holds the device's work alone, divided by its length (inputs that the step
+finds cold in L2 are cycled through copies that together exceed it). The
+JSON record's ``ms`` and ``library_ms`` are device times a launch,
+``call_ms`` and ``library_call_ms`` the single calls.
+
 The second-to-last line is a JSON record of the kernels; the last line is
 ``{"ok": true, "device": {...}}``.
 """
@@ -141,8 +151,10 @@ GRAD_RTOL, GRAD_ATOL = 1e-4, 1e-5
 # glue's posterior exp(alpha + beta - total) is a difference of float32
 # numbers of the size of the loss (~860 here), so it carries a few ulps of
 # |total| as absolute error (measured 4.2e-4 against float64 on the CPU,
-# where autograd's own error is 4.9e-5); the bar scales with the loss.
-POSTERIOR_ULPS = 16
+# where autograd's own error is 4.9e-5); the bar scales with the loss. Each
+# frame rounds alpha and beta once more, so past the 128 frames it was set
+# at it also scales with the frames (the wide steps' 256 and 512).
+POSTERIOR_ULPS, POSTERIOR_FRAMES = 16, 128
 TRAIN_WARMUP, TRAIN_STEPS = 2, 10
 VAL_ROWS = (BATCH, BATCH - 7)  # valid rows of the 2 validation batches
 LEARN_BATCH, LEARN_STEPS = 16, 20
@@ -161,6 +173,10 @@ BF16_TENSOR_OPS_PER_S = 989e12
 # Per state and frame, the recursion's logaddexp3 and emission add: three
 # exp, one log, two max, four adds.
 CTC_OPS_PER_STATE = 10
+# device_ms: back-to-back calls a run, runs (the median is kept), and the
+# card's L2, which inputs that the step reads cold must exceed together.
+DEVICE_RUN, DEVICE_RUNS = 20, 5
+L2_BYTES = 50 * 2**20
 # The stem activations K2 reads in one forward of the flagship at bs 128
 # (NCHW, stored channels-last): once at the entry, 5 times at each stage.
 STEM_SITES = (("entry", (BATCH, 192, 32, 512), 1), ("stage1", (BATCH, 192, 8, 512), 5),
@@ -220,6 +236,11 @@ SELFTEST_PX_PER_CHAR, SELFTEST_PAD_PX = 24, 32
 WIDE_BATCH = 64  # tools/train_multiwidth.py --bs
 WIDE_LMAX = {1024: 56, 2048: 112}  # max(6, 28 * w / 512) characters
 WIDE_STEPS = 12
+# The CTC kernels' cases (name, B, T, Lmax, all lengths 0): the labelled
+# train/eval shape, the serving dummies and the wide steps' (T = W / 4).
+CTC_CASES = (("S193", BATCH, 128, LMAX, False), ("S17", BATCH, 128, SERVE_LMAX, True),
+             ("W1024", WIDE_BATCH, 256, WIDE_LMAX[1024], False),
+             ("W2048", WIDE_BATCH, 512, WIDE_LMAX[2048], False))
 
 
 def per_step_launches(switches):
@@ -245,8 +266,9 @@ def per_eval_launches(switches):
     return want
 
 
-def posterior_atol(loss):
-    return max(GRAD_ATOL, POSTERIOR_ULPS * 2.0**-24 * loss.abs().max().item())
+def posterior_atol(loss, frames=POSTERIOR_FRAMES):
+    ulps = POSTERIOR_ULPS * max(frames, POSTERIOR_FRAMES) / POSTERIOR_FRAMES
+    return max(GRAD_ATOL, ulps * 2.0**-24 * loss.abs().max().item())
 
 
 def say(*parts):
@@ -268,6 +290,58 @@ def median_ms(fn, reps, warmup=3):
         end.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+def _events():
+    return torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+
+
+def _hold_stream(ms):
+    """Keep the current stream busy on the device for at least ``ms``: a
+    spin of ``ms`` x 2e6 cycles (an H100's SM clock is at most 1980 MHz)."""
+    torch.cuda._sleep(int(ms * 2e6))
+
+
+def device_ms(what, calls, n=DEVICE_RUN, runs=DEVICE_RUNS):
+    """Device time a launch in milliseconds: the median over ``runs`` of the
+    CUDA-event time of ``n`` back-to-back calls, divided by ``n``. A spin
+    kernel holds the stream while the host queues the calls, so the window
+    holds the device's work and not the wrapper's host time. ``calls`` are
+    zero-argument callables taken in turn (copies of the inputs, so that
+    the step's cold inputs arrive cold). Says so where the host could not
+    queue a run ahead of the device (a call that waits on the device)."""
+    calls = list(calls)
+    for fn in calls * 2:
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i in range(n):
+        calls[i % len(calls)]()
+    hold = 2 * (time.perf_counter() - t0) * 1e3 + 1.0
+    torch.cuda.synchronize()
+    times, late = [], 0
+    for _ in range(runs):
+        start, end = _events()
+        _hold_stream(hold)
+        start.record()
+        t0 = time.perf_counter()
+        for i in range(n):
+            calls[i % len(calls)]()
+        late += (time.perf_counter() - t0) * 1e3 > hold
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / n)
+    if late:
+        say(f"[device time] {what}: in {late} of {runs} runs the host queued the "
+            "calls slower than the device ran them (a call waits on the device); "
+            "host gaps are inside that time")
+    return statistics.median(times)
+
+
+def cold_copies(x):
+    """x and enough copies of it that together they exceed twice the L2."""
+    n = max(1, math.ceil(2 * L2_BYTES / (x.numel() * x.element_size())))
+    return [x] + [x.clone() for _ in range(n - 1)]
 
 
 def reset_counts():
@@ -295,6 +369,9 @@ def phase_device():
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60).stdout
+    clock = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, check=True, timeout=60).stdout
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     say(f"[device] {torch.cuda.get_device_name(0)}, count "
@@ -302,7 +379,9 @@ def phase_device():
         f"CUDA {torch.version.cuda}, Python {sys.version.split()[0]}")
     smi_line = smi.strip().splitlines()[0]
     say(smi_line)
-    return smi_line
+    max_sm_mhz = float(clock.strip().splitlines()[0])
+    say(f"[device] max SM clock {max_sm_mhz:.0f} MHz")
+    return smi_line, max_sm_mhz
 
 
 def phase_build():
@@ -320,17 +399,17 @@ def phase_build():
 
 
 # ---------------------------------------------------------------------------
-def ctc_case(seed, lmax, zero_lengths, device):
-    """B=128, T=128, C=80 logits and labels. Labelled case: 8 rows of length
-    0, and 8 rows of 96 identical labels, which need 191 > 128 frames and so
-    cannot be aligned."""
+def ctc_case(seed, b, t, lmax, zero_lengths, device):
+    """[b, t, 80] logits and labels of up to ``lmax``. Labelled case: 8 rows
+    of length 0, and 8 rows of ``lmax`` identical labels, which need 2 *
+    lmax - 1 frames (more than T=128 at Lmax=96: they cannot be aligned)."""
     rng = np.random.default_rng(seed)
-    logits = (2.0 * rng.standard_normal((BATCH, 128, 80))).astype(np.float32)
-    labels = rng.integers(1, 80, (BATCH, lmax)).astype(np.int32)
+    logits = (2.0 * rng.standard_normal((b, t, 80))).astype(np.float32)
+    labels = rng.integers(1, 80, (b, lmax)).astype(np.int32)
     if zero_lengths:
-        lengths = np.zeros(BATCH, np.int32)
+        lengths = np.zeros(b, np.int32)
     else:
-        lengths = rng.integers(1, lmax + 1, BATCH).astype(np.int32)
+        lengths = rng.integers(1, lmax + 1, b).astype(np.int32)
         lengths[:8] = 0
         lengths[8:16] = lmax
         labels[8:16] = labels[8:16, :1]
@@ -377,19 +456,24 @@ def _glue_over_plain(logits, labels, lengths):
     return x.grad
 
 
-def phase_kernels(device):
+def phase_kernels(device, max_sm_mhz):
     results = {}
-    for name, lmax, zero in (("S193", LMAX, False), ("S17", SERVE_LMAX, True)):
-        logits, labels, lengths = ctc_case(SEED + lmax, lmax, zero, device)
+    for name, b, t, lmax, zero in CTC_CASES:
+        logits, labels, lengths = ctc_case(SEED + lmax, b, t, lmax, zero, device)
         logp = torch.log_softmax(logits, dim=-1).contiguous()
         z, noskip, valid, start2, endm = ctc_cuda.extended_masks(labels, lengths)
-        alpha_k = ctc_cuda.ctc_alpha(logp, z, noskip, valid, start2)
-        beta_k = ctc_cuda.ctc_beta(logp, z, noskip, valid, endm)
+        runs = [(ctc_cuda.ctc_alpha(logp, z, noskip, valid, start2),
+                 ctc_cuda.ctc_beta(logp, z, noskip, valid, endm)) for _ in range(2)]
         torch.cuda.synchronize()
+        (alpha_k, beta_k), again = runs
+        if not all(torch.equal(x, y) for x, y in zip(runs[0], again)):
+            raise AssertionError(f"[{name}] two calls of a CTC kernel gave different bits")
+        del runs, again
         alpha_err, n_alpha = _hold(name, "alpha", alpha_k, ctc_cuda.ctc_alpha_reference(
             logp, z, noskip, valid, start2))
         beta_err, n_beta = _hold(name, "beta", beta_k, ctc_cuda.ctc_beta_reference(
             logp, z, noskip, valid, endm))
+        del alpha_k, beta_k
         loss_k, grad_k = _loss_grad(ctc_cuda.ctc_loss_cuda, logits, labels, lengths)
         loss_p, grad_p = _loss_grad(ctc_loss, logits, labels, lengths)
         torch.testing.assert_close(loss_k, loss_p, rtol=LOSS_RTOL, atol=0.0)
@@ -399,20 +483,29 @@ def phase_kernels(device):
         grad_g = _glue_over_plain(logits, labels, lengths)
         torch.testing.assert_close(grad_k, grad_g, rtol=GRAD_RTOL, atol=GRAD_ATOL)
         glue_err = (grad_k - grad_g).abs().max().item()
-        atol = posterior_atol(loss_p)
-        torch.testing.assert_close(grad_k, grad_p, rtol=GRAD_RTOL, atol=atol)
+        atol = posterior_atol(loss_p, t)
         grad_err = (grad_k - grad_p).abs().max().item()
+        say(f"[kernel {name}] d logits vs autograd through the plain loop: max|err| "
+            f"{grad_err:.3e} (rtol {GRAD_RTOL}, atol {atol:.3e})")
+        torch.testing.assert_close(grad_k, grad_p, rtol=GRAD_RTOL, atol=atol)
         infeasible = (loss_p == 0) & (lengths > 0)
         if (grad_k[infeasible] != 0).any() or (grad_p[infeasible] != 0).any():
             raise AssertionError(f"[{name}] an infeasible row has a gradient")
         n_zero = int((loss_p == 0).sum())
+
+        def alpha():
+            return ctc_cuda.ctc_alpha(logp, z, noskip, valid, start2)
+
+        def beta():
+            return ctc_cuda.ctc_beta(logp, z, noskip, valid, endm)
+
         times = dict(
-            alpha_ms=median_ms(lambda: ctc_cuda.ctc_alpha(
-                logp, z, noskip, valid, start2), 50),
+            alpha_ms=device_ms(f"{name} alpha", [alpha]),
+            alpha_call_ms=median_ms(alpha, 50),
             alpha_plain_ms=median_ms(lambda: ctc_cuda.ctc_alpha_reference(
                 logp, z, noskip, valid, start2), 10),
-            beta_ms=median_ms(lambda: ctc_cuda.ctc_beta(
-                logp, z, noskip, valid, endm), 50),
+            beta_ms=device_ms(f"{name} beta", [beta]),
+            beta_call_ms=median_ms(beta, 50),
             beta_plain_ms=median_ms(lambda: ctc_cuda.ctc_beta_reference(
                 logp, z, noskip, valid, endm), 10),
             grad_ms=median_ms(lambda: _loss_grad(
@@ -420,10 +513,12 @@ def phase_kernels(device):
             grad_plain_ms=median_ms(lambda: _loss_grad(
                 ctc_loss, logits, labels, lengths), 5, warmup=1))
         # the library yardstick: F.ctc_loss on [T, B, C] log-probs, forward
-        # for the alpha recursion, forward and backward for the beta one
+        # for the alpha recursion, forward and backward for the beta one; the
+        # lengths on the host, as it reads them there (lengths on the card
+        # make each call wait for the device)
         lp_tbc = logp.transpose(0, 1).contiguous()
-        t_len = torch.full((BATCH,), logp.shape[1], dtype=torch.long, device=device)
-        targets, target_len = labels.long(), lengths.long()
+        t_len = torch.full((b,), t, dtype=torch.long)
+        targets, target_len = labels.long(), lengths.long().cpu()
 
         def library_loss(lp):
             return F.ctc_loss(lp, targets, t_len, target_len, blank=0,
@@ -442,20 +537,30 @@ def phase_kernels(device):
                                    rtol=LIBRARY_LOSS_RTOL, atol=0.0)
         lib_rel = ((loss_k - loss_l).abs()[lib_finite]
                    / loss_l[lib_finite].abs()).max().item()
-        times["alpha_library_ms"] = median_ms(lambda: library_loss(lp_tbc), 50)
-        times["beta_library_ms"] = median_ms(library_grad, 50)
+        times["alpha_library_ms"] = device_ms(f"{name} F.ctc_loss forward",
+                                              [lambda: library_loss(lp_tbc)])
+        times["alpha_library_call_ms"] = median_ms(lambda: library_loss(lp_tbc), 50)
+        times["beta_library_ms"] = device_ms(f"{name} F.ctc_loss forward + backward",
+                                             [library_grad])
+        times["beta_library_call_ms"] = median_ms(library_grad, 50)
         s = z.shape[1]
-        cube = BATCH * logp.shape[1] * s
+        cube = b * t * s
         n_bytes = logp.numel() * 4 + z.numel() * 4 + 3 * noskip.numel() + cube * 4
         times["bound_ms"], times["bound_by"] = bound(n_bytes, CTC_OPS_PER_STATE * cube)
+        # the serial chain: T - 1 dependent frames a sample, at the max SM clock
+        for which in ("alpha", "beta"):
+            times[f"{which}_cycles_a_frame"] = (times[f"{which}_ms"] * 1e-3
+                                                * max_sm_mhz * 1e6 / max(t - 1, 1))
         say(f"[kernel {name}] vs F.ctc_loss (reduction none, zero_infinity): "
             f"{int(lib_finite.sum())} finite rows max rel err {lib_rel:.3e} (rtol "
             f"{LIBRARY_LOSS_RTOL}), the same {int((~lib_finite).sum())} zero rows; "
-            f"F.ctc_loss forward {times['alpha_library_ms']:.4f} ms, forward + "
-            f"backward {times['beta_library_ms']:.4f} ms; bound "
-            f"{times['bound_ms']:.4f} ms by {times['bound_by']} ({n_bytes} bytes)")
-        say(f"[kernel {name}] B=128 T=128 C=80 S={s}: alpha max|err| "
-            f"{alpha_err:.3e} over {n_alpha} finite entries, beta max|err| "
+            f"F.ctc_loss forward {times['alpha_library_ms']:.4f} ms device a launch "
+            f"(one call {times['alpha_library_call_ms']:.4f}), forward + backward "
+            f"{times['beta_library_ms']:.4f} (one call "
+            f"{times['beta_library_call_ms']:.4f}); bound {times['bound_ms']:.4f} ms "
+            f"by {times['bound_by']} ({n_bytes} bytes)")
+        say(f"[kernel {name}] B={b} T={t} C=80 S={s}: two calls bit-equal; alpha "
+            f"max|err| {alpha_err:.3e} over {n_alpha} finite entries, beta max|err| "
             f"{beta_err:.3e} over {n_beta} (rtol {ALPHA_RTOL}, atol "
             f"{ALPHA_ATOL}); reachability and sentinels equal; loss max rel "
             f"err {loss_rel:.3e} (rtol {LOSS_RTOL}; {n_zero} zero losses); "
@@ -463,13 +568,17 @@ def phase_kernels(device):
             f"{glue_err:.3e} (rtol {GRAD_RTOL}, atol {GRAD_ATOL}), vs autograd "
             f"through the plain loop {grad_err:.3e} (rtol {GRAD_RTOL}, atol "
             f"{atol:.3e}); {int(infeasible.sum())} infeasible rows exactly 0")
-        say(f"[kernel {name}] alpha {times['alpha_ms']:.4f} ms vs plain "
-            f"{times['alpha_plain_ms']:.4f} ms; beta {times['beta_ms']:.4f} ms "
-            f"vs plain {times['beta_plain_ms']:.4f} ms; loss + d logits "
+        say(f"[kernel {name}] alpha {times['alpha_ms']:.4f} ms device a launch "
+            f"({times['alpha_cycles_a_frame']:.0f} cycles a frame at "
+            f"{max_sm_mhz:.0f} MHz; one call {times['alpha_call_ms']:.4f} ms) vs "
+            f"plain {times['alpha_plain_ms']:.4f} ms; beta {times['beta_ms']:.4f} "
+            f"ms device a launch ({times['beta_cycles_a_frame']:.0f} cycles a "
+            f"frame; one call {times['beta_call_ms']:.4f} ms) vs plain "
+            f"{times['beta_plain_ms']:.4f} ms; loss + d logits "
             f"{times['grad_ms']:.4f} ms vs plain {times['grad_plain_ms']:.4f} ms")
         results[name] = dict(alpha_err=alpha_err, beta_err=beta_err,
                              grad_glue_err=glue_err, grad_err=grad_err,
-                             library_rel_err=lib_rel, **times)
+                             library_rel_err=lib_rel, shape=[b, t, 80, s], **times)
     return results
 
 
@@ -740,24 +849,33 @@ def phase_stem_kernels(device):
                                  f"{(err_s / mag).max().item():.3e} of sum |x|")
         torch.testing.assert_close(q_k, q_p, rtol=STATS_SQ_RTOL, atol=0.0)
         n_bytes = x.numel() * 2 + 2 * c * 4
+        # the step reads each site's activation cold: copies exceed the L2
+        xs = cold_copies(x)
         site = dict(
-            shape=list(shape), per_forward=per_forward,
+            shape=list(shape), per_forward=per_forward, cold_copies=len(xs),
             max_abs_err=max(err_s.max().item(), (q_k - q_p).abs().max().item()),
             sum_err_of_abs_sum=(err_s / mag).max().item(),
             sumsq_rel_err=((q_k - q_p).abs() / q_p).max().item(),
-            ms=median_ms(lambda: bn_stats(x), 20),
+            ms=device_ms(f"K2 {name}", [lambda x=x: bn_stats(x) for x in xs]),
+            call_ms=median_ms(lambda: bn_stats(x), 20),
             plain_ms=median_ms(lambda: bn_stats_reference(x), 10),
-            library_ms=median_ms(lambda: torch.batch_norm_stats(x, 1e-5), 20))
+            library_ms=device_ms(f"K2 {name} torch.batch_norm_stats", [
+                lambda x=x: torch.batch_norm_stats(x, 1e-5) for x in xs]),
+            library_call_ms=median_ms(lambda: torch.batch_norm_stats(x, 1e-5), 20))
         site["bound_ms"], site["bound_by"] = bound(n_bytes, 3 * x.numel())
+        site["bound_share"] = site["bound_ms"] / site["ms"]
         sites[name] = site
         say(f"[K2 {name}] bn_stats bf16 {list(shape)}: two calls bit-equal; sum "
             f"max|err| {err_s.max().item():.3e} = {site['sum_err_of_abs_sum']:.3e} "
             f"of sum |x| (bar {STATS_SUM_REL}), sumsq max rel err "
-            f"{site['sumsq_rel_err']:.3e} (rtol {STATS_SQ_RTOL}); kernel "
-            f"{site['ms']:.4f} ms, plain {site['plain_ms']:.4f} ms, "
-            f"torch.batch_norm_stats {site['library_ms']:.4f} ms, bound "
+            f"{site['sumsq_rel_err']:.3e} (rtol {STATS_SQ_RTOL}); kernel with "
+            f"sum_partials {site['ms']:.4f} ms device a launch over {len(xs)} "
+            f"input(s) ({site['bound_share']:.1%} of its bound; one call "
+            f"{site['call_ms']:.4f} ms), plain {site['plain_ms']:.4f} ms, "
+            f"torch.batch_norm_stats {site['library_ms']:.4f} ms device a launch "
+            f"(one call {site['library_call_ms']:.4f}), bound "
             f"{site['bound_ms']:.4f} ms by {site['bound_by']}")
-        del x
+        del x, xs
     out["bn_stats"] = sites
 
     name, shape, _ = STEM_SITES[0]
@@ -777,14 +895,16 @@ def phase_stem_kernels(device):
     del y_2
     n_in, n_out = x.numel(), y_k.numel()
     fwd = dict(shape=list(shape), max_abs_err=0.0,
-               ms=median_ms(lambda: pool_fused.pool_bn_relu_fwd(x, scale, shift), 20),
+               ms=device_ms("K3f", [lambda: pool_fused.pool_bn_relu_fwd(x, scale, shift)]),
+               call_ms=median_ms(lambda: pool_fused.pool_bn_relu_fwd(x, scale, shift), 20),
                plain_ms=median_ms(lambda: pool_fused.max_pool_bn_relu_reference(
                    x, scale, shift), 10))
     # per input element: multiply, add, ReLU; per output: 8 compares
     fwd["bound_ms"], fwd["bound_by"] = bound(2 * n_in + 2 * n_out + 2 * c * 4,
                                              3 * n_in + 8 * n_out)
     say(f"[K3f] pool_bn_relu_fwd bf16 {list(shape)} -> {list(y_k.shape)}: bit-equal "
-        f"to the plain version; kernel {fwd['ms']:.4f} ms, plain (the stock ops) "
+        f"to the plain version; kernel {fwd['ms']:.4f} ms device a launch (one call "
+        f"{fwd['call_ms']:.4f} ms), plain (the stock ops) "
         f"{fwd['plain_ms']:.4f} ms, bound {fwd['bound_ms']:.4f} ms by "
         f"{fwd['bound_by']}")
     del y_k, y_p
@@ -818,8 +938,12 @@ def phase_stem_kernels(device):
     y_stock = pool_fused.max_pool_bn_relu_reference(xs, ss, ts)
     bwd = dict(shape=list(shape), max_abs_err=max(e for e, _ in errs),
                reduction_err_of_abs_sum=max(r for _, r in errs),
-               ms=median_ms(lambda: pool_fused.pool_bn_relu_bwd(g, x, scale, shift), 20),
-               ms_nchw=median_ms(lambda: pool_fused.pool_bn_relu_bwd(
+               ms=device_ms("K3b", [lambda: pool_fused.pool_bn_relu_bwd(
+                   g, x, scale, shift)]),
+               call_ms=median_ms(lambda: pool_fused.pool_bn_relu_bwd(g, x, scale, shift), 20),
+               ms_nchw=device_ms("K3b NCHW g", [lambda: pool_fused.pool_bn_relu_bwd(
+                   g_nchw, x, scale, shift)]),
+               call_ms_nchw=median_ms(lambda: pool_fused.pool_bn_relu_bwd(
                    g_nchw, x, scale, shift), 20),
                plain_ms=median_ms(lambda: pool_fused.pool_bn_relu_bwd_reference(
                    g, x, scale, shift), 5, warmup=1),
@@ -833,8 +957,9 @@ def phase_stem_kernels(device):
         f"plain version; dscale max|err| {errs[0][0]:.3e} ({errs[0][1]:.3e} of the "
         f"sum of |terms|), dshift {errs[1][0]:.3e} ({errs[1][1]:.3e}; bar "
         f"{POOL_RED_REL}); two calls, and g channels-last or NCHW, bit-equal; "
-        f"kernel {bwd['ms']:.4f} ms (g NCHW, the step's layout, "
-        f"{bwd['ms_nchw']:.4f} ms), plain {bwd['plain_ms']:.4f} "
+        f"kernel {bwd['ms']:.4f} ms device a launch, one call {bwd['call_ms']:.4f} "
+        f"(g NCHW, the step's layout, {bwd['ms_nchw']:.4f} device, one call "
+        f"{bwd['call_ms_nchw']:.4f} ms), plain {bwd['plain_ms']:.4f} "
         f"ms, the stock ops' backward (context, no single library call) "
         f"{bwd['stock_ms']:.4f} ms, bound {bwd['bound_ms']:.4f} ms by "
         f"{bwd['bound_by']}")
@@ -934,6 +1059,15 @@ def dgrad_stock_chain(g, k, x, scale, shift):
     return (da * scale.view(c)).to(x.dtype), (da * xf).sum((0, 2, 3)), da.sum((0, 2, 3))
 
 
+def timed(what, key, fn, reps=10):
+    """{ms<key>: device time a launch, call_ms<key>: one call} of ``fn``;
+    a ``key`` ending in "_" is a prefix ("library_" -> library_ms)."""
+    ms, call = device_ms(what, [fn]), median_ms(fn, reps)
+    if key.endswith("_"):
+        return {f"{key}ms": ms, f"{key}call_ms": call}
+    return {f"ms{key}": ms, f"call_ms{key}": call}
+
+
 def phase_conv_kernels(device):
     """K4f, K4d and K4w at the three stride-1 conv sites, with and without
     the prologue, against their plain versions; CUDA-event times of kernel,
@@ -949,32 +1083,39 @@ def phase_conv_kernels(device):
         n = x.numel()
         n_ops = 2 * b * h * w * 9 * c * c
         fwd = dict(
-            ms=median_ms(lambda: conv_fused.conv3x3_bn_relu_fwd(x, k, scale, shift), 10),
-            ms_bare=median_ms(lambda: conv_fused.conv3x3_bn_relu_fwd(x, k), 10),
+            **timed(f"K4f {name}", "", lambda: conv_fused.conv3x3_bn_relu_fwd(
+                x, k, scale, shift)),
+            **timed(f"K4f {name} bare", "_bare", lambda: conv_fused.conv3x3_bn_relu_fwd(
+                x, k)),
             plain_ms=median_ms(lambda: conv_fused.conv3x3_bn_relu_reference(
                 x, k, scale, shift), 10),
-            library_ms=median_ms(lambda: F.conv2d(xn, k, padding=1), 10),
+            **timed(f"K4f {name} F.conv2d", "library_", lambda: F.conv2d(
+                xn, k, padding=1)),
             stock_ms=median_ms(lambda: F.conv2d(conv_fused._prologue(x, scale, shift), k,
                                                 padding=1), 10))
         fwd["bound_ms"], fwd["bound_by"] = bound(
             2 * n + 2 * n + 2 * k.numel() + 2 * c * 4, n_ops, BF16_TENSOR_OPS_PER_S)
         dgrad = dict(
-            ms=median_ms(lambda: conv_fused.conv3x3_bn_relu_dgrad(g, k, x, scale, shift), 10),
-            ms_bare=median_ms(lambda: conv_fused.conv3x3_bn_relu_dgrad(g, k, x), 10),
+            **timed(f"K4d {name}", "", lambda: conv_fused.conv3x3_bn_relu_dgrad(
+                g, k, x, scale, shift)),
+            **timed(f"K4d {name} bare", "_bare", lambda: conv_fused.conv3x3_bn_relu_dgrad(
+                g, k, x)),
             plain_ms=median_ms(lambda: conv_fused.conv3x3_dgrad_reference(
                 g, k, x, scale, shift, True), 5, warmup=1),
-            library_ms=median_ms(lambda: torch.nn.grad.conv2d_input(
-                tuple(x.shape), k, g, padding=1), 10),
+            **timed(f"K4d {name} conv2d_input", "library_", lambda: torch.nn.grad.conv2d_input(
+                tuple(x.shape), k, g, padding=1)),
             stock_ms=median_ms(lambda: dgrad_stock_chain(g, k, x, scale, shift), 10))
         dgrad["bound_ms"], dgrad["bound_by"] = bound(
             3 * 2 * n + 2 * k.numel() + 4 * c * 4, n_ops, BF16_TENSOR_OPS_PER_S)
         wgrad = dict(
-            ms=median_ms(lambda: conv_fused.conv3x3_bn_relu_wgrad(x, g, scale, shift), 10),
-            ms_bare=median_ms(lambda: conv_fused.conv3x3_bn_relu_wgrad(x, g), 10),
+            **timed(f"K4w {name}", "", lambda: conv_fused.conv3x3_bn_relu_wgrad(
+                x, g, scale, shift)),
+            **timed(f"K4w {name} bare", "_bare", lambda: conv_fused.conv3x3_bn_relu_wgrad(
+                x, g)),
             plain_ms=median_ms(lambda: conv_fused.conv3x3_wgrad_reference(
                 x, g, scale, shift, True), 5, warmup=1),
-            library_ms=median_ms(lambda: torch.nn.grad.conv2d_weight(
-                xn, tuple(k.shape), g, padding=1), 10),
+            **timed(f"K4w {name} conv2d_weight", "library_", lambda: torch.nn.grad.conv2d_weight(
+                xn, tuple(k.shape), g, padding=1)),
             stock_ms=median_ms(lambda: torch.nn.grad.conv2d_weight(
                 conv_fused._prologue(x, scale, shift), tuple(k.shape), g, padding=1), 10))
         wgrad["bound_ms"], wgrad["bound_by"] = bound(
@@ -987,11 +1128,13 @@ def phase_conv_kernels(device):
             say(f"[K4{key[0]} {name}] conv3x3_bn_relu_{key} bf16 {list(shape)} -> "
                 f"{c} channels: two calls bit-equal; vs plain max|err| "
                 f"{rec['max_abs_err']:.3e}, {rec['bar_share']:.3f} of the bar; kernel "
-                f"{rec['ms']:.4f} ms with the prologue, {rec['ms_bare']:.4f} ms "
-                f"without (like with like: against cuDNN alone); plain "
-                f"{rec['plain_ms']:.4f} ms; cuDNN alone"
+                f"{rec['ms']:.4f} ms device a launch with the prologue (one call "
+                f"{rec['call_ms']:.4f}), {rec['ms_bare']:.4f} ms without (one call "
+                f"{rec['call_ms_bare']:.4f}; like with like: against cuDNN alone); "
+                f"plain {rec['plain_ms']:.4f} ms; cuDNN alone"
                 f"{'' if key == 'dgrad' else ' on the pre-normalised tensor'} "
-                f"{rec['library_ms']:.4f} ms"
+                f"{rec['library_ms']:.4f} ms device a launch (one call "
+                f"{rec['library_call_ms']:.4f})"
                 + (f"; the stock {STOCK[key]} {rec['stock_ms']:.4f} ms (like with "
                    f"like: against the kernel with the prologue)" if "stock_ms" in rec
                    else "")
@@ -1110,15 +1253,15 @@ def _flash_held(what, got, want):
     return err.max().item(), share
 
 
-def _sdpa_ms(fn):
-    """CUDA-event median of an SDPA call, or None where no backend takes
-    the shape (then said so)."""
+def _sdpa_ms(what, fn):
+    """(device time a launch, one call) of an SDPA call in ms, or (None,
+    None) where no backend takes the shape (then said so)."""
     try:
-        return median_ms(fn, 10)
+        return device_ms(what, [fn]), median_ms(fn, 10)
     except RuntimeError as err:
         say(f"[K5] F.scaled_dot_product_attention: no backend for this call "
             f"({str(err).splitlines()[0][:120]})")
-        return None
+        return None, None
 
 
 def flash_case(name, shape, backward, dtype, device):
@@ -1144,10 +1287,10 @@ def flash_case(name, shape, backward, dtype, device):
     rate = BF16_TENSOR_OPS_PER_S if dtype == torch.bfloat16 else F32_OPS_PER_S
     flops = 4 * b * h * n * n * d
     fwd = rec["fwd"]
-    fwd.update(ms=median_ms(lambda: fa.flash_attention_fwd(q, k, v, scale), 10),
+    fwd.update(**timed(f"K5f {name}", "", lambda: fa.flash_attention_fwd(q, k, v, scale)),
                plain_ms=median_ms(lambda: fa.flash_attention_reference(q, k, v, scale), 5))
-    fwd["library_ms"] = _sdpa_ms(lambda: F.scaled_dot_product_attention(
-        q, k, v, scale=scale))
+    fwd["library_ms"], fwd["library_call_ms"] = _sdpa_ms(
+        f"K5f {name} SDPA", lambda: F.scaled_dot_product_attention(q, k, v, scale=scale))
     fwd["bound_ms"], fwd["bound_by"] = bound(4 * q.numel() * size + 2 * bh_n * 4,
                                              flops, rate)
     del o_p
@@ -1172,30 +1315,32 @@ def flash_case(name, shape, backward, dtype, device):
         def sdpa_fwd_bwd():
             F.scaled_dot_product_attention(*leaves, scale=scale).backward(do)
 
-        library = _sdpa_ms(sdpa_fwd_bwd)
-        library_bwd = None
+        library, library_call = _sdpa_ms(f"K5 {name} SDPA forward + backward",
+                                         sdpa_fwd_bwd)
+        library_bwd = library_bwd_call = None
         if library is not None:  # the backward alone: the forward runs outside the window
             out = F.scaled_dot_product_attention(*leaves, scale=scale)
-            library_bwd = _sdpa_ms(lambda: torch.autograd.grad(out, leaves, do,
-                                                               retain_graph=True))
+            library_bwd, library_bwd_call = _sdpa_ms(
+                f"K5 {name} SDPA backward", lambda: torch.autograd.grad(
+                    out, leaves, do, retain_graph=True))
             del out
         io = 4 * q.numel() * size + 3 * bh_n * 4  # q, k, v, do; l, m, di
+        libs = dict(library_ms=library, library_call_ms=library_call,
+                    library_bwd_ms=library_bwd, library_bwd_call_ms=library_bwd_call)
         rec["dkv"] = dict(
             max_abs_err=max(e_k[0], e_v[0]), bar_share=max(e_k[1], e_v[1]),
-            ms=median_ms(lambda: fa.flash_attention_bwd_dkv(q, k, v, l, m, do, di,
-                                                            scale), 10),
+            **timed(f"K5dkv {name}", "", lambda: fa.flash_attention_bwd_dkv(
+                q, k, v, l, m, do, di, scale)),
             plain_ms=median_ms(lambda: fa.flash_attention_dkv_reference(
-                q, k, v, l, m, do, di, scale), 3, warmup=1),
-            library_ms=library, library_bwd_ms=library_bwd)
+                q, k, v, l, m, do, di, scale), 3, warmup=1), **libs)
         rec["dkv"]["bound_ms"], rec["dkv"]["bound_by"] = bound(
             io + 2 * q.numel() * size, 2 * flops, rate)
         rec["dq"] = dict(
             max_abs_err=e_q[0], bar_share=e_q[1],
-            ms=median_ms(lambda: fa.flash_attention_bwd_dq(q, k, v, l, m, do, di,
-                                                           scale), 10),
+            **timed(f"K5dq {name}", "", lambda: fa.flash_attention_bwd_dq(
+                q, k, v, l, m, do, di, scale)),
             plain_ms=median_ms(lambda: fa.flash_attention_dq_reference(
-                q, k, v, l, m, do, di, scale), 3, warmup=1),
-            library_ms=library, library_bwd_ms=library_bwd)
+                q, k, v, l, m, do, di, scale), 3, warmup=1), **libs)
         rec["dq"]["bound_ms"], rec["dq"]["bound_by"] = bound(
             io + q.numel() * size, 3 * flops // 2, rate)
     tag = "bf16" if dtype == torch.bfloat16 else "f32"
@@ -1213,7 +1358,8 @@ def flash_case(name, shape, backward, dtype, device):
                         f"{pair / r['library_bwd_ms']:.2f}x of it)")
         say(f"[{kernel} {name} {tag}] {list(shape)}: two calls bit-equal; vs plain "
             f"max|err| {r['max_abs_err']:.3e}, {r['bar_share']:.3f} of the bar; kernel "
-            f"{r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, SDPA "
+            f"{r['ms']:.4f} ms device a launch (one call {r['call_ms']:.4f}), plain "
+            f"{r['plain_ms']:.4f} ms, SDPA (device a launch) "
             f"{'forward' if key == 'fwd' else 'forward + backward'} {lib}; bound "
             f"{r['bound_ms']:.4f} ms by {r['bound_by']}")
     return rec
@@ -1469,10 +1615,10 @@ def phase_wide_train(device):
 
 # ---------------------------------------------------------------------------
 def main():
-    smi_line = phase_device()
+    smi_line, max_sm_mhz = phase_device()
     device = torch.device("cuda", 0)
     build_s = phase_build()
-    kernels = phase_kernels(device)
+    kernels = phase_kernels(device, max_sm_mhz)
     stem = phase_stem_kernels(device)
     conv = phase_conv_kernels(device)
     flash = phase_flash_kernels(device)
@@ -1509,11 +1655,13 @@ def main():
         "library": "F.ctc_loss " + ("forward" if which == "alpha"
                                     else "forward + backward"),
         "shape": "B128 T128 C80 S193",
-        "ms_s17": k17[f"{which}_ms"],
-        "plain_ms_s17": k17[f"{which}_plain_ms"],
-        "library_ms_s17": k17[f"{which}_library_ms"],
-        "bound_ms_s17": k17["bound_ms"],
-    } for which, line in (("alpha", 55), ("beta", 88))]
+        "call_ms": k193[f"{which}_call_ms"],
+        "library_call_ms": k193[f"{which}_library_call_ms"],
+        "cycles_a_frame": k193[f"{which}_cycles_a_frame"],
+        "max_sm_mhz": max_sm_mhz,
+        "cases": {case: {k: v for k, v in rec.items() if not k.startswith(other)}
+                  for case, rec in kernels.items()},
+    } for which, other, line in (("alpha", "beta", 55), ("beta", "alpha", 88))]
     stem_lines = [{
         "name": "bn_stats",
         "route": "cuda",
@@ -1527,6 +1675,8 @@ def main():
         "bound_by": entry["bound_by"],
         "library_ms": entry["library_ms"],
         "library": "torch.batch_norm_stats",
+        "call_ms": entry["call_ms"],
+        "library_call_ms": entry["library_call_ms"],
         "shape": "bf16 [128, 192, 32, 512] channels-last (the entry site)",
         "sites": stem["bn_stats"],
     }] + [{
@@ -1542,7 +1692,8 @@ def main():
         "bound_by": stem[name]["bound_by"],
         "library_ms": None,
         "shape": "bf16 x [128, 192, 32, 512] channels-last",
-        **{k: stem[name][k] for k in ("stock_ms", "ms_nchw") if k in stem[name]},
+        **{k: stem[name][k] for k in ("call_ms", "stock_ms", "ms_nchw", "call_ms_nchw")
+           if k in stem[name]},
     } for name, line in (("pool_bn_relu_fwd", 62), ("pool_bn_relu_bwd", 72))]
     conv_lines = [{
         "name": name,
@@ -1557,6 +1708,8 @@ def main():
         "bound_by": conv[name]["stage1"]["bound_by"],
         "library_ms": conv[name]["stage1"]["library_ms"],
         "library": library + " alone on the pre-normalised bf16 tensor (cuDNN)",
+        "call_ms": conv[name]["stage1"]["call_ms"],
+        "library_call_ms": conv[name]["stage1"]["library_call_ms"],
         "ms_bare": conv[name]["stage1"]["ms_bare"],
         "stock_ms": conv[name]["stage1"]["stock_ms"],
         "stock": stock,
@@ -1584,6 +1737,8 @@ def main():
         "library_ms": flash[case][key]["library_ms"],
         "library": "F.scaled_dot_product_attention " + (
             "forward" if key == "fwd" else "forward + backward"),
+        "call_ms": flash[case][key]["call_ms"],
+        "library_call_ms": flash[case][key]["library_call_ms"],
         **({"library_bwd_ms": flash[case][key]["library_bwd_ms"],
             "library_bwd": "its backward alone (torch.autograd.grad on a graph whose "
                            "forward ran outside the timed window)"}

@@ -96,7 +96,7 @@ def load(path: Path) -> ctypes.CDLL:
     lib = ctypes.CDLL(str(path))
     ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     for fn in (lib.htrvt_ctc_alpha, lib.htrvt_ctc_beta):
-        fn.argtypes = [ptr] * 6 + [i32] * 4 + [ptr]
+        fn.argtypes = [ptr] * 6 + [i32] * 6 + [ptr]
         fn.restype = i32
     lib.htrvt_bn_stats.argtypes = [ptr] * 4 + [i64] + [i32] * 3 + [ptr]
     lib.htrvt_pool_bn_relu_fwd.argtypes = [ptr] * 4 + [i32] * 5 + [ptr]

@@ -17,117 +17,159 @@
 // noskip[s+2] is false: the mask index is s+2, not s.
 //
 // What bounds it on this card: latency, as for the alpha kernel. Each
-// sample is T dependent steps, each ending in one block barrier; at B=128,
-// T=128, S=193 it writes the 12.6 MB beta cube and gathers about as much
-// from logp, far below what HBM moves in the time the steps take. Making it
-// fast is later work: fusing the posterior exp(alpha + beta - total) and the
-// scatter onto the classes into this kernel (the [B,T,S] beta cube would
-// then never be written), several samples per block, and warp shuffles in
-// place of the shared-memory rows and barriers. This version is the simple,
-// correct one.
-//
-// Design: one block per sample walks t from T-1 down to 0, threads striding
-// over the S extended-label states, so any S works. Two rows of `term` live
-// in shared memory (about 1.5 KB at S=193): frame t reads the row of t+1
-// (its own state and the next two, written by other threads) and writes the
-// row of t into the other buffer, so one __syncthreads() per frame
-// suffices. The TPU kernel's reverse time panels and its VMEM carry of
-// `beta + lp` across a sequential grid axis become this loop. The emission
-// is gathered here, with the class index clamped as in ctc_alpha.cu.
-// expf/logf, no fast math, the same operation order as the plain version.
+// sample is T - 1 dependent frames; at B=128, T=128, S=193 it moves 17.9 MB
+// (0.0054 ms at 3.35 TB/s), far less than the frames' chain takes. The
+// design is the alpha kernel's mirrored (ctc_recursion.cuh): one block per
+// sample walks t from T-1 down to 0; thread i holds the `term` values of
+// states [i K, i K + K) in registers (the TPU kernel's VMEM carry of
+// beta + lp across its reverse panels) and takes s+1 and s+2 from the lanes
+// above by __shfl_down_sync, and a warp's lanes 31 and 30 from the edge
+// values that the warp above left in shared memory before the frame's
+// barrier; the emissions come from time panels, taken from the end, that
+// thread 0 stages in shared memory by cp.async.bulk. Fusing the posterior
+// exp(alpha + beta - total) in here is no part of the TPU kernel and stays
+// outside.
 
-#include <cuda_runtime.h>
+#include "ctc_recursion.cuh"
 
 namespace {
 
-constexpr float kNeg = -1e30f;
+using ctc::kNeg;
 
-__device__ __forceinline__ float logaddexp3(float a, float b, float c) {
-  const float m = fmaxf(fmaxf(a, b), c);
-  const float out = m + logf(expf(a - m) + expf(b - m) + expf(c - m));
-  return fmaxf(out, kNeg);
-}
-
-// Class index of state s, clamped so that a label outside [0, C) cannot
-// read outside its logp row (the wrapper's contract is z in [0, C)).
-__device__ __forceinline__ int class_of(const int* zb, int s, int C) {
-  return min(max(zb[s], 0), C - 1);
-}
-
-__global__ void ctc_beta_kernel(const float* __restrict__ logp,
-                                const int* __restrict__ z,
-                                const bool* __restrict__ noskip,
-                                const bool* __restrict__ valid,
-                                const bool* __restrict__ endm,
-                                float* __restrict__ beta,
-                                int T, int C, int S) {
-  extern __shared__ float rows[];  // two term rows of S floats
-  float* next = rows;              // term of frame t+1, read in frame t
-  float* cur = rows + S;           // term of frame t, written in frame t
-
+template <int K>
+__global__ void __launch_bounds__(32 * ctc::kMaxWarps)
+ctc_beta_kernel(const float* __restrict__ logp, const int* __restrict__ z,
+                const bool* __restrict__ noskip, const bool* __restrict__ valid,
+                const bool* __restrict__ endm, float* __restrict__ beta,
+                int T, int C, int S, int P) {
+  // The thread's second state, and how far above its copy lies in the
+  // lanes (for K = 1 it is the first state of two lanes above).
+  constexpr int kSecond = K >= 2 ? 1 : 0;
+  constexpr int kSecondLanes = K >= 2 ? 1 : 2;
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int warps = blockDim.x / 32;
+  const int w = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  const ctc::Shared sh(smem, warps);
   const size_t b = blockIdx.x;
   const float* lp = logp + b * T * C;
-  const int* zb = z + b * S;
-  const bool* noskip_b = noskip + b * S;
-  const bool* valid_b = valid + b * S;
-  const bool* endm_b = endm + b * S;
-  float* out = beta + b * T * S;
+  ctc::init_shared(sh, warps);
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    ctc::copy_panel(sh, lp, 0, T, C, P, true);
+    if (P < T) ctc::copy_panel(sh, lp, 1, T, C, P, true);
+  }
 
-  {
-    const float* lp_t = lp + static_cast<size_t>(T - 1) * C;
-    float* out_t = out + static_cast<size_t>(T - 1) * S;
-    for (int s = threadIdx.x; s < S; s += blockDim.x) {
-      const float v = (endm_b[s] && valid_b[s]) ? 0.0f : kNeg;
-      out_t[s] = v;
-      next[s] = v + lp_t[class_of(zb, s, C)];
+  const int s0 = threadIdx.x * K;
+  ctc::States<K> st;
+  st.load(z + b * S, noskip + b * S, valid + b * S, endm + b * S, s0, 1, S, C);
+  float* out_t = beta + (b * T + T - 1) * S;
+  ctc::Panels panels;
+  // Warp w's edge for the warp below, in slot w + 1: its lane 0's first
+  // term (near) and the one after it (far); warp w reads slot w + 2. The
+  // frame's parity swaps the two pointers of each.
+  float* my_edge = sh.edge + 2 * (w + 1);
+  float* my_edge_next = my_edge + 2 * (warps + 2);
+  const float* above = sh.edge + 2 * (w + 2);
+  const float* above_next = above + 2 * (warps + 2);
+
+  float term[K];
+  {  // frame T-1 (walk step 0)
+    const float* em = panels.next(sh, lp, T, C, P, true);
+#pragma unroll
+    for (int k = 0; k < K; ++k) {
+      const float v = (st.edge >> k & 1u) ? 0.0f : kNeg;
+      if (s0 + k < S) out_t[s0 + k] = v;
+      term[k] = v + em[st.cls[k]];
     }
+  }
+  // d1, d2: the first and second terms above the thread's last.
+  float d1 = __shfl_down_sync(0xffffffffu, term[0], 1);
+  float d2 = __shfl_down_sync(0xffffffffu, term[kSecond], kSecondLanes);
+  if (lane == 0) {
+    my_edge[0] = term[0];
+    my_edge[1] = K >= 2 ? term[kSecond] : d1;
+  }
+  // The next frame's emissions, if its row is in shared memory already.
+  float e[K];
+  bool have = panels.ready();
+  if (have) {
+#pragma unroll
+    for (int k = 0; k < K; ++k) e[k] = panels.row[st.cls[k]];
   }
   __syncthreads();
 
-  for (int t = T - 2; t >= 0; --t) {
-    const float* lp_t = lp + static_cast<size_t>(t) * C;
-    float* out_t = out + static_cast<size_t>(t) * S;
-    for (int s = threadIdx.x; s < S; s += blockDim.x) {
-      float v = kNeg;
-      if (valid_b[s]) {
-        const float b1 = s + 1 < S ? next[s + 1] : kNeg;
-        const float b2 = (s + 2 < S && !noskip_b[s + 2]) ? next[s + 2] : kNeg;
-        v = logaddexp3(next[s], b1, b2);
-      }
-      out_t[s] = v;
-      cur[s] = v + lp_t[class_of(zb, s, C)];
+  const int c_reg = ctc::in_register(C), s_reg = ctc::in_register(S);
+  for (int m = 1; m < T; ++m) {
+    const float* em = panels.next(sh, lp, T, c_reg, P, true);
+    if (!have) {
+#pragma unroll
+      for (int k = 0; k < K; ++k) e[k] = em[st.cls[k]];
     }
-    // Every read of `next` in this frame is done before the frame after
-    // overwrites it; with two rows one barrier per frame suffices.
+    // s+1 and s+2 of the thread's last state, from frame t+1.
+    const float near = above[0], far = above[1];
+    const float r1 = lane == 31 ? near : d1;
+    const float r2 = lane == 31 ? far : (K == 1 && lane == 30 ? near : d2);
+    out_t -= s_reg;
+#pragma unroll
+    for (int k = 0; k < K; ++k) {  // in place: term[k+1], term[k+2] are still frame t+1's
+      const int s = s0 + k;
+      const float p1 = k + 1 < K ? term[k + 1 < K ? k + 1 : 0] : r1;
+      const float p2 = k + 2 < K ? term[k + 2 < K ? k + 2 : 0] : (k + 2 == K ? r1 : r2);
+      const float b1 = (st.step >> k & 1u) ? p1 : kNeg;
+      const float b2 = (st.skip >> k & 1u) ? p2 : kNeg;
+      const float v = ctc::logaddexp3(term[k], b1, b2);
+      const float bv = (st.valid >> k & 1u) ? v : kNeg;
+      if (s < s_reg) out_t[s] = bv;
+      term[k] = bv + e[k];
+    }
+    d1 = __shfl_down_sync(0xffffffffu, term[0], 1);
+    d2 = __shfl_down_sync(0xffffffffu, term[kSecond], kSecondLanes);
+    if (lane == 0) {
+      my_edge_next[0] = term[0];
+      my_edge_next[1] = K >= 2 ? term[kSecond] : d1;
+    }
+    have = panels.ready();
+    if (have) {
+#pragma unroll
+      for (int k = 0; k < K; ++k) e[k] = panels.row[st.cls[k]];
+    }
+    // The edges of this frame are in, and every read of the frame before's
+    // is done before the next frame overwrites them: one barrier a frame.
     __syncthreads();
-    float* tmp = next;
-    next = cur;
-    cur = tmp;
+    float* mine = my_edge;
+    my_edge = my_edge_next;
+    my_edge_next = mine;
+    const float* theirs = above;
+    above = above_next;
+    above_next = theirs;
   }
 }
+
+using Kernel = void (*)(const float*, const int*, const bool*, const bool*,
+                        const bool*, float*, int, int, int, int);
+const Kernel kKernels[] = {ctc_beta_kernel<1>, ctc_beta_kernel<2>,
+                           ctc_beta_kernel<4>, ctc_beta_kernel<8>};
 
 }  // namespace
 
 // logp [B,T,C] f32, z [B,S] i32, noskip/valid/endm [B,S] bool (one byte),
-// beta [B,T,S] f32 out; all contiguous on one device. Launches on `stream`
-// and returns cudaGetLastError() (0 on success). T >= 1 and S >= 1.
+// beta [B,T,S] f32 out; all contiguous on one device. `panel` and
+// `per_thread` as for htrvt_ctc_alpha. Launches on `stream` and returns
+// cudaGetLastError() (0 on success), or cudaErrorInvalidValue for a
+// geometry the kernel does not take.
 extern "C" int htrvt_ctc_beta(const void* logp, const void* z,
                               const void* noskip, const void* valid,
                               const void* endm, void* beta, int B, int T,
-                              int C, int S, void* stream) {
+                              int C, int S, int panel, int per_thread,
+                              void* stream) {
   if (B <= 0) return static_cast<int>(cudaSuccess);
-  int threads = (S + 31) / 32 * 32;
-  if (threads > 1024) threads = 1024;
-  const size_t smem = 2 * static_cast<size_t>(S) * sizeof(float);
-  if (smem > 48 * 1024) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        ctc_beta_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
-    if (err != cudaSuccess) return static_cast<int>(err);
-  }
-  ctc_beta_kernel<<<B, threads, smem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(logp), static_cast<const int*>(z),
-      static_cast<const bool*>(noskip), static_cast<const bool*>(valid),
-      static_cast<const bool*>(endm), static_cast<float*>(beta), T, C, S);
-  return static_cast<int>(cudaGetLastError());
+  const ctc::Launch l = ctc::launch_shape(T, C, S, panel, per_thread);
+  if (l.threads == 0) return static_cast<int>(cudaErrorInvalidValue);
+  return ctc::launch(kKernels[l.variant], B, l, stream,
+                     static_cast<const float*>(logp), static_cast<const int*>(z),
+                     static_cast<const bool*>(noskip),
+                     static_cast<const bool*>(valid),
+                     static_cast<const bool*>(endm), static_cast<float*>(beta),
+                     T, C, S, panel);
 }

@@ -8,9 +8,10 @@
     beta   = ctc_beta(logp, z, noskip, valid, endm)       (csrc/ctc_beta.cu)
     dlogp  = ctc_grad_logp(alpha, beta, total, z, g, C)   (torch)
 
-The kernels gather ``logp[b, t, z[b, s]]`` themselves, so the [B, T, S]
-emission cube is never built. ``ctc_alpha`` and ``ctc_beta`` launch their
-kernel for a CUDA tensor and run their plain version
+The kernels gather ``logp[b, t, z[b, s]]`` themselves, from time panels of
+logp rows staged in shared memory, so the [B, T, S] emission cube is never
+built; ``recursion_geometry`` sizes the panels. ``ctc_alpha`` and
+``ctc_beta`` launch their kernel for a CUDA tensor and run their plain version
 (``ctc_alpha_reference``, ``ctc_beta_reference``) for a CPU tensor; nothing
 else decides, and a failed build or launch raises. ``ctc_loss_cuda`` takes
 CUDA tensors only: the CPU loss is the plain ``ops/ctc.py:ctc_loss``, which
@@ -28,6 +29,17 @@ from htr_vt_torch.ops.ctc import NEG, logaddexp3, zero_infinity
 # A state whose log posterior lies below this gets no gradient
 # (``ctc_pallas.py:270``).
 LOG_GAMMA_CUT = -80.0
+
+# The recursion kernels' geometry (``csrc/ctc_recursion.cuh``): one block a
+# sample of at most MAX_WARPS warps, each thread holding a power of two of
+# consecutive states, up to MAX_PER_THREAD; shared memory holds two
+# mbarriers, two edge values a warp (and two NEG slots) for two frames and
+# two time panels of PANEL_FRAMES logp rows (fewer where they do not fit),
+# within what a block may use on an H100.
+MAX_WARPS = 32
+MAX_PER_THREAD = 8
+PANEL_FRAMES = 16
+SMEM_BYTES = 232448
 
 
 def extended_masks(labels: torch.Tensor, label_lengths: torch.Tensor,
@@ -99,6 +111,34 @@ def ctc_beta_reference(logp: torch.Tensor, z: torch.Tensor,
     return beta
 
 
+def _panel_floats(panel: int, c: int) -> int:
+    """Floats of one panel buffer: the rows and the slack of their 16-byte
+    aligned superset, rounded to 16 bytes."""
+    return (panel * c + 8 + 3) // 4 * 4
+
+
+def recursion_geometry(t: int, c: int, s: int) -> Tuple[int, int, int]:
+    """(states a thread, frames a panel, shared-memory bytes) of the alpha
+    and beta kernels at T=t, C=c, S=s: the fewest states a thread that
+    MAX_WARPS warps cover, and the longest panel up to PANEL_FRAMES (and T)
+    whose two buffers fit beside the barriers and the warps' edges. Raises
+    ValueError naming the sizes where none fits."""
+    per_thread = 1
+    while per_thread * 32 * MAX_WARPS < s and per_thread < MAX_PER_THREAD:
+        per_thread *= 2
+    warps = -(-(-(-s // per_thread)) // 32)
+    fixed = 16 + 16 * (warps + 2)
+    panel = min(PANEL_FRAMES, t)
+    while panel > 0 and fixed + 8 * _panel_floats(panel, c) > SMEM_BYTES:
+        panel -= 1
+    if per_thread * 32 * MAX_WARPS < s or panel < 1:
+        raise ValueError(
+            f"CTC recursion kernels: T={t}, C={c}, S={s} do not fit one block "
+            f"(S <= {MAX_PER_THREAD * 32 * MAX_WARPS}, and two logp rows of C "
+            f"floats within {SMEM_BYTES} bytes of shared memory)")
+    return per_thread, panel, fixed + 8 * _panel_floats(panel, c)
+
+
 def _check(fn: str, name: str, x: torch.Tensor, dtype: torch.dtype,
            shape) -> None:
     if x.dtype != dtype or tuple(x.shape) != tuple(shape):
@@ -123,13 +163,14 @@ def _launch(fn: str, logp: torch.Tensor, z: torch.Tensor,
             raise ValueError(f"{fn}: all inputs must be on one device")
     if t < 1 or s < 1:
         raise ValueError(f"{fn}: empty time or state axis (T={t}, S={s})")
+    per_thread, panel, _ = recursion_geometry(t, c, s)
     from htr_vt_torch._build import check_launch, library
     out = torch.empty((b, t, s), dtype=torch.float32, device=logp.device)
     with torch.cuda.device(logp.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = getattr(library(), f"htrvt_{fn}")(
             logp.data_ptr(), z.data_ptr(), *(m.data_ptr() for _, m in masks),
-            out.data_ptr(), b, t, c, s, stream)
+            out.data_ptr(), b, t, c, s, panel, per_thread, stream)
     check_launch(fn, err)
     return out
 

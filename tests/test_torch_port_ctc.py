@@ -45,6 +45,9 @@ def pallas_interpret():
 
 
 CASES = [(0, 6, 20, 9, 6), (1, 5, 8, 7, 12), (2, 4, 30, 11, 14)]
+# The time axis at its edges: one frame, and a T that the kernels' panels
+# (ctc_cuda.PANEL_FRAMES frames) do not divide.
+EDGE_T_CASES = [(3, 4, 1, 9, 5), (4, 3, ctc_cuda.PANEL_FRAMES + 3, 9, 6)]
 
 
 @pytest.mark.parametrize("case", CASES)
@@ -85,7 +88,7 @@ def test_extended_masks_match_jax(case):
     assert got[0].dtype == torch.int32 and got[1].dtype == torch.bool
 
 
-@pytest.mark.parametrize("case", CASES)
+@pytest.mark.parametrize("case", CASES + EDGE_T_CASES)
 def test_alpha_reference_matches_pallas_alpha_cube(case):
     logits, labels, lengths = ctc_case(*case)
     logp = np.array(jax.nn.log_softmax(jnp.asarray(logits), axis=-1))
@@ -122,7 +125,8 @@ def _lp_and_masks(case):
 
 # (case, time-panel length): one panel, and case 0's 20 frames in 4 panels
 # of 5 by shrinking the VMEM budget as tests/test_ctc.py does.
-BETA_CASES = [(c, None) for c in CASES] + [(CASES[0], 5)]
+BETA_CASES = ([(c, None) for c in CASES] + [(CASES[0], 5)]
+              + [(c, None) for c in EDGE_T_CASES])
 
 
 @pytest.mark.parametrize("case,panel", BETA_CASES)
@@ -139,6 +143,8 @@ def test_beta_reference_matches_pallas_beta_cube(case, panel, monkeypatch):
     assert got.shape == want.shape == (case[1], case[2], s)
     finite = want > SENTINEL
     assert finite.any() and (~finite).any()
+    assert ctc_cuda.recursion_geometry(case[2], case[3], s)[1] == min(
+        case[2], ctc_cuda.PANEL_FRAMES)
     np.testing.assert_array_equal(got > SENTINEL, finite)
     np.testing.assert_array_equal(got[~finite], want[~finite])
     np.testing.assert_allclose(got[finite], want[finite], rtol=1e-5, atol=1e-4)
@@ -232,3 +238,66 @@ def test_beta_rejects_a_device_without_a_kernel():
     with pytest.raises(ValueError, match="no kernel"):
         ctc_cuda.ctc_beta(logp, torch.zeros((1, 3), dtype=torch.int32,
                                             device="meta"), *masks)
+
+
+@pytest.mark.parametrize("t,c,s,want", [
+    (128, 80, 193, (1, 16, 10464)),      # the flagship's train and eval CTC
+    (512, 80, 225, (1, 16, 10480)),      # the 2048-px step
+    (1, 80, 193, (1, 1, 864)),           # one frame: one panel of one frame
+    (5, 6, 1401, (2, 5, 720)),           # two states a thread
+    (4, 6, 6201, (8, 4, 704)),           # eight states a thread
+    (128, 80, 8192, (8, 16, 10864)),     # the most states a block holds
+    (128, 4000, 193, (1, 7, 224224))])   # wide logp rows: shorter panels
+def test_recursion_geometry(t, c, s, want):
+    """States a thread, frames a panel and shared-memory bytes of the CTC
+    kernels: the fewest states a thread that 32 warps cover, and the
+    longest panel up to PANEL_FRAMES (and T) whose two buffers fit beside
+    the barriers and the warps' edge values."""
+    per_thread, panel, smem = ctc_cuda.recursion_geometry(t, c, s)
+    assert (per_thread, panel, smem) == want
+    warps = -(-(-(-s // per_thread)) // 32)
+    assert warps <= ctc_cuda.MAX_WARPS
+    assert per_thread == 1 or per_thread // 2 * 32 * ctc_cuda.MAX_WARPS < s
+    fixed = 16 + 16 * (warps + 2)
+    assert smem == fixed + 8 * ctc_cuda._panel_floats(panel, c) <= ctc_cuda.SMEM_BYTES
+    assert ctc_cuda._panel_floats(panel, c) >= panel * c + 6  # the aligned superset
+    if panel < min(t, ctc_cuda.PANEL_FRAMES):
+        assert fixed + 8 * ctc_cuda._panel_floats(panel + 1, c) > ctc_cuda.SMEM_BYTES
+
+
+@pytest.mark.parametrize("t,c,s", [(128, 80, 8193), (128, 40000, 193), (4, 6, 28000)])
+def test_recursion_geometry_names_the_sizes_it_cannot_take(t, c, s):
+    with pytest.raises(ValueError, match=f"T={t}, C={c}, S={s}"):
+        ctc_cuda.recursion_geometry(t, c, s)
+
+
+def test_launch_refuses_a_geometry_before_building_anything():
+    """A size the kernels cannot take raises ValueError in the wrapper,
+    before the kernel library is loaded (this machine has no nvcc)."""
+    s = ctc_cuda.MAX_PER_THREAD * 32 * ctc_cuda.MAX_WARPS + 1
+    logp = torch.zeros((1, 2, 3))
+    mask = torch.zeros((1, s), dtype=torch.bool)
+    with pytest.raises(ValueError, match=f"S={s}"):
+        ctc_cuda._launch("ctc_alpha", logp, torch.zeros((1, s), dtype=torch.int32),
+                         (("noskip", mask), ("valid", mask), ("start2", mask)))
+
+
+@pytest.mark.parametrize("kernel", ["ctc_alpha", "ctc_beta"])
+def test_recursion_frame_loop_reads_no_device_memory(kernel):
+    """The frame loop of each CTC kernel reads logp only from the panels
+    that thread 0 stages by cp.async.bulk, the per-state inputs not at all
+    (they are loaded into registers before it), exchanges the warps' edges
+    through shared memory and holds one barrier a frame."""
+    from htr_vt_torch import _build
+    text = (_build.CSRC / f"{kernel}.cu").read_text()
+    body = text[text.index(f"{kernel}_kernel("):]
+    body = body[:body.index("\n}\n")]
+    loop = body[body.index("\n  for (int t = 1;" if kernel == "ctc_alpha"
+                           else "\n  for (int m = 1;"):]
+    assert "panels.next(" in loop and "_sync(0xffffffffu" in loop
+    for name in ("logp[", "lp[", "z[", "zb[", "noskip[", "valid[", "start2[", "endm["):
+        assert name not in loop, name
+    assert loop.count("__syncthreads()") == 1
+    header = (_build.CSRC / "ctc_recursion.cuh").read_text()
+    copy = header[header.index("void copy_panel("):]
+    assert "hopper::bulk_load(" in copy[:copy.index("\n}\n")]

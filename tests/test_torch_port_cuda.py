@@ -49,22 +49,42 @@ def cuda():
     return torch.device("cuda")
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("b,t,c,lmax", [
+# The recursion kernels' cases: the flagship's CTC shapes, the wide step's,
+# the time axis at its edges (one frame; a T that 16-frame panels do not
+# divide), C=6 (panels that start off a 16-byte boundary) and the state
+# axis past one state a thread.
+RECURSION_CASES = [
     (128, 128, 80, 96),   # the labelled eval shape, S=193
     (128, 128, 80, 8),    # the serving dummies, S=17 (all lengths 0)
-    (3, 5, 6, 700),       # S=1401: threads stride over S
-    (2, 4, 6, 3100)])     # S=6201: over 48 KB of shared memory
+    (3, 5, 6, 700),       # S=1401: two states a thread
+    (2, 4, 6, 1500),      # S=3001: four states a thread
+    (2, 4, 6, 3100),      # S=6201: eight states a thread
+    (4, 1, 80, 96),       # T=1: one panel of one frame
+    (8, 37, 80, 20),      # T=37: the last panel is cut short
+    (64, 512, 80, 112),   # the 2048-px step: B=64, T=512, S=225
+    (4, 37, 6, 12)]       # C=6 over three panels
+
+
+def _two_calls(kernel, *args):
+    """The kernel's output, after holding that a second call gives the same
+    bits and that each call counted one launch."""
+    before = kernel.launches
+    got, again = kernel(*args), kernel(*args)
+    torch.cuda.synchronize()
+    assert kernel.launches == before + 2
+    assert torch.equal(got, again)
+    return got
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,t,c,lmax", RECURSION_CASES)
 def test_alpha_kernel_matches_plain(cuda, b, t, c, lmax):
     lengths = np.zeros(b, np.int32) if lmax == 8 else None
     logits, labels, lengths = ctc_case(5, b, t, c, lmax, lengths)
     logp = torch.log_softmax(torch.from_numpy(logits).to(cuda), -1)
     z, noskip, valid, start2, _ = ctc_cuda.extended_masks(
         torch.from_numpy(labels).to(cuda), torch.from_numpy(lengths).to(cuda))
-    before = ctc_cuda.ctc_alpha.launches
-    got = ctc_cuda.ctc_alpha(logp, z, noskip, valid, start2)
-    torch.cuda.synchronize()
-    assert ctc_cuda.ctc_alpha.launches == before + 1
+    got = _two_calls(ctc_cuda.ctc_alpha, logp, z, noskip, valid, start2)
     want = ctc_cuda.ctc_alpha_reference(logp, z, noskip, valid, start2)
     finite = want > SENTINEL
     assert torch.equal(got > SENTINEL, finite)
@@ -73,26 +93,51 @@ def test_alpha_kernel_matches_plain(cuda, b, t, c, lmax):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("b,t,c,lmax", [
-    (128, 128, 80, 96),   # the train-step shape, S=193
-    (128, 128, 80, 8),    # the serving dummies, S=17 (all lengths 0)
-    (3, 5, 6, 700),       # S=1401: threads stride over S
-    (2, 4, 6, 3100)])     # S=6201: over 48 KB of shared memory
+@pytest.mark.parametrize("b,t,c,lmax", RECURSION_CASES)
 def test_beta_kernel_matches_plain(cuda, b, t, c, lmax):
     lengths = np.zeros(b, np.int32) if lmax == 8 else None
     logits, labels, lengths = ctc_case(9, b, t, c, lmax, lengths)
     logp = torch.log_softmax(torch.from_numpy(logits).to(cuda), -1)
     z, noskip, valid, _, endm = ctc_cuda.extended_masks(
         torch.from_numpy(labels).to(cuda), torch.from_numpy(lengths).to(cuda))
-    before = ctc_cuda.ctc_beta.launches
-    got = ctc_cuda.ctc_beta(logp, z, noskip, valid, endm)
-    torch.cuda.synchronize()
-    assert ctc_cuda.ctc_beta.launches == before + 1
+    got = _two_calls(ctc_cuda.ctc_beta, logp, z, noskip, valid, endm)
     want = ctc_cuda.ctc_beta_reference(logp, z, noskip, valid, endm)
     finite = want > SENTINEL
     assert torch.equal(got > SENTINEL, finite)
     assert torch.equal(got[~finite], want[~finite])
     torch.testing.assert_close(got[finite], want[finite], rtol=1e-5, atol=1e-4)
+
+
+@pytest.mark.cuda
+def test_ctc_kernels_stage_logp_by_bulk_copies(cuda):
+    """The compiled alpha and beta kernels (every states-a-thread variant)
+    copy logp into shared memory by cp.async.bulk (UBLKCP) and take their
+    neighbours within a warp by shuffles (SHFL); a size past the kernels
+    raises ValueError naming it, launching nothing."""
+    import pathlib
+    import shutil
+    import subprocess
+    from htr_vt_torch import _build
+    logp = torch.zeros((1, 2, 3), device=cuda)
+    s = ctc_cuda.MAX_PER_THREAD * 32 * ctc_cuda.MAX_WARPS + 1
+    z = torch.zeros((1, s), dtype=torch.int32, device=cuda)
+    mask = torch.zeros((1, s), dtype=torch.bool, device=cuda)
+    before = ctc_cuda.ctc_alpha.launches
+    with pytest.raises(ValueError, match=f"S={s}"):
+        ctc_cuda.ctc_alpha(logp, z, mask, mask, mask)
+    assert ctc_cuda.ctc_alpha.launches == before
+    _build.library()
+    cuobjdump = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    if not pathlib.Path(cuobjdump).exists():
+        pytest.skip("no cuobjdump to read the compiled kernels")
+    sass = subprocess.run([cuobjdump, "-sass", str(_build.LIBRARY)], capture_output=True,
+                          text=True, check=True).stdout
+    functions = sass.split("Function : ")
+    for kernel in ("ctc_alpha_kernel", "ctc_beta_kernel"):
+        bodies = [f for f in functions if kernel in f.splitlines()[0]]
+        assert len(bodies) == 4, kernel
+        for body in bodies:
+            assert "UBLKCP" in body and "SHFL" in body, kernel
 
 
 @pytest.mark.cuda
