@@ -18,9 +18,17 @@ non-zero before the last line:
    S=193, with length-0 and infeasible rows), the serving dummies (Lmax=8,
    all lengths 0 -> S=17) and the wide steps' shapes (B=64, T=256 and 512,
    Lmax 56 and 112 -> S=113 and 225), with times, ``F.ctc_loss`` as the
-   library yardstick, the bound and the cycles a frame.
-3. stem kernels vs plain: K2 (``bn_stats``) at the four stem activations of
-   the flagship at bs 128, K3f and K3b (``pool_bn_relu_fwd``/``_bwd``) at
+   library yardstick, the bound and the cycles a frame. Then past the
+   register path (S > 8192): a padded batch of 16 rows, four of them labels
+   of 4500 or 10000 characters (S = 9001, 20001) that cannot be aligned in
+   128 frames; both kernels take their strided path and give the plain
+   loops' bits, and ``ctc_loss_auto`` zeroes the long rows' loss and
+   gradient, with times and bounds.
+3. stem kernels vs plain: K2 (``bn_stats``, one kernel a call) at the four
+   stem activations of the flagship at bs 128, with its ``torch.profiler``
+   split by kernel (``kernel_split``: kernels a call, device time of each,
+   gaps; at bs 128 and at batch 1) and at C = 12 and 20 (bf16 and float32, the
+   scalar loads), K3f and K3b (``pool_bn_relu_fwd``/``_bwd``) at
    the conv1 output [128, 192, 32, 512], bf16 channels-last, against their
    plain versions (two calls bit-equal; K3b also with g as contiguous NCHW,
    the layout the step hands it, bit-equal to the channels-last g), with
@@ -74,7 +82,10 @@ non-zero before the last line:
    256, 128] and [64, 6, 512, 128], in bf16 and float32 (TF32 off); at
    head_dim 256 (embed 1536 over 6 heads) K5f at [128, 6, 512, 256] and the
    three at [64, 6, 512, 256] in bf16, and the three in float32 at [2, 3,
-   256, 256]; on the strided q, k, v views of a fused qkv projection,
+   256, 256]; at head_dim 384 and 512 (embed 2304, 3072 over 6 heads: the
+   FFMA kernels) the three at [64, 6, 512, D] in bf16 (>= 99% of the
+   elements bit-equal) and at [2, 3, 256, D] in float32; on the strided q,
+   k, v views of a fused qkv projection,
    against their plain versions; two calls bit-equal; CUDA-event times of
    kernel, plain version and ``F.scaled_dot_product_attention`` (forward,
    forward + backward, and the backward alone, its forward run outside the
@@ -111,6 +122,7 @@ import dataclasses
 import json
 import math
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -131,7 +143,7 @@ import torch.nn.functional as F  # noqa: E402
 from htr_vt_torch.ops import (conv_fused, ctc_cuda, flash_attn,  # noqa: E402
                               pool_fused)
 from htr_vt_torch.ops.bn_stats import bn_stats, bn_stats_reference  # noqa: E402
-from htr_vt_torch.ops.ctc import NEG, ctc_loss  # noqa: E402
+from htr_vt_torch.ops.ctc import NEG, ctc_loss, ctc_loss_auto  # noqa: E402
 from htr_vt_torch.train.state import create_train_state  # noqa: E402
 from htr_vt_torch.train.step import eval_step, train_step  # noqa: E402
 
@@ -222,13 +234,23 @@ FLASH_SHAPES = (("serve1024", (BATCH, 6, 256, 128), False, BOTH),
                 ("train2048", (64, 6, 512, 128), True, BOTH),
                 ("serve2048_d256", (BATCH, 6, 512, 256), False, (torch.bfloat16,)),
                 ("train2048_d256", (64, 6, 512, 256), True, (torch.bfloat16,)),
-                ("small_d256", (2, 3, 256, 256), True, (torch.float32,)))
+                ("small_d256", (2, 3, 256, 256), True, (torch.float32,)),
+                # head_dim 384 and 512 (embed 2304, 3072 over 6 heads): the
+                # FFMA kernels, bf16 at the 2048-px training shape, float32
+                # at a small one
+                ("train2048_d384", (64, 6, 512, 384), True, (torch.bfloat16,)),
+                ("train2048_d512", (64, 6, 512, 512), True, (torch.bfloat16,)),
+                ("small_d384", (2, 3, 256, 384), True, (torch.float32,)),
+                ("small_d512", (2, 3, 256, 512), True, (torch.float32,)))
 # K5 against its plain version (the bars of tests/test_torch_port_cuda.py):
 # float32, 1e-4 of the value and 1e-5 of the tensor's largest (float32 sums
 # in other orders); bf16, one bf16 ulp of the value (2^-7) and 2^-8 of the
 # largest (p and ds are rounded to bf16 before each product, and a few
 # float32 ulps can move a value across a rounding boundary).
 FLASH_TOL = {torch.float32: (1e-4, 1e-5), torch.bfloat16: (2.0**-7, 2.0**-8)}
+# ... and at head_dim past 256 (the FFMA kernels), bf16 outputs at least this
+# share bit-equal to the plain version's (the CPU tests' bar against JAX).
+FLASH_MIN_EQUAL = 0.99
 SERVE_WIDTHS = (512, 1024, 2048)  # cli/serve.py --width-buckets
 N_LINES = 421
 # The JAX serve selftest's line widths (htr_vt_tpu/data/synthetic.py:64-75)
@@ -241,6 +263,14 @@ WIDE_STEPS = 12
 CTC_CASES = (("S193", BATCH, 128, LMAX, False), ("S17", BATCH, 128, SERVE_LMAX, True),
              ("W1024", WIDE_BATCH, 256, WIDE_LMAX[1024], False),
              ("W2048", WIDE_BATCH, 512, WIDE_LMAX[2048], False))
+# Past the register path (S > 8192): the kernels' strided path, at labels of
+# 4500 and 10000 characters in a padded batch of 16 (name, Lmax); the long
+# rows cannot be aligned in T = 128 frames.
+CTC_LONG_CASES = (("S9001", 4500), ("S20001", 10000))
+CTC_LONG_BATCH = 16
+# K2 at channel counts that are not multiples of 8 (the scalar loads):
+# [B, C, H, W] bf16 and float32, held to the sites' bars.
+STATS_ANY_C = (("C12", (BATCH, 12, 32, 128)), ("C20", (BATCH, 20, 16, 64)))
 
 
 def per_step_launches(switches):
@@ -302,6 +332,20 @@ def _hold_stream(ms):
     torch.cuda._sleep(int(ms * 2e6))
 
 
+def _queue_hold(calls, n):
+    """Warm ``calls`` up and return the spin (ms) that keeps the device busy
+    while the host queues ``n`` of them: twice their host time, plus 1 ms."""
+    for fn in calls * 2:
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i in range(n):
+        calls[i % len(calls)]()
+    hold = 2 * (time.perf_counter() - t0) * 1e3 + 1.0
+    torch.cuda.synchronize()
+    return hold
+
+
 def device_ms(what, calls, n=DEVICE_RUN, runs=DEVICE_RUNS):
     """Device time a launch in milliseconds: the median over ``runs`` of the
     CUDA-event time of ``n`` back-to-back calls, divided by ``n``. A spin
@@ -311,14 +355,7 @@ def device_ms(what, calls, n=DEVICE_RUN, runs=DEVICE_RUNS):
     the step's cold inputs arrive cold). Says so where the host could not
     queue a run ahead of the device (a call that waits on the device)."""
     calls = list(calls)
-    for fn in calls * 2:
-        fn()
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for i in range(n):
-        calls[i % len(calls)]()
-    hold = 2 * (time.perf_counter() - t0) * 1e3 + 1.0
-    torch.cuda.synchronize()
+    hold = _queue_hold(calls, n)
     times, late = [], 0
     for _ in range(runs):
         start, end = _events()
@@ -336,6 +373,87 @@ def device_ms(what, calls, n=DEVICE_RUN, runs=DEVICE_RUNS):
             "calls slower than the device ran them (a call waits on the device); "
             "host gaps are inside that time")
     return statistics.median(times)
+
+
+def _profiled_run(calls, hold):
+    """The device's kernels (start, end, name; the spin left out, in start
+    order) of DEVICE_RUN calls queued behind a spin of ``hold`` ms, as
+    ``torch.profiler`` records them."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        _hold_stream(hold)
+        for i in range(DEVICE_RUN):
+            calls[i % len(calls)]()
+        torch.cuda.synchronize()
+    return sorted((e.time_range.start, e.time_range.end, e.name) for e in prof.events()
+                  if e.device_type == torch.autograd.DeviceType.CUDA
+                  and "spin" not in e.name)  # torch.cuda._sleep's kernel
+
+
+def kernel_split(what, calls):
+    """The device's kernels of DEVICE_RUN back-to-back calls (the runs of
+    ``device_ms``) under ``torch.profiler``: the kernels a call, each
+    kernel's launches and device ms a call by name, the gaps inside a call
+    (between its kernels) and between calls, and the span a call; each the
+    median over DEVICE_RUNS runs. torch.profiler can drop kernel records of
+    a run (on the H100 it has returned 18 and 13 of 20 kernels), so a run
+    whose kernels are not a whole number a call is counted as lost, said,
+    and run again, at most 2 x DEVICE_RUNS times; ``lost_runs`` counts them.
+    A kept run's kernels a call is its record count over DEVICE_RUN, and
+    ``per_call`` lists every kept run's, so a gate can hold all of them."""
+    calls = list(calls)
+    hold = _queue_hold(calls, DEVICE_RUN)
+    kept, lost = [], 0
+    while len(kept) < DEVICE_RUNS:
+        kernels = _profiled_run(calls, hold)
+        if not kernels or len(kernels) % DEVICE_RUN:
+            lost += 1
+            say(f"[profiler] {what}: run with {len(kernels)} kernel records for "
+                f"{DEVICE_RUN} calls, counted as lost ({lost})")
+            if lost > 2 * DEVICE_RUNS:
+                raise AssertionError(f"[profiler] {what}: {lost} runs lost kernel "
+                                     "records")
+            continue
+        kept.append(kernels)
+    med = statistics.median
+    per_call = [len(k) // DEVICE_RUN for k in kept]
+    by_name = {}
+    for k in kept:
+        for name in {e[2] for e in k}:
+            ms = [(e[1] - e[0]) * 1e-3 for e in k if e[2] == name]
+            by_name.setdefault(name, []).append((len(ms), sum(ms)))
+    inside, between, span = [], [], []
+    for k, pc in zip(kept, per_call):
+        gaps = [((k[i][0] - k[i - 1][1]) * 1e-3, i % pc == 0) for i in range(1, len(k))]
+        inside += [g for g, first in gaps if not first]
+        between += [g for g, first in gaps if first]
+        span.append((k[-1][1] - k[0][0]) * 1e-3 / DEVICE_RUN)
+    return dict(
+        per_call=per_call, launches_a_call=med(per_call), lost_runs=lost,
+        span_ms=med(span), gap_inside_ms=med(inside) if inside else None,
+        gap_between_ms=med(between) if between else None,
+        kernels={name: dict(launches_a_call=med(n for n, _ in v) / DEVICE_RUN,
+                            ms_a_call=med(t for _, t in v) / DEVICE_RUN)
+                 for name, v in sorted(by_name.items())})
+
+
+def short_name(kernel):
+    """A kernel's function name without its return type, namespace and
+    parameters: "void (anonymous namespace)::f<int>(int*)" -> "f<int>"."""
+    name = kernel.replace("(anonymous namespace)::", "")
+    name = name[len("void "):] if name.startswith("void ") else name
+    return re.sub(r"^(\w+::)*", "", name.split("(")[0])
+
+
+def describe(split):
+    parts = [f"{short_name(k)} {v['ms_a_call']:.4f} ms x {v['launches_a_call']:g}"
+             for k, v in split["kernels"].items()]
+    gaps = f"gap between calls {split['gap_between_ms']:.4f} ms"
+    if split["gap_inside_ms"] is not None:
+        gaps = f"gap inside a call {split['gap_inside_ms']:.4f} ms, " + gaps
+    return (f"{split['launches_a_call']:g} kernel(s) a call: {', '.join(parts)}; "
+            f"{gaps}; span {split['span_ms']:.4f} ms a call; "
+            f"{split['lost_runs']} run(s) lost")
 
 
 def cold_copies(x):
@@ -580,6 +698,93 @@ def phase_kernels(device, max_sm_mhz):
                              grad_glue_err=glue_err, grad_err=grad_err,
                              library_rel_err=lib_rel, shape=[b, t, 80, s], **times)
     return results
+
+
+def phase_ctc_long(device):
+    """K1a/K1b past the register path: a padded batch of CTC_LONG_BATCH rows
+    whose first four labels are 4500 or 10000 characters (S = 9001, 20001)
+    and cannot be aligned in 128 frames, the rest 1-99 characters. The
+    kernels take their strided path and give the plain loops' bits (two
+    calls equal); ``ctc_loss_auto`` on the batch launches each kernel once,
+    zeroes the long rows' loss and gradient and holds the others to the
+    plain loss; times and bounds."""
+    out = {}
+    for name, lmax in CTC_LONG_CASES:
+        b, t = CTC_LONG_BATCH, 128
+        rng = np.random.default_rng(SEED + lmax)
+        logits = (2.0 * rng.standard_normal((b, t, 80))).astype(np.float32)
+        lengths = rng.integers(1, 100, b).astype(np.int32)
+        lengths[:4] = lmax
+        labels = rng.integers(1, 80, (b, lmax)).astype(np.int32)
+        labels[np.arange(lmax)[None] >= lengths[:, None]] = 0
+        logits, labels, lengths = (torch.from_numpy(a).to(device)
+                                   for a in (logits, labels, lengths))
+        logp = torch.log_softmax(logits, dim=-1).contiguous()
+        z, noskip, valid, start2, endm = ctc_cuda.extended_masks(labels, lengths)
+        s = z.shape[1]
+        if ctc_cuda.recursion_geometry(t, 80, s)[0] != ctc_cuda.STRIDED:
+            raise AssertionError(f"[kernel {name}] S={s} did not pick the strided path")
+
+        def alpha():
+            return ctc_cuda.ctc_alpha(logp, z, noskip, valid, start2)
+
+        def beta():
+            return ctc_cuda.ctc_beta(logp, z, noskip, valid, endm)
+
+        runs = [(alpha(), beta()) for _ in range(2)]
+        torch.cuda.synchronize()
+        if not all(torch.equal(x, y) for x, y in zip(*runs)):
+            raise AssertionError(f"[kernel {name}] two calls of a CTC kernel gave different bits")
+        alpha_k, beta_k = runs[0]
+        del runs
+        for what, got, want in (
+                ("alpha", alpha_k, ctc_cuda.ctc_alpha_reference(logp, z, noskip, valid, start2)),
+                ("beta", beta_k, ctc_cuda.ctc_beta_reference(logp, z, noskip, valid, endm))):
+            if not torch.equal(got, want):
+                raise AssertionError(f"[kernel {name}] {what}: the strided path and the "
+                                     "plain loop differ")
+        n_finite = int((alpha_k > SENTINEL).sum()), int((beta_k > SENTINEL).sum())
+        del alpha_k, beta_k
+        before = read_counts()
+        x = logits.clone().requires_grad_(True)
+        loss = ctc_loss_auto(x, labels, lengths)
+        loss.sum().backward()
+        after = read_counts()
+        if (after["ctc_alpha"] - before["ctc_alpha"], after["ctc_beta"] - before["ctc_beta"]) \
+                != (1, 1):
+            raise AssertionError(f"[kernel {name}] ctc_loss_auto did not launch each "
+                                 "kernel once")
+        loss_p, grad_p = _loss_grad(ctc_loss, logits, labels, lengths)
+        if (loss[:4] != 0).any() or (x.grad[:4] != 0).any() or (loss_p[:4] != 0).any():
+            raise AssertionError(f"[kernel {name}] a long infeasible row is not zeroed")
+        if not torch.isfinite(x.grad).all():
+            raise AssertionError(f"[kernel {name}] non-finite gradient")
+        torch.testing.assert_close(loss.detach(), loss_p, rtol=LOSS_RTOL, atol=0.0)
+        torch.testing.assert_close(x.grad, grad_p, rtol=GRAD_RTOL,
+                                   atol=posterior_atol(loss_p, t))
+        cube = b * t * s
+        n_bytes = logp.numel() * 4 + z.numel() * 4 + 3 * noskip.numel() + cube * 4
+        rec = dict(shape=[b, t, 80, s], finite_alpha=n_finite[0], finite_beta=n_finite[1],
+                   alpha_ms=device_ms(f"{name} alpha", [alpha]),
+                   alpha_plain_ms=median_ms(lambda: ctc_cuda.ctc_alpha_reference(
+                       logp, z, noskip, valid, start2), 3, warmup=1),
+                   beta_ms=device_ms(f"{name} beta", [beta]),
+                   beta_plain_ms=median_ms(lambda: ctc_cuda.ctc_beta_reference(
+                       logp, z, noskip, valid, endm), 3, warmup=1),
+                   loss_zeroed_rows=4)
+        rec["bound_ms"], rec["bound_by"] = bound(n_bytes, CTC_OPS_PER_STATE * cube)
+        out[name] = rec
+        say(f"[kernel {name}] B={b} T={t} C=80 S={s}: the strided path; alpha and beta "
+            f"bit-equal to the plain loops ({n_finite[0]} / {n_finite[1]} finite "
+            f"entries), two calls bit-equal; ctc_loss_auto: one alpha and one beta "
+            f"launch, the 4 long rows' loss and gradient exactly 0, the others "
+            f"within rtol {LOSS_RTOL} of the plain loss; alpha {rec['alpha_ms']:.4f} "
+            f"ms device a launch (plain {rec['alpha_plain_ms']:.4f}), beta "
+            f"{rec['beta_ms']:.4f} ms (plain {rec['beta_plain_ms']:.4f}); bound "
+            f"{rec['bound_ms']:.4f} ms by {rec['bound_by']}")
+        del logp, z, noskip, valid, start2, endm, x, loss
+        torch.cuda.empty_cache()
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -828,6 +1033,15 @@ def stem_input(shape, device, seed):
     return x.to(torch.bfloat16).contiguous(memory_format=torch.channels_last)
 
 
+def stats_split(name, x, xs):
+    """``kernel_split`` of ``bn_stats`` over ``xs`` (cold copies of the stem
+    activation x), and over cold copies of x's first image: at batch 1 a
+    call shows the part of its time that does not scale with the bytes."""
+    ones = cold_copies(x[:1].clone(memory_format=torch.channels_last))
+    return (kernel_split(f"K2 {name}", [lambda x=x: bn_stats(x) for x in xs]),
+            kernel_split(f"K2 {name} batch 1", [lambda x=x: bn_stats(x) for x in ones]))
+
+
 def phase_stem_kernels(device):
     """K2 at the four stem sites, K3f and K3b at the entry, against their
     plain versions; CUDA-event times and bounds."""
@@ -864,19 +1078,59 @@ def phase_stem_kernels(device):
             library_call_ms=median_ms(lambda: torch.batch_norm_stats(x, 1e-5), 20))
         site["bound_ms"], site["bound_by"] = bound(n_bytes, 3 * x.numel())
         site["bound_share"] = site["bound_ms"] / site["ms"]
+        # the device's kernels of a call by name, and the gaps between them
+        # (torch.profiler over the same kind of run as device_ms)
+        site["split"], site["split_batch1"] = stats_split(name, x, xs)
+        site["launches_a_call"] = site["split"]["launches_a_call"]
+        if site["split"]["per_call"] != [1] * DEVICE_RUNS:
+            raise AssertionError(f"[K2 {name}] {site['split']['per_call']} kernels a "
+                                 "call in the profiled runs, not one in each")
         sites[name] = site
         say(f"[K2 {name}] bn_stats bf16 {list(shape)}: two calls bit-equal; sum "
             f"max|err| {err_s.max().item():.3e} = {site['sum_err_of_abs_sum']:.3e} "
             f"of sum |x| (bar {STATS_SUM_REL}), sumsq max rel err "
-            f"{site['sumsq_rel_err']:.3e} (rtol {STATS_SQ_RTOL}); kernel with "
-            f"sum_partials {site['ms']:.4f} ms device a launch over {len(xs)} "
+            f"{site['sumsq_rel_err']:.3e} (rtol {STATS_SQ_RTOL}); kernel "
+            f"{site['ms']:.4f} ms device a launch over {len(xs)} "
             f"input(s) ({site['bound_share']:.1%} of its bound; one call "
             f"{site['call_ms']:.4f} ms), plain {site['plain_ms']:.4f} ms, "
             f"torch.batch_norm_stats {site['library_ms']:.4f} ms device a launch "
             f"(one call {site['library_call_ms']:.4f}), bound "
-            f"{site['bound_ms']:.4f} ms by {site['bound_by']}")
+            f"{site['bound_ms']:.4f} ms by {site['bound_by']}; profiler: "
+            f"{describe(site['split'])}; at batch 1: {describe(site['split_batch1'])}")
         del x, xs
     out["bn_stats"] = sites
+    # any C: channel counts that are not multiples of 8
+    any_c = {}
+    for name, shape in STATS_ANY_C:
+        for dtype in (torch.bfloat16, torch.float32):
+            gen = torch.Generator(device=device).manual_seed(shape[1])
+            x = torch.randn(shape, generator=gen, device=device).to(dtype).contiguous(
+                memory_format=torch.channels_last)
+            runs = [bn_stats(x) for _ in range(2)]
+            s_p, q_p = bn_stats_reference(x)
+            torch.cuda.synchronize()
+            (s_k, q_k), (s_2, q_2) = runs
+            if not (torch.equal(s_k, s_2) and torch.equal(q_k, q_2)):
+                raise AssertionError(f"[K2 {name}] two calls gave different bits")
+            mag = x.float().abs().sum((0, 2, 3))
+            err_s = (s_k - s_p).abs()
+            if not (err_s <= STATS_SUM_REL * mag).all():
+                raise AssertionError(f"[K2 {name}] sum off by "
+                                     f"{(err_s / mag).max().item():.3e} of sum |x|")
+            torch.testing.assert_close(q_k, q_p, rtol=STATS_SQ_RTOL, atol=0.0)
+            tag = "bf16" if dtype == torch.bfloat16 else "f32"
+            any_c[f"{name}_{tag}"] = dict(
+                shape=list(shape), sum_err_of_abs_sum=(err_s / mag).max().item(),
+                sumsq_rel_err=((q_k - q_p).abs() / q_p).max().item(),
+                ms=device_ms(f"K2 {name} {tag}", [lambda x=x: bn_stats(x)]))
+            say(f"[K2 {name}] bn_stats {tag} {list(shape)} (C % 8 != 0: scalar "
+                f"loads): two calls bit-equal; sum within "
+                f"{any_c[f'{name}_{tag}']['sum_err_of_abs_sum']:.3e} of sum |x| (bar "
+                f"{STATS_SUM_REL}), sumsq max rel err "
+                f"{any_c[f'{name}_{tag}']['sumsq_rel_err']:.3e} (rtol {STATS_SQ_RTOL}); "
+                f"{any_c[f'{name}_{tag}']['ms']:.4f} ms device a launch")
+            del x, runs
+    out["bn_stats_any_c"] = any_c
 
     name, shape, _ = STEM_SITES[0]
     x = stem_input(shape, device, seed=1)
@@ -1241,8 +1495,14 @@ def flash_inputs(shape, dtype, device, seed):
 
 
 def _flash_held(what, got, want):
-    """max |got - want| within FLASH_TOL; raises past it."""
+    """(max |got - want| within FLASH_TOL, its share of the bar, the share
+    of elements bit-equal); raises past the bar, and at head_dim past 256
+    (the FFMA kernels) in bf16 under FLASH_MIN_EQUAL bit-equal."""
     rtol, of_max = FLASH_TOL[want.dtype]
+    equal = (got == want).float().mean().item()
+    if want.dtype == torch.bfloat16 and want.shape[-1] > 256 and equal < FLASH_MIN_EQUAL:
+        raise AssertionError(f"{what}: {equal:.4f} of the elements bit-equal to the "
+                             f"plain version (< {FLASH_MIN_EQUAL})")
     got, want = got.float(), want.float()
     err = (got - want).abs()
     bar = rtol * want.abs() + of_max * want.abs().max()
@@ -1250,7 +1510,7 @@ def _flash_held(what, got, want):
     if not share <= 1.0:
         raise AssertionError(f"{what}: kernel and plain version differ by {share:.3f} "
                              "of the bar")
-    return err.max().item(), share
+    return err.max().item(), share, equal
 
 
 def _sdpa_ms(what, fn):
@@ -1279,8 +1539,8 @@ def flash_case(name, shape, backward, dtype, device):
     del runs
     o_p, l_p, m_p = fa.flash_attention_reference(q, k, v, scale)
     rec = {"fwd": {}}
-    rec["fwd"]["max_abs_err"], rec["fwd"]["bar_share"] = _flash_held(
-        f"[K5f {name}] o", o, o_p)
+    rec["fwd"]["max_abs_err"], rec["fwd"]["bar_share"], rec["fwd"]["bit_equal"] = (
+        _flash_held(f"[K5f {name}] o", o, o_p))
     torch.testing.assert_close(m, m_p, rtol=1e-5, atol=1e-5)
     torch.testing.assert_close(l, l_p, rtol=1e-4, atol=0.0)
     bh_n, size = b * h * n, q.element_size()
@@ -1329,6 +1589,7 @@ def flash_case(name, shape, backward, dtype, device):
                     library_bwd_ms=library_bwd, library_bwd_call_ms=library_bwd_call)
         rec["dkv"] = dict(
             max_abs_err=max(e_k[0], e_v[0]), bar_share=max(e_k[1], e_v[1]),
+            bit_equal=min(e_k[2], e_v[2]),
             **timed(f"K5dkv {name}", "", lambda: fa.flash_attention_bwd_dkv(
                 q, k, v, l, m, do, di, scale)),
             plain_ms=median_ms(lambda: fa.flash_attention_dkv_reference(
@@ -1336,7 +1597,7 @@ def flash_case(name, shape, backward, dtype, device):
         rec["dkv"]["bound_ms"], rec["dkv"]["bound_by"] = bound(
             io + 2 * q.numel() * size, 2 * flops, rate)
         rec["dq"] = dict(
-            max_abs_err=e_q[0], bar_share=e_q[1],
+            max_abs_err=e_q[0], bar_share=e_q[1], bit_equal=e_q[2],
             **timed(f"K5dq {name}", "", lambda: fa.flash_attention_bwd_dq(
                 q, k, v, l, m, do, di, scale)),
             plain_ms=median_ms(lambda: fa.flash_attention_dq_reference(
@@ -1357,7 +1618,8 @@ def flash_case(name, shape, backward, dtype, device):
                 lib += (f" (K5dkv + K5dq {pair:.4f} ms, "
                         f"{pair / r['library_bwd_ms']:.2f}x of it)")
         say(f"[{kernel} {name} {tag}] {list(shape)}: two calls bit-equal; vs plain "
-            f"max|err| {r['max_abs_err']:.3e}, {r['bar_share']:.3f} of the bar; kernel "
+            f"max|err| {r['max_abs_err']:.3e}, {r['bar_share']:.3f} of the bar, "
+            f"{r['bit_equal']:.2%} bit-equal; kernel "
             f"{r['ms']:.4f} ms device a launch (one call {r['call_ms']:.4f}), plain "
             f"{r['plain_ms']:.4f} ms, SDPA (device a launch) "
             f"{'forward' if key == 'fwd' else 'forward + backward'} {lib}; bound "
@@ -1619,6 +1881,7 @@ def main():
     device = torch.device("cuda", 0)
     build_s = phase_build()
     kernels = phase_kernels(device, max_sm_mhz)
+    ctc_long = phase_ctc_long(device)
     stem = phase_stem_kernels(device)
     conv = phase_conv_kernels(device)
     flash = phase_flash_kernels(device)
@@ -1660,7 +1923,7 @@ def main():
         "cycles_a_frame": k193[f"{which}_cycles_a_frame"],
         "max_sm_mhz": max_sm_mhz,
         "cases": {case: {k: v for k, v in rec.items() if not k.startswith(other)}
-                  for case, rec in kernels.items()},
+                  for case, rec in {**kernels, **ctc_long}.items()},
     } for which, other, line in (("alpha", "beta", 55), ("beta", "alpha", 88))]
     stem_lines = [{
         "name": "bn_stats",
@@ -1678,7 +1941,9 @@ def main():
         "call_ms": entry["call_ms"],
         "library_call_ms": entry["library_call_ms"],
         "shape": "bf16 [128, 192, 32, 512] channels-last (the entry site)",
+        "launches_a_call": entry["launches_a_call"],
         "sites": stem["bn_stats"],
+        "any_c": stem["bn_stats_any_c"],
     }] + [{
         "name": name,
         "route": "cuda",

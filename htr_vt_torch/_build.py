@@ -98,7 +98,7 @@ def load(path: Path) -> ctypes.CDLL:
     for fn in (lib.htrvt_ctc_alpha, lib.htrvt_ctc_beta):
         fn.argtypes = [ptr] * 6 + [i32] * 6 + [ptr]
         fn.restype = i32
-    lib.htrvt_bn_stats.argtypes = [ptr] * 4 + [i64] + [i32] * 3 + [ptr]
+    lib.htrvt_bn_stats.argtypes = [ptr] * 5 + [i64] + [i32] * 4 + [ptr]
     lib.htrvt_pool_bn_relu_fwd.argtypes = [ptr] * 4 + [i32] * 5 + [ptr]
     lib.htrvt_pool_bn_relu_bwd.argtypes = [ptr] * 8 + [i32] * 7 + [ptr]
     lib.htrvt_conv3x3_fwd.argtypes = [ptr] * 5 + [i32] * 7 + [ptr]

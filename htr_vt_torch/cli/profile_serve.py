@@ -70,12 +70,12 @@ CATEGORIES = (
     ("ctc_beta kernel", ("ctc_beta",)),
     ("flash attention kernels (K5f, K5dkv, K5dq)", ("flash_fwd", "flash_dkv",
                                                      "flash_dq")),
-    ("bn_stats kernel (K2)", ("bn_stats_partial",)),
+    ("bn_stats kernel (K2)", ("bn_stats",)),  # one kernel, its sum inside
     ("pool_bn_relu kernels (K3f, K3b)", ("pool_fwd_kernel", "pool_bwd_kernel")),
     ("conv3x3 kernels (K4f, K4d, K4w)", ("conv_fwd_wgmma", "conv_dgrad_wgmma",
                                          "wgrad_wgmma", "conv_f32_kernel",
                                          "wgrad_f32_kernel", "sum_splits")),
-    ("stem kernels' partial sums", ("sum_partials",)),
+    ("stem kernels' partial sums", ("sum_partials",)),  # K3b's and K4d's
     ("convolutions (cuDNN)", ("conv", "fprop", "dgrad", "wgrad", "implicit")),
     ("GEMMs (cuBLAS)", ("gemm", "nvjet", "cutlass", "cublas")),
     ("max pooling", ("max_pool",)),

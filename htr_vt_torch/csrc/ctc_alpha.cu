@@ -141,11 +141,46 @@ using Kernel = void (*)(const float*, const int*, const bool*, const bool*,
 const Kernel kKernels[] = {ctc_alpha_kernel<1>, ctc_alpha_kernel<2>,
                            ctc_alpha_kernel<4>, ctc_alpha_kernel<8>};
 
+// The strided path (ctc_recursion.cuh): thread i takes the states i, i +
+// blockDim.x, ...; frame t reads frame t-1's values back from `alpha`, which
+// the barrier at the end of frame t-1 has made visible to the block.
+__global__ void __launch_bounds__(ctc::kStridedThreads)
+ctc_alpha_strided(const float* __restrict__ logp, const int* __restrict__ z,
+                  const bool* __restrict__ noskip, const bool* __restrict__ valid,
+                  const bool* __restrict__ start2, float* __restrict__ alpha, int T,
+                  int C, int S) {
+  const size_t b = blockIdx.x;
+  const float* lp = logp + b * T * C;
+  const int* zb = z + b * S;
+  const bool* noskip_b = noskip + b * S;
+  const bool* valid_b = valid + b * S;
+  const bool* start2_b = start2 + b * S;
+  float* out = alpha + b * T * S;
+  for (int s = threadIdx.x; s < S; s += blockDim.x) {
+    const int cls = min(max(zb[s], 0), C - 1);
+    out[s] = start2_b[s] && valid_b[s] ? lp[cls] : kNeg;
+  }
+  __syncthreads();
+  for (int t = 1; t < T; ++t) {
+    const float* prev = out + size_t(t - 1) * S;
+    float* cur = out + size_t(t) * S;
+    const float* em = lp + size_t(t) * C;
+    for (int s = threadIdx.x; s < S; s += blockDim.x) {
+      const float a1 = s >= 1 ? prev[s - 1] : kNeg;
+      const float a2 = s >= 2 && !noskip_b[s] ? prev[s - 2] : kNeg;
+      const float v =
+          fmaxf(ctc::logaddexp3(prev[s], a1, a2) + em[min(max(zb[s], 0), C - 1)], kNeg);
+      cur[s] = valid_b[s] ? v : kNeg;
+    }
+    __syncthreads();
+  }
+}
+
 }  // namespace
 
 // logp [B,T,C] f32, z [B,S] i32, noskip/valid/start2 [B,S] bool (one byte),
 // alpha [B,T,S] f32 out; all contiguous on one device. `panel` frames a
-// panel and `per_thread` states a thread come from
+// panel and `per_thread` states a thread (0: the strided path) come from
 // ops/ctc_cuda.py:recursion_geometry. Launches on `stream` and returns
 // cudaGetLastError() (0 on success), or cudaErrorInvalidValue for a
 // geometry the kernel does not take.
@@ -157,6 +192,12 @@ extern "C" int htrvt_ctc_alpha(const void* logp, const void* z,
   if (B <= 0) return static_cast<int>(cudaSuccess);
   const ctc::Launch l = ctc::launch_shape(T, C, S, panel, per_thread);
   if (l.threads == 0) return static_cast<int>(cudaErrorInvalidValue);
+  if (l.variant < 0) {
+    return ctc::launch(ctc_alpha_strided, B, l, stream, static_cast<const float*>(logp),
+                       static_cast<const int*>(z), static_cast<const bool*>(noskip),
+                       static_cast<const bool*>(valid), static_cast<const bool*>(start2),
+                       static_cast<float*>(alpha), T, C, S);
+  }
   return ctc::launch(kKernels[l.variant], B, l, stream,
                      static_cast<const float*>(logp), static_cast<const int*>(z),
                      static_cast<const bool*>(noskip),

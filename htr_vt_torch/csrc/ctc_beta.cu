@@ -151,6 +151,43 @@ using Kernel = void (*)(const float*, const int*, const bool*, const bool*,
 const Kernel kKernels[] = {ctc_beta_kernel<1>, ctc_beta_kernel<2>,
                            ctc_beta_kernel<4>, ctc_beta_kernel<8>};
 
+// The strided path (ctc_recursion.cuh): thread i takes the states i, i +
+// blockDim.x, ...; frame t reads frame t+1's values back from `beta`, which
+// the barrier at the end of frame t+1 has made visible to the block, and
+// adds their emissions as the register path does (term = beta + lp).
+__global__ void __launch_bounds__(ctc::kStridedThreads)
+ctc_beta_strided(const float* __restrict__ logp, const int* __restrict__ z,
+                 const bool* __restrict__ noskip, const bool* __restrict__ valid,
+                 const bool* __restrict__ endm, float* __restrict__ beta, int T, int C,
+                 int S) {
+  const size_t b = blockIdx.x;
+  const float* lp = logp + b * T * C;
+  const int* zb = z + b * S;
+  const bool* noskip_b = noskip + b * S;
+  const bool* valid_b = valid + b * S;
+  const bool* endm_b = endm + b * S;
+  float* out = beta + b * T * S;
+  for (int s = threadIdx.x; s < S; s += blockDim.x) {
+    out[size_t(T - 1) * S + s] = endm_b[s] && valid_b[s] ? 0.0f : kNeg;
+  }
+  __syncthreads();
+  for (int t = T - 2; t >= 0; --t) {
+    const float* next = out + size_t(t + 1) * S;
+    float* cur = out + size_t(t) * S;
+    const float* em = lp + size_t(t + 1) * C;
+    for (int s = threadIdx.x; s < S; s += blockDim.x) {
+      const float t0 = next[s] + em[min(max(zb[s], 0), C - 1)];
+      const float b1 = s + 1 < S ? next[s + 1] + em[min(max(zb[s + 1], 0), C - 1)] : kNeg;
+      const float b2 = s + 2 < S && !noskip_b[s + 2]
+                           ? next[s + 2] + em[min(max(zb[s + 2], 0), C - 1)]
+                           : kNeg;
+      const float v = ctc::logaddexp3(t0, b1, b2);
+      cur[s] = valid_b[s] ? v : kNeg;
+    }
+    __syncthreads();
+  }
+}
+
 }  // namespace
 
 // logp [B,T,C] f32, z [B,S] i32, noskip/valid/endm [B,S] bool (one byte),
@@ -166,6 +203,12 @@ extern "C" int htrvt_ctc_beta(const void* logp, const void* z,
   if (B <= 0) return static_cast<int>(cudaSuccess);
   const ctc::Launch l = ctc::launch_shape(T, C, S, panel, per_thread);
   if (l.threads == 0) return static_cast<int>(cudaErrorInvalidValue);
+  if (l.variant < 0) {
+    return ctc::launch(ctc_beta_strided, B, l, stream, static_cast<const float*>(logp),
+                       static_cast<const int*>(z), static_cast<const bool*>(noskip),
+                       static_cast<const bool*>(valid), static_cast<const bool*>(endm),
+                       static_cast<float*>(beta), T, C, S);
+  }
   return ctc::launch(kKernels[l.variant], B, l, stream,
                      static_cast<const float*>(logp), static_cast<const int*>(z),
                      static_cast<const bool*>(noskip),

@@ -30,6 +30,15 @@
 // So a frame's loop reads no device memory. The geometry comes from the
 // wrapper (ops/ctc_cuda.py:recursion_geometry): K states a thread (a power
 // of two up to kMaxPerThread) and P frames a panel.
+//
+// Past what one block's registers hold (S > kMaxPerThread * 32 * kMaxWarps
+// = 8192 states), or where two panels of logp rows do not fit in shared
+// memory, the same kernels' files have a strided path (K = 0 from the
+// wrapper): one block of up to 1024 threads a sample strides over the
+// states, reads the previous frame's values back from the [B, T, S] output
+// it writes anyway (L2 holds that row), gathers the emissions from logp
+// directly, and keeps one barrier a frame. Its arithmetic is the register
+// path's, in the same order, so both give the plain version's bits.
 
 #pragma once
 
@@ -42,6 +51,7 @@ namespace ctc {
 constexpr float kNeg = -1e30f;
 constexpr int kMaxWarps = 32;
 constexpr int kMaxPerThread = 8;
+constexpr int kStridedThreads = 1024;  // the strided path's block
 constexpr int kBuffers = 2;  // panel buffers
 
 // The plain version's three-way log-sum-exp (ops/ctc.py:logaddexp3), in its
@@ -205,7 +215,8 @@ struct States {
 
 // --- launching ---------------------------------------------------------------------
 // Threads, dynamic shared memory and the kernel variant (log2 of the states
-// a thread) of a launch; 0 threads if the kernels do not take the geometry.
+// a thread, or -1 for the strided path) of a launch; 0 threads if the
+// kernels do not take the geometry.
 struct Launch {
   int threads = 0;
   size_t smem = 0;
@@ -216,7 +227,13 @@ constexpr size_t kSmemLimit = 232448;  // what a block may use on an H100
 
 inline Launch launch_shape(int T, int C, int S, int panel, int per_thread) {
   Launch l;
-  if (T < 1 || C < 1 || S < 1 || panel < 1 || panel > T || per_thread < 1 ||
+  if (T < 1 || C < 1 || S < 1) return l;
+  if (per_thread == 0) {  // the strided path: a warp multiple, at most 1024
+    l.threads = min(kStridedThreads, (S + 31) / 32 * 32);
+    l.variant = -1;
+    return l;
+  }
+  if (panel < 1 || panel > T || per_thread < 1 ||
       per_thread > kMaxPerThread || (per_thread & (per_thread - 1)))
     return l;
   const int warps = ((S + per_thread - 1) / per_thread + 31) / 32;

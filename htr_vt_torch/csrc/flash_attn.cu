@@ -10,8 +10,8 @@
 // outputs are htr_vt_torch/ops/flash_attn.py: flash_attention_reference,
 // flash_attention_dkv_reference and flash_attention_dq_reference.
 //
-// Shapes: q, k, v, o, do [B, H, N, D] with D = 128 or 256 and N a multiple
-// of 128, read through element strides (b, h, n) with the last dim
+// Shapes: q, k, v, o, do [B, H, N, D] with D a multiple of 128 and N a
+// multiple of 128, read through element strides (b, h, n) with the last dim
 // contiguous, so the strided views of a fused qkv projection need no copy;
 // dq, dk, dv contiguous [B, H, N, D]; l, m, di float32 [B, H, N]. T = the
 // element type (bf16, or float32), every sum float32:
@@ -84,6 +84,12 @@
 // float32 (every kernel) runs a 128 x 128 FFMA tile (8 x 8 outputs a
 // thread) with the probabilities in shared memory (no TF32), one
 // 128-column slice of the output a block, the scores recomputed for each.
+// The wgmma kernels hold a [128, D] tile and a D-wide accumulator, which
+// stop fitting past D = 256 (at D = 512, 128 KB of q beside the ring, and
+// 256 accumulator registers a thread). So bf16 at D = 384, 512 and every
+// larger multiple of 128 runs the same FFMA kernels, widening bf16 as it
+// stages and rounding p, ds and the outputs to bf16 where the wgmma kernels
+// do: a simple kernel whose shared memory does not grow with D.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -813,27 +819,58 @@ flash_dq_wgmma(const __grid_constant__ CUtensorMap tq, const __grid_constant__ C
   }
 }
 
-// --- float32 on FFMA -----------------------------------------------------------
+// --- float32, and any head_dim, on FFMA ------------------------------------------
 // A thread owns the 8 x 8 outputs (ty + 16 i, tx + 16 j) of a 128 x 128
 // tile, ty = tid / 16, tx = tid % 16: the 16 threads of a row group are one
-// half-warp, so row reductions are shuffles.
+// half-warp, so row reductions are shuffles. T is the element type: float,
+// or bf16 at a head_dim the wgmma kernels do not take (D > 256), where the
+// inputs are widened to float32 as they are staged (a product of two bf16
+// values is exact in float32), p and ds are rounded to bf16 as the products
+// read them (T(p), T(ds)) and the outputs once at the end, as the wgmma
+// kernels round. D = 0 reads the head_dim from the argument d, so one
+// instantiation takes every multiple of 128: shared memory does not grow
+// with D, and each block makes one 128-column slice of the output.
+
+// Four consecutive elements as float32 (16 bytes of float, 8 of bf16).
+__device__ __forceinline__ float4 load4(const float* p) {
+  return *reinterpret_cast<const float4*>(p);
+}
+__device__ __forceinline__ float4 load4(const bf16* p) {
+  const uint2 raw = *reinterpret_cast<const uint2*>(p);
+  const float2 a = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&raw.x));
+  const float2 b = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&raw.y));
+  return make_float4(a.x, a.y, b.x, b.y);
+}
+
+// float32 -> T -> float32 (round to nearest even).
+template <typename T>
+__device__ __forceinline__ float round_to(float v) {
+  return v;
+}
+template <>
+__device__ __forceinline__ float round_to<bf16>(float v) {
+  return __bfloat162float(__float2bfloat16_rn(v));
+}
+
+__device__ __forceinline__ void store1(float* p, float v) { *p = v; }
+__device__ __forceinline__ void store1(bf16* p, float v) { *p = __float2bfloat16_rn(v); }
 
 // acc[i][j] += sum_d A[ty + 16 i, d] * Bt[tx + 16 j, d] for two [128, D]
 // row sets (rows sa, sb elements apart), staged 32 of D at a time,
-// transposed, in Ac and Bc.
-template <int D>
-__device__ __forceinline__ void nt_product_f32(float acc[8][8], const float* A,
-                                               long long sa, const float* Bt,
-                                               long long sb, float* Ac, float* Bc,
-                                               int tid) {
+// transposed, in Ac and Bc (D = 0: d columns).
+template <typename T, int D>
+__device__ __forceinline__ void nt_product_f32(float acc[8][8], const T* A, long long sa,
+                                               const T* Bt, long long sb, float* Ac,
+                                               float* Bc, int tid, int d) {
   const int tx = tid & 15, ty = tid >> 4;
-  for (int d0 = 0; d0 < D; d0 += kFK) {
+  const int dd = D ? D : d;
+  for (int d0 = 0; d0 < dd; d0 += kFK) {
 #pragma unroll
     for (int i = 0; i < kBlock * kFK / 4 / kThreads; ++i) {
       const int idx = tid + i * kThreads;
       const int r = idx / (kFK / 4), c = (idx % (kFK / 4)) * 4;
-      const float4 a = *reinterpret_cast<const float4*>(A + r * sa + d0 + c);
-      const float4 bb = *reinterpret_cast<const float4*>(Bt + r * sb + d0 + c);
+      const float4 a = load4(A + r * sa + d0 + c);
+      const float4 bb = load4(Bt + r * sb + d0 + c);
       Ac[(c + 0) * kFP + r] = a.x;
       Ac[(c + 1) * kFP + r] = a.y;
       Ac[(c + 2) * kFP + r] = a.z;
@@ -860,19 +897,19 @@ __device__ __forceinline__ void nt_product_f32(float acc[8][8], const float* A,
   }
 }
 
-// acc[i][j] += sum_r P[ty + 16 i, r] * B[r, tx + 16 j] over the 128 rows r
-// of B ([128, kDO] from B, rows sb elements apart), P in shared memory
+// acc[i][j] += sum_r T(P[ty + 16 i, r]) * B[r, tx + 16 j] over the 128 rows
+// r of B ([128, kDO] from B, rows sb elements apart), P in shared memory
 // [128][kFP]; B staged 32 rows at a time in Bc.
-__device__ __forceinline__ void p_product_f32(float acc[8][8], const float* Ps,
-                                              const float* B, long long sb, float* Bc,
-                                              int tid) {
+template <typename T>
+__device__ __forceinline__ void p_product_f32(float acc[8][8], const float* Ps, const T* B,
+                                              long long sb, float* Bc, int tid) {
   const int tx = tid & 15, ty = tid >> 4;
   for (int r0 = 0; r0 < kBlock; r0 += kFK) {
 #pragma unroll
     for (int i = 0; i < kFK * kDO / 4 / kThreads; ++i) {
       const int idx = tid + i * kThreads;
       const int r = idx / (kDO / 4), c = (idx % (kDO / 4)) * 4;
-      const float4 bb = *reinterpret_cast<const float4*>(B + (r0 + r) * sb + c);
+      const float4 bb = load4(B + (r0 + r) * sb + c);
       Bc[r * kFP + c + 0] = bb.x;
       Bc[r * kFP + c + 1] = bb.y;
       Bc[r * kFP + c + 2] = bb.z;
@@ -883,7 +920,7 @@ __device__ __forceinline__ void p_product_f32(float acc[8][8], const float* Ps,
     for (int r = 0; r < kFK; ++r) {
       float a[8], bb[8];
 #pragma unroll
-      for (int i = 0; i < 8; ++i) a[i] = Ps[(ty + 16 * i) * kFP + r0 + r];
+      for (int i = 0; i < 8; ++i) a[i] = round_to<T>(Ps[(ty + 16 * i) * kFP + r0 + r]);
 #pragma unroll
       for (int j = 0; j < 8; ++j) bb[j] = Bc[r * kFP + tx + 16 * j];
 #pragma unroll
@@ -913,13 +950,13 @@ __device__ __forceinline__ void zero88(float acc[8][8]) {
     for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
 }
 
-__device__ __forceinline__ void store_f32(float* out, long long stride, float acc[8][8],
-                                          int tid) {
+template <typename T>
+__device__ __forceinline__ void store_f32(T* out, long long stride, float acc[8][8], int tid) {
   const int tx = tid & 15, ty = tid >> 4;
 #pragma unroll
   for (int i = 0; i < 8; ++i)
 #pragma unroll
-    for (int j = 0; j < 8; ++j) out[(ty + 16 * i) * stride + tx + 16 * j] = acc[i][j];
+    for (int j = 0; j < 8; ++j) store1(out + (ty + 16 * i) * stride + tx + 16 * j, acc[i][j]);
 }
 
 // Stages m, 1 / l and di of 128 rows from `first` into shared memory.
@@ -936,11 +973,11 @@ __device__ __forceinline__ void stage_stats(float* ms, float* ils, float* dis,
 // Each block makes the 128 output columns from c0 = 128 blockIdx.z; the
 // scores and the softmax statistics are recomputed for each, identically,
 // and the first writes l and m.
-template <int D>
+template <typename T, int D>
 __global__ void __launch_bounds__(kThreads, 1)
-flash_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
-              const float* __restrict__ v, float* __restrict__ o, float* __restrict__ l_out,
-              float* __restrict__ m_out, Layout lay, int H, int N, float scale) {
+flash_fwd_f32(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
+              T* __restrict__ o, float* __restrict__ l_out, float* __restrict__ m_out,
+              Layout lay, int H, int N, int d, float scale) {
   extern __shared__ __align__(16) unsigned char smem[];
   float* Ps = reinterpret_cast<float*>(smem);
   float* Ac = Ps + kBlock * kFP;
@@ -950,7 +987,7 @@ flash_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
   const long long q0 = static_cast<long long>(blockIdx.x) * kBlock;
   const int c0 = blockIdx.z * kDO;
   const int nk = N / kBlock;
-  const float* qb = rows_of(q, lay.t[0], b, h, q0);
+  const T* qb = rows_of(q, lay.t[0], b, h, q0);
 
   float acc[8][8];
   zero88(acc);
@@ -964,8 +1001,8 @@ flash_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
     const long long k0 = static_cast<long long>(j) * kBlock;
     float s[8][8];
     zero88(s);
-    nt_product_f32<D>(s, qb, lay.t[0].n, rows_of(k, lay.t[1], b, h, k0), lay.t[1].n, Ac, Bc,
-                      tid);
+    nt_product_f32<T, D>(s, qb, lay.t[0].n, rows_of(k, lay.t[1], b, h, k0), lay.t[1].n, Ac,
+                         Bc, tid, d);
     float corr[8], inv[8];
 #pragma unroll
     for (int i = 0; i < 8; ++i) {
@@ -1022,13 +1059,12 @@ flash_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
   }
 }
 
-template <int D>
+template <typename T, int D>
 __global__ void __launch_bounds__(kThreads, 1)
-flash_dq_f32(const float* __restrict__ q, const float* __restrict__ k,
-             const float* __restrict__ v, const float* __restrict__ l,
-             const float* __restrict__ m, const float* __restrict__ dout,
-             const float* __restrict__ di, float* __restrict__ dq, Layout lay, int H, int N,
-             float scale) {
+flash_dq_f32(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
+             const float* __restrict__ l, const float* __restrict__ m,
+             const T* __restrict__ dout, const float* __restrict__ di, T* __restrict__ dq,
+             Layout lay, int H, int N, int d, float scale) {
   extern __shared__ __align__(16) unsigned char smem[];
   float* Ps = reinterpret_cast<float*>(smem);
   float* Ac = Ps + kBlock * kFP;
@@ -1043,17 +1079,17 @@ flash_dq_f32(const float* __restrict__ q, const float* __restrict__ k,
   const int nk = N / kBlock;
   stage_stats(ms, ils, dis, m, l, di, static_cast<long long>(blockIdx.y) * N + q0, tid);
   __syncthreads();
-  const float* qb = rows_of(q, lay.t[0], b, h, q0);
-  const float* ob = rows_of(dout, lay.t[3], b, h, q0);
+  const T* qb = rows_of(q, lay.t[0], b, h, q0);
+  const T* ob = rows_of(dout, lay.t[3], b, h, q0);
 
   float acc[8][8];
   zero88(acc);
   for (int j = 0; j < nk; ++j) {
     const long long k0 = static_cast<long long>(j) * kBlock;
-    const float* kb = rows_of(k, lay.t[1], b, h, k0);
+    const T* kb = rows_of(k, lay.t[1], b, h, k0);
     float s[8][8];
     zero88(s);
-    nt_product_f32<D>(s, qb, lay.t[0].n, kb, lay.t[1].n, Ac, Bc, tid);
+    nt_product_f32<T, D>(s, qb, lay.t[0].n, kb, lay.t[1].n, Ac, Bc, tid, d);
 #pragma unroll
     for (int i = 0; i < 8; ++i) {
       const int r = ty + 16 * i;
@@ -1063,8 +1099,8 @@ flash_dq_f32(const float* __restrict__ q, const float* __restrict__ k,
             __fmul_rn(expf(__fsub_rn(__fmul_rn(s[i][jj], scale), ms[r])), ils[r]);
     }
     zero88(s);  // now dp = do v^T
-    nt_product_f32<D>(s, ob, lay.t[3].n, rows_of(v, lay.t[2], b, h, k0), lay.t[2].n, Ac, Bc,
-                      tid);
+    nt_product_f32<T, D>(s, ob, lay.t[3].n, rows_of(v, lay.t[2], b, h, k0), lay.t[2].n, Ac,
+                         Bc, tid, d);
 #pragma unroll
     for (int i = 0; i < 8; ++i) {
       const int r = ty + 16 * i;
@@ -1076,16 +1112,16 @@ flash_dq_f32(const float* __restrict__ q, const float* __restrict__ k,
     }
     p_product_f32(acc, Ps, kb + c0, lay.t[1].n, Bc, tid);
   }
-  store_f32(dq + (static_cast<long long>(blockIdx.y) * N + q0) * D + c0, D, acc, tid);
+  const int dd = D ? D : d;
+  store_f32(dq + (static_cast<long long>(blockIdx.y) * N + q0) * dd + c0, dd, acc, tid);
 }
 
-template <int D>
+template <typename T, int D>
 __global__ void __launch_bounds__(kThreads, 1)
-flash_dkv_f32(const float* __restrict__ q, const float* __restrict__ k,
-              const float* __restrict__ v, const float* __restrict__ l,
-              const float* __restrict__ m, const float* __restrict__ dout,
-              const float* __restrict__ di, float* __restrict__ dk, float* __restrict__ dv,
-              Layout lay, int H, int N, float scale) {
+flash_dkv_f32(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
+              const float* __restrict__ l, const float* __restrict__ m,
+              const T* __restrict__ dout, const float* __restrict__ di, T* __restrict__ dk,
+              T* __restrict__ dv, Layout lay, int H, int N, int d, float scale) {
   extern __shared__ __align__(16) unsigned char smem[];
   float* Ps = reinterpret_cast<float*>(smem);
   float* Ac = Ps + kBlock * kFP;
@@ -1097,8 +1133,8 @@ flash_dkv_f32(const float* __restrict__ q, const float* __restrict__ k,
   const int b = blockIdx.y / H, h = blockIdx.y % H;
   const long long k0 = static_cast<long long>(blockIdx.x) * kBlock;
   const int c0 = blockIdx.z * kDO;
-  const float* kb = rows_of(k, lay.t[1], b, h, k0);
-  const float* vb = rows_of(v, lay.t[2], b, h, k0);
+  const T* kb = rows_of(k, lay.t[1], b, h, k0);
+  const T* vb = rows_of(v, lay.t[2], b, h, k0);
 
   float dk_acc[8][8], dv_acc[8][8];
   zero88(dk_acc);
@@ -1107,11 +1143,11 @@ flash_dkv_f32(const float* __restrict__ q, const float* __restrict__ k,
     __syncthreads();  // every thread is done with the last block's stats
     stage_stats(ms, ils, dis, m, l, di, static_cast<long long>(blockIdx.y) * N + i0, tid);
     __syncthreads();
-    const float* qb = rows_of(q, lay.t[0], b, h, i0);
-    const float* ob = rows_of(dout, lay.t[3], b, h, i0);
+    const T* qb = rows_of(q, lay.t[0], b, h, i0);
+    const T* ob = rows_of(dout, lay.t[3], b, h, i0);
     float s[8][8];  // s^T = k q^T: rows keys, columns queries
     zero88(s);
-    nt_product_f32<D>(s, kb, lay.t[1].n, qb, lay.t[0].n, Ac, Bc, tid);
+    nt_product_f32<T, D>(s, kb, lay.t[1].n, qb, lay.t[0].n, Ac, Bc, tid, d);
 #pragma unroll
     for (int i = 0; i < 8; ++i)
 #pragma unroll
@@ -1122,7 +1158,7 @@ flash_dkv_f32(const float* __restrict__ q, const float* __restrict__ k,
       }
     p_product_f32(dv_acc, Ps, ob + c0, lay.t[3].n, Bc, tid);
     zero88(s);  // now dp^T = v do^T
-    nt_product_f32<D>(s, vb, lay.t[2].n, ob, lay.t[3].n, Ac, Bc, tid);
+    nt_product_f32<T, D>(s, vb, lay.t[2].n, ob, lay.t[3].n, Ac, Bc, tid, d);
 #pragma unroll
     for (int i = 0; i < 8; ++i)
 #pragma unroll
@@ -1133,9 +1169,10 @@ flash_dkv_f32(const float* __restrict__ q, const float* __restrict__ k,
       }
     p_product_f32(dk_acc, Ps, qb + c0, lay.t[0].n, Bc, tid);
   }
-  const long long out = (static_cast<long long>(blockIdx.y) * N + k0) * D + c0;
-  store_f32(dk + out, D, dk_acc, tid);
-  store_f32(dv + out, D, dv_acc, tid);
+  const int dd = D ? D : d;
+  const long long out = (static_cast<long long>(blockIdx.y) * N + k0) * dd + c0;
+  store_f32(dk + out, dd, dk_acc, tid);
+  store_f32(dv + out, dd, dv_acc, tid);
 }
 
 // --- launchers -------------------------------------------------------------------
@@ -1145,10 +1182,16 @@ cudaError_t allow_smem(Kernel kernel, size_t bytes) {
                               static_cast<int>(bytes));
 }
 
+// D: any multiple of 128 (the output slices a block makes: gridDim.z).
 bool bad_shape(int B, int H, int N, int D, int dtype) {
-  return B <= 0 || H <= 0 || N < kBlock || N % kBlock || (D != 128 && D != 256) ||
-         static_cast<long long>(B) * H > 65535 || (dtype != kFloat32 && dtype != kBFloat16);
+  return B <= 0 || H <= 0 || N < kBlock || N % kBlock || D < kDO || D % kDO ||
+         D / kDO > 65535 || static_cast<long long>(B) * H > 65535 ||
+         (dtype != kFloat32 && dtype != kBFloat16);
 }
+
+// The wgmma kernels' head dims; every other multiple of 128 (and float32
+// at every D) runs the FFMA kernels, at D > 256 as their D = 0 instance.
+bool wgmma_dim(int D) { return D == 128 || D == 256; }
 
 Layout layout_of(const long long* strides) {
   Layout lay;
@@ -1189,15 +1232,29 @@ cudaError_t launch_fwd_bf16(const void* q, const void* k, const void* v, void* o
   return cudaGetLastError();
 }
 
-template <int D>
+template <typename T, int D>
 cudaError_t launch_fwd_f32(const void* q, const void* k, const void* v, void* o, float* l,
-                           float* m, const Layout& lay, int B, int H, int N, float scale,
+                           float* m, const Layout& lay, int B, int H, int N, int d, float scale,
                            cudaStream_t s) {
-  const cudaError_t err = allow_smem(flash_fwd_f32<D>, kF32Smem);
+  const cudaError_t err = allow_smem(flash_fwd_f32<T, D>, kF32Smem);
   if (err != cudaSuccess) return err;
-  flash_fwd_f32<D><<<dim3(N / kBlock, B * H, D / kDO), kThreads, kF32Smem, s>>>(
-      static_cast<const float*>(q), static_cast<const float*>(k),
-      static_cast<const float*>(v), static_cast<float*>(o), l, m, lay, H, N, scale);
+  flash_fwd_f32<T, D><<<dim3(N / kBlock, B * H, d / kDO), kThreads, kF32Smem, s>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
+      static_cast<T*>(o), l, m, lay, H, N, d, scale);
+  return cudaGetLastError();
+}
+
+template <typename T, int D>
+cudaError_t launch_dkv_f32(const void* q, const void* k, const void* v, const float* l,
+                           const float* m, const void* dout, const float* di, void* dk,
+                           void* dv, const Layout& lay, int B, int H, int N, int d, float scale,
+                           cudaStream_t s) {
+  const cudaError_t err = allow_smem(flash_dkv_f32<T, D>, kF32Smem);
+  if (err != cudaSuccess) return err;
+  flash_dkv_f32<T, D><<<dim3(N / kBlock, B * H, d / kDO), kThreads, kF32Smem, s>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v), l, m,
+      static_cast<const T*>(dout), di, static_cast<T*>(dk), static_cast<T*>(dv), lay, H, N,
+      d, scale);
   return cudaGetLastError();
 }
 
@@ -1206,29 +1263,35 @@ cudaError_t launch_dkv(const void* q, const void* k, const void* v, const float*
                        const float* m, const void* dout, const float* di, void* dk, void* dv,
                        const Layout& lay, int B, int H, int N, float scale, int dtype,
                        cudaStream_t s) {
-  const dim3 grid(N / kBlock, B * H, D / kDO);
-  cudaError_t err;
-  if (dtype == kBFloat16) {
-    // q and do in boxes of 64 rows, k and v of 128
-    CUtensorMap maps[4];
-    const void* bases[4] = {q, k, v, dout};
-    for (int i = 0; i < 4; ++i) {
-      const int rows = i == 1 || i == 2 ? kBlock : kSub;
-      if (!head_map(&maps[i], bases[i], lay.t[i], B, H, N, D, rows)) return cudaErrorInvalidValue;
-    }
-    err = allow_smem(flash_dkv_wgmma<D>, Dkv<D>::kSmem);
-    if (err != cudaSuccess) return err;
-    flash_dkv_wgmma<D><<<grid, kFwdThreads, Dkv<D>::kSmem, s>>>(
-        maps[0], maps[1], maps[2], maps[3], l, m, di, static_cast<bf16*>(dk),
-        static_cast<bf16*>(dv), H, N, scale);
-  } else {
-    err = allow_smem(flash_dkv_f32<D>, kF32Smem);
-    if (err != cudaSuccess) return err;
-    flash_dkv_f32<D><<<grid, kThreads, kF32Smem, s>>>(
-        static_cast<const float*>(q), static_cast<const float*>(k),
-        static_cast<const float*>(v), l, m, static_cast<const float*>(dout), di,
-        static_cast<float*>(dk), static_cast<float*>(dv), lay, H, N, scale);
+  if (dtype != kBFloat16) {
+    return launch_dkv_f32<float, D>(q, k, v, l, m, dout, di, dk, dv, lay, B, H, N, D, scale, s);
   }
+  const dim3 grid(N / kBlock, B * H, D / kDO);
+  // q and do in boxes of 64 rows, k and v of 128
+  CUtensorMap maps[4];
+  const void* bases[4] = {q, k, v, dout};
+  for (int i = 0; i < 4; ++i) {
+    const int rows = i == 1 || i == 2 ? kBlock : kSub;
+    if (!head_map(&maps[i], bases[i], lay.t[i], B, H, N, D, rows)) return cudaErrorInvalidValue;
+  }
+  const cudaError_t err = allow_smem(flash_dkv_wgmma<D>, Dkv<D>::kSmem);
+  if (err != cudaSuccess) return err;
+  flash_dkv_wgmma<D><<<grid, kFwdThreads, Dkv<D>::kSmem, s>>>(
+      maps[0], maps[1], maps[2], maps[3], l, m, di, static_cast<bf16*>(dk),
+      static_cast<bf16*>(dv), H, N, scale);
+  return cudaGetLastError();
+}
+
+template <typename T, int D>
+cudaError_t launch_dq_f32(const void* q, const void* k, const void* v, const float* l,
+                          const float* m, const void* dout, const float* di, void* dq,
+                          const Layout& lay, int B, int H, int N, int d, float scale,
+                          cudaStream_t s) {
+  const cudaError_t err = allow_smem(flash_dq_f32<T, D>, kF32Smem);
+  if (err != cudaSuccess) return err;
+  flash_dq_f32<T, D><<<dim3(N / kBlock, B * H, d / kDO), kThreads, kF32Smem, s>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v), l, m,
+      static_cast<const T*>(dout), di, static_cast<T*>(dq), lay, H, N, d, scale);
   return cudaGetLastError();
 }
 
@@ -1237,28 +1300,21 @@ cudaError_t launch_dq(const void* q, const void* k, const void* v, const float* 
                       const float* m, const void* dout, const float* di, void* dq,
                       const Layout& lay, int B, int H, int N, float scale, int dtype,
                       cudaStream_t s) {
-  const dim3 grid(N / kBlock, B * H, D / kDO);
-  cudaError_t err;
-  if (dtype == kBFloat16) {
-    // q and do in boxes of 128 rows, k and v of 64
-    CUtensorMap maps[4];
-    const void* bases[4] = {q, k, v, dout};
-    for (int i = 0; i < 4; ++i) {
-      const int rows = i == 1 || i == 2 ? kSub : kBlock;
-      if (!head_map(&maps[i], bases[i], lay.t[i], B, H, N, D, rows)) return cudaErrorInvalidValue;
-    }
-    err = allow_smem(flash_dq_wgmma<D>, Dq<D>::kSmem);
-    if (err != cudaSuccess) return err;
-    flash_dq_wgmma<D><<<grid, kFwdThreads, Dq<D>::kSmem, s>>>(
-        maps[0], maps[1], maps[2], maps[3], l, m, di, static_cast<bf16*>(dq), H, N, scale);
-  } else {
-    err = allow_smem(flash_dq_f32<D>, kF32Smem);
-    if (err != cudaSuccess) return err;
-    flash_dq_f32<D><<<grid, kThreads, kF32Smem, s>>>(
-        static_cast<const float*>(q), static_cast<const float*>(k),
-        static_cast<const float*>(v), l, m, static_cast<const float*>(dout), di,
-        static_cast<float*>(dq), lay, H, N, scale);
+  if (dtype != kBFloat16) {
+    return launch_dq_f32<float, D>(q, k, v, l, m, dout, di, dq, lay, B, H, N, D, scale, s);
   }
+  const dim3 grid(N / kBlock, B * H, D / kDO);
+  // q and do in boxes of 128 rows, k and v of 64
+  CUtensorMap maps[4];
+  const void* bases[4] = {q, k, v, dout};
+  for (int i = 0; i < 4; ++i) {
+    const int rows = i == 1 || i == 2 ? kSub : kBlock;
+    if (!head_map(&maps[i], bases[i], lay.t[i], B, H, N, D, rows)) return cudaErrorInvalidValue;
+  }
+  const cudaError_t err = allow_smem(flash_dq_wgmma<D>, Dq<D>::kSmem);
+  if (err != cudaSuccess) return err;
+  flash_dq_wgmma<D><<<grid, kFwdThreads, Dq<D>::kSmem, s>>>(
+      maps[0], maps[1], maps[2], maps[3], l, m, di, static_cast<bf16*>(dq), H, N, scale);
   return cudaGetLastError();
 }
 
@@ -1266,8 +1322,8 @@ cudaError_t launch_dq(const void* q, const void* k, const void* v, const float* 
 
 // K5f. q, k, v [B, H, N, D] through `strides` (host array: b, h, n of q, k,
 // v, then o); o out in the same dtype through its strides; l, m float32
-// [B, H, N] out. D = 128 or 256, N a multiple of 128; dtype 1 = bf16, 0 =
-// float32. Returns cudaGetLastError() (cudaErrorInvalidValue if
+// [B, H, N] out. D a multiple of 128, N a multiple of 128; dtype 1 = bf16,
+// 0 = float32. Returns cudaGetLastError() (cudaErrorInvalidValue if
 // cuTensorMapEncodeTiled refuses a tensor map).
 extern "C" int htrvt_flash_fwd(const void* q, const void* k, const void* v, void* o,
                                void* l, void* m, const long long* strides, float scale,
@@ -1278,12 +1334,16 @@ extern "C" int htrvt_flash_fwd(const void* q, const void* k, const void* v, void
   float* lo = static_cast<float*>(l);
   float* mo = static_cast<float*>(m);
   cudaError_t err;
-  if (dtype == kBFloat16) {
+  if (!wgmma_dim(D)) {
+    err = dtype == kBFloat16
+              ? launch_fwd_f32<bf16, 0>(q, k, v, o, lo, mo, lay, B, H, N, D, scale, s)
+              : launch_fwd_f32<float, 0>(q, k, v, o, lo, mo, lay, B, H, N, D, scale, s);
+  } else if (dtype == kBFloat16) {
     err = D == 128 ? launch_fwd_bf16<128>(q, k, v, o, lo, mo, lay, B, H, N, scale, s)
                    : launch_fwd_bf16<256>(q, k, v, o, lo, mo, lay, B, H, N, scale, s);
   } else {
-    err = D == 128 ? launch_fwd_f32<128>(q, k, v, o, lo, mo, lay, B, H, N, scale, s)
-                   : launch_fwd_f32<256>(q, k, v, o, lo, mo, lay, B, H, N, scale, s);
+    err = D == 128 ? launch_fwd_f32<float, 128>(q, k, v, o, lo, mo, lay, B, H, N, D, scale, s)
+                   : launch_fwd_f32<float, 256>(q, k, v, o, lo, mo, lay, B, H, N, D, scale, s);
   }
   return static_cast<int>(err);
 }
@@ -1302,9 +1362,18 @@ extern "C" int htrvt_flash_bwd_dkv(const void* q, const void* k, const void* v,
   const float* lf = static_cast<const float*>(l);
   const float* mf = static_cast<const float*>(m);
   const float* df = static_cast<const float*>(di);
-  const cudaError_t err =
-      D == 128 ? launch_dkv<128>(q, k, v, lf, mf, dout, df, dk, dv, lay, B, H, N, scale, dtype, s)
-               : launch_dkv<256>(q, k, v, lf, mf, dout, df, dk, dv, lay, B, H, N, scale, dtype, s);
+  cudaError_t err;
+  if (!wgmma_dim(D)) {
+    err = dtype == kBFloat16
+              ? launch_dkv_f32<bf16, 0>(q, k, v, lf, mf, dout, df, dk, dv, lay, B, H, N, D,
+                                        scale, s)
+              : launch_dkv_f32<float, 0>(q, k, v, lf, mf, dout, df, dk, dv, lay, B, H, N, D,
+                                         scale, s);
+  } else {
+    err = D == 128
+              ? launch_dkv<128>(q, k, v, lf, mf, dout, df, dk, dv, lay, B, H, N, scale, dtype, s)
+              : launch_dkv<256>(q, k, v, lf, mf, dout, df, dk, dv, lay, B, H, N, scale, dtype, s);
+  }
   return static_cast<int>(err);
 }
 
@@ -1321,8 +1390,15 @@ extern "C" int htrvt_flash_bwd_dq(const void* q, const void* k, const void* v,
   const float* lf = static_cast<const float*>(l);
   const float* mf = static_cast<const float*>(m);
   const float* df = static_cast<const float*>(di);
-  const cudaError_t err =
-      D == 128 ? launch_dq<128>(q, k, v, lf, mf, dout, df, dq, lay, B, H, N, scale, dtype, s)
-               : launch_dq<256>(q, k, v, lf, mf, dout, df, dq, lay, B, H, N, scale, dtype, s);
+  cudaError_t err;
+  if (!wgmma_dim(D)) {
+    err = dtype == kBFloat16
+              ? launch_dq_f32<bf16, 0>(q, k, v, lf, mf, dout, df, dq, lay, B, H, N, D, scale, s)
+              : launch_dq_f32<float, 0>(q, k, v, lf, mf, dout, df, dq, lay, B, H, N, D, scale,
+                                        s);
+  } else {
+    err = D == 128 ? launch_dq<128>(q, k, v, lf, mf, dout, df, dq, lay, B, H, N, scale, dtype, s)
+                   : launch_dq<256>(q, k, v, lf, mf, dout, df, dq, lay, B, H, N, scale, dtype, s);
+  }
   return static_cast<int>(err);
 }

@@ -5,12 +5,14 @@
 // Every thread of these kernels owns kVec = 8 consecutive channels, so it
 // moves 16 bytes of bf16 (one uint4) or 32 bytes of float32 (two float4)
 // per access, and a warp reads a contiguous stretch of a row. Arithmetic is
-// float32. The wrappers check that C % 8 == 0 and that the base pointers
-// are 16-byte aligned.
+// float32. Before a kernel uses these vector loads, its wrapper or launcher
+// makes sure that C % 8 == 0 and that the base pointers are 16-byte
+// aligned.
 //
-// Reductions across blocks never use atomics: each block writes its
-// partial sums to a [n_blocks, width] float32 buffer, and sum_partials adds
-// them in a fixed order, so two calls on the same input give equal bits.
+// Reductions across blocks never use float atomics: each block writes its
+// partial sums to a float32 buffer, and they are added in a fixed order
+// (sum_partials for K3b and K4d, the last block of each channel slice in
+// bn_stats.cu), so two calls on the same input give equal bits.
 
 #pragma once
 
@@ -22,7 +24,6 @@ namespace stem {
 namespace {  // internal linkage: each .cu file gets its own copy
 
 constexpr int kVec = 8;
-constexpr int kThreads = 256;  // target threads per block
 
 enum DType : int { kFloat32 = 0, kBFloat16 = 1 };
 
@@ -113,41 +114,6 @@ inline cudaError_t launch_sum_partials(const float* partial, int n_blocks,
   const int grid = (2 * C + 31) / 32;
   sum_partials<<<grid, block, 0, stream>>>(partial, n_blocks, C, out0, out1);
   return cudaGetLastError();
-}
-
-// Block shape of the stem kernels: x = the C / 8 channel groups, y = as
-// many rows as keep the block near kThreads threads.
-inline dim3 block_shape(int C) {
-  const int groups = C / kVec;
-  const int rows = groups >= kThreads ? 1 : kThreads / groups;
-  return dim3(groups, rows);
-}
-
-// Writes block-local sums to partial[blockIdx.x, 0:2C]: s[i] and q[i] of
-// every thread (x = channel group, y = row slot) land in shared memory
-// `red` (2 * blockDim.y * C floats) and are added over y in order.
-__device__ __forceinline__ void block_partials(const float s[kVec],
-                                               const float q[kVec],
-                                               float* red, float* partial,
-                                               int C) {
-  const int rows = blockDim.y;
-  const int c0 = threadIdx.x * kVec;
-#pragma unroll
-  for (int i = 0; i < kVec; ++i) {
-    red[(0 * rows + threadIdx.y) * C + c0 + i] = s[i];
-    red[(1 * rows + threadIdx.y) * C + c0 + i] = q[i];
-  }
-  __syncthreads();
-  const int tid = threadIdx.y * blockDim.x + threadIdx.x;
-  const int nthreads = blockDim.x * blockDim.y;
-  float* out = partial + static_cast<size_t>(blockIdx.x) * 2 * C;
-  for (int j = tid; j < 2 * C; j += nthreads) {
-    const int which = j / C;
-    const int c = j - which * C;
-    float acc = 0.f;
-    for (int r = 0; r < rows; ++r) acc += red[(which * rows + r) * C + c];
-    out[j] = acc;
-  }
 }
 
 }  // namespace

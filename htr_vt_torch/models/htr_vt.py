@@ -158,6 +158,23 @@ def check_switches(cfg: ModelConfig) -> None:
                              f"{allowed}")
 
 
+def check_stem_widths(cfg: ModelConfig) -> None:
+    """K3f/K3b (``pool_impl="pallas"``) and K4f/K4d/K4w (``conv_impl=
+    "pallas"``) read channels-last rows through TMA, whose global strides
+    must be multiples of 16 bytes: C % 8 == 0 at every stem width
+    (``models/stem.py``: embed_dim / 4, / 2 and embed_dim). The JAX kernels
+    take any C; the port refuses such a config here, before any weight is
+    made, and not at its first forward (K2 takes any C)."""
+    widths = (cfg.embed_dim // 4, cfg.embed_dim // 2, cfg.embed_dim)
+    pallas = [name for name in ("pool_impl", "conv_impl") if getattr(cfg, name) == "pallas"]
+    if pallas and any(w % 8 for w in widths):
+        raise ValueError(
+            f"{' and '.join(f'{n}=pallas' for n in pallas)}: the stem kernels need "
+            f"every stem width to be a multiple of 8 (C % 8 == 0, TMA's 16-byte "
+            f"rows), got widths {widths} from embed_dim={cfg.embed_dim}; a tail "
+            "path for other widths is ROADMAP.md queue 3, fault 3")
+
+
 def build_model(cfg: ModelConfig, device=None,
                 generator: Optional[torch.Generator] = None) -> HTRVT:
     """Model factory, on the card unless ``device`` says otherwise (no card
@@ -180,6 +197,7 @@ def build_model(cfg: ModelConfig, device=None,
             f"remat={cfg.remat!r} is not ported to htr_vt_torch yet "
             "(ROADMAP.md queue 1, item 13: memory levers (remat))")
     check_switches(cfg)
+    check_stem_widths(cfg)
     device = torch.device("cuda") if device is None else torch.device(device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("build_model: no CUDA device; pass device='cpu' to "

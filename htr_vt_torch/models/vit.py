@@ -18,7 +18,7 @@ import torch
 from torch import nn
 
 from htr_vt_torch.models.layers import DropPath, Mlp, dense, dropout
-from htr_vt_torch.ops.flash_attn import flash_attention
+from htr_vt_torch.ops.flash_attn import flash_attention, takes_head_dim
 
 ATTN_IMPLS = ("auto", "xla", "flash")
 
@@ -37,7 +37,10 @@ def resolve_attn_impl(impl: str, n: int, head_dim: int, fused: bool = False,
     the same shape and fusion gates and raises on a shape it cannot take.
     One difference from JAX, which raises on an explicit ``"flash"`` off a
     TPU: here it is allowed on any device, and a CPU tensor runs the
-    kernels' plain versions, as ``conv_impl="pallas"`` does on the CPU."""
+    kernels' plain versions, as ``conv_impl="pallas"`` does on the CPU.
+    ``"auto"`` routes to flash only a head_dim the kernels take
+    (``ops/flash_attn.py:takes_head_dim``: every multiple of 128, so the
+    decisions are JAX's), never one whose kernel would raise."""
     if impl == "xla":
         return "xla"
     if impl == "flash":
@@ -53,7 +56,7 @@ def resolve_attn_impl(impl: str, n: int, head_dim: int, fused: bool = False,
         return "flash"
     if impl != "auto":
         raise ValueError(f"unknown attn_impl {impl!r} (auto | xla | flash)")
-    if fused or n < 256 or n % 128 or head_dim % 128:
+    if fused or n < 256 or n % 128 or not takes_head_dim(head_dim):
         return "xla"
     return "flash" if on_cuda else "xla"
 

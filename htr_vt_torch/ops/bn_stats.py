@@ -5,22 +5,36 @@
   backward, in ``BNStats``:
     dx = x.dtype(g_sum + 2 * x * g_sumsq)   (plain torch, float32 inside)
 
-x is an NCHW activation stored channels-last (physically [B, H, W, C]);
-the sums run over B, H and W in float32. ``bn_stats`` launches its kernel
-for a CUDA tensor and runs ``bn_stats_reference`` for a CPU tensor; nothing
-else decides, and a failed build or launch raises. The wrapper never copies
-x into channels-last: a tensor in another layout raises.
+x is an NCHW activation stored channels-last (physically [B, H, W, C]),
+any C; the sums run over B, H and W in float32. ``bn_stats`` launches its
+kernel for a CUDA tensor and runs ``bn_stats_reference`` for a CPU tensor;
+nothing else decides, and a failed build or launch raises. The wrapper never
+copies x into channels-last: a tensor in another layout raises. The kernel
+is one launch whose grid ``stats_geometry`` sizes to the card; its partial
+rows and the slices' tickets live in a scratch cached per device and stream
+(the last SCRATCH_STREAMS streams).
 """
 
 from __future__ import annotations
 
+import functools
+from collections import OrderedDict
 from typing import Tuple
 
 import torch
 
-# Column-sum partials the first pass may write: one [2C] row per block.
-MAX_BLOCKS = 1024
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+# The kernel's blocks (``csrc/bn_stats.cu``): 1024 threads, slices of at most
+# 32 groups of 8 channels, about one block a SM over all slices.
+THREADS = 1024
+MAX_SLICE_GROUPS = 32
+BLOCKS_PER_SM = 1
+# (device index, stream) -> (partial rows, tickets), the most recently used
+# last; the tickets are 0 between calls: the last block of each slice puts
+# its own back. At most SCRATCH_STREAMS entries are kept (on a 132-SM card an
+# entry holds 0.2 MB at the flagship's entry site).
+SCRATCH_STREAMS = 8
+_SCRATCH: OrderedDict = OrderedDict()
 
 
 def bn_stats_reference(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -31,9 +45,8 @@ def bn_stats_reference(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     return xf.sum((0, 2, 3)), xf.square().sum((0, 2, 3))
 
 
-def check_channels_last(fn: str, name: str, x: torch.Tensor) -> None:
-    """The stem kernels' layout rule: a 4-d tensor, bf16 or float32,
-    channels-last and contiguous, C a multiple of 8, 16-byte aligned."""
+def check_layout(fn: str, name: str, x: torch.Tensor) -> None:
+    """A 4-d tensor, bf16 or float32, channels-last and contiguous."""
     if x.dim() != 4:
         raise ValueError(f"{fn}: {name} must be 4-d NCHW, got {tuple(x.shape)}")
     if x.dtype not in _DTYPE_CODES:
@@ -41,6 +54,13 @@ def check_channels_last(fn: str, name: str, x: torch.Tensor) -> None:
     if not x.is_contiguous(memory_format=torch.channels_last):
         raise ValueError(f"{fn}: {name} must be channels-last contiguous "
                          "(the kernel reads [B, H, W, C]; no copy is made)")
+
+
+def check_channels_last(fn: str, name: str, x: torch.Tensor) -> None:
+    """The layout rule of the stem kernels that read rows through TMA or
+    16-byte vectors (K3f/K3b, K4f/K4d/K4w): ``check_layout``, C a multiple
+    of 8, 16-byte aligned."""
+    check_layout(fn, name, x)
     c = x.shape[1]
     if c % 8 or c // 8 > 1024:
         raise ValueError(f"{fn}: {name} needs C % 8 == 0 and C <= 8192, got C={c}")
@@ -62,28 +82,70 @@ def check_folded_terms(fn: str, x: torch.Tensor, scale: torch.Tensor,
             raise ValueError(f"{fn}: {name} must be 16-byte aligned")
 
 
+def stats_geometry(c: int, n: int, sms: int) -> Tuple[int, int, int]:
+    """(slices, channel groups of 8 a slice, blocks a slice) of the kernel
+    for C = c over n rows on a card of ``sms`` SMs: the fewest slices of at
+    most MAX_SLICE_GROUPS groups, cut evenly, and BLOCKS_PER_SM blocks a SM
+    shared out over the slices (at least one a slice, and no more than the
+    rows fill)."""
+    groups = -(-c // 8)
+    slices = -(-groups // MAX_SLICE_GROUPS)
+    slice_groups = -(-groups // slices)
+    rows = THREADS // slice_groups
+    blocks = max(1, min(BLOCKS_PER_SM * sms // slices, -(-n // rows)))
+    return slices, slice_groups, blocks
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def _scratch(device: torch.device, stream: int, floats: int, slices: int
+             ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The cached partial rows (at least ``floats``) and zeroed tickets (at
+    least ``slices``) of ``device`` and ``stream`` (the current stream),
+    grown when too small. Past SCRATCH_STREAMS streams the least recently
+    used entry is dropped: its tensors were allocated on their own stream,
+    so the caching allocator hands their memory out again only behind that
+    stream's queued kernels."""
+    key = (device.index, stream)
+    partial, tickets = _SCRATCH.pop(key, (None, None))
+    if partial is None or partial.numel() < floats:
+        partial = torch.empty(floats, dtype=torch.float32, device=device)
+    if tickets is None or tickets.numel() < slices:
+        tickets = torch.zeros(slices, dtype=torch.int32, device=device)
+    _SCRATCH[key] = (partial, tickets)
+    while len(_SCRATCH) > SCRATCH_STREAMS:
+        _SCRATCH.popitem(last=False)
+    return partial, tickets
+
+
 def bn_stats(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """(sum, sumsq) float32 [C] of x [B, C, H, W] over B, H and W.
 
     CUDA tensors launch ``csrc/bn_stats.cu`` on the current stream (bf16 or
-    float32, channels-last, C % 8 == 0) and add one to
+    float32, channels-last, any C; one kernel) and add one to
     ``bn_stats.launches``; CPU tensors run ``bn_stats_reference``. Any other
     device raises."""
     if x.device.type == "cpu":
         return bn_stats_reference(x)
     if x.device.type != "cuda":
         raise ValueError(f"bn_stats: no kernel for device {x.device}")
-    check_channels_last("bn_stats", "x", x)
+    check_layout("bn_stats", "x", x)
     b, c, h, w = x.shape
     from htr_vt_torch._build import check_launch, library
-    out = torch.empty((2, c), dtype=torch.float32, device=x.device)
-    partial = torch.empty((MAX_BLOCKS, 2 * c), dtype=torch.float32,
-                          device=x.device)
     with torch.cuda.device(x.device):
+        slices, slice_groups, blocks = stats_geometry(
+            c, b * h * w, _sm_count(x.device.index))
         stream = torch.cuda.current_stream().cuda_stream
+        partial, tickets = _scratch(x.device, stream,
+                                    slices * blocks * 2 * 8 * slice_groups, slices)
+        out = torch.empty((2, c), dtype=torch.float32, device=x.device)
         err = library().htrvt_bn_stats(x.data_ptr(), out[0].data_ptr(),
                                        out[1].data_ptr(), partial.data_ptr(),
-                                       b * h * w, c, MAX_BLOCKS,
+                                       tickets.data_ptr(), b * h * w, c,
+                                       slice_groups, blocks,
                                        _DTYPE_CODES[x.dtype], stream)
     check_launch("bn_stats", err)
     bn_stats.launches += 1

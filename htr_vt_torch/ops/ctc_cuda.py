@@ -10,7 +10,9 @@
 
 The kernels gather ``logp[b, t, z[b, s]]`` themselves, from time panels of
 logp rows staged in shared memory, so the [B, T, S] emission cube is never
-built; ``recursion_geometry`` sizes the panels. ``ctc_alpha`` and
+built; ``recursion_geometry`` sizes the panels, or past 8192 states (or
+logp rows too wide for two panels) picks the kernels' strided path, so every
+S that JAX computes runs on the card. ``ctc_alpha`` and
 ``ctc_beta`` launch their kernel for a CUDA tensor and run their plain version
 (``ctc_alpha_reference``, ``ctc_beta_reference``) for a CPU tensor; nothing
 else decides, and a failed build or launch raises. ``ctc_loss_cuda`` takes
@@ -35,11 +37,16 @@ LOG_GAMMA_CUT = -80.0
 # consecutive states, up to MAX_PER_THREAD; shared memory holds two
 # mbarriers, two edge values a warp (and two NEG slots) for two frames and
 # two time panels of PANEL_FRAMES logp rows (fewer where they do not fit),
-# within what a block may use on an H100.
+# within what a block may use on an H100. Past that (S > 8192, or logp rows
+# too wide for two panels) the kernels take their strided path: one block
+# of up to STRIDED_THREADS threads a sample striding over the states,
+# ``recursion_geometry`` giving STRIDED states a thread.
 MAX_WARPS = 32
 MAX_PER_THREAD = 8
 PANEL_FRAMES = 16
 SMEM_BYTES = 232448
+STRIDED = 0
+STRIDED_THREADS = 1024
 
 
 def extended_masks(labels: torch.Tensor, label_lengths: torch.Tensor,
@@ -119,10 +126,16 @@ def _panel_floats(panel: int, c: int) -> int:
 
 def recursion_geometry(t: int, c: int, s: int) -> Tuple[int, int, int]:
     """(states a thread, frames a panel, shared-memory bytes) of the alpha
-    and beta kernels at T=t, C=c, S=s: the fewest states a thread that
-    MAX_WARPS warps cover, and the longest panel up to PANEL_FRAMES (and T)
-    whose two buffers fit beside the barriers and the warps' edges. Raises
-    ValueError naming the sizes where none fits."""
+    and beta kernels at T=t, C=c, S=s. The register path: the fewest states
+    a thread that MAX_WARPS warps cover, and the longest panel up to
+    PANEL_FRAMES (and T) whose two buffers fit beside the barriers and the
+    warps' edges. Where no such geometry exists (S past MAX_PER_THREAD * 32
+    * MAX_WARPS, or two rows of C floats past the shared memory), the
+    strided path: (STRIDED, 0, 0). Raises ValueError naming the sizes only
+    for an empty axis."""
+    if t < 1 or c < 1 or s < 1:
+        raise ValueError(f"CTC recursion kernels: T={t}, C={c}, S={s} has an "
+                         "empty axis")
     per_thread = 1
     while per_thread * 32 * MAX_WARPS < s and per_thread < MAX_PER_THREAD:
         per_thread *= 2
@@ -132,10 +145,7 @@ def recursion_geometry(t: int, c: int, s: int) -> Tuple[int, int, int]:
     while panel > 0 and fixed + 8 * _panel_floats(panel, c) > SMEM_BYTES:
         panel -= 1
     if per_thread * 32 * MAX_WARPS < s or panel < 1:
-        raise ValueError(
-            f"CTC recursion kernels: T={t}, C={c}, S={s} do not fit one block "
-            f"(S <= {MAX_PER_THREAD * 32 * MAX_WARPS}, and two logp rows of C "
-            f"floats within {SMEM_BYTES} bytes of shared memory)")
+        return STRIDED, 0, 0
     return per_thread, panel, fixed + 8 * _panel_floats(panel, c)
 
 

@@ -26,7 +26,8 @@ its default 128-key blocks (``flash_attention.py:342-481, 796-938,
 Each wrapper launches its kernel (``csrc/flash_attn.cu``) for CUDA tensors
 and runs its plain version for CPU tensors; nothing else decides, a failed
 build or launch raises, and there is no fallback on the card. The kernels
-take head_dim 128 or 256. q, k and v may be the strided views that the qkv
+take every head_dim that is a multiple of 128 (``takes_head_dim``): bf16 at
+128 and 256 on wgmma, bf16 past 256 and float32 on FFMA. q, k and v may be the strided views that the qkv
 split makes (the last dim contiguous): the kernels read them through their
 strides, with no copy. K5f writes o as a [B, N, H, D] tensor seen as [B, H,
 N, D], so the heads merge back into [B, N, H * D] without a copy.
@@ -40,8 +41,15 @@ from typing import Optional, Tuple
 import torch
 
 BLOCK = 128  # the library's default block sizes (BlockSizes.get_default)
-HEAD_DIM = (128, 256)  # the head dims the kernels take (768 / 6, 1536 / 6)
+HEAD_DIM_STEP = 128  # the kernels take every multiple of it (768 / 6, 1536 / 6, ...)
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def takes_head_dim(d: int) -> bool:
+    """Whether the K5 kernels take head_dim ``d``: every positive multiple
+    of 128 (the output slices a block makes). ``resolve_attn_impl`` asks
+    this before it routes a site to them."""
+    return d >= HEAD_DIM_STEP and d % HEAD_DIM_STEP == 0
 
 
 # --- plain versions ------------------------------------------------------------
@@ -141,16 +149,16 @@ def flash_attention_bwd_reference(q, k, v, o, l, m, do, scale
 def _check(fn: str, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
            do: Optional[torch.Tensor] = None, **stats: torch.Tensor) -> None:
     """What the kernels take: q, k, v (and do) of one [B, H, N, D] shape and
-    dtype (bf16 or float32) on one CUDA device, N a multiple of 128, D in
-    ``HEAD_DIM``, the last dim contiguous and the rest 16-byte strides; the ``stats``
+    dtype (bf16 or float32) on one CUDA device, N a multiple of 128, D a
+    multiple of 128 (``takes_head_dim``), the last dim contiguous and the rest 16-byte strides; the ``stats``
     (l, m, di) contiguous float32 [B, H, N]."""
     if q.dtype not in _DTYPE_CODES:
         raise ValueError(f"{fn}: q must be bfloat16 or float32, got {q.dtype}")
     _check_plain(q, k, v)
     d = q.shape[3]
-    if d not in HEAD_DIM:
-        raise ValueError(f"{fn}: the K5 kernels take head_dim "
-                         f"{' or '.join(map(str, HEAD_DIM))} only, got head_dim {d}")
+    if not takes_head_dim(d):
+        raise ValueError(f"{fn}: the K5 kernels take a head_dim that is a multiple "
+                         f"of {HEAD_DIM_STEP} (128, 256, 384, 512, ...), got head_dim {d}")
     inputs = {"q": q, "k": k, "v": v, **({} if do is None else {"do": do})}
     for name, t in inputs.items():
         if t.dtype != q.dtype or t.shape != q.shape:

@@ -27,8 +27,12 @@ from typing import Tuple
 import torch
 import torch.nn.functional as F
 
-from htr_vt_torch.ops.bn_stats import (_DTYPE_CODES, MAX_BLOCKS,
-                                       check_channels_last, check_folded_terms)
+from htr_vt_torch.ops.bn_stats import (_DTYPE_CODES, check_channels_last,
+                                       check_folded_terms)
+
+# Column-sum partials K3b's first pass may write: one [2C] row per block,
+# added by csrc/stem_common.cuh:sum_partials.
+MAX_BLOCKS = 1024
 
 
 def _bn_relu(x: torch.Tensor, scale: torch.Tensor, shift: torch.Tensor

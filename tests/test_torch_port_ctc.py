@@ -265,19 +265,22 @@ def test_recursion_geometry(t, c, s, want):
         assert fixed + 8 * ctc_cuda._panel_floats(panel + 1, c) > ctc_cuda.SMEM_BYTES
 
 
-@pytest.mark.parametrize("t,c,s", [(128, 80, 8193), (128, 40000, 193), (4, 6, 28000)])
+@pytest.mark.parametrize("t,c,s", [(0, 80, 193), (128, 0, 193), (4, 6, 0)])
 def test_recursion_geometry_names_the_sizes_it_cannot_take(t, c, s):
+    """Only an empty axis: every other size has a geometry, the strided
+    path past the register path (tests/test_torch_port_repairs.py)."""
     with pytest.raises(ValueError, match=f"T={t}, C={c}, S={s}"):
         ctc_cuda.recursion_geometry(t, c, s)
 
 
 def test_launch_refuses_a_geometry_before_building_anything():
-    """A size the kernels cannot take raises ValueError in the wrapper,
-    before the kernel library is loaded (this machine has no nvcc)."""
+    """A size the kernels cannot take (an empty class axis) raises
+    ValueError in the wrapper, before the kernel library is loaded (this
+    machine has no nvcc)."""
     s = ctc_cuda.MAX_PER_THREAD * 32 * ctc_cuda.MAX_WARPS + 1
-    logp = torch.zeros((1, 2, 3))
+    logp = torch.zeros((1, 2, 0))
     mask = torch.zeros((1, s), dtype=torch.bool)
-    with pytest.raises(ValueError, match=f"S={s}"):
+    with pytest.raises(ValueError, match=f"T=2, C=0, S={s}"):
         ctc_cuda._launch("ctc_alpha", logp, torch.zeros((1, s), dtype=torch.int32),
                          (("noskip", mask), ("valid", mask), ("start2", mask)))
 

@@ -62,7 +62,8 @@ RECURSION_CASES = [
     (4, 1, 80, 96),       # T=1: one panel of one frame
     (8, 37, 80, 20),      # T=37: the last panel is cut short
     (64, 512, 80, 112),   # the 2048-px step: B=64, T=512, S=225
-    (4, 37, 6, 12)]       # C=6 over three panels
+    (4, 37, 6, 12),       # C=6 over three panels
+    (2, 40, 80, 4500)]    # S=9001: past the registers, the strided path
 
 
 def _two_calls(kernel, *args):
@@ -112,20 +113,26 @@ def test_beta_kernel_matches_plain(cuda, b, t, c, lmax):
 def test_ctc_kernels_stage_logp_by_bulk_copies(cuda):
     """The compiled alpha and beta kernels (every states-a-thread variant)
     copy logp into shared memory by cp.async.bulk (UBLKCP) and take their
-    neighbours within a warp by shuffles (SHFL); a size past the kernels
-    raises ValueError naming it, launching nothing."""
+    neighbours within a warp by shuffles (SHFL); a size past the registers
+    (S = 8193) takes the strided path, one launch, with the plain
+    version's bits, and an empty axis raises ValueError naming the sizes,
+    launching nothing."""
     import pathlib
     import shutil
     import subprocess
     from htr_vt_torch import _build
-    logp = torch.zeros((1, 2, 3), device=cuda)
     s = ctc_cuda.MAX_PER_THREAD * 32 * ctc_cuda.MAX_WARPS + 1
+    assert ctc_cuda.recursion_geometry(2, 3, s)[0] == ctc_cuda.STRIDED
+    logp = torch.log_softmax(torch.randn((1, 2, 3), device=cuda), -1)
     z = torch.zeros((1, s), dtype=torch.int32, device=cuda)
-    mask = torch.zeros((1, s), dtype=torch.bool, device=cuda)
+    mask = torch.ones((1, s), dtype=torch.bool, device=cuda)
     before = ctc_cuda.ctc_alpha.launches
-    with pytest.raises(ValueError, match=f"S={s}"):
-        ctc_cuda.ctc_alpha(logp, z, mask, mask, mask)
-    assert ctc_cuda.ctc_alpha.launches == before
+    got = ctc_cuda.ctc_alpha(logp, z, mask, mask, mask)
+    assert ctc_cuda.ctc_alpha.launches == before + 1
+    assert torch.equal(got, ctc_cuda.ctc_alpha_reference(logp, z, mask, mask, mask))
+    with pytest.raises(ValueError, match="T=2, C=0"):
+        ctc_cuda.ctc_alpha(logp[..., :0], z, mask, mask, mask)
+    assert ctc_cuda.ctc_alpha.launches == before + 1
     _build.library()
     cuobjdump = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     if not pathlib.Path(cuobjdump).exists():
@@ -221,6 +228,32 @@ def test_ctc_loss_auto_takes_the_kernel(cuda):
 
 
 @pytest.mark.cuda
+def test_ctc_loss_auto_zeroes_long_infeasible_rows(cuda):
+    """A padded batch whose longest labels (S = 9001 and 20001, past the
+    register path) cannot be aligned in T = 128 frames: ctc_loss_auto takes
+    the kernels (one alpha, one beta launch), gives those rows a zero loss
+    and gradient, and the other rows the plain loss."""
+    rng = np.random.default_rng(11)
+    for lmax in (4500, 10000):
+        b, t, c = 4, 128, 80
+        logits = (2.0 * rng.standard_normal((b, t, c))).astype(np.float32)
+        lengths = np.array([lmax, 30, 0, lmax - 1], np.int32)
+        labels = rng.integers(1, c, size=(b, lmax)).astype(np.int32)
+        labels[np.arange(lmax)[None] >= lengths[:, None]] = 0
+        args = [torch.from_numpy(a).to(cuda) for a in (logits, labels, lengths)]
+        x = args[0].clone().requires_grad_(True)
+        before = ctc_cuda.ctc_alpha.launches, ctc_cuda.ctc_beta.launches
+        got = tctc.ctc_loss_auto(x, args[1], args[2])
+        got.sum().backward()
+        assert (ctc_cuda.ctc_alpha.launches, ctc_cuda.ctc_beta.launches) == (
+            before[0] + 1, before[1] + 1)
+        want = tctc.ctc_loss(*[a.cpu() for a in args])
+        assert got[0] == 0 and got[3] == 0 and want[0] == 0 and want[3] == 0
+        assert (x.grad[[0, 3]] == 0).all() and torch.isfinite(x.grad).all()
+        torch.testing.assert_close(got.detach().cpu(), want, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.cuda
 def test_alpha_wrapper_rejects_what_the_kernel_does_not_take(cuda):
     logits, labels, lengths = ctc_case(7, 2, 6, 5, 3)
     logp = torch.log_softmax(torch.from_numpy(logits).to(cuda), -1)
@@ -295,6 +328,28 @@ def test_bn_stats_kernel_at_the_flagship_shapes(cuda, shape):
     want_s, want_q = xd.sum((0, 2, 3)), xd.square().sum((0, 2, 3))
     bound = 1e-6 * xd.abs().sum((0, 2, 3))
     assert ((s.double() - want_s).abs() <= bound).all()
+    torch.testing.assert_close(q.double(), want_q, rtol=1e-5, atol=0.0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("shape", [(128, 12, 32, 128), (64, 20, 8, 64), (3, 12, 5, 7),
+                                   (2, 20, 1, 3)])
+def test_bn_stats_kernel_at_any_channel_count(cuda, shape, dtype):
+    """C = 12 and 20 (not multiples of 8: the scalar loads, and a slice
+    whose last group is cut short), against float64 with the bars of the
+    flagship shapes; two calls give equal bits, one launch each."""
+    from htr_vt_torch.ops.bn_stats import bn_stats
+    x = channels_last(shape, dtype, cuda, seed=shape[1] + shape[0])
+    before = bn_stats.launches
+    s, q = bn_stats(x)
+    s2, q2 = bn_stats(x)
+    torch.cuda.synchronize()
+    assert bn_stats.launches == before + 2
+    assert torch.equal(s, s2) and torch.equal(q, q2)
+    xd = x.double()
+    want_s, want_q = xd.sum((0, 2, 3)), xd.square().sum((0, 2, 3))
+    assert ((s.double() - want_s).abs() <= 1e-6 * xd.abs().sum((0, 2, 3))).all()
     torch.testing.assert_close(q.double(), want_q, rtol=1e-5, atol=0.0)
 
 
@@ -476,14 +531,16 @@ def test_pool_autograd_copies_only_a_gradient_k3b_cannot_read(cuda):
 @pytest.mark.cuda
 def test_stem_wrappers_reject_what_the_kernels_do_not_take(cuda):
     from htr_vt_torch.ops import pool_fused as pf
-    from htr_vt_torch.ops.bn_stats import bn_stats
+    from htr_vt_torch.ops.bn_stats import bn_stats, bn_stats_reference
     x, scale, shift, g = _pool_case((2, 16, 8, 12), torch.bfloat16, cuda, 4, False)
     with pytest.raises(ValueError, match="channels-last"):
         bn_stats(x.contiguous())
     with pytest.raises(ValueError, match="bfloat16 or float32"):
         bn_stats(x.half())
-    with pytest.raises(ValueError, match="C % 8"):
-        bn_stats(channels_last((2, 12, 8, 12), torch.bfloat16, cuda, 4))
+    # K2 takes any C: C = 12 is held against its plain version
+    x12 = channels_last((2, 12, 8, 12), torch.bfloat16, cuda, 4)
+    for got, want in zip(bn_stats(x12), bn_stats_reference(x12)):
+        torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
     with pytest.raises(ValueError, match="channels-last"):
         pf.pool_bn_relu_fwd(x.contiguous(), scale, shift)
     with pytest.raises(ValueError, match="H must be even"):
@@ -830,7 +887,14 @@ def _assert_flash_close(got, want, what):
     (torch.bfloat16, 2, 3, 128, True, 128),
     (torch.bfloat16, 1, 3, 384, True, 128),
     (torch.bfloat16, 1, 2, 512, False, 256),
-    (torch.float32, 2, 1, 256, True, 256)])
+    (torch.float32, 2, 1, 256, True, 256),
+    # head_dim 384 and 512 (embed 2304 or 3072 over 6 heads): the FFMA
+    # kernels, one key block and several, strided views
+    (torch.bfloat16, 2, 3, 256, True, 384),
+    (torch.bfloat16, 1, 2, 128, False, 384),
+    (torch.float32, 1, 2, 256, True, 384),
+    (torch.bfloat16, 1, 3, 512, True, 512),
+    (torch.float32, 2, 1, 128, False, 512)])
 def test_flash_kernels_match_plain(cuda, dtype, b, h, n, strided, d):
     """K5f, K5dkv and K5dq against their plain versions at odd batch and
     head counts, and two calls of each bit-equal."""
@@ -898,11 +962,13 @@ def test_flash_wrappers_reject_what_the_kernels_do_not_take(cuda):
         fa.flash_attention_fwd(q, k[:, :1], v, 0.1)
     with pytest.raises(ValueError, match="multiple of 128"):
         fa.flash_attention_fwd(q[:, :, :200], k[:, :, :200], v[:, :, :200], 0.1)
-    x = torch.zeros((1, 2, 256, 64), dtype=torch.bfloat16, device=cuda)
-    with pytest.raises(ValueError, match="head_dim 128 or 256 only, got head_dim 64"):
-        fa.flash_attention_fwd(x, x, x, 0.1)
-    x = torch.zeros((1, 2, 256, 256), dtype=torch.bfloat16, device=cuda)
-    assert fa.flash_attention_fwd(x, x, x, 0.1)[0].shape == x.shape  # embed 1536 / 6
+    for d in (64, 200):
+        x = torch.zeros((1, 2, 256, d), dtype=torch.bfloat16, device=cuda)
+        with pytest.raises(ValueError, match=f"multiple of 128 .*got head_dim {d}"):
+            fa.flash_attention_fwd(x, x, x, 0.1)
+    for d in (256, 384, 512):  # embed 1536, 2304, 3072 over 6 heads
+        x = torch.zeros((1, 2, 256, d), dtype=torch.bfloat16, device=cuda)
+        assert fa.flash_attention_fwd(x, x, x, 0.1)[0].shape == x.shape
     with pytest.raises(ValueError, match="one device"):
         fa.flash_attention_fwd(q, k.cpu(), v, 0.1)
     with pytest.raises(ValueError, match="one device"):

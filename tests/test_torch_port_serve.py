@@ -204,6 +204,15 @@ def test_serve_main_routes_lines_to_width_buckets(tmp_path, monkeypatch, capsys)
      "CUtensorMap_st, float const*, float const*, __nv_bfloat16*, float*, int, int, int)",
      "pool_bn_relu kernels (K3f, K3b)"),
     ("ctc_alpha_kernel(float const*, int const*, bool const*)", "ctc_alpha kernel"),
+    ("void (anonymous namespace)::ctc_beta_strided(float const*, int const*, bool "
+     "const*, bool const*, bool const*, float*, int, int, int)", "ctc_beta kernel"),
+    ("void (anonymous namespace)::bn_stats_kernel<__nv_bfloat16, true>(__nv_bfloat16 "
+     "const*, float*, unsigned int*, float*, float*, long long, int, int)",
+     "bn_stats kernel (K2)"),
+    ("void stem::(anonymous namespace)::sum_partials(float const*, int, int, float*, "
+     "float*)", "stem kernels' partial sums"),
+    ("void (anonymous namespace)::flash_fwd_f32<__nv_bfloat16, 0>(__nv_bfloat16 const*, "
+     "__nv_bfloat16 const*)", "flash attention kernels (K5f, K5dkv, K5dq)"),
     ("sm90_xmma_fprop_implicit_gemm_bf16bf16_bf16f32_f32_nhwckrsc_nhwc",
      "convolutions (cuDNN)"),
     ("sm90_xmma_gemm_bf16bf16_bf16f32_f32_tn_n_tilesize128x128x64", "GEMMs (cuBLAS)"),
