@@ -33,7 +33,11 @@ non-zero before the last line:
    plain versions (two calls bit-equal; K3b also with g as contiguous NCHW,
    the layout the step hands it, bit-equal to the channels-last g), with
    CUDA-event times of kernel (K3b with either g), plain version and the
-   library or stock yardstick, and the bound.
+   library or stock yardstick, and the bound. Then K3f and K3b at C = 12,
+   20 and 25 (the entry site of an embed-4C model, [128, C, 32, 512], g
+   NCHW), which the wrappers run on copies zero-padded to a multiple of 8:
+   y and dx bit-equal to the plain versions, timed with the copies and
+   beside the same site at the padded width.
 4. conv kernels vs plain: K4f, K4d and K4w (``conv3x3_bn_relu_fwd`` /
    ``_dgrad`` / ``_wgrad``) at the flagship's three stride-1 conv sites at
    bs 128 (stage 1 [128, 192, 8, 512], stage 2 [128, 384, 4, 256], stage 3
@@ -44,7 +48,10 @@ non-zero before the last line:
    yardstick of the kernel without the prologue), for K4f and K4w the stock
    two-call route (the eager prologue, then ``F.conv2d`` or
    ``torch.nn.grad.conv2d_weight``: the yardstick of the kernel with it),
-   and the bound.
+   and the bound. Then the three with the prologue at C = 12, 20 and 25
+   (the stage-1 site of an embed-4C model, [128, C, 8, 512], C -> C, on
+   zero-padded copies), held and timed the same way, beside the padded
+   width.
 5. serve: the flagship ``ModelConfig()`` (64x512, embed 768, depth 4, heads
    6, 80 classes, bf16) with seeded random weights serves 3x128+37 line
    images through ``cli.serve.transcribe``, then runs one ``eval_step`` with
@@ -104,6 +111,26 @@ non-zero before the last line:
    K5f, 8 K5dkv, 8 K5dq, 2 alpha and 2 beta launches per step; EMA
    ``validate`` at 2048 px; ms/step, img/s and peak memory per width; a
    20-step learning check at bs 16 and 2048 px.
+14. fit: ``htr_vt_torch.train.loop.fit`` trains the flagship fully fused
+   (bs 128, IAM span masking, ``OptimConfig()``) on 1024 train and 256 val
+   seeded in-memory uint8 lines with texts of 1-96 characters
+   (``LineSet``; augmentation off: the card's machine has no cv2) for 6
+   steps, evaluating the EMA model and checkpointing every 3; its kernel
+   launches must be exactly 6 SAM steps' and 2 x 2 eval batches'. Then a
+   3-step run with an auto-resume to 6 in another run directory, held to
+   it in default mode at stated bars (``FIT_LOSS_REL``, ``FIT_STATE_L2``,
+   ``FIT_LEAF_SHARE``); under ``torch.use_deterministic_algorithms`` the
+   same pair held bit for bit (losses, model, EMA, AdamW, step,
+   generator), and the default-mode run held against it at the bars; in
+   default mode with only the CTC class sum in a fixed order
+   (``fixed_order_class_sum``) the pair again bit for bit, which names
+   ``scatter_add_``'s atomics in the CTC glue as the op that keeps
+   default-mode runs apart; best_CER served through
+   ``cli/serve.py:load_serving_model``, its frame argmax equal to
+   ``eval_step`` on the restored EMA model; img/s
+   from the loop's ``StepTimer``, checkpoint save and restore ms, peak
+   memory. The checkpoints live in a temporary directory under the
+   git-ignored ``build/``, removed at the end.
 
 Kernel times (phases 2, 3, 4 and 11) are read two ways: ``median_ms``, one
 wrapper call between two CUDA events (host work in the wrapper included;
@@ -123,9 +150,11 @@ import json
 import math
 import os
 import re
+import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -135,7 +164,9 @@ sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
 from htr_vt_torch import (CTCLabelConverter, ExperimentConfig,  # noqa: E402
                           MaskConfig, ModelConfig, OptimConfig, _build)
-from htr_vt_torch.cli.serve import transcribe, transcribe_buckets  # noqa: E402
+from htr_vt_torch.cli.serve import (load_serving_model, transcribe,  # noqa: E402
+                                    transcribe_buckets)
+from htr_vt_torch.config import AugmentConfig, DataConfig, TrainConfig  # noqa: E402
 from htr_vt_torch.eval.validate import validate  # noqa: E402
 from htr_vt_torch.models.htr_vt import build_model  # noqa: E402
 import torch.nn.functional as F  # noqa: E402
@@ -144,6 +175,8 @@ from htr_vt_torch.ops import (conv_fused, ctc_cuda, flash_attn,  # noqa: E402
                               pool_fused)
 from htr_vt_torch.ops.bn_stats import bn_stats, bn_stats_reference  # noqa: E402
 from htr_vt_torch.ops.ctc import NEG, ctc_loss, ctc_loss_auto  # noqa: E402
+from htr_vt_torch.train import loop  # noqa: E402
+from htr_vt_torch.train.checkpoint import CheckpointManager  # noqa: E402
 from htr_vt_torch.train.state import create_train_state  # noqa: E402
 from htr_vt_torch.train.step import eval_step, train_step  # noqa: E402
 
@@ -271,6 +304,37 @@ CTC_LONG_BATCH = 16
 # K2 at channel counts that are not multiples of 8 (the scalar loads):
 # [B, C, H, W] bf16 and float32, held to the sites' bars.
 STATS_ANY_C = (("C12", (BATCH, 12, 32, 128)), ("C20", (BATCH, 20, 16, 64)))
+# K3 and K4 at stem widths that are not multiples of 8 (the wrappers' padded
+# copies): the entry (K3) and stage-1 (K4, C -> C) sites of a 64x512 model
+# of embed_dim 4C at bs 128, bf16; beside each, the same site at the padded
+# width, where no copy is made.
+TAIL_CHANNELS = (12, 20, 25)
+# The fit phase: seeded in-memory lines (train, val), the uninterrupted run's
+# steps, eval cadence and print cadence, and the split run's first leg.
+FIT_LINES = (1024, 256)
+FIT_STEPS, FIT_EVAL, FIT_PRINT, FIT_SPLIT = 6, 3, 3, 3
+# Two default-mode runs on the card need not give equal bits: the CTC
+# gradient's glue sums each class's states with scatter_add_'s float atomics
+# (ops/ctc_cuda.py:class_sum), in no fixed order, and cuDNN may take
+# nondeterministic backward algorithms for the convs the stem kernels leave
+# to it. Under torch.use_deterministic_algorithms both take deterministic
+# routes (and cuBLAS asks for this workspace setting), and the resume is held
+# bit for bit.
+CUBLAS_DETERMINISTIC = ":4096:8"
+# A default-mode run (the way fit runs) held against another run of the same
+# steps, at about 4x the largest reading on the H100 (PERF.md section 6;
+# ten comparisons, four with the L2 norms): each pass-1 loss's relative gap
+# (read up to 5.95e-4);
+# for the model, the EMA model and the AdamW moments the L2 norm of the gap
+# over the L2 norm of the state (read up to 6.0e-4, 5.2e-4 and 0.24: six
+# warm-up steps carry a few ulps of the CTC sum into the moments that far);
+# and each leaf's largest |gap| over its largest |value| (read up to 1.9: a
+# leaf whose exact gradient is zero, such as the attention's key bias, gets
+# rounding noise that AdamW scales to full-size steps). These catch a gross
+# fault only; the resume is held bit for bit under deterministic algorithms
+# and with the CTC class sum in a fixed order.
+FIT_LOSS_REL, FIT_LEAF_SHARE = 2e-3, 4.0
+FIT_STATE_L2 = {"model": 2.5e-3, "ema_model": 2.5e-3, "adamw": 1.0}
 
 
 def per_step_launches(switches):
@@ -1218,7 +1282,71 @@ def phase_stem_kernels(device):
         f"{bwd['stock_ms']:.4f} ms, bound {bwd['bound_ms']:.4f} ms by "
         f"{bwd['bound_by']}")
     out["pool_bn_relu_fwd"], out["pool_bn_relu_bwd"] = fwd, bwd
+    del x, g, g_nchw, xs, y_stock
+    out["pool_tail"] = {c: tail_pool_case(c, device) for c in TAIL_CHANNELS}
     return out
+
+
+def tail_pool_case(c, device):
+    """K3f and K3b at the entry site of an embed-4C model, C % 8 != 0: held
+    against their plain versions (y and dx bit for bit, the sums at
+    POOL_RED_REL), timed with the padded copies included, beside the same
+    site at the padded width."""
+    b, _, h, w = STEM_SITES[0][1]
+    cp = -(-c // 8) * 8
+    x = stem_input((b, c, h, w), device, seed=c)
+    gen = torch.Generator(device=device).manual_seed(c + 1)
+    scale = 1.0 + 0.2 * torch.randn(c, generator=gen, device=device)
+    shift = 0.1 * torch.randn(c, generator=gen, device=device)
+    g = torch.randn((b, c, h // 2, w), generator=gen, device=device).to(torch.bfloat16)
+    y = pool_fused.pool_bn_relu_fwd(x, scale, shift)
+    dx, ds, dt = pool_fused.pool_bn_relu_bwd(g, x, scale, shift)
+    torch.cuda.synchronize()
+    if not torch.equal(y, pool_fused.max_pool_bn_relu_reference(x, scale, shift)):
+        raise AssertionError(f"[K3f C{c}] kernel and plain version differ")
+    dx_p, ds_p, dt_p = pool_fused.pool_bn_relu_bwd_reference(g, x, scale, shift)
+    if not torch.equal(dx, dx_p):
+        raise AssertionError(f"[K3b C{c}] dx: kernel and plain version differ")
+    daf = pool_fused.routed_grad_reference(g, x, scale, shift)
+    err = 0.0
+    for what, got, want, term in (("dscale", ds, ds_p, daf * x.float()),
+                                  ("dshift", dt, dt_p, daf)):
+        mag = term.abs().sum((0, 2, 3))
+        e = (got - want).abs()
+        if not (e <= POOL_RED_REL * mag + 1e-6).all():
+            raise AssertionError(f"[K3b C{c}] {what} off by {(e / mag).max().item():.3e} "
+                                 "of the sum of |terms|")
+        err = max(err, e.max().item())
+    del daf, dx, dx_p, y
+    xp = stem_input((b, cp, h, w), device, seed=cp)
+    sp, tp = F.pad(scale, (0, cp - c)), F.pad(shift, (0, cp - c))
+    gp = torch.randn((b, cp, h // 2, w), device=device).to(torch.bfloat16)
+    n_in, n_out = x.numel(), g.numel()
+    rec = {"pool_bn_relu_fwd": dict(
+        max_abs_err=0.0,
+        ms=device_ms(f"K3f C{c}", [lambda: pool_fused.pool_bn_relu_fwd(x, scale, shift)]),
+        aligned_ms=device_ms(f"K3f C{cp}", [lambda: pool_fused.pool_bn_relu_fwd(xp, sp, tp)]),
+        plain_ms=median_ms(lambda: pool_fused.max_pool_bn_relu_reference(
+            x, scale, shift), 5, warmup=1)), "pool_bn_relu_bwd": dict(
+        max_abs_err=err,
+        ms=device_ms(f"K3b C{c}", [lambda: pool_fused.pool_bn_relu_bwd(g, x, scale, shift)]),
+        aligned_ms=device_ms(f"K3b C{cp}", [lambda: pool_fused.pool_bn_relu_bwd(
+            gp, xp, sp, tp)]),
+        plain_ms=median_ms(lambda: pool_fused.pool_bn_relu_bwd_reference(
+            g, x, scale, shift), 3, warmup=1))}
+    rec["pool_bn_relu_fwd"]["bound_ms"], rec["pool_bn_relu_fwd"]["bound_by"] = bound(
+        2 * n_in + 2 * n_out + 2 * c * 4, 3 * n_in + 8 * n_out)
+    rec["pool_bn_relu_bwd"]["bound_ms"], rec["pool_bn_relu_bwd"]["bound_by"] = bound(
+        2 * n_out + 4 * n_in + 4 * c * 4, 7 * n_in + 27 * n_out)
+    for name, r in rec.items():
+        r["shape"] = [b, c, h, w]
+        say(f"[K3{name[13]} C{c}] {name} bf16 {[b, c, h, w]} (C % 8 != 0: copies padded "
+            f"to {cp} channels{', g NCHW' if name.endswith('bwd') else ''}): y/dx bit-equal "
+            f"to the plain version, max|err| {r['max_abs_err']:.3e}; "
+            f"{r['ms']:.4f} ms device a launch with the copies, {r['aligned_ms']:.4f} ms at "
+            f"C = {cp} (no copy), plain {r['plain_ms']:.4f} ms, bound "
+            f"{r['bound_ms']:.4f} ms by {r['bound_by']}")
+    return rec
 
 
 # ---------------------------------------------------------------------------
@@ -1396,6 +1524,48 @@ def phase_conv_kernels(device):
                 f"{rec['bound_ms']:.4f} ms by {rec['bound_by']} "
                 f"({n_ops / rec['ms'] / 1e9:.1f} TFLOP/s)")
         del x, g, k, xn
+    out["conv_tail"] = {c: tail_conv_case(c, device) for c in TAIL_CHANNELS}
+    return out
+
+
+def tail_conv_case(c, device):
+    """K4f, K4d and K4w with the prologue at the stage-1 site of an
+    embed-4C model (C -> C, C % 8 != 0), held against their plain versions
+    at the sites' bars, timed with the padded copies included, beside the
+    same site at the padded width."""
+    b, _, h, w = CONV_SITES[0][1]
+    cp = -(-c // 8) * 8
+    x, g, k, scale, shift = conv_site_inputs((b, c, h, w), device)
+    errs = check_conv_site(f"C{c}", x, g, k, scale, shift, True)
+    xp, gp, kp, sp, tp = conv_site_inputs((b, cp, h, w), device)
+    n, n_ops = x.numel(), 2 * b * h * w * 9 * c * c
+    calls = {
+        "fwd": (lambda: conv_fused.conv3x3_bn_relu_fwd(x, k, scale, shift),
+                lambda: conv_fused.conv3x3_bn_relu_fwd(xp, kp, sp, tp),
+                lambda: conv_fused.conv3x3_bn_relu_reference(x, k, scale, shift),
+                2 * n + 2 * n + 2 * k.numel() + 2 * c * 4),
+        "dgrad": (lambda: conv_fused.conv3x3_bn_relu_dgrad(g, k, x, scale, shift),
+                  lambda: conv_fused.conv3x3_bn_relu_dgrad(gp, kp, xp, sp, tp),
+                  lambda: conv_fused.conv3x3_dgrad_reference(g, k, x, scale, shift, True),
+                  3 * 2 * n + 2 * k.numel() + 4 * c * 4),
+        "wgrad": (lambda: conv_fused.conv3x3_bn_relu_wgrad(x, g, scale, shift),
+                  lambda: conv_fused.conv3x3_bn_relu_wgrad(xp, gp, sp, tp),
+                  lambda: conv_fused.conv3x3_wgrad_reference(x, g, scale, shift, True),
+                  2 * 2 * n + 4 * k.numel() + 2 * c * 4)}
+    out = {}
+    for key, (kernel, aligned, plain, n_bytes) in calls.items():
+        rec = dict(shape=[b, c, h, w], max_abs_err=errs[key][0], bar_share=errs[key][1],
+                   ms=device_ms(f"K4{key[0]} C{c}", [kernel]),
+                   aligned_ms=device_ms(f"K4{key[0]} C{cp}", [aligned]),
+                   plain_ms=median_ms(plain, 5, warmup=1))
+        rec["bound_ms"], rec["bound_by"] = bound(n_bytes, n_ops, BF16_TENSOR_OPS_PER_S)
+        out[f"conv3x3_bn_relu_{key}"] = rec
+        say(f"[K4{key[0]} C{c}] conv3x3_bn_relu_{key} bf16 {[b, c, h, w]} -> {c} "
+            f"channels with the prologue (C % 8 != 0: copies padded to {cp}): vs plain "
+            f"max|err| {rec['max_abs_err']:.3e}, {rec['bar_share']:.3f} of the bar; "
+            f"{rec['ms']:.4f} ms device a launch with the copies, {rec['aligned_ms']:.4f} "
+            f"ms at C = {cp} (no copy), plain {rec['plain_ms']:.4f} ms, bound "
+            f"{rec['bound_ms']:.4f} ms by {rec['bound_by']}")
     return out
 
 
@@ -1876,6 +2046,339 @@ def phase_wide_train(device):
 
 
 # ---------------------------------------------------------------------------
+class LineSet:
+    """Seeded in-memory lines for ``fit`` on a machine that cannot render or
+    read line images (no cv2, no PIL): uint8 [64, 512] "handwriting"
+    (``line_images``) with random texts of 1-96 characters of ``alphabet``,
+    as ``train_batch`` labels them."""
+
+    def __init__(self, n, alphabet, seed):
+        rng = np.random.default_rng(seed)
+        self.images = np.uint8(np.clip(line_images(n, rng)[..., 0] * 255.0, 0, 255))
+        self.alphabet = sorted(alphabet)
+        self.labels = ["".join(alphabet[i] for i in rng.integers(0, len(alphabet), m))
+                       for m in rng.integers(1, LMAX + 1, n)]
+
+    def __len__(self):
+        return len(self.labels)
+
+    def __getitem__(self, i):
+        return self.images[i], self.labels[i]
+
+
+def _fit_cfg(out_dir, exp_name, total, resume=None):
+    """The flagship, fully fused, with the IAM recipe's span masking and
+    ``OptimConfig()``, at bs 128, augmentation off (no cv2 on the card)."""
+    model_cfg = ModelConfig(masking=MaskConfig(mode="span", ratio=0.4, max_span_length=8),
+                            **FULLY_FUSED)
+    return ExperimentConfig(
+        model=model_cfg, optim=OptimConfig(),
+        data=DataConfig(train_bs=BATCH, val_bs=BATCH, num_workers=4,
+                        augment=AugmentConfig(enable=False)),
+        train=TrainConfig(out_dir=out_dir, exp_name=exp_name, seed=SEED,
+                          total_iters=total, eval_iters=FIT_EVAL, print_iters=FIT_PRINT,
+                          resume=resume, keep_checkpoints=2))
+
+
+def _recorded_fit(cfg, datasets, device):
+    """``loop.fit`` with each step's pass-1 loss kept (device scalars, read
+    after the run)."""
+    losses = []
+
+    def recording(state, batch):
+        metrics = train_step(state, batch)
+        losses.append(metrics["loss"])
+        return metrics
+
+    loop.train_step = recording
+    try:
+        result = loop.fit(cfg, device=device, datasets=datasets)
+    finally:
+        loop.train_step = train_step
+    return result, [float(v) for v in losses]
+
+
+def _final_state(run_dir, step):
+    mgr = CheckpointManager(run_dir)
+    path = dict((s, os.path.join(run_dir, n)) for s, n in mgr.list_rolling())[step]
+    return mgr.read(path)[0]
+
+
+def _train(tmp, name, datasets, device, keep=False):
+    """``fit`` to FIT_STEPS in run directory ``name`` -> (pass-1 losses, the
+    final state file's contents); the directory is removed unless ``keep``."""
+    _, losses = _recorded_fit(_fit_cfg(tmp, name, FIT_STEPS), datasets, device)
+    state = _final_state(os.path.join(tmp, name), FIT_STEPS)
+    if not keep:
+        shutil.rmtree(os.path.join(tmp, name))
+    return losses, state
+
+
+def _train_resumed(tmp, name, datasets, device):
+    """``fit`` to FIT_SPLIT, then ``resume="auto"`` to FIT_STEPS, in run
+    directory ``name`` -> (pass-1 losses of both legs, the final state)."""
+    _, first = _recorded_fit(_fit_cfg(tmp, name, FIT_SPLIT), datasets, device)
+    _, resumed = _recorded_fit(_fit_cfg(tmp, name, FIT_STEPS, resume="auto"),
+                               datasets, device)
+    run_dir = os.path.join(tmp, name)
+    with open(os.path.join(run_dir, "run.log")) as f:
+        if f"resumed at step {FIT_SPLIT}" not in f.read():
+            raise AssertionError(f"[fit] {name}: the second run did not resume at step "
+                                 f"{FIT_SPLIT}")
+    state = _final_state(run_dir, FIT_STEPS)
+    shutil.rmtree(run_dir)
+    return first + resumed, state
+
+
+def fixed_order_class_sum(dlp, z, num_classes):
+    """``ctc_cuda.class_sum`` in a fixed order: the states' gradients times
+    their classes' one-hot rows, one float64 batched GEMM (each class's
+    states added in the same order every run), rounded to float32."""
+    onehot = F.one_hot(z.long(), num_classes).to(torch.float64)  # [B, S, C]
+    return torch.bmm(dlp.double(), onehot).float()
+
+
+class deterministic_algorithms:
+    """``torch.use_deterministic_algorithms(True)`` inside the block, with
+    the cuBLAS workspace setting it asks for (read at each call), restored
+    after."""
+
+    def __enter__(self):
+        self._env = os.environ.get("CUBLAS_WORKSPACE_CONFIG")
+        os.environ["CUBLAS_WORKSPACE_CONFIG"] = CUBLAS_DETERMINISTIC
+        torch.use_deterministic_algorithms(True)
+
+    def __exit__(self, *exc):
+        torch.use_deterministic_algorithms(False)
+        if self._env is None:
+            del os.environ["CUBLAS_WORKSPACE_CONFIG"]
+        else:
+            os.environ["CUBLAS_WORKSPACE_CONFIG"] = self._env
+
+
+class fixed_order_ctc:
+    """Inside the block the CTC glue's class sum is ``fixed_order_class_sum``;
+    nothing else changes."""
+
+    def __enter__(self):
+        ctc_cuda.class_sum = fixed_order_class_sum
+
+    def __exit__(self, *exc):
+        ctc_cuda.class_sum = CLASS_SUM
+
+
+CLASS_SUM = ctc_cuda.class_sum
+
+
+def compare_states(got, want, got_losses, want_losses):
+    """Two runs' final state files and pass-1 losses: bit_equal; the largest
+    relative loss gap; for the model, the EMA model and the AdamW moments the
+    largest |gap|, the L2 norm of the gap over the state's (``*_l2``), and
+    the largest |gap| of a leaf over the leaf's largest |value| (``*_leaf``,
+    with the leaf that has it)."""
+    def leaves(state):
+        for key in ("model", "ema_model"):
+            for k, v in state[key].items():
+                yield key, k, v
+        for i, st in state["optimizer"]["state"].items():
+            for k in ("exp_avg", "exp_avg_sq", "step"):
+                yield "adamw", f"{i}.{k}", st[k]
+
+    out = {"losses_rel": max(abs(a - b) / abs(b) for a, b in zip(got_losses, want_losses)),
+           "step": (got["step"], want["step"]),
+           "generator_equal": torch.equal(got["generator"], want["generator"])}
+    sums = {}
+    for (part, name, a), (_, _, b) in zip(leaves(got), leaves(want)):
+        a, b = a.double(), b.double()
+        gap = (a - b).abs().max().item() if a.numel() else 0.0
+        scale = b.abs().max().item() if b.numel() else 0.0
+        share = gap / scale if scale else (0.0 if gap == 0 else math.inf)
+        out[part] = max(out.get(part, 0.0), gap)
+        if share >= out.get(f"{part}_leaf", (-1.0,))[0]:
+            out[f"{part}_leaf"] = (share, name)
+        d2, b2 = sums.get(part, (0.0, 0.0))
+        sums[part] = (d2 + (a - b).square().sum().item(), b2 + b.square().sum().item())
+    for part, (d2, b2) in sums.items():
+        out[f"{part}_l2"] = math.sqrt(d2 / b2) if b2 else (0.0 if d2 == 0 else math.inf)
+    out["bit_equal"] = (got_losses == want_losses and got["step"] == want["step"]
+                        and out["generator_equal"]
+                        and out["model"] == out["ema_model"] == out["adamw"] == 0.0)
+    return out
+
+
+def within_bars(held):
+    """Whether a default-mode comparison (``compare_states``) is inside
+    FIT_LOSS_REL, FIT_STATE_L2 and FIT_LEAF_SHARE, with equal steps and
+    generators."""
+    return (held["losses_rel"] <= FIT_LOSS_REL and held["generator_equal"]
+            and held["step"][0] == held["step"][1]
+            and all(held[f"{p}_l2"] <= bar and held[f"{p}_leaf"][0] <= FIT_LEAF_SHARE
+                    for p, bar in FIT_STATE_L2.items()))
+
+
+def gaps(held):
+    """A comparison's gaps, for a printed line."""
+    return (f"losses {held['losses_rel']:.3e} (rel), "
+            + ", ".join(f"{p} {held[p]:.3e} max, {held[p + '_l2']:.3e} of its L2 norm, "
+                        f"leaf {held[p + '_leaf'][1]} {held[p + '_leaf'][0]:.3e} of its "
+                        "largest value" for p in ("model", "ema_model", "adamw")))
+
+
+def phase_fit(device, smi_line):
+    """``htr_vt_torch.train.loop.fit`` at the flagship's full width with the
+    fully fused stem: 6 steps uninterrupted (kernel launches counted, img/s,
+    peak memory); in default mode, "train 3, resume, train 3" held against
+    it at FIT_LOSS_REL, FIT_STATE_L2 and FIT_LEAF_SHARE; under deterministic algorithms,
+    "train 6" and "train 3, resume, train 3" held bit for bit, and the
+    default-mode run held against them at the bars; in default mode with
+    only the CTC class sum in a fixed order, "train 6" against "train 3,
+    resume, train 3"; best_CER served through ``cli/serve.py``'s checkpoint
+    route."""
+    alphabet = [chr(c) for c in range(33, 33 + ModelConfig().nb_cls - 1)]
+    train_ds, val_ds = (LineSet(n, alphabet, SEED + 20 + i) for i, n in enumerate(FIT_LINES))
+    datasets = (train_ds, val_ds)
+    n_val = math.ceil(FIT_LINES[1] / BATCH)
+    n_evals = FIT_STEPS // FIT_EVAL
+    root = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build")
+    os.makedirs(root, exist_ok=True)
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_fit_", dir=root)
+    say(f"[fit] loop.fit: flagship fully fused bf16, bs {BATCH}, {FIT_LINES[0]} train and "
+        f"{FIT_LINES[1]} val seeded in-memory lines (labels of 1-{LMAX} characters); "
+        f"augmentation off (cv2 is not on this machine); total_iters {FIT_STEPS}, "
+        f"eval_iters {FIT_EVAL}, print_iters {FIT_PRINT}; checkpoints under {tmp}")
+    try:
+        # --- the main path, counted ------------------------------------------
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        t0 = time.perf_counter()
+        full, full_losses = _recorded_fit(_fit_cfg(tmp, "full", FIT_STEPS), datasets,
+                                             device)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = read_counts()
+        peak = torch.cuda.max_memory_allocated()
+        per_step, per_val = per_step_launches(FULLY_FUSED), per_eval_launches(FULLY_FUSED)
+        want = {k: FIT_STEPS * per_step.get(k, 0) + n_evals * n_val * per_val.get(k, 0)
+                for k in COUNTERS}
+        if launches != want:
+            raise AssertionError(f"[fit] launches {launches}; {FIT_STEPS} steps and "
+                                 f"{n_evals} x {n_val} eval batches make {want}")
+        if not np.isfinite(full_losses).all() or len(full_losses) != FIT_STEPS:
+            raise AssertionError(f"[fit] losses {full_losses}")
+        full_dir = os.path.join(tmp, "full")
+        with open(os.path.join(full_dir, "metrics.jsonl")) as f:
+            records = [json.loads(line) for line in f]
+        rates = [r["train/imgs_per_sec"] for r in records if "train/imgs_per_sec" in r]
+        vals = [(r["val/CER"], r["val/WER"]) for r in records if "val/CER" in r]
+        say(f"[fit] {FIT_STEPS} steps + {n_evals} evals in {wall:.3f} s (build, cuDNN "
+            f"warm-up, loader and checkpoints included); best CER {full['best_cer']:.4f} "
+            f"WER {full['best_wer']:.4f}; pass-1 losses "
+            + " ".join(f"{v:.4f}" for v in full_losses)
+            + f"; StepTimer img/s {' '.join(f'{r:.1f}' for r in rates)} (steps 1-3 hold "
+            f"the first step's warm-up; steps 4-6 after the eval); val CER/WER {vals}; "
+            f"peak memory {peak / 2**20:.1f} MiB; launches {launches} = {FIT_STEPS} x "
+            f"{per_step} + {n_evals * n_val} x {per_val}; {smi_line}")
+        full_state = _final_state(full_dir, FIT_STEPS)
+        bars = (f"bars: losses {FIT_LOSS_REL:.0e} (rel), of each part's L2 norm "
+                + ", ".join(f"{p} {bar:.1e}" for p, bar in FIT_STATE_L2.items())
+                + f", each leaf {FIT_LEAF_SHARE} of its largest value")
+
+        # --- default mode: train 3, resume, train 3 ----------------------------
+        split_losses, split_state = _train_resumed(tmp, "split", datasets, device)
+        resume = compare_states(split_state, full_state, split_losses, full_losses)
+        say(f"[fit] default mode: train {FIT_SPLIT}, resume (auto), train "
+            f"{FIT_STEPS - FIT_SPLIT}: pass-1 losses "
+            + " ".join(f"{v:.4f}" for v in split_losses) + " against the uninterrupted "
+            f"run's: {'bit-equal' if resume['bit_equal'] else 'not bit-equal'}; "
+            f"{gaps(resume)}; {bars}")
+
+        # --- deterministic algorithms: train 6; train 3, resume, train 3 -------
+        with deterministic_algorithms():
+            det_losses, det_state = _train(tmp, "det", datasets, device)
+            det_split_losses, det_split_state = _train_resumed(tmp, "det_split", datasets,
+                                                               device)
+        held = compare_states(det_split_state, det_state, det_split_losses, det_losses)
+        default_det = compare_states(full_state, det_state, full_losses, det_losses)
+        say(f"[fit] under torch.use_deterministic_algorithms: train {FIT_STEPS}, and train "
+            f"{FIT_SPLIT}, resume (auto), train {FIT_STEPS - FIT_SPLIT}: pass-1 losses "
+            + " ".join(f"{v:.4f}" for v in det_split_losses) + " against "
+            + " ".join(f"{v:.4f}" for v in det_losses) + ": "
+            + ("bit-equal (losses, model, EMA, AdamW, step, generator)"
+               if held["bit_equal"] else f"NOT bit-equal: {held}")
+            + f"; the default-mode run against the deterministic one: {gaps(default_det)}")
+        del det_state, det_split_state
+
+        # --- default mode, only the CTC class sum in a fixed order -------------
+        with fixed_order_ctc():
+            fixed_losses, fixed_state = _train(tmp, "fixed", datasets, device)
+            fixed_split_losses, fixed_split_state = _train_resumed(tmp, "fixed_split",
+                                                                   datasets, device)
+        fixed = compare_states(fixed_split_state, fixed_state, fixed_split_losses,
+                               fixed_losses)
+        del fixed_state, fixed_split_state
+        say(f"[fit] default mode with only the CTC class sum in a fixed order "
+            f"(ops/ctc_cuda.py:class_sum as one float64 one-hot GEMM): train {FIT_STEPS} "
+            f"against train {FIT_SPLIT}, resume, train {FIT_STEPS - FIT_SPLIT}: "
+            + ("bit-equal (losses, model, EMA, AdamW, step, generator): scatter_add_'s "
+               "atomics are what keep default-mode runs apart; cuDNN's default "
+               "algorithms reproduce" if fixed["bit_equal"] else
+               f"not bit-equal, so more than scatter_add_ differs: {gaps(fixed)}"))
+        if not held["bit_equal"]:
+            raise AssertionError(f"[fit] the deterministic resumed run differs: {held}")
+        if not fixed["bit_equal"]:
+            raise AssertionError("[fit] with the CTC class sum in a fixed order the resumed "
+                                 f"run differs: {fixed}")
+        for name, cmp in (("default-mode resume", resume),
+                          ("default-mode run against the deterministic one", default_det)):
+            if not within_bars(cmp):
+                raise AssertionError(f"[fit] the {name} is outside the bars ({bars}): "
+                                     f"{cmp}")
+
+        # --- save and restore times; best_CER through the serve route ------------
+        template = create_train_state(_fit_cfg(tmp, "t", FIT_STEPS), device,
+                                      torch.Generator(device=device))
+        mgr = CheckpointManager(full_dir)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, meta = mgr.restore(os.path.join(full_dir, "best_CER"), template)
+        torch.cuda.synchronize()
+        restore_ms = (time.perf_counter() - t0) * 1e3
+        t0 = time.perf_counter()
+        CheckpointManager(os.path.join(tmp, "save")).save(
+            template, cer=meta["cer"], wer=meta["wer"], best_cer=meta["cer"],
+            best_wer=meta["wer"])
+        save_ms = (time.perf_counter() - t0) * 1e3
+        served = load_serving_model(os.path.join(full_dir, "best_CER"), None, device)
+        batch = train_batch(BATCH, served.cfg, np.random.default_rng(SEED + 30), device)
+        got = eval_step(served, batch)["pred_ids"]
+        want_ids = eval_step(template.ema_model, batch)["pred_ids"]
+        if not torch.equal(got, want_ids):
+            raise AssertionError("[fit] the served best_CER frame argmax differs from "
+                                 "eval_step on the saved EMA model")
+        say(f"[fit] best_CER (step {meta['step']}, CER {meta['cer']:.4f}) served through "
+            f"cli/serve.py:load_serving_model at its saved config ({served.cfg.pool_impl} "
+            f"pool, {served.cfg.conv_impl} conv): frame argmax equal to eval_step on the "
+            f"restored EMA model over {BATCH} lines; checkpoint restore {restore_ms:.1f} ms, "
+            f"save {save_ms:.1f} ms (model, EMA, AdamW: "
+            f"{os.path.getsize(os.path.join(full_dir, 'best_CER', 'state.pt')) / 2**20:.1f}"
+            f" MiB); {smi_line}")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return launches, dict(losses=full_losses, resumed_losses=split_losses,
+                          deterministic_losses=det_losses,
+                          deterministic_resumed_losses=det_split_losses,
+                          fixed_order_ctc_losses=fixed_losses,
+                          fixed_order_ctc_resumed_losses=fixed_split_losses,
+                          default_resume=resume, deterministic_resume=held,
+                          default_vs_deterministic=default_det, fixed_order_ctc=fixed,
+                          loss_rel_bar=FIT_LOSS_REL, state_l2_bar=FIT_STATE_L2,
+                          leaf_share_bar=FIT_LEAF_SHARE,
+                          imgs_per_sec=rates, peak=peak, wall_s=wall, save_ms=save_ms,
+                          restore_ms=restore_ms)
+
+
+# ---------------------------------------------------------------------------
 def main():
     smi_line, max_sm_mhz = phase_device()
     device = torch.device("cuda", 0)
@@ -1896,9 +2399,10 @@ def main():
     full_train, full = phase_train(device, FULLY_FUSED, train["first_loss"],
                                    "fully fused train")
     wide_train, wide_rec = phase_wide_train(device)
+    fit_launches, fit_rec = phase_fit(device, smi_line)
     say(f"[done] build {build_s:.2f} s; {smi_line}")
     main_path = {k: fused_serve[k] + full_serve[k] + fused_train[k] + full_train[k]
-                 + train_launches[k] + bucket_serve[k] + wide_train[k]
+                 + train_launches[k] + bucket_serve[k] + wide_train[k] + fit_launches[k]
                  for k in COUNTERS}
     main_path["ctc_alpha"] += serve_launches
     k193, k17 = kernels["S193"], kernels["S17"]
@@ -1959,6 +2463,7 @@ def main():
         "shape": "bf16 x [128, 192, 32, 512] channels-last",
         **{k: stem[name][k] for k in ("call_ms", "stock_ms", "ms_nchw", "call_ms_nchw")
            if k in stem[name]},
+        "tail_c": {c: rec[name] for c, rec in stem["pool_tail"].items()},
     } for name, line in (("pool_bn_relu_fwd", 62), ("pool_bn_relu_bwd", 72))]
     conv_lines = [{
         "name": name,
@@ -1981,6 +2486,7 @@ def main():
         "shape": "bf16 [128, 192, 8, 512] channels-last, 192 -> 192, with the "
                  "prologue (stage 1)",
         "sites": conv[name],
+        "tail_c": {c: rec[name] for c, rec in conv["conv_tail"].items()},
     } for name, line, library, stock in (
         ("conv3x3_bn_relu_fwd", 82, "F.conv2d", "conv_fused._prologue (eager) + F.conv2d"),
         ("conv3x3_bn_relu_dgrad", 230, "torch.nn.grad.conv2d_input",
@@ -2033,7 +2539,7 @@ def main():
                     "stock_first_loss": train["first_loss"],
                     "conv_grad_copies": full["conv_grad_copies"],
                     "pool_grad_copies": fused["grad_copies"] + full["grad_copies"],
-                    "fully_fused_serve": full_serve_rec}))
+                    "fully_fused_serve": full_serve_rec, "fit": fit_rec}))
     say(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

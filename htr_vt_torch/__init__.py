@@ -3,10 +3,12 @@
 The JAX package stays the reference: every module here is held against its
 JAX counterpart on the same weights and inputs (``tests/test_torch_port_*``).
 Configuration, the text codec, the metrics, the list readers, the image
-loader and the checkpoint layout are the port's own copies of the JAX
-package's JAX-free modules (``config.py``, ``text/``, ``data/``,
-``utils/torch_convert.py``); this package imports ``torch``, never ``jax``
-and nothing of ``htr_vt_tpu``.
+loader, the synthetic renderer, the augmentation, the batch loader, the
+meters, the logging and the checkpoint layout are the port's own copies of
+the JAX package's JAX-free modules (``config.py``, ``text/``, ``data/``,
+``utils/``); this package imports ``torch``, never ``jax`` and nothing of
+``htr_vt_tpu``, and imports cv2 and PIL only inside the functions that
+render, read or augment an image.
 
 Ported so far, for the flagship ``model_v1`` recipe:
 
@@ -21,7 +23,12 @@ Ported so far, for the flagship ``model_v1`` recipe:
   its stride-1 3x3 convs with the BN prologue (``csrc/conv_fused.cu``);
 - the wide-width path: width-bucket serving (``cli/serve.py``) and the
   multi-width train step at 1024 and 2048 px, where ``attn_impl="auto"``
-  takes flash attention, forward and backward (``csrc/flash_attn.cu``).
+  takes flash attention, forward and backward (``csrc/flash_attn.cu``);
+- the training program: ``train/loop.py:fit`` over the loader
+  (``data/loader.py``), checkpoints on ``torch.save``
+  (``train/checkpoint.py``), and the ``cli/train.py``, ``cli/test.py``,
+  ``cli/infer.py`` and ``cli/params.py`` entry points (``cli/args.py``);
+  ``cli/serve.py`` serves a training checkpoint's EMA weights.
 
 On a CUDA tensor the CTC loss runs its alpha recursion, and its gradient
 the beta recursion, as hand-written ``sm_90a`` kernels

@@ -5,8 +5,13 @@ transcribe line images to JSONL, one {"image", "text"} record per line.
         --images 'scans/*.png' --batch-size 128 [--out preds.jsonl] \\
         [--width-buckets 512,1024,2048]
 
-The checkpoint is a state_dict in the reference PyTorch layout (what
-``htr_vt_torch/utils/torch_convert.py`` reads and writes). Width buckets
+``--checkpoint`` is a directory of the port's training checkpoints (a
+rolling ``checkpoint_*`` directory, ``best_CER`` / ``best_WER``, or the run
+directory, meaning its latest), served with its EMA weights at the model
+config saved beside them, as the JAX serve CLI serves a training checkpoint
+(``serve.py:115-130``); or a ``.pth`` state_dict in the reference PyTorch
+layout (what ``htr_vt_torch/utils/torch_convert.py`` reads and writes), at
+the dataset preset's model config. Width buckets
 (``serve.py:142-159``): each line goes, by its natural aspect-resized
 width, to the smallest bucket that holds it (the widest catches the rest,
 capped there), and each bucket runs fixed-size batches at its width
@@ -32,10 +37,12 @@ import numpy as np
 import torch
 from torch import nn
 
-from htr_vt_torch.config import dataset_preset
+from htr_vt_torch.config import DataConfig, ModelConfig, dataset_preset
 from htr_vt_torch import CTCLabelConverter
 from htr_vt_torch.data.image import assign_width_buckets
-from htr_vt_torch.models.htr_vt import build_model
+from htr_vt_torch.data.loader import make_converter
+from htr_vt_torch.models.htr_vt import HTRVT, build_model
+from htr_vt_torch.train.checkpoint import CheckpointManager, load_ema_model, saved_config
 from htr_vt_torch.train.step import eval_step
 from htr_vt_torch.utils.convert import load_reference_checkpoint
 
@@ -102,18 +109,47 @@ def transcribe_buckets(model: nn.Module, load: Callable[[int, int], np.ndarray],
     return texts
 
 
+class _TrainAlphabet:
+    """What ``data/loader.py:make_converter`` reads of a training set, its
+    alphabet, worked out only when read: the sorted synthetic alphabet for
+    SYNTH, else the sorted characters of the training list."""
+
+    def __init__(self, cfg: DataConfig, train_list: Optional[str],
+                 data_path: Optional[str]):
+        self.cfg, self.train_list, self.data_path = cfg, train_list, data_path
+
+    @property
+    def alphabet(self) -> List[str]:
+        if self.cfg.dataset == "SYNTH":
+            return sorted(set(self.cfg.synth_alphabet))
+        from htr_vt_torch.data.lists import LineIndex
+        return LineIndex.from_list_file(self.train_list or self.cfg.train_list,
+                                        self.data_path or self.cfg.data_path,
+                                        max_label_len=self.cfg.max_label_len).alphabet
+
+
 def charset(dataset: str, train_list: Optional[str] = None,
-            data_path: Optional[str] = None) -> List[str]:
-    """The codec alphabet the JAX serve CLI derives: the sorted synthetic
-    alphabet for SYNTH, else the sorted characters of the training list."""
-    cfg = dataset_preset(dataset).data
-    if cfg.dataset == "SYNTH":
-        return sorted(set(cfg.synth_alphabet))
-    from htr_vt_torch.data.lists import LineIndex
-    index = LineIndex.from_list_file(train_list or cfg.train_list,
-                                     data_path or cfg.data_path,
-                                     max_label_len=cfg.max_label_len)
-    return index.alphabet
+            data_path: Optional[str] = None,
+            data: Optional[DataConfig] = None) -> List[str]:
+    """The codec alphabet the JAX serve CLI derives, by the loader's rule
+    (``make_converter``: the Vietnamese charset where configured, else the
+    training set's alphabet); from ``data`` (a checkpoint's saved data
+    config) where given, else from the dataset preset's."""
+    cfg = data or dataset_preset(dataset).data
+    return make_converter(cfg, _TrainAlphabet(cfg, train_list, data_path)).character[1:]
+
+
+def load_serving_model(checkpoint: str, cfg: ModelConfig, device) -> HTRVT:
+    """The model ``--checkpoint`` names, on ``device``: a directory of the
+    port's training checkpoints gives its EMA weights at the model config
+    saved with them (``train/checkpoint.py:load_ema_model``); a ``.pth``
+    file, a state_dict in the reference layout, loads into a model at
+    ``cfg``."""
+    if os.path.isdir(checkpoint):
+        return load_ema_model(checkpoint, None, device)
+    model = build_model(cfg, device=torch.device(device))
+    model.load_state_dict(load_reference_checkpoint(checkpoint), strict=True)
+    return model
 
 
 def _image_paths(spec: str) -> Sequence[str]:
@@ -130,7 +166,10 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
     p = argparse.ArgumentParser(description="htr_vt_torch batch transcription")
     p.add_argument("dataset", help="IAM | READ | LAM | SYNTH (sets the charset)")
     p.add_argument("--checkpoint", required=True,
-                   help="state_dict in the reference PyTorch layout (.pth)")
+                   help="a training checkpoint directory of the port (rolling, "
+                        "best_CER/best_WER, or the run directory: its EMA "
+                        "weights are served), or a state_dict in the reference "
+                        "PyTorch layout (.pth)")
     p.add_argument("--images", required=True,
                    help="glob pattern or file with one path per line")
     p.add_argument("--batch-size", type=int, default=64)
@@ -149,14 +188,20 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
     paths = _image_paths(args.images)
     if not paths:
         sys.exit(f"no images match {args.images!r}")
+    saved = None
+    if os.path.isdir(args.checkpoint):
+        saved = saved_config(CheckpointManager(os.path.dirname(
+            os.path.abspath(args.checkpoint))).meta(args.checkpoint))
     converter = CTCLabelConverter(charset(args.dataset, args.train_list,
-                                          args.data_path))
+                                          args.data_path,
+                                          saved.data if saved else None))
     cfg = dataclasses.replace(dataset_preset(args.dataset).model,
                               nb_cls=converter.num_classes)
-    model = build_model(cfg, device=torch.device(args.device))
-    model.load_state_dict(load_reference_checkpoint(args.checkpoint),
-                          strict=True)
-    h, w = cfg.img_size
+    model = load_serving_model(args.checkpoint, cfg, args.device)
+    if model.cfg.nb_cls != converter.num_classes:
+        sys.exit(f"{args.checkpoint}: {model.cfg.nb_cls} classes, but the charset "
+                 f"gives {converter.num_classes}")
+    h, w = model.cfg.img_size
     if args.width_buckets:
         buckets = [int(x) for x in args.width_buckets.split(",") if x.strip()]
         widths = [natural_line_width(path, h) for path in paths]

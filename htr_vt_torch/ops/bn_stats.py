@@ -19,7 +19,7 @@ from __future__ import annotations
 
 import functools
 from collections import OrderedDict
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
@@ -58,14 +58,56 @@ def check_layout(fn: str, name: str, x: torch.Tensor) -> None:
 
 def check_channels_last(fn: str, name: str, x: torch.Tensor) -> None:
     """The layout rule of the stem kernels that read rows through TMA or
-    16-byte vectors (K3f/K3b, K4f/K4d/K4w): ``check_layout``, C a multiple
-    of 8, 16-byte aligned."""
+    16-byte vectors (K3f/K3b, K4f/K4d/K4w): ``check_layout``, at most
+    MAX_CHANNELS channels, 16-byte aligned. Any C: a wrapper hands its
+    kernel a copy padded to ``padded_channels(C)`` when C % 8 != 0."""
     check_layout(fn, name, x)
     c = x.shape[1]
-    if c % 8 or c // 8 > 1024:
-        raise ValueError(f"{fn}: {name} needs C % 8 == 0 and C <= 8192, got C={c}")
+    if padded_channels(c) > MAX_CHANNELS:
+        raise ValueError(f"{fn}: {name} needs C <= {MAX_CHANNELS}, got C={c}")
     if x.data_ptr() % 16:
         raise ValueError(f"{fn}: {name} must be 16-byte aligned")
+
+
+# K3/K4 read channels-last rows through TMA, whose global strides are
+# multiples of 16 bytes: C a multiple of 8 (bf16). Their wrappers zero-pad
+# any other C up to the next multiple and slice the real channels back out.
+CHANNEL_MULTIPLE = 8
+MAX_CHANNELS = 8192
+
+
+def padded_channels(c: int) -> int:
+    """C rounded up to a multiple of CHANNEL_MULTIPLE."""
+    return -(-c // CHANNEL_MULTIPLE) * CHANNEL_MULTIPLE
+
+
+def pad_channels(x: torch.Tensor, c_to: int) -> torch.Tensor:
+    """x [B, C, H, W] (any layout) as a channels-last copy of ``c_to``
+    channels whose last ``c_to - C`` are zero; x itself when c_to == C."""
+    b, c, h, w = x.shape
+    if c == c_to:
+        return x
+    out = torch.empty((b, c_to, h, w), dtype=x.dtype, device=x.device,
+                      memory_format=torch.channels_last)
+    out[:, c:].zero_()
+    out[:, :c].copy_(x)
+    return out
+
+
+def pad_terms(v: Optional[torch.Tensor], c_to: int) -> Optional[torch.Tensor]:
+    """A folded BN term [C] padded with zeros to [c_to] (None stays None):
+    a padded channel's prologue is relu(0 * 0 + 0) = 0."""
+    if v is None or v.numel() == c_to:
+        return v
+    return torch.cat([v, v.new_zeros(c_to - v.numel())])
+
+
+def take_channels(y: torch.Tensor, c: int) -> torch.Tensor:
+    """The first ``c`` channels of a channels-last y [B, C', H, W], as a
+    channels-last contiguous tensor (y itself when C' == c)."""
+    if y.shape[1] == c:
+        return y
+    return y[:, :c].contiguous(memory_format=torch.channels_last)
 
 
 def check_folded_terms(fn: str, x: torch.Tensor, scale: torch.Tensor,

@@ -50,7 +50,8 @@ import torch
 import torch.nn.functional as F
 
 from htr_vt_torch.ops.bn_stats import (_DTYPE_CODES, check_channels_last,
-                                       check_folded_terms)
+                                       check_folded_terms, pad_channels, pad_terms,
+                                       padded_channels, take_channels)
 
 
 def _c(v: torch.Tensor) -> torch.Tensor:
@@ -121,8 +122,6 @@ def _check(fn: str, x: torch.Tensor, weight: torch.Tensor,
         raise ValueError(f"{fn}: weight must be {x.dtype} [Cout, {cin}, 3, 3] on "
                          f"{x.device}, got {weight.dtype} {tuple(weight.shape)} on "
                          f"{weight.device}")
-    if weight.shape[0] % 8:
-        raise ValueError(f"{fn}: needs Cout % 8 == 0, got Cout={weight.shape[0]}")
     if (scale is None) != (shift is None):
         raise ValueError(f"{fn}: scale and shift go together")
     if scale is not None:
@@ -141,12 +140,20 @@ def _ptr(t: Optional[torch.Tensor]) -> Optional[int]:
     return None if t is None else t.data_ptr()
 
 
+def _pad_weight(weight: torch.Tensor, cout: int, cin: int) -> torch.Tensor:
+    """weight [Cout, Cin, 3, 3] with zero rows and columns up to [cout, cin]."""
+    if tuple(weight.shape[:2]) == (cout, cin):
+        return weight
+    return F.pad(weight, (0, 0, 0, 0, 0, cin - weight.shape[1],
+                          0, cout - weight.shape[0]))
+
+
 def conv3x3_bn_relu_fwd(x: torch.Tensor, weight: torch.Tensor,
                         scale: Optional[torch.Tensor] = None,
                         shift: Optional[torch.Tensor] = None) -> torch.Tensor:
     """``conv3x3(pad0(T(max(x * scale + shift, 0))), weight)``, stride 1: x
-    [B, Cin, H, W] channels-last (bf16 or float32, Cin % 8 == 0), weight
-    [Cout, Cin, 3, 3] in x.dtype (Cout % 8 == 0), scale/shift float32 [Cin]
+    [B, Cin, H, W] channels-last (bf16 or float32, any Cin), weight
+    [Cout, Cin, 3, 3] in x.dtype (any Cout), scale/shift float32 [Cin]
     or both None -> [B, Cout, H, W] channels-last in x.dtype.
 
     CUDA tensors launch K4f (``csrc/conv_fused.cu``) on the current stream
@@ -157,8 +164,13 @@ def conv3x3_bn_relu_fwd(x: torch.Tensor, weight: torch.Tensor,
     if x.device.type != "cuda":
         raise ValueError(f"conv3x3_bn_relu_fwd: no kernel for device {x.device}")
     _check("conv3x3_bn_relu_fwd", x, weight, scale, shift)
-    b, cin, h, w = x.shape
-    cout = weight.shape[0]
+    b, cin_real, h, w = x.shape
+    cout_real = weight.shape[0]
+    cin, cout = padded_channels(cin_real), padded_channels(cout_real)
+    aligned = (cin, cout) == (cin_real, cout_real)
+    if not aligned:
+        x, scale, shift = pad_channels(x, cin), pad_terms(scale, cin), pad_terms(shift, cin)
+        weight = _pad_weight(weight, cout, cin)
     from htr_vt_torch._build import check_launch, library
     wb = weight.permute(2, 3, 0, 1).contiguous()  # [3, 3, Cout, Cin]
     y = torch.empty((b, cout, h, w), dtype=x.dtype, device=x.device,
@@ -171,7 +183,7 @@ def conv3x3_bn_relu_fwd(x: torch.Tensor, weight: torch.Tensor,
             stream)
     check_launch("conv3x3_bn_relu_fwd", err)
     conv3x3_bn_relu_fwd.launches += 1
-    return y
+    return y if aligned else take_channels(y, cout_real)
 
 
 conv3x3_bn_relu_fwd.launches = 0  # kernel launches; the CPU path never counts
@@ -182,9 +194,9 @@ def conv3x3_bn_relu_dgrad(g: torch.Tensor, weight: torch.Tensor, x: torch.Tensor
                           shift: Optional[torch.Tensor] = None
                           ) -> Tuple[torch.Tensor, ...]:
     """The input gradient of ``conv3x3_bn_relu_fwd``: g [B, Cout, H, W] and
-    the forward's raw x, both channels-last and of one dtype -> (dx
-    channels-last in x.dtype, dscale, dshift float32 [Cin]; zeros without
-    the prologue).
+    the forward's raw x, both channels-last and of one dtype (any Cin and
+    Cout) -> (dx channels-last in x.dtype, dscale, dshift float32 [Cin];
+    zeros without the prologue).
 
     CUDA tensors launch K4d on the current stream (with the prologue, and
     its fixed-order second pass over the pixel tiles' partial sums) and add one to
@@ -196,9 +208,14 @@ def conv3x3_bn_relu_dgrad(g: torch.Tensor, weight: torch.Tensor, x: torch.Tensor
     if x.device.type != "cuda":
         raise ValueError(f"conv3x3_bn_relu_dgrad: no kernel for device {x.device}")
     _check("conv3x3_bn_relu_dgrad", x, weight, scale, shift)
-    b, cin, h, w = x.shape
-    cout = weight.shape[0]
-    _check_grad("conv3x3_bn_relu_dgrad", g, x, cout)
+    b, cin_real, h, w = x.shape
+    cout_real = weight.shape[0]
+    _check_grad("conv3x3_bn_relu_dgrad", g, x, cout_real)
+    cin, cout = padded_channels(cin_real), padded_channels(cout_real)
+    aligned = (cin, cout) == (cin_real, cout_real)
+    if not aligned:
+        g, x, weight = pad_channels(g, cout), pad_channels(x, cin), _pad_weight(weight, cout, cin)
+        scale, shift = pad_terms(scale, cin), pad_terms(shift, cin)
     from htr_vt_torch._build import check_launch, library
     code = _DTYPE_CODES[x.dtype]
     # wb[dh, dw, ci, co] = k[co, ci, 2 - dh, 2 - dw], the rotated kernel
@@ -217,7 +234,9 @@ def conv3x3_bn_relu_dgrad(g: torch.Tensor, weight: torch.Tensor, x: torch.Tensor
             b, h, w, cin, cout, int(prologue), code, stream)
     check_launch("conv3x3_bn_relu_dgrad", err)
     conv3x3_bn_relu_dgrad.launches += 1
-    return dx, sums[0], sums[1]
+    if aligned:
+        return dx, sums[0], sums[1]
+    return take_channels(dx, cin_real), sums[0, :cin_real], sums[1, :cin_real]
 
 
 conv3x3_bn_relu_dgrad.launches = 0  # kernel launches; the CPU path never counts
@@ -227,8 +246,9 @@ def conv3x3_bn_relu_wgrad(x: torch.Tensor, g: torch.Tensor,
                           scale: Optional[torch.Tensor] = None,
                           shift: Optional[torch.Tensor] = None) -> torch.Tensor:
     """The weight gradient of ``conv3x3_bn_relu_fwd``: the forward's raw x
-    and g [B, Cout, H, W], both channels-last and of one dtype -> float32
-    [Cout, Cin, 3, 3] (a permuted view of the kernel's [3, 3, Cin, Cout]).
+    and g [B, Cout, H, W], both channels-last and of one dtype (any Cin and
+    Cout) -> float32 [Cout, Cin, 3, 3] (a permuted view of the kernel's
+    [3, 3, Cin, Cout]).
 
     CUDA tensors launch K4w on the current stream (split over pixels, the
     splits added in a fixed order) and add one to
@@ -240,13 +260,18 @@ def conv3x3_bn_relu_wgrad(x: torch.Tensor, g: torch.Tensor,
     if x.device.type != "cuda":
         raise ValueError(f"conv3x3_bn_relu_wgrad: no kernel for device {x.device}")
     check_channels_last("conv3x3_bn_relu_wgrad", "x", x)
-    b, cin, h, w = x.shape
-    cout = g.shape[1] if g.dim() == 4 else -1
-    _check_grad("conv3x3_bn_relu_wgrad", g, x, cout)
+    b, cin_real, h, w = x.shape
+    cout_real = g.shape[1] if g.dim() == 4 else -1
+    _check_grad("conv3x3_bn_relu_wgrad", g, x, cout_real)
     if (scale is None) != (shift is None):
         raise ValueError("conv3x3_bn_relu_wgrad: scale and shift go together")
     if prologue:
         check_folded_terms("conv3x3_bn_relu_wgrad", x, scale, shift)
+    cin, cout = padded_channels(cin_real), padded_channels(cout_real)
+    aligned = (cin, cout) == (cin_real, cout_real)
+    if not aligned:
+        x, g = pad_channels(x, cin), pad_channels(g, cout)
+        scale, shift = pad_terms(scale, cin), pad_terms(shift, cin)
     from htr_vt_torch._build import check_launch, library
     code = _DTYPE_CODES[x.dtype]
     splits = library().htrvt_conv3x3_wgrad_splits(b, h, w, cin, cout, code)
@@ -260,6 +285,8 @@ def conv3x3_bn_relu_wgrad(x: torch.Tensor, g: torch.Tensor,
             _ptr(partial), b, h, w, cin, cout, splits, int(prologue), code, stream)
     check_launch("conv3x3_bn_relu_wgrad", err)
     conv3x3_bn_relu_wgrad.launches += 1
+    if not aligned:
+        dk = dk[:, :, :cin_real, :cout_real]
     return dk.permute(3, 2, 0, 1)
 
 

@@ -246,13 +246,23 @@ def ctc_grad_logp(alpha: torch.Tensor, beta: torch.Tensor, total: torch.Tensor,
     The state posterior is ``alpha + beta - total`` (beta leaves out its own
     frame's emission, so no extra ``lp``), clamped at 0 before the exp and
     cut below -80. States that share a class (every blank, repeated labels)
-    sum into it. On the card ``scatter_add_`` sums them with atomics, in no
-    fixed order: at most a few float32 ulps apart from run to run."""
+    sum into it (``class_sum``)."""
     log_gamma = alpha + beta - total[:, None, None]
     dlp = -torch.exp(torch.clamp_max(log_gamma, 0.0)) * g[:, None, None]
     dlp = torch.where(log_gamma > LOG_GAMMA_CUT, dlp, 0.0)
-    b, t, _ = alpha.shape
-    dlogp = alpha.new_zeros((b, t, num_classes))
+    return class_sum(dlp, z, num_classes)
+
+
+def class_sum(dlp: torch.Tensor, z: torch.Tensor, num_classes: int) -> torch.Tensor:
+    """Per-state gradients dlp [B, T, S] summed into the classes z [B, S]
+    names -> [B, T, C]. On the card ``scatter_add_`` sums a class's states
+    with atomics, in no fixed order: a few float32 ulps apart from run to
+    run. It is the one op that keeps two default-mode ``fit`` runs of the
+    same steps apart on the card (``chip_smoke.py``'s fit phase swaps in a
+    fixed-order sum and gets equal bits); a fixed-order sum here is queued
+    in ROADMAP.md."""
+    b, t, _ = dlp.shape
+    dlogp = dlp.new_zeros((b, t, num_classes))
     return dlogp.scatter_add_(2, z.long()[:, None, :].expand_as(dlp), dlp)
 
 

@@ -16,8 +16,13 @@ Each wrapper launches its kernel for a CUDA tensor and runs its plain
 version for a CPU tensor; nothing else decides. x must be channels-last.
 K3b reads g channels-last or as contiguous NCHW, the layout the stem's
 backward hands it (the strided projection's backward writes NCHW), so
-neither wrapper copies; ``PoolBNReLU`` copies g only when it has another
-layout (``PoolBNReLU.grad_copies`` counts those copies).
+neither wrapper copies at C % 8 == 0; ``PoolBNReLU`` copies g only when it
+has another layout (``PoolBNReLU.grad_copies`` counts those copies). At any
+other C the kernels' TMA rows do not fit, and each wrapper hands its kernel
+channels-last copies of x (and g) zero-padded to the next multiple of 8,
+with scale and shift padded by 0: a padded channel is relu(0 * 0 + 0) = 0
+and gets no gradient, and the real channels' elements are read and
+computed as in an aligned call. The real channels are sliced back out.
 """
 
 from __future__ import annotations
@@ -28,7 +33,8 @@ import torch
 import torch.nn.functional as F
 
 from htr_vt_torch.ops.bn_stats import (_DTYPE_CODES, check_channels_last,
-                                       check_folded_terms)
+                                       check_folded_terms, pad_channels, pad_terms,
+                                       padded_channels, take_channels)
 
 # Column-sum partials K3b's first pass may write: one [2C] row per block,
 # added by csrc/stem_common.cuh:sum_partials.
@@ -102,7 +108,7 @@ def _check(fn: str, x: torch.Tensor, scale: torch.Tensor,
 def pool_bn_relu_fwd(x: torch.Tensor, scale: torch.Tensor,
                      shift: torch.Tensor) -> torch.Tensor:
     """``maxpool3x3_{(2,1)}(relu(T(x * scale + shift)))``: x [B, C, H, W]
-    channels-last (H even, C % 8 == 0), scale/shift float32 [C] ->
+    channels-last (H even, any C), scale/shift float32 [C] ->
     [B, C, H/2, W] channels-last in x.dtype.
 
     CUDA tensors launch K3f (``csrc/pool_fused.cu``) on the current stream
@@ -113,7 +119,10 @@ def pool_bn_relu_fwd(x: torch.Tensor, scale: torch.Tensor,
     if x.device.type != "cuda":
         raise ValueError(f"pool_bn_relu_fwd: no kernel for device {x.device}")
     _check("pool_bn_relu_fwd", x, scale, shift)
-    b, c, h, w = x.shape
+    b, c_real, h, w = x.shape
+    c = padded_channels(c_real)
+    if c != c_real:
+        x, scale, shift = pad_channels(x, c), pad_terms(scale, c), pad_terms(shift, c)
     from htr_vt_torch._build import check_launch, library
     y = torch.empty((b, c, h // 2, w), dtype=x.dtype, device=x.device,
                     memory_format=torch.channels_last)
@@ -124,7 +133,7 @@ def pool_bn_relu_fwd(x: torch.Tensor, scale: torch.Tensor,
             w, c, _DTYPE_CODES[x.dtype], stream)
     check_launch("pool_bn_relu_fwd", err)
     pool_bn_relu_fwd.launches += 1
-    return y
+    return y if c == c_real else take_channels(y, c_real)
 
 
 pool_bn_relu_fwd.launches = 0  # kernel launches; the CPU path never counts
@@ -141,8 +150,9 @@ def nchw_grad_ok(g: torch.Tensor) -> bool:
 def pool_bn_relu_bwd(g: torch.Tensor, x: torch.Tensor, scale: torch.Tensor,
                      shift: torch.Tensor) -> Tuple[torch.Tensor, ...]:
     """Backward of ``pool_bn_relu_fwd``: g [B, C, H/2, W] channels-last or
-    contiguous NCHW (``nchw_grad_ok``) and x as the forward's, of one dtype
-    -> (dx channels-last in x.dtype, dscale, dshift float32 [C]).
+    contiguous NCHW (``nchw_grad_ok``; at C % 8 != 0 any layout, as the
+    padded copy is made from it) and x as the forward's, of one dtype ->
+    (dx channels-last in x.dtype, dscale, dshift float32 [C]).
 
     CUDA tensors launch K3b (``csrc/pool_fused.cu``) on the current stream
     and add one to ``pool_bn_relu_bwd.launches``; CPU tensors run
@@ -156,6 +166,10 @@ def pool_bn_relu_bwd(g: torch.Tensor, x: torch.Tensor, scale: torch.Tensor,
     if tuple(g.shape) != (b, c, h // 2, w) or g.dtype != x.dtype or g.device != x.device:
         raise ValueError(f"pool_bn_relu_bwd: g must be {x.dtype} {(b, c, h // 2, w)} "
                          f"on {x.device}, got {g.dtype} {tuple(g.shape)} on {g.device}")
+    c_real, c = c, padded_channels(c)
+    if c != c_real:  # the padded copy of g is channels-last
+        g, x = pad_channels(g, c), pad_channels(x, c)
+        scale, shift = pad_terms(scale, c), pad_terms(shift, c)
     # A tensor that is both is laid out alike either way.
     g_nchw = not g.is_contiguous(memory_format=torch.channels_last)
     if g_nchw and not nchw_grad_ok(g):
@@ -178,7 +192,9 @@ def pool_bn_relu_bwd(g: torch.Tensor, x: torch.Tensor, scale: torch.Tensor,
             _DTYPE_CODES[x.dtype], stream)
     check_launch("pool_bn_relu_bwd", err)
     pool_bn_relu_bwd.launches += 1
-    return dx, out[0], out[1]
+    if c == c_real:
+        return dx, out[0], out[1]
+    return take_channels(dx, c_real), out[0, :c_real], out[1, :c_real]
 
 
 pool_bn_relu_bwd.launches = 0  # kernel launches; the CPU path never counts

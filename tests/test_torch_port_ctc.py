@@ -201,6 +201,25 @@ def test_grad_glue_sums_the_states_of_a_class():
     torch.testing.assert_close(got, want, rtol=1e-6, atol=1e-7)
 
 
+def test_fixed_order_class_sum_computes_the_class_sum():
+    """``chip_smoke.py``'s fit phase swaps ``ctc_cuda.class_sum`` for a
+    fixed-order one-hot product to isolate ``scatter_add_``'s atomics: the
+    same sums, within float32 rounding, and the glue's own sum back after
+    the block."""
+    import chip_smoke
+    rng = np.random.default_rng(0)
+    b, t, s, c = 3, 7, 9, 5
+    dlp = torch.from_numpy(rng.standard_normal((b, t, s)).astype(np.float32))
+    z = torch.from_numpy(rng.integers(0, c, (b, s)).astype(np.int32))
+    got = chip_smoke.fixed_order_class_sum(dlp, z, c)
+    assert got.dtype == torch.float32
+    torch.testing.assert_close(got, ctc_cuda.class_sum(dlp, z, c), rtol=1e-6, atol=1e-6)
+    own = ctc_cuda.class_sum
+    with chip_smoke.fixed_order_ctc():
+        assert ctc_cuda.class_sum is chip_smoke.fixed_order_class_sum
+    assert ctc_cuda.class_sum is own
+
+
 def test_cpu_tensors_never_count_a_launch():
     """On the CPU ``ctc_loss_auto`` is the plain loop and ``ctc_alpha`` the
     plain recursion; ``ctc_loss_cuda`` takes no CPU tensor."""

@@ -1,8 +1,8 @@
 """The shapes where the port's kernels once raised and JAX computes, on the
 CPU: K2 (``bn_stats``) at a channel count that is not a multiple of 8, the
 CTC recursions past 8192 states, K5 at head_dim 384, ``resolve_attn_impl``
-at every head_dim, and the stem widths that ``build_model`` refuses up
-front under the TMA-fed stem kernels.
+at every head_dim, and the TMA-fed stem kernels (K3/K4) at stem widths
+that are not multiples of 8, which their wrappers zero-pad.
 
 Each plain twin (the kernel's CPU path) is held against the JAX function:
 ``bn_stats(interpret=True)``, the JAX CTC scan, and the library Pallas
@@ -21,18 +21,32 @@ import torch
 from jax.experimental.pallas import tpu as pltpu
 from jax.experimental.pallas.ops.tpu.flash_attention import flash_attention as jax_flash
 
+from htr_vt_tpu import config as jconfig
 from htr_vt_tpu.config import ModelConfig
+from htr_vt_tpu.models import masking as jmasking
+from htr_vt_tpu.models.htr_vt import HTRVT as JaxHTRVT
+from htr_vt_tpu.optim.sam import make_base_optimizer
+from htr_vt_tpu.train.state import TrainState as JaxTrainState
+from htr_vt_tpu.train.step import jit_train_step
 from htr_vt_tpu.models import vit as jvit
 from htr_vt_tpu.ops.bn_stats import bn_stats as jax_bn_stats
 from htr_vt_tpu.ops.ctc import ctc_loss as jax_ctc_loss
+from htr_vt_torch.models import masking
 from htr_vt_torch.models import vit as tvit
-from htr_vt_torch.models.htr_vt import build_model
 from htr_vt_torch.ops import bn_stats as tbn
 from htr_vt_torch.ops import ctc as tctc
 from htr_vt_torch.ops import ctc_cuda
 from htr_vt_torch.ops import flash_attn as fa
-from test_torch_port_model import port_config
-from test_torch_stem_kernels import STATS_TOL, _pair
+from htr_vt_torch.optim.schedule import warmup_cosine_lr
+from htr_vt_torch.train.state import create_train_state
+from htr_vt_torch.train.step import train_step
+from htr_vt_torch.utils.convert import load_jax_train_state, model_to_jax_tree
+from test_torch_conv_fused import conv_interpret
+from test_torch_port_model import port_config, tiny_jax_weights
+from test_torch_port_train import BN_STATS_TOL, OPTIM, TRAIN_LOGITS_TOL
+from test_torch_port_train import TINY as TRAIN_TINY
+from test_torch_port_train import _batch, _keep, _leaves
+from test_torch_stem_kernels import STATS_TOL, _pair, pool_interpret
 
 # float32 log-space recursions and sums in other orders (as
 # tests/test_torch_port_ctc.py).
@@ -44,6 +58,9 @@ F32_TOL = dict(rtol=1e-5, atol=1e-5)
 BF16_RTOL, BF16_ATOL_OF_MAX, BF16_MIN_EQUAL = 2.0**-7, 2.0**-8, 0.99
 TINY = ModelConfig(nb_cls=8, img_size=(64, 128), embed_dim=64, depth=1,
                    num_heads=1, compute_dtype="float32")
+# The train tests' tiny model (64x64 px, 16 tokens) at embed_dim 100: stem
+# widths 25, 50 and 100, two heads of 50.
+TAIL_TINY = dataclasses.replace(TRAIN_TINY, embed_dim=100)
 
 
 # --- K2 at any C ----------------------------------------------------------------
@@ -197,19 +214,161 @@ def test_resolve_attn_impl_routes_every_head_dim_as_jax(impl, n, head_dim, monke
         assert fa.takes_head_dim(head_dim)
 
 
-# --- the TMA-fed stem kernels' widths ----------------------------------------------
-@pytest.mark.parametrize("switches", [dict(pool_impl="pallas"), dict(conv_impl="pallas"),
-                                      dict(bn_stats_impl="pallas", pool_impl="pallas",
-                                           conv_impl="pallas")])
-def test_build_model_refuses_a_pallas_stem_whose_widths_are_not_multiples_of_8(switches):
-    """embed_dim 100 gives stem widths 25, 50, 100: the K3/K4 kernels read
-    channels-last rows through TMA (16-byte strides, C % 8 == 0), so
-    build_model refuses the config up front, naming the limit and the
-    ROADMAP item. K2 alone takes any C, and embed 96 (24, 48, 96) builds."""
-    cfg = port_config(dataclasses.replace(TINY, embed_dim=100, **switches))
-    with pytest.raises(ValueError, match="multiple of 8.*ROADMAP.md queue 3, fault 3"):
-        build_model(cfg, device="cpu")
-    build_model(port_config(dataclasses.replace(TINY, embed_dim=100,
-                                                bn_stats_impl="pallas")), device="cpu")
-    build_model(port_config(dataclasses.replace(TINY, embed_dim=96, **switches)),
-                device="cpu")
+# --- the TMA-fed stem kernels at any width -------------------------------------
+TAIL_SWITCHES = {"pool_only": dict(pool_impl="pallas"), "conv_only": dict(conv_impl="pallas"),
+                 "fully_fused": dict(bn_stats_impl="pallas", pool_impl="pallas",
+                                     conv_impl="pallas")}
+
+
+@pytest.fixture(scope="module")
+def tail_weights():
+    return tiny_jax_weights(TAIL_TINY, seed=11)
+
+
+@pytest.mark.parametrize("switches", sorted(TAIL_SWITCHES))
+def test_pallas_stem_at_widths_off_multiples_of_8_matches_jax(tail_weights, switches):
+    """embed_dim 100 gives stem widths 25, 50 and 100, which K3/K4 take
+    through zero-padded copies (``ops/bn_stats.py:pad_channels``): the
+    port builds the model and its train forward (injected keep mask) and
+    one SAM step (masks A and B) match JAX's, whose pool and stride-1 conv
+    kernels run in interpret mode, at the bars of
+    tests/test_torch_port_train.py: logits TRAIN_LOGITS_TOL, moved BN
+    statistics BN_STATS_TOL, losses and gradient norm rtol 1e-4, BN
+    statistics after the step rtol 1e-3 atol 1e-4; parameters and EMA at
+    the one-step bars of tests/test_torch_flash_attn.py: Adam's first step
+    moves an element by +-lr wherever its gradient exceeds eps, so an
+    element whose gradient is float32 noise about zero may land up to 2 lr
+    apart: every element within 2 lr (plus 1%), and 99.8% of each leaf's
+    within 1% of lr, the key third of each qkv bias (exact gradient zero)
+    left out. Measured at this config: 1 to 4 elements of a stem conv
+    kernel's 5,000-90,000 flip."""
+    params, stats = tail_weights
+    cfg = dataclasses.replace(TAIL_TINY, **TAIL_SWITCHES[switches])
+    exp = jconfig.ExperimentConfig(model=cfg, optim=OPTIM)
+    batch, masks = _batch(6), [_keep(20), _keep(21)]
+    calls = []
+
+    def jax_mask(*args, **kwargs):
+        calls.append(len(calls))
+        return jnp.asarray(masks[(len(calls) - 1) % 2])
+
+    orig = jmasking.build_keep_mask
+    jmasking.build_keep_mask = jax_mask
+    try:
+        with pool_interpret(), conv_interpret():
+            want = jax.jit(lambda v, x: JaxHTRVT(cfg).apply(
+                v, x, train=True, use_masking=True, mutable=["batch_stats"],
+                rngs={"mask": jax.random.PRNGKey(0),
+                      "dropout": jax.random.PRNGKey(1)}))(
+                {"params": params, "batch_stats": stats}, jnp.asarray(batch["image"]))
+            tx = make_base_optimizer(OPTIM)
+            state = JaxTrainState(
+                step=jnp.zeros((), jnp.int32), params=params, batch_stats=stats,
+                opt_state=tx.init(params), ema_params=jax.tree.map(jnp.copy, params),
+                ema_batch_stats=jax.tree.map(jnp.copy, stats), rng=jax.random.PRNGKey(0))
+            state, jax_metrics = jit_train_step(JaxHTRVT(cfg), exp, donate=False)(
+                state, {k: jnp.asarray(v) for k, v in batch.items()})
+    finally:
+        jmasking.build_keep_mask = orig
+    assert len(calls) == 3  # the forward -> A; the step's two passes -> B, A
+
+    port = _tail_state(tail_weights, exp)
+    logits = port.model(torch.from_numpy(batch["image"]), train=True,
+                        keep=torch.from_numpy(masks[0]))
+    np.testing.assert_allclose(logits.detach().numpy(), np.asarray(want[0]),
+                               **TRAIN_LOGITS_TOL)
+    got_stats = _leaves(model_to_jax_tree(port.model)[1])
+    for k, w in _leaves(jax.tree.map(np.asarray, want[1]["batch_stats"])).items():
+        np.testing.assert_allclose(got_stats[k], w, **BN_STATS_TOL, err_msg=k)
+
+    lr = warmup_cosine_lr(0, max_lr=OPTIM.max_lr, warmup_iters=OPTIM.warmup_iters,
+                          total_iters=OPTIM.total_iters, min_lr=OPTIM.min_lr)
+    port = _tail_state(tail_weights, exp)
+    port_masks = iter([torch.from_numpy(masks[1]), torch.from_numpy(masks[0])])
+    orig = masking.build_keep_mask
+    masking.build_keep_mask = lambda *a, **k: next(port_masks)
+    try:
+        got_metrics = train_step(port, batch)
+    finally:
+        masking.build_keep_mask = orig
+    for key in ("loss", "loss_second", "grad_norm"):
+        np.testing.assert_allclose(float(got_metrics[key]), float(jax_metrics[key]),
+                                   rtol=1e-4, err_msg=key)
+    for model, p_tree, s_tree in ((port.model, state.params, state.batch_stats),
+                                  (port.ema_model, state.ema_params,
+                                   state.ema_batch_stats)):
+        got_p, got_s = (_leaves(t) for t in model_to_jax_tree(model))
+        want_p = _leaves(jax.tree.map(np.asarray, p_tree))
+        assert got_p.keys() == want_p.keys()
+        for key, w in want_p.items():
+            diff = np.abs(got_p[key] - w)
+            assert diff.max() < 2.01 * lr, key
+            if key.endswith("attn/qkv/bias"):
+                q_b, _, v_b = np.split(diff, 3)
+                diff = np.concatenate([q_b, v_b])
+            assert (diff < 0.01 * lr).mean() >= 0.998, (key, (diff < 0.01 * lr).mean())
+        for k, w in _leaves(jax.tree.map(np.asarray, s_tree)).items():
+            np.testing.assert_allclose(got_s[k], w, rtol=1e-3, atol=1e-4, err_msg=k)
+
+
+def _tail_state(weights, exp):
+    """A port TrainState at ``exp`` holding the JAX weights in the model and
+    its EMA copy."""
+    params, stats = weights
+    state = create_train_state(port_config(exp), "cpu", torch.Generator().manual_seed(0))
+    load_jax_train_state(state.model, state.ema_model, JaxTrainState(
+        step=0, params=params, batch_stats=stats, opt_state=None, ema_params=params,
+        ema_batch_stats=stats, rng=None))
+    return state
+
+
+@pytest.mark.parametrize("c", [12, 20, 25])
+def test_zero_padded_channels_leave_the_stem_twins_unchanged(c):
+    """What the K3/K4 wrappers do at C % 8 != 0, through the plain twins:
+    zero channels appended to x and g, zero scale and shift, zero weight
+    rows and columns change no real output, and slicing the real channels
+    back out gives the unpadded result (y and dx bit for bit; the float32
+    sums, where the CPU's vectorised reductions regroup over the wider
+    channel axis, at JAX's bar for them, 1e-5)."""
+    from htr_vt_torch.ops import conv_fused as cf
+    from htr_vt_torch.ops import pool_fused as pf
+    cp = tbn.padded_channels(c)
+    assert cp % 8 == 0 and 0 < cp - c < 8
+    gen = torch.Generator().manual_seed(c)
+    x = torch.randn((2, c, 6, 9), generator=gen).bfloat16().contiguous(
+        memory_format=torch.channels_last)
+    scale, shift = 1 + 0.2 * torch.randn(c, generator=gen), 0.2 * torch.randn(c, generator=gen)
+    k = (0.2 * torch.randn((c + 3, c, 3, 3), generator=gen)).bfloat16()
+    xp, sp, tp = tbn.pad_channels(x, cp), tbn.pad_terms(scale, cp), tbn.pad_terms(shift, cp)
+    assert xp.is_contiguous(memory_format=torch.channels_last) and not xp[:, c:].any()
+    assert torch.equal(tbn.take_channels(xp, c), x) and not sp[c:].any()
+    g = torch.randn((2, c, 3, 9), generator=gen).bfloat16()  # NCHW, as the step hands it
+    gp = tbn.pad_channels(g, cp)
+    want, got = (pf.max_pool_bn_relu_reference(x, scale, shift),
+                 pf.max_pool_bn_relu_reference(xp, sp, tp))
+    assert torch.equal(tbn.take_channels(got, c), want)
+    want, got = (pf.pool_bn_relu_bwd_reference(g, x, scale, shift),
+                 pf.pool_bn_relu_bwd_reference(gp, xp, sp, tp))
+    assert torch.equal(tbn.take_channels(got[0], c), want[0])
+    for w, gt in zip(want[1:], got[1:]):
+        torch.testing.assert_close(gt[:c], w, rtol=1e-5, atol=1e-5)
+        assert not gt[c:].any()
+    co, cop = c + 3, tbn.padded_channels(c + 3)
+    kp = cf._pad_weight(k, cop, cp)
+    assert kp.shape == (cop, cp, 3, 3) and torch.equal(kp[:co, :c], k)
+    gc = torch.randn((2, co, 6, 9), generator=gen).bfloat16().contiguous(
+        memory_format=torch.channels_last)
+    gcp = tbn.pad_channels(gc, cop)
+    torch.testing.assert_close(
+        tbn.take_channels(cf.conv3x3_bn_relu_reference(xp, kp, sp, tp), co),
+        cf.conv3x3_bn_relu_reference(x, k, scale, shift), rtol=0, atol=0)
+    want = cf.conv3x3_dgrad_reference(gc, k, x, scale, shift, True)
+    got = cf.conv3x3_dgrad_reference(gcp, kp, xp, sp, tp, True)
+    torch.testing.assert_close(tbn.take_channels(got[0], c), want[0], rtol=0, atol=0)
+    for w, gt in zip(want[1:], got[1:]):
+        torch.testing.assert_close(gt[:c], w, rtol=1e-5, atol=1e-5)
+        assert not gt[c:].any()
+    want = cf.conv3x3_wgrad_reference(x, gc, scale, shift, True)
+    got = cf.conv3x3_wgrad_reference(xp, gcp, sp, tp, True)
+    torch.testing.assert_close(got[:co, :c], want, rtol=1e-5, atol=1e-5)
+    assert not got[co:].any() and not got[:, c:].any()

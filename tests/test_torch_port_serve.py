@@ -106,6 +106,19 @@ def test_charset_follows_the_jax_serve_cli(tmp_path):
         sorted(set("hello worldZebra"))
 
 
+def test_charset_takes_the_loaders_vietnamese_switch():
+    """A checkpoint's data config with the Vietnamese charset gives the
+    converter the JAX loader's ``make_converter`` builds, through the
+    port's loader rule."""
+    from htr_vt_tpu.config import dataset_preset as jax_preset
+    from htr_vt_tpu.data.loader import make_converter as jax_make_converter
+    from htr_vt_torch.config import dataset_preset
+    data = dataclasses.replace(dataset_preset("SYNTH").data, vietnamese_charset=True)
+    want = jax_make_converter(dataclasses.replace(jax_preset("SYNTH").data,
+                                                  vietnamese_charset=True), None)
+    assert charset("SYNTH", data=data) == want.character[1:]
+
+
 def test_serve_main_writes_one_record_per_image(tmp_path, monkeypatch):
     """``main`` loads one batch of images at a time and writes what
     ``transcribe`` gives for them, in order (a tiny model in place of the

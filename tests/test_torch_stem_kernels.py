@@ -514,7 +514,30 @@ def test_port_imports_nothing_of_the_jax_package():
             elif isinstance(node, ast.ImportFrom) and node.level == 0:
                 names = [node.module or ""]
             found += [f"{path.relative_to(REPO)}:{node.lineno} {n}" for n in names
-                      if n.split(".")[0] in ("htr_vt_tpu", "jax", "flax", "optax")]
+                      if n.split(".")[0] in ("htr_vt_tpu", "jax", "flax", "optax",
+                                             "orbax")]
+    assert not found, found
+
+
+def test_port_imports_cv2_and_pil_only_inside_functions():
+    """The card's machine has neither: a module that imports cv2 or PIL
+    outside a function (at module level, or in a class body) would not
+    import there."""
+    found = []
+    for path in _port_sources():
+        tree = ast.parse(path.read_text(), str(path))
+        inside = set()
+        for fn in ast.walk(tree):
+            if isinstance(fn, (ast.FunctionDef, ast.AsyncFunctionDef)):
+                inside.update(id(n) for n in ast.walk(fn))
+        for node in ast.walk(tree):
+            names = []
+            if isinstance(node, ast.Import):
+                names = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom) and node.level == 0:
+                names = [node.module or ""]
+            found += [f"{path.relative_to(REPO)}:{node.lineno} {n}" for n in names
+                      if n.split(".")[0] in ("cv2", "PIL") and id(node) not in inside]
     assert not found, found
 
 
