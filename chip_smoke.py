@@ -118,19 +118,35 @@ non-zero before the last line:
    steps, evaluating the EMA model and checkpointing every 3; its kernel
    launches must be exactly 6 SAM steps' and 2 x 2 eval batches'. Then a
    3-step run with an auto-resume to 6 in another run directory, held to
-   it in default mode at stated bars (``FIT_LOSS_REL``, ``FIT_STATE_L2``,
-   ``FIT_LEAF_SHARE``); under ``torch.use_deterministic_algorithms`` the
-   same pair held bit for bit (losses, model, EMA, AdamW, step,
-   generator), and the default-mode run held against it at the bars; in
-   default mode with only the CTC class sum in a fixed order
-   (``fixed_order_class_sum``) the pair again bit for bit, which names
-   ``scatter_add_``'s atomics in the CTC glue as the op that keeps
-   default-mode runs apart; best_CER served through
-   ``cli/serve.py:load_serving_model``, its frame argmax equal to
-   ``eval_step`` on the restored EMA model; img/s
-   from the loop's ``StepTimer``, checkpoint save and restore ms, peak
-   memory. The checkpoints live in a temporary directory under the
-   git-ignored ``build/``, removed at the end.
+   it in default mode bit for bit (losses, model, EMA, AdamW, step,
+   generator: the CTC class sum runs in a fixed order); under
+   ``torch.use_deterministic_algorithms`` the same pair held bit for bit,
+   and the default-mode run held against it at stated bars
+   (``FIT_LOSS_REL``, ``FIT_STATE_L2``, ``FIT_LEAF_SHARE``); best_CER
+   served through ``cli/serve.py:load_serving_model``, its frame argmax
+   equal to ``eval_step`` on the restored EMA model; img/s from the loop's
+   ``StepTimer``, checkpoint save and restore ms, peak memory. The
+   checkpoints live in a temporary directory under the git-ignored
+   ``build/``, removed at the end.
+15. zoo serve: each block recipe of ``models/variants.py`` (window,
+   macaron, macaron_2, localglobal, lgp, lgp_svtr, conformer,
+   squeezeformer) at the flagship width (embed 768, heads 6, 64x512, bf16,
+   its preset depth), fully fused, seeded weights: one counted
+   ``eval_step`` at bs 128 (1 alpha, 1 K3f, 9 K4f) against the same weights
+   on the stock ops (``attn_impl="xla"``, stock stem) and in float32: frame
+   argmax >= 99% of the float32 one on the frames whose float32 margin the
+   stock ops' own bf16 rounding cannot cross (``_zoo_case``), and its
+   ``eval_step`` ms and img/s; conformer and
+   localglobal again at 2048 px (N = 512), where their global blocks take
+   K5f (4 and 2 a call).
+16. sgm mms train: ``model_sgm_mms_conv`` (conformer, the SGM head, the
+   tri-masked trainer: random .30 / block .20 / span_old .20 forwards a
+   pass) at the flagship width, fully fused, SAM + AdamW at bs 128: each
+   step launches three times a single-mask step's kernels (K1a/K1b 6, K2
+   96, K3f/K3b 6, K4f/K4d/K4w 54); losses, ``loss_sgm``, ``loss_ctc`` and
+   the gradient norm finite; ms/step, img/s and peak memory. Then two
+   steps at 64x1024 px (bs 64, N = 256): K5f, K5dkv and K5dq 24 each a
+   step (4 blocks x 3 forwards x 2 passes).
 
 Kernel times (phases 2, 3, 4 and 11) are read two ways: ``median_ms``, one
 wrapper call between two CUDA events (host work in the wrapper included;
@@ -166,9 +182,12 @@ from htr_vt_torch import (CTCLabelConverter, ExperimentConfig,  # noqa: E402
                           MaskConfig, ModelConfig, OptimConfig, _build)
 from htr_vt_torch.cli.serve import (load_serving_model, transcribe,  # noqa: E402
                                     transcribe_buckets)
-from htr_vt_torch.config import AugmentConfig, DataConfig, TrainConfig  # noqa: E402
+from htr_vt_torch.config import (AugmentConfig, DataConfig, SGMConfig,  # noqa: E402
+                                 TrainConfig)
 from htr_vt_torch.eval.validate import validate  # noqa: E402
 from htr_vt_torch.models.htr_vt import build_model  # noqa: E402
+from htr_vt_torch.models.sgm import SGMVocab, make_context_arrays  # noqa: E402
+from htr_vt_torch.models.variants import apply_variant_preset  # noqa: E402
 import torch.nn.functional as F  # noqa: E402
 
 from htr_vt_torch.ops import (conv_fused, ctc_cuda, flash_attn,  # noqa: E402
@@ -189,8 +208,8 @@ SERVE_LMAX = 8  # serve.py's dummy labels: S = 17
 # the gather and the order of the three-way logaddexp terms may round apart.
 ALPHA_RTOL, ALPHA_ATOL, LOSS_RTOL = 1e-5, 1e-4, 1e-5
 # d logits through the kernels against the same backward glue over the
-# plain recursions: only scatter_add_'s atomics sum the states of a class in
-# another order.
+# plain recursions: alpha and beta within their bars above, the glue (its
+# class sum in a fixed order) the same code on both sides.
 GRAD_RTOL, GRAD_ATOL = 1e-4, 1e-5
 # ... and against autograd through the plain loop, an independent route. The
 # glue's posterior exp(alpha + beta - total) is a difference of float32
@@ -313,32 +332,44 @@ TAIL_CHANNELS = (12, 20, 25)
 # steps, eval cadence and print cadence, and the split run's first leg.
 FIT_LINES = (1024, 256)
 FIT_STEPS, FIT_EVAL, FIT_PRINT, FIT_SPLIT = 6, 3, 3, 3
-# Two default-mode runs on the card need not give equal bits: the CTC
-# gradient's glue sums each class's states with scatter_add_'s float atomics
-# (ops/ctc_cuda.py:class_sum), in no fixed order, and cuDNN may take
-# nondeterministic backward algorithms for the convs the stem kernels leave
-# to it. Under torch.use_deterministic_algorithms both take deterministic
-# routes (and cuBLAS asks for this workspace setting), and the resume is held
-# bit for bit.
+# The CTC gradient's glue sums each class's states in a fixed order
+# (ops/ctc_cuda.py:class_sum), so two default-mode runs of the same steps
+# give equal bits, and the resume is held bit for bit. Under
+# torch.use_deterministic_algorithms (with the cuBLAS workspace setting it
+# asks for) the pair is held bit for bit too, and against the default-mode
+# run, whose cuDNN algorithms are other ones, at the bars below.
 CUBLAS_DETERMINISTIC = ":4096:8"
-# A default-mode run (the way fit runs) held against another run of the same
-# steps, at about 4x the largest reading on the H100 (PERF.md section 6;
-# ten comparisons, four with the L2 norms): each pass-1 loss's relative gap
-# (read up to 5.95e-4);
-# for the model, the EMA model and the AdamW moments the L2 norm of the gap
-# over the L2 norm of the state (read up to 6.0e-4, 5.2e-4 and 0.24: six
-# warm-up steps carry a few ulps of the CTC sum into the moments that far);
-# and each leaf's largest |gap| over its largest |value| (read up to 1.9: a
-# leaf whose exact gradient is zero, such as the attention's key bias, gets
-# rounding noise that AdamW scales to full-size steps). These catch a gross
-# fault only; the resume is held bit for bit under deterministic algorithms
-# and with the CTC class sum in a fixed order.
+# The default-mode run against the deterministic one, at about 4x the
+# largest reading on the H100 (PERF.md section 6): each pass-1 loss's
+# relative gap (read up to 5.95e-4); for the model, the EMA model and the
+# AdamW moments the L2 norm of the gap over the L2 norm of the state (read
+# up to 6.0e-4, 5.2e-4 and 0.24: six warm-up steps carry a few ulps into the
+# moments that far); and each leaf's largest |gap| over its largest |value|
+# (read up to 1.9: a leaf whose exact gradient is zero, such as the
+# attention's key bias, gets rounding noise that AdamW scales to full-size
+# steps). These catch a gross fault only.
 FIT_LOSS_REL, FIT_LEAF_SHARE = 2e-3, 4.0
 FIT_STATE_L2 = {"model": 2.5e-3, "ema_model": 2.5e-3, "adamw": 1.0}
+# The block recipes of htr_vt_torch/models/variants.py at the flagship width
+# (each with its preset depth), served fully fused against the stock ops;
+# the two whose global blocks take K5 at 2048 px (N = 512) with their count
+# of K5f launches per eval_step (conformer: 4 blocks; localglobal: blocks 2
+# and 3).
+ZOO_RECIPES = ("window", "macaron", "macaron_2", "localglobal", "lgp", "lgp_svtr",
+               "conformer", "squeezeformer")
+ZOO_WIDE = {"conformer": 4, "localglobal": 2}
+STOCK_OPS = dict(attn_impl="xla", conv_impl="auto", pool_impl="auto", bn_stats_impl="auto")
+# The tri-masked MMS trainer (model_sgm_mms_conv: conformer, SGM on): the
+# forwards a SAM pass runs, its steps at bs 128 (warm-up, timed) and at
+# 64x1024 px (bs 64, N = 256, where K5 runs in training: 4 blocks a forward).
+TRI_FORWARDS = 3
+SGM_WARMUP, SGM_STEPS, SGM_WIDE_STEPS = 1, 3, 2
+SGM_SUB_LEN = 5
 
 
-def per_step_launches(switches):
-    """Launches of each kernel per SAM train step with the stem switches."""
+def per_step_launches(switches, forwards=1):
+    """Launches of each kernel per SAM train step with the stem switches;
+    ``forwards`` masked forwards a pass (3 for the tri-masked trainer)."""
     want = {"ctc_alpha": 2, "ctc_beta": 2}
     if switches.get("bn_stats_impl") == "pallas":
         want["bn_stats"] = 32  # every BN of the stem, both passes
@@ -347,7 +378,7 @@ def per_step_launches(switches):
     if switches.get("conv_impl") == "pallas":  # 9 stride-1 convs a forward
         want.update(conv3x3_bn_relu_fwd=18, conv3x3_bn_relu_dgrad=18,
                     conv3x3_bn_relu_wgrad=18)
-    return want
+    return {k: n * forwards for k, n in want.items()}
 
 
 def per_eval_launches(switches):
@@ -2046,6 +2077,215 @@ def phase_wide_train(device):
 
 
 # ---------------------------------------------------------------------------
+def zoo_batch(n, width, rng, device):
+    """n line images at ``width`` px with labels of length 1-96."""
+    labels = rng.integers(1, ModelConfig().nb_cls, (n, LMAX)).astype(np.int32)
+    lengths = rng.integers(1, LMAX + 1, n).astype(np.int32)
+    labels[np.arange(LMAX)[None] >= lengths[:, None]] = 0
+    put = lambda a: torch.from_numpy(a).to(device)  # noqa: E731
+    return {"image": put(line_images(n, rng, width)), "labels": put(labels),
+            "label_lengths": put(lengths)}
+
+
+def _zoo_case(name, model, stock, ref32, batch, want, tag):
+    """One recipe at one width: the fully fused model's counted eval_step
+    against the stock-ops model on the same weights, then its eval_step
+    time. Random weights leave many frames with a top-2 margin under the
+    stock ops' own bf16 rounding (their frame argmax against float32 read
+    96.5-99.97% over the recipes, PERF.md section 6), so the fully fused
+    serve phase's floor, MIN_ARGMAX_AGREEMENT of the frames, is held
+    against the float32 argmax on the frames whose float32 margin is at
+    least twice the stock bf16 model's largest logit error: there the
+    stock ops cannot flip it, and a flip means a larger error than theirs."""
+    reset_counts()
+    out = eval_step(model, batch)
+    torch.cuda.synchronize()
+    counts = read_counts()
+    if counts != {**dict.fromkeys(COUNTERS, 0), **want}:
+        raise AssertionError(f"[{tag}] {name}: eval_step launched {counts}; expected "
+                             f"{want}")
+    logits = out["logits"]
+    with torch.inference_mode():
+        rl, r32 = stock(batch["image"]), ref32(batch["image"])
+    if logits.shape != rl.shape or not torch.isfinite(logits).all() or \
+            not torch.isfinite(out["loss_per_sample"]).all():
+        raise AssertionError(f"[{tag}] {name}: logits {tuple(logits.shape)} / "
+                             f"{tuple(rl.shape)}, finite {bool(torch.isfinite(logits).all())}")
+    dmax = (logits - rl).abs().max().item()
+    agree = (logits.argmax(-1) == rl.argmax(-1)).float().mean().item()
+    stock_err = (rl - r32).abs().max().item()
+    top2 = r32.topk(2, dim=-1).values
+    decidable = (top2[..., 0] - top2[..., 1]) >= 2 * stock_err
+    want_ids = r32.argmax(-1)[decidable]
+    held = (logits.argmax(-1)[decidable] == want_ids).float().mean().item()
+    stock_held = (rl.argmax(-1)[decidable] == want_ids).float().mean().item()
+    stock_f32 = (rl.argmax(-1) == r32.argmax(-1)).float().mean().item()
+    ms = median_ms(lambda: eval_step(model, batch), 10)
+    rec = dict(eval_ms=ms, img_s=BATCH / ms * 1e3, max_dlogits=dmax,
+               argmax_agreement=agree, stock_vs_f32_agreement=stock_f32,
+               decidable_share=decidable.float().mean().item(),
+               decidable_agreement=held, launches=counts,
+               loss=out["loss"].item(), frames=logits.shape[1])
+    say(f"[{tag}] {name}: eval_step {ms:.3f} ms ({rec['img_s']:.1f} img/s) at "
+        f"{batch['image'].shape[2]} px, {logits.shape[1]} frames; vs the stock ops "
+        f"(attn_impl=xla, stock stem) on the same weights: max |dlogits| {dmax:.4f}, "
+        f"frame argmax agreement {agree:.4%} (the stock ops' bf16 vs their float32: "
+        f"{stock_f32:.4%}, largest logit error {stock_err:.4f}); on the "
+        f"{rec['decidable_share']:.2%} of frames whose float32 margin is at least "
+        f"{2 * stock_err:.4f}: fully fused {held:.4%}, stock {stock_held:.4%} of the "
+        f"float32 argmax (floor {MIN_ARGMAX_AGREEMENT:.0%}); launches {counts}")
+    if held < MIN_ARGMAX_AGREEMENT or not decidable.any():
+        raise AssertionError(f"[{tag}] {name}: argmax agreement {held:.4%} on the "
+                             f"decidable frames, below {MIN_ARGMAX_AGREEMENT:.0%}")
+    return counts, rec
+
+
+def phase_zoo_serve(device, smi_line):
+    """Every block recipe at the flagship width with its preset depth, fully
+    fused, seeded weights: eval_step at bs 128 and 512 px against the same
+    weights on the stock ops; conformer and localglobal again at 2048 px,
+    where their global blocks take K5f."""
+    rng = np.random.default_rng(SEED + 40)
+    batch = zoo_batch(BATCH, 512, rng, device)
+    wide = zoo_batch(BATCH, 2048, rng, device)
+    launches = dict.fromkeys(COUNTERS, 0)
+    rec = {}
+    for i, name in enumerate(ZOO_RECIPES):
+        cfg = apply_variant_preset(ModelConfig(encoder=name, **FULLY_FUSED))
+        model = build_model(cfg, device=device,
+                            generator=torch.Generator(device=device).manual_seed(SEED + i))
+        stock = build_model(dataclasses.replace(cfg, **STOCK_OPS), device=device)
+        stock.load_state_dict(model.state_dict(), strict=True)
+        ref32 = build_model(dataclasses.replace(cfg, compute_dtype="float32", **STOCK_OPS),
+                            device=device)
+        ref32.load_state_dict(model.state_dict(), strict=True)
+        n_params = sum(p.numel() for p in model.parameters())
+        say(f"[zoo serve] {name}: embed {cfg.embed_dim}, heads {cfg.num_heads}, depth "
+            f"{cfg.depth}, blocks {model.block_names}, {n_params} parameters, "
+            f"{cfg.compute_dtype}, fully fused stem")
+        counts, rec[name] = _zoo_case(name, model, stock, ref32, batch,
+                                      per_eval_launches(FULLY_FUSED), "zoo serve")
+        if name in ZOO_WIDE:
+            want = {**per_eval_launches(FULLY_FUSED),
+                    "flash_attention_fwd": ZOO_WIDE[name]}
+            wide_counts, rec[f"{name}_2048"] = _zoo_case(name, model, stock, ref32, wide,
+                                                         want, "zoo serve 2048")
+            counts = {k: counts[k] + wide_counts[k] for k in counts}
+        launches = {k: launches[k] + counts[k] for k in launches}
+        del model, stock, ref32
+    torch.cuda.empty_cache()
+    say(f"[zoo serve] {len(ZOO_RECIPES)} recipes, launches {launches}; {smi_line}")
+    return launches, rec
+
+
+def sgm_batch(n, width, lmax, vocab, rng, device):
+    """``zoo_batch``-like lines whose texts (of length 1 to ``lmax``) give
+    the CTC labels and the SGM context windows."""
+    alphabet = vocab.itos[1:ModelConfig().nb_cls]
+    lengths = rng.integers(1, lmax + 1, n)
+    texts = ["".join(alphabet[j] for j in rng.integers(0, len(alphabet), m))
+             for m in lengths]
+    labels = np.zeros((n, lmax), np.int32)
+    for i, t in enumerate(texts):
+        labels[i, :len(t)] = [vocab.stoi[c] for c in t]
+    arrays = make_context_arrays(texts, vocab, lmax, SGM_SUB_LEN)
+    put = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(device)  # noqa: E731
+    return {"image": put(line_images(n, rng, width)), "labels": put(labels),
+            "label_lengths": put(lengths.astype(np.int32)),
+            **{k: put(v) for k, v in arrays.items()}}
+
+
+def _sgm_steps(state, batch, n, per_step, tag):
+    """``n`` counted tri-masked SAM steps: each launch count held per step,
+    the step's CUDA-event time, its metrics finite."""
+    times, metrics = [], []
+    for _ in range(n):
+        before = read_counts()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        m = train_step(state, batch)
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+        after = read_counts()
+        step = {k: after[k] - before[k] for k in after}
+        if step != {**dict.fromkeys(COUNTERS, 0), **per_step}:
+            raise AssertionError(f"[{tag}] a tri-masked step launched {step}; expected "
+                                 f"{per_step}")
+        metrics.append({k: v.item() for k, v in m.items()})
+        if not all(math.isfinite(v) for v in metrics[-1].values()) or \
+                {"loss_sgm", "loss_ctc"} - set(metrics[-1]):
+            raise AssertionError(f"[{tag}] metrics {metrics[-1]}")
+    return times, metrics
+
+
+def phase_sgm_mms_train(device, smi_line):
+    """model_sgm_mms_conv at the flagship width, fully fused: the conformer
+    recipe with the SGM head and the tri-masked trainer, SAM + AdamW at bs
+    128 (three masked forwards a pass, six per step), then at 64x1024 px
+    (bs 64, N = 256), where its 4 blocks' attention takes K5 in training."""
+    vocab = SGMVocab(CTCLabelConverter([chr(c) for c in range(33, 33 + 79)]))
+    model_cfg = apply_variant_preset(ModelConfig(
+        encoder="conformer", masking=MaskConfig(mode="mms", max_span_length=8),
+        sgm=SGMConfig(enable=True, vocab_size=vocab.size, sub_len=SGM_SUB_LEN),
+        **FULLY_FUSED))
+    cfg = ExperimentConfig(model=model_cfg, optim=OptimConfig(),
+                           train=TrainConfig(tri_masked=True))
+    state = create_train_state(cfg, device,
+                               torch.Generator(device=device).manual_seed(SEED + 50))
+    rng = np.random.default_rng(SEED + 51)
+    batch = sgm_batch(BATCH, 512, LMAX, vocab, rng, device)
+    per_step = per_step_launches(FULLY_FUSED, TRI_FORWARDS)
+    n_params = sum(p.numel() for p in state.model.parameters())
+    say(f"[sgm mms train] conformer, embed {model_cfg.embed_dim}, depth "
+        f"{model_cfg.depth}, heads {model_cfg.num_heads}, SGM head (vocab {vocab.size}, "
+        f"sub_len {SGM_SUB_LEN}, ctc_lambda {model_cfg.sgm.ctc_lambda}, sgm_lambda "
+        f"{model_cfg.sgm.sgm_lambda}), tri-masked ({TRI_FORWARDS} forwards a pass), "
+        f"fully fused stem, SAM + AdamW, bs {BATCH}, labels of 1-{LMAX}; "
+        f"{n_params} parameters")
+
+    # --- the main path, counted ------------------------------------------
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    times, metrics = _sgm_steps(state, batch, SGM_WARMUP + SGM_STEPS, per_step,
+                                "sgm mms train")
+    peak = torch.cuda.max_memory_allocated()
+    ms = statistics.median(times[SGM_WARMUP:])
+    rec = {512: dict(ms=ms, img_s=BATCH / ms * 1e3, first_ms=times[0],
+                     peak_mib=peak / 2**20, metrics=metrics)}
+    say(f"[sgm mms train] {SGM_STEPS} steps after {SGM_WARMUP} warm-up: median "
+        f"{ms:.3f} ms/step ({BATCH / ms * 1e3:.1f} img/s; first {times[0]:.3f}), "
+        f"peak memory {peak / 2**20:.1f} MiB; launches per step {per_step}; loss "
+        + " ".join(f"{m['loss']:.4f}" for m in metrics) + "; loss_sgm "
+        + " ".join(f"{m['loss_sgm']:.4f}" for m in metrics) + "; loss_ctc "
+        + " ".join(f"{m['loss_ctc']:.4f}" for m in metrics) + "; grad_norm "
+        + " ".join(f"{m['grad_norm']:.4f}" for m in metrics) + f"; {smi_line}")
+
+    # --- at 64x1024 px: K5 in the conformer's attention -------------------
+    wide = sgm_batch(WIDE_BATCH, 1024, WIDE_LMAX[1024], vocab, rng, device)
+    k5 = model_cfg.depth * TRI_FORWARDS * 2
+    per_wide = {**per_step, "flash_attention_fwd": k5, "flash_attention_bwd_dkv": k5,
+                "flash_attention_bwd_dq": k5}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    wtimes, wmetrics = _sgm_steps(state, wide, SGM_WIDE_STEPS, per_wide,
+                                  "sgm mms train 1024")
+    wpeak = torch.cuda.max_memory_allocated()
+    rec[1024] = dict(ms=wtimes[-1], img_s=WIDE_BATCH / wtimes[-1] * 1e3,
+                     first_ms=wtimes[0], peak_mib=wpeak / 2**20, metrics=wmetrics)
+    launches = read_counts()
+    say(f"[sgm mms train 1024] bs {WIDE_BATCH}, N 256: {SGM_WIDE_STEPS} steps, the "
+        f"second {wtimes[-1]:.3f} ms ({rec[1024]['img_s']:.1f} img/s; first "
+        f"{wtimes[0]:.3f}), peak memory {wpeak / 2**20:.1f} MiB; launches per step "
+        f"{per_wide}; loss " + " ".join(f"{m['loss']:.4f}" for m in wmetrics)
+        + "; loss_sgm " + " ".join(f"{m['loss_sgm']:.4f}" for m in wmetrics))
+    del state
+    torch.cuda.empty_cache()
+    return launches, rec
+
+
 class LineSet:
     """Seeded in-memory lines for ``fit`` on a machine that cannot render or
     read line images (no cv2, no PIL): uint8 [64, 512] "handwriting"
@@ -2130,14 +2370,6 @@ def _train_resumed(tmp, name, datasets, device):
     return first + resumed, state
 
 
-def fixed_order_class_sum(dlp, z, num_classes):
-    """``ctc_cuda.class_sum`` in a fixed order: the states' gradients times
-    their classes' one-hot rows, one float64 batched GEMM (each class's
-    states added in the same order every run), rounded to float32."""
-    onehot = F.one_hot(z.long(), num_classes).to(torch.float64)  # [B, S, C]
-    return torch.bmm(dlp.double(), onehot).float()
-
-
 class deterministic_algorithms:
     """``torch.use_deterministic_algorithms(True)`` inside the block, with
     the cuBLAS workspace setting it asks for (read at each call), restored
@@ -2154,20 +2386,6 @@ class deterministic_algorithms:
             del os.environ["CUBLAS_WORKSPACE_CONFIG"]
         else:
             os.environ["CUBLAS_WORKSPACE_CONFIG"] = self._env
-
-
-class fixed_order_ctc:
-    """Inside the block the CTC glue's class sum is ``fixed_order_class_sum``;
-    nothing else changes."""
-
-    def __enter__(self):
-        ctc_cuda.class_sum = fixed_order_class_sum
-
-    def __exit__(self, *exc):
-        ctc_cuda.class_sum = CLASS_SUM
-
-
-CLASS_SUM = ctc_cuda.class_sum
 
 
 def compare_states(got, want, got_losses, want_losses):
@@ -2228,12 +2446,12 @@ def phase_fit(device, smi_line):
     """``htr_vt_torch.train.loop.fit`` at the flagship's full width with the
     fully fused stem: 6 steps uninterrupted (kernel launches counted, img/s,
     peak memory); in default mode, "train 3, resume, train 3" held against
-    it at FIT_LOSS_REL, FIT_STATE_L2 and FIT_LEAF_SHARE; under deterministic algorithms,
-    "train 6" and "train 3, resume, train 3" held bit for bit, and the
-    default-mode run held against them at the bars; in default mode with
-    only the CTC class sum in a fixed order, "train 6" against "train 3,
-    resume, train 3"; best_CER served through ``cli/serve.py``'s checkpoint
-    route."""
+    it bit for bit (the CTC class sum runs in a fixed order); under
+    deterministic algorithms, "train 6" and "train 3, resume, train 3" held
+    bit for bit, and the default-mode run held against them at
+    FIT_LOSS_REL, FIT_STATE_L2 and FIT_LEAF_SHARE (cuDNN's default
+    algorithms are other ones); best_CER served through ``cli/serve.py``'s
+    checkpoint route."""
     alphabet = [chr(c) for c in range(33, 33 + ModelConfig().nb_cls - 1)]
     train_ds, val_ds = (LineSet(n, alphabet, SEED + 20 + i) for i, n in enumerate(FIT_LINES))
     datasets = (train_ds, val_ds)
@@ -2290,8 +2508,8 @@ def phase_fit(device, smi_line):
         say(f"[fit] default mode: train {FIT_SPLIT}, resume (auto), train "
             f"{FIT_STEPS - FIT_SPLIT}: pass-1 losses "
             + " ".join(f"{v:.4f}" for v in split_losses) + " against the uninterrupted "
-            f"run's: {'bit-equal' if resume['bit_equal'] else 'not bit-equal'}; "
-            f"{gaps(resume)}; {bars}")
+            "run's: " + ("bit-equal (losses, model, EMA, AdamW, step, generator)"
+                         if resume["bit_equal"] else f"NOT bit-equal: {gaps(resume)}"))
 
         # --- deterministic algorithms: train 6; train 3, resume, train 3 -------
         with deterministic_algorithms():
@@ -2306,34 +2524,17 @@ def phase_fit(device, smi_line):
             + " ".join(f"{v:.4f}" for v in det_losses) + ": "
             + ("bit-equal (losses, model, EMA, AdamW, step, generator)"
                if held["bit_equal"] else f"NOT bit-equal: {held}")
-            + f"; the default-mode run against the deterministic one: {gaps(default_det)}")
+            + f"; the default-mode run against the deterministic one: {gaps(default_det)}"
+            f"; {bars}")
         del det_state, det_split_state
 
-        # --- default mode, only the CTC class sum in a fixed order -------------
-        with fixed_order_ctc():
-            fixed_losses, fixed_state = _train(tmp, "fixed", datasets, device)
-            fixed_split_losses, fixed_split_state = _train_resumed(tmp, "fixed_split",
-                                                                   datasets, device)
-        fixed = compare_states(fixed_split_state, fixed_state, fixed_split_losses,
-                               fixed_losses)
-        del fixed_state, fixed_split_state
-        say(f"[fit] default mode with only the CTC class sum in a fixed order "
-            f"(ops/ctc_cuda.py:class_sum as one float64 one-hot GEMM): train {FIT_STEPS} "
-            f"against train {FIT_SPLIT}, resume, train {FIT_STEPS - FIT_SPLIT}: "
-            + ("bit-equal (losses, model, EMA, AdamW, step, generator): scatter_add_'s "
-               "atomics are what keep default-mode runs apart; cuDNN's default "
-               "algorithms reproduce" if fixed["bit_equal"] else
-               f"not bit-equal, so more than scatter_add_ differs: {gaps(fixed)}"))
         if not held["bit_equal"]:
             raise AssertionError(f"[fit] the deterministic resumed run differs: {held}")
-        if not fixed["bit_equal"]:
-            raise AssertionError("[fit] with the CTC class sum in a fixed order the resumed "
-                                 f"run differs: {fixed}")
-        for name, cmp in (("default-mode resume", resume),
-                          ("default-mode run against the deterministic one", default_det)):
-            if not within_bars(cmp):
-                raise AssertionError(f"[fit] the {name} is outside the bars ({bars}): "
-                                     f"{cmp}")
+        if not resume["bit_equal"]:
+            raise AssertionError(f"[fit] the default-mode resumed run differs: {resume}")
+        if not within_bars(default_det):
+            raise AssertionError("[fit] the default-mode run against the deterministic "
+                                 f"one is outside the bars ({bars}): {default_det}")
 
         # --- save and restore times; best_CER through the serve route ------------
         template = create_train_state(_fit_cfg(tmp, "t", FIT_STEPS), device,
@@ -2368,10 +2569,8 @@ def phase_fit(device, smi_line):
     return launches, dict(losses=full_losses, resumed_losses=split_losses,
                           deterministic_losses=det_losses,
                           deterministic_resumed_losses=det_split_losses,
-                          fixed_order_ctc_losses=fixed_losses,
-                          fixed_order_ctc_resumed_losses=fixed_split_losses,
                           default_resume=resume, deterministic_resume=held,
-                          default_vs_deterministic=default_det, fixed_order_ctc=fixed,
+                          default_vs_deterministic=default_det,
                           loss_rel_bar=FIT_LOSS_REL, state_l2_bar=FIT_STATE_L2,
                           leaf_share_bar=FIT_LEAF_SHARE,
                           imgs_per_sec=rates, peak=peak, wall_s=wall, save_ms=save_ms,
@@ -2400,9 +2599,12 @@ def main():
                                    "fully fused train")
     wide_train, wide_rec = phase_wide_train(device)
     fit_launches, fit_rec = phase_fit(device, smi_line)
+    zoo_launches, zoo_rec = phase_zoo_serve(device, smi_line)
+    sgm_launches, sgm_rec = phase_sgm_mms_train(device, smi_line)
     say(f"[done] build {build_s:.2f} s; {smi_line}")
     main_path = {k: fused_serve[k] + full_serve[k] + fused_train[k] + full_train[k]
                  + train_launches[k] + bucket_serve[k] + wide_train[k] + fit_launches[k]
+                 + zoo_launches[k] + sgm_launches[k]
                  for k in COUNTERS}
     main_path["ctc_alpha"] += serve_launches
     k193, k17 = kernels["S193"], kernels["S17"]
@@ -2539,7 +2741,8 @@ def main():
                     "stock_first_loss": train["first_loss"],
                     "conv_grad_copies": full["conv_grad_copies"],
                     "pool_grad_copies": fused["grad_copies"] + full["grad_copies"],
-                    "fully_fused_serve": full_serve_rec, "fit": fit_rec}))
+                    "fully_fused_serve": full_serve_rec, "fit": fit_rec,
+                    "zoo_serve": zoo_rec, "sgm_mms_train": sgm_rec}))
     say(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -7,10 +7,11 @@ like the upstream ``python3 train.py ... IAM`` form.
 
 The port's own copy of ``htr_vt_tpu/cli/args.py``, held to it recipe by
 recipe by ``tests/test_torch_port_cli.py``, with three changes: the encoder
-names and the variant presets are copied here (their JAX modules import
-flax and jax), every flag parses as in JAX while ``build_model`` refuses
-the encoders the port does not have yet, and ``--device`` (default
-``cuda``) picks the device the entry points run on.
+names and the variant presets come from the port's own registry and
+recipes (``models/registry.py``, ``models/variants.py``), every flag parses
+as in JAX while ``build_model`` refuses the encoders the port does not
+have yet, and ``--device`` (default ``cuda``) picks the device the entry
+points run on.
 """
 
 from __future__ import annotations
@@ -19,39 +20,12 @@ import argparse
 import dataclasses
 
 from htr_vt_torch.config import (AugmentConfig, ExperimentConfig, MaskConfig,
-                                 ModelConfig, SGMConfig, dataset_preset)
+                                 SGMConfig, dataset_preset)
+from htr_vt_torch.models.registry import available_encoders
+from htr_vt_torch.models.variants import apply_variant_preset
 
-# The JAX package's encoder recipes (``models/registry.py:38-42``: the
-# registered block recipes of ``models/variants.py`` plus swin and svtr).
-ENCODERS = ("conformer", "lgp", "lgp_svtr", "localglobal", "macaron", "macaron_2",
-            "squeezeformer", "svtr", "swin", "van", "van2", "vit", "window")
-
-# Per-variant ModelConfig presets (``models/variants.py:196-218``).
-VARIANT_PRESETS = {
-    "vit": {},
-    "window": dict(use_abs_pos_embed=False, logit_layer_norm=False,
-                   drop_path_rate=0.1),
-    "macaron": {},
-    "macaron_2": {},
-    "localglobal": {},
-    "lgp": dict(depth=3),
-    "lgp_svtr": dict(depth=6, num_window_blocks=3, window_size=11),
-    "conformer": dict(input_layer_norm=False),
-    "squeezeformer": dict(drop_path_rate=0.1, input_layer_norm=False),
-    "van": dict(stem="van"),
-    "van2": dict(stem="van2"),
-    "swin": {},
-    "svtr": {},
-}
-
-
-def available_encoders():
-    return sorted(ENCODERS)
-
-
-def apply_variant_preset(cfg: ModelConfig) -> ModelConfig:
-    preset = VARIANT_PRESETS.get(cfg.encoder, {})
-    return dataclasses.replace(cfg, **preset) if preset else cfg
+# Every encoder name the JAX package accepts (``models/registry.py:38-42``).
+ENCODERS = tuple(available_encoders())
 
 
 def build_parser(description: str) -> argparse.ArgumentParser:

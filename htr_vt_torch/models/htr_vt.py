@@ -3,16 +3,17 @@
     image [B, H, W, 1] NHWC float32 in [0, 1]
     -> parameterless LayerNorm over the whole image
     -> ResNet18 stem -> tokens [B, N, D]
-    -> (train) span masking with the learned mask token
+    -> (train) token masking with the learned mask token
     -> + fixed 2-D sin-cos position
-    -> ``depth`` pre-norm ViT blocks -> LayerNorm -> head -> logit LayerNorm
-    -> logits [B, N, nb_cls] float32
+    -> the encoder recipe's blocks (``models/variants.py``) -> LayerNorm
+    -> head -> logit LayerNorm -> logits [B, N, nb_cls] float32
+    -> (train, SGM) the SGM head's auxiliary loss on the normed features
 
 Matmuls and convolutions run in ``cfg.compute_dtype``; norms, softmax, the
 head and the logits are float32. ``train`` is an explicit argument, as in
 JAX, and ``module.training`` is never read: train mode means batch-statistic
-BatchNorm, masking and dropout. SGM and remat are not ported yet
-(ROADMAP.md, queue 1).
+BatchNorm, masking and dropout. Remat, the VAN stems, swin, svtr and
+``encoder_decoder`` are not ported yet (ROADMAP.md, queue 1).
 """
 
 from __future__ import annotations
@@ -26,14 +27,22 @@ from torch import nn
 from htr_vt_torch.config import ModelConfig
 from htr_vt_torch.models import masking
 from htr_vt_torch.models.layers import global_layer_norm, sincos_pos_embed_2d
+from htr_vt_torch.models.registry import build_encoder_blocks
+from htr_vt_torch.models.sgm import SGMHead
 from htr_vt_torch.models.stem import ResNet18Stem
-from htr_vt_torch.models.vit import ATTN_IMPLS, Block
+from htr_vt_torch.models.vit import ATTN_IMPLS
 
 
 class HTRVT(nn.Module):
-    """Flagship ``model_v1`` recipe: ``encoder="vit"``, ``stem="resnet18"``,
-    CTC head. ``generator`` seeds the JAX package's init schemes
-    (``init_weights``); without one the weights keep torch's defaults."""
+    """The ResNet18 stem, the block recipe of ``cfg.encoder`` and the CTC
+    head; with ``cfg.sgm.enable`` and a vocabulary size (the trainer sets it
+    from the codec, ``train/loop.py``) also the SGM head, whose parameters
+    then train, perturb and average with the others. ``generator`` seeds
+    the JAX package's init schemes (``init_weights``); without one the
+    weights keep torch's defaults.
+
+    ``blocks[i]`` is the JAX module ``block_names[i]`` (``block0``,
+    ``mixer0``, ``encoder``, ...)."""
 
     def __init__(self, cfg: ModelConfig, device=None,
                  generator: Optional[torch.Generator] = None):
@@ -49,14 +58,15 @@ class HTRVT(nn.Module):
         self.mask_token = nn.Parameter(torch.zeros(1, 1, d, device=device))
         # fixed sin-cos tables, one per (grid, device), outside the state_dict
         self._pos_tables: Dict[Tuple, torch.Tensor] = {}
-        self.blocks = nn.ModuleList(
-            Block(d, cfg.num_heads, cfg.mlp_ratio, cfg.qkv_bias,
-                  cfg.layer_norm_eps, dtype, drop=cfg.drop_rate,
-                  attn_drop=cfg.attn_drop_rate, attn_impl=cfg.attn_impl,
-                  device=device)
-            for _ in range(cfg.depth))
+        named = build_encoder_blocks(cfg, device)
+        self.block_names = [name for name, _ in named]
+        self.blocks = nn.ModuleList(block for _, block in named)
         self.norm = nn.LayerNorm(d, eps=cfg.layer_norm_eps, device=device)
         self.head = nn.Linear(d, cfg.nb_cls, device=device)
+        self.sgm_head = None
+        if cfg.sgm.enable and cfg.sgm.vocab_size > 0:
+            self.sgm_head = SGMHead(d, cfg.sgm.vocab_size, dtype,
+                                    char_emb_dim=cfg.sgm.char_emb_dim, device=device)
         if generator is not None:
             self.init_weights(generator)
 
@@ -65,7 +75,10 @@ class HTRVT(nn.Module):
         """The JAX package's initialisers: ``variance_scaling(2, fan_out,
         normal)`` for convolutions (``stem.py:36``), xavier-uniform for
         dense layers, normal(0.02) for ``mask_token``, ones/zeros for
-        LayerNorms and biases (BatchNorm keeps its constructor state)."""
+        LayerNorms and biases (BatchNorm keeps its constructor state); a
+        module with other schemes (lecun-normal convolutions and linears,
+        truncated-normal window bias tables, the SGM embeddings) applies
+        them in its ``reset_jax_init``."""
         for m in self.modules():
             if isinstance(m, nn.Conv2d):
                 cout, _, kh, kw = m.weight.shape
@@ -80,6 +93,9 @@ class HTRVT(nn.Module):
                 m.weight.fill_(1.0)
                 m.bias.zero_()
         self.mask_token.normal_(0.0, 0.02, generator=generator)
+        for m in self.modules():
+            if hasattr(m, "reset_jax_init"):
+                m.reset_jax_init(generator)
 
     def pos_table(self, grid: Tuple[int, int]) -> torch.Tensor:
         """The float32 [gh * gw, D] sin-cos table of ``grid`` on the model's
@@ -102,15 +118,27 @@ class HTRVT(nn.Module):
 
     def forward(self, image: torch.Tensor, *, train: bool = False,
                 keep: Optional[torch.Tensor] = None,
-                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+                generator: Optional[torch.Generator] = None,
+                mask_mode: Optional[str] = None, mask_ratio: Optional[float] = None,
+                sgm_batch: Optional[Dict[str, torch.Tensor]] = None,
+                return_features: bool = False):
         """[B, H, W, 1] float32 -> logits [B, N, nb_cls] float32, at any
         width the stem takes: the position table follows the image's grid,
         ``(H // patch_size[0], W // patch_size[1])``.
 
         ``train``: batch-statistic BatchNorm (moving the running statistics
         in place), token masking and dropout, drawing from ``generator``.
-        ``keep``: a float [B, N, 1] keep mask to use in place of a drawn one
-        (train mode with masking on only)."""
+        ``mask_mode`` / ``mask_ratio`` override the config's strategy
+        (``models/masking.py:build_keep_mask``). ``keep``: a float [B, N, 1]
+        keep mask to use in place of a drawn one (train mode with masking
+        on only).
+
+        ``sgm_batch`` (``sgm_left``, ``sgm_right``, ``sgm_tgt``,
+        ``sgm_mask``): also the SGM head's loss, on the normed features or
+        their detached copy (``cfg.sgm.detach_features``). Returns, as the
+        JAX ``__call__`` does (``htr_vt.py:138-152``): logits; (logits,
+        sgm_loss) with an SGM batch; (logits, feats) with
+        ``return_features``; (logits, feats, sgm_loss) with both."""
         cfg = self.cfg
         x = image.float()
         if cfg.input_layer_norm:
@@ -122,7 +150,8 @@ class HTRVT(nn.Module):
         n = tokens.shape[1]
         if train and cfg.masking.mode != "none":
             if keep is None:
-                keep = masking.build_keep_mask(generator, b, n, cfg.masking)
+                keep = masking.build_keep_mask(generator, b, n, cfg.masking,
+                                               mode=mask_mode, ratio=mask_ratio)
             tokens = masking.apply_mask(tokens, keep, self.mask_token)
         elif keep is not None:
             raise ValueError("a keep mask applies only in train mode with "
@@ -133,10 +162,20 @@ class HTRVT(nn.Module):
             tokens = tokens + self.pos_table(grid)[:n].to(self.dtype)
         for block in self.blocks:
             tokens = block(tokens, train=train, generator=generator)
-        logits = self.head(self.norm(tokens.float()))
+        feats = self.norm(tokens.float())
+        logits = self.head(feats)
         if cfg.logit_layer_norm:
             logits = global_layer_norm(logits)
-        return logits
+        out = (logits, feats) if return_features else (logits,)
+        if sgm_batch is not None:
+            if self.sgm_head is None:
+                raise ValueError("an SGM batch needs cfg.sgm.enable and "
+                                 "cfg.sgm.vocab_size > 0")
+            f = feats.detach() if cfg.sgm.detach_features else feats
+            out += (self.sgm_head(f, sgm_batch["sgm_left"], sgm_batch["sgm_right"],
+                                  sgm_batch["sgm_tgt"], sgm_batch["sgm_mask"],
+                                  train=train, generator=generator),)
+        return out[0] if len(out) == 1 else out
 
 
 STEM_IMPLS = ("auto", "xla", "pallas")
@@ -158,19 +197,25 @@ def check_switches(cfg: ModelConfig) -> None:
                              f"{allowed}")
 
 
+# Encoders and stems of the JAX package that the port does not build yet.
+UNPORTED_ENCODERS = ("swin", "svtr", "van", "van2")
+
+
 def build_model(cfg: ModelConfig, device=None,
                 generator: Optional[torch.Generator] = None) -> HTRVT:
     """Model factory, on the card unless ``device`` says otherwise (no card
-    raises). Only the flagship recipe is ported; every other encoder, stem
-    and head is still queued in ROADMAP.md."""
+    raises). Every block recipe of ``models/variants.py`` is ported on the
+    ResNet18 stem; swin, svtr, the VAN stems, ``encoder_decoder``, int8
+    and remat are still queued in ROADMAP.md."""
     if cfg.model_type != "ctc":
         raise NotImplementedError(
             f"model_type={cfg.model_type!r} is not ported to htr_vt_torch yet "
             "(ROADMAP.md queue 1, item 10: variant zoo, encoder_decoder)")
-    if cfg.encoder != "vit" or cfg.stem != "resnet18":
+    if cfg.encoder in UNPORTED_ENCODERS or cfg.stem != "resnet18":
         raise NotImplementedError(
             f"encoder={cfg.encoder!r} / stem={cfg.stem!r} is not ported to "
-            "htr_vt_torch yet (ROADMAP.md queue 1, item 10: variant zoo)")
+            "htr_vt_torch yet (ROADMAP.md queue 1, item 10: variant zoo: swin, "
+            "svtr, van, van2)")
     if cfg.quant != "none":
         raise NotImplementedError(
             f"quant={cfg.quant!r} is not ported to htr_vt_torch yet "

@@ -7,12 +7,17 @@ bfloat16 and a float32 model alike.
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+import math
+from typing import Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+# The standard deviation of a unit normal truncated at +-2, which flax's
+# truncated-normal initialisers divide out.
+TRUNC_NORMAL_STD = 0.87962566103423978
 
 
 def global_layer_norm(x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
@@ -107,3 +112,37 @@ class Mlp(nn.Module):
         x = dropout(x, self.drop_rate, train, generator)
         x = dense(self.fc2, x, self.dtype)
         return dropout(x, self.drop_rate, train, generator)
+
+
+class LayerScale(nn.Module):
+    """Learnable per-channel residual scale ``gamma``, initialised to
+    ``init_value`` (``layers.py:151-158``)."""
+
+    def __init__(self, dim: int, init_value: float = 1e-5, device=None):
+        super().__init__()
+        self.gamma = nn.Parameter(torch.full((dim,), float(init_value), device=device))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return x * self.gamma.to(x.dtype)
+
+
+def drop_path_schedule(rate: float, depth: int) -> Sequence[float]:
+    """Linearly increasing stochastic-depth rates, 0 to ``rate`` over
+    ``depth`` blocks (``layers.py:161-166``)."""
+    if depth <= 1:
+        return [rate] * depth
+    return [rate * i / (depth - 1) for i in range(depth)]
+
+
+def lecun_normal_(w: torch.Tensor, fan_in: int,
+                  generator: Optional[torch.Generator]) -> None:
+    """flax's ``lecun_normal``: a normal truncated at two standard
+    deviations, rescaled so that the variance is ``1 / fan_in``."""
+    std = math.sqrt(1.0 / fan_in) / TRUNC_NORMAL_STD
+    nn.init.trunc_normal_(w, 0.0, std, -2.0 * std, 2.0 * std, generator=generator)
+
+
+def glu(x: torch.Tensor) -> torch.Tensor:
+    """``a * sigmoid(b)`` over the two halves of the last axis."""
+    a, b = x.chunk(2, dim=-1)
+    return a * torch.sigmoid(b)

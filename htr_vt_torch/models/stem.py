@@ -256,10 +256,15 @@ class ResNet18Stem(nn.Module):
 
     def forward(self, x: torch.Tensor, *, train: bool = False) -> torch.Tensor:
         dt = self.dtype
-        # [B, 1, H, W] with the strides of a channels-last tensor even at
-        # C = 1, where both layouts are contiguous: cuDNN then writes conv1's
-        # output channels-last, as the fused kernels read it.
-        x = x.to(dt).permute(0, 2, 3, 1).contiguous().permute(0, 3, 1, 2)
+        # [B, 1, H, W] with the strides of a channels-last tensor (the
+        # channel's stride 1) even at C = 1, where both layouts count as
+        # contiguous and a view may carry any channel stride (0 from a numpy
+        # image's new axis): cuDNN then writes conv1's output channels-last,
+        # as the fused kernels read it.
+        x = x.to(dt)
+        if x.stride(1) != 1:
+            x = x.permute(0, 2, 3, 1).clone(
+                memory_format=torch.contiguous_format).permute(0, 3, 1, 2)
         x = _conv(self.conv1, x, (2, 1), 1, dt)
         stats = x if train else None
         if self.pool_impl == "pallas":

@@ -25,6 +25,7 @@ from __future__ import annotations
 from typing import Tuple
 
 import torch
+import torch.nn.functional as F
 
 from htr_vt_torch.ops.ctc import NEG, logaddexp3, zero_infinity
 
@@ -255,15 +256,14 @@ def ctc_grad_logp(alpha: torch.Tensor, beta: torch.Tensor, total: torch.Tensor,
 
 def class_sum(dlp: torch.Tensor, z: torch.Tensor, num_classes: int) -> torch.Tensor:
     """Per-state gradients dlp [B, T, S] summed into the classes z [B, S]
-    names -> [B, T, C]. On the card ``scatter_add_`` sums a class's states
-    with atomics, in no fixed order: a few float32 ulps apart from run to
-    run. It is the one op that keeps two default-mode ``fit`` runs of the
-    same steps apart on the card (``chip_smoke.py``'s fit phase swaps in a
-    fixed-order sum and gets equal bits); a fixed-order sum here is queued
-    in ROADMAP.md."""
-    b, t, _ = dlp.shape
-    dlogp = dlp.new_zeros((b, t, num_classes))
-    return dlogp.scatter_add_(2, z.long()[:, None, :].expand_as(dlp), dlp)
+    names -> [B, T, C], in a fixed order: dlp times the states' one-hot
+    class rows, one float64 batched product rounded to float32 (the
+    transpose of the one-hot gather, as ``ctc_pallas.py:293-295`` computes
+    it). Each class's states are added in the same order on every run, so
+    two runs of the same step give the same bits, and float64 takes no
+    TF32 path, whatever ``torch.backends.cuda.matmul.allow_tf32`` says."""
+    onehot = F.one_hot(z.long(), num_classes).to(torch.float64)  # [B, S, C]
+    return torch.bmm(dlp.double(), onehot).float()
 
 
 class CTCNegLogP(torch.autograd.Function):

@@ -15,6 +15,7 @@ k, resume, train N - k" (``tests/test_torch_port_loop.py``).
 from __future__ import annotations
 
 import json
+import logging
 import os
 import re
 import shutil
@@ -148,18 +149,19 @@ class CheckpointManager:
 
 def load_module_state(module: torch.nn.Module, sd: Dict[str, torch.Tensor],
                       path: str = "checkpoint") -> None:
-    """``module.load_state_dict(sd, strict=True)``. A module whose keys are a
-    strict subset of the checkpoint's (the JAX package restores such an
-    eval template from an SGM-trained checkpoint by a partial restore,
-    ``htr_vt_tpu/train/checkpoint.py:135-164``) raises: the SGM head is not
-    ported yet."""
+    """``module.load_state_dict(sd, strict=True)``, or, where the module's
+    keys are a strict subset of the checkpoint's, the subset alone: the JAX
+    package's partial restore of an eval template from an SGM-trained
+    checkpoint, whose ``sgm_head`` is a training-only head
+    (``htr_vt_tpu/train/checkpoint.py:135-164``). The check is structural;
+    any other mismatch raises as a strict load does."""
     have, saved = set(module.state_dict()), set(sd)
     if have < saved:
-        raise NotImplementedError(
-            f"{path}: the checkpoint holds {sorted(saved - have)[:4]}... beyond this "
-            "model; restoring a strict subset (the SGM head's partial restore) is "
-            "not ported to htr_vt_torch yet (ROADMAP.md queue 1, item 10: the SGM "
-            "head)")
+        logging.getLogger("htr_vt_torch").info(
+            "%s: the model's %d entries are a strict subset of the checkpoint's %d "
+            "(%s...); restoring the subset", path, len(have), len(saved),
+            sorted(saved - have)[:4])
+        sd = {k: v for k, v in sd.items() if k in have}
     module.load_state_dict(sd, strict=True)
 
 

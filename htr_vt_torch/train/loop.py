@@ -23,14 +23,15 @@ from htr_vt_torch.config import ExperimentConfig, config_to_dict
 from htr_vt_torch.data.loader import (TrainLoader, build_dataset, choose_max_label_len,
                                       device_prefetch, eval_batches, make_converter)
 from htr_vt_torch.eval.validate import validate
+from htr_vt_torch.models.sgm import SGMVocab, make_context_arrays
 from htr_vt_torch.train.checkpoint import CheckpointManager, load_module_state
 from htr_vt_torch.train.state import check_ported, create_train_state
 from htr_vt_torch.train.step import train_step
 from htr_vt_torch.utils.logging import ScalarWriter, StepTimer, get_logger, maybe_profile
 
 # Top-level modules a transfer-learning run (``load_encoder_only``) starts
-# fresh, as the JAX loop's head keys (``loop.py:115``); the flagship has
-# ``head`` alone.
+# fresh, as the JAX loop's head keys (``loop.py:115``): the port's models
+# have ``head`` and, with SGM, ``sgm_head``.
 HEAD_KEYS = {"head", "sgm_head", "lm_head", "embed", "final_norm"}
 
 
@@ -77,6 +78,17 @@ def fit(cfg: ExperimentConfig, device="cuda",
         cfg = dataclasses.replace(cfg, model=dataclasses.replace(
             cfg.model, nb_cls=converter.num_classes))
     max_label_len = choose_max_label_len(train_ds.labels, cfg.model.num_tokens)
+    sgm_extras_fn = None
+    if cfg.model.sgm.enable:
+        # the SGM vocabulary: the codec's symbols and four control tokens;
+        # the loader builds each batch's context windows (loop.py:81-92)
+        sgm_vocab = SGMVocab(converter)
+        cfg = dataclasses.replace(cfg, model=dataclasses.replace(
+            cfg.model, sgm=dataclasses.replace(cfg.model.sgm, vocab_size=sgm_vocab.size)))
+        sub_len = cfg.model.sgm.sub_len
+
+        def sgm_extras_fn(texts):
+            return make_context_arrays(texts, sgm_vocab, max_label_len, sub_len)
     logger.info("train=%d val=%d alphabet=%d max_label_len=%d",
                 len(train_ds), len(val_ds), converter.num_classes, max_label_len)
 
@@ -126,7 +138,7 @@ def fit(cfg: ExperimentConfig, device="cuda",
     # (tests/test_torch_port_loop.py pins the equivalence).
     loader = TrainLoader(train_ds, converter, cfg.data.train_bs, max_label_len,
                          augment=cfg.data.augment, seed=cfg.train.seed,
-                         num_threads=cfg.data.num_workers,
+                         num_threads=cfg.data.num_workers, extras_fn=sgm_extras_fn,
                          sampling=cfg.data.sampling, start_batch=start_step)
     batches = device_prefetch(iter(loader), device)
     writer = ScalarWriter(save_dir, cfg.train.use_wandb, cfg.train.wandb_project,

@@ -3,7 +3,9 @@
 The JAX ``TrainState`` is an immutable pytree that each step replaces; here
 it holds live objects that the step updates in place: the model, its EMA
 copy (parameters and BN running statistics), the AdamW optimizer and the
-``torch.Generator`` that masking and dropout draw from.
+``torch.Generator`` that masking and dropout draw from. The SGM head, when
+the model has one, is part of each: its parameters are in AdamW's group,
+SAM's global norm and the EMA, as the JAX tree's ``sgm_head`` is.
 """
 
 from __future__ import annotations
@@ -21,14 +23,10 @@ from htr_vt_torch.optim.sam import make_base_optimizer
 def check_ported(cfg: ExperimentConfig) -> None:
     """Raise on the training features the port does not have yet."""
     item = None
-    if cfg.train.tri_masked:
-        item = "item 10: the tri-masked MMS trainer"
-    elif cfg.train.grad_accum > 1:
+    if cfg.train.grad_accum > 1:
         item = "item 13: memory levers (grad_accum)"
     elif cfg.model.remat != "none":
         item = "item 13: memory levers (remat)"
-    elif cfg.model.sgm.enable:
-        item = "item 10: the SGM head"
     if item:
         raise NotImplementedError(
             f"this training configuration is not ported to htr_vt_torch yet "

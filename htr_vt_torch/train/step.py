@@ -1,7 +1,7 @@
 """The train and eval steps (port of ``htr_vt_tpu/train/step.py``).
 
-``train_step`` is one SAM iteration of the flagship ``model_v1`` recipe
-(``step.py:150-195``), run eagerly and in place on a ``TrainState``:
+``train_step`` is one SAM iteration (``step.py:150-195``), run eagerly and
+in place on a ``TrainState``:
 
     pass 1   loss and gradient at w, masked (fresh mask), BN stats moved
     perturb  w + e(w), e(w) = rho * g / ||g||
@@ -9,13 +9,19 @@
     restore  w from a copy, then AdamW with the gradient of pass 2
     EMA      over parameters and BN stats, n = step / 2
 
-On a CUDA device each pass runs the CTC alpha kernel in its forward and the
-beta kernel in its backward: two launches of each per step.
+A pass's loss is one masked forward's, or with ``cfg.train.tri_masked``
+the mean over the three forwards of ``TRI_MASK_MODES`` (the tri-masked MMS
+trainer), the BN statistics moving through them in order. With the SGM
+head on and an SGM batch, a forward's loss is ``ctc_lambda * CTC + gate *
+sgm_lambda * SGM``, the gate 0 before ``sgm.warmup_iters`` steps.
+
+On a CUDA device each forward runs the CTC alpha kernel and its backward
+the beta kernel: two launches of each per step, six when tri-masked.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Mapping
+from typing import Dict, Mapping, Optional, Tuple
 
 import torch
 from torch import nn
@@ -29,22 +35,69 @@ from htr_vt_torch.optim.schedule import warmup_cosine_lr
 from htr_vt_torch.train.state import TrainState, check_ported
 
 
+# The tri-masked trainer's (mode, ratio) forwards (step.py:34).
+TRI_MASK_MODES = (("random", 0.30), ("block", 0.20), ("span_old", 0.20))
+SGM_KEYS = ("sgm_left", "sgm_right", "sgm_tgt", "sgm_mask")
+
+
 def _put(batch: Mapping, device) -> Dict[str, torch.Tensor]:
-    return {k: torch.as_tensor(batch[k], device=device)
-            for k in ("image", "labels", "label_lengths")}
+    keys = ("image", "labels", "label_lengths") + tuple(k for k in SGM_KEYS
+                                                        if k in batch)
+    return {k: torch.as_tensor(batch[k], device=device) for k in keys}
 
 
-def forward_loss(state: TrainState, batch: Mapping[str, torch.Tensor]
-                 ) -> torch.Tensor:
-    """One masked train-mode forward and the batch-mean CTC loss
-    (``_forward_loss``, ``step.py:37-84``, single mask, no SGM)."""
-    logits = state.model(batch["image"], train=True, generator=state.generator)
-    return ctc_loss_auto(logits, batch["labels"], batch["label_lengths"]).mean()
+def forward_loss(state: TrainState, batch: Mapping[str, torch.Tensor],
+                 mask_mode: Optional[str] = None, mask_ratio: Optional[float] = None
+                 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """One masked train-mode forward and its loss (``_forward_loss``,
+    ``step.py:37-84``): the batch-mean CTC loss, and with the SGM head and
+    an SGM batch ``ctc_lambda * CTC + gate * sgm_lambda * SGM``, the gate
+    ``state.step >= sgm.warmup_iters`` read before the step's increment.
+    Returns (loss, {"loss_ctc"[, "loss_sgm"]})."""
+    sgm = state.cfg.model.sgm
+    use_sgm = sgm.enable and "sgm_tgt" in batch
+    out = state.model(batch["image"], train=True, generator=state.generator,
+                      mask_mode=mask_mode, mask_ratio=mask_ratio,
+                      sgm_batch={k: batch[k] for k in SGM_KEYS} if use_sgm else None)
+    logits, loss_sgm = out if use_sgm else (out, None)
+    loss_ctc = ctc_loss_auto(logits, batch["labels"], batch["label_lengths"]).mean()
+    if not use_sgm:
+        return loss_ctc, {"loss_ctc": loss_ctc}
+    gate = 1.0 if sgm.warmup_iters <= 0 or state.step >= sgm.warmup_iters else 0.0
+    loss = sgm.ctc_lambda * loss_ctc + gate * sgm.sgm_lambda * loss_sgm
+    return loss, {"loss_ctc": loss_ctc, "loss_sgm": loss_sgm}
 
 
 def _grads(loss: torch.Tensor, params) -> list:
     return zeros_for_unused(params, torch.autograd.grad(loss, params,
                                                         allow_unused=True))
+
+
+def pass_loss_and_grads(state: TrainState, batch: Mapping[str, torch.Tensor],
+                        params) -> Tuple[torch.Tensor, Dict[str, torch.Tensor], list]:
+    """One SAM pass's loss, its terms and the gradient at the current
+    weights (``make_loss_fn``, ``step.py:87-109``). Tri-masked: the mean of
+    the three ``TRI_MASK_MODES`` forwards, run in order (each moves the BN
+    statistics), each backward right after its forward so that one
+    forward's activations are held at a time; the gradients of the three
+    thirds are summed, which is the gradient of the mean. The terms are the
+    forwards' means too."""
+    if not state.cfg.train.tri_masked:
+        loss, terms = forward_loss(state, batch)
+        return loss, terms, _grads(loss, params)
+    k = len(TRI_MASK_MODES)
+    total, terms, grads = 0.0, {}, None
+    for mode, ratio in TRI_MASK_MODES:
+        loss, parts = forward_loss(state, batch, mode, ratio)
+        g = _grads(loss / k, params)
+        if grads is None:
+            grads = list(g)
+        else:
+            torch._foreach_add_(grads, g)
+        total = total + loss.detach()
+        for name, v in parts.items():
+            terms[name] = terms.get(name, 0.0) + v.detach() / k
+    return total / k, terms, grads
 
 
 def train_step(state: TrainState, batch: Mapping) -> Dict[str, torch.Tensor]:
@@ -61,15 +114,13 @@ def train_step(state: TrainState, batch: Mapping) -> Dict[str, torch.Tensor]:
     params = list(model.parameters())
     batch = _put(batch, params[0].device)
 
-    loss1 = forward_loss(state, batch)
-    grads1 = _grads(loss1, params)
+    loss1, terms1, grads1 = pass_loss_and_grads(state, batch, params)
     with torch.no_grad():
         w = [p.detach().clone() for p in params]
     gnorm = sam_perturb(params, grads1, opt.sam_rho, opt.sam_adaptive)
     del grads1
 
-    loss2 = forward_loss(state, batch)
-    grads2 = _grads(loss2, params)
+    loss2, _, grads2 = pass_loss_and_grads(state, batch, params)
     with torch.no_grad():
         torch._foreach_copy_(params, w)
     del w
@@ -86,8 +137,12 @@ def train_step(state: TrainState, batch: Mapping) -> Dict[str, torch.Tensor]:
     n = state.step / 2.0 if opt.ema_halved_updates else float(state.step)
     ema_update(state.ema_model, model, n, opt.ema_decay)
     state.step += 1
-    return {"loss": loss1.detach(), "loss_second": loss2.detach(),
-            "grad_norm": gnorm}
+    metrics = {"loss": loss1.detach(), "loss_second": loss2.detach(),
+               "grad_norm": gnorm}
+    if "loss_sgm" in terms1:
+        metrics.update(loss_sgm=terms1["loss_sgm"].detach(),
+                       loss_ctc=terms1["loss_ctc"].detach())
+    return metrics
 
 
 @torch.inference_mode()

@@ -1,12 +1,21 @@
-"""Weights into the port, through the reference PyTorch layout.
+"""Weights into the port, and back to the JAX tree.
 
-The port's modules are named after the reference ``state_dict`` keys that
-``utils/torch_convert.py`` maps, so both directions reuse its
-numpy functions: a JAX tree goes through ``tree_to_reference_state_dict``,
-and a reference ``.pth`` is normalised by a round trip through the tree
-(which drops ``pos_embed``, ``num_batches_tracked`` and ``module.``
-prefixes). Either loads with ``load_state_dict(strict=True)``. The reverse,
-port -> JAX tree, goes through ``reference_state_dict_to_tree``.
+The stem, mask token, final norm and head are named after the reference
+``state_dict`` keys that ``utils/torch_convert.py`` maps, so both
+directions reuse its numpy functions: a JAX tree goes through
+``tree_to_reference_state_dict``, and a reference ``.pth`` is normalised by
+a round trip through the tree (which drops ``pos_embed``,
+``num_batches_tracked`` and ``module.`` prefixes). The encoder blocks of
+every recipe and the SGM head carry the JAX module names below
+``blocks.<i>`` (the JAX ``HTRVT.block_names[i]``) and ``sgm_head``, and map
+leaf by leaf by module type (``encoder_layout``): a linear's ``weight`` is
+the transposed ``kernel``, a depthwise ``Conv1d``'s [C, 1, k] weight the
+flax [k, 1, C] kernel, a norm's ``weight`` its ``scale``, an embedding's
+``weight`` its ``embedding``, a BatchNorm's running statistics the
+``batch_stats`` ``mean`` / ``var``, and any other parameter (relative
+bias tables, ``alpha``, ``dir_left`` / ``dir_right``, LayerScale's
+``gamma``) keeps its name. Either direction loads with
+``load_state_dict(strict=True)``.
 
 A JAX ``TrainState``'s optimizer state converts too. Its optax chain
 (``htr_vt_tpu/optim/sam.py:55-67``: ``adamw`` on the warmup-cosine schedule,
@@ -32,6 +41,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from htr_vt_torch.models.stem import BatchNorm
 from htr_vt_torch.utils import torch_convert
 
 
@@ -39,11 +49,119 @@ def _tensors(sd: Dict[str, np.ndarray]) -> Dict[str, torch.Tensor]:
     return {k: torch.from_numpy(np.array(v, dtype=np.float32)) for k, v in sd.items()}
 
 
+def _linear(w: np.ndarray) -> np.ndarray:
+    return np.transpose(w, (1, 0))
+
+
+def _depthwise(w: np.ndarray) -> np.ndarray:
+    return np.transpose(w, (2, 1, 0))  # torch [C, 1, k] <-> flax [k, 1, C]
+
+
+def _same(w: np.ndarray) -> np.ndarray:
+    return w
+
+
+# Leaf names by module type: torch name -> (collection, JAX name, layout).
+_LEAVES = (
+    (nn.Linear, {"weight": ("params", "kernel", _linear),
+                 "bias": ("params", "bias", _same)}),
+    (nn.Conv1d, {"weight": ("params", "kernel", _depthwise),
+                 "bias": ("params", "bias", _same)}),
+    ((nn.LayerNorm, nn.GroupNorm), {"weight": ("params", "scale", _same),
+                                    "bias": ("params", "bias", _same)}),
+    (nn.Embedding, {"weight": ("params", "embedding", _same)}),
+    (BatchNorm, {"weight": ("params", "scale", _same), "bias": ("params", "bias", _same),
+                 "running_mean": ("batch_stats", "mean", _same),
+                 "running_var": ("batch_stats", "var", _same)}),
+)
+
+
+def module_layout(module: nn.Module, path: Tuple[str, ...] = ()
+                  ) -> Dict[str, Tuple[str, Tuple[str, ...], Any]]:
+    """state_dict key of ``module`` -> (JAX collection, JAX path under
+    ``path``, layout function) for each of its leaves, by module type
+    (``_LEAVES``; any other parameter keeps its name). The layout function
+    maps a value either way (a transpose that is its own inverse)."""
+    out = {}
+    for mname, m in module.named_modules():
+        parts = tuple(mname.split(".")) if mname else ()
+        rule = next((r for t, r in _LEAVES if isinstance(m, t)), None)
+        leaves = [n for n, _ in m.named_parameters(recurse=False)]
+        leaves += [n for n, _ in m.named_buffers(recurse=False)]
+        for leaf in leaves:
+            coll, jname, fn = rule[leaf] if rule else ("params", leaf, _same)
+            out[f"{mname}.{leaf}" if mname else leaf] = (coll, path + parts + (jname,), fn)
+    return out
+
+
+def encoder_layout(model: nn.Module) -> Dict[str, Tuple[str, Tuple[str, ...], Any]]:
+    """``module_layout`` of the encoder blocks (``blocks.<i>`` under the
+    JAX name ``block_names[i]``) and of the SGM head."""
+    out = {}
+    parts = [(f"blocks.{i}", (name,), block)
+             for i, (name, block) in enumerate(zip(model.block_names, model.blocks))]
+    if getattr(model, "sgm_head", None) is not None:
+        parts.append(("sgm_head", ("sgm_head",), model.sgm_head))
+    for prefix, path, module in parts:
+        out.update({f"{prefix}.{k}": v for k, v in module_layout(module, path).items()})
+    return out
+
+
+def load_jax_module(module: nn.Module, params, batch_stats=None) -> None:
+    """Load the variables of one JAX module (its ``params`` and, for a
+    BatchNorm inside, ``batch_stats`` subtree) into the port's module of
+    the same recipe, strictly."""
+    trees = {"params": params, "batch_stats": batch_stats}
+    module.load_state_dict(_tensors({
+        k: fn(np.asarray(_get(trees[coll], path)))
+        for k, (coll, path, fn) in module_layout(module).items()}), strict=True)
+
+
+def _get(tree, path):
+    for k in path:
+        tree = tree[k]
+    return tree
+
+
+def jax_tree_to_state_dict(model: nn.Module, params, batch_stats
+                           ) -> Dict[str, np.ndarray]:
+    """A JAX ``HTRVT`` (params, batch_stats) pair of any recipe -> the
+    port's state_dict keys, numpy values. Also maps the optax moments,
+    which are shaped like ``params`` (``batch_stats`` then fills the BN
+    slots)."""
+    layout = encoder_layout(model)
+    roots = set(getattr(model, "block_names", ())) | {"sgm_head"}
+    trunk = {k: v for k, v in params.items() if k not in roots}
+    sd = torch_convert.tree_to_reference_state_dict(trunk, batch_stats)
+    trees = {"params": params, "batch_stats": batch_stats}
+    for key, (coll, path, fn) in layout.items():
+        sd[key] = fn(np.asarray(_get(trees[coll], path)))
+    return sd
+
+
+def state_dict_to_jax_tree(model: nn.Module, sd: Dict[str, np.ndarray]
+                           ) -> Tuple[Dict, Dict]:
+    """The reverse of ``jax_tree_to_state_dict``: (params, batch_stats)
+    numpy trees. Raises on a key that neither map knows."""
+    layout = encoder_layout(model)
+    params, stats, unused = torch_convert.reference_state_dict_to_tree(
+        {k: v for k, v in sd.items() if k not in layout})
+    if unused:
+        raise ValueError(f"keys outside the port's layout: {unused}")
+    trees = {"params": params, "batch_stats": stats}
+    for key, (coll, path, fn) in layout.items():
+        node = trees[coll]
+        for k in path[:-1]:
+            node = node.setdefault(k, {})
+        node[path[-1]] = fn(np.asarray(sd[key]))
+    return params, stats
+
+
 def load_jax_params(model: nn.Module, params, batch_stats) -> None:
     """Load a JAX ``HTRVT`` (params, batch_stats) tree of numpy or JAX
-    arrays into the port's model, strictly."""
-    sd = torch_convert.tree_to_reference_state_dict(params, batch_stats)
-    model.load_state_dict(_tensors(sd), strict=True)
+    arrays, of any block recipe, into the port's model, strictly."""
+    model.load_state_dict(_tensors(jax_tree_to_state_dict(model, params, batch_stats)),
+                          strict=True)
 
 
 def load_jax_train_state(model: nn.Module, ema_model: nn.Module, state,
@@ -102,8 +220,8 @@ def load_optax_state(optimizer: torch.optim.Optimizer, model: nn.Module,
             f"{None if sched is None else int(np.asarray(sched))}) differ from step "
             f"{step}: the port drives both the bias correction and the LR from one "
             "step")
-    mu = torch_convert.tree_to_reference_state_dict(adam.mu, batch_stats)
-    nu = torch_convert.tree_to_reference_state_dict(adam.nu, batch_stats)
+    mu = jax_tree_to_state_dict(model, adam.mu, batch_stats)
+    nu = jax_tree_to_state_dict(model, adam.nu, batch_stats)
     params = _named_params(model)
     order = [id(p) for group in optimizer.param_groups for p in group["params"]]
     index = {pid: i for i, pid in enumerate(order)}
@@ -139,22 +257,16 @@ def optax_moments(optimizer: torch.optim.Optimizer, model: nn.Module
         raise ValueError(f"AdamW steps differ between parameters: {sorted(steps)}")
     out = {"count": np.int32(steps.pop())}
     for key, tree in (("mu", "exp_avg"), ("nu", "exp_avg_sq")):
-        params, _, unused = torch_convert.reference_state_dict_to_tree(moments[tree])
-        if unused:
-            raise ValueError(f"keys outside the flagship layout: {unused}")
-        out[key] = params
+        out[key] = state_dict_to_jax_tree(model, moments[tree])[0]
     return out
 
 
 def model_to_jax_tree(model: nn.Module) -> Tuple[Dict, Dict]:
     """The port's weights as a JAX ``HTRVT`` (params, batch_stats) pair of
-    numpy trees. Raises on a state_dict key the flagship layout lacks."""
+    numpy trees, for any block recipe and the SGM head."""
     sd = {k: v.detach().float().cpu().numpy()
           for k, v in model.state_dict().items()}
-    params, stats, unused = torch_convert.reference_state_dict_to_tree(sd)
-    if unused:
-        raise ValueError(f"keys outside the flagship layout: {unused}")
-    return params, stats
+    return state_dict_to_jax_tree(model, sd)
 
 
 def load_reference_checkpoint(path: str, key: str = "state_dict_ema"

@@ -202,22 +202,23 @@ def test_grad_glue_sums_the_states_of_a_class():
 
 
 def test_fixed_order_class_sum_computes_the_class_sum():
-    """``chip_smoke.py``'s fit phase swaps ``ctc_cuda.class_sum`` for a
-    fixed-order one-hot product to isolate ``scatter_add_``'s atomics: the
-    same sums, within float32 rounding, and the glue's own sum back after
-    the block."""
-    import chip_smoke
+    """``ctc_cuda.class_sum`` sums each class's states in a fixed order (a
+    float64 one-hot product rounded to float32): the sums of a float32
+    ``scatter_add_`` within float32 rounding, the float64 sums rounded
+    once, and the same bits on a second call."""
     rng = np.random.default_rng(0)
     b, t, s, c = 3, 7, 9, 5
     dlp = torch.from_numpy(rng.standard_normal((b, t, s)).astype(np.float32))
     z = torch.from_numpy(rng.integers(0, c, (b, s)).astype(np.int32))
-    got = chip_smoke.fixed_order_class_sum(dlp, z, c)
-    assert got.dtype == torch.float32
-    torch.testing.assert_close(got, ctc_cuda.class_sum(dlp, z, c), rtol=1e-6, atol=1e-6)
-    own = ctc_cuda.class_sum
-    with chip_smoke.fixed_order_ctc():
-        assert ctc_cuda.class_sum is chip_smoke.fixed_order_class_sum
-    assert ctc_cuda.class_sum is own
+    got = ctc_cuda.class_sum(dlp, z, c)
+    assert got.dtype == torch.float32 and got.shape == (b, t, c)
+    scattered = dlp.new_zeros((b, t, c)).scatter_add_(
+        2, z.long()[:, None, :].expand_as(dlp), dlp)
+    torch.testing.assert_close(got, scattered, rtol=1e-6, atol=1e-6)
+    exact = torch.zeros((b, t, c), dtype=torch.float64).scatter_add_(
+        2, z.long()[:, None, :].expand_as(dlp), dlp.double())
+    assert torch.equal(got, exact.float())
+    assert torch.equal(got, ctc_cuda.class_sum(dlp, z, c))
 
 
 def test_cpu_tensors_never_count_a_launch():

@@ -151,8 +151,9 @@ def test_ctc_kernels_stage_logp_by_bulk_copies(cuda):
 def test_kernel_gradient_matches_plain(cuda):
     """d logits through the alpha and beta kernels, against (a) the same
     backward glue over the plain recursions, within rtol 1e-4 / atol 1e-5
-    (only scatter_add_'s atomics sum the states of a class in another
-    order), and (b) autograd through the plain loop. The glue's posterior
+    (the glue and its class sum run on the card there, the kernels' plain
+    versions stand in for the kernels), and (b) autograd through the plain
+    loop. The glue's posterior
     exp(alpha + beta - total) is a difference of float32 numbers the size of
     the loss, so (b) allows 16 float32 ulps of the largest loss as absolute
     error. An infeasible row gets exactly zero gradient."""
@@ -213,6 +214,27 @@ def test_train_step_on_the_card_matches_the_cpu(cuda):
     want = train_step(cpu, batch)
     for key in ("loss", "loss_second", "grad_norm"):
         torch.testing.assert_close(got[key].cpu(), want[key], rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.cuda
+def test_class_sum_gives_equal_bits_and_matches_the_cpu(cuda):
+    """The CTC glue's class sum at the flagship's shape (B 128, T 128, S
+    193, 80 classes) sums each class's states in a fixed order: 20 calls
+    give the same bits, and the CPU's sum (float64 in another order, then
+    one rounding to float32) within one float32 rounding."""
+    rng = np.random.default_rng(21)
+    dlp = torch.from_numpy(rng.standard_normal((128, 128, 193)).astype(np.float32))
+    z = torch.from_numpy(rng.integers(0, 80, (128, 193)).astype(np.int32))
+    want = ctc_cuda.class_sum(dlp, z, 80)
+    x, zz = dlp.to(cuda), z.to(cuda)
+    torch.backends.cuda.matmul.allow_tf32 = True  # float64 takes no TF32 path
+    try:
+        runs = [ctc_cuda.class_sum(x, zz, 80) for _ in range(20)]
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = False
+    for got in runs[1:]:
+        assert torch.equal(got, runs[0])
+    torch.testing.assert_close(runs[0].cpu(), want, rtol=2.0**-23, atol=0)
 
 
 @pytest.mark.cuda
@@ -1133,3 +1155,44 @@ def test_wide_train_step_on_the_card_matches_the_cpu(cuda):
     want = train_step(cpu, batch)
     for key in ("loss", "loss_second", "grad_norm"):
         torch.testing.assert_close(got[key].cpu(), want[key], rtol=1e-3, atol=1e-3)
+
+
+# --- the block-recipe zoo ----------------------------------------------------
+ZOO = ["window", "macaron", "macaron_2", "localglobal", "lgp", "lgp_svtr", "conformer",
+       "squeezeformer"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("encoder", ZOO)
+def test_recipe_fully_fused_eval_matches_its_stock_ops(cuda, encoder):
+    """Each block recipe, tiny and float32 (64x128 px, embed 64, two heads,
+    its preset depth), fully fused on the card: 1 alpha, 1 K3f and 9 K4f a
+    call, and the logits of the same weights on the stock ops
+    (``attn_impl="xla"``, stock stem) within the card's float32 bar."""
+    import dataclasses
+
+    from htr_vt_torch.models.variants import apply_variant_preset
+    from htr_vt_torch.ops import conv_fused as cf
+    from htr_vt_torch.ops import pool_fused as pf
+    cfg = apply_variant_preset(ModelConfig(
+        encoder=encoder, nb_cls=8, img_size=(64, 128), embed_dim=64, num_heads=2,
+        compute_dtype="float32", bn_stats_impl="pallas", pool_impl="pallas",
+        conv_impl="pallas"))
+    fused = build_model(cfg, device=cuda, generator=torch.Generator(device=cuda).manual_seed(5))
+    stock = build_model(dataclasses.replace(cfg, attn_impl="xla", bn_stats_impl="auto",
+                                            pool_impl="auto", conv_impl="auto"), device=cuda)
+    stock.load_state_dict(fused.state_dict(), strict=True)
+    rng = np.random.default_rng(13)
+    _, labels, lengths = ctc_case(13, 4, 32, 8, 10)
+    # a new axis on a numpy image: the channel's stride is 0, and the
+    # conformer presets take no input LayerNorm that would copy it
+    batch = {"image": rng.random((4, 64, 128), dtype=np.float32)[..., None],
+             "labels": labels, "label_lengths": lengths}
+    counters = (ctc_cuda.ctc_alpha, pf.pool_bn_relu_fwd, cf.conv3x3_bn_relu_fwd)
+    before = [f.launches for f in counters]
+    got = eval_step(fused, batch)
+    assert [f.launches - c for f, c in zip(counters, before)] == [1, 1, 9]
+    want = eval_step(stock, batch)
+    torch.testing.assert_close(got["logits"], want["logits"], rtol=1e-4, atol=2e-4)
+    torch.testing.assert_close(got["loss_per_sample"], want["loss_per_sample"],
+                               rtol=1e-4, atol=1e-4)

@@ -302,7 +302,7 @@ def test_seeded_init_follows_the_jax_schemes():
     assert not a.pos_embed.requires_grad and "pos_embed" not in a.state_dict()
 
 
-@pytest.mark.parametrize("override", [dict(encoder="window"),
+@pytest.mark.parametrize("override", [dict(encoder="swin"),
                                       dict(model_type="encoder_decoder"),
                                       dict(stem="van"), dict(quant="int8")])
 def test_build_model_rejects_unported_recipes(override):

@@ -171,12 +171,18 @@ def test_remat_is_refused_until_it_is_ported(remat):
 
 
 def test_build_keep_mask_modes():
+    """``none`` keeps everything; every MMS strategy gives a float32
+    [B, L, 1] keep mask of zeros and ones (their properties are held in
+    tests/test_torch_port_masking.py); an unknown mode raises."""
     gen = torch.Generator().manual_seed(0)
     none = masking.build_keep_mask(gen, 2, 16, MaskConfig(mode="none"))
     assert none.shape == (2, 16, 1) and (none == 1).all()
     for mode in ("span_old", "random", "block", "span_spacing", "mms"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            masking.build_keep_mask(gen, 2, 16, MaskConfig(mode=mode))
+        keep = masking.build_keep_mask(gen, 2, 16, MaskConfig(mode=mode))
+        assert keep.shape == (2, 16, 1) and keep.dtype == torch.float32
+        assert ((keep == 0) | (keep == 1)).all() and (keep == 0).any()
+    with pytest.raises(ValueError, match="unknown mask mode"):
+        masking.build_keep_mask(gen, 2, 16, MaskConfig(mode="spiral"))
 
 
 def test_apply_mask_matches_jax():
