@@ -147,6 +147,30 @@ non-zero before the last line:
    the gradient norm finite; ms/step, img/s and peak memory. Then two
    steps at 64x1024 px (bs 64, N = 256): K5f, K5dkv and K5dq 24 each a
    step (4 blocks x 3 forwards x 2 passes).
+17. zoo standalone: Swin (its constructor's widths: d_model 192), SVTR
+   tiny, and van and van2 behind the flagship trunk, bf16, seeded weights,
+   built with the fully fused switches, which reach none of their stems:
+   one counted ``eval_step`` at bs 128 and 512 px launches 1 K1a and
+   nothing else, its frame argmax held against the same weights in
+   float32 on the frames whose float32 margin the bf16 rounding cannot
+   cross (``_zoo_case``); Swin and SVTR again at 1024 px (bs 64, their
+   per-grid tables); then each recipe's tri-masked SGM SAM steps (MMS
+   masking, bs 128): exactly 6 K1a and 6 K1b a step, finite losses,
+   ms/step, img/s and peak memory, and a 20-step learning check at bs 16
+   whose pass-1 loss must fall.
+18. encoder decoder: ``run/train_encoder_decoder_iam.sh`` through the
+   port's argument bridge at full width (the flagship trunk fully fused,
+   6 decoder layers of 8 heads, ``max_seq_len`` 256, label smoothing 0.1),
+   bs 128, on 512 train and 128 val seeded lines with texts of 1-96
+   characters (``ed_len`` 98): ``fit`` for 4 steps with an EMA
+   ``eval_step_ed`` and a checkpoint every 2, launches exactly 4 x (K2 32,
+   K3f/K3b 2, K4f/K4d/K4w 18) + 2 x (1 K3f, 9 K4f), no K1 or K5; "train 2,
+   resume, train 2" held bit for bit against it in default mode; then on
+   the best_CER EMA model ``eval_step_ed`` (one encode: 1 K3f, 9 K4f),
+   greedy and beam (5) generation over 98 positions at bs 128, timed, and
+   the cached decode against the uncached ``decode_logits`` at every
+   position (bf16: argmax >= 99%; a float32 copy: argmax equal, logits
+   within 1e-3).
 
 Kernel times (phases 2, 3, 4 and 11) are read two ways: ``median_ms``, one
 wrapper call between two CUDA events (host work in the wrapper included;
@@ -180,11 +204,14 @@ sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
 from htr_vt_torch import (CTCLabelConverter, ExperimentConfig,  # noqa: E402
                           MaskConfig, ModelConfig, OptimConfig, _build)
+from htr_vt_torch.cli.args import args_to_config, build_parser  # noqa: E402
 from htr_vt_torch.cli.serve import (load_serving_model, transcribe,  # noqa: E402
                                     transcribe_buckets)
+from htr_vt_torch.data.loader import choose_max_label_len  # noqa: E402
 from htr_vt_torch.config import (AugmentConfig, DataConfig, SGMConfig,  # noqa: E402
                                  TrainConfig)
 from htr_vt_torch.eval.validate import validate  # noqa: E402
+from htr_vt_torch.models.encoder_decoder import generate  # noqa: E402
 from htr_vt_torch.models.htr_vt import build_model  # noqa: E402
 from htr_vt_torch.models.sgm import SGMVocab, make_context_arrays  # noqa: E402
 from htr_vt_torch.models.variants import apply_variant_preset  # noqa: E402
@@ -197,7 +224,8 @@ from htr_vt_torch.ops.ctc import NEG, ctc_loss, ctc_loss_auto  # noqa: E402
 from htr_vt_torch.train import loop  # noqa: E402
 from htr_vt_torch.train.checkpoint import CheckpointManager  # noqa: E402
 from htr_vt_torch.train.state import create_train_state  # noqa: E402
-from htr_vt_torch.train.step import eval_step, train_step  # noqa: E402
+from htr_vt_torch.text.ed_tokenizer import EDTokenizer  # noqa: E402
+from htr_vt_torch.train.step import eval_step, eval_step_ed, train_step  # noqa: E402
 
 SEED = 0
 BATCH = 128
@@ -365,6 +393,32 @@ STOCK_OPS = dict(attn_impl="xla", conv_impl="auto", pool_impl="auto", bn_stats_i
 TRI_FORWARDS = 3
 SGM_WARMUP, SGM_STEPS, SGM_WIDE_STEPS = 1, 3, 2
 SGM_SUB_LEN = 5
+# The zoo's standalone models and VAN stems (model_sgm_mms_swin, _svtr,
+# _attach_van, _attach_van_2): Swin at its constructor's widths, SVTR tiny,
+# van and van2 behind the flagship trunk. Built with the fully fused
+# switches, which reach none of their stems: only K1 may launch. Swin and
+# SVTR also serve at 1024 px (bs 64, the per-grid tables); each trains
+# tri-masked with the SGM head and MMS masking, SAM + AdamW at bs 128.
+ZOO_STANDALONE = ("swin", "svtr", "van", "van2")
+ZOO_STANDALONE_WIDE = ("swin", "svtr")
+ZOO_SAM_WARMUP, ZOO_SAM_STEPS = 1, 3
+OWN_OPS = "a second call of itself (no stem or attention kernel to swap out)"
+# The encoder-decoder (run/train_encoder_decoder_iam.sh) at full width, its
+# trunk fully fused: fit for ED_STEPS steps with an EMA eval_step_ed and a
+# checkpoint every ED_EVAL, and the same run stopped at ED_EVAL and resumed;
+# ED_LINES train and val lines with texts of 1-96 characters (ed_len 98).
+ED_RECIPE = ["IAM", "--model-type", "encoder_decoder", "--decoder-layers", "6",
+             "--decoder-heads", "8", "--max-seq-len", "256", "--label-smoothing", "0.1",
+             "--max-lr", "1e-3", "--train-bs", str(BATCH), "--weight-decay", "0.5",
+             "--img-size", "512", "64"]
+ED_LINES = (512, BATCH)
+ED_STEPS, ED_EVAL = 4, 2
+ED_BEAM = 5
+# The cached decode against the uncached one on the same weights: float32
+# (TF32 off) sums over a longer, masked key axis, argmax equal everywhere;
+# in bf16 the attention outputs round to bf16 after sums in another order,
+# so the argmax is held on ED_DECODE_AGREEMENT of the positions.
+ED_DECODE_F32_ATOL, ED_DECODE_AGREEMENT = 1e-3, 0.99
 
 
 def per_step_launches(switches, forwards=1):
@@ -2087,7 +2141,8 @@ def zoo_batch(n, width, rng, device):
             "label_lengths": put(lengths)}
 
 
-def _zoo_case(name, model, stock, ref32, batch, want, tag):
+def _zoo_case(name, model, stock, ref32, batch, want, tag,
+              stock_name="the stock ops (attn_impl=xla, stock stem)"):
     """One recipe at one width: the fully fused model's counted eval_step
     against the stock-ops model on the same weights, then its eval_step
     time. Random weights leave many frames with a top-2 margin under the
@@ -2121,14 +2176,15 @@ def _zoo_case(name, model, stock, ref32, batch, want, tag):
     stock_held = (rl.argmax(-1)[decidable] == want_ids).float().mean().item()
     stock_f32 = (rl.argmax(-1) == r32.argmax(-1)).float().mean().item()
     ms = median_ms(lambda: eval_step(model, batch), 10)
-    rec = dict(eval_ms=ms, img_s=BATCH / ms * 1e3, max_dlogits=dmax,
+    rows = batch["image"].shape[0]
+    rec = dict(eval_ms=ms, img_s=rows / ms * 1e3, rows=rows, max_dlogits=dmax,
                argmax_agreement=agree, stock_vs_f32_agreement=stock_f32,
                decidable_share=decidable.float().mean().item(),
                decidable_agreement=held, launches=counts,
                loss=out["loss"].item(), frames=logits.shape[1])
-    say(f"[{tag}] {name}: eval_step {ms:.3f} ms ({rec['img_s']:.1f} img/s) at "
-        f"{batch['image'].shape[2]} px, {logits.shape[1]} frames; vs the stock ops "
-        f"(attn_impl=xla, stock stem) on the same weights: max |dlogits| {dmax:.4f}, "
+    say(f"[{tag}] {name}: eval_step {ms:.3f} ms ({rec['img_s']:.1f} img/s, bs {rows}) at "
+        f"{batch['image'].shape[2]} px, {logits.shape[1]} frames; vs {stock_name} "
+        f"on the same weights: max |dlogits| {dmax:.4f}, "
         f"frame argmax agreement {agree:.4%} (the stock ops' bf16 vs their float32: "
         f"{stock_f32:.4%}, largest logit error {stock_err:.4f}); on the "
         f"{rec['decidable_share']:.2%} of frames whose float32 margin is at least "
@@ -2320,13 +2376,19 @@ def _fit_cfg(out_dir, exp_name, total, resume=None):
                           resume=resume, keep_checkpoints=2))
 
 
-def _recorded_fit(cfg, datasets, device):
+def _recorded_fit(cfg, datasets, device, times=None):
     """``loop.fit`` with each step's pass-1 loss kept (device scalars, read
-    after the run)."""
+    after the run); with ``times``, each step's CUDA events appended."""
     losses = []
 
     def recording(state, batch):
+        if times is not None:
+            times.append((torch.cuda.Event(enable_timing=True),
+                          torch.cuda.Event(enable_timing=True)))
+            times[-1][0].record()
         metrics = train_step(state, batch)
+        if times is not None:
+            times[-1][1].record()
         losses.append(metrics["loss"])
         return metrics
 
@@ -2578,6 +2640,257 @@ def phase_fit(device, smi_line):
 
 
 # ---------------------------------------------------------------------------
+def _standalone_cfg(name, vocab):
+    """The reference recipe of ``name`` (preset, MMS masking, the SGM head
+    at ``vocab``), with the fully fused stem switches."""
+    return apply_variant_preset(ModelConfig(
+        encoder=name, masking=MaskConfig(mode="mms", max_span_length=8),
+        sgm=SGMConfig(enable=True, vocab_size=vocab.size, sub_len=SGM_SUB_LEN),
+        **FULLY_FUSED))
+
+
+def phase_zoo_standalone(device, smi_line):
+    """Swin, SVTR tiny, van and van2 at 64x512, bf16, seeded weights: a
+    counted eval_step at bs 128 (1 K1a, no stem or flash kernel: the
+    switches reach none of their stems) against the same weights in
+    float32 on the frames whose float32 margin the bf16 rounding cannot
+    cross; Swin and SVTR again at 1024 px; then tri-masked SGM SAM steps
+    (6 K1a and 6 K1b each, nothing else) and a learning check."""
+    vocab = SGMVocab(CTCLabelConverter([chr(c) for c in range(33, 33 + 79)]))
+    rng = np.random.default_rng(SEED + 60)
+    batch = zoo_batch(BATCH, 512, rng, device)
+    wide = zoo_batch(WIDE_BATCH, 1024, rng, device)
+    eval_want = {"ctc_alpha": 1}
+    per_step = per_step_launches({}, TRI_FORWARDS)
+    launches = dict.fromkeys(COUNTERS, 0)
+    rec = {}
+    for i, name in enumerate(ZOO_STANDALONE):
+        cfg = _standalone_cfg(name, vocab)
+        serve_cfg = dataclasses.replace(cfg, sgm=SGMConfig())
+        model = build_model(serve_cfg, device=device,
+                            generator=torch.Generator(device=device).manual_seed(SEED + 60 + i))
+        ref32 = build_model(dataclasses.replace(serve_cfg, compute_dtype="float32"),
+                            device=device)
+        ref32.load_state_dict(model.state_dict(), strict=True)
+        say(f"[zoo standalone] {name}: {type(model).__name__}, "
+            f"{sum(p.numel() for p in model.parameters())} parameters, bf16, seeded "
+            f"weights; stem switches {FULLY_FUSED} (unread by this model's stem)")
+        counts, rec[name] = _zoo_case(name, model, model, ref32, batch, eval_want,
+                                      "zoo standalone", OWN_OPS)
+        launches = {k: launches[k] + counts[k] for k in launches}
+        if name in ZOO_STANDALONE_WIDE:
+            counts, rec[f"{name}_1024"] = _zoo_case(name, model, model, ref32, wide,
+                                                    eval_want, "zoo standalone 1024",
+                                                    OWN_OPS)
+            launches = {k: launches[k] + counts[k] for k in launches}
+        del model, ref32
+        torch.cuda.empty_cache()
+
+        # --- the recipe's training, counted -------------------------------------
+        exp = ExperimentConfig(model=cfg, optim=OptimConfig(),
+                               train=TrainConfig(tri_masked=True))
+        state = create_train_state(exp, device,
+                                   torch.Generator(device=device).manual_seed(SEED + 70 + i))
+        tbatch = sgm_batch(BATCH, 512, LMAX, vocab, rng, device)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        before = read_counts()
+        times, metrics = _sgm_steps(state, tbatch, ZOO_SAM_WARMUP + ZOO_SAM_STEPS,
+                                    per_step, f"zoo standalone train {name}")
+        after = read_counts()
+        launches = {k: launches[k] + after[k] - before[k] for k in launches}
+        peak = torch.cuda.max_memory_allocated()
+        ms = statistics.median(times[ZOO_SAM_WARMUP:])
+        del state
+        torch.cuda.empty_cache()
+        learn = create_train_state(
+            dataclasses.replace(exp, optim=OptimConfig(max_lr=3e-4, warmup_iters=5)),
+            device, torch.Generator(device=device).manual_seed(SEED + 80 + i))
+        small = sgm_batch(LEARN_BATCH, 512, LMAX, vocab, np.random.default_rng(SEED + 81),
+                          device)
+        losses = [train_step(learn, small)["loss"].item() for _ in range(LEARN_STEPS)]
+        del learn
+        torch.cuda.empty_cache()
+        rec[name].update(train_ms=ms, train_img_s=BATCH / ms * 1e3,
+                         train_first_ms=times[0], train_peak_mib=peak / 2**20,
+                         train_metrics=metrics, learn_losses=losses)
+        say(f"[zoo standalone train] {name}: tri-masked SGM (MMS masking), SAM + AdamW, "
+            f"bs {BATCH}: {ZOO_SAM_STEPS} steps after {ZOO_SAM_WARMUP} warm-up, median "
+            f"{ms:.3f} ms/step ({BATCH / ms * 1e3:.1f} img/s; first {times[0]:.3f}), peak "
+            f"memory {peak / 2**20:.1f} MiB; launches per step {per_step}; loss "
+            + " ".join(f"{m['loss']:.4f}" for m in metrics) + "; loss_sgm "
+            + " ".join(f"{m['loss_sgm']:.4f}" for m in metrics) + f"; learning check, "
+            f"{LEARN_STEPS} steps on one batch of {LEARN_BATCH} (max_lr 3e-4, warmup 5): "
+            f"pass-1 loss {losses[0]:.4f} -> {losses[-1]:.4f}; {smi_line}")
+        if not losses[-1] < losses[0]:
+            raise AssertionError(f"[zoo standalone train] {name}: no learning: {losses}")
+    say(f"[zoo standalone] {len(ZOO_STANDALONE)} models, launches {launches}")
+    return launches, rec
+
+
+def _ed_cfg(out_dir, exp_name, total, resume=None):
+    """run/train_encoder_decoder_iam.sh through the port's argument bridge,
+    the trunk fully fused, at bs 128 on in-memory lines (augmentation off:
+    no cv2 on the card)."""
+    cfg = args_to_config(build_parser("chip_smoke").parse_args(ED_RECIPE))
+    return dataclasses.replace(
+        cfg, model=dataclasses.replace(cfg.model, **FULLY_FUSED),
+        data=dataclasses.replace(cfg.data, train_bs=BATCH, val_bs=BATCH, num_workers=4,
+                                 augment=AugmentConfig(enable=False)),
+        train=TrainConfig(out_dir=out_dir, exp_name=exp_name, seed=SEED, total_iters=total,
+                          eval_iters=ED_EVAL, print_iters=ED_EVAL, resume=resume,
+                          keep_checkpoints=2))
+
+
+def _decode_held(model, memory, tin):
+    """The cached decode (``decode_one`` position by position on the
+    caches) against the uncached ``decode_logits`` over the teacher-forced
+    prefix: (largest |dlogits|, argmax agreement)."""
+    with torch.inference_mode():
+        full = model.decode_logits(memory, tin)
+        mem_kvs = model.prefill(memory)
+        ks, vs = model.new_caches(tin.shape[0], tin.shape[1], tin.device)
+        steps = torch.stack([model.decode_one(tin[:, t], t, mem_kvs, ks, vs)
+                             for t in range(tin.shape[1])], dim=1)
+    return ((steps - full).abs().max().item(),
+            (steps.argmax(-1) == full.argmax(-1)).float().mean().item())
+
+
+def phase_encoder_decoder(device, smi_line):
+    """The IAM encoder-decoder recipe at full width (flagship trunk fully
+    fused, 6 decoder layers of 8 heads, max_seq_len 256), bs 128: ``fit``
+    for ED_STEPS steps with an EMA ``eval_step_ed`` and a checkpoint every
+    ED_EVAL (launches counted exactly: the trunk's K2/K3/K4, no K1 or K5);
+    the same run stopped at ED_EVAL and resumed, held bit for bit in
+    default mode; then ``eval_step_ed``, greedy and beam generation on one
+    batch of 128, and the cached decode against the uncached one."""
+    alphabet = [chr(c) for c in range(33, 33 + ModelConfig().nb_cls - 1)]
+    datasets = tuple(LineSet(n, alphabet, SEED + 90 + i) for i, n in enumerate(ED_LINES))
+    per_step = {k: v for k, v in per_step_launches(FULLY_FUSED).items()
+                if not k.startswith("ctc")}
+    per_eval = {"pool_bn_relu_fwd": 1, "conv3x3_bn_relu_fwd": 9}
+    n_evals, n_val = ED_STEPS // ED_EVAL, math.ceil(ED_LINES[1] / BATCH)
+    root = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build")
+    os.makedirs(root, exist_ok=True)
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_ed_", dir=root)
+    say(f"[encoder decoder] loop.fit: {' '.join(ED_RECIPE)}, trunk fully fused, bs "
+        f"{BATCH}, {ED_LINES[0]} train and {ED_LINES[1]} val seeded lines (texts of 1-{LMAX} "
+        f"characters); total_iters {ED_STEPS}, eval_iters {ED_EVAL}; checkpoints under {tmp}")
+    try:
+        # --- the main path, counted ------------------------------------------
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        events = []
+        t0 = time.perf_counter()
+        _, full_losses = _recorded_fit(_ed_cfg(tmp, "full", ED_STEPS), datasets, device,
+                                       events)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = read_counts()
+        peak = torch.cuda.max_memory_allocated()
+        want = {k: ED_STEPS * per_step.get(k, 0) + n_evals * n_val * per_eval.get(k, 0)
+                for k in COUNTERS}
+        if launches != want:
+            raise AssertionError(f"[encoder decoder] launches {launches}; {ED_STEPS} steps "
+                                 f"and {n_evals} x {n_val} eval batches make {want}")
+        if not np.isfinite(full_losses).all() or len(full_losses) != ED_STEPS:
+            raise AssertionError(f"[encoder decoder] losses {full_losses}")
+        times = [a.elapsed_time(b) for a, b in events]
+        step_ms = statistics.median(times[1:])
+        full_dir = os.path.join(tmp, "full")
+        full_state = _final_state(full_dir, ED_STEPS)
+        with open(os.path.join(full_dir, "metrics.jsonl")) as f:
+            vals = [json.loads(line) for line in f if "val/CER" in line]
+        say(f"[encoder decoder] {ED_STEPS} steps + {n_evals} evals in {wall:.3f} s; steps "
+            + " ".join(f"{t:.3f}" for t in times) + f" ms (median after the first "
+            f"{step_ms:.3f}: {BATCH / step_ms * 1e3:.1f} img/s); pass-1 losses "
+            + " ".join(f"{v:.4f}" for v in full_losses) + "; val loss/CER/WER "
+            + " ".join(f"{r['val/loss']:.4f}/{r['val/CER']:.4f}/{r['val/WER']:.4f}"
+                       for r in vals)
+            + f"; peak memory {peak / 2**20:.1f} MiB; launches {launches} = {ED_STEPS} x "
+            f"{per_step} + {n_evals * n_val} x {per_eval}; {smi_line}")
+
+        # --- default mode: train ED_EVAL, resume, train the rest ---------------
+        _, first = _recorded_fit(_ed_cfg(tmp, "split", ED_EVAL), datasets, device)
+        _, resumed = _recorded_fit(_ed_cfg(tmp, "split", ED_STEPS, resume="auto"), datasets,
+                                   device)
+        split_state = _final_state(os.path.join(tmp, "split"), ED_STEPS)
+        resume = compare_states(split_state, full_state, first + resumed, full_losses)
+        say(f"[encoder decoder] default mode: train {ED_EVAL}, resume (auto), train "
+            f"{ED_STEPS - ED_EVAL}: pass-1 losses "
+            + " ".join(f"{v:.4f}" for v in first + resumed) + " against the uninterrupted "
+            "run's: " + ("bit-equal (losses, model, EMA, AdamW, step, generator)"
+                         if resume["bit_equal"] else f"NOT bit-equal: {gaps(resume)}"))
+        if not resume["bit_equal"]:
+            raise AssertionError(f"[encoder decoder] the resumed run differs: {resume}")
+        del full_state, split_state
+
+        # --- eval_step_ed, generation and the cached decode ----------------------
+        model = load_serving_model(os.path.join(full_dir, "best_CER"), None, device)
+        tokenizer = EDTokenizer.from_ctc_converter(CTCLabelConverter(sorted(alphabet)))
+        val = datasets[1]
+        max_len = min(choose_max_label_len(datasets[0].labels, model.cfg.num_tokens) + 2,
+                      model.max_seq_len)  # fit's ed_len
+        tin, tout, tlen = tokenizer.encode_for_training(val.labels[:BATCH], max_len)
+        put = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(device)  # noqa: E731
+        images = put(np.float32(val.images[:BATCH])[..., None] / 255.0)
+        batch = {"image": images, "labels": put(np.zeros((BATCH, 8), np.int32)),
+                 "label_lengths": put(np.zeros(BATCH, np.int32)), "ed_input": put(tin),
+                 "ed_output": put(tout), "ed_lengths": put(tlen)}
+        reset_counts()
+        out = eval_step_ed(model, batch)
+        torch.cuda.synchronize()
+        counts = read_counts()
+        if counts != {**dict.fromkeys(COUNTERS, 0), **per_eval}:
+            raise AssertionError(f"[encoder decoder] eval_step_ed launched {counts}; "
+                                 f"expected {per_eval}")
+        eval_ms = median_ms(lambda: eval_step_ed(model, batch), 3, warmup=1)
+        with torch.inference_mode():
+            memory = model.encode(images)
+        greedy_ms = median_ms(lambda: generate(model, None, memory=memory,
+                                               max_len=max_len), 3, warmup=1)
+        beam_ms = median_ms(lambda: generate(model, None, memory=memory, max_len=max_len,
+                                             method="beam_search", beam_size=ED_BEAM),
+                            3, warmup=1)
+        greedy = generate(model, None, memory=memory, max_len=max_len)
+        beam = generate(model, None, memory=memory, max_len=max_len,
+                        method="beam_search", beam_size=ED_BEAM)
+        if not torch.equal(greedy, out["pred_ids"]) or beam.shape != greedy.shape:
+            raise AssertionError("[encoder decoder] greedy ids differ from eval_step_ed's")
+        bf16_gap, bf16_agree = _decode_held(model, memory, batch["ed_input"])
+        ref32 = build_model(dataclasses.replace(model.cfg, compute_dtype="float32"),
+                            device=device)
+        ref32.load_state_dict(model.state_dict(), strict=True)
+        with torch.inference_mode():
+            memory32 = ref32.encode(images)
+        f32_gap, f32_agree = _decode_held(ref32, memory32, batch["ed_input"])
+        del ref32, memory32, model
+        torch.cuda.empty_cache()
+        say(f"[encoder decoder] EMA best_CER at bs {BATCH}, {max_len} positions: "
+            f"eval_step_ed {eval_ms:.3f} ms (launches {counts}: one encode), greedy "
+            f"generation {greedy_ms:.3f} ms, beam search (beam {ED_BEAM}) {beam_ms:.3f} ms; "
+            f"eval loss {out['loss'].item():.4f}; cached against uncached decode over the "
+            f"teacher-forced prefix: bf16 max |dlogits| {bf16_gap:.4e}, argmax agreement "
+            f"{bf16_agree:.4%} (floor {ED_DECODE_AGREEMENT:.0%}); float32 copy max |dlogits| "
+            f"{f32_gap:.4e} (bar {ED_DECODE_F32_ATOL}), argmax agreement {f32_agree:.4%} "
+            f"(floor 100%); {smi_line}")
+        if bf16_agree < ED_DECODE_AGREEMENT or f32_agree < 1.0 or \
+                not f32_gap <= ED_DECODE_F32_ATOL:
+            raise AssertionError("[encoder decoder] the cached decode differs from the "
+                                 "uncached one")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return launches, dict(step_ms=step_ms, step_times=times, img_s=BATCH / step_ms * 1e3,
+                          losses=full_losses, resumed_losses=first + resumed,
+                          default_resume=resume, val=vals, peak_mib=peak / 2**20,
+                          wall_s=wall, eval_step_ed_ms=eval_ms, greedy_ms=greedy_ms,
+                          beam_ms=beam_ms, beam_size=ED_BEAM, positions=max_len,
+                          cached_bf16_max_dlogits=bf16_gap, cached_bf16_agreement=bf16_agree,
+                          cached_f32_max_dlogits=f32_gap, cached_f32_agreement=f32_agree)
+
+
+# ---------------------------------------------------------------------------
 def main():
     smi_line, max_sm_mhz = phase_device()
     device = torch.device("cuda", 0)
@@ -2601,10 +2914,13 @@ def main():
     fit_launches, fit_rec = phase_fit(device, smi_line)
     zoo_launches, zoo_rec = phase_zoo_serve(device, smi_line)
     sgm_launches, sgm_rec = phase_sgm_mms_train(device, smi_line)
+    standalone_launches, standalone_rec = phase_zoo_standalone(device, smi_line)
+    ed_launches, ed_rec = phase_encoder_decoder(device, smi_line)
     say(f"[done] build {build_s:.2f} s; {smi_line}")
     main_path = {k: fused_serve[k] + full_serve[k] + fused_train[k] + full_train[k]
                  + train_launches[k] + bucket_serve[k] + wide_train[k] + fit_launches[k]
-                 + zoo_launches[k] + sgm_launches[k]
+                 + zoo_launches[k] + sgm_launches[k] + standalone_launches[k]
+                 + ed_launches[k]
                  for k in COUNTERS}
     main_path["ctc_alpha"] += serve_launches
     k193, k17 = kernels["S193"], kernels["S17"]
@@ -2742,7 +3058,8 @@ def main():
                     "conv_grad_copies": full["conv_grad_copies"],
                     "pool_grad_copies": fused["grad_copies"] + full["grad_copies"],
                     "fully_fused_serve": full_serve_rec, "fit": fit_rec,
-                    "zoo_serve": zoo_rec, "sgm_mms_train": sgm_rec}))
+                    "zoo_serve": zoo_rec, "sgm_mms_train": sgm_rec,
+                    "zoo_standalone": standalone_rec, "encoder_decoder": ed_rec}))
     say(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -10,7 +10,7 @@ the JAX package's JAX-free modules (``config.py``, ``text/``, ``data/``,
 ``htr_vt_tpu``, and imports cv2 and PIL only inside the functions that
 render, read or augment an image.
 
-Ported so far, for the flagship ``model_v1`` recipe:
+Ported so far:
 
 - serving: ``cli/serve.py`` -> ``train/step.py:eval_step`` ->
   ``models/htr_vt.py:HTRVT`` + ``ops/ctc.py:ctc_loss_auto``;
@@ -28,7 +28,13 @@ Ported so far, for the flagship ``model_v1`` recipe:
   (``data/loader.py``), checkpoints on ``torch.save``
   (``train/checkpoint.py``), and the ``cli/train.py``, ``cli/test.py``,
   ``cli/infer.py`` and ``cli/params.py`` entry points (``cli/args.py``);
-  ``cli/serve.py`` serves a training checkpoint's EMA weights.
+  ``cli/serve.py`` serves a training checkpoint's EMA weights;
+- the variant zoo: every block recipe of ``models/variants.py`` behind the
+  ResNet18 or a VAN stem (``models/van.py``), the SGM head and the
+  tri-masked trainer, the standalone Swin and SVTR (``models/swin.py``,
+  ``models/svtr.py``), and the encoder-decoder with KV-cached generation
+  (``models/encoder_decoder.py``), all dispatched by
+  ``models/htr_vt.py:build_model`` as the JAX package dispatches them.
 
 On a CUDA tensor the CTC loss runs its alpha recursion, and its gradient
 the beta recursion, as hand-written ``sm_90a`` kernels

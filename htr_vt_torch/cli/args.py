@@ -8,10 +8,10 @@ like the upstream ``python3 train.py ... IAM`` form.
 The port's own copy of ``htr_vt_tpu/cli/args.py``, held to it recipe by
 recipe by ``tests/test_torch_port_cli.py``, with three changes: the encoder
 names and the variant presets come from the port's own registry and
-recipes (``models/registry.py``, ``models/variants.py``), every flag parses
-as in JAX while ``build_model`` refuses the encoders the port does not
-have yet, and ``--device`` (default ``cuda``) picks the device the entry
-points run on.
+recipes (``models/registry.py``, ``models/variants.py``); ``--device``
+(default ``cuda``) picks the device the entry points run on; and
+``--svtr-preset`` sets ``ModelConfig.svtr_preset``, which JAX's parser
+leaves at its default.
 """
 
 from __future__ import annotations
@@ -68,6 +68,9 @@ def build_parser(description: str) -> argparse.ArgumentParser:
                         "hand-written flash-attention kernels; auto = flash "
                         "on the card at N >= 256 tokens (the 1024/2048-px "
                         "width buckets), the stock ops otherwise")
+    p.add_argument("--svtr-preset", type=str, default="tiny",
+                   choices=["tiny", "small", "base", "large"],
+                   help="SVTR size when --encoder svtr (models/svtr.py:SVTR_PRESETS)")
     p.add_argument("--embed-dim", type=int, default=768)
     p.add_argument("--depth", type=int, default=4)
     p.add_argument("--num-heads", type=int, default=6)
@@ -172,6 +175,7 @@ def args_to_config(args: argparse.Namespace) -> ExperimentConfig:
         quant=args.quant, quant_gelu=args.quant_gelu,
         attn_impl=args.attn_impl, remat=args.remat,
         embed_dim=args.embed_dim, depth=args.depth, num_heads=args.num_heads,
+        svtr_preset=args.svtr_preset,
         model_type=args.model_type, decoder_layers=args.decoder_layers,
         decoder_heads=args.decoder_heads, max_seq_len=args.max_seq_len,
         label_smoothing=args.label_smoothing,

@@ -46,6 +46,11 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
         raise NotImplementedError(
             "--llm-correct: the RoBERTa corrector is not ported to htr_vt_torch yet "
             "(ROADMAP.md queue 1, item 14: deploy and serve)")
+    if cfg.model.model_type == "encoder_decoder":
+        raise NotImplementedError(
+            "--model-type encoder_decoder: this entry point runs the CTC eval_step, "
+            "which an encoder-decoder cannot take (neither can the JAX package's); "
+            "fit validates an encoder-decoder with train/step.py:eval_step_ed")
     if cfg.model.quant != "none":
         raise NotImplementedError(
             f"--quant {cfg.model.quant}: int8 inference is not ported to htr_vt_torch "

@@ -30,6 +30,11 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
     parser.add_argument("--predictions-out", type=str, default=None)
     args = parser.parse_args(argv)
     cfg = args_to_config(args)
+    if cfg.model.model_type == "encoder_decoder":
+        raise NotImplementedError(
+            "--model-type encoder_decoder: this entry point runs the CTC eval_step, "
+            "which an encoder-decoder cannot take (neither can the JAX package's); "
+            "fit validates an encoder-decoder with train/step.py:eval_step_ed")
     if cfg.model.quant != "none":
         raise NotImplementedError(
             f"--quant {cfg.model.quant}: int8 evaluation is not ported to htr_vt_torch "

@@ -1,37 +1,45 @@
 """Validation loop (port of ``htr_vt_tpu/eval/validate.py``), single
 process: batch CTC loss, greedy decode and CER/WER with the reference's
 aggregation (``htr_vt_torch/text/metrics.py``). The train loop passes the EMA
-model, as the reference evaluates its EMA weights."""
+model, as the reference evaluates its EMA weights, and for an
+encoder-decoder ``train/step.py:eval_step_ed`` with its tokenizer as the
+codec."""
 
 from __future__ import annotations
 
-from typing import Iterable, List, Mapping, Sequence, Tuple
+from typing import Callable, Iterable, List, Mapping, Sequence, Tuple
 
 from torch import nn
 
-from htr_vt_torch.text.converter import CTCLabelConverter
 from htr_vt_torch.text.metrics import RecognitionMetrics
 from htr_vt_torch.train.step import eval_step
 
 
 def validate(model: nn.Module,
              batches: Iterable[Tuple[Mapping, int, Sequence[str]]],
-             converter: CTCLabelConverter
+             converter, eval_fn: Callable = eval_step
              ) -> Tuple[float, float, float, List[str], List[str]]:
     """batches: (batch, num_valid, texts) triples, where only the first
     ``num_valid`` rows of a batch are real (the rest pad the last batch).
-    Returns (val_loss, CER, WER, predictions, labels); the loss is the mean
-    over valid rows only (``validate.py:64-73``)."""
+    ``converter``: any codec with ``decode_batch`` (the CTC converter, the
+    ED tokenizer); ``eval_fn(model, batch)``: ``eval_step`` or
+    ``eval_step_ed``. Returns (val_loss, CER, WER, predictions, labels); the
+    loss is the mean over valid rows where ``eval_fn`` gives per-row losses
+    (``validate.py:64-73``), else the mean of the batch losses."""
     metrics = RecognitionMetrics()
     total_loss, count = 0.0, 0
     all_preds: List[str] = []
     all_labels: List[str] = []
     for batch, valid, texts in batches:
-        out = eval_step(model, batch)
+        out = eval_fn(model, batch)
         preds = converter.decode_batch(out["pred_ids"][:valid].cpu().numpy())
         metrics.update(preds, texts)
-        total_loss += float(out["loss_per_sample"][:valid].sum())
-        count += valid
+        if "loss_per_sample" in out:
+            total_loss += float(out["loss_per_sample"][:valid].sum())
+            count += valid
+        else:
+            total_loss += float(out["loss"])
+            count += 1
         all_preds.extend(preds)
         all_labels.extend(texts)
     return (total_loss / max(1, count), metrics.cer, metrics.wer,

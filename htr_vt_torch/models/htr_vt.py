@@ -2,9 +2,9 @@
 
     image [B, H, W, 1] NHWC float32 in [0, 1]
     -> parameterless LayerNorm over the whole image
-    -> ResNet18 stem -> tokens [B, N, D]
+    -> ResNet18 stem, or a VAN stem (``models/van.py``) -> tokens [B, N, D]
     -> (train) token masking with the learned mask token
-    -> + fixed 2-D sin-cos position
+    -> + fixed 2-D sin-cos position (a (1, N) grid behind a VAN stem)
     -> the encoder recipe's blocks (``models/variants.py``) -> LayerNorm
     -> head -> logit LayerNorm -> logits [B, N, nb_cls] float32
     -> (train, SGM) the SGM head's auxiliary loss on the normed features
@@ -12,13 +12,15 @@
 Matmuls and convolutions run in ``cfg.compute_dtype``; norms, softmax, the
 head and the logits are float32. ``train`` is an explicit argument, as in
 JAX, and ``module.training`` is never read: train mode means batch-statistic
-BatchNorm, masking and dropout. Remat, the VAN stems, swin, svtr and
-``encoder_decoder`` are not ported yet (ROADMAP.md, queue 1).
+BatchNorm, masking and dropout. ``build_model`` also builds the JAX
+package's standalone models: ``HTRSwin`` (``models/swin.py``), ``SVTR``
+(``models/svtr.py``) and ``HTREncoderDecoder``
+(``models/encoder_decoder.py``). int8 and remat are not ported yet
+(ROADMAP.md, queue 1).
 """
 
 from __future__ import annotations
 
-import math
 from typing import Dict, Optional, Tuple
 
 import torch
@@ -26,20 +28,27 @@ from torch import nn
 
 from htr_vt_torch.config import ModelConfig
 from htr_vt_torch.models import masking
-from htr_vt_torch.models.layers import global_layer_norm, sincos_pos_embed_2d
+from htr_vt_torch.models.layers import (global_layer_norm, jax_init_,
+                                        sincos_pos_embed_2d)
 from htr_vt_torch.models.registry import build_encoder_blocks
 from htr_vt_torch.models.sgm import SGMHead
 from htr_vt_torch.models.stem import ResNet18Stem
+from htr_vt_torch.models.svtr import SVTR
+from htr_vt_torch.models.swin import HTRSwin
+from htr_vt_torch.models.van import VanStem
 from htr_vt_torch.models.vit import ATTN_IMPLS
+
+VAN_STEMS = ("van", "van2")
 
 
 class HTRVT(nn.Module):
-    """The ResNet18 stem, the block recipe of ``cfg.encoder`` and the CTC
-    head; with ``cfg.sgm.enable`` and a vocabulary size (the trainer sets it
-    from the codec, ``train/loop.py``) also the SGM head, whose parameters
-    then train, perturb and average with the others. ``generator`` seeds
-    the JAX package's init schemes (``init_weights``); without one the
-    weights keep torch's defaults.
+    """The ResNet18 stem (a VAN stem under ``cfg.stem`` van / van2), the
+    block recipe of ``cfg.encoder`` and the CTC head; with
+    ``cfg.sgm.enable`` and a vocabulary size (the trainer sets it from the
+    codec, ``train/loop.py``) also the SGM head, whose parameters then
+    train, perturb and average with the others. ``generator`` seeds
+    the JAX package's init schemes (``models/layers.py:jax_init_``);
+    without one the weights keep torch's defaults.
 
     ``blocks[i]`` is the JAX module ``block_names[i]`` (``block0``,
     ``mixer0``, ``encoder``, ...)."""
@@ -51,10 +60,14 @@ class HTRVT(nn.Module):
         dtype = getattr(torch, cfg.compute_dtype)
         self.dtype = dtype
         d = cfg.embed_dim
-        self.patch_embed = ResNet18Stem(
-            d, dtype, device=device, dataflow=cfg.conv_dataflow,
-            pool_impl=cfg.pool_impl, bn_stats_impl=cfg.bn_stats_impl,
-            conv_impl=cfg.conv_impl)
+        if cfg.stem in VAN_STEMS:
+            # built without the stem switches, as in JAX (htr_vt.py:71-74)
+            self.patch_embed = VanStem(d, dtype, variant=cfg.stem, device=device)
+        else:
+            self.patch_embed = ResNet18Stem(
+                d, dtype, device=device, dataflow=cfg.conv_dataflow,
+                pool_impl=cfg.pool_impl, bn_stats_impl=cfg.bn_stats_impl,
+                conv_impl=cfg.conv_impl)
         self.mask_token = nn.Parameter(torch.zeros(1, 1, d, device=device))
         # fixed sin-cos tables, one per (grid, device), outside the state_dict
         self._pos_tables: Dict[Tuple, torch.Tensor] = {}
@@ -68,34 +81,7 @@ class HTRVT(nn.Module):
             self.sgm_head = SGMHead(d, cfg.sgm.vocab_size, dtype,
                                     char_emb_dim=cfg.sgm.char_emb_dim, device=device)
         if generator is not None:
-            self.init_weights(generator)
-
-    @torch.no_grad()
-    def init_weights(self, generator: torch.Generator) -> None:
-        """The JAX package's initialisers: ``variance_scaling(2, fan_out,
-        normal)`` for convolutions (``stem.py:36``), xavier-uniform for
-        dense layers, normal(0.02) for ``mask_token``, ones/zeros for
-        LayerNorms and biases (BatchNorm keeps its constructor state); a
-        module with other schemes (lecun-normal convolutions and linears,
-        truncated-normal window bias tables, the SGM embeddings) applies
-        them in its ``reset_jax_init``."""
-        for m in self.modules():
-            if isinstance(m, nn.Conv2d):
-                cout, _, kh, kw = m.weight.shape
-                m.weight.normal_(0.0, math.sqrt(2.0 / (kh * kw * cout)),
-                                 generator=generator)
-            elif isinstance(m, nn.Linear):
-                limit = math.sqrt(6.0 / (m.in_features + m.out_features))
-                m.weight.uniform_(-limit, limit, generator=generator)
-                if m.bias is not None:
-                    m.bias.zero_()
-            elif isinstance(m, nn.LayerNorm):
-                m.weight.fill_(1.0)
-                m.bias.zero_()
-        self.mask_token.normal_(0.0, 0.02, generator=generator)
-        for m in self.modules():
-            if hasattr(m, "reset_jax_init"):
-                m.reset_jax_init(generator)
+            jax_init_(self, generator)
 
     def pos_table(self, grid: Tuple[int, int]) -> torch.Tensor:
         """The float32 [gh * gw, D] sin-cos table of ``grid`` on the model's
@@ -124,7 +110,8 @@ class HTRVT(nn.Module):
                 return_features: bool = False):
         """[B, H, W, 1] float32 -> logits [B, N, nb_cls] float32, at any
         width the stem takes: the position table follows the image's grid,
-        ``(H // patch_size[0], W // patch_size[1])``.
+        ``(H // patch_size[0], W // patch_size[1])``, or ``(1, N)`` behind a
+        VAN stem, whose tokens are one row (``htr_vt.py:110-115``).
 
         ``train``: batch-statistic BatchNorm (moving the running statistics
         in place), token masking and dropout, drawing from ``generator``.
@@ -148,17 +135,12 @@ class HTRVT(nn.Module):
         # NHWC token order, as the JAX reshape of [B, H', W', D]
         tokens = x.permute(0, 2, 3, 1).reshape(b, -1, cfg.embed_dim)
         n = tokens.shape[1]
-        if train and cfg.masking.mode != "none":
-            if keep is None:
-                keep = masking.build_keep_mask(generator, b, n, cfg.masking,
-                                               mode=mask_mode, ratio=mask_ratio)
-            tokens = masking.apply_mask(tokens, keep, self.mask_token)
-        elif keep is not None:
-            raise ValueError("a keep mask applies only in train mode with "
-                             "masking on")
+        tokens = masking.mask_tokens(tokens, cfg.masking, self.mask_token, train, keep,
+                                     generator, mask_mode, mask_ratio)
         if cfg.use_abs_pos_embed:
-            grid = (image.shape[1] // cfg.patch_size[0],
-                    image.shape[2] // cfg.patch_size[1])
+            grid = ((1, n) if cfg.stem in VAN_STEMS else
+                    (image.shape[1] // cfg.patch_size[0],
+                     image.shape[2] // cfg.patch_size[1]))
             tokens = tokens + self.pos_table(grid)[:n].to(self.dtype)
         for block in self.blocks:
             tokens = block(tokens, train=train, generator=generator)
@@ -197,25 +179,15 @@ def check_switches(cfg: ModelConfig) -> None:
                              f"{allowed}")
 
 
-# Encoders and stems of the JAX package that the port does not build yet.
-UNPORTED_ENCODERS = ("swin", "svtr", "van", "van2")
-
-
 def build_model(cfg: ModelConfig, device=None,
-                generator: Optional[torch.Generator] = None) -> HTRVT:
-    """Model factory, on the card unless ``device`` says otherwise (no card
-    raises). Every block recipe of ``models/variants.py`` is ported on the
-    ResNet18 stem; swin, svtr, the VAN stems, ``encoder_decoder``, int8
-    and remat are still queued in ROADMAP.md."""
-    if cfg.model_type != "ctc":
-        raise NotImplementedError(
-            f"model_type={cfg.model_type!r} is not ported to htr_vt_torch yet "
-            "(ROADMAP.md queue 1, item 10: variant zoo, encoder_decoder)")
-    if cfg.encoder in UNPORTED_ENCODERS or cfg.stem != "resnet18":
-        raise NotImplementedError(
-            f"encoder={cfg.encoder!r} / stem={cfg.stem!r} is not ported to "
-            "htr_vt_torch yet (ROADMAP.md queue 1, item 10: variant zoo: swin, "
-            "svtr, van, van2)")
+                generator: Optional[torch.Generator] = None) -> nn.Module:
+    """Model factory over the whole zoo, on the card unless ``device`` says
+    otherwise (no card raises), dispatched as JAX's (``htr_vt.py:159-176``):
+    ``model_type="encoder_decoder"`` builds ``HTREncoderDecoder`` around
+    the ``HTRVT`` trunk; ``encoder="swin"`` and ``"svtr"`` the standalone
+    ``HTRSwin`` and ``SVTR``; every other encoder ``HTRVT`` with the
+    recipe's blocks, behind the ResNet18 or a VAN stem. int8 and remat are
+    still queued in ROADMAP.md."""
     if cfg.quant != "none":
         raise NotImplementedError(
             f"quant={cfg.quant!r} is not ported to htr_vt_torch yet "
@@ -229,4 +201,13 @@ def build_model(cfg: ModelConfig, device=None,
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("build_model: no CUDA device; pass device='cpu' to "
                            "build the model on the CPU")
-    return HTRVT(cfg, device=device, generator=generator)
+    kw = dict(device=device, generator=generator)
+    if cfg.model_type == "encoder_decoder":
+        from htr_vt_torch.models.encoder_decoder import HTREncoderDecoder
+        return HTREncoderDecoder(cfg, cfg.ed_vocab_size, cfg.decoder_layers,
+                                 cfg.decoder_heads, cfg.max_seq_len, **kw)
+    if cfg.encoder == "swin":
+        return HTRSwin(cfg, **kw)
+    if cfg.encoder == "svtr":
+        return SVTR(cfg, **kw)
+    return HTRVT(cfg, **kw)

@@ -45,6 +45,13 @@ def sincos_pos_embed_2d(embed_dim: int, grid_size: Tuple[int, int]) -> np.ndarra
     return np.concatenate([emb_a, emb_b], axis=1).astype(np.float32)
 
 
+def sincos_pos_embed_1d(embed_dim: int, length: int) -> np.ndarray:
+    """1-D sin-cos embedding over ``length`` positions, float32 [length,
+    embed_dim] (``layers.py:50-53``; the encoder-decoder's target
+    positions)."""
+    return _sincos_1d(embed_dim, np.arange(length, dtype=np.float32)).astype(np.float32)
+
+
 def _sincos_1d(embed_dim: int, pos: np.ndarray) -> np.ndarray:
     assert embed_dim % 2 == 0
     omega = np.arange(embed_dim // 2, dtype=np.float64)
@@ -61,6 +68,15 @@ def dense(layer: nn.Linear, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor
     ``dtype``; a bias fused into the GEMM would round once instead."""
     y = F.linear(x.to(dtype), layer.weight.to(dtype))
     return y if layer.bias is None else y + layer.bias.to(dtype)
+
+
+def conv2d(conv: nn.Conv2d, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """flax ``nn.Conv`` in ``dtype`` (NCHW here): the convolution of input
+    and weight in ``dtype`` with the module's stride, padding, dilation and
+    groups, then the bias added in ``dtype``, as ``dense`` does."""
+    y = F.conv2d(x.to(dtype), conv.weight.to(dtype), stride=conv.stride,
+                 padding=conv.padding, dilation=conv.dilation, groups=conv.groups)
+    return y if conv.bias is None else y + conv.bias.to(dtype)[:, None, None]
 
 
 def dropout(x: torch.Tensor, rate: float, train: bool,
@@ -140,6 +156,47 @@ def lecun_normal_(w: torch.Tensor, fan_in: int,
     deviations, rescaled so that the variance is ``1 / fan_in``."""
     std = math.sqrt(1.0 / fan_in) / TRUNC_NORMAL_STD
     nn.init.trunc_normal_(w, 0.0, std, -2.0 * std, 2.0 * std, generator=generator)
+
+
+def xavier_uniform_conv_(w: torch.Tensor,
+                         generator: Optional[torch.Generator]) -> None:
+    """flax's ``xavier_uniform`` on a torch [out, in / groups, kh, kw] conv
+    weight: the fans are flax's, each channel count times the receptive
+    field kh * kw."""
+    cout, cin, kh, kw = w.shape
+    limit = math.sqrt(6.0 / ((cin + cout) * kh * kw))
+    w.uniform_(-limit, limit, generator=generator)
+
+
+@torch.no_grad()
+def jax_init_(model: nn.Module, generator: torch.Generator) -> None:
+    """The JAX package's default initialisers over every submodule:
+    ``variance_scaling(2, fan_out, normal)`` for 2-D convolutions
+    (``stem.py:36``), xavier-uniform for linears, ones / zeros for
+    LayerNorms, zeros for every bias, normal(0.02) for a ``mask_token``
+    (BatchNorm keeps its constructor state); then each module with other
+    schemes (lecun-normal convolutions and linears, truncated-normal bias
+    tables, embeddings) applies them in its ``reset_jax_init``."""
+    for m in model.modules():
+        if isinstance(m, nn.Conv2d):
+            cout, _, kh, kw = m.weight.shape
+            m.weight.normal_(0.0, math.sqrt(2.0 / (kh * kw * cout)), generator=generator)
+            if m.bias is not None:
+                m.bias.zero_()
+        elif isinstance(m, nn.Linear):
+            limit = math.sqrt(6.0 / (m.in_features + m.out_features))
+            m.weight.uniform_(-limit, limit, generator=generator)
+            if m.bias is not None:
+                m.bias.zero_()
+        elif isinstance(m, nn.LayerNorm):
+            m.weight.fill_(1.0)
+            m.bias.zero_()
+    for name, p in model.named_parameters():
+        if name.split(".")[-1] == "mask_token":
+            p.normal_(0.0, 0.02, generator=generator)
+    for m in model.modules():
+        if hasattr(m, "reset_jax_init"):
+            m.reset_jax_init(generator)
 
 
 def glu(x: torch.Tensor) -> torch.Tensor:

@@ -182,3 +182,21 @@ def apply_mask(tokens: torch.Tensor, keep: torch.Tensor,
     (``masking.py:208-211``)."""
     keep = keep.to(tokens.dtype)
     return tokens * keep + (1.0 - keep) * mask_token.to(tokens.dtype)
+
+
+def mask_tokens(tokens: torch.Tensor, cfg: MaskConfig, mask_token: torch.Tensor,
+                train: bool, keep: Optional[torch.Tensor] = None,
+                generator: Optional[torch.Generator] = None, mode: Optional[str] = None,
+                ratio: Optional[float] = None) -> torch.Tensor:
+    """A model's train-mode token masking (``htr_vt.py:100-105``): in train
+    mode with masking on, ``apply_mask`` with the injected ``keep`` or one
+    drawn from ``generator`` by ``build_keep_mask``; else the tokens as they
+    are (a ``keep`` there raises)."""
+    if train and cfg.mode != "none":
+        if keep is None:
+            keep = build_keep_mask(generator, tokens.shape[0], tokens.shape[1], cfg,
+                                   mode=mode, ratio=ratio)
+        return apply_mask(tokens, keep, mask_token)
+    if keep is not None:
+        raise ValueError("a keep mask applies only in train mode with masking on")
+    return tokens

@@ -1,7 +1,7 @@
 """ResNet18 feature stem (port of ``htr_vt_tpu/models/stem.py``).
 
-Collapses a [B, 1, 64, 512] line image to [B, C, 1, 128]; stride plan
-(``stem.py:8``)::
+Collapses a [B, 1, 64, 512] line image to [B, C, 1, 128]; the default
+stride plan (``stem.py:8``)::
 
     conv1 (2,1) -> maxpool3 (2,1) -> stage1 (2,1) -> stage2 (2,2)
     -> stage3 (2,2) -> maxpool3 (2,1)
@@ -104,6 +104,16 @@ class BatchNorm(nn.Module):
                 self.running_var.copy_(m * self.running_var + (1.0 - m) * var)
         scale = self.weight.float() * torch.rsqrt(var + BN_EPS)
         return scale, self.bias.float() - mu * scale
+
+    def forward(self, x: torch.Tensor, *, train: bool = False) -> torch.Tensor:
+        """flax ``nn.BatchNorm`` over [B, C, H, W], float32 out: the batch
+        statistics in train mode (``train_forward``), else ``(x - mean) *
+        (gamma * rsqrt(var + eps)) + beta`` on the running statistics, as
+        flax's ``_normalize`` rounds it (the VAN and SVTR BatchNorms)."""
+        if train:
+            return self.train_forward(x)
+        mul = torch.rsqrt(self.running_var + BN_EPS) * self.weight
+        return (x.float() - _c(self.running_mean)) * _c(mul) + _c(self.bias)
 
     def train_forward(self, x: torch.Tensor) -> torch.Tensor:
         """flax ``nn.BatchNorm`` in train mode (float32 out): normalise by
@@ -222,8 +232,14 @@ class BasicBlock(nn.Module):
 
 
 class ResNet18Stem(nn.Module):
-    """[B, 1, H, W] -> [B, embed_dim, H', W'] (``stem.py:347-464``, default
-    widths [D/4, D/2, D] and stage strides).
+    """[B, 1, H, W] -> [B, widths[-1], H', W'] (``stem.py:347-464``). The
+    default plan is the flagship's: widths [D/4, D/2, D], stage strides
+    ``STAGE_STRIDES`` and a final max-pool, [B, 1, 64, 512] -> [B, D, 1,
+    128]. The VAN stems and Swin truncate it as data (``stem.py:352-358``):
+    two stages [D/4, D/2] at (2, 2), (2, 2) without the final pool, or van2's
+    [D/4, D/2, D] at (2, 1), (2, 2), (1, 2). conv1 is D/4 wide whatever the
+    widths; a stage whose width or stride differs from its input's opens
+    with the 1x1 projection (``needs_proj``, ``stem.py:444``).
 
     The entry BN + ReLU + max-pool takes one of three branches
     (``stem.py:408-435``): ``pool_impl="pallas"``, the folded BN (its
@@ -236,16 +252,23 @@ class ResNet18Stem(nn.Module):
 
     def __init__(self, embed_dim: int, dtype: torch.dtype, device=None, *,
                  dataflow: str = "plain", pool_impl: str = "auto",
-                 bn_stats_impl: str = "auto", conv_impl: str = "auto"):
+                 bn_stats_impl: str = "auto", conv_impl: str = "auto",
+                 widths: Optional[Sequence[int]] = None,
+                 stage_strides: Sequence[Tuple[int, int]] = STAGE_STRIDES,
+                 final_maxpool: bool = True):
         super().__init__()
         self.dtype = dtype
         self.pool_impl = pool_impl
         self.bn_stats_impl = bn_stats_impl
-        widths = [embed_dim // 4, embed_dim // 2, embed_dim]
-        self.conv1 = nn.Conv2d(1, widths[0], 3, bias=False, device=device)
-        self.bn1 = BatchNorm(widths[0], device=device)
-        cin = widths[0]
-        for i, (w, stride) in enumerate(zip(widths, self.STAGE_STRIDES)):
+        self.final_maxpool = final_maxpool
+        c = embed_dim // 4
+        widths = [c, embed_dim // 2, embed_dim] if widths is None else list(widths)
+        self.n_stages = len(widths)
+        self.conv1 = nn.Conv2d(1, c, 3, bias=False, device=device)
+        self.bn1 = BatchNorm(c, device=device)
+        cin = c
+        for i, (w, stride) in enumerate(zip(widths, stage_strides)):
+            stride = tuple(stride)
             proj = stride != (1, 1) or cin != w
             kw = dict(device=device, dataflow=dataflow, bn_stats_impl=bn_stats_impl,
                       conv_impl=conv_impl)
@@ -278,7 +301,7 @@ class ResNet18Stem(nn.Module):
                 s1, t1 = self.bn1.fold(stats, stats_impl=self.bn_stats_impl)
                 x = _relu_max(x.float() * _c(s1) + _c(t1)).to(dt)
             x = _max_pool_3x3(x, (2, 1))
-        for layer in (self.layer1, self.layer2, self.layer3):
-            for block in layer:
+        for i in range(self.n_stages):
+            for block in getattr(self, f"layer{i + 1}"):
                 x = block(x, train=train)
-        return _max_pool_3x3(x, (2, 1))
+        return _max_pool_3x3(x, (2, 1)) if self.final_maxpool else x

@@ -80,9 +80,9 @@ def multi_head_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          scale: float, out_dtype: torch.dtype,
                          bias: Optional[torch.Tensor] = None,
                          mask: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """softmax(q k^T * scale + bias) v (``vit.py:77-93``). q, k, v: [B, H,
-    N, D] -> [B, N, H*D]; bias broadcasts to [B, H, N, N]; mask (True =
-    keep) sets the logits it drops to -1e9.
+    """softmax(q k^T * scale + bias) v (``vit.py:77-93``). q, k, v: [..., H,
+    N, D] -> [..., N, H*D] (any leading batch dims); bias broadcasts to
+    [..., H, N, N]; mask (True = keep) sets the logits it drops to -1e9.
 
     The logits are the exact float32 products of the compute-dtype q and k
     (upcast operands = bf16 inputs with an f32 result), the softmax is
@@ -94,8 +94,8 @@ def multi_head_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         attn = torch.where(mask, attn, MASKED_LOGIT)
     attn = torch.softmax(attn, dim=-1)
     out = torch.matmul(attn.to(v.dtype), v)
-    b, h, n, d = out.shape
-    return out.transpose(1, 2).reshape(b, n, h * d).to(out_dtype)
+    *lead, h, n, d = out.shape
+    return out.transpose(-3, -2).reshape(*lead, n, h * d).to(out_dtype)
 
 
 def split_heads(x: torch.Tensor, num_heads: int) -> torch.Tensor:

@@ -24,14 +24,16 @@ from htr_vt_torch.data.loader import (TrainLoader, build_dataset, choose_max_lab
                                       device_prefetch, eval_batches, make_converter)
 from htr_vt_torch.eval.validate import validate
 from htr_vt_torch.models.sgm import SGMVocab, make_context_arrays
+from htr_vt_torch.text.ed_tokenizer import EDTokenizer
 from htr_vt_torch.train.checkpoint import CheckpointManager, load_module_state
 from htr_vt_torch.train.state import check_ported, create_train_state
-from htr_vt_torch.train.step import train_step
+from htr_vt_torch.train.step import eval_step, eval_step_ed, train_step
 from htr_vt_torch.utils.logging import ScalarWriter, StepTimer, get_logger, maybe_profile
 
 # Top-level modules a transfer-learning run (``load_encoder_only``) starts
-# fresh, as the JAX loop's head keys (``loop.py:115``): the port's models
-# have ``head`` and, with SGM, ``sgm_head``.
+# fresh, as the JAX loop's head keys (``loop.py:115``): the CTC models'
+# ``head`` and ``sgm_head``, the encoder-decoder's ``embed``, ``final_norm``
+# and ``lm_head`` (its ``encoder`` and ``dec{i}`` load).
 HEAD_KEYS = {"head", "sgm_head", "lm_head", "embed", "final_norm"}
 
 
@@ -78,8 +80,21 @@ def fit(cfg: ExperimentConfig, device="cuda",
         cfg = dataclasses.replace(cfg, model=dataclasses.replace(
             cfg.model, nb_cls=converter.num_classes))
     max_label_len = choose_max_label_len(train_ds.labels, cfg.model.num_tokens)
-    sgm_extras_fn = None
-    if cfg.model.sgm.enable:
+    extras_fn, eval_extras_fn, eval_fn, eval_codec = None, None, eval_step, converter
+    if cfg.model.model_type == "encoder_decoder":
+        # the ED tokenizer over the codec's alphabet; its teacher-forcing
+        # arrays ride the loader's extras hook, in training and in eval
+        # (loop.py:70-80,168-171,226)
+        ed_tokenizer = EDTokenizer.from_ctc_converter(converter)
+        ed_len = min(max_label_len + 2, cfg.model.max_seq_len)
+        cfg = dataclasses.replace(cfg, model=dataclasses.replace(
+            cfg.model, ed_vocab_size=ed_tokenizer.vocab_size))
+
+        def extras_fn(texts):
+            tin, tout, tlen = ed_tokenizer.encode_for_training(texts, ed_len)
+            return {"ed_input": tin, "ed_output": tout, "ed_lengths": tlen}
+        eval_extras_fn, eval_fn, eval_codec = extras_fn, eval_step_ed, ed_tokenizer
+    elif cfg.model.sgm.enable:
         # the SGM vocabulary: the codec's symbols and four control tokens;
         # the loader builds each batch's context windows (loop.py:81-92)
         sgm_vocab = SGMVocab(converter)
@@ -87,7 +102,7 @@ def fit(cfg: ExperimentConfig, device="cuda",
             cfg.model, sgm=dataclasses.replace(cfg.model.sgm, vocab_size=sgm_vocab.size)))
         sub_len = cfg.model.sgm.sub_len
 
-        def sgm_extras_fn(texts):
+        def extras_fn(texts):
             return make_context_arrays(texts, sgm_vocab, max_label_len, sub_len)
     logger.info("train=%d val=%d alphabet=%d max_label_len=%d",
                 len(train_ds), len(val_ds), converter.num_classes, max_label_len)
@@ -138,7 +153,7 @@ def fit(cfg: ExperimentConfig, device="cuda",
     # (tests/test_torch_port_loop.py pins the equivalence).
     loader = TrainLoader(train_ds, converter, cfg.data.train_bs, max_label_len,
                          augment=cfg.data.augment, seed=cfg.train.seed,
-                         num_threads=cfg.data.num_workers, extras_fn=sgm_extras_fn,
+                         num_threads=cfg.data.num_workers, extras_fn=extras_fn,
                          sampling=cfg.data.sampling, start_batch=start_step)
     batches = device_prefetch(iter(loader), device)
     writer = ScalarWriter(save_dir, cfg.train.use_wandb, cfg.train.wandb_project,
@@ -189,8 +204,9 @@ def fit(cfg: ExperimentConfig, device="cuda",
         if it % cfg.train.eval_iters == 0 or it == cfg.train.total_iters:
             val_loss, cer, wer, _, _ = validate(
                 state.ema_model,
-                eval_batches(val_ds, converter, cfg.data.val_bs, max_label_len),
-                converter)
+                eval_batches(val_ds, converter, cfg.data.val_bs, max_label_len,
+                             extras_fn=eval_extras_fn),
+                eval_codec, eval_fn)
             improved_cer, improved_wer = cer < best_cer, wer < best_wer
             best_cer, best_wer = min(cer, best_cer), min(wer, best_wer)
             ckpt.save(state, cer=cer, wer=wer, best_cer=best_cer,

@@ -14,9 +14,10 @@ import copy
 from dataclasses import dataclass
 
 import torch
+from torch import nn
 
 from htr_vt_torch.config import ExperimentConfig
-from htr_vt_torch.models.htr_vt import HTRVT, build_model
+from htr_vt_torch.models.htr_vt import build_model
 from htr_vt_torch.optim.sam import make_base_optimizer
 
 
@@ -39,8 +40,8 @@ class TrainState:
     completed steps."""
 
     cfg: ExperimentConfig
-    model: HTRVT
-    ema_model: HTRVT
+    model: nn.Module
+    ema_model: nn.Module
     optimizer: torch.optim.Optimizer
     generator: torch.Generator
     step: int = 0
@@ -49,7 +50,9 @@ class TrainState:
 def create_train_state(cfg: ExperimentConfig, device,
                        generator: torch.Generator) -> TrainState:
     """A model initialised from ``generator`` with the JAX package's
-    schemes, its EMA copy, and AdamW over every parameter. ``generator``
+    schemes (any model ``build_model`` builds: an encoder-decoder needs
+    ``cfg.model.ed_vocab_size``, which the trainer sets from its
+    tokenizer), its EMA copy, and AdamW over every parameter. ``generator``
     stays in the state for masking and dropout, so it must live on
     ``device``."""
     check_ported(cfg)

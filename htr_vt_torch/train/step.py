@@ -16,7 +16,9 @@ head on and an SGM batch, a forward's loss is ``ctc_lambda * CTC + gate *
 sgm_lambda * SGM``, the gate 0 before ``sgm.warmup_iters`` steps.
 
 On a CUDA device each forward runs the CTC alpha kernel and its backward
-the beta kernel: two launches of each per step, six when tri-masked.
+the beta kernel: two launches of each per step, six when tri-masked. An
+encoder-decoder (``cfg.model.model_type``) trains on its teacher-forced
+cross-entropy instead and runs no CTC; ``eval_step_ed`` evaluates it.
 """
 
 from __future__ import annotations
@@ -26,6 +28,7 @@ from typing import Dict, Mapping, Optional, Tuple
 import torch
 from torch import nn
 
+from htr_vt_torch.models.encoder_decoder import generate, teacher_forcing_loss
 from htr_vt_torch.ops.ctc import ctc_loss_auto
 from htr_vt_torch.ops.decode import greedy_ids
 from htr_vt_torch.optim.ema import ema_update
@@ -38,11 +41,13 @@ from htr_vt_torch.train.state import TrainState, check_ported
 # The tri-masked trainer's (mode, ratio) forwards (step.py:34).
 TRI_MASK_MODES = (("random", 0.30), ("block", 0.20), ("span_old", 0.20))
 SGM_KEYS = ("sgm_left", "sgm_right", "sgm_tgt", "sgm_mask")
+# The encoder-decoder's teacher-forcing arrays (EDTokenizer.encode_for_training).
+ED_KEYS = ("ed_input", "ed_output", "ed_lengths")
 
 
 def _put(batch: Mapping, device) -> Dict[str, torch.Tensor]:
-    keys = ("image", "labels", "label_lengths") + tuple(k for k in SGM_KEYS
-                                                        if k in batch)
+    keys = ("image", "labels", "label_lengths") + tuple(
+        k for k in SGM_KEYS + ED_KEYS if k in batch)
     return {k: torch.as_tensor(batch[k], device=device) for k in keys}
 
 
@@ -53,7 +58,16 @@ def forward_loss(state: TrainState, batch: Mapping[str, torch.Tensor],
     ``step.py:37-84``): the batch-mean CTC loss, and with the SGM head and
     an SGM batch ``ctc_lambda * CTC + gate * sgm_lambda * SGM``, the gate
     ``state.step >= sgm.warmup_iters`` read before the step's increment.
-    Returns (loss, {"loss_ctc"[, "loss_sgm"]})."""
+    Returns (loss, {"loss_ctc"[, "loss_sgm"]}). An encoder-decoder's loss
+    is its teacher-forced cross-entropy (``step.py:43-53``), reported under
+    ``loss_ctc`` as in JAX."""
+    if state.cfg.model.model_type == "encoder_decoder":
+        logits = state.model(batch["image"], batch["ed_input"], train=True,
+                             generator=state.generator, mask_mode=mask_mode,
+                             mask_ratio=mask_ratio)
+        loss = teacher_forcing_loss(logits, batch["ed_output"],
+                                    label_smoothing=state.cfg.model.label_smoothing)
+        return loss, {"loss_ctc": loss}
     sgm = state.cfg.model.sgm
     use_sgm = sgm.enable and "sgm_tgt" in batch
     out = state.model(batch["image"], train=True, generator=state.generator,
@@ -161,3 +175,22 @@ def eval_step(model: nn.Module, batch: Mapping) -> Dict[str, torch.Tensor]:
     return {"logits": logits, "pred_ids": greedy_ids(logits),
             "loss": loss_per_sample.mean(),
             "loss_per_sample": loss_per_sample}
+
+
+@torch.inference_mode()
+def eval_step_ed(model: nn.Module, batch: Mapping) -> Dict[str, torch.Tensor]:
+    """Encoder-decoder eval on the model's current weights (``step.py:
+    229-244``): the teacher-forced loss on ``ed_input`` / ``ed_output``
+    and greedy generation of ``ed_input.shape[1]`` positions. The image is
+    encoded once and the memory serves both, where JAX encodes it twice: in
+    eval mode (running BN statistics, no masking) the two encodings are
+    the same, so the results are JAX's at half the trunk's launches.
+    Returns ``pred_ids`` [B, L] int32 and the batch-mean ``loss``."""
+    batch = _put(batch, next(model.parameters()).device)
+    memory = model.encode(batch["image"])
+    logits = model.decode_logits(memory, batch["ed_input"])
+    loss = teacher_forcing_loss(logits, batch["ed_output"],
+                                label_smoothing=model.cfg.label_smoothing)
+    pred_ids = generate(model, None, method="greedy", max_len=batch["ed_input"].shape[1],
+                        memory=memory)
+    return {"pred_ids": pred_ids, "loss": loss}

@@ -1,21 +1,24 @@
 """Weights into the port, and back to the JAX tree.
 
-The stem, mask token, final norm and head are named after the reference
-``state_dict`` keys that ``utils/torch_convert.py`` maps, so both
-directions reuse its numpy functions: a JAX tree goes through
-``tree_to_reference_state_dict``, and a reference ``.pth`` is normalised by
-a round trip through the tree (which drops ``pos_embed``,
-``num_batches_tracked`` and ``module.`` prefixes). The encoder blocks of
-every recipe and the SGM head carry the JAX module names below
-``blocks.<i>`` (the JAX ``HTRVT.block_names[i]``) and ``sgm_head``, and map
-leaf by leaf by module type (``encoder_layout``): a linear's ``weight`` is
-the transposed ``kernel``, a depthwise ``Conv1d``'s [C, 1, k] weight the
-flax [k, 1, C] kernel, a norm's ``weight`` its ``scale``, an embedding's
+One map by module type covers every model ``build_model`` builds
+(``module_layout``): a linear's ``weight`` is the transposed ``kernel``, a
+2-D convolution's [out, in / groups, kh, kw] weight the flax [kh, kw, in /
+groups, out] kernel, a depthwise ``Conv1d``'s [C, 1, k] weight the flax
+[k, 1, C] kernel, a norm's ``weight`` its ``scale``, an embedding's
 ``weight`` its ``embedding``, a BatchNorm's running statistics the
-``batch_stats`` ``mean`` / ``var``, and any other parameter (relative
-bias tables, ``alpha``, ``dir_left`` / ``dir_right``, LayerScale's
-``gamma``) keeps its name. Either direction loads with
-``load_state_dict(strict=True)``.
+``batch_stats`` ``mean`` / ``var``, and any other parameter (relative bias
+tables, ``alpha``, ``dir_left`` / ``dir_right``, LayerScale's ``gamma``,
+``mask_token``) keeps its name. Modules carry the JAX names, with three
+exceptions that follow the reference state_dict the flagship's checkpoints
+use: ``HTRVT.patch_embed`` is JAX's ``stem`` and its ``blocks.<i>`` the
+JAX ``block_names[i]``; a ResNet18 stem's ``layer{s}.{b}`` is
+``stage{s}_block{b + 1}``; a BasicBlock's ``downsample.0`` / ``.1`` are
+``proj_conv`` / ``proj_bn``. So ``HTRVT`` at any recipe and stem,
+``HTRSwin``, ``SVTR`` and ``HTREncoderDecoder`` (its trunk under
+``encoder``) map leaf by leaf, and either direction loads with
+``load_state_dict(strict=True)``. A reference ``.pth`` is read by
+``utils/torch_convert.py`` (which drops ``pos_embed``,
+``num_batches_tracked`` and ``module.`` prefixes).
 
 A JAX ``TrainState``'s optimizer state converts too. Its optax chain
 (``htr_vt_tpu/optim/sam.py:55-67``: ``adamw`` on the warmup-cosine schedule,
@@ -35,86 +38,104 @@ only with the same keep masks.
 
 from __future__ import annotations
 
-from typing import Any, Dict, Optional, Tuple
+from typing import Any, Callable, Dict, Iterator, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
 from torch import nn
 
-from htr_vt_torch.models.stem import BatchNorm
+from htr_vt_torch.models.htr_vt import HTRVT
+from htr_vt_torch.models.stem import BasicBlock, BatchNorm, ResNet18Stem
 from htr_vt_torch.utils import torch_convert
+
+Array = np.ndarray
+
+
+class Leaf(NamedTuple):
+    """Where a state_dict entry lives in the JAX tree, and its layout each
+    way."""
+
+    coll: str  # "params" | "batch_stats"
+    path: Tuple[str, ...]
+    to_torch: Callable[[Array], Array]
+    to_jax: Callable[[Array], Array]
 
 
 def _tensors(sd: Dict[str, np.ndarray]) -> Dict[str, torch.Tensor]:
     return {k: torch.from_numpy(np.array(v, dtype=np.float32)) for k, v in sd.items()}
 
 
-def _linear(w: np.ndarray) -> np.ndarray:
+def _linear(w: Array) -> Array:
     return np.transpose(w, (1, 0))
 
 
-def _depthwise(w: np.ndarray) -> np.ndarray:
+def _depthwise(w: Array) -> Array:
     return np.transpose(w, (2, 1, 0))  # torch [C, 1, k] <-> flax [k, 1, C]
 
 
-def _same(w: np.ndarray) -> np.ndarray:
+def _conv_to_jax(w: Array) -> Array:
+    return np.transpose(w, (2, 3, 1, 0))  # [out, in/g, kh, kw] -> [kh, kw, in/g, out]
+
+
+def _conv_to_torch(w: Array) -> Array:
+    return np.transpose(w, (3, 2, 0, 1))
+
+
+def _same(w: Array) -> Array:
     return w
 
 
-# Leaf names by module type: torch name -> (collection, JAX name, layout).
+def _params(name, to_torch=_same, to_jax=None):
+    return ("params", name, to_torch, to_jax or to_torch)
+
+
+# Leaf names by module type: torch name -> (collection, JAX name, layouts).
 _LEAVES = (
-    (nn.Linear, {"weight": ("params", "kernel", _linear),
-                 "bias": ("params", "bias", _same)}),
-    (nn.Conv1d, {"weight": ("params", "kernel", _depthwise),
-                 "bias": ("params", "bias", _same)}),
-    ((nn.LayerNorm, nn.GroupNorm), {"weight": ("params", "scale", _same),
-                                    "bias": ("params", "bias", _same)}),
-    (nn.Embedding, {"weight": ("params", "embedding", _same)}),
-    (BatchNorm, {"weight": ("params", "scale", _same), "bias": ("params", "bias", _same),
-                 "running_mean": ("batch_stats", "mean", _same),
-                 "running_var": ("batch_stats", "var", _same)}),
+    (nn.Linear, {"weight": _params("kernel", _linear), "bias": _params("bias")}),
+    (nn.Conv2d, {"weight": _params("kernel", _conv_to_torch, _conv_to_jax),
+                 "bias": _params("bias")}),
+    (nn.Conv1d, {"weight": _params("kernel", _depthwise), "bias": _params("bias")}),
+    ((nn.LayerNorm, nn.GroupNorm), {"weight": _params("scale"), "bias": _params("bias")}),
+    (nn.Embedding, {"weight": _params("embedding")}),
+    (BatchNorm, {"weight": _params("scale"), "bias": _params("bias"),
+                 "running_mean": ("batch_stats", "mean", _same, _same),
+                 "running_var": ("batch_stats", "var", _same, _same)}),
 )
 
 
-def module_layout(module: nn.Module, path: Tuple[str, ...] = ()
-                  ) -> Dict[str, Tuple[str, Tuple[str, ...], Any]]:
-    """state_dict key of ``module`` -> (JAX collection, JAX path under
-    ``path``, layout function) for each of its leaves, by module type
-    (``_LEAVES``; any other parameter keeps its name). The layout function
-    maps a value either way (a transpose that is its own inverse)."""
+def _children(module: nn.Module) -> Iterator[Tuple[str, Tuple[str, ...], nn.Module]]:
+    """(state_dict prefix, JAX path parts, child) of each child of
+    ``module``, with the renames of the module docstring."""
+    for name, child in module.named_children():
+        if isinstance(module, HTRVT) and name == "patch_embed":
+            yield name, ("stem",), child
+        elif isinstance(module, HTRVT) and name == "blocks":
+            for i, (jname, block) in enumerate(zip(module.block_names, child)):
+                yield f"{name}.{i}", (jname,), block
+        elif isinstance(module, ResNet18Stem) and name.startswith("layer"):
+            for b, block in enumerate(child):
+                yield f"{name}.{b}", (f"stage{name[5:]}_block{b + 1}",), block
+        elif isinstance(module, BasicBlock) and name == "downsample":
+            yield f"{name}.0", ("proj_conv",), child[0]
+            yield f"{name}.1", ("proj_bn",), child[1]
+        else:
+            yield name, (name,), child
+
+
+def module_layout(module: nn.Module, path: Tuple[str, ...] = ()) -> Dict[str, Leaf]:
+    """state_dict key of ``module`` -> its ``Leaf`` under the JAX path
+    ``path``, by module type (``_LEAVES``; any other parameter keeps its
+    name) and the renames of ``_children``."""
     out = {}
-    for mname, m in module.named_modules():
-        parts = tuple(mname.split(".")) if mname else ()
-        rule = next((r for t, r in _LEAVES if isinstance(m, t)), None)
-        leaves = [n for n, _ in m.named_parameters(recurse=False)]
-        leaves += [n for n, _ in m.named_buffers(recurse=False)]
-        for leaf in leaves:
-            coll, jname, fn = rule[leaf] if rule else ("params", leaf, _same)
-            out[f"{mname}.{leaf}" if mname else leaf] = (coll, path + parts + (jname,), fn)
+    rule = next((r for t, r in _LEAVES if isinstance(module, t)), None)
+    leaves = [n for n, _ in module.named_parameters(recurse=False)]
+    leaves += [n for n, _ in module.named_buffers(recurse=False)]
+    for leaf in leaves:
+        coll, jname, to_torch, to_jax = rule[leaf] if rule else _params(leaf)
+        out[leaf] = Leaf(coll, path + (jname,), to_torch, to_jax)
+    for prefix, parts, child in _children(module):
+        out.update({f"{prefix}.{k}": v for k, v in module_layout(child, path + parts).items()})
     return out
-
-
-def encoder_layout(model: nn.Module) -> Dict[str, Tuple[str, Tuple[str, ...], Any]]:
-    """``module_layout`` of the encoder blocks (``blocks.<i>`` under the
-    JAX name ``block_names[i]``) and of the SGM head."""
-    out = {}
-    parts = [(f"blocks.{i}", (name,), block)
-             for i, (name, block) in enumerate(zip(model.block_names, model.blocks))]
-    if getattr(model, "sgm_head", None) is not None:
-        parts.append(("sgm_head", ("sgm_head",), model.sgm_head))
-    for prefix, path, module in parts:
-        out.update({f"{prefix}.{k}": v for k, v in module_layout(module, path).items()})
-    return out
-
-
-def load_jax_module(module: nn.Module, params, batch_stats=None) -> None:
-    """Load the variables of one JAX module (its ``params`` and, for a
-    BatchNorm inside, ``batch_stats`` subtree) into the port's module of
-    the same recipe, strictly."""
-    trees = {"params": params, "batch_stats": batch_stats}
-    module.load_state_dict(_tensors({
-        k: fn(np.asarray(_get(trees[coll], path)))
-        for k, (coll, path, fn) in module_layout(module).items()}), strict=True)
 
 
 def _get(tree, path):
@@ -123,43 +144,44 @@ def _get(tree, path):
     return tree
 
 
+def load_jax_module(module: nn.Module, params, batch_stats=None) -> None:
+    """Load the variables of one JAX module (its ``params`` and, for a
+    BatchNorm inside, ``batch_stats`` subtree) into the port's module of
+    the same kind, strictly."""
+    module.load_state_dict(_tensors(jax_tree_to_state_dict(module, params, batch_stats)),
+                           strict=True)
+
+
 def jax_tree_to_state_dict(model: nn.Module, params, batch_stats
                            ) -> Dict[str, np.ndarray]:
-    """A JAX ``HTRVT`` (params, batch_stats) pair of any recipe -> the
-    port's state_dict keys, numpy values. Also maps the optax moments,
-    which are shaped like ``params`` (``batch_stats`` then fills the BN
-    slots)."""
-    layout = encoder_layout(model)
-    roots = set(getattr(model, "block_names", ())) | {"sgm_head"}
-    trunk = {k: v for k, v in params.items() if k not in roots}
-    sd = torch_convert.tree_to_reference_state_dict(trunk, batch_stats)
+    """A JAX model's (params, batch_stats) pair -> the port's state_dict
+    keys, numpy values. Also maps the optax moments, which are shaped like
+    ``params`` (``batch_stats`` then fills the BN slots)."""
     trees = {"params": params, "batch_stats": batch_stats}
-    for key, (coll, path, fn) in layout.items():
-        sd[key] = fn(np.asarray(_get(trees[coll], path)))
-    return sd
+    return {key: leaf.to_torch(np.asarray(_get(trees[leaf.coll], leaf.path)))
+            for key, leaf in module_layout(model).items()}
 
 
 def state_dict_to_jax_tree(model: nn.Module, sd: Dict[str, np.ndarray]
                            ) -> Tuple[Dict, Dict]:
     """The reverse of ``jax_tree_to_state_dict``: (params, batch_stats)
-    numpy trees. Raises on a key that neither map knows."""
-    layout = encoder_layout(model)
-    params, stats, unused = torch_convert.reference_state_dict_to_tree(
-        {k: v for k, v in sd.items() if k not in layout})
+    numpy trees. Raises on a key outside the model's layout."""
+    layout = module_layout(model)
+    unused = sorted(set(sd) - set(layout))
     if unused:
         raise ValueError(f"keys outside the port's layout: {unused}")
-    trees = {"params": params, "batch_stats": stats}
-    for key, (coll, path, fn) in layout.items():
-        node = trees[coll]
-        for k in path[:-1]:
+    trees: Dict[str, Dict] = {"params": {}, "batch_stats": {}}
+    for key, leaf in layout.items():
+        node = trees[leaf.coll]
+        for k in leaf.path[:-1]:
             node = node.setdefault(k, {})
-        node[path[-1]] = fn(np.asarray(sd[key]))
-    return params, stats
+        node[leaf.path[-1]] = leaf.to_jax(np.asarray(sd[key]))
+    return trees["params"], trees["batch_stats"]
 
 
 def load_jax_params(model: nn.Module, params, batch_stats) -> None:
-    """Load a JAX ``HTRVT`` (params, batch_stats) tree of numpy or JAX
-    arrays, of any block recipe, into the port's model, strictly."""
+    """Load a JAX model's (params, batch_stats) tree of numpy or JAX
+    arrays (any model ``build_model`` builds) into the port's, strictly."""
     model.load_state_dict(_tensors(jax_tree_to_state_dict(model, params, batch_stats)),
                           strict=True)
 
@@ -242,7 +264,7 @@ def load_optax_state(optimizer: torch.optim.Optimizer, model: nn.Module,
 def optax_moments(optimizer: torch.optim.Optimizer, model: nn.Module
                   ) -> Dict[str, Any]:
     """The reverse of ``load_optax_state``: {"mu", "nu"} numpy trees shaped
-    like the JAX ``HTRVT`` params and the one ``count``, from the AdamW
+    like the JAX model's params and the one ``count``, from the AdamW
     state (which must hold every parameter, at one step)."""
     sd = {k: v.detach().float().cpu().numpy().copy()
           for k, v in model.state_dict().items()}
@@ -262,8 +284,8 @@ def optax_moments(optimizer: torch.optim.Optimizer, model: nn.Module
 
 
 def model_to_jax_tree(model: nn.Module) -> Tuple[Dict, Dict]:
-    """The port's weights as a JAX ``HTRVT`` (params, batch_stats) pair of
-    numpy trees, for any block recipe and the SGM head."""
+    """The port's weights as the JAX model's (params, batch_stats) pair of
+    numpy trees."""
     sd = {k: v.detach().float().cpu().numpy()
           for k, v in model.state_dict().items()}
     return state_dict_to_jax_tree(model, sd)

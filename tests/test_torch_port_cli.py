@@ -4,6 +4,7 @@ audit against JAX's, and train -> test -> infer -> serve --checkpoint end
 to end on a tiny SYNTH run (``--device cpu``), as tests/test_cli_e2e.py
 drives the JAX CLIs."""
 
+import dataclasses
 import json
 import os
 import sys
@@ -47,12 +48,17 @@ def test_args_to_config_gives_the_jax_config(argv):
 
 
 def test_parser_lists_the_jax_encoders_and_adds_device():
+    """JAX's flags, plus ``--device`` and ``--svtr-preset`` (JAX's config
+    field, which its parser leaves at the default)."""
     assert targs.available_encoders() == jargs.available_encoders()
     args = targs.build_parser("t").parse_args(["SYNTH"])
-    assert args.device == "cuda"
+    assert args.device == "cuda" and args.svtr_preset == "tiny"
     jflags = {a.dest for a in jargs.build_parser("t")._actions}
     tflags = {a.dest for a in targs.build_parser("t")._actions}
-    assert tflags - jflags == {"device"} and jflags <= tflags
+    assert tflags - jflags == {"device", "svtr_preset"} and jflags <= tflags
+    cfg = targs.args_to_config(targs.build_parser("t").parse_args(
+        ["IAM", "--encoder", "svtr", "--svtr-preset", "small"]))
+    assert cfg.model.svtr_preset == "small"
 
 
 TINY_FLAGS = ["--embed-dim", "64", "--depth", "1", "--num-heads", "2",
@@ -70,6 +76,43 @@ def test_parameter_audit_counts_as_the_jax_one(capsys, monkeypatch):
     assert got[0].split()[0] == "patch_embed.layer3"
     assert sum(int(ln.split()[1].replace(",", "")) for ln in got[:-2]) == \
         int(got[-1].split()[-1].replace(",", ""))
+
+
+@pytest.mark.parametrize("extra", [["--encoder", "swin"], ["--encoder", "svtr"],
+                                   ["--encoder", "van"], ["--encoder", "van2"]],
+                         ids=["swin", "svtr", "van", "van2"])
+def test_parameter_audit_counts_every_model_class_as_the_jax_one(capsys, monkeypatch,
+                                                                  extra):
+    """The totals of the standalone models and the VAN stems."""
+    params.main(["IAM", *TINY_FLAGS, *extra, "--device", "cpu"])
+    got = capsys.readouterr().out.splitlines()
+    monkeypatch.setattr(sys, "argv", ["params", "IAM", *TINY_FLAGS, *extra])
+    jparams.main()
+    want = capsys.readouterr().out.splitlines()
+    assert got[-1].split()[-1] == want[-1].split()[-1]
+
+
+def test_parameter_audit_counts_the_encoder_decoder(capsys):
+    """The encoder-decoder at the parser's ``ed_vocab_size`` 0, as the JAX
+    audit builds it; JAX's own audit cannot init that model (its embedding
+    gather from an empty table raises), so the total is held to a JAX init
+    at one token less the one token's embedding row, ``lm_head`` column and
+    bias."""
+    import jax
+    import jax.numpy as jnp
+
+    from htr_vt_tpu.models.htr_vt import build_model as jax_build_model
+    extra = ["--model-type", "encoder_decoder", "--decoder-layers", "2", "--max-seq-len",
+             "32"]
+    params.main(["IAM", *TINY_FLAGS, *extra, "--device", "cpu"])
+    got = int(capsys.readouterr().out.splitlines()[-1].split()[-1].replace(",", ""))
+    cfg = jargs.args_to_config(jargs.build_parser("t").parse_args(["IAM", *TINY_FLAGS,
+                                                                    *extra])).model
+    cfg = dataclasses.replace(cfg, ed_vocab_size=1)
+    shapes = jax.eval_shape(lambda: jax_build_model(cfg).init(
+        jax.random.PRNGKey(0), jnp.zeros((1, 64, 128, 1)), jnp.zeros((1, 4), jnp.int32)))
+    one_token = sum(int(np.prod(x.shape)) for x in jax.tree.leaves(shapes["params"]))
+    assert got == one_token - (2 * cfg.embed_dim + 1)
 
 
 @pytest.fixture(scope="module")

@@ -1196,3 +1196,94 @@ def test_recipe_fully_fused_eval_matches_its_stock_ops(cuda, encoder):
     torch.testing.assert_close(got["logits"], want["logits"], rtol=1e-4, atol=2e-4)
     torch.testing.assert_close(got["loss_per_sample"], want["loss_per_sample"],
                                rtol=1e-4, atol=1e-4)
+
+
+# --- the zoo's last models: Swin, SVTR, the VAN stems, the encoder-decoder ------
+STANDALONE = ["swin", "svtr", "van", "van2"]
+
+
+def _standalone_model(encoder, device):
+    """A tiny float32 model of ``encoder`` (64x128 px; Swin at d_model 48,
+    two heads; the VAN stems behind embed 64, one block), fully fused
+    switches set (which reach none of these stems), seeded."""
+    from htr_vt_torch.models.swin import HTRSwin
+    from htr_vt_torch.models.variants import apply_variant_preset
+    cfg = apply_variant_preset(ModelConfig(
+        encoder=encoder, nb_cls=8, img_size=(64, 128), embed_dim=64, depth=1,
+        num_heads=2, compute_dtype="float32", bn_stats_impl="pallas",
+        pool_impl="pallas", conv_impl="pallas"))
+    gen = torch.Generator(device=device).manual_seed(7)
+    if encoder == "swin":
+        return HTRSwin(cfg, d_model=48, stage_heads=(2, 2, 2), device=device, generator=gen)
+    return build_model(cfg, device=device, generator=gen)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("encoder", STANDALONE)
+def test_standalone_eval_step_on_the_card_matches_its_cpu_forward(cuda, encoder):
+    """Each model's ``eval_step`` on the card launches the CTC alpha kernel
+    once and no stem or attention kernel, and its logits and per-row losses
+    agree with the same weights' forward on the CPU within the card's
+    float32 bar."""
+    from htr_vt_torch.ops import conv_fused as cf
+    from htr_vt_torch.ops import flash_attn as fa
+    from htr_vt_torch.ops import pool_fused as pf
+    from htr_vt_torch.ops.bn_stats import bn_stats
+    gpu = _standalone_model(encoder, cuda)
+    cpu = _standalone_model(encoder, "cpu")
+    cpu.load_state_dict({k: v.cpu() for k, v in gpu.state_dict().items()}, strict=True)
+    rng = np.random.default_rng(14)
+    _, labels, lengths = ctc_case(14, 4, 32, 8, 10)
+    batch = {"image": rng.random((4, 64, 128, 1), dtype=np.float32), "labels": labels,
+             "label_lengths": lengths}
+    counters = (ctc_cuda.ctc_alpha, ctc_cuda.ctc_beta, bn_stats, pf.pool_bn_relu_fwd,
+                cf.conv3x3_bn_relu_fwd, fa.flash_attention_fwd)
+    before = [f.launches for f in counters]
+    got = eval_step(gpu, batch)
+    assert [f.launches - c for f, c in zip(counters, before)] == [1, 0, 0, 0, 0, 0]
+    want = eval_step(cpu, batch)
+    torch.testing.assert_close(got["logits"].cpu(), want["logits"], rtol=1e-4, atol=2e-4)
+    torch.testing.assert_close(got["loss_per_sample"].cpu(), want["loss_per_sample"],
+                               rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.cuda
+def test_encoder_decoder_cached_decode_on_the_card(cuda):
+    """The encoder-decoder (tiny, float32, trunk fully fused) on the card:
+    ``eval_step_ed`` launches 1 K3f and 9 K4f (one encode) and no CTC
+    kernel; the cached decode equals the uncached ``decode_logits`` at
+    every position; greedy ids equal the CPU model's on the same weights."""
+    from htr_vt_torch.models.encoder_decoder import generate
+    from htr_vt_torch.ops import conv_fused as cf
+    from htr_vt_torch.ops import pool_fused as pf
+    from htr_vt_torch.train.step import eval_step_ed
+    cfg = ModelConfig(nb_cls=8, img_size=(64, 128), embed_dim=64, depth=1, num_heads=2,
+                      compute_dtype="float32", model_type="encoder_decoder",
+                      ed_vocab_size=12, decoder_layers=2, decoder_heads=2, max_seq_len=16,
+                      bn_stats_impl="pallas", pool_impl="pallas", conv_impl="pallas")
+    gpu = build_model(cfg, device=cuda, generator=torch.Generator(device=cuda).manual_seed(8))
+    cpu = build_model(cfg, device="cpu")
+    cpu.load_state_dict({k: v.cpu() for k, v in gpu.state_dict().items()}, strict=True)
+    rng = np.random.default_rng(15)
+    tin = np.concatenate([np.ones((4, 1), np.int32),
+                          rng.integers(4, 12, (4, 9)).astype(np.int32)], axis=1)
+    tout = np.concatenate([tin[:, 1:], np.full((4, 1), 2, np.int32)], axis=1)
+    batch = {"image": rng.random((4, 64, 128, 1), dtype=np.float32),
+             "labels": np.zeros((4, 4), np.int32), "label_lengths": np.zeros(4, np.int32),
+             "ed_input": tin, "ed_output": tout, "ed_lengths": np.full(4, 10, np.int32)}
+    counters = (ctc_cuda.ctc_alpha, pf.pool_bn_relu_fwd, cf.conv3x3_bn_relu_fwd)
+    before = [f.launches for f in counters]
+    got = eval_step_ed(gpu, batch)
+    assert [f.launches - c for f, c in zip(counters, before)] == [0, 1, 9]
+    x, t = torch.from_numpy(batch["image"]).to(cuda), torch.from_numpy(tin).to(cuda)
+    with torch.inference_mode():
+        memory = gpu.encode(x)
+        full = gpu.decode_logits(memory, t)
+        mem_kvs = gpu.prefill(memory)
+        ks, vs = gpu.new_caches(4, t.shape[1], cuda)
+        for i in range(t.shape[1]):
+            step = gpu.decode_one(t[:, i], i, mem_kvs, ks, vs)
+            torch.testing.assert_close(step, full[:, i], rtol=1e-4, atol=1e-4)
+            assert torch.equal(step.argmax(-1), full[:, i].argmax(-1))
+    want = generate(cpu, torch.from_numpy(batch["image"]), max_len=t.shape[1])
+    assert torch.equal(got["pred_ids"].cpu(), want)

@@ -302,11 +302,12 @@ def test_seeded_init_follows_the_jax_schemes():
     assert not a.pos_embed.requires_grad and "pos_embed" not in a.state_dict()
 
 
-@pytest.mark.parametrize("override", [dict(encoder="swin"),
-                                      dict(model_type="encoder_decoder"),
-                                      dict(stem="van"), dict(quant="int8")])
+@pytest.mark.parametrize("override", [dict(encoder="swin", quant="int8"),
+                                      dict(model_type="encoder_decoder", remat="blocks"),
+                                      dict(stem="van", remat="all"), dict(quant="int8")])
 def test_build_model_rejects_unported_recipes(override):
+    """int8 (item 11) and remat (item 13) raise on every model class."""
     import dataclasses
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        build_model(port_config(dataclasses.replace(TINY, **override)),
+        build_model(port_config(dataclasses.replace(TINY, ed_vocab_size=10, **override)),
                     device="cpu")
