@@ -171,6 +171,24 @@ non-zero before the last line:
    the cached decode against the uncached ``decode_logits`` at every
    position (bf16: argmax >= 99%; a float32 copy: argmax equal, logits
    within 1e-3).
+19. int8 serve: ``ModelConfig(quant="int8")`` (the flagship, stage 1
+   padded to 256, quick GELU) on the serve phase's seeded weights through
+   ``ops/quant.py:serving_arrays``, calibrated on 4 batches of bs 128
+   synthetic lines (``calibrate_quant_stats``). Q1 (``conv_int8_cuda``,
+   ``csrc/conv_int8.cu``) against its plain twin at every distinct site
+   shape of that forward at bs 128 (s8 input, bf16 input with and without
+   the BN prologue, bf16 and float32 out): the s32 accumulator and the
+   output bit-equal; Q1's device time beside im2col + ``torch._int_mm`` and
+   the bound. One counted static ``eval_step``: 15 Q1, 16 ``_int_mm``, 1
+   K1a; its median ms, img/s and peak memory beside the float fully fused
+   ``eval_step`` on the same weights, and its device time by kernel
+   (``step_kernel_times``); its logits against the float32 model
+   (relative L2 under JAX's 0.15; frame argmax on the frames whose float32
+   margin is at least twice the int8 noise). Then ``pool_impl="pallas"``
+   (1 K3f, 15 Q1), ``quant_stage1_pad=0`` (8 Q1), ``transcribe_buckets`` at
+   ``quant="int8"`` over the 512/1024/2048 buckets (4 K5f a forward at
+   1024 and 2048, calibration included) and the int8 conformer's
+   ``eval_step`` (15 Q1, 32 ``_int_mm``).
 
 Kernel times (phases 2, 3, 4 and 11) are read two ways: ``median_ms``, one
 wrapper call between two CUDA events (host work in the wrapper included;
@@ -219,6 +237,7 @@ import torch.nn.functional as F  # noqa: E402
 
 from htr_vt_torch.ops import (conv_fused, ctc_cuda, flash_attn,  # noqa: E402
                               pool_fused)
+from htr_vt_torch.ops import quant as q8  # noqa: E402
 from htr_vt_torch.ops.bn_stats import bn_stats, bn_stats_reference  # noqa: E402
 from htr_vt_torch.ops.ctc import NEG, ctc_loss, ctc_loss_auto  # noqa: E402
 from htr_vt_torch.train import loop  # noqa: E402
@@ -302,7 +321,8 @@ COUNTERS = {"ctc_alpha": ctc_cuda.ctc_alpha, "ctc_beta": ctc_cuda.ctc_beta,
             "conv3x3_bn_relu_wgrad": conv_fused.conv3x3_bn_relu_wgrad,
             "flash_attention_fwd": flash_attn.flash_attention_fwd,
             "flash_attention_bwd_dkv": flash_attn.flash_attention_bwd_dkv,
-            "flash_attention_bwd_dq": flash_attn.flash_attention_bwd_dq}
+            "flash_attention_bwd_dq": flash_attn.flash_attention_bwd_dq,
+            "conv_int8": q8.conv_int8_cuda, "int_mm": q8.int_mm}
 # K5 at the width buckets' shapes, [B, H, N, D] (name, shape, backward too,
 # dtypes): bs 128 serving and the multi-width recipe's bs 64 training, N =
 # 256 at 1024 px and 512 at 2048 px, head_dim 768 / 6; and head_dim 256
@@ -414,6 +434,34 @@ ED_RECIPE = ["IAM", "--model-type", "encoder_decoder", "--decoder-layers", "6",
 ED_LINES = (512, BATCH)
 ED_STEPS, ED_EVAL = 4, 2
 ED_BEAM = 5
+# int8 serving: calibration batches (cli/test.py --calib-batches), JAX's
+# relative-L2 bar for int8 logits against float (tests/test_quant.py), and
+# Q1's sites in one forward of the flagship at bs 128 with stage 1 padded to
+# 256: (name, NCHW input, Cout, kernel, stride, padding, input kind, output
+# dtype, launches a forward). "s8" is the carry, "bf16+bn" a bf16 input
+# normalised and quantized by Q1, "bf16" one quantized by it. The last two
+# are the pool_impl="pallas" stem's stage-1 entry (its pool hands bf16).
+INT8_CALIB_BATCHES = 4
+INT8_LOGITS_REL = 0.15
+INT8_SITES = (
+    ("s1_entry_conv1", (BATCH, 192, 16, 512), 256, 3, (2, 1), 1, "s8", torch.bfloat16, 1),
+    ("s1_entry_proj", (BATCH, 192, 16, 512), 256, 1, (2, 1), 0, "s8", torch.bfloat16, 1),
+    ("s1_conv2", (BATCH, 256, 8, 512), 256, 3, (1, 1), 1, "bf16+bn", torch.bfloat16, 2),
+    ("s1_conv1", (BATCH, 256, 8, 512), 256, 3, (1, 1), 1, "s8", torch.bfloat16, 1),
+    ("s2_entry_conv1", (BATCH, 256, 8, 512), 384, 3, (2, 2), 1, "s8", torch.bfloat16, 1),
+    ("s2_entry_proj", (BATCH, 256, 8, 512), 384, 1, (2, 2), 0, "s8", torch.bfloat16, 1),
+    ("s2_conv2", (BATCH, 384, 4, 256), 384, 3, (1, 1), 1, "bf16+bn", torch.bfloat16, 2),
+    ("s2_conv1", (BATCH, 384, 4, 256), 384, 3, (1, 1), 1, "s8", torch.bfloat16, 1),
+    ("s3_entry_conv1", (BATCH, 384, 4, 256), 768, 3, (2, 2), 1, "s8", torch.bfloat16, 1),
+    ("s3_entry_proj", (BATCH, 384, 4, 256), 768, 1, (2, 2), 0, "s8", torch.bfloat16, 1),
+    ("s3_conv2", (BATCH, 768, 2, 128), 768, 3, (1, 1), 1, "bf16+bn", torch.bfloat16, 2),
+    ("s3_conv1", (BATCH, 768, 2, 128), 768, 3, (1, 1), 1, "s8", torch.bfloat16, 1),
+    ("pallas_pool_conv1", (BATCH, 192, 16, 512), 256, 3, (2, 1), 1, "bf16",
+     torch.bfloat16, 0),
+    ("pallas_pool_proj", (BATCH, 192, 16, 512), 256, 1, (2, 1), 0, "bf16",
+     torch.float32, 0),
+)
+INT8_OPS_PER_S = 1979e12  # dense int8 tensor-core peak (H100 SXM data sheet)
 # The cached decode against the uncached one on the same weights: float32
 # (TF32 off) sums over a longer, masked key axis, argmax equal everywhere;
 # in bf16 the attention outputs round to bf16 after sums in another order,
@@ -584,6 +632,33 @@ def kernel_split(what, calls):
         kernels={name: dict(launches_a_call=med(n for n, _ in v) / DEVICE_RUN,
                             ms_a_call=med(t for _, t in v) / DEVICE_RUN)
                  for name, v in sorted(by_name.items())})
+
+
+STEP_PROFILE_CALLS = 5
+
+
+def step_kernel_times(fn, calls=STEP_PROFILE_CALLS):
+    """The device's kernels of ``calls`` back-to-back calls of a step under
+    ``torch.profiler``, after a warm call: by kernel name (launches, device
+    ms) a call, their sum (busy_ms), the kernels a call and the span a call
+    from the first kernel's start to the last one's end."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as p:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    events = [e for e in p.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    kernels = {}
+    for e in events:
+        n, ms = kernels.get(e.name, (0, 0.0))
+        kernels[e.name] = (n + 1 / calls,
+                           ms + (e.time_range.end - e.time_range.start) * 1e-3 / calls)
+    span = (max(e.time_range.end for e in events)
+            - min(e.time_range.start for e in events)) * 1e-3 / calls
+    return dict(kernels=kernels, kernels_a_call=len(events) / calls, span_ms=span,
+                busy_ms=sum(ms for _, ms in kernels.values()))
 
 
 def short_name(kernel):
@@ -2891,6 +2966,316 @@ def phase_encoder_decoder(device, smi_line):
 
 
 # ---------------------------------------------------------------------------
+# ---------------------------------------------------------------------------
+def q1_site_inputs(shape, cout, k, kind, device, seed):
+    """Q1's inputs at one site: weights of the stem's init scale, quantized
+    per output channel from their bf16 cast; an s8 carry with its scale, or
+    a bf16 activation (with the folded BN terms for "bf16+bn") and the
+    scale of a calibrated abs-max that clips its top 1%."""
+    g = torch.Generator(device=device).manual_seed(seed)
+    b, c, h, w = shape
+    weight = torch.randn(cout, c, k, k, generator=g, device=device) * math.sqrt(
+        2.0 / (k * k * cout))
+    wq, w_packed, sw = q8.conv_weight(weight.to(torch.bfloat16))
+    cl = torch.channels_last
+    inp = dict(x=None, xq=None, prologue=None)
+    if kind == "s8":
+        inp["xq"] = torch.randint(-127, 128, shape, generator=g, device=device,
+                                  dtype=torch.int8).contiguous(memory_format=cl)
+        sx = torch.tensor(0.02, device=device)
+    else:
+        x = torch.randn(shape, generator=g, device=device).to(torch.bfloat16)
+        inp["x"] = x.contiguous(memory_format=cl)
+        a = x
+        if kind == "bf16+bn":
+            scale = torch.rand(c, generator=g, device=device) + 0.5
+            shift = torch.randn(c, generator=g, device=device) * 0.5
+            inp["prologue"] = (scale, shift)
+            a = q8.apply_prologue(x, scale, shift)
+        amax = torch.quantile(a.float().abs().flatten()[::97], 0.99)
+        sx = q8._scale_of(amax)
+    return inp, wq, w_packed, sw, sx
+
+
+def im2col_int_mm(xq, w_packed, stride, padding):
+    """The library yardstick of Q1's product: the window rows of the s8
+    input gathered by a strided view and copied ([M, kh * kw * Ci]), then
+    ``torch._int_mm`` against the packed weight -> s32 [B, Co, Ho, Wo]."""
+    co, kh, kw, ci = w_packed.shape
+    x = xq.permute(0, 2, 3, 1)  # NHWC view of the channels-last tensor
+    if padding:
+        x = F.pad(x, (0, 0, padding, padding, padding, padding))
+    b, h, w, _ = x.shape
+    sh, sw = stride
+    ho, wo = (h - kh) // sh + 1, (w - kw) // sw + 1
+    s = x.stride()
+    cols = x.as_strided((b, ho, wo, kh, kw, ci),
+                        (s[0], s[1] * sh, s[2] * sw, s[1], s[2], s[3]))
+    acc = torch._int_mm(cols.reshape(b * ho * wo, kh * kw * ci),
+                        w_packed.view(co, -1).t())
+    return acc.view(b, ho, wo, co).permute(0, 3, 1, 2)
+
+
+def q1_case(name, shape, cout, k, stride, padding, kind, out_dtype, device, seed):
+    """Q1 at one site against its plain twin (the s32 accumulator and the
+    output bit-equal), with its device time, the twin's, the yardstick's
+    and the bound."""
+    inp, wq, w_packed, sw, sx = q1_site_inputs(shape, cout, k, kind, device, seed)
+    dq = sx * sw
+    with torch.inference_mode():
+        def kernel(dtype, x=inp["x"], xq=inp["xq"]):
+            return q8.conv_int8_cuda(x, w_packed, sx, dq, stride, padding, dtype,
+                                     xq=xq, prologue=inp["prologue"])
+
+        def plain(dtype):
+            return q8.conv_int8_reference(inp["x"], wq, sx, dq, stride, padding, dtype,
+                                          xq=inp["xq"], prologue=inp["prologue"])
+
+        acc, acc_ref = kernel(torch.int32), plain(torch.int32)
+        y, y_ref = kernel(out_dtype), plain(out_dtype)
+        y2 = kernel(out_dtype)
+        torch.cuda.synchronize()
+        acc_equal = torch.equal(acc, acc_ref)
+        out_equal = torch.equal(y, y_ref) and torch.equal(y, y2)
+        err = (y.float() - y_ref.float()).abs().max().item()
+        xq_lib = inp["xq"] if inp["xq"] is not None else q8._quantize(
+            q8.apply_prologue(inp["x"], *inp["prologue"]) if inp["prologue"] is not None
+            else inp["x"], sx).contiguous(memory_format=torch.channels_last)
+        lib_equal = torch.equal(im2col_int_mm(xq_lib, w_packed, stride, padding), acc_ref)
+        src = inp["xq"] if inp["xq"] is not None else inp["x"]
+        copies = cold_copies(src)
+        if inp["xq"] is not None:
+            calls = [lambda c=c: kernel(out_dtype, xq=c) for c in copies]
+        else:
+            calls = [lambda c=c: kernel(out_dtype, x=c) for c in copies]
+        ms = device_ms(f"Q1 {name}", calls)
+        call_ms = median_ms(lambda: kernel(out_dtype), 10)
+        lib_copies = cold_copies(xq_lib)
+        lib_ms = device_ms(f"im2col + _int_mm {name}",
+                           [lambda c=c: im2col_int_mm(c, w_packed, stride, padding)
+                            for c in lib_copies])
+        plain_ms = median_ms(lambda: plain(out_dtype), 1, warmup=0)
+    m = y.shape[0] * y.shape[2] * y.shape[3]
+    kdim = k * k * shape[1]
+    n_bytes = (src.numel() * src.element_size() + w_packed.numel()
+               + m * cout * y.element_size())
+    bound_ms, bound_by = bound(n_bytes, 2 * m * cout * kdim, INT8_OPS_PER_S)
+    rec = dict(shape=list(shape), cout=cout, kernel=k, stride=list(stride), input=kind,
+               out=str(out_dtype).replace("torch.", ""), acc_bit_equal=acc_equal,
+               out_bit_equal=out_equal, library_equal=lib_equal, max_abs_err=err,
+               max_abs_acc=acc_ref.abs().max().item(), ms=ms, call_ms=call_ms,
+               plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bound_ms,
+               bound_by=bound_by, of_bound=bound_ms / ms)
+    say(f"[int8 Q1 {name}] {kind} {tuple(shape)} -> {cout}, {k}x{k}/{tuple(stride)}, "
+        f"{rec['out']} out: s32 acc bit-equal {acc_equal} (max |acc| "
+        f"{rec['max_abs_acc']}), out bit-equal {out_equal} (max |err| {err:g}), "
+        f"im2col + _int_mm equal {lib_equal}; device {ms:.4f} ms a launch (one call "
+        f"{call_ms:.4f}), im2col + _int_mm {lib_ms:.4f} ms, plain twin {plain_ms:.2f} "
+        f"ms; bound {bound_ms:.4f} ms ({bound_by}), {rec['of_bound']:.1%} of it")
+    if not (acc_equal and out_equal and lib_equal):
+        raise AssertionError(f"Q1 at {name}: acc equal {acc_equal}, out equal "
+                             f"{out_equal}, library equal {lib_equal}")
+    return rec
+
+
+def int8_logits_held(tag, l8, l32):
+    """The int8 logits against float32 ones on the same weights: relative L2
+    under JAX's bar, and the frame argmax on the frames whose float32 top-2
+    margin is at least twice the int8 noise (the 99th percentile of
+    |int8 - float32| over the logits)."""
+    rel = ((l8 - l32).norm() / l32.norm()).item()
+    noise = torch.quantile((l8 - l32).abs().flatten().float()[::7], 0.99).item()
+    top2 = l32.topk(2, dim=-1).values
+    decidable = (top2[..., 0] - top2[..., 1]) >= 2 * noise
+    held = (l8.argmax(-1)[decidable] == l32.argmax(-1)[decidable]).float().mean().item()
+    agree = (l8.argmax(-1) == l32.argmax(-1)).float().mean().item()
+    rec = dict(rel_l2=rel, noise=noise, decidable_share=decidable.float().mean().item(),
+               decidable_agreement=held, argmax_agreement=agree,
+               max_dlogits=(l8 - l32).abs().max().item())
+    say(f"[{tag}] int8 vs float32 logits: relative L2 {rel:.4f} (JAX's bar "
+        f"{INT8_LOGITS_REL}), max |dlogits| {rec['max_dlogits']:.4f}, int8 noise "
+        f"(p99 |dlogits|) {noise:.4f}; frame argmax {agree:.4%} of all frames, "
+        f"{held:.4%} of the {rec['decidable_share']:.2%} whose float32 margin is at "
+        f"least {2 * noise:.4f} (floor {MIN_ARGMAX_AGREEMENT:.0%})")
+    if rel >= INT8_LOGITS_REL or held < MIN_ARGMAX_AGREEMENT or not decidable.any():
+        raise AssertionError(f"[{tag}] int8 logits: relative L2 {rel:.4f}, decidable "
+                             f"argmax {held:.4%}")
+    return rec
+
+
+def _int8_counted(tag, model, batch, want):
+    reset_counts()
+    out = eval_step(model, batch)
+    torch.cuda.synchronize()
+    counts = read_counts()
+    want = {**dict.fromkeys(COUNTERS, 0), **want}
+    if counts != want:
+        raise AssertionError(f"[{tag}] one eval_step launched {counts}; expected {want}")
+    if not torch.isfinite(out["logits"]).all() or not torch.isfinite(out["loss"]):
+        raise AssertionError(f"[{tag}] non-finite logits or loss")
+    return counts, out
+
+
+def phase_int8_serve(device, smi_line):
+    """int8 (A8W8) serving of the flagship and the conformer at full width:
+    Q1 against its twin at each site, the counted static eval_step, its
+    speed beside the float fully fused one, its logits against float32,
+    the pallas-pool and unpadded stems, bucket serving and the conformer."""
+    t_phase = time.perf_counter()
+    rec = {"sites": {}}
+    for i, (name, shape, cout, k, stride, padding, kind, out_dtype, _) in enumerate(
+            INT8_SITES):
+        rec["sites"][name] = q1_case(name, shape, cout, k, stride, padding, kind,
+                                     out_dtype, device, SEED + 300 + i)
+    rec["q1_per_forward"] = sum(s[-1] for s in INT8_SITES)
+
+    cfg = ModelConfig()
+    cfg8 = dataclasses.replace(cfg, quant="int8")
+    float_model = build_model(cfg, device=device,
+                              generator=torch.Generator(device=device).manual_seed(SEED))
+    sd = float_model.state_dict()
+
+    def int8_model(c):
+        model = build_model(c, device=device)
+        model.load_state_dict(q8.serving_arrays(c, sd), strict=True)
+        return model
+
+    rng = np.random.default_rng(SEED)
+    images = line_images(BATCH, rng)  # the serve phase's first batch
+    calib = line_images(INT8_CALIB_BATCHES * BATCH, np.random.default_rng(SEED + 19))
+    calib_batches = [calib[i:i + BATCH] for i in range(0, len(calib), BATCH)]
+    batch = {"image": torch.from_numpy(images).to(device),
+             "labels": torch.zeros((BATCH, SERVE_LMAX), dtype=torch.int32, device=device),
+             "label_lengths": torch.zeros(BATCH, dtype=torch.int32, device=device)}
+    model8 = int8_model(cfg8)
+    t0 = time.perf_counter()
+    stats = q8.calibrate_quant_stats(model8, calib_batches, INT8_CALIB_BATCHES)
+    torch.cuda.synchronize()
+    rec["calibrate_s"] = time.perf_counter() - t0
+    say(f"[int8 serve] ModelConfig(quant='int8'): stage 1 "
+        f"{model8.patch_embed.layer1[0].conv1.weight.shape[0]} wide, quick GELU; "
+        f"{len(stats)} sites calibrated on {INT8_CALIB_BATCHES} batches of {BATCH} in "
+        f"{rec['calibrate_s']:.3f} s")
+
+    # --- the main path, counted ------------------------------------------
+    want = {"ctc_alpha": 1, "conv_int8": rec["q1_per_forward"],
+            "int_mm": 4 * cfg.depth}
+    counts, out = _int8_counted("int8 serve", model8, batch, want)
+    launches = dict(counts)
+    torch.cuda.reset_peak_memory_stats()
+    rec["eval_ms"] = median_ms(lambda: eval_step(model8, batch), 10)
+    rec["peak_mib"] = torch.cuda.max_memory_allocated() / 2**20
+    rec["img_s"] = BATCH / rec["eval_ms"] * 1e3
+    ff = build_model(dataclasses.replace(cfg, **FULLY_FUSED), device=device)
+    ff.load_state_dict(sd, strict=True)
+    torch.cuda.reset_peak_memory_stats()
+    rec["float_fully_fused_eval_ms"] = median_ms(lambda: eval_step(ff, batch), 10)
+    rec["float_fully_fused_peak_mib"] = torch.cuda.max_memory_allocated() / 2**20
+    rec["eval_ms_2"] = median_ms(lambda: eval_step(model8, batch), 10)
+    say(f"[int8 serve] launches {counts}; static int8 eval_step {rec['eval_ms']:.3f} ms "
+        f"({rec['img_s']:.1f} img/s, bs {BATCH}, peak {rec['peak_mib']:.1f} MiB; again "
+        f"{rec['eval_ms_2']:.3f} ms); float fully fused eval_step on the same weights "
+        f"{rec['float_fully_fused_eval_ms']:.3f} ms ("
+        f"{BATCH / rec['float_fully_fused_eval_ms'] * 1e3:.1f} img/s, peak "
+        f"{rec['float_fully_fused_peak_mib']:.1f} MiB); {smi_line}")
+    del ff
+    # where the int8 step's device time goes, by kernel (torch.profiler)
+    prof = step_kernel_times(lambda: eval_step(model8, batch))
+    by_ms = sorted(prof["kernels"].items(), key=lambda kv: -kv[1][1])
+    q1_ms = sum(ms for k, (_, ms) in by_ms
+                if "conv_int8_kernel" in k or "quantize_kernel" in k)
+    rec["profile"] = dict(prof, q1_ms=q1_ms,
+                          kernels={short_name(k): v for k, v in by_ms[:12]})
+    say(f"[int8 serve] one eval_step under torch.profiler (mean of "
+        f"{STEP_PROFILE_CALLS}): {prof['kernels_a_call']:g} kernels, "
+        f"{prof['busy_ms']:.3f} ms of kernels in a {prof['span_ms']:.3f} ms span; Q1 "
+        f"(conv + quantize kernels) {q1_ms:.3f} ms; the 12 longest: "
+        + "; ".join(f"{short_name(k)} {ms:.3f} ms x {n:g}" for k, (n, ms) in by_ms[:12]))
+    model32 = build_model(dataclasses.replace(cfg, compute_dtype="float32"), device=device)
+    model32.load_state_dict(sd, strict=True)
+    with torch.inference_mode():
+        l32 = model32(batch["image"])
+    rec["logits"] = int8_logits_held("int8 serve", out["logits"], l32)
+
+    # --- the pallas-pool stem and the unpadded stage 1 ----------------------
+    for tag, c, q1_n, extra in (
+            ("pool_impl=pallas", dataclasses.replace(cfg8, pool_impl="pallas"),
+             rec["q1_per_forward"], {"pool_bn_relu_fwd": 1}),
+            ("quant_stage1_pad=0", dataclasses.replace(cfg8, quant_stage1_pad=0), 8, {})):
+        m = int8_model(c)
+        q8.calibrate_quant_stats(m, calib_batches, INT8_CALIB_BATCHES)
+        counts, o = _int8_counted(f"int8 {tag}", m, batch,
+                                  {"ctc_alpha": 1, "conv_int8": q1_n,
+                                   "int_mm": 4 * cfg.depth, **extra})
+        launches = {k: launches[k] + counts[k] for k in launches}
+        r = dict(eval_ms=median_ms(lambda: eval_step(m, batch), 10), launches=counts)
+        say(f"[int8 serve {tag}] launches {counts}; eval_step {r['eval_ms']:.3f} ms")
+        r["logits"] = int8_logits_held(f"int8 serve {tag}", o["logits"], l32)
+        rec[tag] = r
+        del m, o
+    del model32, l32, out
+
+    # --- bucket serving at int8 (per-bucket calibration) ----------------------
+    alphabet = [chr(c) for c in range(33, 33 + cfg.nb_cls - 1)]
+    converter = CTCLabelConverter(alphabet)
+    chars, widths = selftest_lines(N_LINES, np.random.default_rng(SEED + 5))
+    owner = [next((s for s in SERVE_WIDTHS if w <= s), SERVE_WIDTHS[-1]) for w in widths]
+    batches = {b: math.ceil(owner.count(b) / BATCH) for b in SERVE_WIDTHS if b in owner}
+    n_steps = sum(batches.values())
+    wide_fwd = sum(n + min(n, INT8_CALIB_BATCHES) for b, n in batches.items() if b > 512)
+    load = lambda i, width: synthetic_line(i, widths[i], width)  # noqa: E731
+    reset_counts()
+    t0 = time.perf_counter()
+    texts = transcribe_buckets(model8, load, widths, SERVE_WIDTHS, converter, BATCH,
+                               INT8_CALIB_BATCHES)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = read_counts()
+    want = {**dict.fromkeys(COUNTERS, 0), "ctc_alpha": n_steps,
+            "conv_int8": rec["q1_per_forward"] * n_steps, "int_mm": 4 * cfg.depth * n_steps,
+            "flash_attention_fwd": cfg.depth * wide_fwd}
+    if counts != want:
+        raise AssertionError(f"int8 bucket serving launched {counts}; expected {want}")
+    if len(texts) != N_LINES or any(t is None for t in texts):
+        raise AssertionError(f"{len(texts)} texts for {N_LINES} lines")
+    launches = {k: launches[k] + counts[k] for k in launches}
+    rec["bucket_serve"] = dict(batches=batches, wall_s=wall, launches=counts)
+    say(f"[int8 bucket serve] {N_LINES} lines in {batches} batches at "
+        f"{SERVE_WIDTHS} px, each bucket calibrated on its first "
+        f"{INT8_CALIB_BATCHES} batches: {wall:.3f} s (first calls included); "
+        f"launches {counts} (K5f {cfg.depth} a forward at 1024 and 2048 px, "
+        "calibration forwards included)")
+    del model8, float_model
+
+    # --- the int8 conformer ------------------------------------------------
+    ccfg = apply_variant_preset(dataclasses.replace(cfg, encoder="conformer"))
+    cgen = torch.Generator(device=device).manual_seed(SEED + 7)
+    conf = build_model(ccfg, device=device, generator=cgen)
+    csd = conf.state_dict()
+    conf8 = build_model(dataclasses.replace(ccfg, quant="int8"), device=device)
+    conf8.load_state_dict(q8.serving_arrays(conf8.cfg, csd), strict=True)
+    q8.calibrate_quant_stats(conf8, calib_batches, INT8_CALIB_BATCHES)
+    counts, o = _int8_counted("int8 conformer", conf8, batch,
+                              {"ctc_alpha": 1, "conv_int8": rec["q1_per_forward"],
+                               "int_mm": 8 * ccfg.depth})
+    launches = {k: launches[k] + counts[k] for k in launches}
+    conf32 = build_model(dataclasses.replace(ccfg, compute_dtype="float32"), device=device)
+    conf32.load_state_dict(csd, strict=True)
+    with torch.inference_mode():
+        c32 = conf32(batch["image"])
+    r = dict(eval_ms=median_ms(lambda: eval_step(conf8, batch), 10), launches=counts)
+    r["float_eval_ms"] = median_ms(lambda: eval_step(conf, batch), 10)
+    say(f"[int8 conformer] launches {counts}; int8 eval_step {r['eval_ms']:.3f} ms "
+        f"({BATCH / r['eval_ms'] * 1e3:.1f} img/s); float (stock ops) "
+        f"{r['float_eval_ms']:.3f} ms")
+    r["logits"] = int8_logits_held("int8 conformer", o["logits"], c32)
+    rec["conformer"] = r
+    del conf, conf8, conf32, o, c32
+    rec["phase_s"] = time.perf_counter() - t_phase
+    say(f"[int8 serve] phase {rec['phase_s']:.1f} s")
+    return launches, rec
+
+
 def main():
     smi_line, max_sm_mhz = phase_device()
     device = torch.device("cuda", 0)
@@ -2916,11 +3301,12 @@ def main():
     sgm_launches, sgm_rec = phase_sgm_mms_train(device, smi_line)
     standalone_launches, standalone_rec = phase_zoo_standalone(device, smi_line)
     ed_launches, ed_rec = phase_encoder_decoder(device, smi_line)
+    int8_launches, int8_rec = phase_int8_serve(device, smi_line)
     say(f"[done] build {build_s:.2f} s; {smi_line}")
     main_path = {k: fused_serve[k] + full_serve[k] + fused_train[k] + full_train[k]
                  + train_launches[k] + bucket_serve[k] + wide_train[k] + fit_launches[k]
                  + zoo_launches[k] + sgm_launches[k] + standalone_launches[k]
-                 + ed_launches[k]
+                 + ed_launches[k] + int8_launches[k]
                  for k in COUNTERS}
     main_path["ctc_alpha"] += serve_launches
     k193, k17 = kernels["S193"], kernels["S17"]
@@ -3047,7 +3433,27 @@ def main():
          "bf16 [64, 6, 512, 128] (training, 2048 px)",
          "jax/experimental/pallas/ops/tpu/flash_attention.py:1456 via "
          "htr_vt_tpu/models/vit.py:67"))]
-    say(json.dumps({"kernels": ctc + stem_lines + conv_lines + flash_lines,
+    q1 = int8_rec["sites"]["s1_conv2"]
+    int8_lines = [{
+        "name": "conv_int8",
+        "route": "cuda",
+        "source": "htr_vt_torch/csrc/conv_int8.cu",
+        "replaces": "htr_vt_tpu/ops/quant.py:55 (conv_int8 / conv_int8_bf16: XLA's s8 "
+                    "conv_general_dilated, not a Pallas kernel)",
+        "launches": main_path["conv_int8"],
+        "max_abs_err": max(r["max_abs_err"] for r in int8_rec["sites"].values()),
+        "ms": q1["ms"],
+        "plain_ms": q1["plain_ms"],
+        "bound_ms": q1["bound_ms"],
+        "bound_by": q1["bound_by"],
+        "library_ms": q1["library_ms"],
+        "library": "im2col (a strided view, copied) + torch._int_mm",
+        "call_ms": q1["call_ms"],
+        "shape": "bf16 [128, 256, 8, 512] channels-last with the BN prologue, "
+                 "256 -> 256, 3x3/1 (stage 1's conv2 site, 2 a forward)",
+        "sites": int8_rec["sites"],
+    }]
+    say(json.dumps({"kernels": ctc + stem_lines + conv_lines + flash_lines + int8_lines,
                     "bucket_serve": bucket_rec, "wide_train": wide_rec,
                     "train_ms": train["ms"], "fused_train_ms": fused["ms"],
                     "fully_fused_train_ms": full["ms"], "train_peak": train["peak"],
@@ -3059,7 +3465,8 @@ def main():
                     "pool_grad_copies": fused["grad_copies"] + full["grad_copies"],
                     "fully_fused_serve": full_serve_rec, "fit": fit_rec,
                     "zoo_serve": zoo_rec, "sgm_mms_train": sgm_rec,
-                    "zoo_standalone": standalone_rec, "encoder_decoder": ed_rec}))
+                    "zoo_standalone": standalone_rec, "encoder_decoder": ed_rec,
+                    "int8_serve": {k: v for k, v in int8_rec.items() if k != "sites"}}))
     say(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -114,6 +114,9 @@ def load(path: Path) -> ctypes.CDLL:
     lib.htrvt_flash_bwd_dq.argtypes = [ptr] * 8 + [strides, f32] + [i32] * 5 + [ptr]
     for fn in (lib.htrvt_flash_fwd, lib.htrvt_flash_bwd_dkv, lib.htrvt_flash_bwd_dq):
         fn.restype = i32
+    lib.htrvt_conv_int8.argtypes = ([ptr, i32] + [ptr] * 7 + [i32] + [i32] * 12
+                                    + [ptr])
+    lib.htrvt_conv_int8.restype = i32
     lib.htrvt_conv3x3_dgrad_rows.argtypes = [i32] * 4
     lib.htrvt_conv3x3_dgrad_rows.restype = i64
     lib.htrvt_conv3x3_wgrad_splits.argtypes = [i32] * 6

@@ -56,8 +56,8 @@ def build_parser(description: str) -> argparse.ArgumentParser:
     p.add_argument("--max-span-length", type=int, default=4)
     p.add_argument("--compute-dtype", type=str, default="bfloat16")
     p.add_argument("--quant", type=str, default="none", choices=["none", "int8"],
-                   help="quantized INFERENCE path (not ported yet: int8 "
-                        "raises, ROADMAP.md queue 1, item 11)")
+                   help="quantized INFERENCE path (dynamic A8W8); training is"
+                        " always float")
     p.add_argument("--quant-gelu", type=str, default="quick",
                    choices=["quick", "exact"],
                    help="GELU flavor on the int8 serving path: quick = "

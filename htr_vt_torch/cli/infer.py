@@ -6,8 +6,10 @@ threshold sweep), greedy-decode, print the text. Usage:
 
     python -m htr_vt_torch.cli.infer SYNTH --checkpoint <dir> --image line.png
 
-The masked-LM word corrector (``--llm-correct``) is not ported yet
-(ROADMAP.md queue 1, item 14).
+``--quant int8`` serves the A8W8 model, its static scales calibrated on
+the input image itself (``htr_vt_tpu/cli/infer.py:74-80``). The masked-LM
+word corrector (``--llm-correct``) is not ported yet (ROADMAP.md queue 1,
+item 14).
 """
 
 from __future__ import annotations
@@ -20,6 +22,7 @@ import numpy as np
 from htr_vt_torch.cli.args import args_to_config, build_parser
 from htr_vt_torch.data.image import prepare_line_image
 from htr_vt_torch.data.loader import build_dataset, make_converter
+from htr_vt_torch.ops.quant import calibrate_quant_stats
 from htr_vt_torch.train.checkpoint import load_ema_model
 from htr_vt_torch.train.step import eval_step
 
@@ -51,10 +54,6 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
             "--model-type encoder_decoder: this entry point runs the CTC eval_step, "
             "which an encoder-decoder cannot take (neither can the JAX package's); "
             "fit validates an encoder-decoder with train/step.py:eval_step_ed")
-    if cfg.model.quant != "none":
-        raise NotImplementedError(
-            f"--quant {cfg.model.quant}: int8 inference is not ported to htr_vt_torch "
-            "yet (ROADMAP.md queue 1, item 11: int8 serving)")
 
     train_ds = build_dataset(cfg.data, "train")
     converter = make_converter(cfg.data, train_ds)
@@ -68,6 +67,9 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
     if args.binarize_sweep:
         for th in (0.3, 0.4, 0.5, 0.6, 0.7):
             variants.append((f"bin@{th}", binarize(prepare_line_image(raw, w, h), th)))
+    if cfg.model.quant == "int8":
+        # single-image inference has no separate calibration stream
+        calibrate_quant_stats(model, [variants[0][1][None]], 1)
 
     for name, img in variants:
         batch = {"image": img[None],

@@ -18,8 +18,10 @@ capped there), and each bucket runs fixed-size batches at its width
 through the same model and weights; without buckets every line is capped
 at the configured width, as the reference does. At 1024 and 2048 px (N =
 256 and 512 tokens) ``attn_impl="auto"`` takes the flash-attention
-kernels on the card. int8 and beam/LM rescoring are not ported yet
-(ROADMAP.md, queue 1).
+kernels on the card. ``--quant int8`` serves the A8W8 model, its static
+scales calibrated on each bucket's first ``--calib-batches`` batches
+(``serve.py:163-190``). Beam/LM rescoring is not ported yet (ROADMAP.md,
+queue 1).
 """
 
 from __future__ import annotations
@@ -42,6 +44,7 @@ from htr_vt_torch import CTCLabelConverter
 from htr_vt_torch.data.image import assign_width_buckets
 from htr_vt_torch.data.loader import make_converter
 from htr_vt_torch.models.htr_vt import HTRVT, build_model
+from htr_vt_torch.ops.quant import calibrate_quant_stats, serving_arrays
 from htr_vt_torch.train.checkpoint import CheckpointManager, load_ema_model, saved_config
 from htr_vt_torch.train.step import eval_step
 from htr_vt_torch.utils.convert import load_reference_checkpoint
@@ -88,18 +91,25 @@ def route_to_buckets(widths: Sequence[int], buckets: Sequence[int],
 
 def transcribe_buckets(model: nn.Module, load: Callable[[int, int], np.ndarray],
                        widths: Sequence[int], buckets: Sequence[int],
-                       converter: CTCLabelConverter, batch_size: int) -> List[str]:
+                       converter: CTCLabelConverter, batch_size: int,
+                       calib_batches: int = 4) -> List[str]:
     """Greedy transcriptions of lines of natural ``widths``, in input order.
 
     ``load(i, width)`` returns line i as float32 [H, width, 1] at its
     bucket's width. Each bucket runs ``eval_step`` on fixed-size batches of
     its lines (``transcribe``: the last batch white-padded), loading one
-    batch at a time (``serve.py:236-254``)."""
+    batch at a time (``serve.py:236-254``). An int8 model is calibrated
+    first on each bucket's first ``calib_batches`` batches
+    (``serve.py:163-190``)."""
     bucket_widths, owner = route_to_buckets(widths, buckets,
                                             model.cfg.patch_size[0])
     texts: List[Optional[str]] = [None] * len(widths)
     for bi, width in enumerate(bucket_widths):
         idxs = [i for i, o in enumerate(owner) if o == bi]
+        if model.cfg.quant == "int8":
+            calibrate_quant_stats(model, (
+                np.stack([load(i, width) for i in idxs[s:s + batch_size]])
+                for s in range(0, len(idxs), batch_size)), calib_batches)
         for start in range(0, len(idxs), batch_size):
             sel = idxs[start:start + batch_size]
             images = np.stack([load(i, width) for i in sel])
@@ -139,16 +149,24 @@ def charset(dataset: str, train_list: Optional[str] = None,
     return make_converter(cfg, _TrainAlphabet(cfg, train_list, data_path)).character[1:]
 
 
-def load_serving_model(checkpoint: str, cfg: ModelConfig, device) -> HTRVT:
-    """The model ``--checkpoint`` names, on ``device``: a directory of the
-    port's training checkpoints gives its EMA weights at the model config
-    saved with them (``train/checkpoint.py:load_ema_model``); a ``.pth``
-    file, a state_dict in the reference layout, loads into a model at
-    ``cfg``."""
+def load_serving_model(checkpoint: str, cfg: ModelConfig, device,
+                       quant: str = "none") -> HTRVT:
+    """The model ``--checkpoint`` names, on ``device``, with ``quant`` set:
+    a directory of the port's training checkpoints gives its EMA weights at
+    the model config saved with them (``train/checkpoint.py:
+    load_ema_model``); a ``.pth`` file, a state_dict in the reference
+    layout, loads into a model at ``cfg``. An int8 model gets the weights
+    padded to its stage 1 (``ops/quant.py:serving_arrays``)."""
     if os.path.isdir(checkpoint):
-        return load_ema_model(checkpoint, None, device)
+        saved = saved_config(CheckpointManager(os.path.dirname(
+            os.path.abspath(checkpoint))).meta(checkpoint))
+        model_cfg = None if saved is None else dataclasses.replace(saved.model,
+                                                                   quant=quant)
+        return load_ema_model(checkpoint, model_cfg, device)
+    cfg = dataclasses.replace(cfg, quant=quant)
     model = build_model(cfg, device=torch.device(device))
-    model.load_state_dict(load_reference_checkpoint(checkpoint), strict=True)
+    model.load_state_dict(serving_arrays(cfg, load_reference_checkpoint(checkpoint)),
+                          strict=True)
     return model
 
 
@@ -175,6 +193,12 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
     p.add_argument("--batch-size", type=int, default=64)
     p.add_argument("--out", default=None, help="JSONL output (default stdout)")
     p.add_argument("--device", default="cuda")
+    p.add_argument("--quant", default="none", choices=["none", "int8"],
+                   help="quantized INFERENCE path (dynamic A8W8); training is"
+                        " always float")
+    p.add_argument("--calib-batches", type=int, default=4,
+                   help="int8: batches per bucket folded into the "
+                        "running-abs-max activation calibration")
     p.add_argument("--train-list", default=None,
                    help="training list for the charset (default: the preset's)")
     p.add_argument("--data-path", default=None)
@@ -197,7 +221,7 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
                                           saved.data if saved else None))
     cfg = dataclasses.replace(dataset_preset(args.dataset).model,
                               nb_cls=converter.num_classes)
-    model = load_serving_model(args.checkpoint, cfg, args.device)
+    model = load_serving_model(args.checkpoint, cfg, args.device, args.quant)
     if model.cfg.nb_cls != converter.num_classes:
         sys.exit(f"{args.checkpoint}: {model.cfg.nb_cls} classes, but the charset "
                  f"gives {converter.num_classes}")
@@ -211,7 +235,7 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
     # one batch of a bucket at a time: host memory stays at one batch
     texts = transcribe_buckets(
         model, lambda i, width: load_line_image(paths[i], width, h), widths,
-        buckets, converter, args.batch_size)
+        buckets, converter, args.batch_size, args.calib_batches)
     sink = open(args.out, "w") if args.out else sys.stdout
     try:
         for path, text in zip(paths, texts):

@@ -3,8 +3,10 @@
 
 Reference behavior (model_v1/test.py): load the EMA weights, rebuild the
 training alphabet, evaluate the test split, print CER/WER, and dump
-``predictions.json`` with per-sample CER/WER. int8 evaluation is not ported
-yet (ROADMAP.md queue 1, item 11).
+``predictions.json`` with per-sample CER/WER. ``--quant int8`` evaluates the
+A8W8 model (the EMA weights padded to its stage 1, ``ops/quant.py:
+serving_arrays``) after calibrating its static scales over the first
+``--calib-batches`` eval batches (``htr_vt_tpu/cli/test.py:54-80``).
 """
 
 from __future__ import annotations
@@ -18,6 +20,7 @@ from htr_vt_torch.cli.args import args_to_config, build_parser
 from htr_vt_torch.data.loader import (build_dataset, choose_max_label_len,
                                       eval_batches, make_converter)
 from htr_vt_torch.eval.validate import validate
+from htr_vt_torch.ops.quant import calibrate_quant_stats
 from htr_vt_torch.text.metrics import per_sample_cer_wer
 from htr_vt_torch.train.checkpoint import load_ema_model
 
@@ -28,6 +31,9 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
                         help="checkpoint dir (rolling, best_CER/best_WER, or run dir)")
     parser.add_argument("--split", type=str, default="test", choices=["val", "test"])
     parser.add_argument("--predictions-out", type=str, default=None)
+    parser.add_argument("--calib-batches", type=int, default=4,
+                        help="batches used to calibrate int8 activation "
+                             "scales (running abs-max); --quant int8 only")
     args = parser.parse_args(argv)
     cfg = args_to_config(args)
     if cfg.model.model_type == "encoder_decoder":
@@ -35,10 +41,6 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
             "--model-type encoder_decoder: this entry point runs the CTC eval_step, "
             "which an encoder-decoder cannot take (neither can the JAX package's); "
             "fit validates an encoder-decoder with train/step.py:eval_step_ed")
-    if cfg.model.quant != "none":
-        raise NotImplementedError(
-            f"--quant {cfg.model.quant}: int8 evaluation is not ported to htr_vt_torch "
-            "yet (ROADMAP.md queue 1, item 11: int8 serving)")
 
     # Training alphabet defines the codec (reference test.py:43-45 reloads the
     # train split only to rebuild it).
@@ -49,6 +51,13 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
         cfg.model, nb_cls=converter.num_classes))
     max_label_len = choose_max_label_len(train_ds.labels, cfg.model.num_tokens)
     model = load_ema_model(args.checkpoint, cfg.model, args.device)
+    if cfg.model.quant == "int8":
+        # a running abs-max over several batches: one batch can
+        # under-estimate a scale and clip later activations
+        calibrate_quant_stats(
+            model, (b["image"] for b, _, _ in eval_batches(
+                eval_ds, converter, cfg.data.val_bs, max_label_len)),
+            args.calib_batches)
 
     loss, cer, wer, preds, labels = validate(
         model, eval_batches(eval_ds, converter, cfg.data.val_bs, max_label_len),

@@ -11,7 +11,10 @@ and SqueezeFormer.
 Depthwise 1-D convolutions are ``F.conv1d`` with ``groups = channels`` over
 the token axis, padded as flax's ``"SAME"``; their bias is added after the
 product in the compute dtype, as flax's ``nn.Conv`` does. The norms follow
-flax: float32 statistics with the variance ``E[x^2] - E[x]^2``.
+flax: float32 statistics with the variance ``E[x^2] - E[x]^2``. With
+``quant`` (int8 serving, eval only) a Conformer block's attention, FFN and
+ConvModule pointwise linears are int8 sites; the depthwise conv stays float
+(``conv_blocks.py:70-71``).
 """
 
 from __future__ import annotations
@@ -24,7 +27,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from htr_vt_torch.models.layers import (DropPath, dense, dropout, glu,
-                                        lecun_normal_)
+                                        lecun_normal_, quantize_linear)
 from htr_vt_torch.models.stem import BN_EPS, BN_MOMENTUM, BatchNorm
 from htr_vt_torch.models.vit import Attention
 
@@ -115,10 +118,11 @@ class ConvModule(nn.Module):
 
     def __init__(self, dim: int, dtype: torch.dtype, kernel_size: int = 3,
                  drop_rate: float = 0.1, drop_path: float = 0.0,
-                 expansion: float = 1.0, device=None):
+                 expansion: float = 1.0, device=None, quant: bool = False):
         super().__init__()
         self.dtype = dtype
         self.drop_rate = drop_rate
+        self.quant = quant
         hidden = int(dim * expansion)
         self.use_glu = hidden % 2 == 0
         inner = hidden // 2 if self.use_glu else hidden
@@ -128,6 +132,9 @@ class ConvModule(nn.Module):
         self.gn = nn.GroupNorm(1, inner, eps=CONV_MODULE_EPS, device=device)
         self.pw2 = nn.Linear(inner, dim, device=device)
         self.dp = DropPath(drop_path)
+        if quant:
+            quantize_linear(self.pw1)
+            quantize_linear(self.pw2)
 
     @torch.no_grad()
     def reset_jax_init(self, generator: torch.Generator) -> None:
@@ -138,13 +145,15 @@ class ConvModule(nn.Module):
 
     def forward(self, x: torch.Tensor, *, train: bool = False,
                 generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        quant = self.quant and not train
         y = self.norm(x.float()).to(self.dtype)
-        y = dense(self.pw1, y, self.dtype)
+        y = dense(self.pw1, y, self.dtype, quant)
         if self.use_glu:
             y = glu(y)
         y = depthwise_conv1d(self.dw, y, self.dtype)
         y = F.silu(group_norm_1(self.gn, y).to(self.dtype))
-        y = dropout(dense(self.pw2, y, self.dtype), self.drop_rate, train, generator)
+        y = dropout(dense(self.pw2, y, self.dtype, quant), self.drop_rate, train,
+                    generator)
         return x + self.dp(y, train=train, generator=generator)
 
 
@@ -193,16 +202,22 @@ class FeedForward(nn.Module):
     (``conv_blocks.py:203-221``)."""
 
     def __init__(self, dim: int, hidden_dim: int, dtype: torch.dtype,
-                 drop_rate: float = 0.1, device=None):
+                 drop_rate: float = 0.1, device=None, quant: bool = False):
         super().__init__()
         self.dtype = dtype
         self.drop_rate = drop_rate
+        self.quant = quant
         self.lin1 = nn.Linear(dim, hidden_dim, device=device)
         self.lin2 = nn.Linear(hidden_dim, dim, device=device)
+        if quant:
+            quantize_linear(self.lin1)
+            quantize_linear(self.lin2)
 
     def forward(self, x: torch.Tensor, *, train: bool = False,
                 generator: Optional[torch.Generator] = None) -> torch.Tensor:
-        y = dense(self.lin2, F.silu(dense(self.lin1, x, self.dtype)), self.dtype)
+        quant = self.quant and not train
+        y = dense(self.lin2, F.silu(dense(self.lin1, x, self.dtype, quant)), self.dtype,
+                  quant)
         return dropout(y, self.drop_rate, train, generator)
 
 
@@ -216,7 +231,7 @@ class ConformerBlock(nn.Module):
                  mlp_ratio: float = 4.0, ff_drop: float = 0.1, attn_drop: float = 0.0,
                  conv_drop: float = 0.1, conv_kernel: int = 3, drop_path: float = 0.0,
                  use_se: bool = False, layer_norm_eps: float = 1e-6,
-                 attn_impl: str = "auto", device=None):
+                 attn_impl: str = "auto", device=None, quant: bool = False):
         super().__init__()
         self.dtype = dtype
         hidden = int(dim * mlp_ratio)
@@ -226,13 +241,14 @@ class ConformerBlock(nn.Module):
 
         self.ffn1_norm, self.attn_norm = norm(), norm()
         self.ffn2_norm, self.final_norm = norm(), norm()
-        self.ffn1 = FeedForward(dim, hidden, dtype, ff_drop, device=device)
+        self.ffn1 = FeedForward(dim, hidden, dtype, ff_drop, device=device, quant=quant)
         self.attn = Attention(dim, num_heads, True, dtype, proj_drop=ff_drop,
-                              attn_drop=attn_drop, attn_impl=attn_impl, device=device)
+                              attn_drop=attn_drop, attn_impl=attn_impl, device=device,
+                              quant=quant)
         self.conv = ConvModule(dim, dtype, conv_kernel, conv_drop, drop_path,
-                               device=device)
+                               device=device, quant=quant)
         self.se = SqueezeExcite1D(dim, dtype, device=device) if use_se else None
-        self.ffn2 = FeedForward(dim, hidden, dtype, ff_drop, device=device)
+        self.ffn2 = FeedForward(dim, hidden, dtype, ff_drop, device=device, quant=quant)
         self.dp = DropPath(drop_path)
 
     def forward(self, x: torch.Tensor, *, train: bool = False,
@@ -262,7 +278,7 @@ class SqueezeFormerEncoder(nn.Module):
                  mlp_ratio: float = 4.0, ff_drop: float = 0.1, attn_drop: float = 0.1,
                  conv_drop: float = 0.1, conv_kernel: int = 3,
                  drop_path_total: float = 0.1, layer_norm_eps: float = 1e-6,
-                 attn_impl: str = "auto", device=None):
+                 attn_impl: str = "auto", device=None, quant: bool = False):
         super().__init__()
         d1 = max(1, depth // 2)
         d2 = max(1, depth - d1)
@@ -272,7 +288,7 @@ class SqueezeFormerEncoder(nn.Module):
             return ConformerBlock(dim, num_heads, dtype, mlp_ratio, ff_drop, attn_drop,
                                   conv_drop, conv_kernel, float(dp), use_se=True,
                                   layer_norm_eps=layer_norm_eps, attn_impl=attn_impl,
-                                  device=device)
+                                  device=device, quant=quant)
 
         self.stage1 = [f"stage1_block{i}" for i in range(d1)]
         self.stage2 = [f"stage2_block{i}" for i in range(d2)]

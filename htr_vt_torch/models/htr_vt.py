@@ -15,8 +15,11 @@ JAX, and ``module.training`` is never read: train mode means batch-statistic
 BatchNorm, masking and dropout. ``build_model`` also builds the JAX
 package's standalone models: ``HTRSwin`` (``models/swin.py``), ``SVTR``
 (``models/svtr.py``) and ``HTREncoderDecoder``
-(``models/encoder_decoder.py``). int8 and remat are not ported yet
-(ROADMAP.md, queue 1).
+(``models/encoder_decoder.py``). ``quant="int8"`` is the A8W8 serving path
+(``ops/quant.py``): the ResNet18 stem's tiling convs and the vit /
+conformer / squeezeformer linears run int8 in eval, at a stage 1 padded to
+``quant_stage1_pad`` where that applies; train mode is the float model.
+remat is not ported yet (ROADMAP.md, queue 1).
 """
 
 from __future__ import annotations
@@ -37,6 +40,7 @@ from htr_vt_torch.models.svtr import SVTR
 from htr_vt_torch.models.swin import HTRSwin
 from htr_vt_torch.models.van import VanStem
 from htr_vt_torch.models.vit import ATTN_IMPLS
+from htr_vt_torch.ops.quant import stage1_pad_applies
 
 VAN_STEMS = ("van", "van2")
 
@@ -64,10 +68,14 @@ class HTRVT(nn.Module):
             # built without the stem switches, as in JAX (htr_vt.py:71-74)
             self.patch_embed = VanStem(d, dtype, variant=cfg.stem, device=device)
         else:
+            # int8 serving runs stage 1 at the padded width (htr_vt.py:73-90;
+            # a training checkpoint loads through ops/quant.py:serving_arrays)
+            widths = ((cfg.quant_stage1_pad, d // 2, d)
+                      if stage1_pad_applies(cfg) else None)
             self.patch_embed = ResNet18Stem(
                 d, dtype, device=device, dataflow=cfg.conv_dataflow,
                 pool_impl=cfg.pool_impl, bn_stats_impl=cfg.bn_stats_impl,
-                conv_impl=cfg.conv_impl)
+                conv_impl=cfg.conv_impl, widths=widths, quant=cfg.quant == "int8")
         self.mask_token = nn.Parameter(torch.zeros(1, 1, d, device=device))
         # fixed sin-cos tables, one per (grid, device), outside the state_dict
         self._pos_tables: Dict[Tuple, torch.Tensor] = {}
@@ -186,12 +194,8 @@ def build_model(cfg: ModelConfig, device=None,
     ``model_type="encoder_decoder"`` builds ``HTREncoderDecoder`` around
     the ``HTRVT`` trunk; ``encoder="swin"`` and ``"svtr"`` the standalone
     ``HTRSwin`` and ``SVTR``; every other encoder ``HTRVT`` with the
-    recipe's blocks, behind the ResNet18 or a VAN stem. int8 and remat are
-    still queued in ROADMAP.md."""
-    if cfg.quant != "none":
-        raise NotImplementedError(
-            f"quant={cfg.quant!r} is not ported to htr_vt_torch yet "
-            "(ROADMAP.md queue 1, item 11: int8 serving)")
+    recipe's blocks, behind the ResNet18 or a VAN stem. remat is still
+    queued in ROADMAP.md."""
     if cfg.remat != "none":
         raise NotImplementedError(
             f"remat={cfg.remat!r} is not ported to htr_vt_torch yet "

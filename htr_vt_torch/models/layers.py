@@ -2,7 +2,9 @@
 
 Parameters are float32; each layer casts its weights to the compute dtype at
 the call, as the JAX package's ``QDense`` does, so one state_dict serves a
-bfloat16 and a float32 model alike.
+bfloat16 and a float32 model alike. A linear made a quantized site
+(``quantize_linear``) runs QDense's int8 path in eval (``dense(...,
+quant=True)``); its calibrated abs-max is the buffer ``amax``.
 """
 
 from __future__ import annotations
@@ -14,6 +16,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from htr_vt_torch.ops import quant as q8
 
 # The standard deviation of a unit normal truncated at +-2, which flax's
 # truncated-normal initialisers divide out.
@@ -62,12 +66,37 @@ def _sincos_1d(embed_dim: int, pos: np.ndarray) -> np.ndarray:
     return np.concatenate([np.sin(out), np.cos(out)], axis=1)
 
 
-def dense(layer: nn.Linear, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
-    """``QDense`` float path (``layers.py:66-100``): the product of input and
+def quantize_linear(layer: nn.Linear) -> nn.Linear:
+    """Make ``layer`` a quantized site (QDense with ``quant=True``): an
+    unset ``amax`` buffer."""
+    q8.add_site(layer, "amax")
+    return layer
+
+
+def dense(layer: nn.Linear, x: torch.Tensor, dtype: torch.dtype,
+          quant: bool = False) -> torch.Tensor:
+    """``QDense`` (``layers.py:66-100``). Float: the product of input and
     weight in ``dtype``, rounded to ``dtype``, then the bias added in
-    ``dtype``; a bias fused into the GEMM would round once instead."""
+    ``dtype``; a bias fused into the GEMM would round once instead. With
+    ``quant`` (int8 serving) the site's mode decides (``ops/quant.py:
+    site_mode``): calibrating records |x| and runs the float path; else
+    ``dot_int8`` of x (static with the calibrated abs-max, else dynamic)
+    and the float32 weight quantized per output channel, dequantized in
+    ``dtype``, then the bias."""
+    if quant:
+        mode, amax = q8.activation_scale(layer, "amax", x)
+        if mode != "calibrate":
+            wq_t, sw = q8.weight_cache(layer, "weight", layer.weight, q8.linear_weight)
+            y = q8.dot_int8(x, wq_t, sw, amax=amax, dequant_dtype=dtype)
+            return y if layer.bias is None else y + layer.bias.to(dtype)
     y = F.linear(x.to(dtype), layer.weight.to(dtype))
     return y if layer.bias is None else y + layer.bias.to(dtype)
+
+
+def quick_gelu(x: torch.Tensor) -> torch.Tensor:
+    """``x * sigmoid(1.702 x)`` in x's dtype, the constant rounded to it
+    first (``layers.py:119-127``)."""
+    return x * torch.sigmoid(torch.tensor(1.702, dtype=x.dtype, device=x.device) * x)
 
 
 def conv2d(conv: nn.Conv2d, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
@@ -112,21 +141,31 @@ class DropPath(nn.Module):
 
 class Mlp(nn.Module):
     """fc1 -> exact-erf GELU -> dropout -> fc2 -> dropout
-    (``layers.py:104-132``, float path only)."""
+    (``layers.py:104-132``). With ``quant`` both linears are int8 sites in
+    eval, and ``quick_gelu`` then takes ``x * sigmoid(1.702 x)`` for the
+    GELU; train mode is the float path."""
 
     def __init__(self, dim: int, hidden_dim: int, dtype: torch.dtype,
-                 drop_rate: float = 0.0, device=None):
+                 drop_rate: float = 0.0, device=None, quant: bool = False,
+                 quick_gelu: bool = False):
         super().__init__()
         self.dtype = dtype
         self.drop_rate = drop_rate
+        self.quant = quant
+        self.quick_gelu = quick_gelu
         self.fc1 = nn.Linear(dim, hidden_dim, device=device)
         self.fc2 = nn.Linear(hidden_dim, dim, device=device)
+        if quant:
+            quantize_linear(self.fc1)
+            quantize_linear(self.fc2)
 
     def forward(self, x: torch.Tensor, *, train: bool = False,
                 generator: Optional[torch.Generator] = None) -> torch.Tensor:
-        x = F.gelu(dense(self.fc1, x, self.dtype), approximate="none")
+        quant = self.quant and not train
+        x = dense(self.fc1, x, self.dtype, quant)
+        x = quick_gelu(x) if quant and self.quick_gelu else F.gelu(x, approximate="none")
         x = dropout(x, self.drop_rate, train, generator)
-        x = dense(self.fc2, x, self.dtype)
+        x = dense(self.fc2, x, self.dtype, quant)
         return dropout(x, self.drop_rate, train, generator)
 
 

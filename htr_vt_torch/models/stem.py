@@ -35,6 +35,15 @@ Module and parameter names follow the reference state_dict
 (``patch_embed.layer1.0.conv1.weight``, ...), so a checkpoint
 converted by ``htr_vt_torch/utils/torch_convert.py`` loads with
 ``strict=True``.
+
+int8 serving (``quant``, eval only; ``stem.py:217-335, 372-406``): each
+block conv whose channels tile (``_int8_pays``, or a stage-1 entry conv of
+a 256-padded stage 1) is an A8W8 site (``ops/quant.py``: the Q1 kernel on
+the card); every other conv is the stock one, whatever ``conv_impl`` says,
+and the block epilogues run in the compute dtype. With a stage 1 of at
+least 256 channels on the 128 grid, bn1 + ReLU are quantized before the
+entry max-pool, which pools the s8 values, and each block but the last
+hands the next an s8 carry (q, scale) in static mode.
 """
 
 from __future__ import annotations
@@ -45,6 +54,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from htr_vt_torch.ops import quant as q8
 from htr_vt_torch.ops.bn_stats import BNStats
 from htr_vt_torch.ops.conv_fused import (conv3x3_bn_relu,
                                          conv3x3_bn_relu_reference)
@@ -150,6 +160,12 @@ def _max_pool_3x3(x: torch.Tensor, stride: Tuple[int, int]) -> torch.Tensor:
     return F.max_pool2d(x, kernel_size=3, stride=stride, padding=1)
 
 
+def _int8_pays(cin: int, cout: int) -> bool:
+    """Whether a conv runs int8 (``stem.py:48-63``): both widths on the 128
+    grid and at least 256."""
+    return cin % 128 == 0 and cout % 128 == 0 and min(cin, cout) >= 256
+
+
 class BasicBlock(nn.Module):
     """ResNet BasicBlock. The ``folded`` dataflow (``stem.py:215-335``),
     eval and train, with its float32 epilogue::
@@ -169,18 +185,37 @@ class BasicBlock(nn.Module):
     through ``conv3x3_bn_relu`` (``stem.py:262-267, 281-283``): conv1
     without a prologue (the kernel at stride 1, ``F.conv2d`` otherwise),
     conv2 with (s1, t1); the epilogue stays eager, as it stays an XLA
-    fusion in JAX."""
+    fusion in JAX.
+
+    ``quant`` (eval only): the int8 dataflow of ``_quant_forward``.
+    ``quant_entry`` makes a stage-1 entry conv (conv1, proj) int8 too;
+    ``emit_quant`` returns the s8 carry in static mode."""
 
     def __init__(self, cin: int, cout: int, stride: Tuple[int, int],
                  use_projection: bool, dtype: torch.dtype, device=None, *,
                  dataflow: str = "plain", bn_stats_impl: str = "auto",
-                 conv_impl: str = "auto"):
+                 conv_impl: str = "auto", quant: bool = False,
+                 quant_entry: bool = False, emit_quant: bool = False):
         super().__init__()
         self.stride = stride
         self.dtype = dtype
         self.dataflow = dataflow
         self.bn_stats_impl = bn_stats_impl
         self.conv_impl = conv_impl
+        self.quant = quant
+        self.emit_quant = quant and emit_quant
+        sites = {"conv1": (cin, cout), "conv2": (cout, cout), "proj": (cin, cout)}
+        self.int8_sites = set()
+        if quant:
+            for site, (c_in, c_out) in sites.items():
+                entry = (quant_entry and site != "conv2" and c_out % 128 == 0
+                         and c_out >= 256 and c_in % 64 == 0)
+                if (site != "proj" or use_projection) and (_int8_pays(c_in, c_out)
+                                                           or entry):
+                    self.int8_sites.add(site)
+                    q8.add_site(self, f"{site}_amax")
+            if self.emit_quant:
+                q8.add_site(self, "out_amax")
         self.conv1 = nn.Conv2d(cin, cout, 3, bias=False, device=device)
         self.bn1 = BatchNorm(cout, device=device)
         self.conv2 = nn.Conv2d(cout, cout, 3, bias=False, device=device)
@@ -189,12 +224,86 @@ class BasicBlock(nn.Module):
             nn.Conv2d(cin, cout, 1, bias=False, device=device),
             BatchNorm(cout, device=device)) if use_projection else None)
 
-    def forward(self, x: torch.Tensor, *, train: bool = False) -> torch.Tensor:
+    def forward(self, x, *, train: bool = False):
+        if self.quant and not train:
+            return self._quant_forward(x)
         x = x.to(self.dtype)
         if (train and self.dataflow == "plain" and self.conv_impl != "pallas"
                 and self.bn_stats_impl != "pallas"):
             return self._plain_train_forward(x)
         return self._folded_forward(x, train)
+
+    def _qconv(self, site: str, x, weight: torch.Tensor, stride,
+               prologue: Optional[Tuple[torch.Tensor, torch.Tensor]] = None):
+        """One conv of the int8 dataflow (``stem.py:217-262``): the stock
+        conv at a float site; at an int8 site the s8 carry goes straight in,
+        else x (after the BN + ReLU prologue in the compute dtype) is
+        quantized by the site's mode, or recorded with the float conv run
+        when calibrating. bf16 out."""
+        dt = self.dtype
+        if site not in self.int8_sites:
+            if isinstance(x, tuple):
+                raise ValueError(f"{site}: an s8 carry reaches a float conv "
+                                 "(an int8 stem at these widths is not a JAX "
+                                 "configuration either)")
+            scale, shift = prologue if prologue is not None else (None, None)
+            return conv3x3_bn_relu_reference(x, weight.to(dt), scale, shift, stride=stride)
+        kw = dict(weight_dtype=dt, module=self, key=site)
+        if isinstance(x, tuple):
+            return q8.conv_int8_bf16(None, weight, stride, 1, xq=x[0], sx=x[1], **kw)
+        name = f"{site}_amax"
+        mode, amax = q8.site_mode(self, name)
+        if mode == "static":
+            return q8.conv_int8_bf16(x, weight, stride, 1, amax=amax, prologue=prologue,
+                                     **kw)
+        a = q8.apply_prologue(x, *prologue) if prologue is not None else x
+        if mode == "calibrate":
+            q8.record_amax(self, name, a)
+            return conv3x3_bn_relu_reference(a, weight.to(dt), stride=stride)
+        return q8.conv_int8_bf16(a, weight, stride, 1, **kw)
+
+    def _quant_forward(self, x):
+        """The int8 serving block (``stem.py:286-335``): x bf16, or the
+        previous block's s8 carry (q, scale); epilogue and residual in the
+        compute dtype; the projection int8 (f32 dequant, then the cast)
+        where its site is, from the carry with the bf16 dequant. Returns
+        the s8 carry of its output in static mode when ``emit_quant``,
+        else the output in the compute dtype."""
+        dt = self.dtype
+        pre = x if isinstance(x, tuple) else None
+        if pre is None:
+            x = x.to(dt)
+        y1 = self._qconv("conv1", x, self.conv1.weight, self.stride)
+        s1, t1 = self.bn1.fold()
+        y2 = self._qconv("conv2", y1, self.conv2.weight, (1, 1), (s1, t1))
+        s2, t2 = self.bn2.fold()
+        if self.downsample is not None:
+            conv, bn = self.downsample
+            kw = dict(weight_dtype=dt, module=self, key="proj")
+            if pre is not None:
+                p = q8.conv_int8_bf16(None, conv.weight, self.stride, 0, xq=pre[0],
+                                      sx=pre[1], **kw)
+            else:
+                mode = None
+                if "proj" in self.int8_sites:
+                    mode, amax = q8.activation_scale(self, "proj_amax", x)
+                if mode in ("static", "dynamic"):
+                    p = q8.conv_int8(x, conv.weight, self.stride, 0, amax=amax,
+                                     **kw).to(dt)
+                else:
+                    p = _proj_conv(conv, x, self.stride, dt)
+            sp, tp = bn.fold()
+            residual = p.to(dt) * _c(sp).to(dt) + _c(tp).to(dt)
+        elif pre is not None:
+            residual = pre[0].to(dt) * pre[1].to(dt)
+        else:
+            residual = x
+        out = _relu_max(y2.to(dt) * _c(s2).to(dt) + _c(t2).to(dt) + residual)
+        if self.emit_quant:
+            mode, amax = q8.activation_scale(self, "out_amax", out)
+            if mode == "static":
+                return q8.quantize_static(out, amax)
+        return out
 
     def _folded_forward(self, x: torch.Tensor, train: bool) -> torch.Tensor:
         dt = self.dtype
@@ -246,7 +355,14 @@ class ResNet18Stem(nn.Module):
     statistics by ``bn_stats_impl``) and the fused K3f/K3b pool;
     ``bn_stats_impl="pallas"`` alone, the K2 statistics, a stock
     normalise + ReLU and a stock pool; else flax's BatchNorm (train) or the
-    running statistics (eval, the same fold), ReLU and a stock pool."""
+    running statistics (eval, the same fold), ReLU and a stock pool.
+
+    ``quant`` (eval only) runs the blocks' int8 dataflow. With a stage 1 of
+    >= 256 channels on the 128 grid (``s1_int8_entry``) and the stock pool,
+    the entry is bn1 + ReLU in float32, and in static mode its quantization
+    (site ``pool_amax``) and the max-pool of the s8 values
+    (``ops/quant.py:max_pool_s8``) feed the s8 chain; calibrate and dynamic
+    pool the float values."""
 
     STAGE_STRIDES: Sequence[Tuple[int, int]] = ((2, 1), (2, 2), (2, 2))
 
@@ -255,7 +371,7 @@ class ResNet18Stem(nn.Module):
                  bn_stats_impl: str = "auto", conv_impl: str = "auto",
                  widths: Optional[Sequence[int]] = None,
                  stage_strides: Sequence[Tuple[int, int]] = STAGE_STRIDES,
-                 final_maxpool: bool = True):
+                 final_maxpool: bool = True, quant: bool = False):
         super().__init__()
         self.dtype = dtype
         self.pool_impl = pool_impl
@@ -264,6 +380,10 @@ class ResNet18Stem(nn.Module):
         c = embed_dim // 4
         widths = [c, embed_dim // 2, embed_dim] if widths is None else list(widths)
         self.n_stages = len(widths)
+        s1_int8_entry = quant and widths[0] % 128 == 0 and widths[0] >= 256
+        self.s8_pool = s1_int8_entry and pool_impl != "pallas"
+        if self.s8_pool:
+            q8.add_site(self, "pool_amax")
         self.conv1 = nn.Conv2d(1, c, 3, bias=False, device=device)
         self.bn1 = BatchNorm(c, device=device)
         cin = c
@@ -271,10 +391,14 @@ class ResNet18Stem(nn.Module):
             stride = tuple(stride)
             proj = stride != (1, 1) or cin != w
             kw = dict(device=device, dataflow=dataflow, bn_stats_impl=bn_stats_impl,
-                      conv_impl=conv_impl)
+                      conv_impl=conv_impl, quant=quant,
+                      quant_entry=s1_int8_entry and i == 0)
+            last = i == self.n_stages - 1
             setattr(self, f"layer{i + 1}", nn.Sequential(
-                BasicBlock(cin, w, stride, proj, dtype, **kw),
-                BasicBlock(w, w, (1, 1), False, dtype, **kw)))
+                BasicBlock(cin, w, stride, proj, dtype, **kw,
+                           emit_quant=s1_int8_entry),
+                BasicBlock(w, w, (1, 1), False, dtype, **kw,
+                           emit_quant=s1_int8_entry and not last)))
             cin = w
 
     def forward(self, x: torch.Tensor, *, train: bool = False) -> torch.Tensor:
@@ -290,7 +414,18 @@ class ResNet18Stem(nn.Module):
                 memory_format=torch.contiguous_format).permute(0, 3, 1, 2)
         x = _conv(self.conv1, x, (2, 1), 1, dt)
         stats = x if train else None
-        if self.pool_impl == "pallas":
+        if self.s8_pool and not train:
+            s1, t1 = self.bn1.fold()
+            a = _relu_max(x.float() * _c(s1) + _c(t1))
+            mode, amax = q8.site_mode(self, "pool_amax")
+            if mode == "calibrate":
+                q8.record_amax(self, "pool_amax", a.to(dt))
+            if mode == "static":
+                xq, sx = q8.quantize_static(a, amax)
+                x = (q8.max_pool_s8(xq), sx)
+            else:
+                x = _max_pool_3x3(a.to(dt), (2, 1))
+        elif self.pool_impl == "pallas":
             s1, t1 = self.bn1.fold(stats, stats_impl=self.bn_stats_impl)
             x = max_pool_bn_relu(x, s1, t1)
         else:

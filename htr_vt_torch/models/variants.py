@@ -35,6 +35,13 @@ def _dtype(cfg: ModelConfig) -> torch.dtype:
     return getattr(torch, cfg.compute_dtype)
 
 
+def _int8(cfg: ModelConfig) -> bool:
+    """The int8 switch JAX passes its vit, conformer and squeezeformer
+    recipes (``variants.py:34-35, 168-169, 187``); every other recipe stays
+    float under ``quant="int8"``."""
+    return cfg.quant == "int8"
+
+
 def _named(prefix, blocks):
     return [(f"{prefix}{i}", b) for i, b in enumerate(blocks)]
 
@@ -45,7 +52,8 @@ def vit_blocks(cfg: ModelConfig, device=None):
     return _named("block", [
         Block(cfg.embed_dim, cfg.num_heads, cfg.mlp_ratio, cfg.qkv_bias,
               cfg.layer_norm_eps, _dtype(cfg), drop=cfg.drop_rate,
-              attn_drop=cfg.attn_drop_rate, attn_impl=cfg.attn_impl, device=device)
+              attn_drop=cfg.attn_drop_rate, attn_impl=cfg.attn_impl, device=device,
+              quick_gelu=cfg.quant_gelu == "quick", quant=_int8(cfg))
         for _ in range(cfg.depth)])
 
 
@@ -145,7 +153,7 @@ def conformer_blocks(cfg: ModelConfig, device=None):
     return _named("block", [
         ConformerBlock(cfg.embed_dim, cfg.num_heads, _dtype(cfg), cfg.mlp_ratio,
                        conv_kernel=cfg.conv_kernel, layer_norm_eps=cfg.layer_norm_eps,
-                       attn_impl=cfg.attn_impl, device=device)
+                       attn_impl=cfg.attn_impl, device=device, quant=_int8(cfg))
         for _ in range(cfg.depth)])
 
 
@@ -156,7 +164,7 @@ def squeezeformer_blocks(cfg: ModelConfig, device=None):
         cfg.embed_dim, cfg.num_heads, _dtype(cfg), depth=cfg.depth,
         mlp_ratio=cfg.mlp_ratio, conv_kernel=cfg.conv_kernel,
         drop_path_total=cfg.drop_path_rate, layer_norm_eps=cfg.layer_norm_eps,
-        attn_impl=cfg.attn_impl, device=device))]
+        attn_impl=cfg.attn_impl, device=device, quant=_int8(cfg)))]
 
 
 # ---------------------------------------------------------------------------

@@ -22,7 +22,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from htr_vt_torch.models.layers import (DropPath, LayerScale, Mlp, dense,
-                                        dropout)
+                                        dropout, quantize_linear)
 from htr_vt_torch.ops.flash_attn import flash_attention, takes_head_dim
 
 ATTN_IMPLS = ("auto", "xla", "flash")
@@ -117,13 +117,15 @@ class Attention(nn.Module):
     ``resolve_attn_impl``, as in JAX: no dropout acts on the weights.
     ``rel_bias_len`` > 0 adds a learned relative-position bias over the
     whole sequence, a (2 * rel_bias_len - 1, H) table initialised to zeros
-    (the global blocks of ``model_window``); a longer sequence raises."""
+    (the global blocks of ``model_window``); a longer sequence raises.
+    ``quant``: qkv and proj are int8 sites in eval (``layers.py:dense``)."""
 
     def __init__(self, dim: int, num_heads: int, qkv_bias: bool,
                  dtype: torch.dtype, proj_drop: float = 0.0,
                  attn_drop: float = 0.0, attn_impl: str = "auto",
-                 rel_bias_len: int = 0, device=None):
+                 rel_bias_len: int = 0, device=None, quant: bool = False):
         super().__init__()
+        self.quant = quant
         self.num_heads = num_heads
         self.dtype = dtype
         self.proj_drop = proj_drop
@@ -135,12 +137,16 @@ class Attention(nn.Module):
             self.rel_bias = nn.Parameter(
                 torch.zeros(2 * rel_bias_len - 1, num_heads, device=device))
         self.proj = nn.Linear(dim, dim, device=device)
+        if quant:
+            quantize_linear(self.qkv)
+            quantize_linear(self.proj)
 
     def forward(self, x: torch.Tensor, *, train: bool = False,
                 generator: Optional[torch.Generator] = None) -> torch.Tensor:
         b, n, c = x.shape
         head_dim = c // self.num_heads
-        qkv = dense(self.qkv, x, self.dtype)
+        quant = self.quant and not train
+        qkv = dense(self.qkv, x, self.dtype, quant)
         # [B, N, 3, H, D] -> 3 x [B, H, N, D]
         q, k, v = qkv.reshape(b, n, 3, self.num_heads, head_dim).permute(
             2, 0, 3, 1, 4)
@@ -158,7 +164,7 @@ class Attention(nn.Module):
             out = flash_mha(q, k, v, head_dim**-0.5, self.dtype)
         else:
             out = multi_head_attention(q, k, v, head_dim**-0.5, self.dtype, bias=bias)
-        out = dense(self.proj, out, self.dtype)
+        out = dense(self.proj, out, self.dtype, quant)
         return dropout(out, self.proj_drop, train, generator)
 
 
@@ -239,7 +245,9 @@ class Block(nn.Module):
     """Pre-norm transformer block (``vit.py:238-296``): float32 LayerNorms,
     the residual stream in the compute dtype. ``attention``: ``"global"``,
     ``"window"`` or ``"window_shifted"``; ``init_values`` adds LayerScale
-    to both branches."""
+    to both branches. ``quant`` makes the global attention's and the MLP's
+    linears int8 sites (the windowed attention stays float, as in JAX) and
+    ``quick_gelu`` the int8 MLP's GELU."""
 
     def __init__(self, dim: int, num_heads: int, mlp_ratio: float,
                  qkv_bias: bool, layer_norm_eps: float, dtype: torch.dtype,
@@ -247,14 +255,15 @@ class Block(nn.Module):
                  attn_drop: float = 0.0, attn_impl: str = "auto",
                  attention: str = "global", window_size: int = 16,
                  rel_bias_len: int = 0, init_values: Optional[float] = None,
-                 device=None):
+                 device=None, quant: bool = False, quick_gelu: bool = False):
         super().__init__()
         self.dtype = dtype
         self.norm1 = nn.LayerNorm(dim, eps=layer_norm_eps, device=device)
         if attention == "global":
             self.attn = Attention(dim, num_heads, qkv_bias, dtype, proj_drop=drop,
                                   attn_drop=attn_drop, attn_impl=attn_impl,
-                                  rel_bias_len=rel_bias_len, device=device)
+                                  rel_bias_len=rel_bias_len, device=device,
+                                  quant=quant)
         elif attention in ("window", "window_shifted"):
             self.attn = WindowAttention1D(dim, num_heads, window_size,
                                           attention == "window_shifted", qkv_bias,
@@ -268,7 +277,7 @@ class Block(nn.Module):
             self.ls1 = self.ls2 = nn.Identity()
         self.norm2 = nn.LayerNorm(dim, eps=layer_norm_eps, device=device)
         self.mlp = Mlp(dim, int(dim * mlp_ratio), dtype, drop_rate=drop,
-                       device=device)
+                       device=device, quant=quant, quick_gelu=quick_gelu)
         self.drop_path1 = DropPath(drop_path)
         self.drop_path2 = DropPath(drop_path)
 

@@ -25,6 +25,7 @@ import torch
 
 from htr_vt_torch.config import ExperimentConfig, ModelConfig, config_from_dict
 from htr_vt_torch.models.htr_vt import HTRVT, build_model
+from htr_vt_torch.ops.quant import serving_arrays
 from htr_vt_torch.train.state import TrainState
 
 _CKPT_RE = re.compile(r"checkpoint_(?P<cer>[\d.]+)_(?P<wer>[\d.]+)_(?P<iter>\d+)$")
@@ -176,7 +177,9 @@ def load_ema_model(path: str, cfg: Optional[ModelConfig], device) -> HTRVT:
     """A model holding the EMA weights (parameters and BN running
     statistics) of the checkpoint at ``path`` (``CheckpointManager.resolve``),
     the weights the JAX package evaluates and serves. Built at ``cfg``, or
-    at the model config saved with the checkpoint when ``cfg`` is None."""
+    at the model config saved with the checkpoint when ``cfg`` is None; an
+    int8 ``cfg`` gets the training widths adapted (``ops/quant.py:
+    serving_arrays``, the stage-1 pad)."""
     mgr = CheckpointManager(os.path.dirname(os.path.abspath(path).rstrip("/")) or ".")
     payload, meta = mgr.read(path)
     if cfg is None:
@@ -185,5 +188,5 @@ def load_ema_model(path: str, cfg: Optional[ModelConfig], device) -> HTRVT:
             raise ValueError(f"{path}: meta.json holds no config; give the model config")
         cfg = saved.model
     model = build_model(cfg, device=device)
-    load_module_state(model, payload["ema_model"], path)
+    load_module_state(model, serving_arrays(cfg, payload["ema_model"]), path)
     return model

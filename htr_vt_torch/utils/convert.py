@@ -20,6 +20,12 @@ JAX ``block_names[i]``; a ResNet18 stem's ``layer{s}.{b}`` is
 ``utils/torch_convert.py`` (which drops ``pos_embed``,
 ``num_batches_tracked`` and ``module.`` prefixes).
 
+An int8 model's calibrated abs-maxes (the buffers whose names end in
+``amax``: ``amax`` of a linear, ``conv1_amax`` / ``conv2_amax`` /
+``proj_amax`` / ``out_amax`` of a BasicBlock, the stem's ``pool_amax``)
+are JAX's ``quant_stats`` collection under the same module paths and leaf
+names (``load_jax_params(..., quant_stats)``, ``model_quant_stats``).
+
 A JAX ``TrainState``'s optimizer state converts too. Its optax chain
 (``htr_vt_tpu/optim/sam.py:55-67``: ``adamw`` on the warmup-cosine schedule,
 behind ``clip_by_global_norm`` when clipping is on) keeps the Adam moments
@@ -46,6 +52,7 @@ from torch import nn
 
 from htr_vt_torch.models.htr_vt import HTRVT
 from htr_vt_torch.models.stem import BasicBlock, BatchNorm, ResNet18Stem
+from htr_vt_torch.ops.quant import AMAX_SUFFIX, clear_quant_stats, load_quant_stats
 from htr_vt_torch.utils import torch_convert
 
 Array = np.ndarray
@@ -55,7 +62,7 @@ class Leaf(NamedTuple):
     """Where a state_dict entry lives in the JAX tree, and its layout each
     way."""
 
-    coll: str  # "params" | "batch_stats"
+    coll: str  # "params" | "batch_stats" | "quant_stats"
     path: Tuple[str, ...]
     to_torch: Callable[[Array], Array]
     to_jax: Callable[[Array], Array]
@@ -122,19 +129,27 @@ def _children(module: nn.Module) -> Iterator[Tuple[str, Tuple[str, ...], nn.Modu
             yield name, (name,), child
 
 
-def module_layout(module: nn.Module, path: Tuple[str, ...] = ()) -> Dict[str, Leaf]:
+def module_layout(module: nn.Module, path: Tuple[str, ...] = (),
+                  unset_sites: bool = False) -> Dict[str, Leaf]:
     """state_dict key of ``module`` -> its ``Leaf`` under the JAX path
     ``path``, by module type (``_LEAVES``; any other parameter keeps its
-    name) and the renames of ``_children``."""
+    name; an ``*amax`` buffer is a ``quant_stats`` leaf of its own name)
+    and the renames of ``_children``. ``unset_sites`` also lists the
+    quantized sites not calibrated yet."""
     out = {}
     rule = next((r for t, r in _LEAVES if isinstance(module, t)), None)
     leaves = [n for n, _ in module.named_parameters(recurse=False)]
-    leaves += [n for n, _ in module.named_buffers(recurse=False)]
+    leaves += [n for n, b in module._buffers.items()
+               if b is not None or (unset_sites and n.endswith(AMAX_SUFFIX))]
     for leaf in leaves:
+        if leaf.endswith(AMAX_SUFFIX):
+            out[leaf] = Leaf("quant_stats", path + (leaf,), _same, _same)
+            continue
         coll, jname, to_torch, to_jax = rule[leaf] if rule else _params(leaf)
         out[leaf] = Leaf(coll, path + (jname,), to_torch, to_jax)
     for prefix, parts, child in _children(module):
-        out.update({f"{prefix}.{k}": v for k, v in module_layout(child, path + parts).items()})
+        out.update({f"{prefix}.{k}": v
+                    for k, v in module_layout(child, path + parts, unset_sites).items()})
     return out
 
 
@@ -152,38 +167,67 @@ def load_jax_module(module: nn.Module, params, batch_stats=None) -> None:
                            strict=True)
 
 
-def jax_tree_to_state_dict(model: nn.Module, params, batch_stats
+def jax_tree_to_state_dict(model: nn.Module, params, batch_stats, quant_stats=None
                            ) -> Dict[str, np.ndarray]:
-    """A JAX model's (params, batch_stats) pair -> the port's state_dict
-    keys, numpy values. Also maps the optax moments, which are shaped like
-    ``params`` (``batch_stats`` then fills the BN slots)."""
-    trees = {"params": params, "batch_stats": batch_stats}
+    """A JAX model's (params, batch_stats) pair, and ``quant_stats`` for
+    the model's calibrated sites, -> the port's state_dict keys, numpy
+    values. Also maps the optax moments, which are shaped like ``params``
+    (``batch_stats`` then fills the BN slots)."""
+    trees = {"params": params, "batch_stats": batch_stats, "quant_stats": quant_stats}
     return {key: leaf.to_torch(np.asarray(_get(trees[leaf.coll], leaf.path)))
             for key, leaf in module_layout(model).items()}
+
+
+def _jax_trees(model: nn.Module, sd: Dict[str, np.ndarray]) -> Dict[str, Dict]:
+    """The JAX collections (params, batch_stats, quant_stats) of a port
+    state_dict. Raises on a key outside the model's layout."""
+    layout = module_layout(model)
+    unused = sorted(set(sd) - set(layout))
+    if unused:
+        raise ValueError(f"keys outside the port's layout: {unused}")
+    trees: Dict[str, Dict] = {"params": {}, "batch_stats": {}, "quant_stats": {}}
+    for key, leaf in layout.items():
+        node = trees[leaf.coll]
+        for k in leaf.path[:-1]:
+            node = node.setdefault(k, {})
+        node[leaf.path[-1]] = leaf.to_jax(np.asarray(sd[key]))
+    return trees
 
 
 def state_dict_to_jax_tree(model: nn.Module, sd: Dict[str, np.ndarray]
                            ) -> Tuple[Dict, Dict]:
     """The reverse of ``jax_tree_to_state_dict``: (params, batch_stats)
     numpy trees. Raises on a key outside the model's layout."""
-    layout = module_layout(model)
-    unused = sorted(set(sd) - set(layout))
-    if unused:
-        raise ValueError(f"keys outside the port's layout: {unused}")
-    trees: Dict[str, Dict] = {"params": {}, "batch_stats": {}}
-    for key, leaf in layout.items():
-        node = trees[leaf.coll]
-        for k in leaf.path[:-1]:
-            node = node.setdefault(k, {})
-        node[leaf.path[-1]] = leaf.to_jax(np.asarray(sd[key]))
+    trees = _jax_trees(model, sd)
     return trees["params"], trees["batch_stats"]
 
 
-def load_jax_params(model: nn.Module, params, batch_stats) -> None:
+def load_jax_params(model: nn.Module, params, batch_stats, quant_stats=None) -> None:
     """Load a JAX model's (params, batch_stats) tree of numpy or JAX
-    arrays (any model ``build_model`` builds) into the port's, strictly."""
-    model.load_state_dict(_tensors(jax_tree_to_state_dict(model, params, batch_stats)),
-                          strict=True)
+    arrays (any model ``build_model`` builds) into the port's, strictly;
+    with ``quant_stats`` (an int8 model's calibration, padded tree or not)
+    every site that JAX's collection holds is set first and the others are
+    cleared."""
+    if quant_stats is not None:
+        stats = {}
+        for key, leaf in module_layout(model, unset_sites=True).items():
+            if leaf.coll == "quant_stats":
+                try:
+                    stats[key] = np.asarray(_get(quant_stats, leaf.path))
+                except KeyError:
+                    pass
+        clear_quant_stats(model)
+        load_quant_stats(model, stats)
+    model.load_state_dict(
+        _tensors(jax_tree_to_state_dict(model, params, batch_stats, quant_stats)),
+        strict=True)
+
+
+def model_quant_stats(model: nn.Module) -> Dict:
+    """The port's calibrated abs-maxes as JAX's ``quant_stats`` tree of
+    numpy scalars."""
+    sd = {k: v.detach().float().cpu().numpy() for k, v in model.state_dict().items()}
+    return _jax_trees(model, sd)["quant_stats"]
 
 
 def load_jax_train_state(model: nn.Module, ema_model: nn.Module, state,

@@ -23,6 +23,7 @@ from htr_vt_torch.cli import train as cli_train
 from htr_vt_torch.config import config_to_dict
 from htr_vt_torch.train.checkpoint import CheckpointManager, load_ema_model
 from htr_vt_torch.train.step import eval_step
+from test_torch_port_model import no_tensorboard  # noqa: F401
 
 # Every recipe of tests/test_cli_args.py, and each encoder's preset.
 RECIPES = [
@@ -142,9 +143,13 @@ def test_test_writes_per_sample_predictions(run_dir, tmp_path, capsys):
     assert len(preds["samples"]) == 8 and 0.0 <= preds["CER"]
     assert {"prediction", "label", "cer", "wer"} <= set(preds["samples"][0])
     assert "CER" in capsys.readouterr().out
-    with pytest.raises(NotImplementedError, match="item 11"):
-        cli_test.main(["SYNTH", *TINY_FLAGS, "--checkpoint", run_dir, "--quant", "int8",
-                       "--device", "cpu"])
+    # int8 (A8W8) evaluates the run's latest checkpoint after calibrating
+    # (tests/test_torch_port_quant_stem.py holds what it computes)
+    cli_test.main(["SYNTH", *TINY_FLAGS, "--checkpoint", run_dir, "--quant", "int8",
+                   "--calib-batches", "1", "--split", "val", "--val-bs", "8",
+                   "--synth-eval-size", "8", "--predictions-out", out, "--device", "cpu"])
+    with open(out) as f:
+        assert len(json.load(f)["samples"]) == 8
 
 
 def _line_png(path, seed):

@@ -1287,3 +1287,110 @@ def test_encoder_decoder_cached_decode_on_the_card(cuda):
             assert torch.equal(step.argmax(-1), full[:, i].argmax(-1))
     want = generate(cpu, torch.from_numpy(batch["image"]), max_len=t.shape[1])
     assert torch.equal(got["pred_ids"].cpu(), want)
+
+
+# Q1, the int8 conv, at every site of the flagship's int8 forward (bs 128,
+# 512 px, stage 1 padded to 256): (input NCHW, Cout, kernel, stride,
+# padding, input: "s8" carry | "bf16+bn" with the BN prologue | "bf16").
+Q1_SITES = [
+    ((128, 192, 16, 512), 256, 3, (2, 1), 1, "s8"),
+    ((128, 192, 16, 512), 256, 1, (2, 1), 0, "s8"),
+    ((128, 256, 8, 512), 256, 3, (1, 1), 1, "bf16+bn"),
+    ((128, 256, 8, 512), 256, 3, (1, 1), 1, "s8"),
+    ((128, 256, 8, 512), 384, 3, (2, 2), 1, "s8"),
+    ((128, 256, 8, 512), 384, 1, (2, 2), 0, "s8"),
+    ((128, 384, 4, 256), 384, 3, (1, 1), 1, "bf16+bn"),
+    ((128, 384, 4, 256), 384, 3, (1, 1), 1, "s8"),
+    ((128, 384, 4, 256), 768, 3, (2, 2), 1, "s8"),
+    ((128, 384, 4, 256), 768, 1, (2, 2), 0, "s8"),
+    ((128, 768, 2, 128), 768, 3, (1, 1), 1, "bf16+bn"),
+    ((128, 768, 2, 128), 768, 3, (1, 1), 1, "s8"),
+    ((128, 192, 16, 512), 256, 3, (2, 1), 1, "bf16"),  # pool_impl="pallas"
+    ((3, 64, 5, 7), 128, 3, (2, 2), 1, "bf16"),  # a ragged last pixel tile
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,cout,k,stride,pad,kind", Q1_SITES)
+def test_conv_int8_matches_its_plain_twin_bit_for_bit(cuda, shape, cout, k, stride, pad,
+                                                     kind):
+    """The s32 accumulator and the bf16 and float32 outputs of Q1 equal the
+    float64 twin's bits (``ops/quant.py:conv_int8_reference``); two calls
+    give the same bits; each call counts one launch."""
+    from htr_vt_torch.ops import quant as q8
+    g = torch.Generator(device=cuda).manual_seed(sum(shape) + cout + k)
+    cl = torch.channels_last
+    w = torch.randn(cout, shape[1], k, k, generator=g, device=cuda) * 0.05
+    wq, w_packed, sw = q8.conv_weight(w.to(torch.bfloat16))
+    x = xq = prologue = None
+    if kind == "s8":
+        xq = torch.randint(-127, 128, shape, generator=g, device=cuda,
+                           dtype=torch.int8).contiguous(memory_format=cl)
+        sx = torch.tensor(0.02, device=cuda)
+    else:
+        x = (torch.randn(shape, generator=g, device=cuda) * 2).to(torch.bfloat16)
+        x = x.contiguous(memory_format=cl)
+        if kind == "bf16+bn":
+            prologue = (torch.rand(shape[1], generator=g, device=cuda) + 0.5,
+                        torch.randn(shape[1], generator=g, device=cuda))
+        sx = q8._scale_of(torch.tensor(3.0, device=cuda))  # clips the tail
+    dq = sx * sw
+    for out in (torch.int32, torch.bfloat16, torch.float32):
+        before = q8.conv_int8_cuda.launches
+        got = q8.conv_int8_cuda(x, w_packed, sx, dq, stride, pad, out, xq=xq,
+                                prologue=prologue)
+        again = q8.conv_int8_cuda(x, w_packed, sx, dq, stride, pad, out, xq=xq,
+                                  prologue=prologue)
+        want = q8.conv_int8_reference(x, wq, sx, dq, stride, pad, out, xq=xq,
+                                      prologue=prologue)
+        torch.cuda.synchronize()
+        assert q8.conv_int8_cuda.launches == before + 2
+        assert got.is_contiguous(memory_format=cl) and got.dtype == out
+        assert torch.equal(got, again), out
+        assert torch.equal(got, want), (out, (got.double() - want.double()).abs().max())
+
+
+@pytest.mark.cuda
+def test_conv_int8_wrapper_rejects_what_q1_does_not_take(cuda):
+    from htr_vt_torch.ops import quant as q8
+    xq = torch.zeros((2, 96, 4, 4), dtype=torch.int8, device=cuda).contiguous(
+        memory_format=torch.channels_last)
+    w = torch.zeros((128, 3, 3, 96), dtype=torch.int8, device=cuda)
+    one = torch.ones((), device=cuda)
+    with pytest.raises(ValueError, match="multiples of 64"):
+        q8.conv_int8_cuda(None, w, one, torch.ones(128, device=cuda), (1, 1), 1,
+                          torch.float32, xq=xq)
+    with pytest.raises(ValueError, match="channels-last"):
+        q8.conv_int8_cuda(None, w, one, torch.ones(128, device=cuda), (1, 1), 1,
+                          torch.float32, xq=xq.contiguous())
+
+
+@pytest.mark.cuda
+def test_int8_eval_step_launches_q1_and_int_mm_as_counted(cuda):
+    """The flagship at ``quant="int8"`` (seeded weights, one calibration
+    batch of 8 lines at 512 px): a static ``eval_step`` launches Q1 15 times
+    (five int8 convs a stage), ``_int_mm`` 16 times (4 blocks x qkv, proj,
+    fc1, fc2) and the CTC alpha kernel once; 8 Q1 at
+    ``quant_stage1_pad=0``; finite logits."""
+    import dataclasses
+
+    from htr_vt_torch.ops import quant as q8
+    cfg = ModelConfig()
+    sd = build_model(cfg, device=cuda,
+                     generator=torch.Generator(device=cuda).manual_seed(0)).state_dict()
+    img = torch.rand((8, 64, 512, 1), generator=torch.Generator().manual_seed(1))
+    batch = {"image": img, "labels": np.zeros((8, 4), np.int32),
+             "label_lengths": np.zeros(8, np.int32)}
+    for pad, n_q1 in ((256, 15), (0, 8)):
+        c = dataclasses.replace(cfg, quant="int8", quant_stage1_pad=pad)
+        model = build_model(c, device=cuda)
+        model.load_state_dict(q8.serving_arrays(c, sd), strict=True)
+        q8.calibrate_quant_stats(model, [img], 1)
+        q1, mm, alpha = (q8.conv_int8_cuda.launches, q8.int_mm.launches,
+                         ctc_cuda.ctc_alpha.launches)
+        out = eval_step(model, batch)
+        torch.cuda.synchronize()
+        assert q8.conv_int8_cuda.launches - q1 == n_q1, pad
+        assert q8.int_mm.launches - mm == 16
+        assert ctc_cuda.ctc_alpha.launches - alpha == 1
+        assert torch.isfinite(out["logits"]).all()

@@ -20,6 +20,7 @@ from htr_vt_torch.train import loop
 from htr_vt_torch.train.checkpoint import CheckpointManager
 from htr_vt_torch.train.state import create_train_state
 from test_torch_port_loop import _assert_same_state, _checkpoints, tiny_experiment
+from test_torch_port_model import no_tensorboard  # noqa: F401
 
 ED = dict(model_type="encoder_decoder", decoder_layers=1, decoder_heads=2, max_seq_len=64)
 SYNTH_CHARS = 28  # SYNTH's alphabet; the tokenizer adds four specials

@@ -44,7 +44,7 @@ from htr_vt_torch.train.step import train_step
 from htr_vt_torch.utils import convert
 from htr_vt_torch.utils import logging as tlogging
 from htr_vt_torch.utils import meters as tmeters
-from test_torch_port_model import port_config
+from test_torch_port_model import no_tensorboard, port_config  # noqa: F401
 from test_torch_port_train import CFG as TRAIN_CFG
 from test_torch_port_train import (OPTIM, TINY, _batch, _check_trajectory, _keep,
                                    _leaves)

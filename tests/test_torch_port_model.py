@@ -9,6 +9,7 @@ flagship's compute dtype, in bfloat16.
 
 import contextlib
 import dataclasses
+import sys
 
 import jax
 import jax.numpy as jnp
@@ -25,6 +26,28 @@ from htr_vt_torch import config as tconfig
 from htr_vt_torch.models import layers as tlayers
 from htr_vt_torch.models.htr_vt import HTRVT, build_model
 from htr_vt_torch.utils.convert import load_jax_params
+
+# The tier-1 run puts six xdist workers on the CPU's cores. torch's default,
+# one intra-op OpenMP thread a core in each worker, oversubscribes them, and
+# every small op then waits on threads that the other workers' load has
+# descheduled: tests/test_torch_port_masking.py takes 16 s alone and took
+# 387 s beside the other files. Each worker imports this module when it
+# collects the tests, so each runs torch on one thread.
+PORT_TEST_THREADS = 1
+torch.set_num_threads(PORT_TEST_THREADS)
+
+
+@pytest.fixture(autouse=True, scope="module")
+def no_tensorboard():
+    """``fit``'s ``ScalarWriter`` writes TensorBoard files only where
+    ``torch.utils.tensorboard`` imports (``utils/logging.py``), and no test
+    reads them; importing it loads TensorFlow, about 20 s a process. The
+    modules that run ``fit`` import this autouse fixture, so their tests
+    run with the import refused, which the writer skips."""
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setitem(sys.modules, "torch.utils.tensorboard", None)
+        yield
+
 
 TINY = ModelConfig(nb_cls=8, img_size=(64, 128), embed_dim=64, depth=2,
                    num_heads=2, compute_dtype="float32")
@@ -302,11 +325,12 @@ def test_seeded_init_follows_the_jax_schemes():
     assert not a.pos_embed.requires_grad and "pos_embed" not in a.state_dict()
 
 
-@pytest.mark.parametrize("override", [dict(encoder="swin", quant="int8"),
+@pytest.mark.parametrize("override", [dict(encoder="swin", remat="blocks"),
                                       dict(model_type="encoder_decoder", remat="blocks"),
-                                      dict(stem="van", remat="all"), dict(quant="int8")])
+                                      dict(stem="van", remat="all"), dict(remat="all")])
 def test_build_model_rejects_unported_recipes(override):
-    """int8 (item 11) and remat (item 13) raise on every model class."""
+    """remat (item 13) raises on every model class (int8, item 11, builds:
+    ``tests/test_torch_port_quant.py``)."""
     import dataclasses
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         build_model(port_config(dataclasses.replace(TINY, ed_vocab_size=10, **override)),

@@ -3,15 +3,12 @@ tiny float32 config: the copied vocabulary and context windows; the head's
 loss and gradient; two tri-masked SAM steps of the ``model_sgm_mms_conv``
 recipe (conformer, SGM on, its warmup gate closed at step 0 and open at
 step 1) against ``htr_vt_tpu.train.step.train_step`` from the same weights,
-batch and keep masks, dropout patched out on both sides; then
-``cli/train.py --encoder conformer --tri-masked --sgm-enable`` end to end,
-and its checkpoint read back by ``cli/test.py`` (the strict-subset restore)
-and ``serve --checkpoint``.
+batch and keep masks, dropout patched out on both sides. The head alone
+and ``cli/train.py --encoder conformer --tri-masked --sgm-enable`` end to
+end are in ``test_torch_port_sgm_head.py``.
 """
 
 import dataclasses
-import json
-import os
 
 import jax
 import jax.numpy as jnp
@@ -29,13 +26,9 @@ from htr_vt_tpu.optim.sam import make_base_optimizer
 from htr_vt_tpu.text.converter import CTCLabelConverter as JaxConverter
 from htr_vt_tpu.train import step as jstep
 from htr_vt_tpu.train.state import create_train_state as jax_create_train_state
-from htr_vt_torch.cli import serve
-from htr_vt_torch.cli import test as cli_test
-from htr_vt_torch.cli import train as cli_train
 from htr_vt_torch.models import masking, sgm
 from htr_vt_torch.optim.schedule import warmup_cosine_lr
 from htr_vt_torch.text.converter import CTCLabelConverter
-from htr_vt_torch.train.checkpoint import CheckpointManager, load_ema_model
 from htr_vt_torch.train.state import create_train_state
 from htr_vt_torch.train.step import TRI_MASK_MODES, train_step
 from htr_vt_torch.utils.convert import (load_jax_module, load_jax_train_state,
@@ -65,57 +58,9 @@ def _texts(rng, n):
     return ["".join(rng.choice(list(ALPHABET), rng.integers(1, LMAX + 1))) for _ in range(n)]
 
 
-def test_vocab_and_context_arrays_copy_the_jax_ones():
-    rng = np.random.default_rng(0)
-    texts = _texts(rng, 9) + [""]
-    want_vocab = jsgm.SGMVocab(JaxConverter(list(ALPHABET)))
-    got_vocab = sgm.SGMVocab(CTCLabelConverter(list(ALPHABET)))
-    assert got_vocab.stoi == want_vocab.stoi and got_vocab.itos == want_vocab.itos
-    assert got_vocab.size == want_vocab.size == SGM.vocab_size
-    for max_len, sub_len in ((LMAX, SUB), (4, 5), (8, 1)):
-        got = sgm.make_context_arrays(texts, got_vocab, max_len, sub_len)
-        want = jsgm.make_context_arrays(texts, want_vocab, max_len, sub_len)
-        assert got.keys() == want.keys()
-        for k in want:
-            assert got[k].dtype == want[k].dtype, k
-            np.testing.assert_array_equal(got[k], want[k], err_msg=k)
-
-
 def _sgm_arrays(texts):
     vocab = sgm.SGMVocab(CTCLabelConverter(list(ALPHABET)))
     return sgm.make_context_arrays(texts, vocab, LMAX, SUB)
-
-
-def test_sgm_head_loss_and_gradient_match_jax():
-    """Loss and the gradient of every head parameter and of the visual
-    tokens (eval: no dropout), float32."""
-    rng = np.random.default_rng(1)
-    vis = rng.standard_normal((B, N, 64)).astype(np.float32)
-    arrays = _sgm_arrays(_texts(rng, B))
-    jhead = jsgm.SGMHead(vocab_size=SGM.vocab_size, char_emb_dim=16, dtype=jnp.float32)
-    args = [arrays[k] for k in ("sgm_left", "sgm_right", "sgm_tgt", "sgm_mask")]
-    params = jax.tree.map(np.asarray, jhead.init(jax.random.PRNGKey(0), vis, *args)["params"])
-    params = _randomise(params, rng)
-    (want, (gp, gv)) = jax.value_and_grad(
-        lambda p, v: jhead.apply({"params": p}, v, *args), argnums=(0, 1))(params, vis)
-    thead = sgm.SGMHead(64, SGM.vocab_size, torch.float32, char_emb_dim=16)
-    load_jax_module(thead, params)
-    v = torch.from_numpy(vis).requires_grad_(True)
-    got = thead(v, *(torch.from_numpy(a) for a in args))
-    got.backward()
-    np.testing.assert_allclose(got.item(), float(want), **HEAD_TOL)
-    np.testing.assert_allclose(v.grad.numpy(), np.asarray(gv), rtol=1e-4, atol=1e-7)
-    got_g = {f"sgm_head/{k}": t.grad.numpy() for k, t in thead.named_parameters()}
-    want_g = _leaves(gp)
-    names = {"char_emb/weight": "char_emb/embedding", "txt_proj/weight": "txt_proj/kernel",
-             "classifier/weight": "classifier/kernel", "q_norm/weight": "q_norm/scale",
-             "kv_norm/weight": "kv_norm/scale"}
-    assert len(got_g) == len(want_g)
-    for k, g in got_g.items():
-        key = k.split("/", 1)[1].replace(".", "/")
-        w = want_g[names.get(key, key)]
-        g = g.T if g.ndim == 2 and key.endswith("weight") and "emb" not in key else g
-        np.testing.assert_allclose(g, w, rtol=1e-4, atol=1e-7, err_msg=key)
 
 
 # --- one tri-masked SAM step with SGM, its gate closed and open ----------------
@@ -138,10 +83,12 @@ def sgm_steps():
     """From the same weights, batch and keep masks (one fixed mask per
     mode), one tri-masked SAM step on both stacks with the SGM gate closed
     (warmup_iters 1) and open (0); JAX's pass-1 CTC and SGM terms from
-    ``_forward_loss``. JAX runs eagerly: at this config XLA's jitted CPU
-    gradient of the stem differs from JAX's own eager one by up to 3.5e-2
-    of its largest element, where the port's matches the eager one within
-    2e-5; the encoder's and head's gradients agree either way."""
+    ``_forward_loss``, which the gate does not enter (it weighs the terms
+    in the total only), so they are computed once for both. JAX runs
+    eagerly: at this config XLA's jitted CPU gradient of the stem differs
+    from JAX's own eager one by up to 3.5e-2 of its largest element, where
+    the port's matches the eager one within 2e-5; the encoder's and head's
+    gradients agree either way."""
     rng = np.random.default_rng(2)
     masks = {mode: (rng.random((B, N, 1)) > ratio).astype(np.float32)
              for mode, ratio in TRI_MASK_MODES}
@@ -161,17 +108,17 @@ def sgm_steps():
                    lambda *a, mode=None, ratio=None: jnp.asarray(masks[mode]))
         mp.setattr(masking, "build_keep_mask",
                    lambda *a, mode=None, ratio=None: torch.from_numpy(masks[mode]))
+        ctc = sgm_loss = 0.0
+        bs = stats
+        for mode, ratio in TRI_MASK_MODES:
+            _, aux = jstep._forward_loss(jax_build_model(TINY), CFG, params, bs, jbatch,
+                                         jax.random.PRNGKey(0), mode, ratio, init.step)
+            bs = aux["batch_stats"]
+            ctc, sgm_loss = ctc + aux["loss_ctc"], sgm_loss + aux["loss_sgm"]
         for gate, warmup in GATES.items():
             cfg = dataclasses.replace(CFG, model=dataclasses.replace(
                 TINY, sgm=dataclasses.replace(SGM, warmup_iters=warmup)))
             model = jax_build_model(cfg.model)
-            ctc = sgm_loss = 0.0
-            bs = stats
-            for mode, ratio in TRI_MASK_MODES:
-                _, aux = jstep._forward_loss(model, cfg, params, bs, jbatch,
-                                             jax.random.PRNGKey(0), mode, ratio, init.step)
-                bs = aux["batch_stats"]
-                ctc, sgm_loss = ctc + aux["loss_ctc"], sgm_loss + aux["loss_sgm"]
             state, m = jstep.train_step(model, cfg, init, jbatch)
             jax_metrics = {**{k: float(v) for k, v in m.items()},
                            "loss_ctc": float(ctc / 3), "loss_sgm": float(sgm_loss / 3)}
@@ -262,46 +209,3 @@ def test_tri_masked_sgm_step_updates_params_ema_and_bn_stats_as_jax(sgm_steps, g
             if k.startswith("sgm_head/"):
                 np.testing.assert_allclose(got[k], w * (1 - lr * OPTIM.weight_decay),
                                            rtol=1e-6, atol=1e-9, err_msg=k)
-
-
-# --- the CLI, end to end --------------------------------------------------------
-TINY_FLAGS = ["--encoder", "conformer", "--embed-dim", "64", "--depth", "1",
-              "--num-heads", "2", "--img-size", "128", "64", "--compute-dtype", "float32"]
-
-
-@pytest.fixture(scope="module")
-def sgm_run_dir(tmp_path_factory):
-    out = str(tmp_path_factory.mktemp("sgm_cli"))
-    cli_train.main(["SYNTH", *TINY_FLAGS, "--tri-masked", "--sgm-enable", "--exp-name", "sgm",
-                    "--out-dir", out, "--train-bs", "8", "--val-bs", "8",
-                    "--total-iter", "2", "--eval-iter", "2", "--print-iter", "1",
-                    "--warm-up-iter", "1", "--synth-train-size", "16",
-                    "--synth-eval-size", "8", "--num-workers", "2", "--device", "cpu"])
-    return os.path.join(out, "sgm")
-
-
-def test_sgm_checkpoint_is_read_by_test_and_serve(sgm_run_dir, tmp_path):
-    """The run's checkpoint holds the SGM head. ``cli/test.py`` builds the
-    model from its flags (no SGM vocabulary, so no head) and restores the
-    strict subset; ``serve --checkpoint`` builds it at the saved config,
-    head included, and serves the EMA weights."""
-    payload, meta = CheckpointManager(sgm_run_dir).read(os.path.join(sgm_run_dir, "best_CER"))
-    assert any(k.startswith("sgm_head.") for k in payload["ema_model"])
-    assert meta["config"]["model"]["sgm"]["vocab_size"] > 0
-    out = str(tmp_path / "preds.json")
-    cli_test.main(["SYNTH", *TINY_FLAGS, "--sgm-enable", "--checkpoint",
-                   os.path.join(sgm_run_dir, "best_CER"), "--split", "val", "--val-bs", "8",
-                   "--synth-eval-size", "8", "--predictions-out", out, "--device", "cpu"])
-    with open(out) as f:
-        assert len(json.load(f)["samples"]) == 8
-    model = serve.load_serving_model(sgm_run_dir, None, "cpu")
-    assert model.sgm_head is not None
-    for k, v in model.state_dict().items():
-        assert torch.equal(v, payload["ema_model"][k]), k
-    # the same weights without the head, as an eval config builds them
-    cfg = dataclasses.replace(model.cfg, sgm=dataclasses.replace(model.cfg.sgm, enable=False))
-    bare = load_ema_model(sgm_run_dir, cfg, "cpu")
-    assert bare.sgm_head is None
-    x = np.random.default_rng(0).random((2, 64, 128, 1), np.float32)
-    with torch.inference_mode():
-        assert torch.equal(bare(torch.from_numpy(x)), model(torch.from_numpy(x)))

@@ -321,10 +321,12 @@ def test_every_recipe_builds_through_the_train_cli(encoder):
                                       dict(model_type="encoder_decoder")])
 def test_build_model_still_refuses_what_waits(override):
     """The zoo's last models build (their JAX checks live in
-    ``test_torch_port_zoo_standalone.py`` and ``test_torch_port_ed.py``);
-    what still waits on each, int8 (item 11) and remat (item 13), raises."""
+    ``test_torch_port_zoo_standalone.py`` and ``test_torch_port_ed.py``),
+    at ``quant="int8"`` too, as JAX builds them (int8 reaches only the
+    ResNet18 stem and the vit / conformer / squeezeformer linears); what
+    still waits on each, remat (item 13), raises."""
     cfg = port_config(jax_preset(dataclasses.replace(TINY, ed_vocab_size=10, **override)))
     assert build_model(cfg, device="cpu") is not None
-    for what, item in ((dict(quant="int8"), "item 11"), (dict(remat="blocks"), "item 13")):
-        with pytest.raises(NotImplementedError, match=item):
-            build_model(dataclasses.replace(cfg, **what), device="cpu")
+    assert build_model(dataclasses.replace(cfg, quant="int8"), device="cpu") is not None
+    with pytest.raises(NotImplementedError, match="item 13"):
+        build_model(dataclasses.replace(cfg, remat="blocks"), device="cpu")
