@@ -189,6 +189,25 @@ non-zero before the last line:
    ``quant="int8"`` over the 512/1024/2048 buckets (4 K5f a forward at
    1024 and 2048, calibration included) and the int8 conformer's
    ``eval_step`` (15 Q1, 32 ``_int_mm``).
+20. deploy serve: the flagship fully fused (seeded weights) exported by
+   ``deploy.py:export_serving`` (``torch.export``) at bs 128 and 512, 1024
+   and 2048 px, and the calibrated int8 flagship at 512 px, saved as
+   bundles under the git-ignored ``build/`` (sizes printed) and reloaded as
+   ``ServingBundle`` s. One call of each program on 128 synthetic lines of
+   its bucket launches exactly the live ``eval_step``'s kernels less K1a (1
+   K3f and 9 K4f, + 4 K5f at 1024 and 2048 px; 15 Q1 at int8) and gives
+   ids and lengths bit-equal to the live model's; its time beside the
+   live serving function's, the live ``eval_step``'s and
+   ``ServingBundle.run``'s (numpy in and out), with the device's busy time
+   and span a call under ``torch.profiler``. ``cli/server.py:BatchWorker``
+   serves 293 numpy lines from 8 threads in fewer program calls than
+   lines, their texts equal to ``ServingBundle.transcribe``'s; a word
+   trigram trained by ``decode/lm_train.py`` rescores beam-5 candidates of
+   128 lines on the host (``cli/serve.py:beam_lm_texts``), timed, naming
+   the native or Python scorer; then ``cli/export.py SYNTH --width-buckets
+   512,1024,2048 --verify`` on a seeded checkpoint at the flagship width
+   and ``python -m htr_vt_torch.cli.server`` on its bundle as a
+   subprocess, polled on ``/healthz`` and stopped.
 
 Kernel times (phases 2, 3, 4 and 11) are read two ways: ``median_ms``, one
 wrapper call between two CUDA events (host work in the wrapper included;
@@ -203,17 +222,22 @@ The second-to-last line is a JSON record of the kernels; the last line is
 ``{"ok": true, "device": {...}}``.
 """
 
+import contextlib
 import dataclasses
+import io
 import json
 import math
 import os
 import re
 import shutil
+import socket
 import statistics
 import subprocess
 import sys
 import tempfile
+import threading
 import time
+import urllib.request
 
 import numpy as np
 import torch
@@ -222,12 +246,20 @@ sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
 from htr_vt_torch import (CTCLabelConverter, ExperimentConfig,  # noqa: E402
                           MaskConfig, ModelConfig, OptimConfig, _build)
+from htr_vt_torch.cli import export as cli_export  # noqa: E402
 from htr_vt_torch.cli.args import args_to_config, build_parser  # noqa: E402
-from htr_vt_torch.cli.serve import (load_serving_model, transcribe,  # noqa: E402
-                                    transcribe_buckets)
-from htr_vt_torch.data.loader import choose_max_label_len  # noqa: E402
+from htr_vt_torch.cli.serve import (beam_lm_texts, load_serving_model,  # noqa: E402
+                                    transcribe, transcribe_buckets)
+from htr_vt_torch.cli.server import BatchWorker  # noqa: E402
+from htr_vt_torch.data.loader import (build_dataset, choose_max_label_len,  # noqa: E402
+                                      make_converter)
 from htr_vt_torch.config import (AugmentConfig, DataConfig, SGMConfig,  # noqa: E402
-                                 TrainConfig)
+                                 TrainConfig, config_to_dict)
+from htr_vt_torch.decode.lm import NgramScorer  # noqa: E402
+from htr_vt_torch.decode.lm_train import train_ngram_arpa  # noqa: E402
+from htr_vt_torch.deploy import (ServingBundle, export_serving,  # noqa: E402
+                                 make_serving_fn, save_bundle)
+from htr_vt_torch.native.build import load_native  # noqa: E402
 from htr_vt_torch.eval.validate import validate  # noqa: E402
 from htr_vt_torch.models.encoder_decoder import generate  # noqa: E402
 from htr_vt_torch.models.htr_vt import build_model  # noqa: E402
@@ -467,6 +499,17 @@ INT8_OPS_PER_S = 1979e12  # dense int8 tensor-core peak (H100 SXM data sheet)
 # in bf16 the attention outputs round to bf16 after sums in another order,
 # so the argmax is held on ED_DECODE_AGREEMENT of the positions.
 ED_DECODE_F32_ATOL, ED_DECODE_AGREEMENT = 1e-3, 0.99
+# deploy and serve: the flagship fully fused exported at the serving buckets
+# (bs 128) and at int8 at 512 px; the server's worker fed from DEPLOY_THREADS
+# threads with DEPLOY_LINES lines at 512 px and a collection window of
+# DEPLOY_WAIT_MS; beam search of DEPLOY_BEAM with a word trigram LM trained
+# by decode/lm_train.py on DEPLOY_LM_LINES synthetic texts, at weight 0.5.
+DEPLOY_WIDTHS = SERVE_WIDTHS
+DEPLOY_THREADS, DEPLOY_LINES, DEPLOY_WAIT_MS = 8, 2 * BATCH + 37, 50.0
+DEPLOY_BEAM, DEPLOY_LM_LINES, DEPLOY_LM_WEIGHT = 5, 2000, 0.5
+# cli/export.py as a user runs it: the SYNTH preset (its alphabet needs no
+# line images) at the flagship width, the stem switches at their defaults.
+DEPLOY_CLI = ["SYNTH"]
 
 
 def per_step_launches(switches, forwards=1):
@@ -3275,6 +3318,281 @@ def phase_int8_serve(device, smi_line):
     say(f"[int8 serve] phase {rec['phase_s']:.1f} s")
     return launches, rec
 
+def _program_launches(tag, fn, x, want):
+    """One call of an exported program on device-resident ``x``, counted:
+    exactly ``want`` of the kernels, nothing else (``_int_mm`` is an ATen
+    op inside the program, so its wrapper counts nothing there)."""
+    reset_counts()
+    with torch.no_grad():
+        ids, lengths = fn(x)
+    torch.cuda.synchronize()
+    counts = read_counts()
+    want = {**dict.fromkeys(COUNTERS, 0), **want}
+    if counts != want:
+        raise AssertionError(f"[{tag}] one program call launched {counts}; expected {want}")
+    return counts, ids, lengths
+
+
+def _held_to_live(tag, got, live):
+    """ids and lengths of a program call bit-equal to the live model's."""
+    for name, g, w in zip(("ids", "lengths"), got, live):
+        if g.dtype != w.dtype or not torch.equal(g, w):
+            raise AssertionError(f"[{tag}] program {name} differ from the live model's "
+                                 f"({int((g != w).sum())} of {g.numel()} entries)")
+
+
+def _http_get(url):
+    with urllib.request.urlopen(url, timeout=60) as r:
+        return json.loads(r.read())
+
+
+def phase_deploy_serve(device, smi_line):
+    """Deploy and serve: the flagship fully fused exported through
+    ``torch.export`` at the serving buckets and at int8, reloaded as a
+    ``ServingBundle`` (no model code), held bit for bit to the live model,
+    its kernels counted per program call; the program's time beside the
+    live ``eval_step``; ``BatchWorker`` from threads; ``cli/export.py`` and
+    ``cli/server.py`` as a user runs them; beam + n-gram LM rescoring."""
+    t_phase = time.perf_counter()
+    rec = {"widths": {}}
+    cfg = dataclasses.replace(ModelConfig(), **FULLY_FUSED)
+    model = build_model(cfg, device=device,
+                        generator=torch.Generator(device=device).manual_seed(SEED))
+    model.eval()
+    sd = model.state_dict()
+    cfg8 = ModelConfig(quant="int8")
+    model8 = build_model(cfg8, device=device)
+    model8.load_state_dict(q8.serving_arrays(cfg8, sd), strict=True)
+    calib = line_images(INT8_CALIB_BATCHES * BATCH, np.random.default_rng(SEED + 19))
+    q8.calibrate_quant_stats(model8, [calib[i:i + BATCH] for i in range(0, len(calib), BATCH)],
+                             INT8_CALIB_BATCHES)
+    model8.eval()
+    alphabet = [chr(c) for c in range(33, 33 + cfg.nb_cls - 1)]
+    converter = CTCLabelConverter(alphabet)
+    meta = {"charset": converter.character, "height": 64, "batch_size": BATCH,
+            "encoder": cfg.encoder, "device": device.type}
+    root = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build")
+    os.makedirs(root, exist_ok=True)
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_deploy_", dir=root)
+    server = None
+    try:
+        # --- export, save, reload -------------------------------------------
+        programs, export_s = {}, {}
+        for width in DEPLOY_WIDTHS:
+            t0 = time.perf_counter()
+            programs[width] = export_serving(model, BATCH, (64, width))
+            export_s[width] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        program8 = export_serving(model8, BATCH, (64, 512))
+        export_s["int8"] = time.perf_counter() - t0
+        float_dir, int8_dir = os.path.join(tmp, "float"), os.path.join(tmp, "int8")
+        rec["bundle_mb"] = save_bundle(float_dir, programs, dict(meta, quant="float")) / 1e6
+        rec["int8_bundle_mb"] = save_bundle(int8_dir, {512: program8},
+                                            dict(meta, quant="int8")) / 1e6
+        held = {w: sorted({str(n.target) for n in p.graph.nodes
+                           if str(n.target).startswith("htrvt.")})
+                for w, p in {**programs, "int8": program8}.items()}
+        del programs, program8
+        t0 = time.perf_counter()
+        bundle, bundle8 = ServingBundle(float_dir), ServingBundle(int8_dir)
+        rec["load_s"] = time.perf_counter() - t0
+        rec["export_s"] = export_s
+        say(f"[deploy] exported the flagship fully fused at {list(DEPLOY_WIDTHS)} px and "
+            f"int8 at 512 px, bs {BATCH}: export "
+            + ", ".join(f"{w} {t:.1f} s" for w, t in export_s.items())
+            + f"; bundles {rec['bundle_mb']:.1f} MB (float, {len(DEPLOY_WIDTHS)} programs) "
+            f"and {rec['int8_bundle_mb']:.1f} MB (int8), written under {tmp}; reloaded "
+            f"in {rec['load_s']:.1f} s; ops in the programs {held}")
+
+        # --- the main path, counted: one program call a width -----------------
+        launches = dict.fromkeys(COUNTERS, 0)
+        per_eval = {k: v for k, v in per_eval_launches(FULLY_FUSED).items()
+                    if k != "ctc_alpha"}
+        chars, widths = selftest_lines(N_LINES, np.random.default_rng(SEED + 5))
+        cases = [(w, bundle, model, w, dict(per_eval, **(
+            {"flash_attention_fwd": cfg.depth} if w > 512 else {})))
+            for w in DEPLOY_WIDTHS]
+        cases.append(("int8", bundle8, model8, 512,
+                      {"conv_int8": sum(site[-1] for site in INT8_SITES)}))
+        for tag, b, live_model, width, want in cases:
+            owner = [i for i, w in enumerate(widths)
+                     if next((s for s in SERVE_WIDTHS if w <= s), SERVE_WIDTHS[-1]) == width]
+            rows = (owner * BATCH)[:BATCH]
+            img = np.stack([synthetic_line(i, widths[i], width) for i in rows])
+            x = torch.from_numpy(img).to(device)
+            fn = b._fns[width]
+            counts, ids, lengths = _program_launches(f"deploy {tag}", fn, x, want)
+            launches = {k: launches[k] + counts[k] for k in launches}
+            with torch.no_grad():
+                live = make_serving_fn(live_model)(x)
+            _held_to_live(f"deploy {tag}", (ids, lengths), live)
+            batch = {"image": x, "labels": torch.zeros((BATCH, SERVE_LMAX), dtype=torch.int32,
+                                                       device=device),
+                     "label_lengths": torch.zeros(BATCH, dtype=torch.int32, device=device)}
+            with torch.no_grad():
+                mem0 = torch.cuda.memory_stats()
+                r = dict(launches=counts,
+                         program_ms=median_ms(lambda: fn(x), 10),
+                         live_fn_ms=median_ms(lambda: make_serving_fn(live_model)(x), 10),
+                         eval_step_ms=median_ms(lambda: eval_step(live_model, batch), 10),
+                         bundle_run_ms=median_ms(lambda: b.run(img, width), 5),
+                         program_ms_2=median_ms(lambda: fn(x), 10))
+                mem1 = torch.cuda.memory_stats()
+                # the device's busy share of a call, program and live
+                prof = {k: step_kernel_times(f) for k, f in (
+                    ("program", lambda: fn(x)),
+                    ("live_fn", lambda: make_serving_fn(live_model)(x)))}
+            r["allocator"] = {k: mem1.get(k, 0) - mem0.get(k, 0) for k in (
+                "num_alloc_retries", "num_device_alloc", "num_device_free")}
+            r["profile"] = {k: {f: v[f] for f in ("kernels_a_call", "busy_ms", "span_ms")}
+                            for k, v in prof.items()}
+            r["mean_length"] = float(lengths.float().mean())
+            rec["widths"][str(tag)] = r
+            say(f"[deploy {tag}] program call launched "
+                f"{ {k: v for k, v in counts.items() if v} } (the live eval_step's "
+                f"kernels less K1a); ids and lengths bit-equal to the live model; program "
+                f"{r['program_ms']:.3f} / {r['program_ms_2']:.3f} ms, live serving fn "
+                f"{r['live_fn_ms']:.3f} ms, live eval_step {r['eval_step_ms']:.3f} ms, "
+                f"ServingBundle.run (numpy in and out) {r['bundle_run_ms']:.3f} ms "
+                f"({BATCH / r['program_ms'] * 1e3:.1f} img/s by the program); under "
+                f"torch.profiler {r['profile']}; allocator over the timed calls "
+                f"{r['allocator']}; {smi_line}")
+
+        # --- BatchWorker from threads --------------------------------------------
+        worker = BatchWorker(bundle, DEPLOY_WAIT_MS)
+        worker.start()
+        lines = line_images(DEPLOY_LINES, np.random.default_rng(SEED + 40))
+        pending = [None] * DEPLOY_LINES
+
+        def client(k):
+            for i in range(k, DEPLOY_LINES, DEPLOY_THREADS):
+                pending[i] = worker.submit(lines[i], 512)
+                if not pending[i].event.wait(600):
+                    raise AssertionError(f"line {i} was not served")
+
+        t0 = time.perf_counter()
+        threads = [threading.Thread(target=client, args=(k,)) for k in range(DEPLOY_THREADS)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join()
+        worker_s = time.perf_counter() - t0
+        worker.stop()
+        worker.join(timeout=60)
+        errors = [p.error for p in pending if p.error is not None]
+        if errors:
+            raise AssertionError(f"[deploy worker] {len(errors)} requests failed: {errors[:3]}")
+        want_texts = bundle.transcribe(lines)
+        if [p.text for p in pending] != want_texts:
+            raise AssertionError("[deploy worker] texts differ from ServingBundle.transcribe")
+        if not worker.batches < DEPLOY_LINES:
+            raise AssertionError(f"[deploy worker] {worker.batches} program calls for "
+                                 f"{DEPLOY_LINES} requests")
+        rec["worker"] = dict(lines=DEPLOY_LINES, threads=DEPLOY_THREADS,
+                             batches=worker.batches, wall_s=worker_s)
+        say(f"[deploy worker] {DEPLOY_LINES} numpy lines from {DEPLOY_THREADS} threads in "
+            f"{worker.batches} program calls ({DEPLOY_WAIT_MS:.0f} ms window), "
+            f"{worker_s:.3f} s ({DEPLOY_LINES / worker_s:.1f} lines/s, first calls "
+            f"included); texts equal to ServingBundle.transcribe's")
+
+        # --- beam + n-gram LM rescoring on the host ------------------------------
+        lm_rng = np.random.default_rng(SEED + 50)
+        words = ["".join(lm_rng.choice(alphabet, lm_rng.integers(2, 8)))
+                 for _ in range(300)]
+        corpus = [" ".join(lm_rng.choice(words, lm_rng.integers(3, 12)))
+                  for _ in range(DEPLOY_LM_LINES)]
+        arpa = os.path.join(tmp, "word3.arpa")
+        t0 = time.perf_counter()
+        train_ngram_arpa(corpus, arpa, order=3, level="word")
+        train_s = time.perf_counter() - t0
+        scorer = NgramScorer(arpa)
+        route = "native (C++)" if scorer._handle else "pure Python"
+        img = line_images(BATCH, np.random.default_rng(SEED))
+        x = torch.from_numpy(img).to(device)
+        with torch.no_grad():
+            logits = model(x)
+        greedy = converter.decode_batch(logits.argmax(-1).to(torch.int32).cpu().numpy())
+        t0 = time.perf_counter()
+        texts = beam_lm_texts(logits, greedy, converter, scorer, DEPLOY_BEAM,
+                              DEPLOY_LM_WEIGHT)
+        beam_s = time.perf_counter() - t0
+        if len(texts) != BATCH or any(t is None for t in texts):
+            raise AssertionError("[deploy lm] beam rescoring lost lines")
+        rec["lm"] = dict(scorer=route, native_lib=load_native() is not None,
+                         train_s=train_s, beam_s=beam_s, lines=BATCH,
+                         changed=sum(a != b for a, b in zip(texts, greedy)))
+        say(f"[deploy lm] word trigram from lm_train on {DEPLOY_LM_LINES} synthetic lines "
+            f"({train_s:.2f} s); scorer: {route}; prefix beam {DEPLOY_BEAM} + LM rescoring "
+            f"(weight {DEPLOY_LM_WEIGHT}) of {BATCH} lines on the host in {beam_s:.3f} s "
+            f"({BATCH / beam_s:.1f} lines/s); {rec['lm']['changed']} lines differ from "
+            "greedy")
+
+        # --- the CLIs as a user runs them ------------------------------------------
+        ckpt_root = os.path.join(tmp, "run")
+        argv = [*DEPLOY_CLI, "--device", device.type]
+        ecfg = args_to_config(build_parser("chip_smoke").parse_args(argv))
+        econv = make_converter(ecfg.data, build_dataset(ecfg.data, "train"))
+        ecfg = dataclasses.replace(ecfg, model=dataclasses.replace(
+            ecfg.model, nb_cls=econv.num_classes))
+        state = create_train_state(ecfg, device,
+                                   torch.Generator(device=device).manual_seed(SEED + 60))
+        CheckpointManager(ckpt_root).save(state, cer=1.0, wer=1.0, best_cer=1.0,
+                                          best_wer=1.0, meta={"config": config_to_dict(ecfg)})
+        del state
+        cli_dir = os.path.join(tmp, "cli_bundle")
+        printed = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(printed):
+            cli_export.main([*argv, "--checkpoint", os.path.join(ckpt_root, "best_CER"),
+                             "--out", cli_dir, "--width-buckets",
+                             ",".join(map(str, DEPLOY_WIDTHS)), "--batch-size", str(BATCH),
+                             "--verify"])
+        cli_s = time.perf_counter() - t0
+        out = printed.getvalue()
+        if out.count("OK (bit-exact vs live model)") != len(DEPLOY_WIDTHS):
+            raise AssertionError(f"[deploy cli] export --verify printed:\n{out}")
+        for line in out.splitlines():
+            say(f"[deploy cli] {line}")
+        with socket.socket() as sock:
+            sock.bind(("127.0.0.1", 0))
+            port = sock.getsockname()[1]
+        t0 = time.perf_counter()
+        server = subprocess.Popen(
+            [sys.executable, "-m", "htr_vt_torch.cli.server", "--bundle", cli_dir,
+             "--port", str(port)], cwd=os.path.dirname(os.path.abspath(__file__)),
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        health = None
+        while time.perf_counter() - t0 < 300 and server.poll() is None:
+            try:
+                health = _http_get(f"http://127.0.0.1:{port}/healthz")
+                break
+            except OSError:
+                time.sleep(1.0)
+        up_s = time.perf_counter() - t0
+        if health is None or health.get("status") != "ok" or \
+                health.get("widths") != list(DEPLOY_WIDTHS):
+            server.kill()
+            raise AssertionError(f"[deploy cli] server: /healthz {health}; output "
+                                 f"{server.communicate(timeout=60)[0][-3000:]}")
+        rec["cli"] = dict(export_verify_s=cli_s, server_up_s=up_s, healthz=health)
+        say(f"[deploy cli] python -m htr_vt_torch.cli.export {' '.join(DEPLOY_CLI)} (stock "
+            f"stem switches) --width-buckets {','.join(map(str, DEPLOY_WIDTHS))} --verify: "
+            f"{cli_s:.1f} s; python -m htr_vt_torch.cli.server --bundle: /healthz after "
+            f"{up_s:.1f} s: {health}")
+    finally:
+        if server is not None and server.poll() is None:
+            server.terminate()
+            try:
+                server.wait(timeout=60)
+            except subprocess.TimeoutExpired:
+                server.kill()
+                server.wait()
+        shutil.rmtree(tmp, ignore_errors=True)
+    rec["phase_s"] = time.perf_counter() - t_phase
+    say(f"[deploy] phase {rec['phase_s']:.1f} s; {smi_line}")
+    return launches, rec
+
+
 
 def main():
     smi_line, max_sm_mhz = phase_device()
@@ -3302,11 +3620,12 @@ def main():
     standalone_launches, standalone_rec = phase_zoo_standalone(device, smi_line)
     ed_launches, ed_rec = phase_encoder_decoder(device, smi_line)
     int8_launches, int8_rec = phase_int8_serve(device, smi_line)
+    deploy_launches, deploy_rec = phase_deploy_serve(device, smi_line)
     say(f"[done] build {build_s:.2f} s; {smi_line}")
     main_path = {k: fused_serve[k] + full_serve[k] + fused_train[k] + full_train[k]
                  + train_launches[k] + bucket_serve[k] + wide_train[k] + fit_launches[k]
                  + zoo_launches[k] + sgm_launches[k] + standalone_launches[k]
-                 + ed_launches[k] + int8_launches[k]
+                 + ed_launches[k] + int8_launches[k] + deploy_launches[k]
                  for k in COUNTERS}
     main_path["ctc_alpha"] += serve_launches
     k193, k17 = kernels["S193"], kernels["S17"]
@@ -3466,7 +3785,8 @@ def main():
                     "fully_fused_serve": full_serve_rec, "fit": fit_rec,
                     "zoo_serve": zoo_rec, "sgm_mms_train": sgm_rec,
                     "zoo_standalone": standalone_rec, "encoder_decoder": ed_rec,
-                    "int8_serve": {k: v for k, v in int8_rec.items() if k != "sites"}}))
+                    "int8_serve": {k: v for k, v in int8_rec.items() if k != "sites"},
+                    "deploy_serve": deploy_rec}))
     say(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -34,7 +34,14 @@ Ported so far:
   tri-masked trainer, the standalone Swin and SVTR (``models/swin.py``,
   ``models/svtr.py``), and the encoder-decoder with KV-cached generation
   (``models/encoder_decoder.py``), all dispatched by
-  ``models/htr_vt.py:build_model`` as the JAX package dispatches them.
+  ``models/htr_vt.py:build_model`` as the JAX package dispatches them;
+- int8 serving (``ops/quant.py``, Q1 ``csrc/conv_int8.cu``);
+- deploy and serve: ``deploy.py`` exports the serving program with
+  ``torch.export``, holding the serving path's kernels as the custom ops of
+  ``ops/library.py``; ``cli/export.py``, the HTTP ``cli/server.py``, beam
+  search with n-gram rescoring (``decode/``, ``native/``) in ``cli/serve.py``
+  and ``cli/test_with_lm.py``, and the masked-LM corrector in
+  ``cli/infer.py``.
 
 On a CUDA tensor the CTC loss runs its alpha recursion, and its gradient
 the beta recursion, as hand-written ``sm_90a`` kernels

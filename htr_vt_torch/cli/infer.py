@@ -7,9 +7,12 @@ threshold sweep), greedy-decode, print the text. Usage:
     python -m htr_vt_torch.cli.infer SYNTH --checkpoint <dir> --image line.png
 
 ``--quant int8`` serves the A8W8 model, its static scales calibrated on
-the input image itself (``htr_vt_tpu/cli/infer.py:74-80``). The masked-LM
-word corrector (``--llm-correct``) is not ported yet (ROADMAP.md queue 1,
-item 14).
+the input image itself (``htr_vt_tpu/cli/infer.py:74-80``).
+``--llm-correct MODEL`` also prints each variant corrected by the masked-LM
+word corrector (``decode/lm.py:RobertaCorrector``, ``infer.py:84-100``):
+words outside the training labels' vocabulary are masked and refilled where
+the model is confident. It needs ``transformers`` and locally available
+weights; without them it says so and prints the uncorrected lines.
 """
 
 from __future__ import annotations
@@ -41,14 +44,11 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
                         help="try several binarization thresholds and report each"
                              " (quick_inference.py threshold sweep)")
     parser.add_argument("--llm-correct", type=str, default=None, metavar="MODEL",
-                        help="masked-LM word correction (not ported yet: raises, "
-                             "ROADMAP.md queue 1, item 14)")
+                        help="local path/name of a masked-LM for word correction"
+                             " (quick_inference_llm.py equivalent; requires"
+                             " transformers + locally available weights)")
     args = parser.parse_args(argv)
     cfg = args_to_config(args)
-    if args.llm_correct:
-        raise NotImplementedError(
-            "--llm-correct: the RoBERTa corrector is not ported to htr_vt_torch yet "
-            "(ROADMAP.md queue 1, item 14: deploy and serve)")
     if cfg.model.model_type == "encoder_decoder":
         raise NotImplementedError(
             "--model-type encoder_decoder: this entry point runs the CTC eval_step, "
@@ -71,6 +71,15 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
         # single-image inference has no separate calibration stream
         calibrate_quant_stats(model, [variants[0][1][None]], 1)
 
+    corrector, vocabulary = None, None
+    if args.llm_correct:
+        try:
+            from htr_vt_torch.decode.lm import RobertaCorrector
+            corrector = RobertaCorrector(args.llm_correct)
+            vocabulary = {w.lower() for t in train_ds.labels for w in t.split()}
+        except Exception as e:  # zero-egress deployments have no weights
+            print(f"(LLM correction unavailable: {e})")
+
     for name, img in variants:
         batch = {"image": img[None],
                  "labels": np.zeros((1, 8), np.int32),
@@ -78,6 +87,8 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
         out = eval_step(model, batch)
         text = converter.decode_batch(out["pred_ids"].cpu().numpy())[0]
         print(f"[{name}] {text}")
+        if corrector is not None:
+            print(f"[{name}+llm] {corrector.correct(text, vocabulary)}")
 
 
 if __name__ == "__main__":

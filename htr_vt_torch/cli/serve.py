@@ -20,14 +20,17 @@ at the configured width, as the reference does. At 1024 and 2048 px (N =
 256 and 512 tokens) ``attn_impl="auto"`` takes the flash-attention
 kernels on the card. ``--quant int8`` serves the A8W8 model, its static
 scales calibrated on each bucket's first ``--calib-batches`` batches
-(``serve.py:163-190``). Beam/LM rescoring is not ported yet (ROADMAP.md,
-queue 1).
+(``serve.py:163-190``). ``--arpa`` rescores each line on the host
+(``serve.py:215-227``): a prefix beam search of ``--beam-width`` over the
+port's log-probabilities, then the n-gram LM (ARPA text or a compiled
+``.htlm``, ``decode/lm.py``) at ``--lm-weight`` picks among the beams.
 """
 
 from __future__ import annotations
 
 import argparse
 import dataclasses
+import functools
 import glob
 import json
 import os
@@ -43,6 +46,8 @@ from htr_vt_torch.config import DataConfig, ModelConfig, dataset_preset
 from htr_vt_torch import CTCLabelConverter
 from htr_vt_torch.data.image import assign_width_buckets
 from htr_vt_torch.data.loader import make_converter
+from htr_vt_torch.decode.beam import prefix_beam_search
+from htr_vt_torch.decode.lm import NgramScorer, rescore_candidates
 from htr_vt_torch.models.htr_vt import HTRVT, build_model
 from htr_vt_torch.ops.quant import calibrate_quant_stats, serving_arrays
 from htr_vt_torch.train.checkpoint import CheckpointManager, load_ema_model, saved_config
@@ -54,9 +59,34 @@ from htr_vt_torch.utils.convert import load_reference_checkpoint
 DUMMY_LABEL_LEN = 8
 
 
+# Rescores a batch's lines: (logits [n, T, C], greedy texts) -> texts.
+Rescore = Callable[[torch.Tensor, List[str]], List[str]]
+
+
+def beam_lm_texts(logits: torch.Tensor, greedy: Sequence[str],
+                  converter: CTCLabelConverter, scorer: NgramScorer,
+                  beam_width: int = 5, lm_weight: float = 1.0) -> List[str]:
+    """The JAX serve CLI's rescoring (``serve.py:215-227``): per line, a
+    prefix beam search of ``beam_width`` on the host over the float32
+    log-softmax of its logits [T, C], each beam collapsed to text, then
+    ``rescore_candidates`` with the n-gram ``scorer`` at ``lm_weight``; the
+    best candidate (the greedy text when the beam is empty)."""
+    logp = torch.log_softmax(logits.float(), -1).cpu().numpy()
+    chars = converter.character
+    texts = []
+    for lp, text in zip(logp, greedy):
+        beams = prefix_beam_search(lp, beam_width=beam_width)
+        cands = [("".join(chars[i] for i in seq if 0 < i < len(chars)), score)
+                 for seq, score in beams] or [(text, 0.0)]
+        texts.append(rescore_candidates(cands, scorer, lm_weight)[0][0])
+    return texts
+
+
 def transcribe(model: nn.Module, images: np.ndarray,
-               converter: CTCLabelConverter, batch_size: int) -> List[str]:
-    """Greedy transcriptions of ``images`` [N, H, W, 1] float32 in [0, 1].
+               converter: CTCLabelConverter, batch_size: int,
+               rescore: Optional[Rescore] = None) -> List[str]:
+    """Greedy transcriptions of ``images`` [N, H, W, 1] float32 in [0, 1],
+    each batch's rescored by ``rescore`` where given (``beam_lm_texts``).
 
     Runs ``eval_step`` on fixed-size batches; the last one is padded with
     white rows (``serve.py:205-207``), whose outputs are dropped."""
@@ -71,7 +101,8 @@ def transcribe(model: nn.Module, images: np.ndarray,
             "image": chunk,
             "labels": np.zeros((batch_size, DUMMY_LABEL_LEN), np.int32),
             "label_lengths": np.zeros((batch_size,), np.int32)})
-        texts.extend(converter.decode_batch(out["pred_ids"][:n].cpu().numpy()))
+        greedy = converter.decode_batch(out["pred_ids"][:n].cpu().numpy())
+        texts.extend(greedy if rescore is None else rescore(out["logits"][:n], greedy))
     return texts
 
 
@@ -92,7 +123,8 @@ def route_to_buckets(widths: Sequence[int], buckets: Sequence[int],
 def transcribe_buckets(model: nn.Module, load: Callable[[int, int], np.ndarray],
                        widths: Sequence[int], buckets: Sequence[int],
                        converter: CTCLabelConverter, batch_size: int,
-                       calib_batches: int = 4) -> List[str]:
+                       calib_batches: int = 4,
+                       rescore: Optional[Rescore] = None) -> List[str]:
     """Greedy transcriptions of lines of natural ``widths``, in input order.
 
     ``load(i, width)`` returns line i as float32 [H, width, 1] at its
@@ -100,7 +132,7 @@ def transcribe_buckets(model: nn.Module, load: Callable[[int, int], np.ndarray],
     its lines (``transcribe``: the last batch white-padded), loading one
     batch at a time (``serve.py:236-254``). An int8 model is calibrated
     first on each bucket's first ``calib_batches`` batches
-    (``serve.py:163-190``)."""
+    (``serve.py:163-190``). ``rescore`` as in ``transcribe``."""
     bucket_widths, owner = route_to_buckets(widths, buckets,
                                             model.cfg.patch_size[0])
     texts: List[Optional[str]] = [None] * len(widths)
@@ -114,7 +146,7 @@ def transcribe_buckets(model: nn.Module, load: Callable[[int, int], np.ndarray],
             sel = idxs[start:start + batch_size]
             images = np.stack([load(i, width) for i in sel])
             for i, text in zip(sel, transcribe(model, images, converter,
-                                               batch_size)):
+                                               batch_size, rescore)):
                 texts[i] = text
     return texts
 
@@ -202,6 +234,11 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
     p.add_argument("--train-list", default=None,
                    help="training list for the charset (default: the preset's)")
     p.add_argument("--data-path", default=None)
+    p.add_argument("--arpa", default=None,
+                   help="optional n-gram LM for beam rescoring: ARPA text or "
+                        "compiled .htlm (htr_vt_torch.decode.lm_compile)")
+    p.add_argument("--beam-width", type=int, default=5)
+    p.add_argument("--lm-weight", type=float, default=1.0)
     p.add_argument("--width-buckets", default=None,
                    help="comma-separated widths (e.g. 512,1024,2048), each a "
                         "multiple of the stem's width stride (patch_size[0], "
@@ -231,11 +268,17 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
         widths = [natural_line_width(path, h) for path in paths]
     else:
         buckets, widths = [w], [w] * len(paths)
+    rescore = None
+    if args.arpa:
+        rescore = functools.partial(beam_lm_texts, converter=converter,
+                                    scorer=NgramScorer(args.arpa),
+                                    beam_width=args.beam_width,
+                                    lm_weight=args.lm_weight)
     t0 = time.perf_counter()
     # one batch of a bucket at a time: host memory stays at one batch
     texts = transcribe_buckets(
         model, lambda i, width: load_line_image(paths[i], width, h), widths,
-        buckets, converter, args.batch_size, args.calib_batches)
+        buckets, converter, args.batch_size, args.calib_batches, rescore)
     sink = open(args.out, "w") if args.out else sys.stdout
     try:
         for path, text in zip(paths, texts):

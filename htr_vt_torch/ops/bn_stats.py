@@ -46,11 +46,22 @@ def bn_stats_reference(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
 
 
 def check_layout(fn: str, name: str, x: torch.Tensor) -> None:
-    """A 4-d tensor, bf16 or float32, channels-last and contiguous."""
+    """A 4-d tensor, bf16 or float32, channels-last and contiguous. Under a
+    ``torch.export`` trace the strides are not checked: a fake tensor's are
+    its meta function's, which for a cuDNN output need not be the card's
+    (the stem's entry conv writes channels-last from a one-channel input
+    that is both layouts), so the launch checks the real tensor
+    (``check_channels_last_now``)."""
     if x.dim() != 4:
         raise ValueError(f"{fn}: {name} must be 4-d NCHW, got {tuple(x.shape)}")
     if x.dtype not in _DTYPE_CODES:
         raise ValueError(f"{fn}: {name} must be bfloat16 or float32, got {x.dtype}")
+    if not torch.compiler.is_exporting():
+        check_channels_last_now(fn, name, x)
+
+
+def check_channels_last_now(fn: str, name: str, x: torch.Tensor) -> None:
+    """x is channels-last contiguous (read where a kernel launches)."""
     if not x.is_contiguous(memory_format=torch.channels_last):
         raise ValueError(f"{fn}: {name} must be channels-last contiguous "
                          "(the kernel reads [B, H, W, C]; no copy is made)")
@@ -58,15 +69,23 @@ def check_layout(fn: str, name: str, x: torch.Tensor) -> None:
 
 def check_channels_last(fn: str, name: str, x: torch.Tensor) -> None:
     """The layout rule of the stem kernels that read rows through TMA or
-    16-byte vectors (K3f/K3b, K4f/K4d/K4w): ``check_layout``, at most
-    MAX_CHANNELS channels, 16-byte aligned. Any C: a wrapper hands its
-    kernel a copy padded to ``padded_channels(C)`` when C % 8 != 0."""
+    16-byte vectors (K3f/K3b, K4f/K4d/K4w): ``check_layout`` and at most
+    MAX_CHANNELS channels. Any C: a wrapper hands its kernel a copy padded
+    to ``padded_channels(C)`` when C % 8 != 0. It reads shapes, dtypes and
+    strides only, so it passes fake tensors (a ``torch.export`` trace);
+    ``check_aligned`` checks the addresses where the kernel launches."""
     check_layout(fn, name, x)
     c = x.shape[1]
     if padded_channels(c) > MAX_CHANNELS:
         raise ValueError(f"{fn}: {name} needs C <= {MAX_CHANNELS}, got C={c}")
-    if x.data_ptr() % 16:
-        raise ValueError(f"{fn}: {name} must be 16-byte aligned")
+
+
+def check_aligned(fn: str, **tensors: Optional[torch.Tensor]) -> None:
+    """Each tensor given (None skipped) starts on a 16-byte boundary, as the
+    kernels' TMA maps and vector loads need."""
+    for name, t in tensors.items():
+        if t is not None and t.data_ptr() % 16:
+            raise ValueError(f"{fn}: {name} must be 16-byte aligned")
 
 
 # K3/K4 read channels-last rows through TMA, whose global strides are
@@ -113,15 +132,14 @@ def take_channels(y: torch.Tensor, c: int) -> torch.Tensor:
 def check_folded_terms(fn: str, x: torch.Tensor, scale: torch.Tensor,
                        shift: torch.Tensor) -> None:
     """The folded BN terms a stem kernel applies to x [B, C, H, W]:
-    contiguous float32 [C] on x's device, 16-byte aligned."""
+    contiguous float32 [C] on x's device (their alignment:
+    ``check_aligned``)."""
     c = x.shape[1]
     for name, v in (("scale", scale), ("shift", shift)):
         if v.dtype != torch.float32 or tuple(v.shape) != (c,) or not v.is_contiguous():
             raise ValueError(f"{fn}: {name} must be contiguous float32 ({c},)")
         if v.device != x.device:
             raise ValueError(f"{fn}: all inputs must be on one device")
-        if v.data_ptr() % 16:
-            raise ValueError(f"{fn}: {name} must be 16-byte aligned")
 
 
 def stats_geometry(c: int, n: int, sms: int) -> Tuple[int, int, int]:

@@ -34,7 +34,10 @@ gives 0 where ``x * scale + shift == 0``, as the TPU kernel does, while
 ``torch.maximum``) gives one half, as ``jnp.maximum``.
 
 Each wrapper launches its kernel for a CUDA tensor and runs its plain
-version for a CPU tensor; nothing else decides. Weights are in the
+version for a CPU tensor; nothing else decides. The forward goes through the
+custom op ``htrvt::conv3x3_bn_relu_fwd`` (``ops/library.py``) on both
+devices, so an exported program holds it; the gradients are direct
+launches. Weights are in the
 ``nn.Conv2d`` layout [Cout, Cin, 3, 3] and in x's dtype; the wrappers lay
 them out for the kernels, and the weight gradient comes back in the same
 layout. x and g must be channels-last: the wrappers never copy them, and
@@ -49,7 +52,9 @@ from typing import Optional, Sequence, Tuple
 import torch
 import torch.nn.functional as F
 
-from htr_vt_torch.ops.bn_stats import (_DTYPE_CODES, check_channels_last,
+from htr_vt_torch.ops import library as htrvt_ops
+from htr_vt_torch.ops.bn_stats import (_DTYPE_CODES, check_aligned,
+                                       check_channels_last, check_channels_last_now,
                                        check_folded_terms, pad_channels, pad_terms,
                                        padded_channels, take_channels)
 
@@ -156,14 +161,26 @@ def conv3x3_bn_relu_fwd(x: torch.Tensor, weight: torch.Tensor,
     [Cout, Cin, 3, 3] in x.dtype (any Cout), scale/shift float32 [Cin]
     or both None -> [B, Cout, H, W] channels-last in x.dtype.
 
-    CUDA tensors launch K4f (``csrc/conv_fused.cu``) on the current stream
-    and add one to ``conv3x3_bn_relu_fwd.launches``; CPU tensors run
+    Calls the op ``htrvt::conv3x3_bn_relu_fwd`` (``ops/library.py``): CUDA
+    tensors launch K4f (``csrc/conv_fused.cu``) on the current stream and
+    add one to ``conv3x3_bn_relu_fwd.launches``; CPU tensors run
     ``conv3x3_bn_relu_reference``. Any other device raises."""
-    if x.device.type == "cpu":
-        return conv3x3_bn_relu_reference(x, weight, scale, shift)
-    if x.device.type != "cuda":
+    if x.device.type not in ("cpu", "cuda"):
         raise ValueError(f"conv3x3_bn_relu_fwd: no kernel for device {x.device}")
-    _check("conv3x3_bn_relu_fwd", x, weight, scale, shift)
+    if x.device.type == "cuda":
+        _check("conv3x3_bn_relu_fwd", x, weight, scale, shift)
+    return htrvt_ops.conv3x3_bn_relu_fwd(x, weight, scale, shift)
+
+
+def launch_conv3x3_bn_relu_fwd(x: torch.Tensor, weight: torch.Tensor,
+                               scale: Optional[torch.Tensor],
+                               shift: Optional[torch.Tensor]) -> torch.Tensor:
+    """K4f on the current stream (the CUDA implementation of
+    ``htrvt::conv3x3_bn_relu_fwd``); at Cin or Cout % 8 != 0 on zero-padded
+    copies. An exported program calls it without the wrapper, so the real
+    tensor's layout and addresses are checked here."""
+    check_channels_last_now("conv3x3_bn_relu_fwd", "x", x)
+    check_aligned("conv3x3_bn_relu_fwd", x=x, scale=scale, shift=shift)
     b, cin_real, h, w = x.shape
     cout_real = weight.shape[0]
     cin, cout = padded_channels(cin_real), padded_channels(cout_real)
@@ -211,6 +228,7 @@ def conv3x3_bn_relu_dgrad(g: torch.Tensor, weight: torch.Tensor, x: torch.Tensor
     b, cin_real, h, w = x.shape
     cout_real = weight.shape[0]
     _check_grad("conv3x3_bn_relu_dgrad", g, x, cout_real)
+    check_aligned("conv3x3_bn_relu_dgrad", x=x, g=g, scale=scale, shift=shift)
     cin, cout = padded_channels(cin_real), padded_channels(cout_real)
     aligned = (cin, cout) == (cin_real, cout_real)
     if not aligned:
@@ -267,6 +285,7 @@ def conv3x3_bn_relu_wgrad(x: torch.Tensor, g: torch.Tensor,
         raise ValueError("conv3x3_bn_relu_wgrad: scale and shift go together")
     if prologue:
         check_folded_terms("conv3x3_bn_relu_wgrad", x, scale, shift)
+    check_aligned("conv3x3_bn_relu_wgrad", x=x, g=g, scale=scale, shift=shift)
     cin, cout = padded_channels(cin_real), padded_channels(cout_real)
     aligned = (cin, cout) == (cin_real, cout_real)
     if not aligned:

@@ -24,7 +24,9 @@ its default 128-key blocks (``flash_attention.py:342-481, 796-938,
   T(ds) k``, T the input dtype, in float32, cast once at the end.
 
 Each wrapper launches its kernel (``csrc/flash_attn.cu``) for CUDA tensors
-and runs its plain version for CPU tensors; nothing else decides, a failed
+and runs its plain version for CPU tensors; nothing else decides. The
+forward goes through the custom op ``htrvt::flash_attention_fwd``
+(``ops/library.py``) on both devices, so an exported program holds it, a failed
 build or launch raises, and there is no fallback on the card. The kernels
 take every head_dim that is a multiple of 128 (``takes_head_dim``): bf16 at
 128 and 256 on wgmma, bf16 past 256 and float32 on FFMA. q, k and v may be the strided views that the qkv
@@ -39,6 +41,8 @@ import ctypes
 from typing import Optional, Tuple
 
 import torch
+
+from htr_vt_torch.ops import library as htrvt_ops
 
 BLOCK = 128  # the library's default block sizes (BlockSizes.get_default)
 HEAD_DIM_STEP = 128  # the kernels take every multiple of it (768 / 6, 1536 / 6, ...)
@@ -151,7 +155,8 @@ def _check(fn: str, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """What the kernels take: q, k, v (and do) of one [B, H, N, D] shape and
     dtype (bf16 or float32) on one CUDA device, N a multiple of 128, D a
     multiple of 128 (``takes_head_dim``), the last dim contiguous and the rest 16-byte strides; the ``stats``
-    (l, m, di) contiguous float32 [B, H, N]."""
+    (l, m, di) contiguous float32 [B, H, N]. Shapes, dtypes and strides
+    only: ``_check_aligned`` reads the addresses."""
     if q.dtype not in _DTYPE_CODES:
         raise ValueError(f"{fn}: q must be bfloat16 or float32, got {q.dtype}")
     _check_plain(q, k, v)
@@ -169,17 +174,30 @@ def _check(fn: str, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         if t.dtype != torch.float32 or tuple(t.shape) != rows or not t.is_contiguous():
             raise ValueError(f"{fn}: {name} must be contiguous float32 {rows}, got "
                              f"{t.dtype} {tuple(t.shape)}")
-    size = q.element_size()
     for name, t in {**inputs, **stats}.items():
         if t.device != q.device:
             raise ValueError(f"{fn}: all inputs must be on one device, {name} is on "
                              f"{t.device} and q on {q.device}")
-        if t.data_ptr() % 16:
-            raise ValueError(f"{fn}: {name} must be 16-byte aligned")
+    if not torch.compiler.is_exporting():
+        _check_strides(fn, **inputs)
+
+
+def _check_strides(fn: str, **inputs: torch.Tensor) -> None:
+    """A contiguous last dim and 16-byte strides. Under a ``torch.export``
+    trace ``_check`` leaves this to the launch, where the strides are the
+    real tensors' and not a fake tensor's."""
     for name, t in inputs.items():
-        if t.stride(3) != 1 or any((st * size) % 16 for st in t.stride()[:3]):
+        if t.stride(3) != 1 or any((st * t.element_size()) % 16 for st in t.stride()[:3]):
             raise ValueError(f"{fn}: {name} needs a contiguous last dim and 16-byte "
                              f"strides, got strides {t.stride()}")
+
+
+def _check_aligned(fn: str, **tensors: torch.Tensor) -> None:
+    """Every input starts on a 16-byte boundary (the kernels' TMA maps);
+    read where the kernel launches, since a fake tensor has no address."""
+    for name, t in tensors.items():
+        if t.data_ptr() % 16:
+            raise ValueError(f"{fn}: {name} must be 16-byte aligned")
 
 
 def _strides(*tensors: torch.Tensor):
@@ -213,12 +231,24 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """(o, l, m) of softmax(q k^T * scale) v.
 
-    CUDA tensors launch K5f on the current stream and add one to
+    Calls the op ``htrvt::flash_attention_fwd`` (``ops/library.py``): CUDA
+    tensors launch K5f on the current stream and add one to
     ``flash_attention_fwd.launches``; CPU tensors run
     ``flash_attention_reference``. Any other device raises."""
-    if not _route("flash_attention_fwd", q):
-        return flash_attention_reference(q, k, v, scale)
-    _check("flash_attention_fwd", q, k, v)
+    if _route("flash_attention_fwd", q):
+        _check("flash_attention_fwd", q, k, v)
+    return htrvt_ops.flash_attention_fwd(q, k, v, float(scale))
+
+
+def launch_flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                               scale: float
+                               ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """K5f on the current stream (the CUDA implementation of
+    ``htrvt::flash_attention_fwd``). An exported program calls it without
+    the wrapper, so the real tensors' strides and addresses are checked
+    here."""
+    _check_strides("flash_attention_fwd", q=q, k=k, v=v)
+    _check_aligned("flash_attention_fwd", q=q, k=k, v=v)
     b, h, n, d = q.shape
     o = torch.empty((b, n, h, d), dtype=q.dtype, device=q.device).transpose(1, 2)
     l = torch.empty((b, h, n), dtype=torch.float32, device=q.device)
@@ -244,6 +274,7 @@ def flash_attention_bwd_dkv(q, k, v, l, m, do, di, scale
     if not _route("flash_attention_bwd_dkv", q):
         return flash_attention_dkv_reference(q, k, v, l, m, do, di, scale)
     _check("flash_attention_bwd_dkv", q, k, v, do, l=l, m=m, di=di)
+    _check_aligned("flash_attention_bwd_dkv", q=q, k=k, v=v, do=do, l=l, m=m, di=di)
     dk = torch.empty(q.shape, dtype=q.dtype, device=q.device)
     dv = torch.empty_like(dk)
     _launch("htrvt_flash_bwd_dkv", "flash_attention_bwd_dkv", q, q.data_ptr(),
@@ -267,6 +298,7 @@ def flash_attention_bwd_dq(q, k, v, l, m, do, di, scale) -> torch.Tensor:
     if not _route("flash_attention_bwd_dq", q):
         return flash_attention_dq_reference(q, k, v, l, m, do, di, scale)
     _check("flash_attention_bwd_dq", q, k, v, do, l=l, m=m, di=di)
+    _check_aligned("flash_attention_bwd_dq", q=q, k=k, v=v, do=do, l=l, m=m, di=di)
     dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)
     _launch("htrvt_flash_bwd_dq", "flash_attention_bwd_dq", q, q.data_ptr(),
             k.data_ptr(), v.data_ptr(), l.data_ptr(), m.data_ptr(), do.data_ptr(),

@@ -13,7 +13,9 @@ emits dx with the dscale/dshift reductions. ``max_pool_bn_relu`` is the
 differentiable composition (``PoolBNReLU``).
 
 Each wrapper launches its kernel for a CUDA tensor and runs its plain
-version for a CPU tensor; nothing else decides. x must be channels-last.
+version for a CPU tensor; nothing else decides. The forward goes through the
+custom op ``htrvt::pool_bn_relu_fwd`` (``ops/library.py``) on both devices,
+so an exported program holds it; the backward is a direct launch. x must be channels-last.
 K3b reads g channels-last or as contiguous NCHW, the layout the stem's
 backward hands it (the strided projection's backward writes NCHW), so
 neither wrapper copies at C % 8 == 0; ``PoolBNReLU`` copies g only when it
@@ -32,7 +34,9 @@ from typing import Tuple
 import torch
 import torch.nn.functional as F
 
-from htr_vt_torch.ops.bn_stats import (_DTYPE_CODES, check_channels_last,
+from htr_vt_torch.ops import library as htrvt_ops
+from htr_vt_torch.ops.bn_stats import (_DTYPE_CODES, check_aligned,
+                                       check_channels_last, check_channels_last_now,
                                        check_folded_terms, pad_channels, pad_terms,
                                        padded_channels, take_channels)
 
@@ -111,14 +115,25 @@ def pool_bn_relu_fwd(x: torch.Tensor, scale: torch.Tensor,
     channels-last (H even, any C), scale/shift float32 [C] ->
     [B, C, H/2, W] channels-last in x.dtype.
 
-    CUDA tensors launch K3f (``csrc/pool_fused.cu``) on the current stream
-    and add one to ``pool_bn_relu_fwd.launches``; CPU tensors run
+    Calls the op ``htrvt::pool_bn_relu_fwd`` (``ops/library.py``): CUDA
+    tensors launch K3f (``csrc/pool_fused.cu``) on the current stream and
+    add one to ``pool_bn_relu_fwd.launches``; CPU tensors run
     ``max_pool_bn_relu_reference``. Any other device raises."""
-    if x.device.type == "cpu":
-        return max_pool_bn_relu_reference(x, scale, shift)
-    if x.device.type != "cuda":
+    if x.device.type not in ("cpu", "cuda"):
         raise ValueError(f"pool_bn_relu_fwd: no kernel for device {x.device}")
-    _check("pool_bn_relu_fwd", x, scale, shift)
+    if x.device.type == "cuda":
+        _check("pool_bn_relu_fwd", x, scale, shift)
+    return htrvt_ops.pool_bn_relu_fwd(x, scale, shift)
+
+
+def launch_pool_bn_relu_fwd(x: torch.Tensor, scale: torch.Tensor,
+                            shift: torch.Tensor) -> torch.Tensor:
+    """K3f on the current stream (the CUDA implementation of
+    ``htrvt::pool_bn_relu_fwd``); at C % 8 != 0 on zero-padded copies. An
+    exported program calls it without the wrapper, so the real tensor's
+    layout and addresses are checked here."""
+    check_channels_last_now("pool_bn_relu_fwd", "x", x)
+    check_aligned("pool_bn_relu_fwd", x=x, scale=scale, shift=shift)
     b, c_real, h, w = x.shape
     c = padded_channels(c_real)
     if c != c_real:
@@ -162,6 +177,7 @@ def pool_bn_relu_bwd(g: torch.Tensor, x: torch.Tensor, scale: torch.Tensor,
     if x.device.type != "cuda":
         raise ValueError(f"pool_bn_relu_bwd: no kernel for device {x.device}")
     _check("pool_bn_relu_bwd", x, scale, shift)
+    check_aligned("pool_bn_relu_bwd", x=x, scale=scale, shift=shift)
     b, c, h, w = x.shape
     if tuple(g.shape) != (b, c, h // 2, w) or g.dtype != x.dtype or g.device != x.device:
         raise ValueError(f"pool_bn_relu_bwd: g must be {x.dtype} {(b, c, h // 2, w)} "

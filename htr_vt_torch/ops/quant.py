@@ -8,7 +8,8 @@ stage-1 pad (port of ``htr_vt_tpu/ops/quant.py``).
   round half to even, as ``jnp.round``.
 - ``conv_int8`` / ``conv_int8_bf16``: the s8 x s8 -> s32 convolution,
   dequantized as ``f32(acc) * (sx * sw)`` or ``bf16(acc) * bf16(sx * sw)``
-  (the s32 -> bf16 conversion goes through float32, as XLA's does). A CUDA
+  (the s32 -> bf16 conversion goes through float32, as XLA's does), through
+  the custom op ``htrvt::conv_int8`` (``ops/library.py``). A CUDA
   tensor launches Q1 (``csrc/conv_int8.cu``), the hand-written int8
   implicit-GEMM conv; a bf16 input with a calibrated scale is normalised
   (the optional BN-apply + ReLU prologue) and quantized by Q1's own
@@ -32,6 +33,8 @@ from typing import Dict, Iterable, Optional, Sequence, Tuple
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from htr_vt_torch.ops import library as htrvt_ops
 
 QMAX = 127.0
 SCALE_FLOOR = 1e-12
@@ -192,7 +195,8 @@ def int_mm(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """``torch._int_mm``: [M, K] s8 x [K, N] s8 -> [M, N] s32. On the card
     cuBLASLt takes only M > 16 and K, N multiples of 8; another shape raises
     (there is no float fallback). Counts its CUDA calls in
-    ``int_mm.launches``."""
+    ``int_mm.launches``; a ``torch.export`` trace records the call and
+    counts nothing."""
     if a.is_cuda:
         m, k = a.shape
         n = b.shape[1]
@@ -200,7 +204,8 @@ def int_mm(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
             raise ValueError(f"dot_int8: [{m}, {k}] x [{k}, {n}] is outside "
                              "torch._int_mm's CUDA shapes (M > 16, K and N "
                              "multiples of 8)")
-        int_mm.launches += 1
+        if not torch.compiler.is_exporting():
+            int_mm.launches += 1
     return torch._int_mm(a, b)
 
 
@@ -210,7 +215,12 @@ int_mm.launches = 0  # CUDA calls; the CPU path never counts
 def weight_cache(module: nn.Module, key: str, w: torch.Tensor, make):
     """``make(w)`` for the weight ``w``, cached on ``module`` under ``key``
     while ``w`` keeps its storage, version, dtype and device (the quantized
-    weights are a pure function of it)."""
+    weights are a pure function of it). Under a ``torch.export`` trace,
+    where ``w`` is a fake tensor with no storage, ``make(w)`` goes into the
+    program instead, as JAX's ``QDense`` quantizes its kernel inside the
+    exported program."""
+    if torch.compiler.is_exporting():
+        return make(w)
     cache = module.__dict__.setdefault("_quant_weights", {})
     tag = (w.data_ptr(), w._version, w.dtype, w.device)
     hit = cache.get(key)
@@ -301,10 +311,11 @@ def conv_int8_cuda(x: Optional[torch.Tensor], w_packed: torch.Tensor,
                    out_dtype: torch.dtype, *, xq: Optional[torch.Tensor] = None,
                    prologue: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
                    ) -> torch.Tensor:
-    """Q1 (``csrc/conv_int8.cu``) on the current stream: s8 ``xq``, or a
-    bf16 ``x`` that Q1 first normalises (``prologue``) and quantizes with
-    ``sx`` into an s8 scratch tensor (its quantize kernel, in the same C
-    call); [B, I, H, W] channels-last -> [B, O, Ho, Wo] channels-last in
+    """Q1 (``csrc/conv_int8.cu``) on the current stream, through the op
+    ``htrvt::conv_int8`` (``ops/library.py``): s8 ``xq``, or a bf16 ``x``
+    that Q1 first normalises (``prologue``) and quantizes with ``sx`` into
+    an s8 scratch tensor (its quantize kernel, in the same C call);
+    [B, I, H, W] channels-last -> [B, O, Ho, Wo] channels-last in
     ``out_dtype`` (int32: the accumulator). ``w_packed`` [O, kh, kw, I] s8,
     dq = sx * sw float32 [O]. Adds one to ``conv_int8_cuda.launches``. I
     must be a multiple of 64 and O of 128 (every int8 site of the stem is):
@@ -315,11 +326,10 @@ def conv_int8_cuda(x: Optional[torch.Tensor], w_packed: torch.Tensor,
     if src.dtype not in _IN_CODES or src.dim() != 4:
         raise ValueError(f"conv_int8_cuda: the input must be 4-d int8 or bfloat16, "
                          f"got {src.dtype} {tuple(src.shape)}")
-    if not src.is_contiguous(memory_format=torch.channels_last) or src.data_ptr() % 16:
-        raise ValueError("conv_int8_cuda: the input must be channels-last contiguous "
-                         "and 16-byte aligned")
-    b, ci, h, w = src.shape
-    co, kh, kw, ci_w = w_packed.shape
+    if not torch.compiler.is_exporting():  # a fake tensor's strides: the launch
+        _check_q1_layout(src)
+    ci = src.shape[1]
+    co, _, _, ci_w = w_packed.shape
     if ci_w != ci or w_packed.dtype != torch.int8 or not w_packed.is_contiguous():
         raise ValueError(f"conv_int8_cuda: packed weight must be int8 [O, kh, kw, {ci}] "
                          f"contiguous, got {w_packed.dtype} {tuple(w_packed.shape)}")
@@ -327,6 +337,27 @@ def conv_int8_cuda(x: Optional[torch.Tensor], w_packed: torch.Tensor,
         raise ValueError(f"conv_int8_cuda: {ci} -> {co} channels; Q1 takes input "
                          f"channels in multiples of {TILE_K} and output channels in "
                          f"multiples of {TILE_N}")
+    pro_s, pro_t = (None, None) if prologue is None else prologue
+    return htrvt_ops.conv_int8(src, w_packed, sx, dq, list(stride), padding, out_dtype,
+                               pro_s, pro_t)
+
+
+def _check_q1_layout(src: torch.Tensor) -> None:
+    if not src.is_contiguous(memory_format=torch.channels_last) or src.data_ptr() % 16:
+        raise ValueError("conv_int8_cuda: the input must be channels-last contiguous "
+                         "and 16-byte aligned")
+
+
+def launch_conv_int8(src: torch.Tensor, w_packed: torch.Tensor, sx: torch.Tensor,
+                     dq: Optional[torch.Tensor], stride, padding: int,
+                     out_dtype: torch.dtype, prologue_scale: Optional[torch.Tensor],
+                     prologue_shift: Optional[torch.Tensor]) -> torch.Tensor:
+    """Q1's launch (the CUDA implementation of ``htrvt::conv_int8``). An
+    exported program calls it without the wrapper, so the real input's
+    layout and address are checked here."""
+    _check_q1_layout(src)
+    b, ci, h, w = src.shape
+    co, kh, kw, _ = w_packed.shape
     sh, sw_ = stride
     ho = (h + 2 * padding - kh) // sh + 1
     wo = (w + 2 * padding - kw) // sw_ + 1
@@ -335,9 +366,9 @@ def conv_int8_cuda(x: Optional[torch.Tensor], w_packed: torch.Tensor,
     sx = sx.float().reshape(1).contiguous()
     dq_ptr = 0 if dq is None else dq.float().contiguous().data_ptr()
     pro_s = pro_t = None
-    if prologue is not None:
-        pro_s = prologue[0].to(torch.bfloat16).float().contiguous()
-        pro_t = prologue[1].to(torch.bfloat16).float().contiguous()
+    if prologue_scale is not None:
+        pro_s = prologue_scale.to(torch.bfloat16).float().contiguous()
+        pro_t = prologue_shift.to(torch.bfloat16).float().contiguous()
     scratch = (None if src.dtype == torch.int8 else
                torch.empty_like(src, dtype=torch.int8, memory_format=torch.channels_last))
     from htr_vt_torch._build import check_launch, library
@@ -367,14 +398,15 @@ def conv_int8_any(x, w: torch.Tensor, stride, padding: int, out_dtype: torch.dty
     pre-quantized ``xq``/``sx`` is given), w [O, I, kh, kw] quantized after
     a cast to ``weight_dtype`` (the stem quantizes its bf16-cast kernels).
     x goes through ``apply_prologue(x, *prologue)`` when given, then is
-    quantized static with ``amax`` or dynamic. A CUDA tensor launches Q1 (a
-    bf16 x with ``amax`` is normalised and quantized by Q1 itself); a CPU
-    tensor runs ``conv_int8_reference``. ``module``/``key`` cache the
-    quantized weight."""
+    quantized static with ``amax`` or dynamic. Both devices call the op
+    ``htrvt::conv_int8``: a CUDA tensor launches Q1 (a bf16 x with ``amax``
+    is normalised and quantized by Q1 itself); a CPU tensor runs
+    ``conv_int8_reference``. ``module``/``key`` cache the quantized
+    weight."""
     def make(p):
         return conv_weight(p if weight_dtype is None else p.to(weight_dtype))
 
-    wq, w_packed, sw = (weight_cache(module, key, w, make) if module is not None
+    _, w_packed, sw = (weight_cache(module, key, w, make) if module is not None
                         else make(w))
     src = xq if xq is not None else x
     fused = (xq is None and amax is not None and src.is_cuda
@@ -387,8 +419,8 @@ def conv_int8_any(x, w: torch.Tensor, stride, padding: int, out_dtype: torch.dty
         sx = _scale_of(amax)
     dq = sx * sw
     if src.device.type == "cpu":
-        return conv_int8_reference(x, wq, sx, dq, stride, padding, out_dtype,
-                                   xq=xq, prologue=prologue)
+        return htrvt_ops.conv_int8(xq, w_packed, sx, dq, list(stride), padding,
+                                   out_dtype, None, None)
     return conv_int8_cuda(None if xq is not None else x, w_packed, sx, dq, stride,
                           padding, out_dtype, xq=xq, prologue=prologue)
 

@@ -168,9 +168,13 @@ def test_infer_prints_each_variant(run_dir, tmp_path, capsys):
     lines = capsys.readouterr().out.splitlines()
     assert [ln.split("]")[0] for ln in lines if ln.startswith("[")] == \
         ["[raw", "[bin@0.3", "[bin@0.4", "[bin@0.5", "[bin@0.6", "[bin@0.7"]
-    with pytest.raises(NotImplementedError, match="item 14"):
-        infer.main(["SYNTH", *TINY_FLAGS, "--checkpoint", run_dir, "--image", image,
-                    "--llm-correct", "roberta", "--device", "cpu"])
+    # --llm-correct without local weights: said, and the line printed
+    # uncorrected (tests/test_torch_port_corrector.py holds the corrector)
+    infer.main(["SYNTH", *TINY_FLAGS, "--checkpoint", run_dir, "--image", image,
+                "--llm-correct", str(tmp_path / "no_such_model"), "--device", "cpu"])
+    lines = capsys.readouterr().out.splitlines()
+    assert lines[0].startswith("(LLM correction unavailable:")
+    assert [ln.split("]")[0] for ln in lines[1:]] == ["[raw"]
 
 
 def test_serve_takes_a_training_checkpoint_and_serves_its_ema(run_dir, tmp_path):

@@ -1394,3 +1394,142 @@ def test_int8_eval_step_launches_q1_and_int_mm_as_counted(cuda):
         assert q8.int_mm.launches - mm == 16
         assert ctc_cuda.ctc_alpha.launches - alpha == 1
         assert torch.isfinite(out["logits"]).all()
+
+
+# --- the htrvt:: custom ops (ops/library.py) and exported programs ----------
+def _op_case(name, device):
+    """(op, args, check(got, args)) of each op at a small shape: K3f and Q1
+    bit for bit against their plain twins, K4f and K5f at the bars of the
+    wrapper tests above."""
+    from htr_vt_torch.ops import conv_fused as cf
+    from htr_vt_torch.ops import flash_attn as fa
+    from htr_vt_torch.ops import library
+    from htr_vt_torch.ops import pool_fused as pf
+    from htr_vt_torch.ops import quant as q8
+    if name.startswith("pool"):
+        c = 12 if name == "pool_c12" else 16
+        x, scale, shift, _ = _pool_case((2, c, 8, 45), torch.bfloat16, device, 3, True)
+
+        def check(y, args):
+            assert torch.equal(y, pf.max_pool_bn_relu_reference(*args))
+        return library.pool_bn_relu_fwd, (x, scale, shift), check
+    if name.startswith("conv"):
+        x, k, scale, shift, _ = _conv_inputs((3, 40, 5, 7), 24, torch.bfloat16, device, 5)
+        terms = (scale, shift) if name == "conv" else (None, None)
+
+        def check(y, args):
+            xn = cf._prologue(x, scale, shift) if terms[0] is not None else x
+            mag = torch.nn.functional.conv2d(xn.float().abs(), k.float().abs(), padding=1)
+            _assert_conv_close(y, cf.conv3x3_bn_relu_reference(*args), mag,
+                               torch.bfloat16, name)
+        return library.conv3x3_bn_relu_fwd, (x, k, *terms), check
+    if name.startswith("flash"):
+        n = 128 if name == "flash_n128" else 256
+        q, k, v, _ = _attn_inputs(2, 3, n, torch.bfloat16, device, 9, True)
+
+        def check(got, args):
+            o, l, m = got
+            o_p, l_p, m_p = fa.flash_attention_reference(*args)
+            _assert_flash_close(o, o_p, "o")
+            torch.testing.assert_close(m, m_p, rtol=1e-5, atol=1e-5)
+            torch.testing.assert_close(l, l_p, rtol=1e-4, atol=0.0)
+        return library.flash_attention_fwd, (q, k, v, 0.125), check
+    g = torch.Generator(device=device).manual_seed(11)
+    w = torch.randn(128, 64, 3, 3, generator=g, device=device) * 0.05
+    wq, w_packed, sw = q8.conv_weight(w.to(torch.bfloat16))
+    if name == "q1_s8":
+        src = torch.randint(-127, 128, (2, 64, 6, 9), generator=g, device=device,
+                            dtype=torch.int8).contiguous(memory_format=torch.channels_last)
+        sx, terms, out = torch.tensor(0.02, device=device), (None, None), torch.int32
+    else:
+        src = (torch.randn((2, 64, 6, 9), generator=g, device=device) * 2).to(
+            torch.bfloat16).contiguous(memory_format=torch.channels_last)
+        sx = q8._scale_of(torch.tensor(3.0, device=device))
+        terms = (torch.rand(64, generator=g, device=device) + 0.5,
+                 torch.randn(64, generator=g, device=device))
+        out = torch.bfloat16
+
+    def check(y, args):
+        s8 = src.dtype == torch.int8
+        want = q8.conv_int8_reference(None if s8 else src, wq, sx, sx * sw, (2, 1), 1,
+                                      out, xq=src if s8 else None,
+                                      prologue=None if s8 else terms)
+        assert torch.equal(y, want)
+    return (library.conv_int8,
+            (src, w_packed, sx, sx * sw, [2, 1], 1, out, *terms), check)
+
+
+OP_CASES = ["pool", "pool_c12", "conv", "conv_bare", "flash_n128", "flash_n256",
+            "q1_s8", "q1_bf16_bn"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", OP_CASES)
+def test_custom_op_on_the_card(cuda, name):
+    """Each ``htrvt::`` op on CUDA tensors: ``torch.library.opcheck`` (its
+    fake implementation's shape, dtype and strides against the launched
+    kernel's output: channels-last for K3f, K4f and Q1, K5f's o a [B, N, H,
+    D] tensor seen as [B, H, N, D]), one launch a call counted on the
+    wrapper, and the output against the plain twin."""
+    from htr_vt_torch.ops import conv_fused as cf
+    from htr_vt_torch.ops import flash_attn as fa
+    from htr_vt_torch.ops import pool_fused as pf
+    from htr_vt_torch.ops import quant as q8
+    op, args, check = _op_case(name, cuda)
+    counter = {"pool": pf.pool_bn_relu_fwd, "conv": cf.conv3x3_bn_relu_fwd,
+               "flash": fa.flash_attention_fwd, "q1": q8.conv_int8_cuda}[name.split("_")[0]]
+    torch.library.opcheck(op, args)
+    before = counter.launches
+    got = op(*args)
+    torch.cuda.synchronize()
+    assert counter.launches == before + 1
+    check(got, args)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["fused", "flash", "int8"])
+def test_exported_program_launches_the_kernels(cuda, case, tmp_path):
+    """A program exported on the card holds the ``htrvt::`` ops and, loaded
+    back, launches each kernel as often as one live forward does, with ids
+    and lengths bit-equal to the live model's."""
+    import dataclasses
+
+    from htr_vt_torch.deploy import export_serving, make_serving_fn
+    from htr_vt_torch.ops import conv_fused as cf
+    from htr_vt_torch.ops import flash_attn as fa
+    from htr_vt_torch.ops import pool_fused as pf
+    from htr_vt_torch.ops import quant as q8
+    counters = (pf.pool_bn_relu_fwd, cf.conv3x3_bn_relu_fwd, fa.flash_attention_fwd,
+                q8.conv_int8_cuda)
+    fused = dict(bn_stats_impl="pallas", pool_impl="pallas", conv_impl="pallas")
+    width, gen = 512, torch.Generator(device=cuda).manual_seed(0)
+    if case == "int8":
+        cfg = ModelConfig(depth=1, quant="int8")
+        sd = build_model(dataclasses.replace(cfg, quant="none"), device=cuda,
+                         generator=gen).state_dict()
+        model = build_model(cfg, device=cuda)
+        model.load_state_dict(q8.serving_arrays(cfg, sd), strict=True)
+        q8.calibrate_quant_stats(model, [torch.rand((4, 64, width, 1))], 1)
+        want = (0, 0, 0, 15)
+    elif case == "flash":
+        width = 1024
+        model = build_model(ModelConfig(depth=2, img_size=(64, width), **fused),
+                            device=cuda, generator=gen)
+        want = (1, 9, 2, 0)
+    else:
+        model = build_model(ModelConfig(depth=1, **fused), device=cuda, generator=gen)
+        want = (1, 9, 0, 0)
+    model.eval()
+    img = torch.rand((4, 64, width, 1), generator=torch.Generator().manual_seed(1))
+    program = export_serving(model, 4, (64, width))
+    path = str(tmp_path / "p.pt2")
+    torch.export.save(program, path)
+    fn = torch.export.load(path).module()
+    before = [c.launches for c in counters]
+    with torch.no_grad():
+        got = fn(img.to(cuda))
+        torch.cuda.synchronize()
+        launched = tuple(c.launches - b for c, b in zip(counters, before))
+        live = make_serving_fn(model)(img.to(cuda))
+    assert launched == want
+    assert all(torch.equal(g, w) for g, w in zip(got, live))
