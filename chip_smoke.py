@@ -208,6 +208,26 @@ non-zero before the last line:
    512,1024,2048 --verify`` on a seeded checkpoint at the flagship width
    and ``python -m htr_vt_torch.cli.server`` on its bundle as a
    subprocess, polled on ``/healthz`` and stopped.
+21. memory levers: the fully fused flagship (bs 128, 512 px, IAM span
+   masking, the same seeded state, batch and masks for every row) under
+   (remat, grad_accum) = (none, 1), (blocks, 1), (all, 1), (none, 2),
+   (none, 4), (all, 4): ms/step (1 warm-up, 3 timed), peak memory, each
+   step's launches held to ``lever_launches`` (remat "all" runs K2, K3f and
+   K4f twice a pass, grad_accum g every kernel g times), the first pass-1
+   loss and grad_norm; the remat rows' metrics of every step and final
+   weights bit-equal to the plain row's, or the kernel whose second call
+   differs named (``recompute_culprits``) and the phase failed; the plain
+   row's ms beside the fully fused train phase's. Then the 2048-px step at
+   bs 64 fully fused, plain and under remat "all" (K5f twice a pass), bit
+   for bit, and the tri-masked SGM SVTR at bs 128 under grad_accum 4; each
+   peak beside the step's peak without a lever (``UNLEVERED_PEAK_MIB``).
+22. data parallel: two processes (``--data-parallel-rank``, the
+   ``HTRVT_*`` launch) share the card over gloo, bs 64 each, 3 fully fused
+   steps in bf16 and in float32, against one process at bs 128 on the same
+   weights, batch and masks (losses, grad_norm, weights, EMA, AdamW held at
+   ``DP_BARS``; the ranks equal to each other; each rank's launches); then
+   ``loop.fit`` (2 steps and an eval) in a world of one over NCCL, and one
+   all-reduce of a device tensor on that group.
 
 Kernel times (phases 2, 3, 4 and 11) are read two ways: ``median_ms``, one
 wrapper call between two CUDA events (host work in the wrapper included;
@@ -510,6 +530,53 @@ DEPLOY_BEAM, DEPLOY_LM_LINES, DEPLOY_LM_WEIGHT = 5, 2000, 0.5
 # cli/export.py as a user runs it: the SYNTH preset (its alphabet needs no
 # line images) at the flagship width, the stem switches at their defaults.
 DEPLOY_CLI = ["SYNTH"]
+# The memory levers on the fully fused flagship at bs 128 and 512 px: the
+# (remat, grad_accum) rows, each from the same seeded state, batch and masks,
+# one warm-up and LEVER_STEPS timed steps; the 2048-px step at bs 64
+# (WIDE_BATCH) plain and under remat "all"; the tri-masked SGM SVTR at bs
+# 128 under grad_accum SVTR_ACCUM. UNLEVERED_PEAK_MIB: the peaks of the
+# same steps before the levers existed (this script's fully fused train,
+# wide train and zoo standalone phases on an NVIDIA H100 80GB HBM3 at
+# 700.00 W; the 2048-px step with the stock stem), printed beside the rows.
+LEVER_ROWS = (("none", 1), ("blocks", 1), ("all", 1), ("none", 2), ("none", 4),
+              ("all", 4))
+WIDE_LEVER_ROWS = (("none", 1), ("all", 1))
+LEVER_WARMUP, LEVER_STEPS = 1, 3
+SVTR_ACCUM = 4
+UNLEVERED_PEAK_MIB = {"flagship": 10600.4, "wide2048": 32986.7, "svtr": 52316.5}
+# Data parallel on the one card: DP_RANKS processes over gloo at BATCH //
+# DP_RANKS rows each, DP_STEPS fully fused steps, against one process at
+# BATCH on the same weights, batch and masks (the ranks draw the global
+# masks, parallel/mesh.py:rank_rows), in bf16 in default mode (the
+# production step) and in float32 under torch.use_deterministic_algorithms
+# (two default-mode float32 runs of one process need not give equal bits on
+# the card). The ranks add the BN sums and the gradient in another order than
+# one process. In bf16 that moves activations across bf16 rounding
+# boundaries and the stem's gradient with them; from the second step AdamW
+# turns gradients under that noise into steps of either sign. DP_BARS
+# (relative gaps of the first step's losses and gradient norm, of every
+# step's, and each part's L2 gap of the state): bf16, the losses at the
+# fit phase's FIT_LOSS_REL, the gradient norm at 2e-2 (read 8.2e-4 at the
+# first step and 7.3e-3 at the third on an H100 80GB HBM3 at 700 W; at the
+# CPU tests' tiny bf16 config 1.3e-3 to 1.1e-2), the state at FIT_STATE_L2;
+# float32, which holds the collectives themselves, the first step's losses
+# at 1e-5 (read 6.9e-7) and gradient norm at 1e-4 (read 1.5e-5 in default
+# and deterministic mode alike: the flagship's float32 sums over 2M
+# elements a channel, split by rank; CPU tiny config 1.4e-7), every step at
+# 1e-4 (losses) and 2e-3 (gradient norm; read up to 5.2e-4 at the third
+# step) and the weights' L2 at 2.5e-4 (a tenth of bf16's; read 4.1e-5). A
+# fault of the collectives (BN statistics of one rank's rows, a gradient
+# summed and not averaged) moves these by 1e-2 and more. DP_TIMEOUT bounds a
+# worker.
+DP_RANKS, DP_STEPS, DP_TIMEOUT = 2, 3, 600
+DP_DTYPES = ("bfloat16", "float32")
+DP_DETERMINISTIC = ("float32",)
+DP_BARS = {"bfloat16": dict(first_loss=FIT_LOSS_REL, first_grad_norm=2e-2,
+                            loss=FIT_LOSS_REL, grad_norm=2e-2, state=FIT_STATE_L2),
+           "float32": dict(first_loss=1e-5, first_grad_norm=1e-4, loss=1e-4,
+                           grad_norm=2e-3,
+                           state={"model": 2.5e-4, "ema_model": 2.5e-4, "adamw": 1.0})}
+DP_FIT_STEPS = 2
 
 
 def per_step_launches(switches, forwards=1):
@@ -3594,6 +3661,412 @@ def phase_deploy_serve(device, smi_line):
 
 
 
+# ---------------------------------------------------------------------------
+def lever_launches(remat, accum, flash=0, forwards=1, switches=FULLY_FUSED):
+    """Launches a SAM step under ``remat`` and ``grad_accum``: the step's
+    (``per_step_launches``; ``flash`` K5 launches of each kind), "all"
+    running the stem's forward kernels again in the backward's recompute
+    (K2, K3f, K4f twice) and "blocks" / "all" the blocks' K5f, and every
+    kernel ``accum`` times on a batch ``accum`` times smaller."""
+    want = per_step_launches(switches, forwards)
+    if flash:
+        want.update(flash_attention_fwd=flash, flash_attention_bwd_dkv=flash,
+                    flash_attention_bwd_dq=flash)
+    if remat == "all":
+        for k in ("bn_stats", "pool_bn_relu_fwd", "conv3x3_bn_relu_fwd"):
+            if k in want:
+                want[k] *= 2
+    if remat in ("blocks", "all") and flash:
+        want["flash_attention_fwd"] *= 2
+    return {k: n * accum for k, n in want.items()}
+
+
+def recompute_culprits(device):
+    """The forward kernels of the stem (and the cuDNN conv beside them) whose
+    second call on the same input gives other bits: what a remat recompute
+    could not repeat."""
+    x = stem_input((BATCH, 192, 32, 512), device, SEED + 95)
+    scale = torch.rand(192, device=device) + 0.5
+    shift = torch.rand(192, device=device) - 0.5
+    y = stem_input((BATCH, 192, 8, 512), device, SEED + 96)
+    k = (0.05 * torch.randn(192, 192, 3, 3, device=device)).to(torch.bfloat16)
+    calls = {"bn_stats (K2)": lambda: bn_stats(x),
+             "pool_bn_relu_fwd (K3f)": lambda: (pool_fused.pool_bn_relu_fwd(x, scale, shift),),
+             "conv3x3_bn_relu_fwd (K4f)": lambda: (conv_fused.conv3x3_bn_relu_fwd(
+                 y, k, scale, shift),),
+             "cuDNN F.conv2d": lambda: (F.conv2d(y, k, padding=1),)}
+    out = []
+    for name, fn in calls.items():
+        a, b = fn(), fn()
+        if not all(torch.equal(u, v) for u, v in zip(a, b)):
+            out.append(name)
+    return out
+
+
+def _lever_row(tag, cfg, batch, want, device, seed, smi_line, steps=LEVER_STEPS):
+    """One memory-lever row: a state from ``seed``, LEVER_WARMUP + ``steps``
+    counted SAM steps on ``batch``; each step's launches held to ``want``;
+    ms/step (median of the timed steps, CUDA events), the peak memory (and
+    the part of it above what the process held before the row's state was
+    made, which earlier phases leave behind), every step's metrics and the
+    final weights."""
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated()
+    state = create_train_state(cfg, device, torch.Generator(device=device).manual_seed(seed))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    times, metrics = [], []
+    for _ in range(LEVER_WARMUP + steps):
+        before = read_counts()
+        start, end = _events()
+        start.record()
+        m = train_step(state, batch)
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+        after = read_counts()
+        step = {k: after[k] - before[k] for k in after}
+        if step != {**dict.fromkeys(COUNTERS, 0), **want}:
+            raise AssertionError(f"[{tag}] a step launched {step}; predicted {want}")
+        metrics.append({k: v.item() for k, v in m.items()})
+        if not all(math.isfinite(v) for v in metrics[-1].values()):
+            raise AssertionError(f"[{tag}] metrics {metrics[-1]}")
+    peak = torch.cuda.max_memory_allocated()
+    # on the host, out of the next rows' peaks
+    weights = {k: v.cpu() for k, v in state.model.state_dict().items()}
+    del state
+    torch.cuda.empty_cache()
+    ms = statistics.median(times[LEVER_WARMUP:])
+    b = batch["image"].shape[0]
+    say(f"[{tag}] {steps} steps after {LEVER_WARMUP} warm-up: median {ms:.3f} ms/step "
+        f"({b / ms * 1e3:.1f} img/s), peak memory {peak / 2**20:.1f} MiB, "
+        f"{(peak - held) / 2**20:.1f} MiB of it the row's own; launches a step "
+        f"{want} (as predicted); first pass-1 loss {metrics[0]['loss']:.6f}, grad_norm "
+        f"{metrics[0]['grad_norm']:.6f}; {smi_line}")
+    return dict(ms=ms, peak_mib=peak / 2**20, row_peak_mib=(peak - held) / 2**20,
+                times=times, metrics=metrics, launches_a_step=want), weights
+
+
+def _same_bits(tag, rec, weights, plain, plain_weights, device):
+    """A remat row against the plain row: every metric of every step and the
+    final weights bit for bit, or the kernel whose recompute differs named
+    and the phase failed."""
+    same = rec["metrics"] == plain["metrics"] and all(
+        torch.equal(v, plain_weights[k]) for k, v in weights.items())
+    if not same:
+        culprits = recompute_culprits(device)
+        raise AssertionError(
+            f"[{tag}] the remat step is not bit-equal to the plain step; second calls "
+            "that differ: " + (", ".join(culprits) or "none (the recompute's inputs "
+                                                      "differ)"))
+    say(f"[{tag}] losses, loss_second, grad_norm of all {len(rec['metrics'])} steps and "
+        "the final weights bit-equal to the plain step's")
+
+
+def phase_memory_levers(device, smi_line, fully_fused_ms):
+    """remat and grad_accum on the fully fused flagship at bs 128 and 512 px
+    (LEVER_ROWS), the 2048-px step at bs 64 plain and under remat "all",
+    and the tri-masked SGM SVTR under grad_accum SVTR_ACCUM: per row ms/step,
+    peak memory, launches a step held to ``lever_launches``, the first
+    pass-1 loss and grad_norm; the remat rows bit-equal to the plain row."""
+    t_phase = time.perf_counter()
+    launches = dict.fromkeys(COUNTERS, 0)
+    rec = {"flagship": {}, "wide2048": {}}
+    model_cfg = ModelConfig(masking=MaskConfig(mode="span", ratio=0.4, max_span_length=8),
+                            **FULLY_FUSED)
+    batch = train_batch(BATCH, model_cfg, np.random.default_rng(SEED + 90), device,
+                        infeasible=8)
+    say(f"[memory levers] fully fused flagship bf16, bs {BATCH}, 512 px, IAM span "
+        f"masking; rows (remat, grad_accum) {LEVER_ROWS}; the step without a lever "
+        f"peaked at {UNLEVERED_PEAK_MIB['flagship']} MiB before the levers; {smi_line}")
+    plain = None
+    for remat, accum in LEVER_ROWS:
+        tag = f"memory levers remat={remat} accum={accum}"
+        cfg = ExperimentConfig(model=dataclasses.replace(model_cfg, remat=remat),
+                               optim=OptimConfig(), train=TrainConfig(grad_accum=accum))
+        before = read_counts()
+        row, weights = _lever_row(tag, cfg, batch, lever_launches(remat, accum), device,
+                                  SEED + 91, smi_line)
+        launches = {k: launches[k] + read_counts()[k] - before[k] for k in launches}
+        if (remat, accum) == ("none", 1):
+            plain, plain_weights = row, weights
+            row["vs_fully_fused_train_ms"] = row["ms"] / fully_fused_ms
+            say(f"[{tag}] the step without a lever: {row['ms']:.3f} ms against the fully "
+                f"fused train phase's {fully_fused_ms:.3f} ms on this run "
+                f"({row['ms'] / fully_fused_ms - 1:+.2%})")
+        elif accum == 1:
+            _same_bits(tag, row, weights, plain, plain_weights, device)
+        del weights
+        rec["flagship"][f"{remat}_{accum}"] = {k: v for k, v in row.items() if k != "times"}
+    del plain_weights
+
+    # --- 2048 px, bs 64: K5 in the blocks, recomputed under remat -------------
+    wide = wide_batch(WIDE_BATCH, 2048, np.random.default_rng(SEED + 92), device)
+    flash = 2 * model_cfg.depth
+    wide_plain = None
+    for remat, accum in WIDE_LEVER_ROWS:
+        tag = f"memory levers 2048 remat={remat}"
+        cfg = ExperimentConfig(model=dataclasses.replace(model_cfg, remat=remat),
+                               optim=OptimConfig())
+        before = read_counts()
+        row, weights = _lever_row(tag, cfg, wide, lever_launches(remat, accum, flash),
+                                  device, SEED + 93, smi_line)
+        launches = {k: launches[k] + read_counts()[k] - before[k] for k in launches}
+        if remat == "none":
+            wide_plain, wide_weights = row, weights
+        else:
+            _same_bits(tag, row, weights, wide_plain, wide_weights, device)
+        say(f"[{tag}] the row's own peak {row['row_peak_mib']:.1f} MiB beside the "
+            f"stock-stem 2048-px step's {UNLEVERED_PEAK_MIB['wide2048']} MiB")
+        del weights
+        rec["wide2048"][remat] = {k: v for k, v in row.items() if k != "times"}
+    del wide_weights, wide
+
+    # --- the tri-masked SGM SVTR under grad_accum (remat is not read by SVTR) --
+    vocab = SGMVocab(CTCLabelConverter([chr(c) for c in range(33, 33 + 79)]))
+    exp = ExperimentConfig(model=_standalone_cfg("svtr", vocab), optim=OptimConfig(),
+                           train=TrainConfig(tri_masked=True, grad_accum=SVTR_ACCUM))
+    sbatch = sgm_batch(BATCH, 512, LMAX, vocab, np.random.default_rng(SEED + 94), device)
+    tag = f"memory levers svtr accum={SVTR_ACCUM}"
+    before = read_counts()
+    row, weights = _lever_row(tag, exp, sbatch,
+                              lever_launches("none", SVTR_ACCUM, forwards=TRI_FORWARDS,
+                                             switches={}), device, SEED + 97, smi_line)
+    launches = {k: launches[k] + read_counts()[k] - before[k] for k in launches}
+    del weights
+    say(f"[{tag}] tri-masked SGM SVTR, bs {BATCH}: the row's own peak "
+        f"{row['row_peak_mib']:.1f} MiB beside {UNLEVERED_PEAK_MIB['svtr']} MiB without "
+        "accumulation")
+    rec["svtr_accum"] = {k: v for k, v in row.items() if k != "times"}
+    rec["unlevered_peak_mib"] = UNLEVERED_PEAK_MIB
+    say(f"[memory levers] phase {time.perf_counter() - t_phase:.1f} s; launches {launches}; "
+        f"{smi_line}")
+    return launches, rec
+
+
+def _dp_cfg(dtype):
+    return ExperimentConfig(model=ModelConfig(compute_dtype=dtype, masking=MaskConfig(
+        mode="span", ratio=0.4, max_span_length=8), **FULLY_FUSED), optim=OptimConfig())
+
+
+def _dp_batch(device):
+    return train_batch(BATCH, _dp_cfg("bfloat16").model, np.random.default_rng(SEED + 101),
+                       device, infeasible=8)
+
+
+def _dp_state_file(state):
+    """A state as ``compare_states`` reads a checkpoint's, on the host."""
+    host = lambda sd: {k: v.detach().cpu() for k, v in sd.items()}  # noqa: E731
+    return {"model": host(state.model.state_dict()),
+            "ema_model": host(state.ema_model.state_dict()),
+            "optimizer": {"state": {i: host(st) for i, st in
+                                    state.optimizer.state_dict()["state"].items()}},
+            "step": state.step, "generator": state.generator.get_state()}
+
+
+def _dp_steps(state, batch, dtype):
+    """DP_STEPS counted steps (under deterministic algorithms for a dtype
+    of DP_DETERMINISTIC): (metrics, launches, CUDA-event ms a step)."""
+    reset_counts()
+    times, metrics = [], []
+    with (deterministic_algorithms() if dtype in DP_DETERMINISTIC
+          else contextlib.nullcontext()):
+        for _ in range(DP_STEPS):
+            start, end = _events()
+            start.record()
+            m = train_step(state, batch)
+            end.record()
+            end.synchronize()
+            times.append(start.elapsed_time(end))
+            metrics.append({k: v.item() for k, v in m.items()})
+    return metrics, read_counts(), times
+
+
+def dp_worker(out_dir):
+    """One rank of phase 22 (``python3 chip_smoke.py --data-parallel-rank
+    DIR``, launched by ``phase_data_parallel`` with the ``HTRVT_*``
+    variables): the fully fused step, in each of DP_DTYPES, on its rows of
+    the global batch over a gloo group that shares card 0 with the other
+    rank."""
+    from htr_vt_torch.parallel import mesh
+    device = torch.device("cuda", 0)
+    torch.cuda.set_device(device)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    mesh.maybe_initialize_distributed(backend="gloo")
+    rank, size = mesh.world()
+    _build.library()
+    # the other helpers on CUDA tensors over gloo (validate, the resume path)
+    rows = mesh.all_gather_rows(torch.full((2,), float(rank), device=device))
+    said = mesh.broadcast_str("from rank 0" if rank == 0 else None)
+    if rows.tolist() != [float(r) for r in range(size) for _ in range(2)] or \
+            said != "from rank 0":
+        raise AssertionError(f"rank {rank}: gathered {rows.tolist()}, broadcast {said!r}")
+    batch = _dp_batch(device)
+    b = BATCH // size
+    mine = {k: v[rank * b:(rank + 1) * b] for k, v in batch.items()}
+    out = {"world": (rank, size)}
+    for dtype in DP_DTYPES:
+        state = create_train_state(_dp_cfg(dtype), device,
+                                   torch.Generator(device=device).manual_seed(SEED + 100))
+        metrics, launches, times = _dp_steps(state, mine, dtype)
+        out[dtype] = {"metrics": metrics, "launches": launches, "times": times,
+                      "state": _dp_state_file(state)}
+        del state
+        torch.cuda.empty_cache()
+    torch.save(out, os.path.join(out_dir, f"rank{rank}.pt"))
+    mesh.barrier()
+    torch.distributed.destroy_process_group()
+
+
+def phase_data_parallel(device, smi_line):
+    """Two ranks on the one card over gloo (``dp_worker``, bs 64 each, the
+    fully fused step, bf16 and float32) against one process at bs 128 on
+    the same weights, batch and masks, held at DP_BARS; each rank's
+    launches; then ``fit`` in a world of one over NCCL (the production
+    backend's init) and one all-reduce of a device tensor on it."""
+    from htr_vt_torch.parallel import mesh
+    t_phase = time.perf_counter()
+    rec = {}
+    root = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build")
+    os.makedirs(root, exist_ok=True)
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_dp_", dir=root)
+    try:
+        # --- one process at bs 128: the references, counted -----------------------
+        per_step = per_step_launches(FULLY_FUSED)
+        want = {**dict.fromkeys(COUNTERS, 0), **{k: n * DP_STEPS for k, n in per_step.items()}}
+        one = {}
+        launches = dict.fromkeys(COUNTERS, 0)
+        for dtype in DP_DTYPES:
+            state = create_train_state(_dp_cfg(dtype), device,
+                                       torch.Generator(device=device).manual_seed(SEED + 100))
+            metrics, counts, times = _dp_steps(state, _dp_batch(device), dtype)
+            one[dtype] = {"metrics": metrics, "times": times, "state": _dp_state_file(state)}
+            del state
+            torch.cuda.empty_cache()
+            if counts != want:
+                raise AssertionError(f"[data parallel] one process launched {counts}; "
+                                     f"expected {want}")
+            launches = {k: launches[k] + counts[k] for k in launches}
+
+        # --- two ranks on the card over gloo -----------------------------------
+        with socket.socket() as sock:
+            sock.bind(("", 0))
+            port = sock.getsockname()[1]
+        procs = []
+        for rank in range(DP_RANKS):
+            env = dict(os.environ, HTRVT_COORDINATOR=f"localhost:{port}",
+                       HTRVT_NUM_PROCESSES=str(DP_RANKS), HTRVT_PROCESS_ID=str(rank))
+            procs.append(subprocess.Popen(
+                [sys.executable, os.path.abspath(__file__), "--data-parallel-rank", tmp],
+                env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+        logs, failed = [], False
+        for rank, p in enumerate(procs):
+            try:
+                out, _ = p.communicate(timeout=DP_TIMEOUT)
+            except subprocess.TimeoutExpired:
+                for q in procs:
+                    q.kill()
+                out = p.communicate()[0] + f"\n[rank {rank}: timed out]"
+                failed = True
+            failed |= p.returncode != 0
+            logs.append(f"--- rank {rank} (rc {p.returncode}) ---\n{out[-4000:]}")
+        if failed:
+            raise AssertionError("[data parallel] a rank failed:\n" + "\n".join(logs))
+        ranks = [torch.load(os.path.join(tmp, f"rank{r}.pt"), weights_only=False)
+                 for r in range(DP_RANKS)]
+        say("[data parallel] gloo took the CUDA tensors of all_reduce, all_gather, "
+            "broadcast and barrier on both ranks")
+        for dtype in DP_DTYPES:
+            got, ref, bars = ranks[0][dtype], one[dtype], DP_BARS[dtype]
+            for r in ranks[1:]:
+                if r[dtype]["metrics"] != got["metrics"] or any(
+                        not torch.equal(v, r[dtype]["state"]["model"][k])
+                        for k, v in got["state"]["model"].items()):
+                    raise AssertionError(f"[data parallel] {dtype}: the ranks' metrics or "
+                                         "weights differ")
+                if r[dtype]["launches"] != want:
+                    raise AssertionError(f"[data parallel] {dtype}: rank {r['world'][0]} "
+                                         f"launched {r[dtype]['launches']}; expected {want}")
+            held = compare_states(got["state"], ref["state"],
+                                  [m["loss"] for m in got["metrics"]],
+                                  [m["loss"] for m in ref["metrics"]])
+            rel = {k: [abs(a[k] - b[k]) / abs(b[k]) for a, b in
+                       zip(got["metrics"], ref["metrics"])]
+                   for k in ("loss", "loss_second", "grad_norm")}
+            ok = (max(rel["loss"] + rel["loss_second"]) <= bars["loss"]
+                  and max(rel["grad_norm"]) <= bars["grad_norm"]
+                  and max(rel["loss"][0], rel["loss_second"][0]) <= bars["first_loss"]
+                  and rel["grad_norm"][0] <= bars["first_grad_norm"]
+                  and held["generator_equal"] and held["step"][0] == held["step"][1]
+                  and all(held[f"{p}_l2"] <= bar for p, bar in bars["state"].items())
+                  and all(held[f"{p}_leaf"][0] <= FIT_LEAF_SHARE for p in bars["state"]))
+            say(f"[data parallel {dtype}] {DP_RANKS} ranks on one card over gloo, bs "
+                f"{BATCH // DP_RANKS} each, {DP_STEPS} fully fused steps, against one "
+                f"process at bs {BATCH} on the same weights, batch and masks: relative gaps "
+                "a step " + "; ".join(f"{k} " + " ".join(f"{v:.3e}" for v in vs)
+                                      for k, vs in rel.items())
+                + f" (bars: the first step's losses {bars['first_loss']} and grad_norm "
+                f"{bars['first_grad_norm']}, every step's {bars['loss']} and "
+                f"{bars['grad_norm']}; {'deterministic algorithms' if dtype in DP_DETERMINISTIC else 'default mode'}); "
+                f"{gaps(held)}; bars: each part's L2 {bars['state']}, a leaf "
+                f"{FIT_LEAF_SHARE} of its largest value; launches a rank "
+                f"{got['launches']}; ms a step, rank 0 {statistics.median(got['times']):.3f}, "
+                f"one process {statistics.median(ref['times']):.3f}; {smi_line}")
+            if not ok:
+                raise AssertionError(f"[data parallel {dtype}] two ranks outside the bars: "
+                                     f"{held}, {rel}")
+            rec[dtype] = dict(rel=rel, held=held, rank_launches=got["launches"],
+                              rank_ms=statistics.median(got["times"]),
+                              one_ms=statistics.median(ref["times"]))
+
+        # --- fit in a world of one over NCCL ------------------------------------
+        alphabet = [chr(c) for c in range(33, 33 + ModelConfig().nb_cls - 1)]
+        datasets = tuple(LineSet(n, alphabet, SEED + 102 + i)
+                         for i, n in enumerate(FIT_LINES))
+        with socket.socket() as sock:
+            sock.bind(("", 0))
+            port = sock.getsockname()[1]
+        keys = {mesh.COORDINATOR: f"localhost:{port}", mesh.NUM_PROCESSES: "1",
+                mesh.PROCESS_ID: "0"}
+        saved = {k: os.environ.get(k) for k in keys}
+        os.environ.update(keys)
+        try:
+            reset_counts()
+            result, losses = _recorded_fit(_fit_cfg(tmp, "nccl", DP_FIT_STEPS), datasets,
+                                           device)
+            fit_launches = read_counts()
+            backend = torch.distributed.get_backend()
+            t = torch.full((4,), 3.0, device=device)
+            torch.distributed.all_reduce(t)
+            torch.cuda.synchronize()
+            if backend != "nccl" or not torch.equal(t.cpu(), torch.full((4,), 3.0)):
+                raise AssertionError(f"[data parallel] backend {backend}, all-reduce {t}")
+        finally:
+            if torch.distributed.is_initialized():
+                torch.distributed.destroy_process_group()
+            for k, v in saved.items():
+                if v is None:
+                    os.environ.pop(k, None)
+                else:
+                    os.environ[k] = v
+        n_val = math.ceil(FIT_LINES[1] / BATCH)
+        per_val = per_eval_launches(FULLY_FUSED)
+        want = {k: DP_FIT_STEPS * per_step.get(k, 0) + n_val * per_val.get(k, 0)
+                for k in COUNTERS}
+        if fit_launches != want:
+            raise AssertionError(f"[data parallel] fit launched {fit_launches}; expected {want}")
+        say(f"[data parallel] fit over NCCL in a world of one: {DP_FIT_STEPS} steps and an "
+            f"eval, pass-1 losses {losses}, best CER {result['best_cer']:.4f}; one "
+            f"all-reduce of a device tensor on the NCCL group; launches {fit_launches}")
+        launches = {k: launches[k] + fit_launches[k] for k in launches}
+        rec["nccl_fit"] = dict(losses=losses, launches=fit_launches)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    say(f"[data parallel] phase {time.perf_counter() - t_phase:.1f} s; {smi_line}")
+    return launches, rec
+
+
 def main():
     smi_line, max_sm_mhz = phase_device()
     device = torch.device("cuda", 0)
@@ -3621,11 +4094,14 @@ def main():
     ed_launches, ed_rec = phase_encoder_decoder(device, smi_line)
     int8_launches, int8_rec = phase_int8_serve(device, smi_line)
     deploy_launches, deploy_rec = phase_deploy_serve(device, smi_line)
+    lever_launches_, lever_rec = phase_memory_levers(device, smi_line, full["ms"])
+    dp_launches, dp_rec = phase_data_parallel(device, smi_line)
     say(f"[done] build {build_s:.2f} s; {smi_line}")
     main_path = {k: fused_serve[k] + full_serve[k] + fused_train[k] + full_train[k]
                  + train_launches[k] + bucket_serve[k] + wide_train[k] + fit_launches[k]
                  + zoo_launches[k] + sgm_launches[k] + standalone_launches[k]
                  + ed_launches[k] + int8_launches[k] + deploy_launches[k]
+                 + lever_launches_[k] + dp_launches[k]
                  for k in COUNTERS}
     main_path["ctc_alpha"] += serve_launches
     k193, k17 = kernels["S193"], kernels["S17"]
@@ -3786,11 +4262,15 @@ def main():
                     "zoo_serve": zoo_rec, "sgm_mms_train": sgm_rec,
                     "zoo_standalone": standalone_rec, "encoder_decoder": ed_rec,
                     "int8_serve": {k: v for k, v in int8_rec.items() if k != "sites"},
-                    "deploy_serve": deploy_rec}))
+                    "deploy_serve": deploy_rec, "memory_levers": lever_rec,
+                    "data_parallel": dp_rec}))
     say(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))
 
 
 if __name__ == "__main__":
-    main()
+    if sys.argv[1:2] == ["--data-parallel-rank"]:
+        dp_worker(sys.argv[2])
+    else:
+        main()

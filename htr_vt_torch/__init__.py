@@ -41,7 +41,11 @@ Ported so far:
   ``ops/library.py``; ``cli/export.py``, the HTTP ``cli/server.py``, beam
   search with n-gram rescoring (``decode/``, ``native/``) in ``cli/serve.py``
   and ``cli/test_with_lm.py``, and the masked-LM corrector in
-  ``cli/infer.py``.
+  ``cli/infer.py``;
+- the memory levers and data parallelism: ``cfg.remat`` (``models/remat.py``)
+  and ``cfg.train.grad_accum`` (``train/step.py``), and training over
+  several processes (``parallel/mesh.py``: the BatchNorm sums, each SAM
+  pass's gradient, eval's predictions all-reduced or gathered by hand).
 
 On a CUDA tensor the CTC loss runs its alpha recursion, and its gradient
 the beta recursion, as hand-written ``sm_90a`` kernels
@@ -51,5 +55,5 @@ the beta recursion, as hand-written ``sm_90a`` kernels
 __version__ = "0.1.0"
 
 from htr_vt_torch.config import (ExperimentConfig, MaskConfig,  # noqa: F401
-                                 ModelConfig, OptimConfig)
+                                 ModelConfig, OptimConfig, TrainConfig)
 from htr_vt_torch.text.converter import CTCLabelConverter  # noqa: F401

@@ -111,13 +111,15 @@ def build_parser(description: str) -> argparse.ArgumentParser:
     p.add_argument("--tri-masked", action="store_true", default=False)
     p.add_argument("--grad-accum", type=int, default=1,
                    help="split each batch into N microbatches inside the "
-                        "SAM step (not ported yet: N > 1 raises, ROADMAP.md "
-                        "queue 1, item 13)")
+                        "SAM step, run one after another: identical optimizer "
+                        "math, 1/N the activation memory; train-bs (a rank's "
+                        "share of it) must be divisible by N")
     p.add_argument("--remat", type=str, default="none",
                    choices=["none", "blocks", "all"],
-                   help="recompute encoder blocks ('blocks') or blocks+stem "
-                        "('all') in the backward (not ported yet: raises, "
-                        "ROADMAP.md queue 1, item 13)")
+                   help="rematerialize (torch.utils.checkpoint) encoder blocks "
+                        "('blocks') or blocks+stem ('all') during training: "
+                        "recompute activations in the backward instead of "
+                        "holding them in device memory")
 
     # data / augmentation
     p.add_argument("--train-data-list", type=str, default=None)

@@ -1,8 +1,12 @@
 """Training entry point (port of ``htr_vt_tpu/cli/train.py``):
 ``python -m htr_vt_torch.cli.train [IAM|READ|LAM|SYNTH] <flags> [--device cpu]``.
 
-One trainer for every recipe flag; the encoders and training features the
-port does not have yet raise, naming their ROADMAP.md item.
+One trainer for every recipe flag. ``--remat`` and ``--grad-accum`` are the
+memory levers; several processes train data-parallel when launched with
+``HTRVT_COORDINATOR`` (host:port of rank 0), ``HTRVT_NUM_PROCESSES`` and
+``HTRVT_PROCESS_ID`` (NCCL with a card a rank, gloo on the CPU or where
+ranks share cards), ``--train-bs`` and ``--val-bs`` being the global
+batches (``train/loop.py:fit``).
 """
 
 from __future__ import annotations

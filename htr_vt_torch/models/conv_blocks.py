@@ -28,7 +28,7 @@ from torch import nn
 
 from htr_vt_torch.models.layers import (DropPath, dense, dropout, glu,
                                         lecun_normal_, quantize_linear)
-from htr_vt_torch.models.stem import BN_EPS, BN_MOMENTUM, BatchNorm
+from htr_vt_torch.models.stem import BN_EPS, BatchNorm, batch_moments
 from htr_vt_torch.models.vit import Attention
 
 FLAX_LN_EPS = 1e-6  # flax LayerNorm's default
@@ -54,18 +54,17 @@ def _depthwise(dim: int, kernel_size: int, device) -> nn.Conv1d:
 class TokenBatchNorm(BatchNorm):
     """flax ``nn.BatchNorm`` over the channels of [B, N, C] tokens, float32
     out. Train mode normalises by the batch statistics over B and N (the
-    biased variance) and moves the running statistics by ``0.9 * ra + 0.1 *
-    batch`` in place; eval reads the running statistics."""
+    biased variance; the global batch's under data parallelism,
+    ``stem.py:batch_moments``) and moves the running statistics by ``0.9 *
+    ra + 0.1 * batch`` in place (not inside a remat recompute); eval reads
+    the running statistics."""
 
     def forward(self, x: torch.Tensor, *, train: bool = False) -> torch.Tensor:
         xf = x.float()
         if train:
-            mean = xf.mean((0, 1))
-            var = torch.clamp_min(xf.square().mean((0, 1)) - mean.square(), 0.0)
-            with torch.no_grad():
-                m = BN_MOMENTUM
-                self.running_mean.copy_(m * self.running_mean + (1.0 - m) * mean)
-                self.running_var.copy_(m * self.running_var + (1.0 - m) * var)
+            mean, ex2 = batch_moments(xf, (0, 1))
+            var = torch.clamp_min(ex2 - mean.square(), 0.0)
+            self.move_running(mean, var)
         else:
             mean, var = self.running_mean, self.running_var
         return (xf - mean) * (torch.rsqrt(var + BN_EPS) * self.weight) + self.bias

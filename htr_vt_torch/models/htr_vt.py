@@ -19,7 +19,9 @@ package's standalone models: ``HTRSwin`` (``models/swin.py``), ``SVTR``
 (``ops/quant.py``): the ResNet18 stem's tiling convs and the vit /
 conformer / squeezeformer linears run int8 in eval, at a stage 1 padded to
 ``quant_stage1_pad`` where that applies; train mode is the float model.
-remat is not ported yet (ROADMAP.md, queue 1).
+``cfg.remat`` (``"blocks"``, ``"all"``) recomputes the encoder blocks' (and
+under ``"all"`` the stem's) activations in the backward of a train forward
+(``models/remat.py``).
 """
 
 from __future__ import annotations
@@ -30,7 +32,7 @@ import torch
 from torch import nn
 
 from htr_vt_torch.config import ModelConfig
-from htr_vt_torch.models import masking
+from htr_vt_torch.models import masking, remat
 from htr_vt_torch.models.layers import (global_layer_norm, jax_init_,
                                         sincos_pos_embed_2d)
 from htr_vt_torch.models.registry import build_encoder_blocks
@@ -138,7 +140,15 @@ class HTRVT(nn.Module):
         x = image.float()
         if cfg.input_layer_norm:
             x = global_layer_norm(x)
-        x = self.patch_embed(x.permute(0, 3, 1, 2), train=train)  # NHWC -> NCHW
+        # remat (htr_vt.py:63-69): under "blocks" each encoder block, under
+        # "all" the stem too, recomputes its activations in the backward
+        remat_stem = train and cfg.remat == "all"
+        remat_blocks = train and cfg.remat in ("blocks", "all")
+        x = x.permute(0, 3, 1, 2)  # NHWC -> NCHW
+        if remat_stem:
+            x = remat.run(self.patch_embed, x, train=True)
+        else:
+            x = self.patch_embed(x, train=train)
         b = x.shape[0]
         # NHWC token order, as the JAX reshape of [B, H', W', D]
         tokens = x.permute(0, 2, 3, 1).reshape(b, -1, cfg.embed_dim)
@@ -151,7 +161,11 @@ class HTRVT(nn.Module):
                      image.shape[2] // cfg.patch_size[1]))
             tokens = tokens + self.pos_table(grid)[:n].to(self.dtype)
         for block in self.blocks:
-            tokens = block(tokens, train=train, generator=generator)
+            if remat_blocks:
+                tokens = remat.run(block, tokens, train=True, generator=generator,
+                                   replay=generator)
+            else:
+                tokens = block(tokens, train=train, generator=generator)
         feats = self.norm(tokens.float())
         logits = self.head(feats)
         if cfg.logit_layer_norm:
@@ -194,12 +208,9 @@ def build_model(cfg: ModelConfig, device=None,
     ``model_type="encoder_decoder"`` builds ``HTREncoderDecoder`` around
     the ``HTRVT`` trunk; ``encoder="swin"`` and ``"svtr"`` the standalone
     ``HTRSwin`` and ``SVTR``; every other encoder ``HTRVT`` with the
-    recipe's blocks, behind the ResNet18 or a VAN stem. remat is still
-    queued in ROADMAP.md."""
-    if cfg.remat != "none":
-        raise NotImplementedError(
-            f"remat={cfg.remat!r} is not ported to htr_vt_torch yet "
-            "(ROADMAP.md queue 1, item 13: memory levers (remat))")
+    recipe's blocks, behind the ResNet18 or a VAN stem. ``cfg.remat``
+    reaches ``HTRVT`` (and so the encoder-decoder's trunk); ``HTRSwin`` and
+    ``SVTR`` take it and ignore it, as JAX's do."""
     check_switches(cfg)
     device = torch.device("cuda") if device is None else torch.device(device)
     if device.type == "cuda" and not torch.cuda.is_available():

@@ -18,6 +18,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from htr_vt_torch.ops import quant as q8
+from htr_vt_torch.parallel.mesh import rank_rows
 
 # The standard deviation of a unit normal truncated at +-2, which flax's
 # truncated-normal initialisers divide out.
@@ -112,18 +113,21 @@ def dropout(x: torch.Tensor, rate: float, train: bool,
             generator: Optional[torch.Generator]) -> torch.Tensor:
     """flax ``nn.Dropout``: in train mode keep each element with probability
     ``1 - rate`` and scale it by ``1 / (1 - rate)``, drawing from
-    ``generator``; the identity at rate 0 or in eval."""
+    ``generator`` (the global batch's mask under data parallelism,
+    ``parallel/mesh.py:rank_rows``); the identity at rate 0 or in eval."""
     if not train or rate == 0.0:
         return x
     keep = 1.0 - rate
-    mask = torch.rand(x.shape, generator=generator, device=x.device) < keep
+    mask = rank_rows(lambda n: torch.rand((n,) + x.shape[1:], generator=generator,
+                                          device=x.device), x.shape[0]) < keep
     return torch.where(mask, x / keep, torch.zeros_like(x))
 
 
 class DropPath(nn.Module):
     """Per-sample stochastic depth (``layers.py:135-148``): in train mode a
     whole sample's branch is dropped with probability ``rate`` and kept ones
-    are scaled by ``1 / (1 - rate)``; the identity at rate 0 or in eval."""
+    are scaled by ``1 / (1 - rate)`` (the global batch's draw under data
+    parallelism); the identity at rate 0 or in eval."""
 
     def __init__(self, rate: float = 0.0):
         super().__init__()
@@ -134,8 +138,9 @@ class DropPath(nn.Module):
         if not train or self.rate == 0.0:
             return x
         keep = 1.0 - self.rate
-        shape = (x.shape[0],) + (1,) * (x.ndim - 1)
-        mask = torch.rand(shape, generator=generator, device=x.device) < keep
+        shape = (1,) * (x.ndim - 1)
+        mask = rank_rows(lambda n: torch.rand((n,) + shape, generator=generator,
+                                              device=x.device), x.shape[0]) < keep
         return torch.where(mask, x / keep, torch.zeros_like(x)).to(x.dtype)
 
 

@@ -22,6 +22,7 @@ from typing import Optional
 import torch
 
 from htr_vt_torch.config import MaskConfig
+from htr_vt_torch.parallel.mesh import rank_rows
 
 MAX_PLACEMENTS = 48  # the JAX block loop's bound (masking.py:31)
 # span_spacing: attempts between two host checks of full coverage.
@@ -190,12 +191,14 @@ def mask_tokens(tokens: torch.Tensor, cfg: MaskConfig, mask_token: torch.Tensor,
                 ratio: Optional[float] = None) -> torch.Tensor:
     """A model's train-mode token masking (``htr_vt.py:100-105``): in train
     mode with masking on, ``apply_mask`` with the injected ``keep`` or one
-    drawn from ``generator`` by ``build_keep_mask``; else the tokens as they
-    are (a ``keep`` there raises)."""
+    drawn from ``generator`` by ``build_keep_mask`` (under data parallelism
+    the global batch's mask, this rank's rows: ``parallel/mesh.py:
+    rank_rows``); else the tokens as they are (a ``keep`` there raises)."""
     if train and cfg.mode != "none":
         if keep is None:
-            keep = build_keep_mask(generator, tokens.shape[0], tokens.shape[1], cfg,
-                                   mode=mode, ratio=ratio)
+            keep = rank_rows(lambda n: build_keep_mask(generator, n, tokens.shape[1], cfg,
+                                                       mode=mode, ratio=ratio),
+                             tokens.shape[0])
         return apply_mask(tokens, keep, mask_token)
     if keep is not None:
         raise ValueError("a keep mask applies only in train mode with masking on")

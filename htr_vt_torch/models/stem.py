@@ -22,6 +22,13 @@ of parameters, as in JAX (``stem.py:174-194``):
 Train statistics are float32 with the biased variance ``E[x^2] - E[x]^2``
 (clamped at 0), and the running statistics move by ``0.9 * ra + 0.1 *
 batch``; ``nn.BatchNorm2d`` would track the unbiased variance instead.
+Under data parallelism (``htr_vt_torch/parallel/mesh.py``) the statistics
+are the global batch's, as XLA computes them over the global array: the
+per-channel sums and the element count are all-reduced before the mean and
+variance are formed (``global_sums``), so the running statistics move
+alike on every rank. JAX never reads ``ParallelConfig.sync_batch_norm``
+and its BN is always global; the port does not read it either. Inside a
+remat recompute (``models/remat.py``) the running statistics stay put.
 With ``bn_stats_impl="pallas"`` the sums come from the K2 kernel
 (``ops/bn_stats.py``); with ``pool_impl="pallas"`` the entry's
 BN-apply + ReLU + max-pool is the K3f/K3b kernel pair
@@ -48,17 +55,20 @@ hands the next an s8 carry (q, scale) in static mode.
 
 from __future__ import annotations
 
+import math
 from typing import Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
+from htr_vt_torch.models import remat
 from htr_vt_torch.ops import quant as q8
 from htr_vt_torch.ops.bn_stats import BNStats
 from htr_vt_torch.ops.conv_fused import (conv3x3_bn_relu,
                                          conv3x3_bn_relu_reference)
 from htr_vt_torch.ops.pool_fused import max_pool_bn_relu
+from htr_vt_torch.parallel.mesh import all_reduce_sum, world_size
 
 BN_EPS = 1e-5
 BN_MOMENTUM = 0.9
@@ -74,6 +84,28 @@ def _relu_max(x: torch.Tensor) -> torch.Tensor:
     return torch.maximum(x, x.new_zeros(()))
 
 
+def global_sums(s: torch.Tensor, q: torch.Tensor, n):
+    """Per-channel (sum, sum of squares) and the element count over the
+    global batch: at world size 1 as given, else all three summed over the
+    ranks in one differentiable all-reduce (K2's SPMD psum,
+    ``htr_vt_tpu/ops/bn_stats.py:98-103``)."""
+    if world_size() == 1:
+        return s, q, n
+    c = s.shape[0]
+    packed = all_reduce_sum(torch.cat([s, q, s.new_full((1,), float(n))]))
+    return packed[:c], packed[c:2 * c], packed[2 * c]
+
+
+def batch_moments(xf: torch.Tensor, dims) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(E[x], E[x^2]) of float32 ``xf`` over ``dims``: the ``mean`` calls at
+    world size 1, else the global batch's from the all-reduced sums."""
+    if world_size() == 1:
+        return xf.mean(dims), xf.square().mean(dims)
+    s, q, n = global_sums(xf.sum(dims), xf.square().sum(dims),
+                          math.prod(xf.shape[d] for d in dims))
+    return s / n, q / n
+
+
 class BatchNorm(nn.Module):
     """BatchNorm state: ``weight``/``bias`` and ``running_mean``/
     ``running_var``, exactly the reference's keys (no
@@ -85,6 +117,16 @@ class BatchNorm(nn.Module):
         self.bias = nn.Parameter(torch.zeros(c, device=device))
         self.register_buffer("running_mean", torch.zeros(c, device=device))
         self.register_buffer("running_var", torch.ones(c, device=device))
+
+    @torch.no_grad()
+    def move_running(self, mean: torch.Tensor, var: torch.Tensor) -> None:
+        """``ra = 0.9 * ra + 0.1 * batch`` in place, except inside a remat
+        recompute, whose forward already moved them once."""
+        if remat.recomputing():
+            return
+        m = BN_MOMENTUM
+        self.running_mean.copy_(m * self.running_mean + (1.0 - m) * mean)
+        self.running_var.copy_(m * self.running_var + (1.0 - m) * var)
 
     def fold(self, x: Optional[torch.Tensor] = None, *,
              stats_impl: str = "auto") -> Tuple[torch.Tensor, torch.Tensor]:
@@ -100,18 +142,13 @@ class BatchNorm(nn.Module):
         else:
             if stats_impl == "pallas":
                 s, q = BNStats.apply(x)
-                n = x.numel() // x.shape[1]
+                s, q, n = global_sums(s, q, x.numel() // x.shape[1])
                 mu = s / n
                 var = _relu_max(q / n - mu.square())
             else:
-                xf = x.float()
-                dims = (0, 2, 3)
-                mu = xf.mean(dims)
-                var = _relu_max(xf.square().mean(dims) - mu.square())
-            with torch.no_grad():
-                m = BN_MOMENTUM
-                self.running_mean.copy_(m * self.running_mean + (1.0 - m) * mu)
-                self.running_var.copy_(m * self.running_var + (1.0 - m) * var)
+                mu, ex2 = batch_moments(x.float(), (0, 2, 3))
+                var = _relu_max(ex2 - mu.square())
+            self.move_running(mu, var)
         scale = self.weight.float() * torch.rsqrt(var + BN_EPS)
         return scale, self.bias.float() - mu * scale
 
@@ -131,13 +168,9 @@ class BatchNorm(nn.Module):
         beta`` and move the running statistics in place (``stem.py:117-138``
         with flax's fast variance)."""
         xf = x.float()
-        dims = (0, 2, 3)
-        mean = xf.mean(dims)
-        var = torch.clamp_min(xf.square().mean(dims) - mean.square(), 0.0)
-        with torch.no_grad():
-            m = BN_MOMENTUM
-            self.running_mean.copy_(m * self.running_mean + (1.0 - m) * mean)
-            self.running_var.copy_(m * self.running_var + (1.0 - m) * var)
+        mean, ex2 = batch_moments(xf, (0, 2, 3))
+        var = torch.clamp_min(ex2 - mean.square(), 0.0)
+        self.move_running(mean, var)
         mul = torch.rsqrt(var + BN_EPS) * self.weight
         return ((xf - mean[:, None, None]) * mul[:, None, None]
                 + self.bias[:, None, None])

@@ -26,6 +26,7 @@ import torch
 from htr_vt_torch.config import ExperimentConfig, ModelConfig, config_from_dict
 from htr_vt_torch.models.htr_vt import HTRVT, build_model
 from htr_vt_torch.ops.quant import serving_arrays
+from htr_vt_torch.parallel.mesh import barrier, world
 from htr_vt_torch.train.state import TrainState
 
 _CKPT_RE = re.compile(r"checkpoint_(?P<cer>[\d.]+)_(?P<wer>[\d.]+)_(?P<iter>\d+)$")
@@ -59,16 +60,23 @@ class CheckpointManager:
              best_cer: float, best_wer: float, meta: Optional[Dict] = None) -> str:
         """Write the rolling directory of ``state.step``, refresh the
         best_CER / best_WER copies where this eval ties or beats the best,
-        and drop all but the newest ``keep`` rolling directories."""
+        and drop all but the newest ``keep`` rolling directories.
+
+        Under data parallelism every rank calls this in lockstep, with the
+        same state (``checkpoint.py:72-100``): rank 0 writes, then all meet
+        at a barrier, so no rank reads or lists the directory before the
+        files are whole."""
         step = int(state.step)
         path = os.path.join(self.save_dir, self._rolling_name(cer, wer, step))
-        self._save_state(path, state, step=step, cer=cer, wer=wer,
-                         best_cer=best_cer, best_wer=best_wer, meta=meta)
-        if cer <= best_cer:
-            self._copy(path, os.path.join(self.save_dir, "best_CER"))
-        if wer <= best_wer:
-            self._copy(path, os.path.join(self.save_dir, "best_WER"))
-        self._cleanup()
+        if world()[0] == 0:
+            self._save_state(path, state, step=step, cer=cer, wer=wer,
+                             best_cer=best_cer, best_wer=best_wer, meta=meta)
+            if cer <= best_cer:
+                self._copy(path, os.path.join(self.save_dir, "best_CER"))
+            if wer <= best_wer:
+                self._copy(path, os.path.join(self.save_dir, "best_WER"))
+            self._cleanup()
+        barrier()
         return path
 
     def _save_state(self, path: str, state: TrainState, **meta_kw) -> None:

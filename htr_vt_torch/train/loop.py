@@ -1,18 +1,18 @@
-"""The training loop (port of ``htr_vt_tpu/train/loop.py``), one process.
+"""The training loop (port of ``htr_vt_tpu/train/loop.py``).
 
 Functional equivalent of the reference's main() (model_v1/train.py:33-231):
 data + model + SAM/EMA + periodic EMA-weight validation + best-CER/WER
 checkpoints + scalars, with the SAM step running eagerly on one device
 (``train/step.py:train_step``) and host-side batching overlapped through
-the prefetching loader. Multi-process training is not ported yet
-(ROADMAP.md queue 1, item 12).
+the prefetching loader; data-parallel over several processes
+(``parallel/mesh.py``), each rank on its rows of every global batch.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import json
-import math
+import logging
 import os
 from typing import Dict, Optional, Sequence
 
@@ -26,7 +26,9 @@ from htr_vt_torch.eval.validate import validate
 from htr_vt_torch.models.sgm import SGMVocab, make_context_arrays
 from htr_vt_torch.text.ed_tokenizer import EDTokenizer
 from htr_vt_torch.train.checkpoint import CheckpointManager, load_module_state
-from htr_vt_torch.train.state import check_ported, create_train_state
+from htr_vt_torch.parallel.mesh import (barrier, broadcast_str, check_mesh,
+                                        maybe_initialize_distributed, world)
+from htr_vt_torch.train.state import create_train_state
 from htr_vt_torch.train.step import eval_step, eval_step_ed, train_step
 from htr_vt_torch.utils.logging import ScalarWriter, StepTimer, get_logger, maybe_profile
 
@@ -37,15 +39,17 @@ from htr_vt_torch.utils.logging import ScalarWriter, StepTimer, get_logger, mayb
 HEAD_KEYS = {"head", "sgm_head", "lm_head", "embed", "final_norm"}
 
 
-def check_single_process(cfg: ExperimentConfig) -> None:
-    """Raise where the config or the launch asks for more than one process
-    or device: data parallelism is not ported yet."""
-    mesh = cfg.parallel.mesh_shape
-    procs = int(os.environ.get("HTRVT_NUM_PROCESSES", "1"))
-    if (mesh is not None and math.prod(mesh) > 1) or procs > 1:
-        raise NotImplementedError(
-            f"mesh_shape={mesh}, {procs} process(es): multi-device training is not "
-            "ported to htr_vt_torch yet (ROADMAP.md queue 1, item 12: distributed)")
+def resolve_device(device, rank: int) -> torch.device:
+    """``device`` as given, except a bare ``"cuda"``: card ``rank % count``,
+    one card a rank on a machine that has several."""
+    device = torch.device(device)
+    if device.type == "cuda":
+        if not torch.cuda.is_available():
+            raise RuntimeError("fit: no CUDA device; pass device='cpu' to train on "
+                               "the CPU")
+        if device.index is None:
+            device = torch.device("cuda", rank % torch.cuda.device_count())
+    return device
 
 
 def fit(cfg: ExperimentConfig, device="cuda",
@@ -56,16 +60,34 @@ def fit(cfg: ExperimentConfig, device="cuda",
     ``datasets``: (train, val) objects with ``__len__``, ``__getitem__``
     -> (uint8 [H, W] image, text), ``labels`` and ``alphabet``, in place of
     ``build_dataset(cfg.data, "train" | "val")``: for a machine that cannot
-    read or render line images (no PIL, no cv2)."""
-    check_single_process(cfg)
-    check_ported(cfg)
-    device = torch.device(device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("fit: no CUDA device; pass device='cpu' to train on the CPU")
+    read or render line images (no PIL, no cv2).
+
+    Data parallel (``loop.py:31-53``): launched as R processes with the
+    ``HTRVT_*`` variables (``parallel/mesh.py:maybe_initialize_distributed``),
+    every rank runs this function on its ``train_bs // R`` rows of each
+    global batch (``cfg.data.train_bs`` is the global batch), on card
+    ``rank % count`` for ``device="cuda"``. Rank 0 alone writes run.log,
+    the scalars and the checkpoints; ``resume="auto"`` is rank 0's choice,
+    broadcast; eval gathers every rank's rows, so the best-checkpoint
+    decisions agree everywhere. The ranks share the run directory (one
+    machine or a shared filesystem)."""
+    maybe_initialize_distributed(device=device)
+    rank, nproc = world()
+    is_main = rank == 0
+    check_mesh(cfg.parallel.mesh_shape, nproc)
+    device = resolve_device(device, rank)
+    if device.type == "cuda":
+        torch.cuda.set_device(device)
     save_dir = os.path.join(cfg.train.out_dir, cfg.train.exp_name)
     os.makedirs(save_dir, exist_ok=True)
-    logger = get_logger(save_dir)
+    logger = get_logger(save_dir, write_file=is_main)
+    if not is_main:
+        logger.setLevel(logging.WARNING)
     logger.info(json.dumps(config_to_dict(cfg), indent=2, sort_keys=True, default=str))
+    for name, bs in (("train_bs", cfg.data.train_bs), ("val_bs", cfg.data.val_bs)):
+        if bs % nproc:
+            raise ValueError(f"global {name} {bs} not divisible by the process "
+                             f"count {nproc}")
 
     # ---- data ----
     if datasets is None:
@@ -136,7 +158,9 @@ def fit(cfg: ExperimentConfig, device="cuda",
     if resume == "auto":
         # Elastic restart convenience: pick up the latest rolling checkpoint
         # in the run directory if one exists (fresh start otherwise).
-        resume = ckpt.latest_path()
+        # rank 0 alone decides and broadcasts: ranks listing the directory
+        # each could race rank 0's save and pick different steps
+        resume = broadcast_str(ckpt.latest_path() if is_main else None)
         if resume:
             logger.info("auto-resume found %s", resume)
     if resume:
@@ -151,13 +175,14 @@ def fit(cfg: ExperimentConfig, device="cuda",
     # is a pure function of (seed, b), and exactly one batch is consumed per
     # step, so "train N" == "train k, resume, train N-k" batch-for-batch
     # (tests/test_torch_port_loop.py pins the equivalence).
-    loader = TrainLoader(train_ds, converter, cfg.data.train_bs, max_label_len,
+    loader = TrainLoader(train_ds, converter, cfg.data.train_bs // nproc, max_label_len,
                          augment=cfg.data.augment, seed=cfg.train.seed,
                          num_threads=cfg.data.num_workers, extras_fn=extras_fn,
-                         sampling=cfg.data.sampling, start_batch=start_step)
+                         sampling=cfg.data.sampling, start_batch=start_step,
+                         shard_rank=rank, shard_count=nproc)
     batches = device_prefetch(iter(loader), device)
     writer = ScalarWriter(save_dir, cfg.train.use_wandb, cfg.train.wandb_project,
-                          cfg.train.exp_name, config_to_dict(cfg))
+                          cfg.train.exp_name, config_to_dict(cfg), enabled=is_main)
     # Rate windows close at the print cadence, AFTER the loss fetch syncs the
     # host on that window's device work (StepTimer docstring).
     timer = StepTimer()
@@ -183,6 +208,8 @@ def fit(cfg: ExperimentConfig, device="cuda",
             # (detection latency = print_iters steps; the reference has none).
             bad = sum(not np.isfinite(v) for v in fetched)
             if cfg.train.max_nonfinite_steps > 0 and bad >= cfg.train.max_nonfinite_steps:
+                # the losses are global: every rank takes this branch and
+                # enters save() in lockstep
                 ckpt.save(state, cer=999.0, wer=999.0, best_cer=best_cer,
                           best_wer=best_wer,
                           meta={"emergency": True, "config": config_to_dict(cfg)})
@@ -223,4 +250,7 @@ def fit(cfg: ExperimentConfig, device="cuda",
 
     loader.close()
     writer.close()
+    # no rank leaves (and, say, auto-resumes a next run) before rank 0's last
+    # checkpoint is written
+    barrier()
     return {"best_cer": best_cer, "best_wer": best_wer}

@@ -19,19 +19,7 @@ from torch import nn
 from htr_vt_torch.config import ExperimentConfig
 from htr_vt_torch.models.htr_vt import build_model
 from htr_vt_torch.optim.sam import make_base_optimizer
-
-
-def check_ported(cfg: ExperimentConfig) -> None:
-    """Raise on the training features the port does not have yet."""
-    item = None
-    if cfg.train.grad_accum > 1:
-        item = "item 13: memory levers (grad_accum)"
-    elif cfg.model.remat != "none":
-        item = "item 13: memory levers (remat)"
-    if item:
-        raise NotImplementedError(
-            f"this training configuration is not ported to htr_vt_torch yet "
-            f"(ROADMAP.md queue 1, {item})")
+from htr_vt_torch.parallel.mesh import assert_same_on_every_rank
 
 
 @dataclass
@@ -54,9 +42,16 @@ def create_train_state(cfg: ExperimentConfig, device,
     ``cfg.model.ed_vocab_size``, which the trainer sets from its
     tokenizer), its EMA copy, and AdamW over every parameter. ``generator``
     stays in the state for masking and dropout, so it must live on
-    ``device``."""
-    check_ported(cfg)
+    ``device``.
+
+    Under data parallelism every rank calls this with one seed: the
+    weights and the generator must agree on every rank, since the ranks
+    then draw one global mask (``parallel/mesh.py:rank_rows``) and apply
+    one averaged gradient. One checksum all-reduce holds them to it."""
     model = build_model(cfg.model, device=device, generator=generator)
+    assert_same_on_every_rank(list(model.state_dict().values())
+                              + [generator.get_state()],
+                              "the initial weights or the generator's state")
     ema_model = copy.deepcopy(model)
     ema_model.requires_grad_(False)
     optimizer = make_base_optimizer(model.parameters(), cfg.optim)

@@ -13,10 +13,14 @@ A pass's loss is one masked forward's, or with ``cfg.train.tri_masked``
 the mean over the three forwards of ``TRI_MASK_MODES`` (the tri-masked MMS
 trainer), the BN statistics moving through them in order. With the SGM
 head on and an SGM batch, a forward's loss is ``ctc_lambda * CTC + gate *
-sgm_lambda * SGM``, the gate 0 before ``sgm.warmup_iters`` steps.
+sgm_lambda * SGM``, the gate 0 before ``sgm.warmup_iters`` steps. With
+``cfg.train.grad_accum`` = g a pass runs g microbatches in turn; under data
+parallelism each pass's gradient is averaged over the ranks
+(``pass_loss_and_grads``).
 
 On a CUDA device each forward runs the CTC alpha kernel and its backward
-the beta kernel: two launches of each per step, six when tri-masked. An
+the beta kernel: two launches of each per step, six when tri-masked, g
+times that under ``grad_accum``. An
 encoder-decoder (``cfg.model.model_type``) trains on its teacher-forced
 cross-entropy instead and runs no CTC; ``eval_step_ed`` evaluates it.
 """
@@ -35,7 +39,8 @@ from htr_vt_torch.optim.ema import ema_update
 from htr_vt_torch.optim.sam import (clip_by_global_norm_, sam_perturb, set_lr,
                                     zeros_for_unused)
 from htr_vt_torch.optim.schedule import warmup_cosine_lr
-from htr_vt_torch.train.state import TrainState, check_ported
+from htr_vt_torch.parallel.mesh import all_reduce_mean_, world_size
+from htr_vt_torch.train.state import TrainState
 
 
 # The tri-masked trainer's (mode, ratio) forwards (step.py:34).
@@ -87,15 +92,10 @@ def _grads(loss: torch.Tensor, params) -> list:
                                                         allow_unused=True))
 
 
-def pass_loss_and_grads(state: TrainState, batch: Mapping[str, torch.Tensor],
-                        params) -> Tuple[torch.Tensor, Dict[str, torch.Tensor], list]:
-    """One SAM pass's loss, its terms and the gradient at the current
-    weights (``make_loss_fn``, ``step.py:87-109``). Tri-masked: the mean of
-    the three ``TRI_MASK_MODES`` forwards, run in order (each moves the BN
-    statistics), each backward right after its forward so that one
-    forward's activations are held at a time; the gradients of the three
-    thirds are summed, which is the gradient of the mean. The terms are the
-    forwards' means too."""
+def _masked_pass(state: TrainState, batch: Mapping[str, torch.Tensor], params
+                 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor], list]:
+    """One batch's loss, terms and gradient: one masked forward, or the
+    tri-masked mean of three."""
     if not state.cfg.train.tri_masked:
         loss, terms = forward_loss(state, batch)
         return loss, terms, _grads(loss, params)
@@ -114,15 +114,81 @@ def pass_loss_and_grads(state: TrainState, batch: Mapping[str, torch.Tensor],
     return total / k, terms, grads
 
 
+def micro_batches(batch: Mapping[str, torch.Tensor], grad_accum: int) -> list:
+    """``grad_accum`` contiguous slices of every batch key (image, labels,
+    SGM and ED arrays); a batch that does not divide raises."""
+    b = batch["image"].shape[0]
+    if b % grad_accum:
+        raise ValueError(f"batch size {b} not divisible by grad_accum={grad_accum}")
+    m = b // grad_accum
+    return [{k: v[i * m:(i + 1) * m] for k, v in batch.items()}
+            for i in range(grad_accum)]
+
+
+def pass_loss_and_grads(state: TrainState, batch: Mapping[str, torch.Tensor],
+                        params) -> Tuple[torch.Tensor, Dict[str, torch.Tensor], list]:
+    """One SAM pass's loss, its terms and the gradient at the current
+    weights (``make_loss_fn``, ``step.py:87-109``). Tri-masked: the mean of
+    the three ``TRI_MASK_MODES`` forwards, run in order (each moves the BN
+    statistics), each backward right after its forward so that one
+    forward's activations are held at a time; the gradients of the three
+    thirds are summed, which is the gradient of the mean. The terms are the
+    forwards' means too.
+
+    ``cfg.train.grad_accum`` = g > 1 (``_make_accum_grad_fn``,
+    ``step.py:112-145``): the batch is cut into g contiguous microbatches
+    (``micro_batches``), each run forward and backward in turn, so one
+    microbatch's activations are live at a time; the BN statistics advance
+    once a microbatch, in order; the gradient is the sum over microbatches
+    divided by g, the loss and the terms the microbatches' means. Under
+    data parallelism each rank cuts its own rows, the only split that moves
+    no rows between ranks: microbatch i is rank 0's slice i, rank 1's slice
+    i, ..., which is JAX's microbatch i of a row-permuted global batch (JAX
+    cuts the global batch; the mean loss does not depend on row order).
+
+    Under data parallelism the pass's gradient is then mean-all-reduced
+    once (never a microbatch at a time), and the loss and the terms too:
+    with the BN sums summed over ranks in the forward and in its backward,
+    this is the gradient of the global batch's mean loss, as JAX's
+    replicated program computes it, and every rank reads the same
+    values."""
+    g = state.cfg.train.grad_accum
+    if g == 1:
+        loss, terms, grads = _masked_pass(state, batch, params)
+    else:
+        total, terms, grads = 0.0, {}, None
+        for mb in micro_batches(batch, g):
+            loss, parts, gi = _masked_pass(state, mb, params)
+            if grads is None:
+                grads = list(gi)
+            else:
+                torch._foreach_add_(grads, gi)
+            del gi
+            total = total + loss.detach()
+            for name, v in parts.items():
+                terms[name] = terms.get(name, 0.0) + v.detach()
+        torch._foreach_div_(grads, float(g))
+        loss = total / g
+        terms = {name: v / g for name, v in terms.items()}
+    if world_size() > 1:
+        names = list(terms)
+        scalars = torch.stack([loss.detach()] + [terms[n] for n in names])
+        all_reduce_mean_(grads + [scalars])
+        loss, terms = scalars[0], dict(zip(names, scalars[1:]))
+    return loss, terms, grads
+
+
 def train_step(state: TrainState, batch: Mapping) -> Dict[str, torch.Tensor]:
     """One full SAM iteration; updates ``state`` in place.
 
     batch: ``image`` [B, H, W, 1] float32, ``labels`` [B, Lmax] and
     ``label_lengths`` [B] int, tensors or numpy arrays (moved to the
-    model's device). Returns 0-d tensors on the device, not synchronised:
-    ``loss`` (pass 1), ``loss_second`` and ``grad_norm``."""
+    model's device): under data parallelism this rank's rows of the global
+    batch. Returns 0-d tensors on the device, not synchronised: ``loss``
+    (pass 1), ``loss_second`` and ``grad_norm``, global values on every
+    rank (``pass_loss_and_grads``). SAM's perturbation, its norm and the
+    clip read the pass's mean gradient, whatever ``grad_accum``."""
     cfg = state.cfg
-    check_ported(cfg)
     opt = cfg.optim
     model = state.model
     params = list(model.parameters())

@@ -880,6 +880,72 @@ def test_fully_fused_train_step_on_the_card_matches_the_cpu(cuda):
         torch.testing.assert_close(got[key].cpu(), want[key], rtol=1e-4, atol=1e-4)
 
 
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("remat,accum", [("all", 1), ("blocks", 1), ("none", 2), ("all", 2)])
+def test_memory_levers_on_the_card_give_the_plain_bits(cuda, remat, accum):
+    """The fully fused tiny f32 step under remat and grad_accum. remat
+    recomputes the stem's forward kernels (under "all": K2 64, K3f 4, K4f 36
+    a step, the backward kernels as without it) and must give each kernel's
+    bits again: under ``torch.use_deterministic_algorithms`` (at this f32
+    config cuBLAS and cuDNN otherwise give two plain steps other bits) the
+    step equals the plain one bit for bit. grad_accum = g runs every kernel
+    g times on a batch g times smaller (K1a, K1b 2g a step); against the
+    plain step on a batch of two equal halves (equal BN statistics) within
+    the float32 bars of the step above."""
+    import dataclasses
+    import os
+
+    from htr_vt_torch import ExperimentConfig, MaskConfig, OptimConfig, TrainConfig
+    from htr_vt_torch.ops import conv_fused as cf
+    from htr_vt_torch.ops import pool_fused as pf
+    from htr_vt_torch.ops.bn_stats import bn_stats
+    from htr_vt_torch.train.state import create_train_state
+    model_cfg = dataclasses.replace(
+        _fused(ModelConfig(nb_cls=8, img_size=(64, 128), embed_dim=64, depth=2,
+                           num_heads=2, compute_dtype="float32",
+                           masking=MaskConfig(mode="none"))), conv_impl="pallas")
+    plain_cfg = ExperimentConfig(model=model_cfg, optim=OptimConfig(max_lr=1e-3, warmup_iters=2))
+    cfg = dataclasses.replace(plain_cfg, model=dataclasses.replace(model_cfg, remat=remat),
+                              train=TrainConfig(grad_accum=accum))
+    rng = np.random.default_rng(12)
+    _, labels, lengths = ctc_case(12, 2, 32, 8, 10)
+    half = {"image": rng.random((2, 64, 128, 1), dtype=np.float32), "labels": labels,
+            "label_lengths": lengths}
+    batch = {k: np.concatenate([v] * accum) for k, v in half.items()}
+    states = [create_train_state(c, cuda, torch.Generator(device=cuda).manual_seed(5))
+              for c in (plain_cfg, cfg)]
+    counters = (cf.conv3x3_bn_relu_fwd, cf.conv3x3_bn_relu_dgrad,
+                cf.conv3x3_bn_relu_wgrad, bn_stats, pf.pool_bn_relu_fwd,
+                pf.pool_bn_relu_bwd, ctc_cuda.ctc_alpha, ctc_cuda.ctc_beta)
+    env = os.environ.get("CUBLAS_WORKSPACE_CONFIG")
+    os.environ["CUBLAS_WORKSPACE_CONFIG"] = ":4096:8"
+    torch.use_deterministic_algorithms(True)
+    try:
+        want = train_step(states[0], batch)
+        before = [f.launches for f in counters]
+        got = train_step(states[1], batch)
+        torch.cuda.synchronize()
+    finally:
+        torch.use_deterministic_algorithms(False)
+        if env is None:
+            del os.environ["CUBLAS_WORKSPACE_CONFIG"]
+        else:
+            os.environ["CUBLAS_WORKSPACE_CONFIG"] = env
+    again = 2 if remat == "all" else 1
+    assert [f.launches - b for f, b in zip(counters, before)] == [
+        18 * again * accum, 18 * accum, 18 * accum, 32 * again * accum, 2 * again * accum,
+        2 * accum, 2 * accum, 2 * accum]
+    if accum == 1:
+        for key in ("loss", "loss_second", "grad_norm"):
+            assert torch.equal(got[key], want[key]), key
+        for (k, a), b in zip(states[0].model.state_dict().items(),
+                             states[1].model.state_dict().values()):
+            assert torch.equal(a, b), k
+    else:
+        for key in ("loss", "grad_norm"):
+            torch.testing.assert_close(got[key], want[key], rtol=1e-4, atol=1e-4)
+
 # --- K5: flash attention forward (K5f) and backward (K5dkv, K5dq) ---------------
 # Kernel vs plain version: the same operations and rounding points, float32
 # sums in other orders (mma.sync or FFMA against cuBLAS). float32: within

@@ -473,10 +473,14 @@ def test_load_model_and_encoder_only(runs, tmp_path):
 
 
 def test_fit_refuses_more_than_one_process(tmp_path, monkeypatch):
+    """Several processes train data-parallel now
+    (``tests/test_torch_port_distributed.py``); what ``fit`` refuses is a
+    mesh that does not match the world (its data axis 2 in a world of one)
+    and a multi-process launch without a coordinator."""
     cfg = tiny_experiment(tmp_path)
-    with pytest.raises(NotImplementedError, match="item 12"):
+    with pytest.raises(ValueError, match="mesh_shape"):
         loop.fit(dataclasses.replace(cfg, parallel=dataclasses.replace(
             cfg.parallel, mesh_shape=(2,))), device="cpu")
     monkeypatch.setenv("HTRVT_NUM_PROCESSES", "2")
-    with pytest.raises(NotImplementedError, match="item 12"):
+    with pytest.raises(ValueError, match="HTRVT_COORDINATOR"):
         loop.fit(cfg, device="cpu")

@@ -329,9 +329,24 @@ def test_seeded_init_follows_the_jax_schemes():
                                       dict(model_type="encoder_decoder", remat="blocks"),
                                       dict(stem="van", remat="all"), dict(remat="all")])
 def test_build_model_rejects_unported_recipes(override):
-    """remat (item 13) raises on every model class (int8, item 11, builds:
-    ``tests/test_torch_port_quant.py``)."""
+    """remat builds on every model class, and a train forward with it (and
+    its gradient) equals the plain model's on the same weights and draws:
+    a recompute changes no value (Swin and SVTR ignore remat, as JAX's
+    do). The step-level checks against JAX are in
+    ``tests/test_torch_port_memory_levers*.py``."""
     import dataclasses
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        build_model(port_config(dataclasses.replace(TINY, ed_vocab_size=10, **override)),
-                    device="cpu")
+    cfg = port_config(dataclasses.replace(TINY, ed_vocab_size=10, **override))
+    model = build_model(cfg, device="cpu", generator=torch.Generator().manual_seed(1))
+    plain = build_model(dataclasses.replace(cfg, remat="none"), device="cpu")
+    plain.load_state_dict(model.state_dict())
+    x = torch.from_numpy(np.random.default_rng(4).random((2, 64, 128, 1), dtype=np.float32))
+    args = (x, torch.ones((2, 5), dtype=torch.long)) if cfg.model_type != "ctc" else (x,)
+    outs = []
+    for m in (model, plain):
+        out = m(*args, train=True, generator=torch.Generator().manual_seed(2))
+        grads = torch.autograd.grad(out.float().square().mean(), list(m.parameters()),
+                                    allow_unused=True)
+        outs.append((out, grads))
+    assert torch.equal(outs[0][0], outs[1][0])
+    for g, h in zip(outs[0][1], outs[1][1]):
+        assert (g is None and h is None) or torch.equal(g, h)

@@ -159,15 +159,27 @@ def test_span_mask_statistics_match_jax(length, ratio, span):
 
 
 @pytest.mark.parametrize("remat", ["blocks", "all"])
-def test_remat_is_refused_until_it_is_ported(remat):
-    """``remat`` is not ported (ROADMAP.md queue 1, item 13): building a
-    model or a train state with it raises instead of running without it."""
+def test_remat_is_refused_until_it_is_ported(remat, weights):
+    """``remat`` is ported: a train state with it takes two SAM steps
+    (span masking drawn from the state's generator) that give the plain
+    state's losses, weights, EMA and AdamW state bit for bit
+    (``tests/test_torch_port_memory_levers.py`` holds the step against
+    JAX's)."""
     model = dataclasses.replace(TINY, remat=remat)
-    with pytest.raises(NotImplementedError, match="item 13: memory levers \\(remat\\)"):
-        build_model(port_config(model), device="cpu")
-    with pytest.raises(NotImplementedError, match="item 13: memory levers \\(remat\\)"):
-        create_train_state(port_config(dataclasses.replace(CFG, model=model)), "cpu",
-                           torch.Generator().manual_seed(0))
+    states = [_port_state(weights)]
+    states.append(create_train_state(port_config(dataclasses.replace(CFG, model=model)),
+                                     "cpu", torch.Generator().manual_seed(0)))
+    states[1].model.load_state_dict(states[0].model.state_dict())
+    states[1].ema_model.load_state_dict(states[0].ema_model.state_dict())
+    assert states[1].model.cfg.remat == remat
+    metrics = [[{k: float(v) for k, v in train_step(st, _batch(40 + i)).items()}
+                for i in range(2)] for st in states]
+    assert metrics[0] == metrics[1]
+    for a, b in zip(states[0].model.state_dict().values(),
+                    states[1].model.state_dict().values()):
+        assert torch.equal(a, b)
+    for a, b in zip(states[0].optimizer.state.values(), states[1].optimizer.state.values()):
+        assert all(torch.equal(a[k], b[k]) for k in a)
 
 
 def test_build_keep_mask_modes():

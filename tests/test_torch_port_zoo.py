@@ -323,10 +323,12 @@ def test_build_model_still_refuses_what_waits(override):
     """The zoo's last models build (their JAX checks live in
     ``test_torch_port_zoo_standalone.py`` and ``test_torch_port_ed.py``),
     at ``quant="int8"`` too, as JAX builds them (int8 reaches only the
-    ResNet18 stem and the vit / conformer / squeezeformer linears); what
-    still waits on each, remat (item 13), raises."""
+    ResNet18 stem and the vit / conformer / squeezeformer linears); nothing
+    waits on any of them now: remat builds too (HTRVT and the
+    encoder-decoder's trunk wrap their blocks; Swin and SVTR ignore it, as
+    JAX's do)."""
     cfg = port_config(jax_preset(dataclasses.replace(TINY, ed_vocab_size=10, **override)))
     assert build_model(cfg, device="cpu") is not None
     assert build_model(dataclasses.replace(cfg, quant="int8"), device="cpu") is not None
-    with pytest.raises(NotImplementedError, match="item 13"):
-        build_model(dataclasses.replace(cfg, remat="blocks"), device="cpu")
+    model = build_model(dataclasses.replace(cfg, remat="blocks"), device="cpu")
+    assert model.cfg.remat == "blocks"
