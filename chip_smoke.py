@@ -228,6 +228,19 @@ non-zero before the last line:
    ``DP_BARS``; the ranks equal to each other; each rank's launches); then
    ``loop.fit`` (2 steps and an eval) in a world of one over NCCL, and one
    all-reduce of a device tensor on that group.
+23. multiwidth: ``cli/train_multiwidth.py:run`` on in-memory lines (no
+   cv2) at 512, 1024 and 2048 px, bs 64, the flagship fully fused, one
+   TrainState: ``MW_STEPS_PER_WIDTH`` steps a width taken in turn, each
+   step's launches held to ``lever_launches`` (no K5 at 512; 2 x depth
+   K5f, K5dkv and K5dq at 1024 and 2048), one eval a bucket (launches
+   counted) and one checkpoint; ms a step per width and the peak memory.
+24. tensor parallel: two processes (``--tensor-parallel-rank``) share the
+   card over gloo at ``mesh_shape=(1, 2)``, each holding half of every
+   block's heads and MLP units (K5 on 3 heads), the flagship fully fused at
+   1024 px and bs 64, 3 steps and one ``validate`` in bf16 and in float32
+   (under deterministic algorithms), against one process on the same
+   weights, batch and masks at ``TP_BARS``; the ranks' whole states equal;
+   each rank's launches and ms a step.
 
 Kernel times (phases 2, 3, 4 and 11) are read two ways: ``median_ms``, one
 wrapper call between two CUDA events (host work in the wrapper included;
@@ -273,8 +286,8 @@ from htr_vt_torch.cli.serve import (beam_lm_texts, load_serving_model,  # noqa: 
 from htr_vt_torch.cli.server import BatchWorker  # noqa: E402
 from htr_vt_torch.data.loader import (build_dataset, choose_max_label_len,  # noqa: E402
                                       make_converter)
-from htr_vt_torch.config import (AugmentConfig, DataConfig, SGMConfig,  # noqa: E402
-                                 TrainConfig, config_to_dict)
+from htr_vt_torch.config import (AugmentConfig, DataConfig, ParallelConfig,  # noqa: E402
+                                 SGMConfig, TrainConfig, config_to_dict)
 from htr_vt_torch.decode.lm import NgramScorer  # noqa: E402
 from htr_vt_torch.decode.lm_train import train_ngram_arpa  # noqa: E402
 from htr_vt_torch.deploy import (ServingBundle, export_serving,  # noqa: E402
@@ -393,7 +406,11 @@ FLASH_SHAPES = (("serve1024", (BATCH, 6, 256, 128), False, BOTH),
                 ("train2048_d384", (64, 6, 512, 384), True, (torch.bfloat16,)),
                 ("train2048_d512", (64, 6, 512, 512), True, (torch.bfloat16,)),
                 ("small_d384", (2, 3, 256, 384), True, (torch.float32,)),
-                ("small_d512", (2, 3, 256, 512), True, (torch.float32,)))
+                ("small_d512", (2, 3, 256, 512), True, (torch.float32,)),
+                # a rank's 3 of the 6 heads under a model axis of 2 (phase 24),
+                # the multi-width recipe's training shapes
+                ("tp1024_h3", (64, 3, 256, 128), True, BOTH),
+                ("tp2048_h3", (64, 3, 512, 128), True, BOTH))
 # K5 against its plain version (the bars of tests/test_torch_port_cuda.py):
 # float32, 1e-4 of the value and 1e-5 of the tensor's largest (float32 sums
 # in other orders); bf16, one bf16 ulp of the value (2^-7) and 2^-8 of the
@@ -577,6 +594,28 @@ DP_BARS = {"bfloat16": dict(first_loss=FIT_LOSS_REL, first_grad_norm=2e-2,
                            grad_norm=2e-3,
                            state={"model": 2.5e-4, "ema_model": 2.5e-4, "adamw": 1.0})}
 DP_FIT_STEPS = 2
+# The multi-width recipe (phase 23): its buckets, steps a width (the first of
+# each width warms up), lines a bucket and the eval that follows.
+MW_WIDTHS = (512, 1024, 2048)
+MW_STEPS_PER_WIDTH = 3
+MW_TRAIN_LINES, MW_EVAL_LINES = 2 * WIDE_BATCH, WIDE_BATCH
+# Tensor parallel on the one card (phase 24): TP_RANKS processes at
+# mesh_shape (1, TP_RANKS), each holding half of every block's heads and MLP
+# units, at 1024 px and bs 64, TP_STEPS fully fused steps and one validate,
+# against one process on the same weights, batch and masks; bf16 in default
+# mode, float32 under torch.use_deterministic_algorithms. Bars, written
+# before the first run on the card: the model axis adds each row-sharded
+# product's two float32 partials and rounds once (layers.py:partial_dense),
+# so a bf16 forward is one rounding from one process's, and the sums it
+# reorders are fewer than data parallelism's (only the blocks' products, not
+# the stem's BN sums): DP_BARS, whose readings these should undercut. The
+# validate after the third step: its loss at every step's loss bar, its CER
+# within 0.05 of one process's (the weights are random, so many frames'
+# argmax sits near a tie that the step's noise can flip; a CPU rehearsal at
+# embed 64 in bf16 read 0.029).
+TP_RANKS, TP_STEPS, TP_TIMEOUT, TP_WIDTH = 2, 3, 600, 1024
+TP_BARS = DP_BARS
+TP_CER_GAP = 0.05
 
 
 def per_step_launches(switches, forwards=1):
@@ -2529,16 +2568,16 @@ def phase_sgm_mms_train(device, smi_line):
 
 class LineSet:
     """Seeded in-memory lines for ``fit`` on a machine that cannot render or
-    read line images (no cv2, no PIL): uint8 [64, 512] "handwriting"
-    (``line_images``) with random texts of 1-96 characters of ``alphabet``,
-    as ``train_batch`` labels them."""
+    read line images (no cv2, no PIL): uint8 [64, width] "handwriting"
+    (``line_images``) with random texts of ``lengths`` (1-96 by default)
+    characters of ``alphabet``, as ``train_batch`` labels them."""
 
-    def __init__(self, n, alphabet, seed):
+    def __init__(self, n, alphabet, seed, width=512, lengths=(1, LMAX)):
         rng = np.random.default_rng(seed)
-        self.images = np.uint8(np.clip(line_images(n, rng)[..., 0] * 255.0, 0, 255))
+        self.images = np.uint8(np.clip(line_images(n, rng, width)[..., 0] * 255.0, 0, 255))
         self.alphabet = sorted(alphabet)
         self.labels = ["".join(alphabet[i] for i in rng.integers(0, len(alphabet), m))
-                       for m in rng.integers(1, LMAX + 1, n)]
+                       for m in rng.integers(lengths[0], lengths[1] + 1, n)]
 
     def __len__(self):
         return len(self.labels)
@@ -3919,6 +3958,56 @@ def dp_worker(out_dir):
     torch.distributed.destroy_process_group()
 
 
+def run_ranks(flag, out_dir, n, timeout, tag):
+    """``python3 chip_smoke.py <flag> out_dir`` as n ranks of one gloo group
+    (the ``HTRVT_*`` launch), each under ``timeout``; the ``rank{r}.pt``
+    each saved in ``out_dir``. A rank that fails or hangs fails the phase
+    with every rank's output."""
+    with socket.socket() as sock:
+        sock.bind(("", 0))
+        port = sock.getsockname()[1]
+    procs = []
+    for rank in range(n):
+        env = dict(os.environ, HTRVT_COORDINATOR=f"localhost:{port}",
+                   HTRVT_NUM_PROCESSES=str(n), HTRVT_PROCESS_ID=str(rank))
+        procs.append(subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), flag, out_dir],
+            env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+    logs, failed = [], False
+    for rank, p in enumerate(procs):
+        try:
+            out, _ = p.communicate(timeout=timeout)
+        except subprocess.TimeoutExpired:
+            for q in procs:
+                q.kill()
+            out = p.communicate()[0] + f"\n[rank {rank}: timed out]"
+            failed = True
+        failed |= p.returncode != 0
+        logs.append(f"--- rank {rank} (rc {p.returncode}) ---\n{out[-4000:]}")
+    if failed:
+        raise AssertionError(f"[{tag}] a rank failed:\n" + "\n".join(logs))
+    return [torch.load(os.path.join(out_dir, f"rank{r}.pt"), weights_only=False)
+            for r in range(n)]
+
+
+def held_to_one(got, ref, bars):
+    """Ranks' run (``got``: metrics a step and the state) against one
+    process's at ``bars`` (DP_BARS' keys): (within the bars, the relative
+    gaps a step, ``compare_states``)."""
+    held = compare_states(got["state"], ref["state"], [m["loss"] for m in got["metrics"]],
+                          [m["loss"] for m in ref["metrics"]])
+    rel = {k: [abs(a[k] - b[k]) / abs(b[k]) for a, b in zip(got["metrics"], ref["metrics"])]
+           for k in ("loss", "loss_second", "grad_norm")}
+    ok = (max(rel["loss"] + rel["loss_second"]) <= bars["loss"]
+          and max(rel["grad_norm"]) <= bars["grad_norm"]
+          and max(rel["loss"][0], rel["loss_second"][0]) <= bars["first_loss"]
+          and rel["grad_norm"][0] <= bars["first_grad_norm"]
+          and held["generator_equal"] and held["step"][0] == held["step"][1]
+          and all(held[f"{p}_l2"] <= bar for p, bar in bars["state"].items())
+          and all(held[f"{p}_leaf"][0] <= FIT_LEAF_SHARE for p in bars["state"]))
+    return ok, rel, held
+
+
 def phase_data_parallel(device, smi_line):
     """Two ranks on the one card over gloo (``dp_worker``, bs 64 each, the
     fully fused step, bf16 and float32) against one process at bs 128 on
@@ -3950,31 +4039,7 @@ def phase_data_parallel(device, smi_line):
             launches = {k: launches[k] + counts[k] for k in launches}
 
         # --- two ranks on the card over gloo -----------------------------------
-        with socket.socket() as sock:
-            sock.bind(("", 0))
-            port = sock.getsockname()[1]
-        procs = []
-        for rank in range(DP_RANKS):
-            env = dict(os.environ, HTRVT_COORDINATOR=f"localhost:{port}",
-                       HTRVT_NUM_PROCESSES=str(DP_RANKS), HTRVT_PROCESS_ID=str(rank))
-            procs.append(subprocess.Popen(
-                [sys.executable, os.path.abspath(__file__), "--data-parallel-rank", tmp],
-                env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
-        logs, failed = [], False
-        for rank, p in enumerate(procs):
-            try:
-                out, _ = p.communicate(timeout=DP_TIMEOUT)
-            except subprocess.TimeoutExpired:
-                for q in procs:
-                    q.kill()
-                out = p.communicate()[0] + f"\n[rank {rank}: timed out]"
-                failed = True
-            failed |= p.returncode != 0
-            logs.append(f"--- rank {rank} (rc {p.returncode}) ---\n{out[-4000:]}")
-        if failed:
-            raise AssertionError("[data parallel] a rank failed:\n" + "\n".join(logs))
-        ranks = [torch.load(os.path.join(tmp, f"rank{r}.pt"), weights_only=False)
-                 for r in range(DP_RANKS)]
+        ranks = run_ranks("--data-parallel-rank", tmp, DP_RANKS, DP_TIMEOUT, "data parallel")
         say("[data parallel] gloo took the CUDA tensors of all_reduce, all_gather, "
             "broadcast and barrier on both ranks")
         for dtype in DP_DTYPES:
@@ -3988,19 +4053,7 @@ def phase_data_parallel(device, smi_line):
                 if r[dtype]["launches"] != want:
                     raise AssertionError(f"[data parallel] {dtype}: rank {r['world'][0]} "
                                          f"launched {r[dtype]['launches']}; expected {want}")
-            held = compare_states(got["state"], ref["state"],
-                                  [m["loss"] for m in got["metrics"]],
-                                  [m["loss"] for m in ref["metrics"]])
-            rel = {k: [abs(a[k] - b[k]) / abs(b[k]) for a, b in
-                       zip(got["metrics"], ref["metrics"])]
-                   for k in ("loss", "loss_second", "grad_norm")}
-            ok = (max(rel["loss"] + rel["loss_second"]) <= bars["loss"]
-                  and max(rel["grad_norm"]) <= bars["grad_norm"]
-                  and max(rel["loss"][0], rel["loss_second"][0]) <= bars["first_loss"]
-                  and rel["grad_norm"][0] <= bars["first_grad_norm"]
-                  and held["generator_equal"] and held["step"][0] == held["step"][1]
-                  and all(held[f"{p}_l2"] <= bar for p, bar in bars["state"].items())
-                  and all(held[f"{p}_leaf"][0] <= FIT_LEAF_SHARE for p in bars["state"]))
+            ok, rel, held = held_to_one(got, ref, bars)
             say(f"[data parallel {dtype}] {DP_RANKS} ranks on one card over gloo, bs "
                 f"{BATCH // DP_RANKS} each, {DP_STEPS} fully fused steps, against one "
                 f"process at bs {BATCH} on the same weights, batch and masks: relative gaps "
@@ -4067,6 +4120,285 @@ def phase_data_parallel(device, smi_line):
     return launches, rec
 
 
+def phase_multiwidth(device, smi_line):
+    """``cli/train_multiwidth.py:run`` on in-memory lines at MW_WIDTHS, bs
+    64, the flagship fully fused (augmentation off: no cv2 here): each
+    step's launches held to ``lever_launches`` at its width, the eval of
+    every bucket and the checkpoint; ms a step per width and the peak."""
+    from htr_vt_torch.cli import train_multiwidth as mw
+    t_phase = time.perf_counter()
+    alphabet = [chr(c) for c in range(33, 33 + ModelConfig().nb_cls - 1)]
+    buckets = [{"w": w, **{split: LineSet(n, alphabet, SEED + 120 + 2 * i + k, w,
+                                          mw.len_range(w))
+                           for k, (split, n) in enumerate((("train", MW_TRAIN_LINES),
+                                                           ("val", MW_EVAL_LINES)))}}
+               for i, w in enumerate(MW_WIDTHS)]
+    root = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build")
+    os.makedirs(root, exist_ok=True)
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_mw_", dir=root)
+    iters = MW_STEPS_PER_WIDTH * len(MW_WIDTHS)
+    args = mw.build_parser().parse_args([
+        "--iters", str(iters), "--bs", str(WIDE_BATCH),
+        "--widths", ",".join(str(w) for w in MW_WIDTHS),
+        "--train-size", str(MW_TRAIN_LINES), "--eval-size", str(MW_EVAL_LINES),
+        "--eval-every", str(iters), "--out", tmp])
+    cfg = mw.base_config(args)
+    cfg = dataclasses.replace(cfg, model=dataclasses.replace(cfg.model, **FULLY_FUSED),
+                              data=dataclasses.replace(cfg.data,
+                                                       augment=AugmentConfig(enable=False)))
+    depth = cfg.model.depth
+    # K5 where a block's N = w / 4 tokens reach 256 (models/vit.py:resolve_attn_impl)
+    want = {w: {**dict.fromkeys(COUNTERS, 0),
+                **lever_launches("none", 1, flash=2 * depth if w // 4 >= 256 else 0)}
+            for w in MW_WIDTHS}
+    steps = []
+    plain_step = mw.train_step
+
+    def counted(state, batch):
+        w = batch["image"].shape[2]
+        before = read_counts()
+        start, end = _events()
+        start.record()
+        m = plain_step(state, batch)
+        end.record()
+        end.synchronize()
+        after = read_counts()
+        got = {k: after[k] - before[k] for k in after}
+        if got != want[w]:
+            raise AssertionError(f"[multiwidth] a step at {w} px launched {got}; "
+                                 f"expected {want[w]}")
+        steps.append((w, start.elapsed_time(end), {k: v.item() for k, v in m.items()}))
+        return m
+
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    mw.train_step = counted
+    reset_counts()
+    try:
+        summary = mw.run(buckets, cfg, args, device)
+        launches = read_counts()
+        peak = torch.cuda.max_memory_allocated()
+        with open(os.path.join(tmp, "multiwidth_summary.json")) as f:
+            written = json.load(f)
+        saved = CheckpointManager(tmp).meta(os.path.join(tmp, "best_CER"))
+    finally:
+        mw.train_step = plain_step
+        shutil.rmtree(tmp, ignore_errors=True)
+    if [w for w, _, _ in steps] != [MW_WIDTHS[i % len(MW_WIDTHS)] for i in range(iters)]:
+        raise AssertionError(f"[multiwidth] step widths {[w for w, _, _ in steps]}")
+    if not all(math.isfinite(v) for _, _, m in steps for v in m.values()):
+        raise AssertionError(f"[multiwidth] metrics {[m for _, _, m in steps]}")
+    per_eval = per_eval_launches(FULLY_FUSED)
+    n_eval = math.ceil(MW_EVAL_LINES / WIDE_BATCH)
+    evals = {k: sum(n_eval * (per_eval.get(k, 0) + (
+        depth if k == "flash_attention_fwd" and w // 4 >= 256 else 0)) for w in MW_WIDTHS)
+        for k in COUNTERS}
+    want_all = {k: sum(want[w][k] for w, _, _ in steps) + evals[k] for k in COUNTERS}
+    if launches != want_all:
+        raise AssertionError(f"[multiwidth] run launched {launches}; expected {want_all}")
+    final = summary["final"]
+    if written != summary or saved.get("widths") != list(MW_WIDTHS) or \
+            saved.get("history") != summary["history"] or \
+            not all(math.isfinite(final[str(w)]["cer"]) for w in MW_WIDTHS):
+        raise AssertionError(f"[multiwidth] summary {summary}, checkpoint meta {saved}")
+    rec = {"peak_mib": peak / 2**20, "launches": launches}
+    for w in MW_WIDTHS:
+        ms = [t for sw, t, _ in steps if sw == w]
+        rec[w] = dict(ms=statistics.median(ms[1:]), first_ms=ms[0],
+                      cer=final[str(w)]["cer"],
+                      eval_ms_per_batch=final[str(w)]["eval_ms_per_batch"],
+                      launches_a_step=want[w])
+        say(f"[multiwidth {w}] {len(ms) - 1} steps after 1 warm-up: median "
+            f"{rec[w]['ms']:.3f} ms/step ({WIDE_BATCH / rec[w]['ms'] * 1e3:.1f} img/s; "
+            f"first {ms[0]:.3f}), launches a step {want[w]} (as predicted); eval "
+            f"{final[str(w)]['eval_ms_per_batch']:.1f} ms a batch (host clock), CER "
+            f"{final[str(w)]['cer']:.4f}")
+    say(f"[multiwidth] train_multiwidth.run: {iters} steps over {list(MW_WIDTHS)} px, one "
+        f"TrainState, bs {WIDE_BATCH}, fully fused, one eval a bucket and one checkpoint "
+        f"(best_CER over the mean CER); losses "
+        + " ".join(f"{m['loss']:.3f}" for _, _, m in steps)
+        + f"; launches {launches}; peak memory {peak / 2**20:.1f} MiB; phase "
+        f"{time.perf_counter() - t_phase:.1f} s; {smi_line}")
+    return launches, rec
+
+
+def _tp_cfg(dtype, mesh_shape=None):
+    return ExperimentConfig(model=ModelConfig(compute_dtype=dtype, masking=MaskConfig(
+        mode="span", ratio=0.4, max_span_length=8), **FULLY_FUSED), optim=OptimConfig(),
+        parallel=ParallelConfig(mesh_shape=mesh_shape))
+
+
+def _tp_inputs(device):
+    """The steps' batch and the validate's two batches (the second with 59
+    valid rows) at TP_WIDTH px, and the codec."""
+    rng = np.random.default_rng(SEED + 111)
+    batch = wide_batch(WIDE_BATCH, TP_WIDTH, rng, device)
+    alphabet = [chr(c) for c in range(33, 33 + ModelConfig().nb_cls - 1)]
+    val = []
+    for n_valid in (WIDE_BATCH, WIDE_BATCH - 5):
+        b = wide_batch(WIDE_BATCH, TP_WIDTH, rng, device)
+        labels, lengths = b["labels"].cpu().numpy(), b["label_lengths"].cpu().numpy()
+        val.append((b, n_valid, ["".join(alphabet[c - 1] for c in row[:n])
+                                 for row, n in zip(labels[:n_valid], lengths[:n_valid])]))
+    return batch, val, CTCLabelConverter(alphabet)
+
+
+def _tp_want(depth):
+    """(launches a step, launches of the validate) at TP_WIDTH px: the
+    fully fused step with K5 on every block, whatever the heads a rank
+    holds."""
+    step = {**dict.fromkeys(COUNTERS, 0), **lever_launches("none", 1, flash=2 * depth)}
+    per_eval = per_eval_launches(FULLY_FUSED)
+    val = {k: 2 * (per_eval.get(k, 0) + (depth if k == "flash_attention_fwd" else 0))
+           for k in COUNTERS}
+    return step, val
+
+
+def _tp_run(dtype, mesh_shape, device):
+    """TP_STEPS counted steps and one counted validate from the seeded state
+    (deterministic algorithms for a dtype of DP_DETERMINISTIC): metrics,
+    times, launches, the validate's (loss, CER, WER) and the state in the
+    one-process layout on the host."""
+    from htr_vt_torch.parallel import mesh
+    batch, val, converter = _tp_inputs(device)
+    state = create_train_state(_tp_cfg(dtype, mesh_shape), device,
+                               torch.Generator(device=device).manual_seed(SEED + 110))
+    want_step, want_val = _tp_want(state.cfg.model.depth)
+    times, metrics = [], []
+    with (deterministic_algorithms() if dtype in DP_DETERMINISTIC
+          else contextlib.nullcontext()):
+        for _ in range(TP_STEPS):
+            before = read_counts()
+            start, end = _events()
+            start.record()
+            m = train_step(state, batch)
+            end.record()
+            end.synchronize()
+            times.append(start.elapsed_time(end))
+            after = read_counts()
+            got = {k: after[k] - before[k] for k in after}
+            if got != want_step:
+                raise AssertionError(f"[tensor parallel {dtype}] a step at {mesh_shape} "
+                                     f"launched {got}; expected {want_step}")
+            metrics.append({k: v.item() for k, v in m.items()})
+        reset_counts()
+        result = validate(state.ema_model, val, converter)
+        if read_counts() != want_val:
+            raise AssertionError(f"[tensor parallel {dtype}] validate at {mesh_shape} "
+                                 f"launched {read_counts()}; expected {want_val}")
+    host = lambda sd: {k: v.detach().cpu() for k, v in sd.items()}  # noqa: E731
+    file = {"model": host(mesh.gather_state_dict(state.model)),
+            "ema_model": host(mesh.gather_state_dict(state.ema_model)),
+            "optimizer": {"state": {i: host(st) for i, st in mesh.gather_optimizer_state(
+                state.model, state.optimizer)["state"].items()}},
+            "step": state.step, "generator": state.generator.get_state()}
+    heads = {m.num_heads // m.model_shards for m in state.model.modules()
+             if hasattr(m, "num_heads") and hasattr(m, "model_shards")}
+    del state
+    torch.cuda.empty_cache()
+    return {"metrics": metrics, "times": times, "val": result[:3], "state": file,
+            "heads": sorted(heads), "launches": {k: TP_STEPS * want_step[k] + want_val[k]
+                                                 for k in COUNTERS}}
+
+
+def tp_worker(out_dir):
+    """One rank of phase 24 (``python3 chip_smoke.py --tensor-parallel-rank
+    DIR``, launched by ``phase_tensor_parallel`` with the ``HTRVT_*``
+    variables): half of every block's heads and MLP units at
+    ``mesh_shape=(1, TP_RANKS)``, over a gloo group that shares card 0 with
+    the other rank, in each of DP_DTYPES."""
+    from htr_vt_torch.parallel import mesh
+    device = torch.device("cuda", 0)
+    torch.cuda.set_device(device)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    mesh.maybe_initialize_distributed(backend="gloo")
+    mesh.init_mesh((1, TP_RANKS))
+    _build.library()
+    out = {"world": mesh.world(), "data": mesh.data_world(), "model": mesh.model_world()}
+    for dtype in DP_DTYPES:
+        out[dtype] = _tp_run(dtype, (1, TP_RANKS), device)
+    torch.save(out, os.path.join(out_dir, f"rank{out['world'][0]}.pt"))
+    mesh.barrier()
+    torch.distributed.destroy_process_group()
+
+
+def phase_tensor_parallel(device, smi_line):
+    """Two ranks on the one card over gloo at ``mesh_shape=(1, 2)``
+    (``tp_worker``: 3 heads and half the MLP of every block each, the
+    fully fused flagship at TP_WIDTH px, bs 64, bf16 and float32) against
+    one process on the same weights, batch and masks, held at TP_BARS; the
+    ranks' whole states equal; each rank's launches (K5 on 3 heads) and ms
+    a step."""
+    t_phase = time.perf_counter()
+    rec = {}
+    root = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build")
+    os.makedirs(root, exist_ok=True)
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_tp_", dir=root)
+    launches = dict.fromkeys(COUNTERS, 0)
+    try:
+        one = {}
+        for dtype in DP_DTYPES:
+            reset_counts()
+            one[dtype] = _tp_run(dtype, None, device)
+            launches = {k: launches[k] + one[dtype]["launches"][k] for k in COUNTERS}
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        ranks = run_ranks("--tensor-parallel-rank", tmp, TP_RANKS, TP_TIMEOUT,
+                          "tensor parallel")
+        if [(r["data"], r["model"]) for r in ranks] != [((0, 1), (m, TP_RANKS))
+                                                         for m in range(TP_RANKS)]:
+            raise AssertionError(f"[tensor parallel] grid {[r['model'] for r in ranks]}")
+        for dtype in DP_DTYPES:
+            got, ref, bars = ranks[0][dtype], one[dtype], TP_BARS[dtype]
+            for r in ranks[1:]:
+                same = r[dtype]["metrics"] == got["metrics"] and all(
+                    torch.equal(v, r[dtype]["state"][part][k])
+                    for part in ("model", "ema_model")
+                    for k, v in got["state"][part].items())
+                if not same:
+                    raise AssertionError(f"[tensor parallel] {dtype}: the ranks' metrics "
+                                         "or whole weights differ")
+            heads = ModelConfig().num_heads
+            if got["heads"] != [heads // TP_RANKS] or ref["heads"] != [heads]:
+                raise AssertionError(f"[tensor parallel] heads a rank {got['heads']}, one "
+                                     f"process {ref['heads']}")
+            ok, rel, held = held_to_one(got, ref, bars)
+            val_loss_rel = abs(got["val"][0] - ref["val"][0]) / abs(ref["val"][0])
+            cer_gap = abs(got["val"][1] - ref["val"][1])
+            ok = ok and val_loss_rel <= bars["loss"] and cer_gap <= TP_CER_GAP
+            say(f"[tensor parallel {dtype}] {TP_RANKS} ranks on one card over gloo at "
+                f"mesh (1, {TP_RANKS}), {got['heads'][0]} heads a rank, bs {WIDE_BATCH} at "
+                f"{TP_WIDTH} px, {TP_STEPS} fully fused steps, against one process on the "
+                "same weights, batch and masks: relative gaps a step "
+                + "; ".join(f"{k} " + " ".join(f"{v:.3e}" for v in vs)
+                            for k, vs in rel.items())
+                + f" (bars: the first step's losses {bars['first_loss']} and grad_norm "
+                f"{bars['first_grad_norm']}, every step's {bars['loss']} and "
+                f"{bars['grad_norm']}; "
+                f"{'deterministic algorithms' if dtype in DP_DETERMINISTIC else 'default mode'}"
+                f"); {gaps(held)}; bars: each part's L2 {bars['state']}, a leaf "
+                f"{FIT_LEAF_SHARE} of its largest value; validate loss {got['val'][0]:.5f} "
+                f"(one process {ref['val'][0]:.5f}, {val_loss_rel:.3e} rel), CER "
+                f"{got['val'][1]:.4f} ({ref['val'][1]:.4f}); launches a rank "
+                f"{got['launches']}; ms a step, rank 0 {statistics.median(got['times']):.3f}"
+                f", one process {statistics.median(ref['times']):.3f}; {smi_line}")
+            if not ok:
+                raise AssertionError(f"[tensor parallel {dtype}] two ranks outside the "
+                                     f"bars: {held}, {rel}, validate {got['val']} "
+                                     f"{ref['val']}")
+            rec[dtype] = dict(rel=rel, held=held, val=got["val"], one_val=ref["val"],
+                              rank_launches=got["launches"],
+                              rank_ms=statistics.median(got["times"]),
+                              one_ms=statistics.median(ref["times"]))
+            launches = {k: launches[k] + got["launches"][k] for k in COUNTERS}
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    say(f"[tensor parallel] phase {time.perf_counter() - t_phase:.1f} s; {smi_line}")
+    return launches, rec
+
+
 def main():
     smi_line, max_sm_mhz = phase_device()
     device = torch.device("cuda", 0)
@@ -4096,12 +4428,14 @@ def main():
     deploy_launches, deploy_rec = phase_deploy_serve(device, smi_line)
     lever_launches_, lever_rec = phase_memory_levers(device, smi_line, full["ms"])
     dp_launches, dp_rec = phase_data_parallel(device, smi_line)
+    mw_launches, mw_rec = phase_multiwidth(device, smi_line)
+    tp_launches, tp_rec = phase_tensor_parallel(device, smi_line)
     say(f"[done] build {build_s:.2f} s; {smi_line}")
     main_path = {k: fused_serve[k] + full_serve[k] + fused_train[k] + full_train[k]
                  + train_launches[k] + bucket_serve[k] + wide_train[k] + fit_launches[k]
                  + zoo_launches[k] + sgm_launches[k] + standalone_launches[k]
                  + ed_launches[k] + int8_launches[k] + deploy_launches[k]
-                 + lever_launches_[k] + dp_launches[k]
+                 + lever_launches_[k] + dp_launches[k] + mw_launches[k] + tp_launches[k]
                  for k in COUNTERS}
     main_path["ctc_alpha"] += serve_launches
     k193, k17 = kernels["S193"], kernels["S17"]
@@ -4263,7 +4597,8 @@ def main():
                     "zoo_standalone": standalone_rec, "encoder_decoder": ed_rec,
                     "int8_serve": {k: v for k, v in int8_rec.items() if k != "sites"},
                     "deploy_serve": deploy_rec, "memory_levers": lever_rec,
-                    "data_parallel": dp_rec}))
+                    "data_parallel": dp_rec, "multiwidth": mw_rec,
+                    "tensor_parallel": tp_rec}))
     say(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))
@@ -4272,5 +4607,7 @@ def main():
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--data-parallel-rank"]:
         dp_worker(sys.argv[2])
+    elif sys.argv[1:2] == ["--tensor-parallel-rank"]:
+        tp_worker(sys.argv[2])
     else:
         main()

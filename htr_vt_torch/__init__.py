@@ -45,7 +45,12 @@ Ported so far:
 - the memory levers and data parallelism: ``cfg.remat`` (``models/remat.py``)
   and ``cfg.train.grad_accum`` (``train/step.py``), and training over
   several processes (``parallel/mesh.py``: the BatchNorm sums, each SAM
-  pass's gradient, eval's predictions all-reduced or gathered by hand).
+  pass's gradient, eval's predictions all-reduced or gathered by hand);
+  tensor parallelism of the ViT blocks over a mesh's model axis
+  (``mesh_shape=(R, M)``, ``parallel/mesh.py:shard_model``);
+- the multi-width recipe (``cli/train_multiwidth.py``), data preparation
+  (``cli/prepare_data.py``, ``data/format_datasets.py``) and
+  ``cli/serve.py --selftest``.
 
 On a CUDA tensor the CTC loss runs its alpha recursion, and its gradient
 the beta recursion, as hand-written ``sm_90a`` kernels

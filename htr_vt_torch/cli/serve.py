@@ -24,6 +24,11 @@ scales calibrated on each bucket's first ``--calib-batches`` batches
 (``serve.py:215-227``): a prefix beam search of ``--beam-width`` over the
 port's log-probabilities, then the n-gram LM (ARPA text or a compiled
 ``.htlm``, ``decode/lm.py``) at ``--lm-weight`` picks among the beams.
+``--selftest`` (``serve.py:78-100,270-284``) serves ``--selftest-n``
+synthetic lines in place of ``--images``: each rendered at its natural
+width (a length ramp of 6 to ``--selftest-max-chars`` characters), routed
+through the buckets, and scored (CER / WER on stderr, overall and per
+bucket) against the labels that were drawn.
 """
 
 from __future__ import annotations
@@ -202,6 +207,48 @@ def load_serving_model(checkpoint: str, cfg: ModelConfig, device,
     return model
 
 
+def selftest_lines(n: int, max_chars: int, alphabet: str,
+                   out_dir: str) -> Tuple[List[str], List[str]]:
+    """The JAX serve CLI's ``--selftest`` lines (``serve.py:78-100``): n
+    random texts of ``alphabet`` on a 6..96-character ramp capped at
+    ``max_chars``, each rendered on a canvas of its natural width
+    (``selftest_canvas_width``) from one generator seeded 0 and written to
+    ``out_dir/line_{i:03d}.png``. Returns (paths, labels), a label being the
+    characters that fit on the canvas."""
+    from PIL import Image
+
+    from htr_vt_torch.data.synthetic import (random_text, render_line,
+                                             selftest_canvas_width, selftest_max_len)
+    rng = np.random.default_rng(0)
+    paths, labels = [], []
+    for i in range(n):
+        text = random_text(rng, alphabet, min_len=4,
+                           max_len=min(max_chars, selftest_max_len(i, n)))
+        img, drawn = render_line(text, 64, selftest_canvas_width(len(text)), rng=rng,
+                                 return_drawn=True)
+        path = os.path.join(out_dir, f"line_{i:03d}.png")
+        Image.fromarray(img).save(path)
+        paths.append(path)
+        labels.append(text[:drawn].rstrip())
+    return paths, labels
+
+
+def selftest_report(texts: Sequence[str], labels: Sequence[str], owner: Sequence[int],
+                    bucket_widths: Sequence[int]) -> List[str]:
+    """The ``--selftest`` score lines (``serve.py:270-284``): CER and WER
+    over every line, then per bucket."""
+    from htr_vt_torch.text.metrics import cer_wer
+    cer, wer = cer_wer(list(texts), list(labels))
+    lines = [f"# selftest CER {cer:.4f} WER {wer:.4f}"]
+    for bi, width in enumerate(bucket_widths):
+        idxs = [i for i, o in enumerate(owner) if o == bi]
+        if idxs:
+            c, w = cer_wer([texts[i] for i in idxs], [labels[i] for i in idxs])
+            lines.append(f"#   bucket {width:5d}: {len(idxs):3d} lines  "
+                         f"CER {c:.4f}  WER {w:.4f}")
+    return lines
+
+
 def _image_paths(spec: str) -> Sequence[str]:
     if os.path.isfile(spec) and not spec.endswith((".png", ".jpg")):
         with open(spec) as f:
@@ -220,8 +267,18 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
                         "best_CER/best_WER, or the run directory: its EMA "
                         "weights are served), or a state_dict in the reference "
                         "PyTorch layout (.pth)")
-    p.add_argument("--images", required=True,
+    p.add_argument("--images", default=None,
                    help="glob pattern or file with one path per line")
+    p.add_argument("--selftest", action="store_true",
+                   help="serve self-generated synthetic lines at natural widths "
+                        "instead of --images and score the transcriptions "
+                        "(smoke-tests a checkpoint + bucket config without data)")
+    p.add_argument("--selftest-n", type=int, default=16)
+    p.add_argument("--selftest-max-chars", type=int, default=96,
+                   help="cap the selftest length ramp (default 6..96 chars); set "
+                        "to the trained recipe's max line length to score the "
+                        "in-distribution workload separately from the "
+                        "beyond-range one")
     p.add_argument("--batch-size", type=int, default=64)
     p.add_argument("--out", default=None, help="JSONL output (default stdout)")
     p.add_argument("--device", default="cuda")
@@ -246,9 +303,19 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
                         "the configured width only")
     args = p.parse_args(argv)
 
-    paths = _image_paths(args.images)
-    if not paths:
-        sys.exit(f"no images match {args.images!r}")
+    labels = None
+    if args.selftest:
+        import tempfile
+        paths, labels = selftest_lines(
+            args.selftest_n, args.selftest_max_chars,
+            dataset_preset(args.dataset).data.synth_alphabet,
+            tempfile.mkdtemp(prefix="htrvt_selftest_"))
+    elif args.images:
+        paths = _image_paths(args.images)
+        if not paths:
+            sys.exit(f"no images match {args.images!r}")
+    else:
+        p.error("one of --images / --selftest is required")
     saved = None
     if os.path.isdir(args.checkpoint):
         saved = saved_config(CheckpointManager(os.path.dirname(
@@ -290,6 +357,12 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
     dt = time.perf_counter() - t0
     print(f"# {len(paths)} images in {dt:.2f}s ({len(paths) / dt:.1f} img/s)",
           file=sys.stderr)
+    if labels is not None:
+        stride = model.cfg.patch_size[0]
+        bucket_widths, owner = assign_width_buckets(
+            widths, [-(-w // stride) * stride for w in buckets])
+        for line in selftest_report(texts, labels, owner, bucket_widths):
+            print(line, file=sys.stderr)
 
 
 if __name__ == "__main__":

@@ -5,10 +5,12 @@ the reference evaluates its EMA weights, and for an encoder-decoder
 ``train/step.py:eval_step_ed`` with its tokenizer as the codec.
 
 Under data parallelism (``validate.py:38-60``) every rank iterates the same
-global eval batches and runs its slice of each batch's rows; the
-predictions and per-row losses are all-gathered (the encoder-decoder's
-batch loss averaged), so CER, WER and the loss, and the train loop's
-best-checkpoint decisions with them, agree on every rank."""
+global eval batches and runs its data index's slice of each batch's rows;
+the predictions and per-row losses are all-gathered over the data axis
+(the encoder-decoder's batch loss averaged), so CER, WER and the loss, and
+the train loop's best-checkpoint decisions with them, agree on every rank.
+The ranks of one data index (a model axis) run the same rows through their
+shards of the model."""
 
 from __future__ import annotations
 
@@ -16,7 +18,7 @@ from typing import Callable, Iterable, List, Mapping, Sequence, Tuple
 
 from torch import nn
 
-from htr_vt_torch.parallel.mesh import all_gather_rows, all_reduce_mean_, world
+from htr_vt_torch.parallel.mesh import all_gather_rows, all_reduce_mean_, data_world
 from htr_vt_torch.text.metrics import RecognitionMetrics
 from htr_vt_torch.train.step import eval_step
 
@@ -32,7 +34,7 @@ def validate(model: nn.Module,
     ``eval_step_ed``. Returns (val_loss, CER, WER, predictions, labels); the
     loss is the mean over valid rows where ``eval_fn`` gives per-row losses
     (``validate.py:64-73``), else the mean of the batch losses."""
-    rank, size = world()
+    rank, size = data_world()
     metrics = RecognitionMetrics()
     total_loss, count = 0.0, 0
     all_preds: List[str] = []
@@ -42,7 +44,7 @@ def validate(model: nn.Module,
             rows = batch["image"].shape[0]
             if rows % size:
                 raise ValueError(f"eval batch size {rows} not divisible by the "
-                                 f"process count {size}; pass a divisible --val-bs")
+                                 f"data axis, {size}; pass a divisible --val-bs")
             m = rows // size
             batch = {k: v[rank * m:(rank + 1) * m] for k, v in batch.items()}
         out = eval_fn(model, batch)

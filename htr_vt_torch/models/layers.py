@@ -18,7 +18,8 @@ import torch.nn.functional as F
 from torch import nn
 
 from htr_vt_torch.ops import quant as q8
-from htr_vt_torch.parallel.mesh import rank_rows
+from htr_vt_torch.parallel.mesh import (copy_to_model, rank_cols, rank_rows,
+                                        reduce_from_model)
 
 # The standard deviation of a unit normal truncated at +-2, which flax's
 # truncated-normal initialisers divide out.
@@ -110,17 +111,42 @@ def conv2d(conv: nn.Conv2d, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor
 
 
 def dropout(x: torch.Tensor, rate: float, train: bool,
-            generator: Optional[torch.Generator]) -> torch.Tensor:
+            generator: Optional[torch.Generator],
+            model_sharded: bool = False) -> torch.Tensor:
     """flax ``nn.Dropout``: in train mode keep each element with probability
     ``1 - rate`` and scale it by ``1 / (1 - rate)``, drawing from
     ``generator`` (the global batch's mask under data parallelism,
-    ``parallel/mesh.py:rank_rows``); the identity at rate 0 or in eval."""
+    ``parallel/mesh.py:rank_rows``; with ``model_sharded``, x's last
+    dimension is this rank's columns of a tensor sharded over the model
+    axis, and the mask is those columns of the whole width's,
+    ``rank_cols``); the identity at rate 0 or in eval."""
     if not train or rate == 0.0:
         return x
     keep = 1.0 - rate
-    mask = rank_rows(lambda n: torch.rand((n,) + x.shape[1:], generator=generator,
-                                          device=x.device), x.shape[0]) < keep
+    lead, width = x.shape[1:-1], x.shape[-1]
+
+    def draw(n):
+        if not model_sharded:
+            return torch.rand((n,) + x.shape[1:], generator=generator, device=x.device)
+        return rank_cols(lambda w: torch.rand((n,) + lead + (w,), generator=generator,
+                                              device=x.device), width)
+
+    mask = rank_rows(draw, x.shape[0]) < keep
     return torch.where(mask, x / keep, torch.zeros_like(x))
+
+
+def partial_dense(layer: nn.Linear, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """A row-sharded ``dense`` across the model axis: this rank's partial
+    product of x and the weight's input columns, in ``dtype`` and widened
+    to float32, summed over the model group in float32
+    (``reduce_from_model``), rounded to ``dtype`` once, then the
+    (replicated) bias added in ``dtype``. ``dense`` rounds its product once
+    too, so the tensor-parallel output is one rounding from one process's;
+    a sum of ``dtype`` partials would round each of them first. The sum
+    moves 4 bytes an output element, twice bf16's."""
+    y = F.linear(x.to(dtype).float(), layer.weight.to(dtype).float())
+    y = reduce_from_model(y).to(dtype)
+    return y if layer.bias is None else y + layer.bias.to(dtype)
 
 
 class DropPath(nn.Module):
@@ -148,7 +174,14 @@ class Mlp(nn.Module):
     """fc1 -> exact-erf GELU -> dropout -> fc2 -> dropout
     (``layers.py:104-132``). With ``quant`` both linears are int8 sites in
     eval, and ``quick_gelu`` then takes ``x * sigmoid(1.702 x)`` for the
-    GELU; train mode is the float path."""
+    GELU; train mode is the float path. Sharded over a model axis
+    (``model_shards`` > 1): ``copy_to_model``, this rank's fc1 columns,
+    GELU and the hidden dropout on them, fc2's partial product summed over
+    the model group (``partial_dense``), its bias, then the dropout."""
+
+    # The model axis's size once ``parallel/mesh.py:shard_model`` has split
+    # fc1's outputs and fc2's inputs.
+    model_shards = 1
 
     def __init__(self, dim: int, hidden_dim: int, dtype: torch.dtype,
                  drop_rate: float = 0.0, device=None, quant: bool = False,
@@ -167,6 +200,12 @@ class Mlp(nn.Module):
     def forward(self, x: torch.Tensor, *, train: bool = False,
                 generator: Optional[torch.Generator] = None) -> torch.Tensor:
         quant = self.quant and not train
+        if self.model_shards > 1:  # fc1 column-, fc2 row-sharded: this rank's hidden units
+            x = dense(self.fc1, copy_to_model(x), self.dtype)
+            x = dropout(F.gelu(x, approximate="none"), self.drop_rate, train, generator,
+                        model_sharded=True)
+            return dropout(partial_dense(self.fc2, x, self.dtype), self.drop_rate, train,
+                           generator)
         x = dense(self.fc1, x, self.dtype, quant)
         x = quick_gelu(x) if quant and self.quick_gelu else F.gelu(x, approximate="none")
         x = dropout(x, self.drop_rate, train, generator)

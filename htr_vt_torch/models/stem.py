@@ -68,7 +68,7 @@ from htr_vt_torch.ops.bn_stats import BNStats
 from htr_vt_torch.ops.conv_fused import (conv3x3_bn_relu,
                                          conv3x3_bn_relu_reference)
 from htr_vt_torch.ops.pool_fused import max_pool_bn_relu
-from htr_vt_torch.parallel.mesh import all_reduce_sum, world_size
+from htr_vt_torch.parallel.mesh import all_reduce_sum, data_world
 
 BN_EPS = 1e-5
 BN_MOMENTUM = 0.9
@@ -86,10 +86,11 @@ def _relu_max(x: torch.Tensor) -> torch.Tensor:
 
 def global_sums(s: torch.Tensor, q: torch.Tensor, n):
     """Per-channel (sum, sum of squares) and the element count over the
-    global batch: at world size 1 as given, else all three summed over the
-    ranks in one differentiable all-reduce (K2's SPMD psum,
-    ``htr_vt_tpu/ops/bn_stats.py:98-103``)."""
-    if world_size() == 1:
+    global batch: at data size 1 as given, else all three summed over the
+    data axis in one differentiable all-reduce (K2's SPMD psum,
+    ``htr_vt_tpu/ops/bn_stats.py:98-103``). Ranks of one data index hold
+    the same rows, so a model axis is never summed over."""
+    if data_world()[1] == 1:
         return s, q, n
     c = s.shape[0]
     packed = all_reduce_sum(torch.cat([s, q, s.new_full((1,), float(n))]))
@@ -98,8 +99,8 @@ def global_sums(s: torch.Tensor, q: torch.Tensor, n):
 
 def batch_moments(xf: torch.Tensor, dims) -> Tuple[torch.Tensor, torch.Tensor]:
     """(E[x], E[x^2]) of float32 ``xf`` over ``dims``: the ``mean`` calls at
-    world size 1, else the global batch's from the all-reduced sums."""
-    if world_size() == 1:
+    data size 1, else the global batch's from the all-reduced sums."""
+    if data_world()[1] == 1:
         return xf.mean(dims), xf.square().mean(dims)
     s, q, n = global_sums(xf.sum(dims), xf.square().sum(dims),
                           math.prod(xf.shape[d] for d in dims))

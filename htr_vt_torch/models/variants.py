@@ -7,9 +7,9 @@ conformer (``model_sgm_mms_conv``) and squeezeformer
 pairs, so the converter (``utils/convert.py``) maps the port's
 ``blocks.<i>`` onto the JAX tree's names.
 
-van and van2 register as in JAX (the baseline blocks behind another stem),
-but the VAN stems, swin and svtr are not ported: ``build_model`` refuses
-them. Dropout rates that the JAX recipes fix in code (macaron's 0.1, the
+van and van2 register as in JAX (the baseline blocks behind a VAN stem,
+``models/van.py``); swin and svtr are standalone models
+(``models/htr_vt.py:build_model``). Dropout rates that the JAX recipes fix in code (macaron's 0.1, the
 conformer family's) are fixed here too.
 """
 

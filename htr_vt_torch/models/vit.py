@@ -22,8 +22,9 @@ import torch.nn.functional as F
 from torch import nn
 
 from htr_vt_torch.models.layers import (DropPath, LayerScale, Mlp, dense,
-                                        dropout, quantize_linear)
+                                        dropout, partial_dense, quantize_linear)
 from htr_vt_torch.ops.flash_attn import flash_attention, takes_head_dim
+from htr_vt_torch.parallel.mesh import copy_to_model
 
 ATTN_IMPLS = ("auto", "xla", "flash")
 MASKED_LOGIT = -1e9
@@ -118,7 +119,18 @@ class Attention(nn.Module):
     ``rel_bias_len`` > 0 adds a learned relative-position bias over the
     whole sequence, a (2 * rel_bias_len - 1, H) table initialised to zeros
     (the global blocks of ``model_window``); a longer sequence raises.
-    ``quant``: qkv and proj are int8 sites in eval (``layers.py:dense``)."""
+    ``quant``: qkv and proj are int8 sites in eval (``layers.py:dense``).
+
+    Sharded over a model axis (``model_shards`` = M > 1,
+    ``parallel/mesh.py:shard_model``): ``copy_to_model``, this rank's qkv
+    rows (q, k and v of H / M heads) and ``rel_bias`` columns, attention
+    over those heads, proj's partial product over their columns summed
+    over the model group (``layers.py:partial_dense``), its bias, then the
+    dropout."""
+
+    # The model axis's size once ``parallel/mesh.py:shard_model`` has split
+    # the heads.
+    model_shards = 1
 
     def __init__(self, dim: int, num_heads: int, qkv_bias: bool,
                  dtype: torch.dtype, proj_drop: float = 0.0,
@@ -145,11 +157,13 @@ class Attention(nn.Module):
                 generator: Optional[torch.Generator] = None) -> torch.Tensor:
         b, n, c = x.shape
         head_dim = c // self.num_heads
+        heads = self.num_heads // self.model_shards
         quant = self.quant and not train
+        if self.model_shards > 1:
+            x = copy_to_model(x)
         qkv = dense(self.qkv, x, self.dtype, quant)
         # [B, N, 3, H, D] -> 3 x [B, H, N, D]
-        q, k, v = qkv.reshape(b, n, 3, self.num_heads, head_dim).permute(
-            2, 0, 3, 1, 4)
+        q, k, v = qkv.reshape(b, n, 3, heads, head_dim).permute(2, 0, 3, 1, 4)
         bias = None
         if self.rel_bias_len:
             if n > self.rel_bias_len:
@@ -164,7 +178,10 @@ class Attention(nn.Module):
             out = flash_mha(q, k, v, head_dim**-0.5, self.dtype)
         else:
             out = multi_head_attention(q, k, v, head_dim**-0.5, self.dtype, bias=bias)
-        out = dense(self.proj, out, self.dtype, quant)
+        if self.model_shards > 1:
+            out = partial_dense(self.proj, out, self.dtype)
+        else:
+            out = dense(self.proj, out, self.dtype, quant)
         return dropout(out, self.proj_drop, train, generator)
 
 

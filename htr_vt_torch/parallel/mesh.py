@@ -27,16 +27,26 @@ Every helper returns its input unchanged at world size 1 and then makes no
 call into ``torch.distributed``. Under gloo the helpers hand CUDA tensors to
 the collectives as they are: gloo takes them for all-reduce, all-gather,
 broadcast and barrier (``chip_smoke.py``'s data-parallel phase runs each on
-the card), so ranks can share a card over gloo. Tensor parallelism (the ``model`` axis) is
-not ported: JAX's ``fit`` never shards parameters either
-(``shard_params`` has no caller outside ``mesh.py``).
+the card), so ranks can share a card over gloo.
+
+The grid (``init_mesh``): ``mesh_shape=(R, M)`` puts rank r at data index
+``r // M`` and model index ``r % M``, JAX's device order
+(``htr_vt_tpu/parallel/mesh.py:66-76``). The collectives above run over the
+data group (the ranks that share a model index); without a model axis the
+data group is the world, and the calls are the ones made before the grid
+existed. The model axis is Megatron-style tensor parallelism of the ViT
+blocks (``param_sharding_rules``, ``shard_model``): the attention's qkv and
+the MLP's fc1 are column-sharded, the attention's proj and the MLP's fc2
+row-sharded, and ``copy_to_model`` / ``reduce_from_model`` make the one sum
+a sharded sublayer needs forward and the one it needs backward.
 """
 
 from __future__ import annotations
 
 import datetime
 import os
-from typing import Iterable, Optional, Sequence, Tuple
+from dataclasses import dataclass
+from typing import Dict, Iterable, List, NamedTuple, Optional, Sequence, Tuple
 
 import torch
 import torch.distributed as dist
@@ -93,36 +103,101 @@ def world_size() -> int:
     return world()[1]
 
 
+@dataclass(frozen=True)
+class Grid:
+    """The ranks of a ``(data, model)`` mesh: this rank's (index, size) on
+    each axis and the groups it belongs to."""
+
+    shape: Tuple[int, int]
+    data: Tuple[int, int]
+    model: Tuple[int, int]
+    data_group: object
+    model_group: object
+
+
+# The grid ``init_mesh`` made; None means no model axis (the data axis is the
+# world).
+_GRID: Optional[Grid] = None
+
+
+def check_mesh(mesh_shape: Optional[Sequence[int]], size: int) -> Tuple[int, int]:
+    """``ParallelConfig.mesh_shape`` against a world of ``size`` processes,
+    as (R, M): None is ``(size, 1)``, ``(R,)`` is ``(R, 1)``; R * M must
+    equal the world size, else ValueError."""
+    if mesh_shape is None:
+        return size, 1
+    shape = tuple(int(v) for v in mesh_shape)
+    if len(shape) not in (1, 2) or min(shape) < 1:
+        raise ValueError(f"mesh_shape={shape}: expected (data,) or (data, model)")
+    r, m = (shape + (1,))[:2]
+    if r * m != size:
+        raise ValueError(f"mesh_shape={shape}: data x model = {r * m} must equal the "
+                         f"world size, {size} process(es)")
+    return r, m
+
+
+def init_mesh(mesh_shape: Optional[Sequence[int]]) -> None:
+    """Lay the world out as ``mesh_shape`` (``check_mesh``). Without a model
+    axis this only checks the shape: the data axis is the world. With one,
+    every rank creates the M data groups (the ranks ``{d * M + m}`` of one
+    model index m) and then the R model groups (the ranks ``d * M ...
+    d * M + M - 1`` of one data index d), in that fixed order, as
+    ``dist.new_group`` requires; a second call with the same shape keeps
+    the groups it made."""
+    global _GRID
+    rank, size = world()
+    r, m = check_mesh(mesh_shape, size)
+    if m == 1:
+        _GRID = None
+        return
+    if _GRID is not None and _GRID.shape == (r, m):
+        return
+    data_groups = [dist.new_group([d * m + j for d in range(r)]) for j in range(m)]
+    model_groups = [dist.new_group([d * m + j for j in range(m)]) for d in range(r)]
+    _GRID = Grid(shape=(r, m), data=(rank // m, r), model=(rank % m, m),
+                 data_group=data_groups[rank % m], model_group=model_groups[rank // m])
+
+
+def data_world() -> Tuple[int, int]:
+    """(index, size) on the data axis: the world without a model axis,
+    (0, 1) without a process group."""
+    return _GRID.data if _GRID is not None else world()
+
+
+def model_world() -> Tuple[int, int]:
+    """(index, size) on the model axis: (0, 1) without a model axis."""
+    return _GRID.model if _GRID is not None else (0, 1)
+
+
+def _data_group():
+    """The data group; None, the default group, without a model axis."""
+    return _GRID.data_group if _GRID is not None else None
+
+
 def rank_rows(draw, batch: int) -> torch.Tensor:
     """A random draw of the global batch, this rank's rows of it:
-    ``draw(n)`` draws for n rows, here ``batch * world`` of them, and rank r
-    keeps rows ``[r * batch, (r + 1) * batch)``. JAX draws a keep mask or a
-    dropout mask for the global array and shards it
-    (``htr_vt_tpu/models/htr_vt.py:106-108``); so, with one seeded generator
-    on every rank, R ranks draw what one process draws for the whole batch.
-    At world size 1, ``draw(batch)``."""
-    rank, size = world()
+    ``draw(n)`` draws for n rows, here ``batch * R`` of them over the R
+    ranks of the data axis, and data index r keeps rows ``[r * batch,
+    (r + 1) * batch)``. JAX draws a keep mask or a dropout mask for the
+    global array and shards it (``htr_vt_tpu/models/htr_vt.py:106-108``);
+    so, with one seeded generator on every rank, R ranks draw what one
+    process draws for the whole batch. At data size 1, ``draw(batch)``."""
+    rank, size = data_world()
     if size == 1:
         return draw(batch)
     return draw(batch * size)[rank * batch:(rank + 1) * batch]
 
 
-def check_mesh(mesh_shape: Optional[Sequence[int]], size: int) -> None:
-    """``ParallelConfig.mesh_shape`` against the world: ``(R,)`` or
-    ``(R, 1)`` must have R equal to the world size; a model axis above 1
-    asks for tensor parallelism, which is not ported."""
-    if mesh_shape is None:
-        return
-    shape = tuple(mesh_shape)
-    if len(shape) not in (1, 2):
-        raise ValueError(f"mesh_shape={shape}: expected (data,) or (data, model)")
-    if len(shape) == 2 and shape[1] > 1:
-        raise NotImplementedError(
-            f"mesh_shape={shape}: a model axis above 1 (tensor parallelism) is not "
-            f"ported to htr_vt_torch ({TENSOR_PARALLEL_ITEM})")
-    if shape[0] != size:
-        raise ValueError(f"mesh_shape={shape}: the data axis must equal the world "
-                         f"size, {size} process(es)")
+def rank_cols(draw, width: int) -> torch.Tensor:
+    """``rank_rows`` for a last dimension sharded over the model axis:
+    ``draw(w)`` draws with a last dimension of w, here ``width * M``, and
+    model index m keeps columns ``[m * width, (m + 1) * width)``: the M
+    ranks draw what one process draws for the whole width, and the
+    generator advances as it does there. At model size 1, ``draw(width)``."""
+    index, size = model_world()
+    if size == 1:
+        return draw(width)
+    return draw(width * size)[..., index * width:(index + 1) * width]
 
 
 def comm_device() -> torch.device:
@@ -133,36 +208,41 @@ def comm_device() -> torch.device:
     return torch.device("cpu")
 
 
-def _all_reduce_(t: torch.Tensor, op=dist.ReduceOp.SUM) -> torch.Tensor:
-    dist.all_reduce(t, op=op)
+def _all_reduce_(t: torch.Tensor, op=dist.ReduceOp.SUM, group=None) -> torch.Tensor:
+    if group is None:
+        dist.all_reduce(t, op=op)
+    else:
+        dist.all_reduce(t, op=op, group=group)
     return t
 
 
 class _AllReduceSum(torch.autograd.Function):
-    """Sum over ranks; its gradient is the sum over ranks of the gradients."""
+    """Sum over a group's ranks; its gradient is the sum over the ranks of
+    the gradients."""
 
     @staticmethod
-    def forward(ctx, x):
-        return _all_reduce_(x.contiguous().clone())
+    def forward(ctx, x, group):
+        ctx.group = group
+        return _all_reduce_(x.contiguous().clone(), group=group)
 
     @staticmethod
     def backward(ctx, g):
-        return _all_reduce_(g.contiguous().clone())
+        return _all_reduce_(g.contiguous().clone(), group=ctx.group), None
 
 
 def all_reduce_sum(x: torch.Tensor) -> torch.Tensor:
-    """The differentiable sum of ``x`` over ranks (``x`` itself at world
-    size 1)."""
-    if world_size() == 1:
+    """The differentiable sum of ``x`` over the data axis (``x`` itself at
+    data size 1)."""
+    if data_world()[1] == 1:
         return x
-    return _AllReduceSum.apply(x)
+    return _AllReduceSum.apply(x, _data_group())
 
 
 @torch.no_grad()
 def all_reduce_mean_(tensors: Sequence[torch.Tensor]) -> None:
-    """Replace each tensor in place by its mean over ranks: one flattened
-    all-reduce per dtype and device (nothing at world size 1)."""
-    size = world_size()
+    """Replace each tensor in place by its mean over the data axis: one
+    flattened all-reduce per dtype and device (nothing at data size 1)."""
+    size = data_world()[1]
     if size == 1:
         return
     groups: dict = {}
@@ -170,21 +250,283 @@ def all_reduce_mean_(tensors: Sequence[torch.Tensor]) -> None:
         groups.setdefault((t.dtype, t.device), []).append(t)
     for group in groups.values():
         flat = torch.cat([t.reshape(-1) for t in group])
-        _all_reduce_(flat).div_(size)
+        _all_reduce_(flat, group=_data_group()).div_(size)
         torch._foreach_copy_(group, [v.view_as(t) for v, t in zip(
             flat.split([t.numel() for t in group]), group)])
 
 
-def all_gather_rows(x: torch.Tensor) -> torch.Tensor:
-    """The rows of every rank's ``x`` (one shape on every rank), rank 0's
-    first."""
-    size = world_size()
-    if size == 1:
-        return x
+def _all_gather(x: torch.Tensor, size: int, group) -> List[torch.Tensor]:
     x = x.contiguous()
     out = [torch.empty_like(x) for _ in range(size)]
-    dist.all_gather(out, x)
-    return torch.cat(out)
+    if group is None:
+        dist.all_gather(out, x)
+    else:
+        dist.all_gather(out, x, group=group)
+    return out
+
+
+def all_gather_rows(x: torch.Tensor) -> torch.Tensor:
+    """The rows of every data rank's ``x`` (one shape on every rank), data
+    index 0's first."""
+    size = data_world()[1]
+    if size == 1:
+        return x
+    return torch.cat(_all_gather(x, size, _data_group()))
+
+
+# --- the model axis ---------------------------------------------------------------
+class _CopyToModel(torch.autograd.Function):
+    """The identity forward; backward, the sum over the model group of the
+    gradients, since each rank's sharded sublayer reads the whole input."""
+
+    @staticmethod
+    def forward(ctx, x):
+        return x
+
+    @staticmethod
+    def backward(ctx, g):
+        return _all_reduce_(g.contiguous().clone(), group=_GRID.model_group)
+
+
+class _ReduceFromModel(torch.autograd.Function):
+    """The sum over the model group forward (of a row-sharded linear's
+    partial outputs); backward, the identity."""
+
+    @staticmethod
+    def forward(ctx, x):
+        return _all_reduce_(x.contiguous().clone(), group=_GRID.model_group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g
+
+
+def copy_to_model(x: torch.Tensor) -> torch.Tensor:
+    """Enter a tensor-parallel sublayer: ``x`` forward, the model group's
+    sum of the gradients backward (``x`` itself at model size 1)."""
+    return x if model_world()[1] == 1 else _CopyToModel.apply(x)
+
+
+def reduce_from_model(x: torch.Tensor) -> torch.Tensor:
+    """Leave a tensor-parallel sublayer: the model group's sum of the
+    partial outputs forward, the gradient as it is backward (``x`` itself at
+    model size 1)."""
+    return x if model_world()[1] == 1 else _ReduceFromModel.apply(x)
+
+
+@torch.no_grad()
+def model_sum(x: torch.Tensor) -> torch.Tensor:
+    """A copy of ``x`` summed over the model group, not differentiable
+    (``x`` itself at model size 1)."""
+    if model_world()[1] == 1:
+        return x
+    return _all_reduce_(x.contiguous().clone(), group=_GRID.model_group)
+
+
+class Shard(NamedTuple):
+    """How a parameter is split over the model axis: ``kind`` "column"
+    (output features or heads) or "row" (input features), along torch
+    dimension ``dim``; that dimension is ``groups`` blocks (q, k and v for
+    qkv) and each block is split in M contiguous parts, rank m keeping
+    part m of every block."""
+
+    kind: str
+    dim: int
+    groups: int = 1
+
+
+def param_sharding_rules(name: str, tensor: torch.Tensor) -> Optional[Shard]:
+    """The tensor-parallel layout of the parameter ``name`` (a
+    ``named_parameters`` name), or None for a replicated one: JAX's name
+    rules (``htr_vt_tpu/parallel/mesh.py:104-123``) on the port's names.
+    JAX's kernels are ``[in, out]`` and column-sharded on their last
+    dimension; torch's ``nn.Linear.weight`` is ``[out, in]``, so a column
+    shard splits torch dimension 0 and a row shard dimension 1.
+
+    - ``qkv`` and ``fc1``: column-sharded, with their biases (the local
+      columns' own). qkv's rows are ``[3, H, head_dim]``
+      (``models/vit.py:Attention``), so its shard is head-aligned: rank m
+      keeps q, k and v of heads ``[m * H / M, (m + 1) * H / M)``, not a
+      contiguous slice.
+    - the attention's ``proj`` and ``fc2`` weights: row-sharded (their
+      input columns are ``[H, head_dim]`` and the hidden units, in order);
+      their biases are replicated, added once after the sum.
+    - a global attention's ``rel_bias`` table ``[2L - 1, H]``: by head, the
+      heads qkv keeps.
+    """
+    parts = name.split(".")
+    if len(parts) < 2:
+        return None
+    owner, leaf = parts[-2], parts[-1]
+    if owner == "qkv":
+        return Shard("column", 0, 3)
+    if owner == "fc1":
+        return Shard("column", 0)
+    if leaf == "weight" and (owner == "fc2" or (owner == "proj" and "attn" in parts)):
+        return Shard("row", 1)
+    if leaf == "rel_bias" and owner == "attn":
+        return Shard("column", 1)
+    return None
+
+
+def shard_tensor(t: torch.Tensor, spec: Shard, index: int, size: int) -> torch.Tensor:
+    """Part ``index`` of ``size`` of ``t`` under ``spec``, a new tensor."""
+    n = t.shape[spec.dim]
+    if n % (spec.groups * size):
+        raise ValueError(f"a dimension of {n} ({spec.groups} block(s)) does not split "
+                         f"over a model axis of {size}")
+    k = n // spec.groups // size
+    lead, tail = t.shape[:spec.dim], t.shape[spec.dim + 1:]
+    blocks = t.reshape(*lead, spec.groups, n // spec.groups, *tail)
+    part = blocks.narrow(spec.dim + 1, index * k, k)
+    return part.reshape(*lead, spec.groups * k, *tail).clone()
+
+
+def unshard_tensors(parts: Sequence[torch.Tensor], spec: Shard) -> torch.Tensor:
+    """The whole tensor from every model rank's part, in rank order: the
+    inverse of ``shard_tensor``."""
+    t = parts[0]
+    k = t.shape[spec.dim] // spec.groups
+    lead, tail = t.shape[:spec.dim], t.shape[spec.dim + 1:]
+    blocks = [p.reshape(*lead, spec.groups, k, *tail) for p in parts]
+    whole = torch.cat(blocks, dim=spec.dim + 1)
+    return whole.reshape(*lead, spec.groups * k * len(parts), *tail)
+
+
+def gather_model(t: torch.Tensor, spec: Shard) -> torch.Tensor:
+    """The whole tensor of a sharded one, on every rank of the model
+    group."""
+    size = model_world()[1]
+    return unshard_tensors(_all_gather(t.detach(), size, _GRID.model_group), spec)
+
+
+def _tensor_parallel(module) -> bool:
+    return getattr(module, "model_shards", 1) > 1
+
+
+def check_tensor_parallel(model, size: int) -> None:
+    """Raise unless ``model`` can be sharded over a model axis of ``size``:
+    ``NotImplementedError`` (naming ``TENSOR_PARALLEL_ITEM``) for what the
+    model axis does not cover yet, ``ValueError`` for heads or hidden
+    units that ``size`` does not divide."""
+    from htr_vt_torch.models.htr_vt import HTRVT
+    from htr_vt_torch.models.vit import Attention, Block
+
+    def missing(what):
+        return NotImplementedError(
+            f"tensor parallelism over a model axis of {size} does not cover {what} "
+            f"yet ({TENSOR_PARALLEL_ITEM})")
+
+    if type(model) is not HTRVT:
+        raise missing(f"{type(model).__name__}")
+    if model.cfg.quant != "none":
+        raise missing(f"quant={model.cfg.quant!r}")
+    if model.cfg.sgm.enable or model.sgm_head is not None:
+        raise missing("the SGM head (SGMHead)")
+    for name, block in zip(model.block_names, model.blocks):
+        inner = block.attn if isinstance(block, Block) else block
+        if not isinstance(inner, Attention):
+            raise missing(f"{type(inner).__name__} ({name}, encoder "
+                          f"{model.cfg.encoder!r})")
+        heads, hidden = inner.num_heads, block.mlp.fc1.out_features
+        if heads % size or hidden % size:
+            raise ValueError(f"{name}: {heads} heads and {hidden} hidden units must "
+                             f"both divide over a model axis of {size}")
+
+
+@torch.no_grad()
+def shard_model(model):
+    """Shard ``model`` in place over the model axis (JAX's
+    ``shard_params``): each parameter ``param_sharding_rules`` names keeps
+    this rank's part, and every Attention and Mlp learns the axis's size.
+    Returns ``model``; at model size 1 it is left as it is. Shard before an
+    optimizer takes the parameters, and copy the EMA model after."""
+    index, size = model_world()
+    if size == 1:
+        return model
+    from htr_vt_torch.models.layers import Mlp
+    from htr_vt_torch.models.vit import Attention
+    check_tensor_parallel(model, size)
+    for name, p in list(model.named_parameters()):
+        spec = param_sharding_rules(name, p)
+        if spec is not None:
+            owner_name, leaf = name.rpartition(".")[::2]
+            owner = model.get_submodule(owner_name)
+            setattr(owner, leaf, torch.nn.Parameter(shard_tensor(p, spec, index, size),
+                                                    requires_grad=p.requires_grad))
+    for m in model.modules():
+        if isinstance(m, (Attention, Mlp)):
+            m.model_shards = size
+    model.model_shards = size
+    return model
+
+
+def _sharded_names(model) -> Dict[str, Shard]:
+    return {name: spec for name, p in model.named_parameters()
+            if (spec := param_sharding_rules(name, p)) is not None}
+
+
+def sharded_mask(model) -> Optional[List[bool]]:
+    """For each of ``model.parameters()``, whether it is sharded over the
+    model axis; None for a model that is not sharded."""
+    if not _tensor_parallel(model):
+        return None
+    names = _sharded_names(model)
+    return [name in names for name, _ in model.named_parameters()]
+
+
+def gather_state_dict(model) -> Dict[str, torch.Tensor]:
+    """``model.state_dict()`` in the one-process layout: a sharded
+    parameter all-gathered over the model group (every rank of the group
+    must call this). A model that is not sharded gives its own."""
+    sd = model.state_dict()
+    if not _tensor_parallel(model):
+        return sd
+    names = _sharded_names(model)
+    return {k: gather_model(v, names[k]) if k in names else v for k, v in sd.items()}
+
+
+def shard_state_dict(model, sd: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+    """A one-process ``sd`` cut to this rank's parts for the sharded
+    ``model`` (``sd`` itself for a model that is not sharded)."""
+    if not _tensor_parallel(model):
+        return sd
+    index, size = model_world()
+    names = _sharded_names(model)
+    return {k: shard_tensor(v, names[k], index, size) if k in names else v
+            for k, v in sd.items()}
+
+
+def _optimizer_params(model, sd) -> Dict[int, Shard]:
+    """The optimizer-state index of each sharded parameter: the optimizer
+    holds ``model.parameters()`` in order, in one group."""
+    names = _sharded_names(model)
+    ids = [i for group in sd["param_groups"] for i in group["params"]]
+    return {i: names[name] for i, (name, _) in zip(ids, model.named_parameters())
+            if name in names}
+
+
+def gather_optimizer_state(model, optimizer) -> Dict:
+    """``optimizer.state_dict()`` in the one-process layout: the moments of
+    each sharded parameter all-gathered over the model group."""
+    sd = optimizer.state_dict()
+    if not _tensor_parallel(model):
+        return sd
+    specs = _optimizer_params(model, sd)
+    state = {i: {k: gather_model(v, specs[i]) if i in specs and v.dim() > 0 else v
+                 for k, v in st.items()} for i, st in sd["state"].items()}
+    return {**sd, "state": state}
+
+
+def shard_optimizer_state(model, sd: Dict) -> Dict:
+    """A one-process optimizer ``sd`` cut to this rank's parts."""
+    if not _tensor_parallel(model):
+        return sd
+    index, size = model_world()
+    specs = _optimizer_params(model, sd)
+    state = {i: {k: shard_tensor(v, specs[i], index, size) if i in specs and v.dim() > 0
+                 else v for k, v in st.items()} for i, st in sd["state"].items()}
+    return {**sd, "state": state}
 
 
 def broadcast_str(s: Optional[str]) -> Optional[str]:

@@ -10,6 +10,11 @@ BN running statistics), the AdamW state, ``step`` and the masking/dropout
 is a pure function of (seed, b) (``data/loader.py``), so restoring ``step``
 resumes the data and augmentation stream too, and "train N" equals "train
 k, resume, train N - k" (``tests/test_torch_port_loop.py``).
+
+A state sharded over a model axis (``parallel/mesh.py:shard_model``) is
+saved in the one-process layout (``gather_state_dict``,
+``gather_optimizer_state``) and cut to the ranks' parts on restore, so a
+checkpoint moves between one process and any mesh.
 """
 
 from __future__ import annotations
@@ -26,7 +31,8 @@ import torch
 from htr_vt_torch.config import ExperimentConfig, ModelConfig, config_from_dict
 from htr_vt_torch.models.htr_vt import HTRVT, build_model
 from htr_vt_torch.ops.quant import serving_arrays
-from htr_vt_torch.parallel.mesh import barrier, world
+from htr_vt_torch.parallel.mesh import (barrier, gather_optimizer_state, gather_state_dict,
+                                        shard_optimizer_state, shard_state_dict, world)
 from htr_vt_torch.train.state import TrainState
 
 _CKPT_RE = re.compile(r"checkpoint_(?P<cer>[\d.]+)_(?P<wer>[\d.]+)_(?P<iter>\d+)$")
@@ -65,12 +71,18 @@ class CheckpointManager:
         Under data parallelism every rank calls this in lockstep, with the
         same state (``checkpoint.py:72-100``): rank 0 writes, then all meet
         at a barrier, so no rank reads or lists the directory before the
-        files are whole."""
+        files are whole. Over a model axis every rank first gathers its
+        shards (the one-process layout), in lockstep too."""
         step = int(state.step)
         path = os.path.join(self.save_dir, self._rolling_name(cer, wer, step))
+        payload = {"model": gather_state_dict(state.model),
+                   "ema_model": gather_state_dict(state.ema_model),
+                   "optimizer": gather_optimizer_state(state.model, state.optimizer),
+                   "step": step,
+                   "generator": state.generator.get_state()}
         if world()[0] == 0:
-            self._save_state(path, state, step=step, cer=cer, wer=wer,
-                             best_cer=best_cer, best_wer=best_wer, meta=meta)
+            self._save_state(path, payload, cer=cer, wer=wer, best_cer=best_cer,
+                             best_wer=best_wer, meta=meta)
             if cer <= best_cer:
                 self._copy(path, os.path.join(self.save_dir, "best_CER"))
             if wer <= best_wer:
@@ -79,17 +91,13 @@ class CheckpointManager:
         barrier()
         return path
 
-    def _save_state(self, path: str, state: TrainState, **meta_kw) -> None:
+    def _save_state(self, path: str, payload: Dict[str, Any], **meta_kw) -> None:
         if os.path.exists(path):
             shutil.rmtree(path)
         os.makedirs(path)
-        torch.save({"model": state.model.state_dict(),
-                    "ema_model": state.ema_model.state_dict(),
-                    "optimizer": state.optimizer.state_dict(),
-                    "step": int(state.step),
-                    "generator": state.generator.get_state()},
-                   os.path.join(path, STATE_FILE))
+        torch.save(payload, os.path.join(path, STATE_FILE))
         meta = dict(meta_kw.pop("meta", None) or {})
+        meta.update({"step": payload["step"]})
         meta.update({k: v for k, v in meta_kw.items() if v is not None})
         with open(os.path.join(path, "meta.json"), "w") as f:
             json.dump(meta, f, indent=2, default=float)
@@ -146,11 +154,13 @@ class CheckpointManager:
     def restore(self, path: str, template: TrainState) -> Tuple[TrainState, Dict]:
         """Load the checkpoint at ``path`` (a rolling dir, best_CER/best_WER,
         or the save_dir -> latest) into ``template`` in place: model, EMA,
-        AdamW, step and generator. Returns (template, meta)."""
+        AdamW, step and generator, each cut to this rank's parts where the
+        template is sharded over a model axis. Returns (template, meta)."""
         payload, meta = self.read(path)
         for name in ("model", "ema_model"):
             load_module_state(getattr(template, name), payload[name], path)
-        template.optimizer.load_state_dict(payload["optimizer"])
+        template.optimizer.load_state_dict(
+            shard_optimizer_state(template.model, payload["optimizer"]))
         template.step = int(payload["step"])
         template.generator.set_state(payload["generator"])
         return template, meta
@@ -163,7 +173,9 @@ def load_module_state(module: torch.nn.Module, sd: Dict[str, torch.Tensor],
     package's partial restore of an eval template from an SGM-trained
     checkpoint, whose ``sgm_head`` is a training-only head
     (``htr_vt_tpu/train/checkpoint.py:135-164``). The check is structural;
-    any other mismatch raises as a strict load does."""
+    any other mismatch raises as a strict load does. ``sd`` is in the
+    one-process layout; a module sharded over a model axis takes its
+    parts (``parallel/mesh.py:shard_state_dict``)."""
     have, saved = set(module.state_dict()), set(sd)
     if have < saved:
         logging.getLogger("htr_vt_torch").info(
@@ -171,7 +183,7 @@ def load_module_state(module: torch.nn.Module, sd: Dict[str, torch.Tensor],
             "(%s...); restoring the subset", path, len(have), len(saved),
             sorted(saved - have)[:4])
         sd = {k: v for k, v in sd.items() if k in have}
-    module.load_state_dict(sd, strict=True)
+    module.load_state_dict(shard_state_dict(module, sd), strict=True)
 
 
 def saved_config(meta: Dict) -> Optional[ExperimentConfig]:

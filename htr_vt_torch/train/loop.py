@@ -26,8 +26,9 @@ from htr_vt_torch.eval.validate import validate
 from htr_vt_torch.models.sgm import SGMVocab, make_context_arrays
 from htr_vt_torch.text.ed_tokenizer import EDTokenizer
 from htr_vt_torch.train.checkpoint import CheckpointManager, load_module_state
-from htr_vt_torch.parallel.mesh import (barrier, broadcast_str, check_mesh,
-                                        maybe_initialize_distributed, world)
+from htr_vt_torch.parallel.mesh import (barrier, broadcast_str, data_world, init_mesh,
+                                        maybe_initialize_distributed, shard_state_dict,
+                                        world)
 from htr_vt_torch.train.state import create_train_state
 from htr_vt_torch.train.step import eval_step, eval_step_ed, train_step
 from htr_vt_torch.utils.logging import ScalarWriter, StepTimer, get_logger, maybe_profile
@@ -70,11 +71,17 @@ def fit(cfg: ExperimentConfig, device="cuda",
     the scalars and the checkpoints; ``resume="auto"`` is rank 0's choice,
     broadcast; eval gathers every rank's rows, so the best-checkpoint
     decisions agree everywhere. The ranks share the run directory (one
-    machine or a shared filesystem)."""
+    machine or a shared filesystem).
+
+    ``cfg.parallel.mesh_shape=(R, M)`` (``parallel/mesh.py:init_mesh``):
+    the R data indices split each global batch as above, and the M ranks of
+    one data index hold the same rows and shard the ViT blocks over the
+    model axis; the checkpoints keep the one-process layout."""
     maybe_initialize_distributed(device=device)
-    rank, nproc = world()
+    rank, _ = world()
     is_main = rank == 0
-    check_mesh(cfg.parallel.mesh_shape, nproc)
+    init_mesh(cfg.parallel.mesh_shape)
+    data_rank, nproc = data_world()
     device = resolve_device(device, rank)
     if device.type == "cuda":
         torch.cuda.set_device(device)
@@ -86,8 +93,8 @@ def fit(cfg: ExperimentConfig, device="cuda",
     logger.info(json.dumps(config_to_dict(cfg), indent=2, sort_keys=True, default=str))
     for name, bs in (("train_bs", cfg.data.train_bs), ("val_bs", cfg.data.val_bs)):
         if bs % nproc:
-            raise ValueError(f"global {name} {bs} not divisible by the process "
-                             f"count {nproc}")
+            raise ValueError(f"global {name} {bs} not divisible by the data "
+                             f"axis, {nproc} process(es)")
 
     # ---- data ----
     if datasets is None:
@@ -147,7 +154,8 @@ def fit(cfg: ExperimentConfig, device="cuda",
             module, sd = getattr(state, name), loaded[name]
             if cfg.train.load_encoder_only:
                 sd = {k: v for k, v in sd.items() if k.split(".")[0] not in HEAD_KEYS}
-                module.load_state_dict({**module.state_dict(), **sd}, strict=True)
+                module.load_state_dict({**module.state_dict(),
+                                        **shard_state_dict(module, sd)}, strict=True)
             else:
                 load_module_state(module, sd, cfg.train.load_model)
         logger.info("loaded %s weights from %s",
@@ -179,7 +187,7 @@ def fit(cfg: ExperimentConfig, device="cuda",
                          augment=cfg.data.augment, seed=cfg.train.seed,
                          num_threads=cfg.data.num_workers, extras_fn=extras_fn,
                          sampling=cfg.data.sampling, start_batch=start_step,
-                         shard_rank=rank, shard_count=nproc)
+                         shard_rank=data_rank, shard_count=nproc)
     batches = device_prefetch(iter(loader), device)
     writer = ScalarWriter(save_dir, cfg.train.use_wandb, cfg.train.wandb_project,
                           cfg.train.exp_name, config_to_dict(cfg), enabled=is_main)

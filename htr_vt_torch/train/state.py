@@ -19,7 +19,7 @@ from torch import nn
 from htr_vt_torch.config import ExperimentConfig
 from htr_vt_torch.models.htr_vt import build_model
 from htr_vt_torch.optim.sam import make_base_optimizer
-from htr_vt_torch.parallel.mesh import assert_same_on_every_rank
+from htr_vt_torch.parallel.mesh import assert_same_on_every_rank, shard_model
 
 
 @dataclass
@@ -47,11 +47,16 @@ def create_train_state(cfg: ExperimentConfig, device,
     Under data parallelism every rank calls this with one seed: the
     weights and the generator must agree on every rank, since the ranks
     then draw one global mask (``parallel/mesh.py:rank_rows``) and apply
-    one averaged gradient. One checksum all-reduce holds them to it."""
+    one averaged gradient. One checksum all-reduce holds them to it, on
+    the whole weights. Over a model axis (``parallel/mesh.py:init_mesh``)
+    the model is then sharded (``shard_model``), and the EMA copy and
+    AdamW's moments are made from the shards, so they are sharded as
+    their parameters."""
     model = build_model(cfg.model, device=device, generator=generator)
     assert_same_on_every_rank(list(model.state_dict().values())
                               + [generator.get_state()],
                               "the initial weights or the generator's state")
+    shard_model(model)
     ema_model = copy.deepcopy(model)
     ema_model.requires_grad_(False)
     optimizer = make_base_optimizer(model.parameters(), cfg.optim)

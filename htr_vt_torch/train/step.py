@@ -39,7 +39,7 @@ from htr_vt_torch.optim.ema import ema_update
 from htr_vt_torch.optim.sam import (clip_by_global_norm_, sam_perturb, set_lr,
                                     zeros_for_unused)
 from htr_vt_torch.optim.schedule import warmup_cosine_lr
-from htr_vt_torch.parallel.mesh import all_reduce_mean_, world_size
+from htr_vt_torch.parallel.mesh import all_reduce_mean_, data_world, sharded_mask
 from htr_vt_torch.train.state import TrainState
 
 
@@ -147,11 +147,14 @@ def pass_loss_and_grads(state: TrainState, batch: Mapping[str, torch.Tensor],
     cuts the global batch; the mean loss does not depend on row order).
 
     Under data parallelism the pass's gradient is then mean-all-reduced
-    once (never a microbatch at a time), and the loss and the terms too:
-    with the BN sums summed over ranks in the forward and in its backward,
-    this is the gradient of the global batch's mean loss, as JAX's
-    replicated program computes it, and every rank reads the same
-    values."""
+    once over the data axis (never a microbatch at a time), and the loss
+    and the terms too: with the BN sums summed over ranks in the forward
+    and in its backward, this is the gradient of the global batch's mean
+    loss, as JAX's replicated program computes it, and every rank reads the
+    same values. Over a model axis nothing more is reduced: a sharded
+    parameter's gradient is its rank's part, and a replicated one comes out
+    of ``copy_to_model`` / ``reduce_from_model`` equal on every rank of the
+    model group."""
     g = state.cfg.train.grad_accum
     if g == 1:
         loss, terms, grads = _masked_pass(state, batch, params)
@@ -170,7 +173,7 @@ def pass_loss_and_grads(state: TrainState, batch: Mapping[str, torch.Tensor],
         torch._foreach_div_(grads, float(g))
         loss = total / g
         terms = {name: v / g for name, v in terms.items()}
-    if world_size() > 1:
+    if data_world()[1] > 1:
         names = list(terms)
         scalars = torch.stack([loss.detach()] + [terms[n] for n in names])
         all_reduce_mean_(grads + [scalars])
@@ -187,17 +190,20 @@ def train_step(state: TrainState, batch: Mapping) -> Dict[str, torch.Tensor]:
     batch. Returns 0-d tensors on the device, not synchronised: ``loss``
     (pass 1), ``loss_second`` and ``grad_norm``, global values on every
     rank (``pass_loss_and_grads``). SAM's perturbation, its norm and the
-    clip read the pass's mean gradient, whatever ``grad_accum``."""
+    clip read the pass's mean gradient, whatever ``grad_accum``; over a
+    model axis the norm is the whole model's (``optim/sam.py:
+    global_grad_norm``)."""
     cfg = state.cfg
     opt = cfg.optim
     model = state.model
     params = list(model.parameters())
     batch = _put(batch, params[0].device)
 
+    sharded = sharded_mask(model)
     loss1, terms1, grads1 = pass_loss_and_grads(state, batch, params)
     with torch.no_grad():
         w = [p.detach().clone() for p in params]
-    gnorm = sam_perturb(params, grads1, opt.sam_rho, opt.sam_adaptive)
+    gnorm = sam_perturb(params, grads1, opt.sam_rho, opt.sam_adaptive, sharded)
     del grads1
 
     loss2, _, grads2 = pass_loss_and_grads(state, batch, params)
@@ -205,7 +211,7 @@ def train_step(state: TrainState, batch: Mapping) -> Dict[str, torch.Tensor]:
         torch._foreach_copy_(params, w)
     del w
     if opt.grad_clip_norm > 0:
-        clip_by_global_norm_(grads2, opt.grad_clip_norm)
+        clip_by_global_norm_(grads2, opt.grad_clip_norm, sharded)
     for p, g in zip(params, grads2):
         p.grad = g
     set_lr(state.optimizer, warmup_cosine_lr(

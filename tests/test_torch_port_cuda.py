@@ -1009,7 +1009,12 @@ def _assert_flash_close(got, want, what):
     (torch.bfloat16, 1, 2, 128, False, 384),
     (torch.float32, 1, 2, 256, True, 384),
     (torch.bfloat16, 1, 3, 512, True, 512),
-    (torch.float32, 2, 1, 128, False, 512)])
+    (torch.float32, 2, 1, 128, False, 512),
+    # a rank's 3 of the flagship's 6 heads under a model axis of 2, at the
+    # multi-width recipe's bs 64, as views of the rank's qkv output
+    (torch.bfloat16, 64, 3, 256, True, 128),
+    (torch.float32, 64, 3, 256, True, 128),
+    (torch.bfloat16, 64, 3, 512, True, 128)])
 def test_flash_kernels_match_plain(cuda, dtype, b, h, n, strided, d):
     """K5f, K5dkv and K5dq against their plain versions at odd batch and
     head counts, and two calls of each bit-equal."""
@@ -1599,3 +1604,108 @@ def test_exported_program_launches_the_kernels(cuda, case, tmp_path):
         live = make_serving_fn(model)(img.to(cuda))
     assert launched == want
     assert all(torch.equal(g, w) for g, w in zip(got, live))
+
+
+# --- tensor parallelism over the model axis, two ranks on the card ---------------
+TP_WORKER = r"""
+import os, sys
+import torch
+sys.path.insert(0, os.environ["HTRVT_REPO"])
+from htr_vt_torch.config import ExperimentConfig, config_from_dict
+from htr_vt_torch.parallel import mesh
+from htr_vt_torch.ops import flash_attn as fa
+from htr_vt_torch.train.state import create_train_state
+from htr_vt_torch.train.step import train_step
+
+torch.cuda.set_device(0)
+torch.backends.cuda.matmul.allow_tf32 = False
+torch.backends.cudnn.allow_tf32 = False
+os.environ["CUBLAS_WORKSPACE_CONFIG"] = ":4096:8"
+torch.use_deterministic_algorithms(True)
+mesh.maybe_initialize_distributed(backend="gloo")
+mesh.init_mesh((1, 2))
+job = torch.load(os.environ["HTRVT_JOB"], weights_only=False)
+cfg = config_from_dict(ExperimentConfig, job["cfg"])
+state = create_train_state(cfg, "cuda", torch.Generator(device="cuda").manual_seed(4))
+before = fa.flash_attention_fwd.launches
+metrics = {k: v.item() for k, v in train_step(state, job["batch"]).items()}
+out = {"metrics": metrics, "k5f": fa.flash_attention_fwd.launches - before,
+       "model": {k: v.cpu() for k, v in mesh.gather_state_dict(state.model).items()}}
+torch.save(out, os.path.join(os.environ["HTRVT_OUT"], f"rank{mesh.world()[0]}.pt"))
+mesh.barrier()
+"""
+
+
+@pytest.mark.cuda
+def test_a_tensor_parallel_step_on_the_card_matches_one_process(cuda, tmp_path):
+    """Two gloo ranks share the card at ``mesh_shape=(1, 2)``, one head of
+    two each (head_dim 128 at 1024 px: K5 on one head, twice a pass), float32
+    under ``torch.use_deterministic_algorithms``: one SAM step against one
+    process from the same seed, the losses within 1e-5, the gradient norm
+    within the port's one-step SAM bar, 1e-4 (read 1.5e-5 on an H100), the
+    weights within 1e-5 and Adam's sign-flip bound (2 x the LR), and the
+    ranks' whole weights equal."""
+    import dataclasses
+    import os
+    import socket
+    import subprocess
+    import sys
+
+    from htr_vt_torch import ExperimentConfig, MaskConfig, OptimConfig
+    from htr_vt_torch.config import ParallelConfig, config_to_dict
+    from htr_vt_torch.ops import flash_attn as fa
+    from htr_vt_torch.optim.schedule import warmup_cosine_lr
+    from htr_vt_torch.train.state import create_train_state
+    cfg = ExperimentConfig(
+        model=ModelConfig(nb_cls=8, img_size=(64, 1024), embed_dim=256, depth=1,
+                          num_heads=2, compute_dtype="float32",
+                          masking=MaskConfig(mode="none")),
+        optim=OptimConfig(max_lr=1e-3, warmup_iters=2))
+    rng = np.random.default_rng(13)
+    _, labels, lengths = ctc_case(13, 4, 256, 8, 20)
+    batch = {"image": rng.random((4, 64, 1024, 1), dtype=np.float32), "labels": labels,
+             "label_lengths": lengths}
+    job = {"cfg": config_to_dict(dataclasses.replace(
+        cfg, parallel=ParallelConfig(mesh_shape=(1, 2)))), "batch": batch}
+    torch.save(job, str(tmp_path / "job.pt"))
+    with socket.socket() as sock:
+        sock.bind(("", 0))
+        port = sock.getsockname()[1]
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    procs = [subprocess.Popen(
+        [sys.executable, "-c", TP_WORKER], cwd=repo, stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True,
+        env=dict(os.environ, HTRVT_REPO=repo, HTRVT_COORDINATOR=f"localhost:{port}",
+                 HTRVT_NUM_PROCESSES="2", HTRVT_PROCESS_ID=str(r),
+                 HTRVT_JOB=str(tmp_path / "job.pt"), HTRVT_OUT=str(tmp_path)))
+        for r in range(2)]
+    logs = [p.communicate(timeout=300)[0] for p in procs]
+    assert all(p.returncode == 0 for p in procs), "\n".join(log[-3000:] for log in logs)
+    ranks = [torch.load(str(tmp_path / f"rank{r}.pt"), weights_only=False) for r in range(2)]
+
+    env = os.environ.get("CUBLAS_WORKSPACE_CONFIG")
+    os.environ["CUBLAS_WORKSPACE_CONFIG"] = ":4096:8"
+    torch.use_deterministic_algorithms(True)
+    try:
+        state = create_train_state(cfg, cuda, torch.Generator(device=cuda).manual_seed(4))
+        before = fa.flash_attention_fwd.launches
+        want = {k: v.item() for k, v in train_step(state, batch).items()}
+        torch.cuda.synchronize()
+    finally:
+        torch.use_deterministic_algorithms(False)
+        if env is None:
+            del os.environ["CUBLAS_WORKSPACE_CONFIG"]
+        else:
+            os.environ["CUBLAS_WORKSPACE_CONFIG"] = env
+    assert fa.flash_attention_fwd.launches - before == 2
+    assert [r["k5f"] for r in ranks] == [2, 2]
+    assert ranks[0]["metrics"] == ranks[1]["metrics"]
+    for key, v in want.items():
+        np.testing.assert_allclose(ranks[0]["metrics"][key], v,
+                                   rtol=1e-4 if key == "grad_norm" else 1e-5, err_msg=key)
+    lr = warmup_cosine_lr(0, max_lr=cfg.optim.max_lr, warmup_iters=cfg.optim.warmup_iters,
+                          total_iters=cfg.optim.total_iters, min_lr=cfg.optim.min_lr)
+    for k, v in state.model.state_dict().items():
+        got = ranks[0]["model"][k]
+        assert torch.equal(got, ranks[1]["model"][k]), k
+        torch.testing.assert_close(got, v.cpu(), rtol=1e-5, atol=2.01 * lr, msg=k)

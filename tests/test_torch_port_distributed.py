@@ -123,6 +123,11 @@ def launch(script: str, tmp_path, job=None, ranks: int = RANKS, env=None):
     ``HTRVT_*`` launch), each under WORKER_TIMEOUT; returns the
     ``rank{r}.pt`` each saved in ``tmp_path``. A worker that fails or hangs
     fails the test with every worker's output."""
+    return collect(start(script, tmp_path, job, ranks, env), tmp_path)
+
+
+def start(script: str, tmp_path, job=None, ranks: int = RANKS, env=None):
+    """``launch``'s processes, started and not waited for (``collect``)."""
     if job is not None:
         torch.save(job, os.path.join(str(tmp_path), "job.pt"))
     port = free_port()
@@ -135,6 +140,11 @@ def launch(script: str, tmp_path, job=None, ranks: int = RANKS, env=None):
         procs.append(subprocess.Popen([sys.executable, "-c", script], env=e, cwd=REPO,
                                       stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
                                       text=True))
+    return procs
+
+
+def collect(procs, tmp_path):
+    """Wait for ``start``'s processes; their ``rank{r}.pt``."""
     logs, failed = [], False
     for rank, p in enumerate(procs):
         try:
@@ -150,7 +160,7 @@ def launch(script: str, tmp_path, job=None, ranks: int = RANKS, env=None):
     if failed:
         pytest.fail("\n".join(logs))
     return [torch.load(os.path.join(str(tmp_path), f"rank{r}.pt"), weights_only=False)
-            for r in range(ranks)]
+            for r in range(len(procs))]
 
 
 def global_batches(seed, steps=STEPS):
@@ -276,12 +286,13 @@ def test_rank_rows_are_the_global_draw():
 
 @pytest.mark.parametrize("shape,size,error", [
     ((2,), 1, ValueError), ((3,), 2, ValueError), ((2, 1, 1), 2, ValueError),
-    ((2, 2), 2, NotImplementedError), ((1, 4), 1, NotImplementedError)])
+    ((2, 2), 2, ValueError), ((1, 4), 1, ValueError)])
 def test_mesh_shape_must_match_the_world(shape, size, error):
-    with pytest.raises(error, match="ROADMAP.md queue 1, item 12" if
-                       error is NotImplementedError else "mesh_shape"):
+    """data x model must be the world size; a model axis is tensor
+    parallelism (``tests/test_torch_port_tensor_parallel.py``)."""
+    with pytest.raises(error, match="mesh_shape"):
         mesh.check_mesh(shape, size)
-    for ok in (None, (size,), (size, 1)):
+    for ok in (None, (size,), (size, 1), (1, size)):
         mesh.check_mesh(ok, size)
 
 
