@@ -241,6 +241,20 @@ non-zero before the last line:
    (under deterministic algorithms), against one process on the same
    weights, batch and masks at ``TP_BARS``; the ranks' whole states equal;
    each rank's launches and ms a step.
+25. tensor parallel over the zoo: two processes
+   (``--tensor-parallel-zoo-rank``) share the card over gloo at
+   ``mesh_shape=(1, 2)``, at bs 16 against one process on the same
+   weights, batch and masks: the tri-masked SGM conformer at 1024 px (the
+   fully fused stem's kernels and K5 on a rank's 3 of 6 heads), one SAM
+   step in bf16 and one in float32 under deterministic algorithms, then an
+   ``eval_step``; window, lgp, squeezeformer, Swin and SVTR at 512 px, an
+   ``eval_step`` and a bf16 SAM step; the encoder-decoder's bf16 SAM step
+   and its greedy and beam-5 ids (equal to one process's up to a position
+   whose float32 margin the bf16 rounding can cross); the int8 vit,
+   calibrated, its logits against one process's (bit-equal, or the gap and
+   the statistics that differ). Each step at ``TP_BARS``, every rank's
+   launches equal to one process's, the ranks' states equal; ms a warm
+   second call, rank 0 and one process.
 
 Kernel times (phases 2, 3, 4 and 11) are read two ways: ``median_ms``, one
 wrapper call between two CUDA events (host work in the wrapper included;
@@ -410,7 +424,10 @@ FLASH_SHAPES = (("serve1024", (BATCH, 6, 256, 128), False, BOTH),
                 # a rank's 3 of the 6 heads under a model axis of 2 (phase 24),
                 # the multi-width recipe's training shapes
                 ("tp1024_h3", (64, 3, 256, 128), True, BOTH),
-                ("tp2048_h3", (64, 3, 512, 128), True, BOTH))
+                ("tp2048_h3", (64, 3, 512, 128), True, BOTH),
+                # and the tri-masked SGM conformer's at bs 16 (phase 25,
+                # TPZ_K5_SHAPE)
+                ("tpz1024_h3", (16, 3, 256, 128), True, BOTH))
 # K5 against its plain version (the bars of tests/test_torch_port_cuda.py):
 # float32, 1e-4 of the value and 1e-5 of the tensor's largest (float32 sums
 # in other orders); bf16, one bf16 ulp of the value (2^-7) and 2^-8 of the
@@ -616,6 +633,24 @@ MW_TRAIN_LINES, MW_EVAL_LINES = 2 * WIDE_BATCH, WIDE_BATCH
 TP_RANKS, TP_STEPS, TP_TIMEOUT, TP_WIDTH = 2, 3, 600, 1024
 TP_BARS = DP_BARS
 TP_CER_GAP = 0.05
+# Tensor parallel over the zoo (phase 25): TP_RANKS processes at mesh_shape
+# (1, TP_RANKS) on the one card over gloo, each model at the flagship width
+# (its preset) against one process on the same weights, batch and masks, at
+# bs TPZ_BATCH: the tri-masked SGM conformer at TPZ_SGM_WIDTH px (N = 256:
+# K5 on a rank's 3 of 6 heads, TPZ_K5_SHAPE) for one SAM step in bf16 and
+# one in float32 under deterministic algorithms, then an eval_step; the
+# TPZ_ZOO models at 512 px for an eval_step and one bf16 SAM step; the
+# encoder-decoder (6 decoder layers of 8 heads) for one bf16 SAM step and
+# greedy and beam-ED_BEAM generation of TPZ_ED_LEN positions; the int8 vit
+# at 512 px calibrated on one batch, then an eval_step. Each at TP_BARS; the
+# eval losses at the losses' bar; the generated ids equal to one process's
+# up to the first position whose float32 top-2 margin is under twice the
+# bf16 model's largest logit error (where bf16 rounding can flip the
+# argmax), the zoo phases' argmax floor.
+TPZ_BATCH, TPZ_SGM_WIDTH, TPZ_WIDTH = 16, 1024, 512
+TPZ_ZOO = ("window", "lgp", "squeezeformer", "swin", "svtr")
+TPZ_ED_LEN, TPZ_ED_LMAX = 24, 22
+TPZ_K5_SHAPE = (TPZ_BATCH, 3, 256, 128)
 
 
 def per_step_launches(switches, forwards=1):
@@ -4399,6 +4434,390 @@ def phase_tensor_parallel(device, smi_line):
     return launches, rec
 
 
+def _tpz_cfg(name, dtype, mesh_shape, vocab_size):
+    """The phase-25 configuration of ``name`` (``sgm``, ``ed``, ``int8`` or a
+    TPZ_ZOO encoder) in ``dtype`` at ``mesh_shape``; ``vocab_size`` is the SGM
+    head's or the encoder-decoder's."""
+    par = ParallelConfig(mesh_shape=mesh_shape)
+    masking = MaskConfig(mode="span", ratio=0.4, max_span_length=8)
+    train = TrainConfig()
+    if name == "sgm":
+        model = apply_variant_preset(ModelConfig(
+            encoder="conformer", compute_dtype=dtype,
+            masking=MaskConfig(mode="mms", max_span_length=8),
+            sgm=SGMConfig(enable=True, vocab_size=vocab_size, sub_len=SGM_SUB_LEN),
+            **FULLY_FUSED))
+        train = TrainConfig(tri_masked=True)
+    elif name == "ed":
+        model = ModelConfig(model_type="encoder_decoder", decoder_layers=6, decoder_heads=8,
+                            max_seq_len=256, ed_vocab_size=vocab_size, compute_dtype=dtype,
+                            masking=masking, **FULLY_FUSED)
+    elif name == "int8":
+        model = ModelConfig(quant="int8")
+    else:
+        model = apply_variant_preset(ModelConfig(encoder=name, compute_dtype=dtype,
+                                                 masking=masking, **FULLY_FUSED))
+    return ExperimentConfig(model=model, optim=OptimConfig(), train=train, parallel=par)
+
+
+def _tpz_inputs(device):
+    """The phase's batches: the SGM lines at TPZ_SGM_WIDTH, the zoo's and the
+    int8 lines at TPZ_WIDTH, the encoder-decoder's lines with their
+    teacher-forcing arrays; the SGM vocabulary and the ED tokenizer."""
+    alphabet = [chr(c) for c in range(33, 33 + 79)]
+    vocab = SGMVocab(CTCLabelConverter(alphabet))
+    tokenizer = EDTokenizer.from_ctc_converter(CTCLabelConverter(sorted(alphabet)))
+    rng = np.random.default_rng(SEED + 120)
+    sgm = sgm_batch(TPZ_BATCH, TPZ_SGM_WIDTH, WIDE_LMAX[TPZ_SGM_WIDTH], vocab, rng, device)
+    zoo = zoo_batch(TPZ_BATCH, TPZ_WIDTH, rng, device)
+    texts = ["".join(rng.choice(alphabet, m)) for m in rng.integers(1, TPZ_ED_LMAX + 1,
+                                                                   TPZ_BATCH)]
+    tin, tout, tlen = tokenizer.encode_for_training(texts, TPZ_ED_LMAX + 2)
+    put = lambda a: torch.from_numpy(a).to(device)  # noqa: E731
+    ed = {"image": put(line_images(TPZ_BATCH, rng, TPZ_WIDTH)),
+          "labels": torch.zeros((TPZ_BATCH, 4), dtype=torch.int32, device=device),
+          "label_lengths": torch.zeros(TPZ_BATCH, dtype=torch.int32, device=device),
+          "ed_input": put(tin), "ed_output": put(tout), "ed_lengths": put(tlen)}
+    calib = put(line_images(TPZ_BATCH, rng, TPZ_WIDTH))
+    return dict(sgm=sgm, zoo=zoo, ed=ed, calib=calib, vocab=vocab, tokenizer=tokenizer)
+
+
+def _tpz_state_file(state):
+    """A state in the one-process layout on the host (gathered over the
+    model group where sharded)."""
+    from htr_vt_torch.parallel import mesh
+    host = lambda sd: {k: v.detach().to("cpu", copy=True) for k, v in sd.items()}  # noqa: E731
+    return {"model": host(mesh.gather_state_dict(state.model)),
+            "ema_model": host(mesh.gather_state_dict(state.ema_model)),
+            "optimizer": {"state": {i: host(st) for i, st in mesh.gather_optimizer_state(
+                state.model, state.optimizer)["state"].items()}},
+            "step": state.step, "generator": state.generator.get_state()}
+
+
+def _tpz_counted(fn):
+    """(fn's result, its launches, its CUDA-event ms)."""
+    torch.cuda.synchronize()
+    reset_counts()
+    start, end = _events()
+    start.record()
+    out = fn()
+    end.record()
+    end.synchronize()
+    return out, read_counts(), start.elapsed_time(end)
+
+
+def _tpz_run(mesh_shape, device):
+    """Every model of phase 25 at ``mesh_shape`` (None: one process), from
+    the same seeds: metrics, the state after its step, the eval logits and
+    loss, the generated ids, launches and ms of each call, the attention
+    shapes K5 saw."""
+    from htr_vt_torch.models import vit
+    inputs = _tpz_inputs(device)
+    seen = []
+    flash = vit.flash_attention
+
+    def recording(q, k, v, scale):
+        seen.append(tuple(q.shape))
+        return flash(q, k, v, scale)
+
+    vit.flash_attention = recording
+    out = {}
+    try:
+        for name, dtypes in (("sgm", DP_DTYPES), *((n, ("bfloat16",)) for n in TPZ_ZOO),
+                             ("ed", ("bfloat16",))):
+            batch = inputs["ed" if name == "ed" else "sgm" if name == "sgm" else "zoo"]
+            vocab_size = (inputs["tokenizer"].vocab_size if name == "ed"
+                          else inputs["vocab"].size)
+            for dtype in dtypes:
+                cfg = _tpz_cfg(name, dtype, mesh_shape, vocab_size)
+                state = create_train_state(cfg, device, torch.Generator(
+                    device=device).manual_seed(SEED + 121))
+                rec = {}
+                seen.clear()
+                with (deterministic_algorithms() if dtype in DP_DETERMINISTIC
+                      else contextlib.nullcontext()):
+                    m, rec["step_launches"], rec["first_step_ms"] = _tpz_counted(
+                        lambda: train_step(state, batch))
+                rec["metrics"] = [{k: v.item() for k, v in m.items()}]
+                rec["step_k5"] = sorted(set(seen))
+                rec["state"] = _tpz_state_file(state)
+                warm = []  # the same calls again, warm: their ms, launches counted apart
+                if name == "ed":
+                    image = batch["image"]
+                    for method in ("greedy", "beam_search"):
+                        def gen(method=method):
+                            return generate(state.model, image, method=method,
+                                            max_len=TPZ_ED_LEN, beam_size=ED_BEAM)
+                        ids, rec[f"{method}_launches"], _ = _tpz_counted(gen)
+                        rec[method] = ids.cpu()
+                        warm.append((f"{method}_ms", gen))
+                else:
+                    seen.clear()
+                    ev, rec["eval_launches"], _ = _tpz_counted(
+                        lambda: eval_step(state.model, batch))
+                    rec["eval_k5"] = sorted(set(seen))
+                    rec["logits"] = ev["logits"].float().cpu()
+                    rec["eval_loss"] = ev["loss"].item()
+                    warm.append(("eval_ms", lambda: eval_step(state.model, batch)))
+                warm.append(("step_ms", lambda: train_step(state, batch)))
+                rec["warm_launches"] = dict.fromkeys(COUNTERS, 0)
+                with (deterministic_algorithms() if dtype in DP_DETERMINISTIC
+                      else contextlib.nullcontext()):
+                    for key, fn in warm:
+                        _, counts, rec[key] = _tpz_counted(fn)
+                        rec["warm_launches"] = {c: rec["warm_launches"][c] + counts[c]
+                                                for c in COUNTERS}
+                rec["heads"] = sorted({m.num_heads // m.model_shards
+                                       for m in state.model.modules()
+                                       if hasattr(type(m), "model_shards")
+                                       and hasattr(m, "num_heads")})
+                out[name if len(dtypes) == 1 else f"{name}_{dtype}"] = rec
+                del state
+                torch.cuda.empty_cache()
+        # int8 serving: the vit flagship's seeded weights (stage 1 padded),
+        # calibrated on one batch
+        cfg8 = _tpz_cfg("int8", "bfloat16", mesh_shape, 0).model
+        model = build_model(cfg8, device=device)
+        model.load_state_dict(q8.serving_arrays(cfg8, _tpz_int8_weights(device)))
+        if mesh_shape is not None:
+            from htr_vt_torch.parallel import mesh
+            mesh.shard_model(model)
+        stats = q8.calibrate_quant_stats(model, [inputs["calib"]], 1)
+        ev, launches, _ = _tpz_counted(lambda: eval_step(model, inputs["zoo"]))
+        _, warm, ms = _tpz_counted(lambda: eval_step(model, inputs["zoo"]))
+        out["int8"] = dict(logits=ev["logits"].float().cpu(), eval_launches=launches,
+                           eval_ms=ms, warm_launches=warm,
+                           stats={k: v.item() for k, v in stats.items()})
+        del model
+        torch.cuda.empty_cache()
+    finally:
+        vit.flash_attention = flash
+    return out
+
+
+def _tpz_int8_weights(device, dtype="bfloat16"):
+    """The seeded float flagship's state_dict (phase 25's int8 weights)."""
+    return build_model(ModelConfig(compute_dtype=dtype), device=device,
+                       generator=torch.Generator(device=device).manual_seed(
+                           SEED + 122)).state_dict()
+
+
+def tpz_worker(out_dir):
+    """One rank of phase 25 (``python3 chip_smoke.py
+    --tensor-parallel-zoo-rank DIR``, launched by
+    ``phase_tensor_parallel_zoo`` with the ``HTRVT_*`` variables): every
+    model of the phase at ``mesh_shape=(1, TP_RANKS)`` over a gloo group
+    that shares card 0 with the other rank."""
+    from htr_vt_torch.parallel import mesh
+    device = torch.device("cuda", 0)
+    torch.cuda.set_device(device)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    mesh.maybe_initialize_distributed(backend="gloo")
+    mesh.init_mesh((1, TP_RANKS))
+    _build.library()
+    out = {"world": mesh.world(), "model": mesh.model_world(),
+           "runs": _tpz_run((1, TP_RANKS), device)}
+    torch.save(out, os.path.join(out_dir, f"rank{out['world'][0]}.pt"))
+    mesh.barrier()
+    torch.distributed.destroy_process_group()
+
+
+def _tpz_want(name, depth):
+    """(launches of the step, of the eval or of each generation) of one
+    process, as the earlier phases count them."""
+    zero = dict.fromkeys(COUNTERS, 0)
+    if name == "sgm":
+        k5 = depth * TRI_FORWARDS * 2
+        return ({**zero, **per_step_launches(FULLY_FUSED, TRI_FORWARDS),
+                 "flash_attention_fwd": k5, "flash_attention_bwd_dkv": k5,
+                 "flash_attention_bwd_dq": k5},
+                {**zero, **per_eval_launches(FULLY_FUSED), "flash_attention_fwd": depth})
+    if name in ("swin", "svtr"):  # the switches reach none of their stems
+        return {**zero, **per_step_launches({})}, {**zero, **per_eval_launches({})}
+    if name == "ed":  # no CTC; the trunk's stem once a generation
+        step = {k: v for k, v in per_step_launches(FULLY_FUSED).items()
+                if not k.startswith("ctc")}
+        gen = {k: v for k, v in per_eval_launches(FULLY_FUSED).items()
+               if not k.startswith("ctc")}
+        return {**zero, **step}, {**zero, **gen}
+    return ({**zero, **per_step_launches(FULLY_FUSED)},
+            {**zero, **per_eval_launches(FULLY_FUSED)})
+
+
+def _ed_first_flip(model, model32, image, ids, got, method):
+    """The generated ``got`` against one process's ``ids``: (the first
+    position where they differ or None, whether the float32 top-2 margin
+    there is at least twice the bf16 model's largest logit error, that
+    error). One process's ids are teacher-forced through its bf16 model and
+    a float32 copy; greedy reads the margin after the repetition penalty it
+    applied, beam search of the log-probabilities."""
+    from htr_vt_torch.models.encoder_decoder import apply_repetition_penalty
+    sos = 1
+    tin = torch.cat([torch.full_like(ids[:, :1], sos), ids[:, :-1]], dim=1).to(image.device)
+    with torch.inference_mode():
+        l16 = model.decode_logits(model.encode(image), tin).float()
+        l32 = model32.decode_logits(model32.encode(image), tin)
+        noise = (l16 - l32).abs().max().item()
+        if method == "beam_search":
+            l32 = F.log_softmax(l32, dim=-1)
+        else:
+            buf = torch.zeros(ids.shape[0], ids.shape[1] + 1, dtype=torch.long,
+                              device=image.device)
+            buf[:, 0] = sos
+            for t in range(ids.shape[1]):
+                l32[:, t] = apply_repetition_penalty(l32[:, t], buf, 1.3)
+                buf[:, t + 1] = ids[:, t].to(image.device)
+        top2 = l32.topk(2, dim=-1).values
+    decidable = ((top2[..., 0] - top2[..., 1]) >= 2 * noise).cpu()
+    diff = (got != ids)
+    rows = diff.any(1)
+    if not rows.any():
+        return None, True, noise
+    first = diff.float().argmax(1)
+    held = all(not decidable[r, first[r]] for r in torch.nonzero(rows)[:, 0].tolist())
+    return int(first[rows].min()), held, noise
+
+
+def phase_tensor_parallel_zoo(device, smi_line):
+    """Two ranks on the one card over gloo at ``mesh_shape=(1, 2)``
+    (``tpz_worker``) against one process on the same weights, batch and
+    masks: the tri-masked SGM conformer at 1024 px (bf16 and float32), the
+    TPZ_ZOO models, the encoder-decoder and the int8 vit, at TP_BARS and
+    the phase's floors; every rank's launches equal to one process's, K5
+    at a rank's 3 heads; the ranks' states equal; ms a call."""
+    t_phase = time.perf_counter()
+    root = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build")
+    os.makedirs(root, exist_ok=True)
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_tpz_", dir=root)
+    tag = "tensor parallel zoo"
+    rec = {}
+    try:
+        one = _tpz_run(None, device)
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        t_ranks = time.perf_counter()
+        ranks = run_ranks("--tensor-parallel-zoo-rank", tmp, TP_RANKS, TP_TIMEOUT, tag)
+        rec["ranks_s"] = time.perf_counter() - t_ranks
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    if [r["model"] for r in ranks] != [(m, TP_RANKS) for m in range(TP_RANKS)]:
+        raise AssertionError(f"[{tag}] grid {[r['model'] for r in ranks]}")
+    got_all = [r["runs"] for r in ranks]
+    launches = dict.fromkeys(COUNTERS, 0)
+    depth = {n: _tpz_cfg(n, "bfloat16", None, 83).model.depth
+             for n in ("sgm", "ed", *TPZ_ZOO)}
+    failures = []
+    for key, ref in one.items():
+        got = got_all[0][key]
+        name = key.split("_")[0] if key.startswith("sgm") else key
+        dtype = key.split("_")[1] if key.startswith("sgm") else "bfloat16"
+        bars = TP_BARS[dtype]
+        calls = [k for k in ("step", "eval", "greedy", "beam_search")
+                 if f"{k}_launches" in ref]
+        for k in calls:  # every rank's launches are one process's
+            for r in got_all:
+                if r[key][f"{k}_launches"] != ref[f"{k}_launches"]:
+                    failures.append(f"{key} {k}: a rank launched {r[key][k + '_launches']}, "
+                                    f"one process {ref[k + '_launches']}")
+            launches = {c: launches[c] + TP_RANKS * got[f"{k}_launches"][c] +
+                        ref[f"{k}_launches"][c] for c in COUNTERS}
+        launches = {c: launches[c] + sum(r[key]["warm_launches"][c] for r in got_all)
+                    + ref["warm_launches"][c] for c in COUNTERS}
+        if name != "int8":
+            want_step, want_eval = _tpz_want(name, depth[name])
+            for k in calls:
+                if ref[f"{k}_launches"] != (want_step if k == "step" else want_eval):
+                    failures.append(f"{key} {k}: one process launched "
+                                    f"{ref[k + '_launches']}, expected "
+                                    f"{want_step if k == 'step' else want_eval}")
+            for r in got_all[1:]:
+                same = r[key]["metrics"] == got["metrics"] and all(
+                    torch.equal(v, r[key]["state"][part][k])
+                    for part in ("model", "ema_model") for k, v in got["state"][part].items())
+                if not same:
+                    failures.append(f"{key}: the ranks' metrics or whole weights differ")
+            ok, rel, held = held_to_one(got, ref, bars)
+            line = (f"[{tag} {key}] heads a rank {got['heads']} (one process "
+                    f"{ref['heads']}); one SAM step at bs {TPZ_BATCH}: relative gaps "
+                    + "; ".join(f"{k} {v[0]:.3e}" for k, v in rel.items())
+                    + f" (bars {bars['first_loss']} / {bars['first_grad_norm']}); "
+                    f"{gaps(held)}; ms a step (a second, warm step), rank 0 "
+                    f"{got['step_ms']:.3f}, one process {ref['step_ms']:.3f} (the compared "
+                    f"first step {got['first_step_ms']:.3f} / {ref['first_step_ms']:.3f})")
+            if not ok:
+                failures.append(f"{key}: outside {bars}: {rel}, {held}")
+        if name == "sgm":
+            want_k5 = [TPZ_K5_SHAPE]
+            if got["step_k5"] != want_k5 or got["eval_k5"] != want_k5:
+                failures.append(f"{key}: K5 ran at {got['step_k5']} / {got['eval_k5']}, "
+                                f"expected {want_k5}")
+            line += f"; K5 a rank at {got['step_k5']}, one process at {ref['step_k5']}"
+        if "logits" in ref and name != "int8":
+            eval_rel = abs(got["eval_loss"] - ref["eval_loss"]) / abs(ref["eval_loss"])
+            dmax = (got["logits"] - ref["logits"]).abs().max().item()
+            agree = (got["logits"].argmax(-1) == ref["logits"].argmax(-1)).float().mean()
+            line += (f"; eval_step loss {eval_rel:.3e} rel, max |dlogits| {dmax:.4f}, frame "
+                     f"argmax agreement {agree.item():.4%}, ms rank 0 {got['eval_ms']:.3f}, "
+                     f"one process {ref['eval_ms']:.3f}")
+            if eval_rel > bars["loss"]:
+                failures.append(f"{key}: eval loss {eval_rel:.3e} rel")
+        if name == "ed":
+            cfg32 = _tpz_cfg("ed", "float32", None, ref["state"]["model"]["embed.weight"]
+                             .shape[0]).model
+            m16 = build_model(_tpz_cfg("ed", "bfloat16", None, cfg32.ed_vocab_size).model,
+                              device=device)
+            m32 = build_model(cfg32, device=device)
+            for m in (m16, m32):
+                m.load_state_dict({k: v.to(device) for k, v in ref["state"]["model"].items()})
+            image = _tpz_inputs(device)["ed"]["image"]
+            for method in ("greedy", "beam_search"):
+                first, ok_ids, noise = _ed_first_flip(m16, m32, image, ref[method],
+                                                      got[method], method)
+                line += (f"; {method} ids: first difference "
+                         f"{'none' if first is None else f'at position {first}'}"
+                         f" (bf16 logit error {noise:.4f}), ms rank 0 "
+                         f"{got[method + '_ms']:.1f}, one process {ref[method + '_ms']:.1f}")
+                if not ok_ids:
+                    failures.append(f"ed {method}: ids differ where the float32 margin is "
+                                    f"at least twice the bf16 error")
+            del m16, m32
+            torch.cuda.empty_cache()
+        if name == "int8":
+            diff = (got["logits"] - ref["logits"]).abs().max().item()
+            stats_off = sorted(k for k, v in ref["stats"].items() if got["stats"][k] != v)
+            m32 = build_model(ModelConfig(compute_dtype="float32"), device=device)
+            m32.load_state_dict(_tpz_int8_weights(device))
+            l32 = eval_step(m32, _tpz_inputs(device)["zoo"])["logits"].float().cpu()
+            own = float((ref["logits"] - l32).norm() / l32.norm())
+            tp = float((got["logits"] - ref["logits"]).norm() / ref["logits"].norm())
+            line = (f"[{tag} int8] vit at {TPZ_WIDTH} px, calibrated on one batch: logits "
+                    f"{'bit-equal to' if diff == 0 else f'{diff:.4f} max |d| from'} one "
+                    f"process ({tp:.3e} relative L2; int8 against float32 {own:.3e})"
+                    + ("" if diff == 0 else
+                       f"; statistics that differ: {stats_off[:4] or 'none'} (the float "
+                       "products around the int8 sites: the column sites' GEMMs over half "
+                       "the output columns and the attention over half the heads)")
+                    + f"; ms rank 0 {got['eval_ms']:.3f}, one process {ref['eval_ms']:.3f}")
+            if tp > own or not all(torch.equal(got["logits"], r["int8"]["logits"])
+                                   for r in got_all):
+                failures.append(f"int8: {tp:.3e} from one process (int8 itself {own:.3e}), "
+                                "or the ranks differ")
+            rec["int8"] = dict(max_dlogits=diff, rel=tp, int8_rel=own, stats_off=stats_off,
+                               rank_ms=got["eval_ms"], one_ms=ref["eval_ms"])
+            del m32
+        else:
+            rec[key] = dict(rel=rel, held=held, rank_launches=got["step_launches"],
+                            rank_ms=got["step_ms"], one_ms=ref["step_ms"])
+        say(line + f"; {smi_line}")
+    rec["phase_s"] = time.perf_counter() - t_phase
+    say(f"[{tag}] phase {rec['phase_s']:.1f} s (ranks {rec['ranks_s']:.1f} s); "
+        f"launches {launches}; {smi_line}")
+    if failures:
+        raise AssertionError(f"[{tag}] " + "; ".join(failures))
+    return launches, rec
+
+
 def main():
     smi_line, max_sm_mhz = phase_device()
     device = torch.device("cuda", 0)
@@ -4430,13 +4849,14 @@ def main():
     dp_launches, dp_rec = phase_data_parallel(device, smi_line)
     mw_launches, mw_rec = phase_multiwidth(device, smi_line)
     tp_launches, tp_rec = phase_tensor_parallel(device, smi_line)
+    tpz_launches, tpz_rec = phase_tensor_parallel_zoo(device, smi_line)
     say(f"[done] build {build_s:.2f} s; {smi_line}")
     main_path = {k: fused_serve[k] + full_serve[k] + fused_train[k] + full_train[k]
                  + train_launches[k] + bucket_serve[k] + wide_train[k] + fit_launches[k]
                  + zoo_launches[k] + sgm_launches[k] + standalone_launches[k]
                  + ed_launches[k] + int8_launches[k] + deploy_launches[k]
                  + lever_launches_[k] + dp_launches[k] + mw_launches[k] + tp_launches[k]
-                 for k in COUNTERS}
+                 + tpz_launches[k] for k in COUNTERS}
     main_path["ctc_alpha"] += serve_launches
     k193, k17 = kernels["S193"], kernels["S17"]
     entry = stem["bn_stats"]["entry"]
@@ -4598,7 +5018,7 @@ def main():
                     "int8_serve": {k: v for k, v in int8_rec.items() if k != "sites"},
                     "deploy_serve": deploy_rec, "memory_levers": lever_rec,
                     "data_parallel": dp_rec, "multiwidth": mw_rec,
-                    "tensor_parallel": tp_rec}))
+                    "tensor_parallel": tp_rec, "tensor_parallel_zoo": tpz_rec}))
     say(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))
@@ -4609,5 +5029,7 @@ if __name__ == "__main__":
         dp_worker(sys.argv[2])
     elif sys.argv[1:2] == ["--tensor-parallel-rank"]:
         tp_worker(sys.argv[2])
+    elif sys.argv[1:2] == ["--tensor-parallel-zoo-rank"]:
+        tpz_worker(sys.argv[2])
     else:
         main()

@@ -46,8 +46,8 @@ Ported so far:
   and ``cfg.train.grad_accum`` (``train/step.py``), and training over
   several processes (``parallel/mesh.py``: the BatchNorm sums, each SAM
   pass's gradient, eval's predictions all-reduced or gathered by hand);
-  tensor parallelism of the ViT blocks over a mesh's model axis
-  (``mesh_shape=(R, M)``, ``parallel/mesh.py:shard_model``);
+  tensor parallelism of every model's attention and MLP layers over a
+  mesh's model axis (``mesh_shape=(R, M)``, ``parallel/mesh.py:shard_model``);
 - the multi-width recipe (``cli/train_multiwidth.py``), data preparation
   (``cli/prepare_data.py``, ``data/format_datasets.py``) and
   ``cli/serve.py --selftest``.

@@ -15,6 +15,11 @@ flax: float32 statistics with the variance ``E[x^2] - E[x]^2``. With
 ``quant`` (int8 serving, eval only) a Conformer block's attention, FFN and
 ConvModule pointwise linears are int8 sites; the depthwise conv stays float
 (``conv_blocks.py:70-71``).
+
+Over a model axis a Conformer block shards its attention
+(``models/vit.py:Attention``) and the squeeze-excite's two linears, as
+JAX's rules do (``attn/qkv``, ``attn/proj``, ``se/fc1``, ``se/fc2``); the
+FFNs, the conv module and the macaron mixers stay replicated.
 """
 
 from __future__ import annotations
@@ -27,9 +32,10 @@ import torch.nn.functional as F
 from torch import nn
 
 from htr_vt_torch.models.layers import (DropPath, dense, dropout, glu,
-                                        lecun_normal_, quantize_linear)
+                                        lecun_normal_, quantize_linear, row_dense)
 from htr_vt_torch.models.stem import BN_EPS, BatchNorm, batch_moments
 from htr_vt_torch.models.vit import Attention
+from htr_vt_torch.parallel.mesh import copy_to_model
 
 FLAX_LN_EPS = 1e-6  # flax LayerNorm's default
 CONV_MODULE_EPS = 1e-5  # the reference ConvModule's torch LayerNorm / GroupNorm
@@ -158,7 +164,13 @@ class ConvModule(nn.Module):
 
 class SqueezeExcite1D(nn.Module):
     """Mean over the tokens -> Dense -> SiLU -> Dense -> sigmoid channel
-    gate (``conv_blocks.py:106-121``)."""
+    gate (``conv_blocks.py:106-121``). Sharded over a model axis
+    (``model_shards`` > 1) as ``layers.py:Mlp``: fc1 column-, fc2
+    row-sharded."""
+
+    # The model axis's size once ``parallel/mesh.py:shard_model`` has split
+    # fc1's outputs and fc2's inputs.
+    model_shards = 1
 
     def __init__(self, dim: int, dtype: torch.dtype, se_ratio: float = 0.25,
                  device=None):
@@ -175,7 +187,9 @@ class SqueezeExcite1D(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         s = x.mean(dim=1).to(self.dtype)
-        s = dense(self.fc2, F.silu(dense(self.fc1, s, self.dtype)), self.dtype)
+        sharded = self.model_shards > 1
+        s = F.silu(dense(self.fc1, copy_to_model(s) if sharded else s, self.dtype))
+        s = row_dense(self.fc2, s, self.dtype, sharded)
         return x * torch.sigmoid(s)[:, None, :].to(x.dtype)
 
 

@@ -19,6 +19,14 @@ repetition penalty counts every id of the [B, max_len + 1] token buffer
 beam 0 alone live, extends a finished beam only with pad at no cost,
 carries each surviving beam's caches with it and applies no repetition
 penalty. Nucleus sampling draws from an explicit ``torch.Generator``.
+
+Over a model axis the trunk's blocks are sharded as ``HTRVT``'s; a decoder
+block keeps its heads' rows of ``self_qkv`` and its MLP units (JAX's rules
+shard ``self_qkv``, ``mlp/fc1`` and ``mlp/fc2``), gathers the heads'
+outputs for the replicated ``self_proj`` and runs the cross-attention
+whole. Its self-attention caches hold this rank's heads, [layers, B, H /
+M, max_len, hd]; the logits are the same on every rank, so every rank
+picks the same ids and reorders its caches with the same beams.
 """
 
 from __future__ import annotations
@@ -33,6 +41,7 @@ from htr_vt_torch.config import ModelConfig
 from htr_vt_torch.models.htr_vt import HTRVT
 from htr_vt_torch.models.layers import Mlp, dense, jax_init_, sincos_pos_embed_1d
 from htr_vt_torch.models.vit import MASKED_LOGIT, multi_head_attention, split_heads
+from htr_vt_torch.parallel.mesh import copy_to_model, gather_from_model
 
 KV = Tuple[torch.Tensor, torch.Tensor]
 
@@ -40,7 +49,15 @@ KV = Tuple[torch.Tensor, torch.Tensor]
 class DecoderBlock(nn.Module):
     """Causal self-attention, cross-attention over the normed memory, MLP;
     pre-norm, float32 LayerNorms, the residual stream in the compute dtype
-    (``encoder_decoder.py:38-127``)."""
+    (``encoder_decoder.py:38-127``). Sharded over a model axis
+    (``model_shards`` = M > 1): ``copy_to_model``, this rank's H / M heads
+    of ``self_qkv``, the causal attention over them, the heads gathered
+    (``gather_from_model``), the replicated ``self_proj``; the
+    cross-attention replicated; the MLP as ``layers.py:Mlp``."""
+
+    # The model axis's size once ``parallel/mesh.py:shard_model`` has split
+    # the self-attention's heads.
+    model_shards = 1
 
     def __init__(self, dim: int, num_heads: int, dtype: torch.dtype,
                  mlp_ratio: float = 4.0, drop: float = 0.0, device=None):
@@ -64,6 +81,19 @@ class DecoderBlock(nn.Module):
     def _scale(self, c: int) -> float:
         return (c // self.num_heads) ** -0.5
 
+    def _self_qkv(self, y: torch.Tensor):
+        """This rank's heads of the self-attention's q, k and v."""
+        if self.model_shards > 1:
+            y = copy_to_model(y)
+        return (split_heads(u, self.num_heads // self.model_shards)
+                for u in dense(self.self_qkv, y, self.dtype).chunk(3, -1))
+
+    def _self_out(self, y: torch.Tensor) -> torch.Tensor:
+        """``self_proj`` of every head's output."""
+        if self.model_shards > 1:
+            y = gather_from_model(y)
+        return dense(self.self_proj, y, self.dtype)
+
     def _cross_and_mlp(self, x: torch.Tensor, mem_k: torch.Tensor, mem_v: torch.Tensor,
                        train: bool, generator: Optional[torch.Generator]) -> torch.Tensor:
         dt = self.dtype
@@ -79,11 +109,10 @@ class DecoderBlock(nn.Module):
         """Teacher-forced: x [B, T, C] under a causal mask, memory [B, N, C]."""
         dt = self.dtype
         t = x.shape[1]
-        y = self.norm1(x.float()).to(dt)
-        q, k, v = (self._heads(u) for u in dense(self.self_qkv, y, dt).chunk(3, -1))
+        q, k, v = self._self_qkv(self.norm1(x.float()).to(dt))
         causal = torch.ones(t, t, dtype=torch.bool, device=x.device).tril()
         y = multi_head_attention(q, k, v, self._scale(x.shape[-1]), dt, mask=causal)
-        x = x + dense(self.self_proj, y, dt)
+        x = x + self._self_out(y)
         return self._cross_and_mlp(x, *self.prefill_cross_kv(memory), train, generator)
 
     def prefill_cross_kv(self, memory: torch.Tensor) -> KV:
@@ -96,17 +125,17 @@ class DecoderBlock(nn.Module):
                     self_v: torch.Tensor, mem_k: torch.Tensor, mem_v: torch.Tensor
                     ) -> torch.Tensor:
         """One cached position: x_t [B, 1, C]; self_k / self_v [B, H, L, hd]
-        caches, written in place at ``pos``; the keys at positions <= pos
-        attended. Returns y_t [B, 1, C]."""
+        caches (this rank's H / M heads over a model axis), written in place
+        at ``pos``; the keys at positions <= pos attended. Returns y_t [B,
+        1, C]."""
         dt = self.dtype
-        y = self.norm1(x_t.float()).to(dt)
-        q, k, v = (self._heads(u) for u in dense(self.self_qkv, y, dt).chunk(3, -1))
+        q, k, v = self._self_qkv(self.norm1(x_t.float()).to(dt))
         self_k[:, :, pos] = k[:, :, 0].to(self_k.dtype)
         self_v[:, :, pos] = v[:, :, 0].to(self_v.dtype)
         valid = torch.arange(self_k.shape[2], device=x_t.device) <= pos
         y = multi_head_attention(q, self_k, self_v, self._scale(x_t.shape[-1]), dt,
                                  mask=valid)
-        x_t = x_t + dense(self.self_proj, y, dt)
+        x_t = x_t + self._self_out(y)
         return self._cross_and_mlp(x_t, mem_k, mem_v, False, None)
 
 
@@ -202,8 +231,10 @@ class HTREncoderDecoder(nn.Module):
         return [blk.prefill_cross_kv(memory) for blk in self.blocks]
 
     def new_caches(self, batch: int, max_len: int, device) -> Tuple[torch.Tensor, ...]:
-        """Zeroed self-attention K and V caches [layers, B, H, max_len, hd]."""
-        shape = (self.decoder_layers, batch, self.decoder_heads, max_len,
+        """Zeroed self-attention K and V caches [layers, B, H, max_len, hd]:
+        this rank's H / M heads over a model axis."""
+        heads = self.decoder_heads // getattr(self, "model_shards", 1)
+        shape = (self.decoder_layers, batch, heads, max_len,
                  self.cfg.embed_dim // self.decoder_heads)
         return (torch.zeros(shape, dtype=self.dtype, device=device),
                 torch.zeros(shape, dtype=self.dtype, device=device))

@@ -18,7 +18,8 @@ import torch.nn.functional as F
 from torch import nn
 
 from htr_vt_torch.ops import quant as q8
-from htr_vt_torch.parallel.mesh import (copy_to_model, rank_cols, rank_rows,
+from htr_vt_torch.parallel.mesh import (Shard, copy_to_model, gather_from_model,
+                                        gather_model, rank_cols, rank_rows,
                                         reduce_from_model)
 
 # The standard deviation of a unit normal truncated at +-2, which flax's
@@ -135,7 +136,8 @@ def dropout(x: torch.Tensor, rate: float, train: bool,
     return torch.where(mask, x / keep, torch.zeros_like(x))
 
 
-def partial_dense(layer: nn.Linear, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+def partial_dense(layer: nn.Linear, x: torch.Tensor, dtype: torch.dtype,
+                  quant: bool = False) -> torch.Tensor:
     """A row-sharded ``dense`` across the model axis: this rank's partial
     product of x and the weight's input columns, in ``dtype`` and widened
     to float32, summed over the model group in float32
@@ -143,10 +145,34 @@ def partial_dense(layer: nn.Linear, x: torch.Tensor, dtype: torch.dtype) -> torc
     (replicated) bias added in ``dtype``. ``dense`` rounds its product once
     too, so the tensor-parallel output is one rounding from one process's;
     a sum of ``dtype`` partials would round each of them first. The sum
-    moves 4 bytes an output element, twice bf16's."""
+    moves 4 bytes an output element, twice bf16's. With ``quant`` (int8
+    serving) the site's mode decides as in ``dense``: the abs-maxes are the
+    whole input's and the weight's scales its whole rows', and the int32
+    products are summed over the model group (``ops/quant.py:dot_int8``),
+    so the output is one process's bit for bit. Calibrating, the site
+    gathers its input's columns and its weight and runs ``dense``'s float
+    product whole, so that every abs-max recorded after it is one
+    process's too (calibration runs a few eval batches)."""
+    if quant:
+        mode, amax = q8.activation_scale(layer, "amax", x, row_sharded=True)
+        if mode == "calibrate":
+            w = gather_model(layer.weight, Shard("row", 1))
+            y = F.linear(gather_from_model(x).to(dtype), w.to(dtype))
+            return y if layer.bias is None else y + layer.bias.to(dtype)
+        wq_t, sw = q8.weight_cache(layer, "weight", layer.weight, q8.row_linear_weight)
+        y = q8.dot_int8(x, wq_t, sw, amax=amax, dequant_dtype=dtype, row_sharded=True)
+        return y if layer.bias is None else y + layer.bias.to(dtype)
     y = F.linear(x.to(dtype).float(), layer.weight.to(dtype).float())
     y = reduce_from_model(y).to(dtype)
     return y if layer.bias is None else y + layer.bias.to(dtype)
+
+
+def row_dense(layer: nn.Linear, x: torch.Tensor, dtype: torch.dtype, sharded: bool,
+              quant: bool = False) -> torch.Tensor:
+    """``partial_dense`` where the layer is row-sharded over the model axis
+    (``sharded``), else ``dense``."""
+    return (partial_dense(layer, x, dtype, quant) if sharded
+            else dense(layer, x, dtype, quant))
 
 
 class DropPath(nn.Module):
@@ -177,7 +203,8 @@ class Mlp(nn.Module):
     GELU; train mode is the float path. Sharded over a model axis
     (``model_shards`` > 1): ``copy_to_model``, this rank's fc1 columns,
     GELU and the hidden dropout on them, fc2's partial product summed over
-    the model group (``partial_dense``), its bias, then the dropout."""
+    the model group (``partial_dense``, int8 too), its bias, then the
+    dropout."""
 
     # The model axis's size once ``parallel/mesh.py:shard_model`` has split
     # fc1's outputs and fc2's inputs.
@@ -200,15 +227,14 @@ class Mlp(nn.Module):
     def forward(self, x: torch.Tensor, *, train: bool = False,
                 generator: Optional[torch.Generator] = None) -> torch.Tensor:
         quant = self.quant and not train
+        gelu = quick_gelu if quant and self.quick_gelu else F.gelu
         if self.model_shards > 1:  # fc1 column-, fc2 row-sharded: this rank's hidden units
-            x = dense(self.fc1, copy_to_model(x), self.dtype)
-            x = dropout(F.gelu(x, approximate="none"), self.drop_rate, train, generator,
-                        model_sharded=True)
-            return dropout(partial_dense(self.fc2, x, self.dtype), self.drop_rate, train,
-                           generator)
+            x = gelu(dense(self.fc1, copy_to_model(x), self.dtype, quant))
+            x = dropout(x, self.drop_rate, train, generator, model_sharded=True)
+            return dropout(partial_dense(self.fc2, x, self.dtype, quant), self.drop_rate,
+                           train, generator)
         x = dense(self.fc1, x, self.dtype, quant)
-        x = quick_gelu(x) if quant and self.quick_gelu else F.gelu(x, approximate="none")
-        x = dropout(x, self.drop_rate, train, generator)
+        x = dropout(gelu(x), self.drop_rate, train, generator)
         x = dense(self.fc2, x, self.dtype, quant)
         return dropout(x, self.drop_rate, train, generator)
 

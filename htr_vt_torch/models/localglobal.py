@@ -8,6 +8,12 @@ alpha-gated pooled-global attention side by side in every block. Unlike the
 relative-position bias, their shift rolls without any mask, and the zero
 tokens that pad the sequence to a multiple of the window stay unmasked: the
 reference's semantics, kept.
+
+Over a model axis both attentions are sharded as ``models/vit.py:
+Attention``: ``copy_to_model``, this rank's heads of qkv, attention over
+them, proj's partial product summed over the model group (JAX's rules shard
+``local_attn/proj`` and ``global_attn/proj``); lgp's ``fuse`` stays
+replicated.
 """
 
 from __future__ import annotations
@@ -18,8 +24,9 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from htr_vt_torch.models.layers import Mlp, dense, dropout
+from htr_vt_torch.models.layers import Mlp, dense, dropout, row_dense
 from htr_vt_torch.models.vit import multi_head_attention, split_heads
+from htr_vt_torch.parallel.mesh import copy_to_model
 
 POOL_NORM_EPS = 1e-6  # flax LayerNorm's default
 
@@ -43,6 +50,10 @@ class PlainWindowMHSA(nn.Module):
     """Non-overlapping 1-D window attention; ``shift`` rolls the sequence
     right before and back after, unmasked (``localglobal.py:40-78``)."""
 
+    # The model axis's size once ``parallel/mesh.py:shard_model`` has split
+    # the heads.
+    model_shards = 1
+
     def __init__(self, dim: int, num_heads: int, window_size: int, dtype: torch.dtype,
                  shift: int = 0, qkv_bias: bool = True, proj_drop: float = 0.0,
                  device=None):
@@ -65,21 +76,28 @@ class PlainWindowMHSA(nn.Module):
         if pad:
             x = F.pad(x, (0, 0, 0, pad))
         n_pad = x.shape[1]
-        qkv = dense(self.qkv, x, self.dtype)
-        q, k, v = (split_heads(t.reshape(b * n_pad // w, w, c), self.num_heads)
+        sharded = self.model_shards > 1
+        heads = self.num_heads // self.model_shards  # this rank's
+        qkv = dense(self.qkv, copy_to_model(x) if sharded else x, self.dtype)
+        width = qkv.shape[-1] // 3
+        q, k, v = (split_heads(t.reshape(b * n_pad // w, w, width), heads)
                    for t in qkv.chunk(3, dim=-1))
         out = multi_head_attention(q, k, v, (c // self.num_heads)**-0.5, self.dtype)
-        out = out.reshape(b, n_pad, c)[:, :n]
+        out = out.reshape(b, n_pad, width)[:, :n]
         if s:
             out = torch.roll(out, -s, dims=1)
-        return dropout(dense(self.proj, out, self.dtype), self.proj_drop, train,
-                       generator)
+        return dropout(row_dense(self.proj, out, self.dtype, sharded), self.proj_drop,
+                       train, generator)
 
 
 class PooledGlobalMHSA(nn.Module):
     """Average-pool the tokens to ``g_tokens`` -> LayerNorm without affine
     -> MHSA -> proj -> linear upsample -> the learned ``alpha`` gate
     (``localglobal.py:81-116``)."""
+
+    # The model axis's size once ``parallel/mesh.py:shard_model`` has split
+    # the heads.
+    model_shards = 1
 
     def __init__(self, dim: int, num_heads: int, dtype: torch.dtype,
                  g_tokens: int = 64, qkv_bias: bool = True, proj_drop: float = 0.0,
@@ -102,10 +120,13 @@ class PooledGlobalMHSA(nn.Module):
         else:
             z = linear_resize_tokens(x, g)
         z = F.layer_norm(z.float(), (c,), eps=POOL_NORM_EPS).to(self.dtype)
-        qkv = dense(self.qkv, z, self.dtype)
-        q, k, v = (split_heads(t, self.num_heads) for t in qkv.chunk(3, dim=-1))
+        sharded = self.model_shards > 1
+        qkv = dense(self.qkv, copy_to_model(z) if sharded else z, self.dtype)
+        q, k, v = (split_heads(t, self.num_heads // self.model_shards)
+                   for t in qkv.chunk(3, dim=-1))
         y = multi_head_attention(q, k, v, (c // self.num_heads)**-0.5, self.dtype)
-        y = dropout(dense(self.proj, y, self.dtype), self.proj_drop, train, generator)
+        y = dropout(row_dense(self.proj, y, self.dtype, sharded), self.proj_drop, train,
+                    generator)
         y = linear_resize_tokens(y, n)
         return y * self.alpha.to(y.dtype)
 

@@ -15,6 +15,10 @@ masks), as in JAX: at 64x512 the first stage's logits are [B, H, 2048,
 2048] float32. The local masks depend on the grid only; they are made from
 the input's shape and cached per (grid, device). Presets tiny / small /
 base / large (``svtr.py:33-38``).
+
+Over a model axis a MixingBlock is sharded as Swin's block
+(``models/swin.py``): its heads' rows of qkv and its MLP units, the heads'
+outputs gathered for the replicated ``proj``.
 """
 
 from __future__ import annotations
@@ -32,6 +36,7 @@ from htr_vt_torch.models.stem import BatchNorm
 from htr_vt_torch.models import masking
 from htr_vt_torch.models.swin import _combine_and_heads
 from htr_vt_torch.models.vit import multi_head_attention, split_heads
+from htr_vt_torch.parallel.mesh import copy_to_model, gather_from_model
 
 SVTR_PRESETS = {
     "tiny": dict(embed_dims=(64, 128, 256), depths=(3, 6, 3), num_heads=(2, 4, 8)),
@@ -55,7 +60,15 @@ def local_neighborhood_mask(h: int, w: int, hk: int = 7, wk: int = 11) -> np.nda
 
 class MixingBlock(nn.Module):
     """Pre-LN multi-head self-attention (its ``qkv`` without bias),
-    optionally local-masked, + MLP(4x) (``svtr.py:52-84``)."""
+    optionally local-masked, + MLP(4x) (``svtr.py:52-84``). Sharded over a
+    model axis (``model_shards`` = M > 1): ``copy_to_model``, this rank's
+    H / M heads of qkv, attention over them under the same [N, N] mask,
+    the heads gathered (``gather_from_model``), the replicated ``proj``;
+    the MLP as ``layers.py:Mlp``."""
+
+    # The model axis's size once ``parallel/mesh.py:shard_model`` has split
+    # the heads.
+    model_shards = 1
 
     def __init__(self, dim: int, num_heads: int, dtype: torch.dtype,
                  local: bool = False, local_k: Tuple[int, int] = (7, 11), device=None):
@@ -73,23 +86,27 @@ class MixingBlock(nn.Module):
 
     def local_mask(self, h: int, w: int, device) -> torch.Tensor:
         """The [1, 1, N, N] neighbourhood mask of an (h, w) grid, made once
-        per grid and device."""
+        per grid and device (outside inference mode: a train forward's
+        backward saves it, whichever forward made it first)."""
         key = (h, w, device)
         if key not in self._masks:
-            self._masks[key] = torch.from_numpy(
-                local_neighborhood_mask(h, w, *self.local_k))[None, None].to(device)
+            with torch.inference_mode(False):
+                self._masks[key] = torch.from_numpy(
+                    local_neighborhood_mask(h, w, *self.local_k))[None, None].to(device)
         return self._masks[key]
 
     def forward(self, x: torch.Tensor, hw: Tuple[int, int], *, train: bool = False,
                 generator: Optional[torch.Generator] = None) -> torch.Tensor:
         c = x.shape[-1]
+        sharded = self.model_shards > 1
         y = self.norm1(x.float()).to(self.dtype)
-        q, k, v = (split_heads(t, self.num_heads)
-                   for t in dense(self.qkv, y, self.dtype).chunk(3, -1))
+        q, k, v = (split_heads(t, self.num_heads // self.model_shards)
+                   for t in dense(self.qkv, copy_to_model(y) if sharded else y,
+                                  self.dtype).chunk(3, -1))
         mask = self.local_mask(*hw, x.device) if self.local else None
         out = multi_head_attention(q, k, v, (c // self.num_heads)**-0.5, self.dtype,
                                    mask=mask)
-        x = x + dense(self.proj, out, self.dtype)
+        x = x + dense(self.proj, gather_from_model(out) if sharded else out, self.dtype)
         y = self.norm2(x.float()).to(self.dtype)
         return x + self.mlp(y, train=train, generator=generator)
 

@@ -20,6 +20,11 @@ grid only; they are made from the input's shape and cached per (grid,
 window, device), so one model takes any width whose token row the windows
 divide. Attention is the plain ``multi_head_attention``, never flash, as
 in JAX.
+
+Over a model axis a block keeps its heads' rows of qkv and columns of
+``rel_bias`` and its MLP units (JAX's rules shard ``qkv``, ``mlp/fc1`` and
+``mlp/fc2``); the heads' outputs are gathered (``gather_from_model``) for
+the replicated ``proj``, which JAX's rules leave whole.
 """
 
 from __future__ import annotations
@@ -38,6 +43,7 @@ from htr_vt_torch.models.layers import (Mlp, conv2d, dense, dropout, jax_init_,
 from htr_vt_torch.models.sgm import SGMHead
 from htr_vt_torch.models.stem import ResNet18Stem
 from htr_vt_torch.models.vit import multi_head_attention, split_heads
+from htr_vt_torch.parallel.mesh import copy_to_model, gather_from_model
 
 COMBINE_DROP = 0.1
 
@@ -78,7 +84,15 @@ def _shift_mask(h: int, w: int, wh: int, ww: int, sh: int, sw: int
 class SwinBlock2D(nn.Module):
     """LN -> (shifted) 2-D window attention with a relative-position bias
     -> residual -> LN -> MLP -> residual (``swin.py:69-129``). The shift is
-    half the window on odd blocks, (0, 0) on even ones."""
+    half the window on odd blocks, (0, 0) on even ones. Sharded over a
+    model axis (``model_shards`` = M > 1): ``copy_to_model``, this rank's
+    H / M heads of qkv and their ``rel_bias`` columns, the windowed
+    attention over them, the heads gathered (``gather_from_model``), then
+    the replicated ``proj``; the MLP as ``layers.py:Mlp``."""
+
+    # The model axis's size once ``parallel/mesh.py:shard_model`` has split
+    # the heads.
+    model_shards = 1
 
     def __init__(self, dim: int, num_heads: int, window: Tuple[int, int],
                  shift: Tuple[int, int], mlp_ratio: float, dtype: torch.dtype,
@@ -105,16 +119,22 @@ class SwinBlock2D(nn.Module):
 
     def tables(self, h: int, w: int, device) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
         """(the bias index [N * N], the shift mask [nW, 1, N, N] or None)
-        of an (h, w) token grid, made once per grid and device."""
+        of an (h, w) token grid, made once per grid and device (outside
+        inference mode: a train forward's backward saves them, whichever
+        forward made them first)."""
         key = (h, w, device)
         if key not in self._tables:
-            wh, ww = self.window
-            idx = torch.from_numpy(_rel_bias_index(wh, ww).reshape(-1)).to(device)
-            mask = _shift_mask(h, w, wh, ww, *self.shift)
-            if mask is not None:
-                mask = torch.from_numpy(mask)[:, None].to(device)
-            self._tables[key] = (idx, mask)
+            with torch.inference_mode(False):
+                self._tables[key] = self._make_tables(h, w, device)
         return self._tables[key]
+
+    def _make_tables(self, h: int, w: int, device):
+        wh, ww = self.window
+        idx = torch.from_numpy(_rel_bias_index(wh, ww).reshape(-1)).to(device)
+        mask = _shift_mask(h, w, wh, ww, *self.shift)
+        if mask is not None:
+            mask = torch.from_numpy(mask)[:, None].to(device)
+        return idx, mask
 
     def forward(self, x: torch.Tensor, hw: Tuple[int, int], *, train: bool = False,
                 generator: Optional[torch.Generator] = None) -> torch.Tensor:
@@ -125,7 +145,7 @@ class SwinBlock2D(nn.Module):
         if n != h * w or h % wh or w % ww:
             raise ValueError(f"a ({h}, {w}) grid of {n} tokens does not take "
                              f"({wh}, {ww}) windows")
-        heads, hd = self.num_heads, c // self.num_heads
+        heads, hd = self.num_heads // self.model_shards, c // self.num_heads
         nwin, nh, nw = wh * ww, h // wh, w // ww
         idx, mask = self.tables(h, w, x.device)
 
@@ -135,6 +155,8 @@ class SwinBlock2D(nn.Module):
             y = torch.roll(y, (-sh, -sw), dims=(1, 2))
         # window partition, batch-major: [B * nWh * nWw, wh * ww, C]
         y = y.reshape(b, nh, wh, nw, ww, c).permute(0, 1, 3, 2, 4, 5).reshape(-1, nwin, c)
+        if self.model_shards > 1:
+            y = copy_to_model(y)
         q, k, v = (split_heads(t, heads) for t in dense(self.qkv, y, self.dtype).chunk(3, -1))
         bias = self.rel_bias[idx].reshape(nwin, nwin, heads).permute(2, 0, 1)[None]
         if mask is not None:
@@ -142,7 +164,10 @@ class SwinBlock2D(nn.Module):
             q, k, v = (t.reshape(b, nh * nw, heads, nwin, hd) for t in (q, k, v))
             bias = bias[None]
         out = multi_head_attention(q, k, v, hd**-0.5, self.dtype, bias=bias, mask=mask)
-        out = dense(self.proj, out.reshape(b * nh * nw, nwin, c), self.dtype)
+        out = out.reshape(b * nh * nw, nwin, heads * hd)
+        if self.model_shards > 1:
+            out = gather_from_model(out)
+        out = dense(self.proj, out, self.dtype)
         # reverse the partition and the shift
         out = out.reshape(b, nh, nw, wh, ww, c).permute(0, 1, 3, 2, 4, 5).reshape(b, h, w, c)
         if sh or sw:

@@ -22,7 +22,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from htr_vt_torch.models.layers import (DropPath, LayerScale, Mlp, dense,
-                                        dropout, partial_dense, quantize_linear)
+                                        dropout, quantize_linear, row_dense)
 from htr_vt_torch.ops.flash_attn import flash_attention, takes_head_dim
 from htr_vt_torch.parallel.mesh import copy_to_model
 
@@ -125,8 +125,8 @@ class Attention(nn.Module):
     ``parallel/mesh.py:shard_model``): ``copy_to_model``, this rank's qkv
     rows (q, k and v of H / M heads) and ``rel_bias`` columns, attention
     over those heads, proj's partial product over their columns summed
-    over the model group (``layers.py:partial_dense``), its bias, then the
-    dropout."""
+    over the model group (``layers.py:partial_dense``; int8 as well), its
+    bias, then the dropout."""
 
     # The model axis's size once ``parallel/mesh.py:shard_model`` has split
     # the heads.
@@ -178,10 +178,7 @@ class Attention(nn.Module):
             out = flash_mha(q, k, v, head_dim**-0.5, self.dtype)
         else:
             out = multi_head_attention(q, k, v, head_dim**-0.5, self.dtype, bias=bias)
-        if self.model_shards > 1:
-            out = partial_dense(self.proj, out, self.dtype)
-        else:
-            out = dense(self.proj, out, self.dtype, quant)
+        out = row_dense(self.proj, out, self.dtype, self.model_shards > 1, quant)
         return dropout(out, self.proj_drop, train, generator)
 
 
@@ -193,7 +190,16 @@ class WindowAttention1D(nn.Module):
     does not divide is right-padded to a multiple and the padded keys are
     masked. ``wrap_shift`` (the reference's semantics, the default) lets the
     last shifted window mix the sequence's head and tail; False masks those
-    pairs, Swin-style."""
+    pairs, Swin-style.
+
+    Sharded over a model axis (``model_shards`` = M > 1), as ``Attention``:
+    ``copy_to_model``, this rank's H / M heads of qkv and their
+    ``rel_bias`` columns, the same windows and masks, and proj's partial
+    product summed over the model group."""
+
+    # The model axis's size once ``parallel/mesh.py:shard_model`` has split
+    # the heads.
+    model_shards = 1
 
     def __init__(self, dim: int, num_heads: int, window_size: int, shift: bool,
                  qkv_bias: bool, dtype: torch.dtype, proj_drop: float = 0.0,
@@ -235,26 +241,29 @@ class WindowAttention1D(nn.Module):
     def forward(self, x: torch.Tensor, *, train: bool = False,
                 generator: Optional[torch.Generator] = None) -> torch.Tensor:
         b, n, c = x.shape
-        w, shift, h = self.window_size, self.shift, self.num_heads
-        head_dim = c // h
+        w, shift = self.window_size, self.shift
+        head_dim = c // self.num_heads
+        h = self.num_heads // self.model_shards  # this rank's heads
         n_pad = -(-n // w) * w
         if n_pad > n:
             x = F.pad(x, (0, 0, 0, n_pad - n))
         if shift:
             x = torch.roll(x, -shift, dims=1)
+        if self.model_shards > 1:
+            x = copy_to_model(x)
         qkv = dense(self.qkv, x, self.dtype)
 
-        def windows(t):  # [B, Np, C] -> [B * Np / w, H, w, hd]
-            return split_heads(t.reshape(b * n_pad // w, w, c), h)
+        def windows(t):  # [B, Np, h * hd] -> [B * Np / w, h, w, hd]
+            return split_heads(t.reshape(b * n_pad // w, w, h * head_dim), h)
 
         q, k, v = (windows(t) for t in qkv.chunk(3, dim=-1))
         out = multi_head_attention(q, k, v, head_dim**-0.5, self.dtype,
                                    bias=relative_bias(self.rel_bias, w, w),
                                    mask=self._mask(b, n, n_pad, x.device))
-        out = out.reshape(b, n_pad, c)
+        out = out.reshape(b, n_pad, h * head_dim)
         if shift:
             out = torch.roll(out, shift, dims=1)
-        out = dense(self.proj, out[:, :n], self.dtype)
+        out = row_dense(self.proj, out[:, :n], self.dtype, self.model_shards > 1)
         return dropout(out, self.proj_drop, train, generator)
 
 

@@ -35,6 +35,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from htr_vt_torch.ops import library as htrvt_ops
+from htr_vt_torch.parallel.mesh import model_max, model_sum
 
 QMAX = 127.0
 SCALE_FLOOR = 1e-12
@@ -116,20 +117,27 @@ def site_mode(module: nn.Module, name: str
     return ("dynamic", None) if amax is None else ("static", amax)
 
 
-def record_amax(module: nn.Module, name: str, x: torch.Tensor) -> None:
-    """The running max of |x| into the site's buffer (from 0 when unset)."""
+def record_amax(module: nn.Module, name: str, x: torch.Tensor,
+                row_sharded: bool = False) -> None:
+    """The running max of |x| into the site's buffer (from 0 when unset).
+    ``row_sharded``: x is this rank's columns of a tensor sharded over the
+    model axis (a row-sharded linear's input), and the max is the whole
+    tensor's (``parallel/mesh.py:model_max``), as every rank records it."""
     m = x.float().abs().amax()
+    if row_sharded:
+        m = model_max(m)
     cur = getattr(module, name)
     setattr(module, name, m if cur is None else torch.maximum(cur, m))
 
 
-def activation_scale(module: nn.Module, name: str, x: torch.Tensor
-                     ) -> Tuple[str, Optional[torch.Tensor]]:
+def activation_scale(module: nn.Module, name: str, x: torch.Tensor,
+                     row_sharded: bool = False) -> Tuple[str, Optional[torch.Tensor]]:
     """``activation_scale`` (``quant.py:200-217``): ``site_mode``, recording
-    |x| first when calibrating."""
+    |x| first when calibrating (``record_amax``, ``row_sharded`` as
+    there)."""
     mode, amax = site_mode(module, name)
     if mode == "calibrate":
-        record_amax(module, name, x)
+        record_amax(module, name, x, row_sharded)
     return mode, amax
 
 
@@ -239,15 +247,34 @@ def linear_weight(w: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     return q.t(), s
 
 
+def row_linear_weight(w: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``linear_weight`` of this rank's input columns [N, K / M] of a
+    row-sharded linear: each output channel's scale is its abs-max over the
+    whole input dimension (``parallel/mesh.py:model_max``), so the s8
+    columns are one process's."""
+    wf = w.float()
+    scale = _scale_of(model_max(wf.abs().amax(dim=1)))
+    return _quantize(wf, scale[:, None]).t(), scale
+
+
 def dot_int8(x: torch.Tensor, wq_t: torch.Tensor, sw: torch.Tensor,
              amax: Optional[torch.Tensor] = None,
-             dequant_dtype: torch.dtype = torch.float32) -> torch.Tensor:
+             dequant_dtype: torch.dtype = torch.float32,
+             row_sharded: bool = False) -> torch.Tensor:
     """[..., K] x the quantized [K, N] weight (``linear_weight``) ->
     [..., N] in ``dequant_dtype`` (``dot_int8``, ``quant.py:91-105``): x
     quantized static with ``amax``, else dynamic; ``acc.to(dequant_dtype) *
-    (sx * sw).to(dequant_dtype)``."""
+    (sx * sw).to(dequant_dtype)``. ``row_sharded``: x holds this rank's K /
+    M input columns and ``wq_t`` their rows (``row_linear_weight``); the
+    dynamic abs-max is the whole input's and the int32 accumulators are
+    summed over the model group before the dequant, exactly, so the output
+    is one process's bit for bit."""
+    if amax is None and row_sharded:
+        amax = model_max(x.float().abs().amax())
     xq, sx = quantize_static(x, amax) if amax is not None else quantize_tensor(x)
     acc = int_mm(xq.reshape(-1, xq.shape[-1]), wq_t)
+    if row_sharded:
+        acc = model_sum(acc)
     y = acc.to(dequant_dtype) * (sx * sw).to(dequant_dtype)
     return y.reshape(*x.shape[:-1], y.shape[-1])
 

@@ -34,11 +34,16 @@ The grid (``init_mesh``): ``mesh_shape=(R, M)`` puts rank r at data index
 (``htr_vt_tpu/parallel/mesh.py:66-76``). The collectives above run over the
 data group (the ranks that share a model index); without a model axis the
 data group is the world, and the calls are the ones made before the grid
-existed. The model axis is Megatron-style tensor parallelism of the ViT
-blocks (``param_sharding_rules``, ``shard_model``): the attention's qkv and
-the MLP's fc1 are column-sharded, the attention's proj and the MLP's fc2
-row-sharded, and ``copy_to_model`` / ``reduce_from_model`` make the one sum
-a sharded sublayer needs forward and the one it needs backward.
+existed. The model axis is Megatron-style tensor parallelism of every
+model's attention and MLP layers (``param_sharding_rules``,
+``shard_model``): a qkv and an fc1 are column-sharded (by head for qkv),
+an attention's proj and an fc2 row-sharded. ``copy_to_model`` /
+``reduce_from_model`` make the one sum a sharded sublayer needs forward
+and the one it needs backward; where JAX leaves the proj after a sharded
+qkv replicated (Swin, SVTR, the decoder's self-attention),
+``gather_from_model`` brings the heads' outputs together before it. Int8
+serving takes its row sites' scales over the whole input
+(``model_max``) and sums their int32 products over the model group.
 """
 
 from __future__ import annotations
@@ -57,7 +62,6 @@ PROCESS_ID = "HTRVT_PROCESS_ID"
 # How long a rank waits for the others at a rendezvous or a collective.
 TIMEOUT = datetime.timedelta(minutes=10)
 MAX_BROADCAST_BYTES = 4096
-TENSOR_PARALLEL_ITEM = "ROADMAP.md queue 1, item 12: tensor parallelism"
 
 
 def default_backend(device=None, nproc: int = 1) -> str:
@@ -314,6 +318,30 @@ def reduce_from_model(x: torch.Tensor) -> torch.Tensor:
     return x if model_world()[1] == 1 else _ReduceFromModel.apply(x)
 
 
+class _GatherFromModel(torch.autograd.Function):
+    """The model group's last dimensions side by side, in rank order,
+    forward (the heads' outputs of a column-sharded qkv, ahead of a
+    replicated proj); backward, this rank's slice of the gradient."""
+
+    @staticmethod
+    def forward(ctx, x):
+        index, size = model_world()
+        ctx.index, ctx.width = index, x.shape[-1]
+        return torch.cat(_all_gather(x, size, _GRID.model_group), dim=-1)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g.narrow(-1, ctx.index * ctx.width, ctx.width)
+
+
+def gather_from_model(x: torch.Tensor) -> torch.Tensor:
+    """Leave a column-sharded sublayer whose output a replicated layer
+    reads whole: every model rank's ``x`` concatenated on the last
+    dimension forward, this rank's columns of the gradient backward (``x``
+    itself at model size 1)."""
+    return x if model_world()[1] == 1 else _GatherFromModel.apply(x)
+
+
 @torch.no_grad()
 def model_sum(x: torch.Tensor) -> torch.Tensor:
     """A copy of ``x`` summed over the model group, not differentiable
@@ -321,6 +349,17 @@ def model_sum(x: torch.Tensor) -> torch.Tensor:
     if model_world()[1] == 1:
         return x
     return _all_reduce_(x.contiguous().clone(), group=_GRID.model_group)
+
+
+@torch.no_grad()
+def model_max(x: torch.Tensor) -> torch.Tensor:
+    """A copy of ``x``, the elementwise max over the model group (``x``
+    itself at model size 1): the abs-max of a tensor whose columns are
+    sharded, from each rank's own."""
+    if model_world()[1] == 1:
+        return x
+    return _all_reduce_(x.contiguous().clone(), op=dist.ReduceOp.MAX,
+                        group=_GRID.model_group)
 
 
 class Shard(NamedTuple):
@@ -337,35 +376,38 @@ class Shard(NamedTuple):
 
 def param_sharding_rules(name: str, tensor: torch.Tensor) -> Optional[Shard]:
     """The tensor-parallel layout of the parameter ``name`` (a
-    ``named_parameters`` name), or None for a replicated one: JAX's name
-    rules (``htr_vt_tpu/parallel/mesh.py:104-123``) on the port's names.
-    JAX's kernels are ``[in, out]`` and column-sharded on their last
-    dimension; torch's ``nn.Linear.weight`` is ``[out, in]``, so a column
-    shard splits torch dimension 0 and a row shard dimension 1.
+    ``named_parameters`` name), or None for a replicated one: JAX's rules
+    (``htr_vt_tpu/parallel/mesh.py:104-123``), which test substrings of the
+    joined path, tested on the dotted name. JAX's kernels are ``[in,
+    out]`` and column-sharded on their last dimension; torch's
+    ``nn.Linear.weight`` is ``[out, in]``, so a column shard splits torch
+    dimension 0 and a row shard dimension 1.
 
-    - ``qkv`` and ``fc1``: column-sharded, with their biases (the local
-      columns' own). qkv's rows are ``[3, H, head_dim]``
-      (``models/vit.py:Attention``), so its shard is head-aligned: rank m
+    - ``qkv`` (an attention's, Swin's, SVTR's, the decoder's ``self_qkv``)
+      and ``fc1`` (an MLP's, the squeeze-excite's): column-sharded. qkv's
+      rows are ``[3, H, head_dim]``, so its shard is head-aligned: rank m
       keeps q, k and v of heads ``[m * H / M, (m + 1) * H / M)``, not a
       contiguous slice.
-    - the attention's ``proj`` and ``fc2`` weights: row-sharded (their
-      input columns are ``[H, head_dim]`` and the hidden units, in order);
-      their biases are replicated, added once after the sum.
-    - a global attention's ``rel_bias`` table ``[2L - 1, H]``: by head, the
-      heads qkv keeps.
+    - a ``proj`` with ``attn`` in its name (``attn``, ``local_attn``,
+      ``global_attn``) and an ``fc2``: the weight row-sharded (its input
+      columns are ``[H, head_dim]`` or the hidden units, in order).
+
+    Two kinds of leaf the port shards beyond JAX's, which shards kernels
+    alone (ndim >= 2): a column-sharded linear's bias, which keeps its
+    local columns; and a head-indexed relative-bias table ``rel_bias``
+    (``[positions, H]``: the window and global attentions', Swin's), by
+    head, the heads qkv keeps, since each rank reads only those columns
+    and a replicated table would get another gradient on each rank. A
+    row-sharded linear's bias is replicated, added once after the sum.
     """
-    parts = name.split(".")
-    if len(parts) < 2:
-        return None
-    owner, leaf = parts[-2], parts[-1]
-    if owner == "qkv":
-        return Shard("column", 0, 3)
-    if owner == "fc1":
-        return Shard("column", 0)
-    if leaf == "weight" and (owner == "fc2" or (owner == "proj" and "attn" in parts)):
-        return Shard("row", 1)
-    if leaf == "rel_bias" and owner == "attn":
+    if name.rpartition(".")[2] == "rel_bias":
         return Shard("column", 1)
+    if "qkv" in name:
+        return Shard("column", 0, 3)
+    if "fc1" in name:
+        return Shard("column", 0)
+    if tensor.dim() >= 2 and (("attn" in name and "proj" in name) or "fc2" in name):
+        return Shard("row", 1)
     return None
 
 
@@ -404,48 +446,43 @@ def _tensor_parallel(module) -> bool:
     return getattr(module, "model_shards", 1) > 1
 
 
+def _sharded_modules(model) -> List[Tuple[str, torch.nn.Module]]:
+    """(name, module) of every module that splits its heads or hidden
+    units over the model axis: those with a ``model_shards`` attribute."""
+    return [(name, m) for name, m in model.named_modules()
+            if hasattr(type(m), "model_shards")]
+
+
 def check_tensor_parallel(model, size: int) -> None:
-    """Raise unless ``model`` can be sharded over a model axis of ``size``:
-    ``NotImplementedError`` (naming ``TENSOR_PARALLEL_ITEM``) for what the
-    model axis does not cover yet, ``ValueError`` for heads or hidden
-    units that ``size`` does not divide."""
-    from htr_vt_torch.models.htr_vt import HTRVT
-    from htr_vt_torch.models.vit import Attention, Block
-
-    def missing(what):
-        return NotImplementedError(
-            f"tensor parallelism over a model axis of {size} does not cover {what} "
-            f"yet ({TENSOR_PARALLEL_ITEM})")
-
-    if type(model) is not HTRVT:
-        raise missing(f"{type(model).__name__}")
-    if model.cfg.quant != "none":
-        raise missing(f"quant={model.cfg.quant!r}")
-    if model.cfg.sgm.enable or model.sgm_head is not None:
-        raise missing("the SGM head (SGMHead)")
-    for name, block in zip(model.block_names, model.blocks):
-        inner = block.attn if isinstance(block, Block) else block
-        if not isinstance(inner, Attention):
-            raise missing(f"{type(inner).__name__} ({name}, encoder "
-                          f"{model.cfg.encoder!r})")
-        heads, hidden = inner.num_heads, block.mlp.fc1.out_features
-        if heads % size or hidden % size:
-            raise ValueError(f"{name}: {heads} heads and {hidden} hidden units must "
-                             f"both divide over a model axis of {size}")
+    """Raise ``ValueError`` unless a model axis of ``size`` divides the
+    heads (``num_heads``) and hidden units (``fc1``'s outputs) of every
+    module that ``shard_model`` splits, naming the first that it does
+    not."""
+    for name, m in _sharded_modules(model):
+        heads = getattr(m, "num_heads", None)
+        fc1 = getattr(m, "fc1", None)
+        hidden = None if fc1 is None else fc1.out_features
+        if (heads and heads % size) or (hidden and hidden % size):
+            what = " and ".join(f"{w} {n}" for n, w in (("heads", heads),
+                                                       ("hidden units", hidden)) if w)
+            raise ValueError(f"{name or type(model).__name__} ({type(m).__name__}): "
+                             f"{what} must divide over a model axis of {size}")
 
 
 @torch.no_grad()
 def shard_model(model):
     """Shard ``model`` in place over the model axis (JAX's
     ``shard_params``): each parameter ``param_sharding_rules`` names keeps
-    this rank's part, and every Attention and Mlp learns the axis's size.
-    Returns ``model``; at model size 1 it is left as it is. Shard before an
-    optimizer takes the parameters, and copy the EMA model after."""
+    this rank's part, and every module with a ``model_shards`` attribute
+    (the attentions, the MLPs, the squeeze-excite, Swin's, SVTR's and the
+    decoder's blocks) learns the axis's size. Any model ``build_model``
+    builds shards; heads or hidden units the axis does not divide raise
+    (``check_tensor_parallel``). Returns ``model``; at model size 1 it is
+    left as it is. Shard before an optimizer takes the parameters, and copy
+    the EMA model after."""
     index, size = model_world()
     if size == 1:
         return model
-    from htr_vt_torch.models.layers import Mlp
-    from htr_vt_torch.models.vit import Attention
     check_tensor_parallel(model, size)
     for name, p in list(model.named_parameters()):
         spec = param_sharding_rules(name, p)
@@ -454,9 +491,8 @@ def shard_model(model):
             owner = model.get_submodule(owner_name)
             setattr(owner, leaf, torch.nn.Parameter(shard_tensor(p, spec, index, size),
                                                     requires_grad=p.requires_grad))
-    for m in model.modules():
-        if isinstance(m, (Attention, Mlp)):
-            m.model_shards = size
+    for _, m in _sharded_modules(model):
+        m.model_shards = size
     model.model_shards = size
     return model
 

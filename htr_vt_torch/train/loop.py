@@ -75,8 +75,9 @@ def fit(cfg: ExperimentConfig, device="cuda",
 
     ``cfg.parallel.mesh_shape=(R, M)`` (``parallel/mesh.py:init_mesh``):
     the R data indices split each global batch as above, and the M ranks of
-    one data index hold the same rows and shard the ViT blocks over the
-    model axis; the checkpoints keep the one-process layout."""
+    one data index hold the same rows and shard the model's attention and
+    MLP layers over the model axis; the checkpoints keep the one-process
+    layout."""
     maybe_initialize_distributed(device=device)
     rank, _ = world()
     is_main = rank == 0

@@ -6,7 +6,8 @@ float32, batch 16), with dropout, drop-path and random masking on:
 
 - the layout alone: a shard and gather round trip is exact, the qkv shard
   of rank m is q, k and v of heads ``m * H / M ...`` of the whole weight,
-  the name rules, what a model axis does not cover raising;
+  the name rules, every model sharding and running at a stand-in grid and
+  heads the axis does not divide raising;
 - two ``gloo`` ranks at ``mesh_shape=(1, 2)`` (the launch of
   ``tests/test_torch_port_distributed.py``) against one process of the
   port: the eval logits, one pass's loss and gradients (the replicated ones
@@ -17,7 +18,9 @@ float32, batch 16), with dropout, drop-path and random masking on:
 - ``fit`` at ``(1, 2)`` against ``fit`` in one process.
 
 Two data ranks times two model ranks against JAX's sharded ``train_step``
-are in ``tests/test_torch_port_tensor_parallel_jax.py``.
+are in ``tests/test_torch_port_tensor_parallel_jax.py``; the rest of the
+zoo at (1, 2) in ``tests/test_torch_port_tensor_parallel_zoo.py`` and
+``_zoo_jax.py``.
 """
 
 import dataclasses
@@ -283,42 +286,72 @@ def test_the_qkv_shard_is_head_aligned():
     assert torch.equal(mesh.shard_tensor(table, spec, 1, size), table[:, 3:])
 
 
+@pytest.fixture
+def stand_in_grid(monkeypatch):
+    """A model axis of 2 in one process (rank 0 of a (1, 2) grid) whose
+    collectives hand back what they are given (a sum is this rank's part,
+    a gather this rank's part M times): the layout and the shapes of a
+    sharded forward, not its values (those are held across two ranks in
+    ``tests/test_torch_port_tensor_parallel_zoo.py``)."""
+    monkeypatch.setattr(mesh, "_GRID", mesh.Grid(shape=(1, 2), data=(0, 1), model=(0, 2),
+                                                 data_group=None, model_group=None))
+    monkeypatch.setattr(mesh, "_all_reduce_", lambda t, op=None, group=None: t)
+    monkeypatch.setattr(mesh, "_all_gather", lambda x, size, group: [x.contiguous()] * size)
+
+
 @pytest.mark.parametrize("what,cfg,error", [
-    ("WindowAttention1D", dict(encoder="window"), NotImplementedError),
-    ("ConformerBlock", dict(encoder="conformer"), NotImplementedError),
-    ("LocalBlock1D", dict(encoder="localglobal"), NotImplementedError),
-    ("HTRSwin", dict(encoder="swin"), NotImplementedError),
-    ("SVTR", dict(encoder="svtr"), NotImplementedError),
-    ("SGM head", dict(sgm_kw=True), NotImplementedError),
-    ("quant='int8'", dict(quant="int8"), NotImplementedError),
+    ("WindowAttention1D", dict(encoder="window", depth=3), None),
+    ("ConformerBlock", dict(encoder="conformer"), None),
+    ("LocalBlock1D", dict(encoder="localglobal"), None),
+    ("HTRSwin", dict(encoder="swin"), None),
+    ("SVTR", dict(encoder="svtr"), None),
+    ("SGM head", dict(encoder="conformer", sgm_kw=True), None),
+    ("quant='int8'", dict(quant="int8"), None),
+    ("HTREncoderDecoder", dict(model_type="encoder_decoder", ed_vocab_size=12,
+                               decoder_layers=1, decoder_heads=2, depth=1), None),
     ("3 heads", dict(num_heads=3, embed_dim=96), ValueError)])
-def test_what_the_model_axis_does_not_cover_raises(what, cfg, error, monkeypatch):
-    """Under a model axis of 2 (a stand-in grid), ``shard_model`` raises
-    for what it does not cover, naming it and ``TENSOR_PARALLEL_ITEM``, and
-    for heads the axis does not divide."""
+def test_what_the_model_axis_does_not_cover_raises(what, cfg, error, stand_in_grid):
+    """Under a model axis of 2 (a stand-in grid), ``shard_model`` covers
+    every model ``build_model`` builds: each of these shards (a sharded
+    layout for each parameter the rules name) and runs one eval forward to
+    finite outputs of one process's shape. What the axis does not cover is
+    heads or hidden units it does not divide: that raises, naming them."""
     from htr_vt_torch.config import SGMConfig
+    from htr_vt_torch.ops import quant as q8
     sgm = cfg.pop("sgm_kw", False)
     kw = dict(nb_cls=8, img_size=(64, 128), embed_dim=64, depth=2, num_heads=2,
               compute_dtype="float32")
     kw.update(cfg)
     if sgm:
         kw["sgm"] = SGMConfig(enable=True, vocab_size=12)
-    model = build_model(ModelConfig(**kw), device="cpu")
-    monkeypatch.setattr(mesh, "model_world", lambda: (0, 2))
-    with pytest.raises(error, match=what.replace("(", r"\(").replace("'", ".")) as e:
-        mesh.shard_model(model)
-    if error is NotImplementedError:
-        assert mesh.TENSOR_PARALLEL_ITEM in str(e.value)
-
-
-def test_the_encoder_decoder_is_not_covered(monkeypatch):
-    cfg = ModelConfig(nb_cls=8, img_size=(64, 128), embed_dim=64, depth=1, num_heads=2,
-                      compute_dtype="float32", model_type="encoder_decoder",
-                      ed_vocab_size=12, decoder_layers=1, decoder_heads=2)
-    model = build_model(cfg, device="cpu")
-    monkeypatch.setattr(mesh, "model_world", lambda: (0, 2))
-    with pytest.raises(NotImplementedError, match="HTREncoderDecoder"):
-        mesh.shard_model(model)
+    model = build_model(ModelConfig(**kw), device="cpu",
+                        generator=torch.Generator().manual_seed(0))
+    if error is not None:
+        with pytest.raises(error, match=what.replace("(", r"\(").replace("'", ".")):
+            mesh.shard_model(model)
+        return
+    image = torch.rand(2, 64, 128, 1, generator=torch.Generator().manual_seed(1))
+    whole = {n: p.shape for n, p in model.named_parameters()}
+    args = (image,)
+    if kw.get("model_type") == "encoder_decoder":
+        args += (torch.ones(2, 4, dtype=torch.long),)
+    with torch.inference_mode():
+        want = model(*args).shape
+    mesh.shard_model(model)
+    if kw.get("quant") == "int8":
+        q8.calibrate_quant_stats(model, [image.numpy()], 1)
+    with torch.inference_mode():
+        out = model(*args)
+    assert out.shape == want and torch.isfinite(out).all()
+    sharded = 0
+    for n, p in model.named_parameters():
+        spec = mesh.param_sharding_rules(n, p)
+        shape = list(whole[n])
+        if spec is not None:
+            shape[spec.dim] //= 2
+            sharded += 1
+        assert list(p.shape) == shape, n
+    assert sharded and model.model_shards == 2
 
 
 def test_rank_cols_keep_the_whole_widths_draw(monkeypatch):
