@@ -255,6 +255,20 @@ non-zero before the last line:
    the statistics that differ). Each step at ``TP_BARS``, every rank's
    launches equal to one process's, the ranks' states equal; ms a warm
    second call, rank 0 and one process.
+26. width parallel: two processes (``--width-parallel-rank``) share the
+   card over gloo at ``mesh_shape=(1, 2)``, each holding half of every
+   image's columns (``parallel/mesh.py:shard_width``: the stem's windows
+   read their neighbours' edge columns, its BN sums run over the mesh, its
+   tokens are gathered before masking), against one process on the same
+   weights, batch and masks at bs 64: the fully fused flagship at 512 px,
+   three SAM steps in bf16 and three in float32 under deterministic
+   algorithms, the stock and fused stems' three bf16 steps, an
+   ``eval_step``, and one fully fused bf16 step at 2048 px (K5 after the
+   gather). Each at ``TP_BARS``, every rank's launches a step those of
+   ``per_step_launches``, the ranks' states equal; ms a step and peak
+   memory a rank against one process's (at 2048 px a rank's must be
+   lower); K3f and K4f on a rank's halo-extended strip against their plain
+   versions.
 
 Kernel times (phases 2, 3, 4 and 11) are read two ways: ``median_ms``, one
 wrapper call between two CUDA events (host work in the wrapper included;
@@ -651,6 +665,25 @@ TPZ_BATCH, TPZ_SGM_WIDTH, TPZ_WIDTH = 16, 1024, 512
 TPZ_ZOO = ("window", "lgp", "squeezeformer", "swin", "svtr")
 TPZ_ED_LEN, TPZ_ED_LMAX = 24, 22
 TPZ_K5_SHAPE = (TPZ_BATCH, 3, 256, 128)
+
+
+# Width sharding on the one card (phase 26): WP_RANKS processes at mesh_shape
+# (1, WP_RANKS) over gloo, each holding W / WP_RANKS of the image's columns
+# (``parallel/mesh.py:shard_width`` / ``rank_width``; the encoder replicated,
+# the layout of tests/test_parallel.py:180-199), against one process on the
+# same weights, batch and masks: the flagship at WP_WIDTH px, bs WIDE_BATCH,
+# WP_STEPS SAM steps for each of WP_RUNS (the fully fused stem in bf16 and in
+# float32 under deterministic algorithms, the stock and fused stems in bf16),
+# the first run's eval_step before its steps, and one fully fused bf16 step
+# at WP_WIDE px (K5 after the tokens' gather), each rank's peak memory
+# against one process's. Bars, written before the first run on the card: the
+# stem's BN sums and its gradients are split and added as data parallelism
+# splits them (phase 22), so TP_BARS; the eval loss at the loss bar and the
+# frame argmax agreeing on at least MIN_ARGMAX_AGREEMENT of the frames.
+WP_RANKS, WP_STEPS, WP_TIMEOUT, WP_WIDTH, WP_WIDE = 2, 3, 900, 512, 2048
+WP_SWITCHES = {"stock": {}, "fused": FUSED, "fully_fused": FULLY_FUSED}
+WP_RUNS = (("fully_fused", "bfloat16"), ("fully_fused", "float32"),
+           ("stock", "bfloat16"), ("fused", "bfloat16"))
 
 
 def per_step_launches(switches, forwards=1):
@@ -4818,6 +4851,242 @@ def phase_tensor_parallel_zoo(device, smi_line):
     return launches, rec
 
 
+def _wp_cfg(switches, dtype):
+    return ExperimentConfig(model=ModelConfig(compute_dtype=dtype, masking=MaskConfig(
+        mode="span", ratio=0.4, max_span_length=8), **WP_SWITCHES[switches]),
+        optim=OptimConfig())
+
+
+def _wp_inputs(device):
+    """The steps' batch and the eval probe at WP_WIDTH px, and the WP_WIDE-px
+    batch, bs WIDE_BATCH."""
+    rng = np.random.default_rng(SEED + 121)
+    return (train_batch(WIDE_BATCH, ModelConfig(), rng, device),
+            train_batch(WIDE_BATCH, ModelConfig(), rng, device),
+            wide_batch(WIDE_BATCH, WP_WIDE, rng, device))
+
+
+def _wp_run(switches, dtype, width_parallel, device, batch, probe=None, steps=WP_STEPS):
+    """From the seeded state (width-sharded with ``width_parallel``, each
+    call taking this rank's strip of the batch): a counted ``eval_step`` of
+    ``probe``, then ``steps`` counted SAM steps (deterministic algorithms for
+    a dtype of DP_DETERMINISTIC). Metrics, CUDA-event ms and launches a
+    step, the steps' peak memory (MiB, this process), the state on the
+    host."""
+    from htr_vt_torch.parallel import mesh
+    state = create_train_state(_wp_cfg(switches, dtype), device,
+                               torch.Generator(device=device).manual_seed(SEED + 120),
+                               tensor_parallel=False, width_parallel=width_parallel)
+    cut = mesh.rank_width if width_parallel else (lambda b: b)
+    rec = {}
+    if probe is not None:
+        reset_counts()
+        out = eval_step(state.model, cut(probe))
+        rec["eval"] = {"logits": out["logits"].float().cpu(), "loss": out["loss"].item(),
+                       "launches": read_counts()}
+    mine = cut(batch)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    times, metrics, launches = [], [], []
+    with (deterministic_algorithms() if dtype in DP_DETERMINISTIC
+          else contextlib.nullcontext()):
+        for _ in range(steps):
+            reset_counts()
+            start, end = _events()
+            start.record()
+            m = train_step(state, mine)
+            end.record()
+            end.synchronize()
+            launches.append(read_counts())
+            times.append(start.elapsed_time(end))
+            metrics.append({k: v.item() for k, v in m.items()})
+    rec.update(metrics=metrics, times=times, launches=launches,
+               peak_mib=torch.cuda.max_memory_allocated() / 2**20,
+               state=_dp_state_file(state))
+    del state, mine
+    torch.cuda.empty_cache()
+    return rec
+
+
+def _wp_all(width_parallel, device):
+    """Every run of phase 26 in one process or one rank."""
+    batch, probe, wide = _wp_inputs(device)
+    out = {run: _wp_run(*run, width_parallel, device, batch, probe if i == 0 else None)
+           for i, run in enumerate(WP_RUNS)}
+    out["wide"] = _wp_run("fully_fused", "bfloat16", width_parallel, device, wide, steps=1)
+    return out
+
+
+def wp_worker(out_dir):
+    """One rank of phase 26 (``python3 chip_smoke.py --width-parallel-rank
+    DIR``, launched by ``phase_width_parallel`` with the ``HTRVT_*``
+    variables): its strip of every image's columns at ``mesh_shape=(1,
+    WP_RANKS)``, over a gloo group that shares card 0 with the other rank."""
+    from htr_vt_torch.parallel import mesh
+    device = torch.device("cuda", 0)
+    torch.cuda.set_device(device)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    mesh.maybe_initialize_distributed(backend="gloo")
+    mesh.init_mesh((1, WP_RANKS))
+    _build.library()
+    out = {"world": mesh.world(), "data": mesh.data_world(), "model": mesh.model_world(),
+           **_wp_all(True, device)}
+    torch.save(out, os.path.join(out_dir, f"rank{out['world'][0]}.pt"))
+    mesh.barrier()
+    torch.distributed.destroy_process_group()
+
+
+def _wp_strip_kernels(device):
+    """K3f and K4f on a rank's halo-extended strip of the flagship at
+    WP_WIDTH px, bs WIDE_BATCH (W / WP_RANKS columns and one neighbour
+    column, made channels-last from a ``torch.cat`` as ``halo_extend``
+    makes it) against their plain versions: K3f bit for bit, K4f (stage 1,
+    with the prologue) at ``_held``'s bar; the device ms of each and of its
+    plain version."""
+    w = WP_WIDTH // WP_RANKS
+    rec = {}
+    c = ModelConfig().embed_dim // 4
+    for name, shape in (("pool_bn_relu_fwd", (WIDE_BATCH, c, 32, w)),
+                        ("conv3x3_bn_relu_fwd", (WIDE_BATCH, c, 8, w))):
+        x = stem_input(shape[:3] + (w + 1,), device, seed=w)
+        ext = torch.cat([x[..., :1], x[..., 1:]], dim=-1)
+        ext = ext.contiguous(memory_format=torch.channels_last)
+        gen = torch.Generator(device=device).manual_seed(w + 1)
+        scale = 1.0 + 0.2 * torch.randn(c, generator=gen, device=device)
+        shift = 0.2 * torch.randn(c, generator=gen, device=device)
+        if name == "pool_bn_relu_fwd":
+            kernel = lambda: pool_fused.pool_bn_relu_fwd(ext, scale, shift)  # noqa: E731
+            plain = lambda: pool_fused.max_pool_bn_relu_reference(  # noqa: E731
+                ext, scale, shift)
+            y, want = kernel(), plain()
+            if not torch.equal(y, want):
+                raise AssertionError("[width parallel] K3f on a halo-extended strip "
+                                     "differs from its plain version")
+            err = (y.float() - want.float()).abs().max().item()
+        else:
+            k = (torch.randn((c, c, 3, 3), generator=gen, device=device)
+                 * math.sqrt(2.0 / (9 * c))).to(torch.bfloat16)
+            kernel = lambda: conv_fused.conv3x3_bn_relu_fwd(  # noqa: E731
+                ext, k, scale, shift)
+            plain = lambda: conv_fused.conv3x3_bn_relu_reference(  # noqa: E731
+                ext, k, scale, shift)
+            mag = F.conv2d(conv_fused._prologue(ext, scale, shift).float().abs(),
+                           k.float().abs(), padding=1)
+            err, _ = _held("[width parallel] K4f on a halo-extended strip", kernel(),
+                           plain(), mag, BF16_ULP_REL)
+            del mag
+        rec[name] = {"shape": list(ext.shape), "max_abs_err": err,
+                     "ms": device_ms(f"{name} strip", [kernel]),
+                     "plain_ms": device_ms(f"{name} strip plain", [plain])}
+        say(f"[width parallel] {name} on a halo-extended strip {list(ext.shape)} bf16: "
+            f"{rec[name]['ms']:.4f} ms a launch (plain {rec[name]['plain_ms']:.4f}), max "
+            f"|err| {err:.3e}")
+        del x, ext
+    torch.cuda.empty_cache()
+    return rec
+
+
+def phase_width_parallel(device, smi_line):
+    """Two ranks on the one card over gloo at ``mesh_shape=(1, 2)``, each
+    holding half of every image's columns (``wp_worker``), against one
+    process on the same weights, batch and masks (WP_RUNS, the eval step,
+    the WP_WIDE-px step), held at TP_BARS; the ranks' whole states equal;
+    each rank's launches a step equal to one process's; ms a step and peak
+    memory a rank against one process's; K3f and K4f on a halo-extended
+    strip against their plain versions."""
+    t_phase = time.perf_counter()
+    rec = {}
+    root = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build")
+    os.makedirs(root, exist_ok=True)
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_wp_", dir=root)
+    launches = dict.fromkeys(COUNTERS, 0)
+    try:
+        one = _wp_all(False, device)
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        rec["strip_kernels"] = _wp_strip_kernels(device)
+        ranks = run_ranks("--width-parallel-rank", tmp, WP_RANKS, WP_TIMEOUT,
+                          "width parallel")
+        if [(r["data"], r["model"]) for r in ranks] != [((0, 1), (m, WP_RANKS))
+                                                         for m in range(WP_RANKS)]:
+            raise AssertionError(f"[width parallel] grid {[r['model'] for r in ranks]}")
+        depth = ModelConfig().depth
+        for key in WP_RUNS + ("wide",):
+            switches, dtype = ("fully_fused", "bfloat16") if key == "wide" else key
+            width = WP_WIDE if key == "wide" else WP_WIDTH
+            want = (lever_launches("none", 1, flash=2 * depth) if key == "wide"
+                    else per_step_launches(WP_SWITCHES[switches]))
+            got, ref = ranks[0][key], one[key]
+            for r in ranks[1:]:
+                same = r[key]["metrics"] == got["metrics"] and all(
+                    torch.equal(v, r[key]["state"][part][k])
+                    for part in ("model", "ema_model")
+                    for k, v in got["state"][part].items())
+                if not same:
+                    raise AssertionError(f"[width parallel] {key}: the ranks' metrics or "
+                                         "whole weights differ")
+            for who, run in [("one process", ref)] + [(f"rank {i}", r[key])
+                                                      for i, r in enumerate(ranks)]:
+                for step in run["launches"]:
+                    if {k: v for k, v in step.items() if v} != want:
+                        raise AssertionError(f"[width parallel] {key}: a step of {who} "
+                                             f"launched {step}; expected {want}")
+                    launches = {k: launches[k] + step[k] for k in COUNTERS}
+            ok, rel, held = held_to_one(got, ref, TP_BARS[dtype])
+            peaks = [r[key]["peak_mib"] for r in ranks]
+            say(f"[width parallel {switches} {dtype}] {WP_RANKS} ranks on one card over "
+                f"gloo at mesh (1, {WP_RANKS}), {width // WP_RANKS} of {width} px a rank, "
+                f"bs {WIDE_BATCH}, {len(got['metrics'])} step(s), against one process on "
+                "the same weights, batch and masks: relative gaps a step "
+                + "; ".join(f"{k} " + " ".join(f"{v:.3e}" for v in vs)
+                            for k, vs in rel.items())
+                + f" (bars: the first step's losses {TP_BARS[dtype]['first_loss']} and "
+                f"grad_norm {TP_BARS[dtype]['first_grad_norm']}, every step's "
+                f"{TP_BARS[dtype]['loss']} and {TP_BARS[dtype]['grad_norm']}; "
+                f"{'deterministic algorithms' if dtype in DP_DETERMINISTIC else 'default mode'}"
+                f"); {gaps(held)}; launches a step {want}; ms a step, rank 0 "
+                f"{statistics.median(got['times']):.3f}, one process "
+                f"{statistics.median(ref['times']):.3f}; peak MiB a rank "
+                + " / ".join(f"{p:.1f}" for p in peaks)
+                + f", one process {ref['peak_mib']:.1f}; {smi_line}")
+            if not ok:
+                raise AssertionError(f"[width parallel {key}] two ranks outside the bars: "
+                                     f"{held}, {rel}")
+            if key == "wide" and not max(peaks) < ref["peak_mib"]:
+                raise AssertionError(f"[width parallel] at {WP_WIDE} px a rank's peak "
+                                     f"{peaks} MiB is not below one process's "
+                                     f"{ref['peak_mib']:.1f}")
+            rec["/".join(key) if key != "wide" else "wide"] = dict(
+                rel=rel, held=held, rank_ms=statistics.median(got["times"]),
+                one_ms=statistics.median(ref["times"]), rank_peak_mib=peaks,
+                one_peak_mib=ref["peak_mib"], rank_launches=got["launches"][0])
+        ev, ev1 = ranks[0][WP_RUNS[0]]["eval"], one[WP_RUNS[0]]["eval"]
+        want_eval = per_eval_launches(FULLY_FUSED)
+        for who, e in [("one process", ev1)] + [(f"rank {i}", r[WP_RUNS[0]]["eval"])
+                                                for i, r in enumerate(ranks)]:
+            if {k: v for k, v in e["launches"].items() if v} != want_eval:
+                raise AssertionError(f"[width parallel] eval_step of {who} launched "
+                                     f"{e['launches']}; expected {want_eval}")
+            launches = {k: launches[k] + e["launches"][k] for k in COUNTERS}
+        if not torch.equal(ranks[1][WP_RUNS[0]]["eval"]["logits"], ev["logits"]):
+            raise AssertionError("[width parallel] the ranks' eval logits differ")
+        loss_rel = abs(ev["loss"] - ev1["loss"]) / abs(ev1["loss"])
+        agree = (ev["logits"].argmax(-1) == ev1["logits"].argmax(-1)).float().mean().item()
+        err = (ev["logits"] - ev1["logits"]).abs().max().item()
+        say(f"[width parallel] eval_step fully fused bf16 at {WP_WIDTH} px: loss "
+            f"{ev['loss']:.5f} (one process {ev1['loss']:.5f}, {loss_rel:.3e} rel), max "
+            f"|logit gap| {err:.3e}, frame argmax agreement {agree:.4%}; launches "
+            f"{want_eval}")
+        if loss_rel > TP_BARS["bfloat16"]["loss"] or agree < MIN_ARGMAX_AGREEMENT:
+            raise AssertionError(f"[width parallel] eval_step: loss {loss_rel:.3e} rel, "
+                                 f"argmax agreement {agree:.4%}")
+        rec["eval"] = dict(loss_rel=loss_rel, argmax_agreement=agree, max_abs_err=err)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    say(f"[width parallel] phase {time.perf_counter() - t_phase:.1f} s; {smi_line}")
+    return launches, rec
+
 def main():
     smi_line, max_sm_mhz = phase_device()
     device = torch.device("cuda", 0)
@@ -4850,13 +5119,14 @@ def main():
     mw_launches, mw_rec = phase_multiwidth(device, smi_line)
     tp_launches, tp_rec = phase_tensor_parallel(device, smi_line)
     tpz_launches, tpz_rec = phase_tensor_parallel_zoo(device, smi_line)
+    wp_launches, wp_rec = phase_width_parallel(device, smi_line)
     say(f"[done] build {build_s:.2f} s; {smi_line}")
     main_path = {k: fused_serve[k] + full_serve[k] + fused_train[k] + full_train[k]
                  + train_launches[k] + bucket_serve[k] + wide_train[k] + fit_launches[k]
                  + zoo_launches[k] + sgm_launches[k] + standalone_launches[k]
                  + ed_launches[k] + int8_launches[k] + deploy_launches[k]
                  + lever_launches_[k] + dp_launches[k] + mw_launches[k] + tp_launches[k]
-                 + tpz_launches[k] for k in COUNTERS}
+                 + tpz_launches[k] + wp_launches[k] for k in COUNTERS}
     main_path["ctc_alpha"] += serve_launches
     k193, k17 = kernels["S193"], kernels["S17"]
     entry = stem["bn_stats"]["entry"]
@@ -5018,7 +5288,8 @@ def main():
                     "int8_serve": {k: v for k, v in int8_rec.items() if k != "sites"},
                     "deploy_serve": deploy_rec, "memory_levers": lever_rec,
                     "data_parallel": dp_rec, "multiwidth": mw_rec,
-                    "tensor_parallel": tp_rec, "tensor_parallel_zoo": tpz_rec}))
+                    "tensor_parallel": tp_rec, "tensor_parallel_zoo": tpz_rec,
+                    "width_parallel": wp_rec}))
     say(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))
@@ -5031,5 +5302,7 @@ if __name__ == "__main__":
         tp_worker(sys.argv[2])
     elif sys.argv[1:2] == ["--tensor-parallel-zoo-rank"]:
         tpz_worker(sys.argv[2])
+    elif sys.argv[1:2] == ["--width-parallel-rank"]:
+        wp_worker(sys.argv[2])
     else:
         main()

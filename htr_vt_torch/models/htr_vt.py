@@ -21,7 +21,11 @@ conformer / squeezeformer linears run int8 in eval, at a stage 1 padded to
 ``quant_stage1_pad`` where that applies; train mode is the float model.
 ``cfg.remat`` (``"blocks"``, ``"all"``) recomputes the encoder blocks' (and
 under ``"all"`` the stem's) activations in the backward of a train forward
-(``models/remat.py``).
+(``models/remat.py``). With the width sharded over the model axis
+(``parallel/mesh.py:shard_width``), the image is this rank's strip of
+columns: the input LayerNorm and the stem run on it, and the stem's tokens
+are gathered over the model group, so masking, the position table, the
+encoder and the head see the whole line on every rank of the group.
 """
 
 from __future__ import annotations
@@ -43,6 +47,7 @@ from htr_vt_torch.models.swin import HTRSwin
 from htr_vt_torch.models.van import VanStem
 from htr_vt_torch.models.vit import ATTN_IMPLS
 from htr_vt_torch.ops.quant import stage1_pad_applies
+from htr_vt_torch.parallel.mesh import check_width, gather_from_model
 
 VAN_STEMS = ("van", "van2")
 
@@ -57,7 +62,10 @@ class HTRVT(nn.Module):
     without one the weights keep torch's defaults.
 
     ``blocks[i]`` is the JAX module ``block_names[i]`` (``block0``,
-    ``mixer0``, ``encoder``, ...)."""
+    ``mixer0``, ``encoder``, ...). ``width_shards``: the model ranks that
+    share the image's width (``parallel/mesh.py:shard_width``)."""
+
+    width_shards = 1
 
     def __init__(self, cfg: ModelConfig, device=None,
                  generator: Optional[torch.Generator] = None):
@@ -121,7 +129,10 @@ class HTRVT(nn.Module):
         """[B, H, W, 1] float32 -> logits [B, N, nb_cls] float32, at any
         width the stem takes: the position table follows the image's grid,
         ``(H // patch_size[0], W // patch_size[1])``, or ``(1, N)`` behind a
-        VAN stem, whose tokens are one row (``htr_vt.py:110-115``).
+        VAN stem, whose tokens are one row (``htr_vt.py:110-115``). Width
+        sharded over M model ranks, ``image`` is this rank's strip [B, H,
+        W / M, 1] (``parallel/mesh.py:rank_width``), W the image's whole
+        width, and the logits are the whole line's on every rank.
 
         ``train``: batch-statistic BatchNorm (moving the running statistics
         in place), token masking and dropout, drawing from ``generator``.
@@ -137,9 +148,12 @@ class HTRVT(nn.Module):
         sgm_loss) with an SGM batch; (logits, feats) with
         ``return_features``; (logits, feats, sgm_loss) with both."""
         cfg = self.cfg
+        shards = self.width_shards
+        if shards > 1:
+            check_width(image.shape[2] * shards, shards)
         x = image.float()
         if cfg.input_layer_norm:
-            x = global_layer_norm(x)
+            x = global_layer_norm(x, width_sharded=shards > 1)
         # remat (htr_vt.py:63-69): under "blocks" each encoder block, under
         # "all" the stem too, recomputes its activations in the backward
         remat_stem = train and cfg.remat == "all"
@@ -150,15 +164,19 @@ class HTRVT(nn.Module):
         else:
             x = self.patch_embed(x, train=train)
         b = x.shape[0]
-        # NHWC token order, as the JAX reshape of [B, H', W', D]
-        tokens = x.permute(0, 2, 3, 1).reshape(b, -1, cfg.embed_dim)
+        # NHWC token order, as the JAX reshape of [B, H', W', D]; a width
+        # strip's tokens gathered on W' first
+        x = x.permute(0, 2, 3, 1)
+        if shards > 1:
+            x = gather_from_model(x, dim=2)
+        tokens = x.reshape(b, -1, cfg.embed_dim)
         n = tokens.shape[1]
         tokens = masking.mask_tokens(tokens, cfg.masking, self.mask_token, train, keep,
                                      generator, mask_mode, mask_ratio)
         if cfg.use_abs_pos_embed:
             grid = ((1, n) if cfg.stem in VAN_STEMS else
                     (image.shape[1] // cfg.patch_size[0],
-                     image.shape[2] // cfg.patch_size[1]))
+                     image.shape[2] * shards // cfg.patch_size[1]))
             tokens = tokens + self.pos_table(grid)[:n].to(self.dtype)
         for block in self.blocks:
             if remat_blocks:

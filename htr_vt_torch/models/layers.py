@@ -18,22 +18,32 @@ import torch.nn.functional as F
 from torch import nn
 
 from htr_vt_torch.ops import quant as q8
-from htr_vt_torch.parallel.mesh import (Shard, copy_to_model, gather_from_model,
-                                        gather_model, rank_cols, rank_rows,
-                                        reduce_from_model)
+from htr_vt_torch.parallel.mesh import (Shard, all_reduce_sum, copy_to_model,
+                                        gather_from_model, gather_model, model_world,
+                                        rank_cols, rank_rows, reduce_from_model)
 
 # The standard deviation of a unit normal truncated at +-2, which flax's
 # truncated-normal initialisers divide out.
 TRUNC_NORMAL_STD = 0.87962566103423978
 
 
-def global_layer_norm(x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
+def global_layer_norm(x: torch.Tensor, eps: float = 1e-5,
+                      width_sharded: bool = False) -> torch.Tensor:
     """Parameterless LayerNorm over every non-batch dimension, in float32
-    (``layers.py:18-29``)."""
+    (``layers.py:18-29``). ``width_sharded``: x is this rank's strip of an
+    image whose width the model axis shards, and the statistics are the
+    whole image's: the mean from the sums over the model group, then the
+    variance from the summed squares of ``x - mean``, the two passes of
+    ``var(correction=0)``."""
     x32 = x.float()
     dims = tuple(range(1, x.ndim))
-    mean = x32.mean(dims, keepdim=True)
-    var = x32.var(dims, keepdim=True, correction=0)
+    if not width_sharded:
+        mean = x32.mean(dims, keepdim=True)
+        var = x32.var(dims, keepdim=True, correction=0)
+    else:
+        n = x32[0].numel() * model_world()[1]
+        mean = all_reduce_sum(x32.sum(dims, keepdim=True), "model") / n
+        var = all_reduce_sum((x32 - mean).square().sum(dims, keepdim=True), "model") / n
     return ((x32 - mean) * torch.rsqrt(var + eps)).to(x.dtype)
 
 

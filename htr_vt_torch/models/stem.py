@@ -26,9 +26,13 @@ Under data parallelism (``htr_vt_torch/parallel/mesh.py``) the statistics
 are the global batch's, as XLA computes them over the global array: the
 per-channel sums and the element count are all-reduced before the mean and
 variance are formed (``global_sums``), so the running statistics move
-alike on every rank. JAX never reads ``ParallelConfig.sync_batch_norm``
-and its BN is always global; the port does not read it either. Inside a
-remat recompute (``models/remat.py``) the running statistics stay put.
+alike on every rank. The ranks of one data index hold the same rows, so a
+model axis adds nothing to those sums, except where the stem's width is
+sharded over it (``parallel/mesh.py:shard_width``): each rank then holds a
+strip of columns, and the sums run over the whole mesh. JAX never reads
+``ParallelConfig.sync_batch_norm`` and its BN is always global; the port
+does not read it either. Inside a remat recompute (``models/remat.py``)
+the running statistics stay put.
 With ``bn_stats_impl="pallas"`` the sums come from the K2 kernel
 (``ops/bn_stats.py``); with ``pool_impl="pallas"`` the entry's
 BN-apply + ReLU + max-pool is the K3f/K3b kernel pair
@@ -38,6 +42,18 @@ conv2 with the (s1, t1) prologue and a second block's conv1 without one.
 ``"auto"`` and ``"xla"`` take the stock ops, as ``"auto"`` does in JAX
 (``stem.py:67-79``). The other convolutions (the entry conv, the strided
 conv1s, the 1x1 projections) are ``F.conv2d`` in the compute dtype.
+Width-sharded (``width_sharded``, set by ``shard_width``): every 3x3
+window reads its neighbours' edge columns (``parallel/mesh.py:
+halo_extend``). A window at W-stride 1 (the entry conv, the pools, stage
+1's conv1, every stride-1 conv; the K3 and K4 kernels among them) runs
+unchanged on the strip extended by a column on each inner side and its
+outputs at the halo are cropped (``_windowed``): the kernels' BN prologue
+comes before their padding, so the image's edges keep the op's own
+padding. A W-stride-2 conv takes one column from the left, zeros at the
+image's edge, and pads nothing on W (``_conv_w2``), so that its outputs
+stay centred on even global columns; the strided 1x1 projection needs no
+halo. BN statistics are taken on the cropped outputs only.
+
 Module and parameter names follow the reference state_dict
 (``patch_embed.layer1.0.conv1.weight``, ...), so a checkpoint
 converted by ``htr_vt_torch/utils/torch_convert.py`` loads with
@@ -68,7 +84,8 @@ from htr_vt_torch.ops.bn_stats import BNStats
 from htr_vt_torch.ops.conv_fused import (conv3x3_bn_relu,
                                          conv3x3_bn_relu_reference)
 from htr_vt_torch.ops.pool_fused import max_pool_bn_relu
-from htr_vt_torch.parallel.mesh import all_reduce_sum, data_world
+from htr_vt_torch.parallel.mesh import (all_reduce_sum, data_world, halo_extend,
+                                        world_size)
 
 BN_EPS = 1e-5
 BN_MOMENTUM = 0.9
@@ -84,33 +101,45 @@ def _relu_max(x: torch.Tensor) -> torch.Tensor:
     return torch.maximum(x, x.new_zeros(()))
 
 
-def global_sums(s: torch.Tensor, q: torch.Tensor, n):
+def global_sums(s: torch.Tensor, q: torch.Tensor, n, mesh: bool = False):
     """Per-channel (sum, sum of squares) and the element count over the
     global batch: at data size 1 as given, else all three summed over the
     data axis in one differentiable all-reduce (K2's SPMD psum,
     ``htr_vt_tpu/ops/bn_stats.py:98-103``). Ranks of one data index hold
-    the same rows, so a model axis is never summed over."""
-    if data_world()[1] == 1:
+    the same rows, so the model axis is summed over only with ``mesh``:
+    inside a width-sharded stem, whose model ranks hold strips of one
+    image, the three are summed over every rank of the mesh. A BN after the
+    tokens' gather (the conv blocks' over tokens) must not: its model ranks
+    hold the same tokens, and the sum's backward would count each gradient
+    M times."""
+    size = world_size() if mesh else data_world()[1]
+    if size == 1:
         return s, q, n
     c = s.shape[0]
-    packed = all_reduce_sum(torch.cat([s, q, s.new_full((1,), float(n))]))
+    packed = all_reduce_sum(torch.cat([s, q, s.new_full((1,), float(n))]),
+                            "mesh" if mesh else "data")
     return packed[:c], packed[c:2 * c], packed[2 * c]
 
 
-def batch_moments(xf: torch.Tensor, dims) -> Tuple[torch.Tensor, torch.Tensor]:
-    """(E[x], E[x^2]) of float32 ``xf`` over ``dims``: the ``mean`` calls at
-    data size 1, else the global batch's from the all-reduced sums."""
-    if data_world()[1] == 1:
+def batch_moments(xf: torch.Tensor, dims, mesh: bool = False
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(E[x], E[x^2]) of float32 ``xf`` over ``dims``: the ``mean`` calls on
+    one rank, else the global batch's from the all-reduced sums
+    (``global_sums``; ``mesh`` as there)."""
+    if (world_size() if mesh else data_world()[1]) == 1:
         return xf.mean(dims), xf.square().mean(dims)
     s, q, n = global_sums(xf.sum(dims), xf.square().sum(dims),
-                          math.prod(xf.shape[d] for d in dims))
+                          math.prod(xf.shape[d] for d in dims), mesh)
     return s / n, q / n
 
 
 class BatchNorm(nn.Module):
     """BatchNorm state: ``weight``/``bias`` and ``running_mean``/
     ``running_var``, exactly the reference's keys (no
-    ``num_batches_tracked``)."""
+    ``num_batches_tracked``). ``width_sharded``: its statistics are summed
+    over the whole mesh (``global_sums``)."""
+
+    width_sharded = False
 
     def __init__(self, c: int, device=None):
         super().__init__()
@@ -143,11 +172,11 @@ class BatchNorm(nn.Module):
         else:
             if stats_impl == "pallas":
                 s, q = BNStats.apply(x)
-                s, q, n = global_sums(s, q, x.numel() // x.shape[1])
+                s, q, n = global_sums(s, q, x.numel() // x.shape[1], self.width_sharded)
                 mu = s / n
                 var = _relu_max(q / n - mu.square())
             else:
-                mu, ex2 = batch_moments(x.float(), (0, 2, 3))
+                mu, ex2 = batch_moments(x.float(), (0, 2, 3), self.width_sharded)
                 var = _relu_max(ex2 - mu.square())
             self.move_running(mu, var)
         scale = self.weight.float() * torch.rsqrt(var + BN_EPS)
@@ -169,7 +198,7 @@ class BatchNorm(nn.Module):
         beta`` and move the running statistics in place (``stem.py:117-138``
         with flax's fast variance)."""
         xf = x.float()
-        mean, ex2 = batch_moments(xf, (0, 2, 3))
+        mean, ex2 = batch_moments(xf, (0, 2, 3), self.width_sharded)
         var = torch.clamp_min(ex2 - mean.square(), 0.0)
         self.move_running(mean, var)
         mul = torch.rsqrt(var + BN_EPS) * self.weight
@@ -192,6 +221,32 @@ def _proj_conv(conv: nn.Conv2d, x: torch.Tensor, stride: Tuple[int, int],
 
 def _max_pool_3x3(x: torch.Tensor, stride: Tuple[int, int]) -> torch.Tensor:
     return F.max_pool2d(x, kernel_size=3, stride=stride, padding=1)
+
+
+def _windowed(op, x: torch.Tensor, sharded: bool) -> torch.Tensor:
+    """``op`` (a 3x3 window at W-stride 1, padding 1) on x; on a width
+    strip, run on the strip extended by one neighbour column on each inner
+    side, the outputs at those columns cropped (channels-last, as the
+    kernels read it)."""
+    if not sharded:
+        return op(x)
+    ext, lo, hi = halo_extend(x, 1, 1)
+    y = op(ext)
+    return y[..., lo:y.shape[-1] - hi].contiguous(memory_format=torch.channels_last)
+
+
+def _conv_w2(x: torch.Tensor, weight: torch.Tensor,
+             stride: Tuple[int, int]) -> torch.Tensor:
+    """The 3x3 conv at W-stride 2, padding 1, in x's dtype, on a width
+    strip (an even number of columns from an even global column): one
+    column from the left neighbour or zeros at the image's edge, and no
+    padding on W, so output j reads the strip's columns 2j - 1 ... 2j + 1,
+    as on the whole image."""
+    ext, lo, _ = halo_extend(x, 1, 0)
+    if not lo:
+        ext = F.pad(ext, (1, 0))
+    ext = ext.contiguous(memory_format=torch.channels_last)
+    return F.conv2d(ext, weight.to(x.dtype), stride=stride, padding=(1, 0))
 
 
 def _int8_pays(cin: int, cout: int) -> bool:
@@ -223,7 +278,12 @@ class BasicBlock(nn.Module):
 
     ``quant`` (eval only): the int8 dataflow of ``_quant_forward``.
     ``quant_entry`` makes a stage-1 entry conv (conv1, proj) int8 too;
-    ``emit_quant`` returns the s8 carry in static mode."""
+    ``emit_quant`` returns the s8 carry in static mode.
+
+    ``width_sharded``: x is a strip of columns; every 3x3 conv reads the
+    neighbours' edge columns (``_windowed``, ``_conv_w2``)."""
+
+    width_sharded = False
 
     def __init__(self, cin: int, cout: int, stride: Tuple[int, int],
                  use_projection: bool, dtype: torch.dtype, device=None, *,
@@ -347,9 +407,10 @@ class BasicBlock(nn.Module):
 
         conv = (conv3x3_bn_relu if self.conv_impl == "pallas"
                 else conv3x3_bn_relu_reference)
-        y1 = conv(x, self.conv1.weight, stride=self.stride)
+        y1 = self._conv1(lambda t: conv(t, self.conv1.weight, stride=self.stride), x)
         s1, t1 = fold(self.bn1, y1)
-        y2 = conv(y1, self.conv2.weight, s1, t1)
+        y2 = _windowed(lambda t: conv(t, self.conv2.weight, s1, t1), y1,
+                       self.width_sharded)
         s2, t2 = fold(self.bn2, y2)
         if self.downsample is not None:
             conv, bn = self.downsample
@@ -360,11 +421,17 @@ class BasicBlock(nn.Module):
             residual = x.float()
         return _relu_max(y2.float() * _c(s2) + _c(t2) + residual).to(dt)
 
+    def _conv1(self, op, x: torch.Tensor) -> torch.Tensor:
+        """conv1 (``op``, its stride the block's) on x or its strip."""
+        if self.width_sharded and self.stride[1] == 2:
+            return _conv_w2(x, self.conv1.weight, self.stride)
+        return _windowed(op, x, self.width_sharded)
+
     def _plain_train_forward(self, x: torch.Tensor) -> torch.Tensor:
         dt = self.dtype
-        y = _conv(self.conv1, x, self.stride, 1, dt)
+        y = self._conv1(lambda t: _conv(self.conv1, t, self.stride, 1, dt), x)
         y = torch.relu(self.bn1.train_forward(y).to(dt))
-        y = _conv(self.conv2, y, 1, 1, dt)
+        y = _windowed(lambda t: _conv(self.conv2, t, 1, 1, dt), y, self.width_sharded)
         y = self.bn2.train_forward(y).to(dt)
         residual = x
         if self.downsample is not None:
@@ -396,8 +463,14 @@ class ResNet18Stem(nn.Module):
     the entry is bn1 + ReLU in float32, and in static mode its quantization
     (site ``pool_amax``) and the max-pool of the s8 values
     (``ops/quant.py:max_pool_s8``) feed the s8 chain; calibrate and dynamic
-    pool the float values."""
+    pool the float values.
 
+    ``width_sharded`` (``parallel/mesh.py:shard_width``): x is this rank's
+    strip of columns and so is the output; every window reads the
+    neighbours' edge columns, K3's the raw conv1 columns, since it applies
+    the BN + ReLU itself."""
+
+    width_sharded = False
     STAGE_STRIDES: Sequence[Tuple[int, int]] = ((2, 1), (2, 2), (2, 2))
 
     def __init__(self, embed_dim: int, dtype: torch.dtype, device=None, *,
@@ -442,11 +515,14 @@ class ResNet18Stem(nn.Module):
         # contiguous and a view may carry any channel stride (0 from a numpy
         # image's new axis): cuDNN then writes conv1's output channels-last,
         # as the fused kernels read it.
-        x = x.to(dt)
-        if x.stride(1) != 1:
-            x = x.permute(0, 2, 3, 1).clone(
-                memory_format=torch.contiguous_format).permute(0, 3, 1, 2)
-        x = _conv(self.conv1, x, (2, 1), 1, dt)
+        def entry(t):
+            if t.stride(1) != 1:
+                t = t.permute(0, 2, 3, 1).clone(
+                    memory_format=torch.contiguous_format).permute(0, 3, 1, 2)
+            return _conv(self.conv1, t, (2, 1), 1, dt)
+
+        wide = self.width_sharded
+        x = _windowed(entry, x.to(dt), wide)
         stats = x if train else None
         if self.s8_pool and not train:
             s1, t1 = self.bn1.fold()
@@ -461,7 +537,7 @@ class ResNet18Stem(nn.Module):
                 x = _max_pool_3x3(a.to(dt), (2, 1))
         elif self.pool_impl == "pallas":
             s1, t1 = self.bn1.fold(stats, stats_impl=self.bn_stats_impl)
-            x = max_pool_bn_relu(x, s1, t1)
+            x = _windowed(lambda t: max_pool_bn_relu(t, s1, t1), x, wide)
         else:
             if train and self.bn_stats_impl != "pallas":
                 # flax BN in f32, cast, then ReLU (stem.py:427-435)
@@ -469,8 +545,10 @@ class ResNet18Stem(nn.Module):
             else:
                 s1, t1 = self.bn1.fold(stats, stats_impl=self.bn_stats_impl)
                 x = _relu_max(x.float() * _c(s1) + _c(t1)).to(dt)
-            x = _max_pool_3x3(x, (2, 1))
+            x = _windowed(lambda t: _max_pool_3x3(t, (2, 1)), x, wide)
         for i in range(self.n_stages):
             for block in getattr(self, f"layer{i + 1}"):
                 x = block(x, train=train)
-        return _max_pool_3x3(x, (2, 1)) if self.final_maxpool else x
+        if not self.final_maxpool:
+            return x
+        return _windowed(lambda t: _max_pool_3x3(t, (2, 1)), x, wide)

@@ -44,6 +44,21 @@ qkv replicated (Swin, SVTR, the decoder's self-attention),
 ``gather_from_model`` brings the heads' outputs together before it. Int8
 serving takes its row sites' scales over the whole input
 (``model_max``) and sums their int32 products over the model group.
+
+The model axis also shards the image's width (``shard_width``,
+``rank_width``), as JAX's ``train_step`` runs on an image placed
+``P("data", None, "model", None)`` and GSPMD partitions the stem
+(``tests/test_parallel.py:180-199``). Model index m holds columns ``[m *
+W / M, (m + 1) * W / M)`` of every row its data index holds. The port
+makes GSPMD's collectives by hand: each 3x3 window of the ResNet18 stem
+reads its neighbours' edge columns (``halo_extend``), its BatchNorm sums
+run over the whole mesh (``all_reduce_sum(..., "mesh")``), the input
+LayerNorm's over the model group, and the stem's tokens are gathered over
+the model group before masking (``gather_from_model``), so that the
+encoder, the head and the loss see the whole line on every rank of a
+model group. Each rank's stem gradient covers its strip, and the step
+sums it over the model group (``width_sharded_mask``,
+``all_reduce_model_sum_``).
 """
 
 from __future__ import annotations
@@ -234,29 +249,46 @@ class _AllReduceSum(torch.autograd.Function):
         return _all_reduce_(g.contiguous().clone(), group=ctx.group), None
 
 
-def all_reduce_sum(x: torch.Tensor) -> torch.Tensor:
-    """The differentiable sum of ``x`` over the data axis (``x`` itself at
-    data size 1)."""
-    if data_world()[1] == 1:
+def all_reduce_sum(x: torch.Tensor, axis: str = "data") -> torch.Tensor:
+    """The differentiable sum of ``x`` over ``axis``: ``"data"`` (the data
+    group), ``"model"`` (the model group) or ``"mesh"`` (every rank); ``x``
+    itself where that axis has size 1."""
+    if axis == "data":
+        size, group = data_world()[1], _data_group()
+    elif axis == "model":
+        size = model_world()[1]
+        group = _GRID.model_group if size > 1 else None
+    elif axis == "mesh":
+        size, group = world_size(), None
+    else:
+        raise ValueError(f"axis={axis!r}: expected 'data', 'model' or 'mesh'")
+    if size == 1:
         return x
-    return _AllReduceSum.apply(x, _data_group())
+    return _AllReduceSum.apply(x, group)
 
 
 @torch.no_grad()
+def _sum_packed_(tensors: Sequence[torch.Tensor], group, div: int = 1) -> None:
+    """Replace each tensor in place by its sum over ``group`` divided by
+    ``div``: one flattened all-reduce per dtype and device."""
+    by_kind: dict = {}
+    for t in tensors:
+        by_kind.setdefault((t.dtype, t.device), []).append(t)
+    for same in by_kind.values():
+        flat = torch.cat([t.reshape(-1) for t in same])
+        _all_reduce_(flat, group=group)
+        if div != 1:
+            flat.div_(div)
+        torch._foreach_copy_(same, [v.view_as(t) for v, t in zip(
+            flat.split([t.numel() for t in same]), same)])
+
+
 def all_reduce_mean_(tensors: Sequence[torch.Tensor]) -> None:
     """Replace each tensor in place by its mean over the data axis: one
     flattened all-reduce per dtype and device (nothing at data size 1)."""
     size = data_world()[1]
-    if size == 1:
-        return
-    groups: dict = {}
-    for t in tensors:
-        groups.setdefault((t.dtype, t.device), []).append(t)
-    for group in groups.values():
-        flat = torch.cat([t.reshape(-1) for t in group])
-        _all_reduce_(flat, group=_data_group()).div_(size)
-        torch._foreach_copy_(group, [v.view_as(t) for v, t in zip(
-            flat.split([t.numel() for t in group]), group)])
+    if size > 1:
+        _sum_packed_(tensors, _data_group(), size)
 
 
 def _all_gather(x: torch.Tensor, size: int, group) -> List[torch.Tensor]:
@@ -319,27 +351,96 @@ def reduce_from_model(x: torch.Tensor) -> torch.Tensor:
 
 
 class _GatherFromModel(torch.autograd.Function):
-    """The model group's last dimensions side by side, in rank order,
-    forward (the heads' outputs of a column-sharded qkv, ahead of a
-    replicated proj); backward, this rank's slice of the gradient."""
+    """The model group's tensors side by side on one dimension, in rank
+    order, forward; backward, this rank's slice of the gradient."""
 
     @staticmethod
-    def forward(ctx, x):
+    def forward(ctx, x, dim):
         index, size = model_world()
-        ctx.index, ctx.width = index, x.shape[-1]
-        return torch.cat(_all_gather(x, size, _GRID.model_group), dim=-1)
+        ctx.index, ctx.dim, ctx.width = index, dim, x.shape[dim]
+        return torch.cat(_all_gather(x, size, _GRID.model_group), dim=dim)
 
     @staticmethod
     def backward(ctx, g):
-        return g.narrow(-1, ctx.index * ctx.width, ctx.width)
+        return g.narrow(ctx.dim, ctx.index * ctx.width, ctx.width), None
 
 
-def gather_from_model(x: torch.Tensor) -> torch.Tensor:
-    """Leave a column-sharded sublayer whose output a replicated layer
-    reads whole: every model rank's ``x`` concatenated on the last
-    dimension forward, this rank's columns of the gradient backward (``x``
-    itself at model size 1)."""
-    return x if model_world()[1] == 1 else _GatherFromModel.apply(x)
+def gather_from_model(x: torch.Tensor, dim: int = -1) -> torch.Tensor:
+    """Every model rank's ``x`` concatenated on ``dim`` forward, this rank's
+    slice of the gradient backward (``x`` itself at model size 1). It
+    leaves a column-sharded sublayer whose output a replicated layer reads
+    whole (the heads' outputs ahead of a replicated proj, on the last
+    dimension), and gathers a width-sharded stem's tokens (on the width).
+    The backward takes a slice and sums nothing: the gradient of what is
+    gathered is the same on every rank of the group, whether the layers
+    after it are replicated or enter their shards through
+    ``copy_to_model``."""
+    return x if model_world()[1] == 1 else _GatherFromModel.apply(x, dim)
+
+
+class _HaloExtend(torch.autograd.Function):
+    """``halo_extend``'s exchange: one all-gather of every rank's edge
+    columns forward, one of the halos' gradients backward."""
+
+    @staticmethod
+    def forward(ctx, x, left, right):
+        index, size = model_world()
+        w = x.shape[-1]
+        ctx.index, ctx.size, ctx.w, ctx.left, ctx.right = index, size, w, left, right
+        # what the left neighbour reads as its right halo, then the right
+        # neighbour's left halo
+        edges = _all_gather(torch.cat([x[..., :right], x[..., w - left:]], dim=-1),
+                            size, _GRID.model_group)
+        lo, hi = (left if index > 0 else 0), (right if index < size - 1 else 0)
+        parts = ([edges[index - 1][..., right:]] if lo else []) + [x] + (
+            [edges[index + 1][..., :right]] if hi else [])
+        ctx.lo, ctx.hi = lo, hi
+        ext = torch.cat(parts, dim=-1)
+        if x.is_contiguous(memory_format=torch.channels_last) and x.dim() == 4:
+            ext = ext.contiguous(memory_format=torch.channels_last)
+        return ext
+
+    @staticmethod
+    def backward(ctx, g):
+        index, size, w, left, right = ctx.index, ctx.size, ctx.w, ctx.left, ctx.right
+        lo, hi = ctx.lo, ctx.hi
+        shape = (*g.shape[:-1], left + right)
+        sent = g.new_zeros(shape)
+        if lo:  # the left halo's gradient belongs to the left neighbour's last columns
+            sent[..., right:] = g[..., :lo]
+        if hi:  # the right halo's, to the right neighbour's first columns
+            sent[..., :right] = g[..., lo + w:]
+        got = _all_gather(sent, size, _GRID.model_group)
+        dx = g[..., lo:lo + w].clone()
+        if index < size - 1 and left:
+            dx[..., w - left:] += got[index + 1][..., right:]
+        if index > 0 and right:
+            dx[..., :right] += got[index - 1][..., :right]
+        return dx, None, None
+
+
+def halo_extend(x: torch.Tensor, left: int = 1, right: int = 1
+                ) -> Tuple[torch.Tensor, int, int]:
+    """This rank's strip of columns (the last dimension) with ``left``
+    columns of its left neighbour's before it and ``right`` of its right
+    neighbour's after it, on the model axis: (the extended tensor, the
+    columns added on the left, on the right). A strip at the image's edge
+    gets nothing on that side, so a window op that pads by itself pads
+    there as on the whole image; its outputs at halo columns are then
+    cropped. Differentiable: the gradient of a halo column goes back to the
+    rank that owns the column and is added there. One all-gather of each
+    rank's edge columns over the model group, forward and backward (gloo's
+    point-to-point calls take CPU tensors only; an all-gather takes CUDA
+    tensors under gloo and NCCL alike). A 4-d channels-last strip gives a
+    channels-last tensor. At model size 1, ``(x, 0, 0)``."""
+    if model_world()[1] == 1:
+        return x, 0, 0
+    index, size = model_world()
+    if max(left, right) > x.shape[-1]:
+        raise ValueError(f"a halo of {max(left, right)} columns exceeds a strip of "
+                         f"{x.shape[-1]}")
+    ext = _HaloExtend.apply(x, left, right)
+    return ext, (left if index > 0 else 0), (right if index < size - 1 else 0)
 
 
 @torch.no_grad()
@@ -349,6 +450,13 @@ def model_sum(x: torch.Tensor) -> torch.Tensor:
     if model_world()[1] == 1:
         return x
     return _all_reduce_(x.contiguous().clone(), group=_GRID.model_group)
+
+
+def all_reduce_model_sum_(tensors: Sequence[torch.Tensor]) -> None:
+    """Replace each tensor in place by its sum over the model group: one
+    flattened all-reduce per dtype and device (nothing at model size 1)."""
+    if model_world()[1] > 1:
+        _sum_packed_(tensors, _GRID.model_group)
 
 
 @torch.no_grad()
@@ -563,6 +671,92 @@ def shard_optimizer_state(model, sd: Dict) -> Dict:
     state = {i: {k: shard_tensor(v, specs[i], index, size) if i in specs and v.dim() > 0
                  else v for k, v in st.items()} for i, st in sd["state"].items()}
     return {**sd, "state": state}
+
+
+# --- the width (spatial) axis ------------------------------------------------------
+ITEM_12 = ("is not ported yet (ROADMAP item 12 lists it: width sharding covers the "
+           "HTRVT trunk behind the ResNet18 stem, float, without remat 'all')")
+
+
+def check_width(width: int, size: int) -> None:
+    """A global image width ``width`` that ``size`` model ranks can share:
+    every strip a whole number of tokens (the stem quarters the width) and
+    every stride-2 strip starting on an even column, so ``width % (4 *
+    size) == 0``; else ValueError."""
+    if width % (4 * size):
+        raise ValueError(f"an image width of {width} px does not split over a model "
+                         f"axis of {size}: width sharding needs width % (4 * {size}) "
+                         "== 0")
+
+
+def _trunk(model):
+    """The HTRVT that holds the ResNet18 stem: the model, or an
+    encoder-decoder's trunk."""
+    from htr_vt_torch.models.encoder_decoder import HTREncoderDecoder
+    return model.encoder if isinstance(model, HTREncoderDecoder) else model
+
+
+def shard_width(model):
+    """Shard the image's width over the model axis for ``model`` (an
+    ``HTRVT``, or an encoder-decoder through its trunk): the ResNet18 stem
+    and the input LayerNorm run on this rank's strip of columns
+    (``rank_width``) and the stem's tokens are gathered before masking.
+    The weights stay as they are, so it composes with ``shard_model`` (the
+    encoder tensor-parallel after the gather) or without it (the encoder
+    replicated over the model group, JAX's layout in
+    ``tests/test_parallel.py:180-199``). What it does not cover raises,
+    naming ROADMAP item 12: the VAN stems, the standalone ``HTRSwin`` and
+    ``SVTR``, int8 serving and ``remat="all"`` (whose recompute would
+    replay the stem's collectives), at any model size. Returns ``model``;
+    at model size 1 it is left as it is. Mark the EMA copy too
+    (``create_train_state`` does both with ``width_parallel``)."""
+    from htr_vt_torch.models.htr_vt import HTRVT, VAN_STEMS
+    trunk = _trunk(model)
+    what = None
+    if not isinstance(trunk, HTRVT):
+        what = f"width sharding of {type(model).__name__}"
+    elif trunk.cfg.stem in VAN_STEMS:
+        what = f"width sharding of the {trunk.cfg.stem} stem"
+    elif trunk.cfg.quant == "int8":
+        what = "width sharding of int8 serving"
+    elif trunk.cfg.remat == "all":
+        what = "width sharding under remat='all'"
+    if what is not None:
+        raise ValueError(f"{what} {ITEM_12}")
+    size = model_world()[1]
+    if size == 1:
+        return model
+    for m in trunk.patch_embed.modules():
+        if hasattr(type(m), "width_sharded"):
+            m.width_sharded = True
+    trunk.width_shards = size
+    return model
+
+
+def width_sharded_mask(model) -> Optional[List[bool]]:
+    """For each of ``model.parameters()``, whether it is the stem's, whose
+    gradient a rank holds for its strip only; None for a model whose width
+    is not sharded."""
+    trunk = _trunk(model)
+    if getattr(trunk, "width_shards", 1) == 1:
+        return None
+    stem = {id(p) for p in trunk.patch_embed.parameters()}
+    return [id(p) in stem for p in model.parameters()]
+
+
+def rank_width(batch):
+    """This rank's columns of a batch's ``image`` ([B, H, W, 1], a tensor
+    or an array): model index m keeps ``[m * W / M, (m + 1) * W / M)``;
+    every other key as it is (the ranks of a model group hold the same
+    rows). The width must split (``check_width``). At model size 1, the
+    batch itself."""
+    index, size = model_world()
+    if size == 1:
+        return batch
+    image = batch["image"]
+    check_width(image.shape[2], size)
+    w = image.shape[2] // size
+    return {**batch, "image": image[:, :, index * w:(index + 1) * w]}
 
 
 def broadcast_str(s: Optional[str]) -> Optional[str]:

@@ -19,7 +19,8 @@ from torch import nn
 from htr_vt_torch.config import ExperimentConfig
 from htr_vt_torch.models.htr_vt import build_model
 from htr_vt_torch.optim.sam import make_base_optimizer
-from htr_vt_torch.parallel.mesh import assert_same_on_every_rank, shard_model
+from htr_vt_torch.parallel.mesh import (assert_same_on_every_rank, shard_model,
+                                        shard_width)
 
 
 @dataclass
@@ -35,8 +36,9 @@ class TrainState:
     step: int = 0
 
 
-def create_train_state(cfg: ExperimentConfig, device,
-                       generator: torch.Generator) -> TrainState:
+def create_train_state(cfg: ExperimentConfig, device, generator: torch.Generator,
+                       *, tensor_parallel: bool = True,
+                       width_parallel: bool = False) -> TrainState:
     """A model initialised from ``generator`` with the JAX package's
     schemes (any model ``build_model`` builds: an encoder-decoder needs
     ``cfg.model.ed_vocab_size``, which the trainer sets from its
@@ -49,14 +51,20 @@ def create_train_state(cfg: ExperimentConfig, device,
     then draw one global mask (``parallel/mesh.py:rank_rows``) and apply
     one averaged gradient. One checksum all-reduce holds them to it, on
     the whole weights. Over a model axis (``parallel/mesh.py:init_mesh``)
-    the model is then sharded (``shard_model``), and the EMA copy and
-    AdamW's moments are made from the shards, so they are sharded as
-    their parameters."""
+    the model is then sharded (``shard_model``; not with
+    ``tensor_parallel=False``, which keeps every weight replicated), and
+    the EMA copy and AdamW's moments are made from the shards, so they are
+    sharded as their parameters. ``width_parallel``: the image's width is
+    sharded over the model axis too (``shard_width``, both models), and
+    each step takes a rank's strip of columns (``rank_width``)."""
     model = build_model(cfg.model, device=device, generator=generator)
     assert_same_on_every_rank(list(model.state_dict().values())
                               + [generator.get_state()],
                               "the initial weights or the generator's state")
-    shard_model(model)
+    if tensor_parallel:
+        shard_model(model)
+    if width_parallel:
+        shard_width(model)
     ema_model = copy.deepcopy(model)
     ema_model.requires_grad_(False)
     optimizer = make_base_optimizer(model.parameters(), cfg.optim)

@@ -39,7 +39,8 @@ from htr_vt_torch.optim.ema import ema_update
 from htr_vt_torch.optim.sam import (clip_by_global_norm_, sam_perturb, set_lr,
                                     zeros_for_unused)
 from htr_vt_torch.optim.schedule import warmup_cosine_lr
-from htr_vt_torch.parallel.mesh import all_reduce_mean_, data_world, sharded_mask
+from htr_vt_torch.parallel.mesh import (all_reduce_mean_, all_reduce_model_sum_,
+                                        data_world, sharded_mask, width_sharded_mask)
 from htr_vt_torch.train.state import TrainState
 
 
@@ -151,10 +152,11 @@ def pass_loss_and_grads(state: TrainState, batch: Mapping[str, torch.Tensor],
     and the terms too: with the BN sums summed over ranks in the forward
     and in its backward, this is the gradient of the global batch's mean
     loss, as JAX's replicated program computes it, and every rank reads the
-    same values. Over a model axis nothing more is reduced: a sharded
-    parameter's gradient is its rank's part, and a replicated one comes out
-    of ``copy_to_model`` / ``reduce_from_model`` equal on every rank of the
-    model group."""
+    same values. Over a model axis a sharded parameter's gradient is its
+    rank's part, and a replicated one comes out of ``copy_to_model`` /
+    ``reduce_from_model`` equal on every rank of the model group; only a
+    width-sharded stem's (``parallel/mesh.py:shard_width``) is summed over
+    the model group first, since each rank's covers its strip of columns."""
     g = state.cfg.train.grad_accum
     if g == 1:
         loss, terms, grads = _masked_pass(state, batch, params)
@@ -173,6 +175,9 @@ def pass_loss_and_grads(state: TrainState, batch: Mapping[str, torch.Tensor],
         torch._foreach_div_(grads, float(g))
         loss = total / g
         terms = {name: v / g for name, v in terms.items()}
+    stem = width_sharded_mask(state.model)
+    if stem is not None:
+        all_reduce_model_sum_([gr for gr, s in zip(grads, stem) if s])
     if data_world()[1] > 1:
         names = list(terms)
         scalars = torch.stack([loss.detach()] + [terms[n] for n in names])
@@ -187,7 +192,9 @@ def train_step(state: TrainState, batch: Mapping) -> Dict[str, torch.Tensor]:
     batch: ``image`` [B, H, W, 1] float32, ``labels`` [B, Lmax] and
     ``label_lengths`` [B] int, tensors or numpy arrays (moved to the
     model's device): under data parallelism this rank's rows of the global
-    batch. Returns 0-d tensors on the device, not synchronised: ``loss``
+    batch, and with the width sharded over the model axis this rank's strip
+    of its image (``parallel/mesh.py:rank_width``). Returns 0-d tensors on
+    the device, not synchronised: ``loss``
     (pass 1), ``loss_second`` and ``grad_norm``, global values on every
     rank (``pass_loss_and_grads``). SAM's perturbation, its norm and the
     clip read the pass's mean gradient, whatever ``grad_accum``; over a
@@ -238,7 +245,10 @@ def eval_step(model: nn.Module, batch: Mapping) -> Dict[str, torch.Tensor]:
 
     batch: ``image`` [B, H, W, 1] float32 in [0, 1], ``labels`` [B, Lmax]
     and ``label_lengths`` [B] int, as tensors or numpy arrays; they are moved
-    to the model's device. Returns ``logits`` [B, T, C] float32,
+    to the model's device; a width-sharded model takes this rank's strip of
+    the image (``parallel/mesh.py:rank_width``) and returns the whole
+    line's results, the same on every rank of its model group. Returns
+    ``logits`` [B, T, C] float32,
     ``pred_ids`` [B, T] int32 frame argmax, ``loss_per_sample`` [B] and its
     batch mean ``loss``."""
     batch = _put(batch, next(model.parameters()).device)

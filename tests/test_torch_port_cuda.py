@@ -720,6 +720,57 @@ def _check_conv_trio(x, k, scale, shift, g, prologue):
         assert not ds.any() and not dt.any()
 
 
+def halo_extended(shape, dtype, device, seed, sides):
+    """A width strip with its neighbours' columns, as the width-sharded stem
+    hands it to K3 and K4 (``parallel/mesh.py:halo_extend``): [B, C, H, W]
+    whose W is ``sides`` halo columns around a strip, made by a
+    ``torch.cat`` along W of channels-last slices and then made
+    channels-last."""
+    b, c, h, w = shape
+    x = channels_last((b, c, h, w + sides), dtype, device, seed)
+    parts = [x[..., :1], x[..., 1:w + 1]] + ([x[..., w + 1:]] if sides == 2 else [])
+    return torch.cat(parts, dim=-1).contiguous(memory_format=torch.channels_last)
+
+
+# The width-sharded stem's strips at 512 px over M = 2 and 4 model ranks: a
+# strip of W / M columns with one halo column on each inner side.
+STRIP_POOL_SHAPES = [((16, 192, 32, 256), 1), ((16, 192, 32, 128), 2)]
+STRIP_CONV_SHAPES = [((16, 192, 8, 256), 1), ((16, 192, 8, 128), 2),
+                     ((16, 384, 4, 64), 2), ((16, 768, 2, 32), 2)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("shape,sides", STRIP_POOL_SHAPES)
+def test_pool_kernels_at_halo_extended_strips(cuda, shape, sides, dtype):
+    """K3f and K3b on a halo-extended strip of the entry (the raw conv1
+    columns, made channels-last from a ``torch.cat``) against their plain
+    versions: y and dx bit for bit, dscale/dshift as ``_hold_pool_bwd``."""
+    from htr_vt_torch.ops import pool_fused as pf
+    x = halo_extended(shape, dtype, cuda, shape[3] + sides, sides)
+    gen = torch.Generator(device=cuda).manual_seed(sides)
+    c = x.shape[1]
+    scale = torch.randn(c, generator=gen, device=cuda)
+    shift = torch.randn(c, generator=gen, device=cuda)
+    b, _, h, w = x.shape
+    g = torch.randn((b, c, h // 2, w), generator=gen, device=cuda).to(dtype).contiguous(
+        memory_format=torch.channels_last)
+    y = pf.pool_bn_relu_fwd(x, scale, shift)
+    assert torch.equal(y, pf.max_pool_bn_relu_reference(x, scale, shift))
+    _hold_pool_bwd(pf.pool_bn_relu_bwd(g, x, scale, shift), g, x, scale, shift)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,sides", STRIP_CONV_SHAPES)
+def test_conv_kernels_at_halo_extended_strips(cuda, shape, sides):
+    """K4f, K4d and K4w in bf16 with the prologue on a halo-extended strip
+    of each stage (made channels-last from a ``torch.cat``) against their
+    plain versions, and two calls bit-equal."""
+    x = halo_extended(shape, torch.bfloat16, cuda, shape[3] + sides, sides)
+    _, k, scale, shift, g = _conv_inputs(x.shape, shape[1], torch.bfloat16, cuda, shape[1])
+    _check_conv_trio(x, k, scale, shift, g, prologue=True)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("shape", CONV_SHAPES)
 def test_conv_kernels_at_the_flagship_shapes(cuda, shape):
