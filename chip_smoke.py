@@ -264,11 +264,24 @@ non-zero before the last line:
    three SAM steps in bf16 and three in float32 under deterministic
    algorithms, the stock and fused stems' three bf16 steps, an
    ``eval_step``, and one fully fused bf16 step at 2048 px (K5 after the
-   gather). Each at ``TP_BARS``, every rank's launches a step those of
-   ``per_step_launches``, the ranks' states equal; ms a step and peak
-   memory a rank against one process's (at 2048 px a rank's must be
-   lower); K3f and K4f on a rank's halo-extended strip against their plain
-   versions.
+   gather) and one under remat "all" (the stem's recompute replays its
+   exchanges and all-reduces inside the backward), each followed by a
+   warm, timed step; van, van2, Swin and SVTR at 512 px and bs 16, an
+   ``eval_step`` and one SAM step; the int8 flagship, calibrated on a
+   batch of strips, then a static ``eval_step`` (stage 1 padded, and with
+   ``pool_impl="pallas"``), its logits against one process's (bit-equal,
+   or within the int8-against-float32 gap). Each at ``TP_BARS``, every
+   rank's launches a step those of ``per_step_launches`` /
+   ``lever_launches``, the ranks' states equal; warm ms a step (the median
+   after the first step, the first beside it) and peak memory a rank
+   against one process's (at 2048 px a rank's must be lower); K3f, K4f and
+   Q1 (a W-stride-1 site with its BN prologue, and a W-stride-2 site on the
+   s8 carry's left-column form) on a rank's halo-extended strip against
+   their plain versions.
+
+Phases 22, 24 and 26 read ms a step as the median of the steps after the
+first, the first step's beside it; their comparisons are taken from the
+seeded state, first step included.
 
 Kernel times (phases 2, 3, 4 and 11) are read two ways: ``median_ms``, one
 wrapper call between two CUDA events (host work in the wrapper included;
@@ -684,6 +697,25 @@ WP_RANKS, WP_STEPS, WP_TIMEOUT, WP_WIDTH, WP_WIDE = 2, 3, 900, 512, 2048
 WP_SWITCHES = {"stock": {}, "fused": FUSED, "fully_fused": FULLY_FUSED}
 WP_RUNS = (("fully_fused", "bfloat16"), ("fully_fused", "float32"),
            ("stock", "bfloat16"), ("fused", "bfloat16"))
+# Every run's ms a step is the median of its steps after the first (steps 2-3
+# of WP_RUNS; the WP_WIDE rows take a second, warm step after the compared
+# one), beside the first step's, which the gaps are read from. The rest of
+# the models under width sharding: the fully fused bf16 step at WP_WIDE px
+# under remat "all" (its peak a rank against one process's remat-all peak
+# and against WP_WIDE_RANK_PEAK_MIB, a width-sharded rank's peak over one
+# step without remat, as this phase first read it on an NVIDIA H100 80GB
+# HBM3 at 700.00 W); WP_ZOO at WP_WIDTH px, bs
+# TPZ_BATCH (an eval_step and one compared SAM step, then a warm one of
+# each, as phase 25); the int8 flagship (WP_INT8_FORMS) at WP_WIDTH px, bs
+# TPZ_BATCH, calibrated on one batch of strips, then a static eval_step,
+# its logits bit-equal to one process's or, past that, within the int8
+# against float32 gap with the argmax equal on the frames whose top-2
+# margin clears twice the largest logit gap (phase 25's int8 reading; the
+# input LayerNorm's split sums can move an image value across a bf16
+# rounding edge, and an int8 code with it).
+WP_ZOO = ("van", "van2", "swin", "svtr")
+WP_INT8_FORMS = {"int8": {}, "int8_pallas_pool": dict(pool_impl="pallas")}
+WP_WIDE_RANK_PEAK_MIB = 13806.9
 
 
 def per_step_launches(switches, forwards=1):
@@ -2742,12 +2774,14 @@ class deterministic_algorithms:
             os.environ["CUBLAS_WORKSPACE_CONFIG"] = self._env
 
 
-def compare_states(got, want, got_losses, want_losses):
+def compare_states(got, want, got_losses, want_losses, noise_leaves=frozenset()):
     """Two runs' final state files and pass-1 losses: bit_equal; the largest
     relative loss gap; for the model, the EMA model and the AdamW moments the
     largest |gap|, the L2 norm of the gap over the state's (``*_l2``), and
     the largest |gap| of a leaf over the leaf's largest |value| (``*_leaf``,
-    with the leaf that has it)."""
+    with the leaf that has it), leaving out of that share the leaves named in
+    ``noise_leaves`` (``zero_gradient_leaves``: values that are rounding
+    noise on both sides)."""
     def leaves(state):
         for key in ("model", "ema_model"):
             for k, v in state[key].items():
@@ -2766,7 +2800,7 @@ def compare_states(got, want, got_losses, want_losses):
         scale = b.abs().max().item() if b.numel() else 0.0
         share = gap / scale if scale else (0.0 if gap == 0 else math.inf)
         out[part] = max(out.get(part, 0.0), gap)
-        if share >= out.get(f"{part}_leaf", (-1.0,))[0]:
+        if name not in noise_leaves and share >= out.get(f"{part}_leaf", (-1.0,))[0]:
             out[f"{part}_leaf"] = (share, name)
         d2, b2 = sums.get(part, (0.0, 0.0))
         sums[part] = (d2 + (a - b).square().sum().item(), b2 + b.square().sum().item())
@@ -2776,6 +2810,27 @@ def compare_states(got, want, got_losses, want_losses):
                         and out["generator_equal"]
                         and out["model"] == out["ema_model"] == out["adamw"] == 0.0)
     return out
+
+
+def zero_gradient_leaves(model):
+    """The state leaves of ``model`` whose gradient is exactly zero, by
+    state_dict name and by AdamW's moments of their index: the bias of a
+    conv that feeds a train-mode BatchNorm (a VAN block's ``proj2``, SVTR's
+    embeds; ``tests/test_torch_port_zoo_sam.py:ZERO_GRADIENT``). Two runs
+    give them rounding noise, whose gap against its own largest value says
+    nothing."""
+    from htr_vt_torch.models.svtr import SVTR
+    from htr_vt_torch.models.van import VANBlock
+    biases = set()
+    for m in model.modules():
+        if isinstance(m, VANBlock):
+            biases.add(id(m.proj2.bias))
+        elif isinstance(m, SVTR):
+            biases |= {id(m.embed_conv1.bias), id(m.embed_conv2.bias)}
+    names = {n for n, p in model.named_parameters() if id(p) in biases}
+    moments = {f"{i}.{k}" for i, p in enumerate(model.parameters()) if id(p) in biases
+               for k in ("exp_avg", "exp_avg_sq")}
+    return frozenset(names | moments)
 
 
 def within_bars(held):
@@ -4058,12 +4113,12 @@ def run_ranks(flag, out_dir, n, timeout, tag):
             for r in range(n)]
 
 
-def held_to_one(got, ref, bars):
+def held_to_one(got, ref, bars, noise_leaves=frozenset()):
     """Ranks' run (``got``: metrics a step and the state) against one
     process's at ``bars`` (DP_BARS' keys): (within the bars, the relative
-    gaps a step, ``compare_states``)."""
+    gaps a step, ``compare_states``; ``noise_leaves`` as there)."""
     held = compare_states(got["state"], ref["state"], [m["loss"] for m in got["metrics"]],
-                          [m["loss"] for m in ref["metrics"]])
+                          [m["loss"] for m in ref["metrics"]], noise_leaves)
     rel = {k: [abs(a[k] - b[k]) / abs(b[k]) for a, b in zip(got["metrics"], ref["metrics"])]
            for k in ("loss", "loss_second", "grad_norm")}
     ok = (max(rel["loss"] + rel["loss_second"]) <= bars["loss"]
@@ -4074,6 +4129,13 @@ def held_to_one(got, ref, bars):
           and all(held[f"{p}_l2"] <= bar for p, bar in bars["state"].items())
           and all(held[f"{p}_leaf"][0] <= FIT_LEAF_SHARE for p in bars["state"]))
     return ok, rel, held
+
+
+def warm_ms(times):
+    """(the median of a run's steps after its first, the first step's ms):
+    a step's time once its first call's costs are paid, beside that first
+    step (``phase_multiwidth``'s reading)."""
+    return statistics.median(times[1:]), times[0]
 
 
 def phase_data_parallel(device, smi_line):
@@ -4132,14 +4194,16 @@ def phase_data_parallel(device, smi_line):
                 f"{bars['grad_norm']}; {'deterministic algorithms' if dtype in DP_DETERMINISTIC else 'default mode'}); "
                 f"{gaps(held)}; bars: each part's L2 {bars['state']}, a leaf "
                 f"{FIT_LEAF_SHARE} of its largest value; launches a rank "
-                f"{got['launches']}; ms a step, rank 0 {statistics.median(got['times']):.3f}, "
-                f"one process {statistics.median(ref['times']):.3f}; {smi_line}")
+                f"{got['launches']}; ms a step, steps 2-{DP_STEPS} (the first), rank 0 "
+                + "{:.3f} ({:.3f}), one process {:.3f} ({:.3f}); ".format(
+                    *warm_ms(got["times"]), *warm_ms(ref["times"])) + smi_line)
             if not ok:
                 raise AssertionError(f"[data parallel {dtype}] two ranks outside the bars: "
                                      f"{held}, {rel}")
             rec[dtype] = dict(rel=rel, held=held, rank_launches=got["launches"],
-                              rank_ms=statistics.median(got["times"]),
-                              one_ms=statistics.median(ref["times"]))
+                              rank_ms=warm_ms(got["times"])[0],
+                              one_ms=warm_ms(ref["times"])[0],
+                              rank_first_ms=got["times"][0], one_first_ms=ref["times"][0])
 
         # --- fit in a world of one over NCCL ------------------------------------
         alphabet = [chr(c) for c in range(33, 33 + ModelConfig().nb_cls - 1)]
@@ -4450,16 +4514,18 @@ def phase_tensor_parallel(device, smi_line):
                 f"{FIT_LEAF_SHARE} of its largest value; validate loss {got['val'][0]:.5f} "
                 f"(one process {ref['val'][0]:.5f}, {val_loss_rel:.3e} rel), CER "
                 f"{got['val'][1]:.4f} ({ref['val'][1]:.4f}); launches a rank "
-                f"{got['launches']}; ms a step, rank 0 {statistics.median(got['times']):.3f}"
-                f", one process {statistics.median(ref['times']):.3f}; {smi_line}")
+                f"{got['launches']}; ms a step, steps 2-{TP_STEPS} (the first), rank 0 "
+                + "{:.3f} ({:.3f}), one process {:.3f} ({:.3f}); ".format(
+                    *warm_ms(got["times"]), *warm_ms(ref["times"])) + smi_line)
             if not ok:
                 raise AssertionError(f"[tensor parallel {dtype}] two ranks outside the "
                                      f"bars: {held}, {rel}, validate {got['val']} "
                                      f"{ref['val']}")
             rec[dtype] = dict(rel=rel, held=held, val=got["val"], one_val=ref["val"],
                               rank_launches=got["launches"],
-                              rank_ms=statistics.median(got["times"]),
-                              one_ms=statistics.median(ref["times"]))
+                              rank_ms=warm_ms(got["times"])[0],
+                              one_ms=warm_ms(ref["times"])[0],
+                              rank_first_ms=got["times"][0], one_first_ms=ref["times"][0])
             launches = {k: launches[k] + got["launches"][k] for k in COUNTERS}
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
@@ -4851,10 +4917,18 @@ def phase_tensor_parallel_zoo(device, smi_line):
     return launches, rec
 
 
-def _wp_cfg(switches, dtype):
+def _wp_cfg(switches, dtype, **model_kw):
     return ExperimentConfig(model=ModelConfig(compute_dtype=dtype, masking=MaskConfig(
-        mode="span", ratio=0.4, max_span_length=8), **WP_SWITCHES[switches]),
+        mode="span", ratio=0.4, max_span_length=8), **WP_SWITCHES[switches], **model_kw),
         optim=OptimConfig())
+
+
+def _wp_zoo_cfg(name):
+    """A WP_ZOO model's recipe at its preset, bf16, the phase's span masking
+    (the switches reach none of these stems)."""
+    return ExperimentConfig(model=apply_variant_preset(ModelConfig(
+        encoder=name, compute_dtype="bfloat16", masking=MaskConfig(
+            mode="span", ratio=0.4, max_span_length=8))), optim=OptimConfig())
 
 
 def _wp_inputs(device):
@@ -4866,15 +4940,18 @@ def _wp_inputs(device):
             wide_batch(WIDE_BATCH, WP_WIDE, rng, device))
 
 
-def _wp_run(switches, dtype, width_parallel, device, batch, probe=None, steps=WP_STEPS):
-    """From the seeded state (width-sharded with ``width_parallel``, each
-    call taking this rank's strip of the batch): a counted ``eval_step`` of
-    ``probe``, then ``steps`` counted SAM steps (deterministic algorithms for
-    a dtype of DP_DETERMINISTIC). Metrics, CUDA-event ms and launches a
-    step, the steps' peak memory (MiB, this process), the state on the
-    host."""
+def _wp_run(cfg, width_parallel, device, batch, probe=None, steps=WP_STEPS, warm=0):
+    """From the seeded state of ``cfg`` (width-sharded with
+    ``width_parallel``, each call taking this rank's strip of the batch): a
+    counted ``eval_step`` of ``probe`` and a second, warm one timed; then
+    ``steps`` counted SAM steps, the compared ones (deterministic algorithms
+    for a dtype of DP_DETERMINISTIC), the state taken after them, and
+    ``warm`` more, timed and counted. Metrics of the compared steps,
+    CUDA-event ms and launches of every step, the steps' peak memory (MiB,
+    this process), the state on the host."""
     from htr_vt_torch.parallel import mesh
-    state = create_train_state(_wp_cfg(switches, dtype), device,
+    dtype = cfg.model.compute_dtype
+    state = create_train_state(cfg, device,
                                torch.Generator(device=device).manual_seed(SEED + 120),
                                tensor_parallel=False, width_parallel=width_parallel)
     cut = mesh.rank_width if width_parallel else (lambda b: b)
@@ -4884,13 +4961,17 @@ def _wp_run(switches, dtype, width_parallel, device, batch, probe=None, steps=WP
         out = eval_step(state.model, cut(probe))
         rec["eval"] = {"logits": out["logits"].float().cpu(), "loss": out["loss"].item(),
                        "launches": read_counts()}
+        _, rec["eval"]["warm_launches"], rec["eval"]["ms"] = _tpz_counted(
+            lambda: eval_step(state.model, cut(probe)))
     mine = cut(batch)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     times, metrics, launches = [], [], []
     with (deterministic_algorithms() if dtype in DP_DETERMINISTIC
           else contextlib.nullcontext()):
-        for _ in range(steps):
+        for i in range(steps + warm):
+            if i == steps:
+                rec["state"] = _dp_state_file(state)
             reset_counts()
             start, end = _events()
             start.record()
@@ -4899,21 +4980,69 @@ def _wp_run(switches, dtype, width_parallel, device, batch, probe=None, steps=WP
             end.synchronize()
             launches.append(read_counts())
             times.append(start.elapsed_time(end))
-            metrics.append({k: v.item() for k, v in m.items()})
+            if i < steps:
+                metrics.append({k: v.item() for k, v in m.items()})
     rec.update(metrics=metrics, times=times, launches=launches,
                peak_mib=torch.cuda.max_memory_allocated() / 2**20,
-               state=_dp_state_file(state))
+               noise_leaves=zero_gradient_leaves(state.model))
+    rec.setdefault("state", _dp_state_file(state))
     del state, mine
     torch.cuda.empty_cache()
     return rec
 
 
+def _wp_int8(width_parallel, device):
+    """The int8 flagship of each WP_INT8_FORMS form on phase 25's seeded
+    float weights (stage 1 padded), width-sharded with ``width_parallel``:
+    calibrated on one batch of this rank's strips, then a counted static
+    ``eval_step`` and a warm, timed one; one process adds the float32
+    logits of the same weights."""
+    from htr_vt_torch.parallel import mesh
+    rng = np.random.default_rng(SEED + 124)
+    batch = zoo_batch(TPZ_BATCH, WP_WIDTH, rng, device)
+    calib = torch.from_numpy(line_images(TPZ_BATCH, rng, WP_WIDTH)).to(device)
+    cut = mesh.rank_width if width_parallel else (lambda b: b)
+    sd = _tpz_int8_weights(device)
+    out = {}
+    for form, kw in WP_INT8_FORMS.items():
+        cfg8 = ModelConfig(quant="int8", **kw)
+        model = build_model(cfg8, device=device)
+        model.load_state_dict(q8.serving_arrays(cfg8, sd))
+        if width_parallel:
+            mesh.shard_width(model)
+        stats = q8.calibrate_quant_stats(model, [cut({"image": calib})["image"]], 1)
+        ev, launches, _ = _tpz_counted(lambda: eval_step(model, cut(batch)))
+        _, warm, ms = _tpz_counted(lambda: eval_step(model, cut(batch)))
+        out[form] = dict(logits=ev["logits"].float().cpu(), launches=launches,
+                         warm_launches=warm, eval_ms=ms,
+                         stats={k: v.item() for k, v in stats.items()})
+        del model
+        torch.cuda.empty_cache()
+    if not width_parallel:
+        m32 = build_model(ModelConfig(compute_dtype="float32"), device=device)
+        m32.load_state_dict(sd)
+        out["float32"] = eval_step(m32, batch)["logits"].float().cpu()
+        del m32
+        torch.cuda.empty_cache()
+    return out
+
+
 def _wp_all(width_parallel, device):
     """Every run of phase 26 in one process or one rank."""
     batch, probe, wide = _wp_inputs(device)
-    out = {run: _wp_run(*run, width_parallel, device, batch, probe if i == 0 else None)
+    out = {run: _wp_run(_wp_cfg(*run), width_parallel, device, batch,
+                        probe if i == 0 else None)
            for i, run in enumerate(WP_RUNS)}
-    out["wide"] = _wp_run("fully_fused", "bfloat16", width_parallel, device, wide, steps=1)
+    out["wide"] = _wp_run(_wp_cfg("fully_fused", "bfloat16"), width_parallel, device, wide,
+                          steps=1, warm=1)
+    out["wide_remat"] = _wp_run(_wp_cfg("fully_fused", "bfloat16", remat="all"),
+                                width_parallel, device, wide, steps=1, warm=1)
+    del wide
+    zoo = zoo_batch(TPZ_BATCH, WP_WIDTH, np.random.default_rng(SEED + 123), device)
+    for name in WP_ZOO:
+        out[name] = _wp_run(_wp_zoo_cfg(name), width_parallel, device, zoo, probe=zoo,
+                            steps=1, warm=1)
+    out.update(_wp_int8(width_parallel, device))
     return out
 
 
@@ -4983,40 +5112,122 @@ def _wp_strip_kernels(device):
             f"{rec[name]['ms']:.4f} ms a launch (plain {rec[name]['plain_ms']:.4f}), max "
             f"|err| {err:.3e}")
         del x, ext
+    # Q1 on a rank's strip of the int8 stem (stage 1 padded to 256): stage 1's
+    # conv2 (bf16 in, its BN prologue applied by Q1 before its padding) on the
+    # strip and a neighbour column; stage 2's entry conv1 (W-stride 2) on the
+    # s8 carry with its left column and zero rows (models/stem.py:
+    # _left_column), padding 0
+    for name, shape, cout, stride, padding, kind in (
+            ("conv_int8", (WIDE_BATCH, 256, 8, w + 1), 256, (1, 1), 1, "bf16+bn"),
+            ("conv_int8_left_column", (WIDE_BATCH, 256, 10, w + 1), 384, (2, 2), 0, "s8")):
+        inp, wq, w_packed, sw, sx = q1_site_inputs(shape, cout, 3, kind, device,
+                                                   SEED + 125)
+        src = inp["xq"] if kind == "s8" else inp["x"]
+        if padding == 0:
+            src[:, :, [0, -1]] = 0
+        src = torch.cat([src[..., :1], src[..., 1:]], dim=-1).contiguous(
+            memory_format=torch.channels_last)
+        x, xq = (None, src) if kind == "s8" else (src, None)
+        dq = sx * sw
+
+        def kernel():
+            return q8.conv_int8_cuda(x, w_packed, sx, dq, stride, padding, torch.bfloat16,
+                                     xq=xq, prologue=inp["prologue"])
+
+        def plain():
+            return q8.conv_int8_reference(x, wq, sx, dq, stride, padding, torch.bfloat16,
+                                          xq=xq, prologue=inp["prologue"])
+
+        with torch.inference_mode():
+            y, want = kernel(), plain()
+            if not torch.equal(y, want):
+                raise AssertionError(f"[width parallel] Q1 ({name}) on a rank's strip "
+                                     "differs from its plain version")
+            rec[name] = {"shape": list(src.shape), "cout": cout, "stride": list(stride),
+                         "padding": padding, "input": kind,
+                         "max_abs_err": (y.float() - want.float()).abs().max().item(),
+                         "ms": device_ms(f"{name} strip", [kernel]),
+                         "plain_ms": median_ms(plain, 1, warmup=0)}
+        say(f"[width parallel] Q1 {name} on a rank's strip {list(src.shape)} {kind} -> "
+            f"{cout}, 3x3/{tuple(stride)}, padding {padding}: bit-equal to its plain "
+            f"version; {rec[name]['ms']:.4f} ms a launch (plain, float64, one call "
+            f"{rec[name]['plain_ms']:.2f})")
+        del inp, src, x, xq, y, want
     torch.cuda.empty_cache()
     return rec
+
+
+def int8_eval_launches(switches, depth):
+    """Launches of a static int8 ``eval_step`` of the flagship (stage 1
+    padded): Q1 at its 15 sites, ``_int_mm`` at the blocks' 4 linears, the
+    CTC alpha kernel, and K3f with ``pool_impl="pallas"``."""
+    return {"ctc_alpha": 1, "conv_int8": sum(site[-1] for site in INT8_SITES),
+            "int_mm": 4 * depth,
+            **({"pool_bn_relu_fwd": 1} if switches.get("pool_impl") == "pallas" else {})}
+
+
+def _wp_held_int8(form, got, ref, l32, ranks):
+    """A rank's int8 logits against one process's: (bit-equal, relative L2,
+    int8 against float32's relative L2, the decidable frames' argmax
+    agreement, the largest gap), failing past phase 25's int8 reading."""
+    diff = (got["logits"] - ref["logits"]).abs().max().item()
+    rel = float((got["logits"] - ref["logits"]).norm() / ref["logits"].norm())
+    own = float((ref["logits"] - l32).norm() / l32.norm())
+    top2 = ref["logits"].topk(2, dim=-1).values
+    clear = (top2[..., 0] - top2[..., 1]) > 2 * diff
+    agree = (got["logits"].argmax(-1)[clear] == ref["logits"].argmax(-1)[clear]).float()
+    agree = agree.mean().item() if clear.any() else 1.0
+    if rel > own or agree < 1.0 or not all(
+            torch.equal(got["logits"], r[form]["logits"]) for r in ranks):
+        raise AssertionError(f"[width parallel {form}] logits {rel:.3e} from one process "
+                             f"(int8 itself {own:.3e}), decidable argmax {agree:.4%}, or "
+                             "the ranks differ")
+    return dict(bit_equal=diff == 0, max_dlogits=diff, rel=rel, int8_rel=own,
+                decidable_agreement=agree, decidable_share=clear.float().mean().item())
 
 
 def phase_width_parallel(device, smi_line):
     """Two ranks on the one card over gloo at ``mesh_shape=(1, 2)``, each
     holding half of every image's columns (``wp_worker``), against one
     process on the same weights, batch and masks (WP_RUNS, the eval step,
-    the WP_WIDE-px step), held at TP_BARS; the ranks' whole states equal;
-    each rank's launches a step equal to one process's; ms a step and peak
-    memory a rank against one process's; K3f and K4f on a halo-extended
-    strip against their plain versions."""
+    the WP_WIDE-px step plain and under remat "all", WP_ZOO's eval_step and
+    step, int8 serving), held at TP_BARS and the int8 reading; the ranks'
+    whole states equal; each rank's launches a step equal to one process's;
+    warm ms a step and peak memory a rank against one process's; K3f, K4f
+    and Q1 on a halo-extended strip against their plain versions."""
     t_phase = time.perf_counter()
     rec = {}
     root = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build")
     os.makedirs(root, exist_ok=True)
     tmp = tempfile.mkdtemp(prefix="chip_smoke_wp_", dir=root)
     launches = dict.fromkeys(COUNTERS, 0)
+    depth = ModelConfig().depth
+    wide_want = {remat: lever_launches(remat, 1, flash=2 * depth) for remat in ("none", "all")}
+    # key -> (tag, dtype, width, rows, launches a step, launches an eval_step)
+    runs = {key: (f"{key[0]} {key[1]}", key[1], WP_WIDTH, WIDE_BATCH,
+                  per_step_launches(WP_SWITCHES[key[0]]),
+                  per_eval_launches(WP_SWITCHES[key[0]]) if i == 0 else None)
+            for i, key in enumerate(WP_RUNS)}
+    runs["wide"] = ("fully_fused bfloat16", "bfloat16", WP_WIDE, WIDE_BATCH,
+                    wide_want["none"], None)
+    runs["wide_remat"] = ("fully_fused bfloat16 remat=all", "bfloat16", WP_WIDE, WIDE_BATCH,
+                          wide_want["all"], None)
+    for name in WP_ZOO:  # the switches reach none of these stems
+        runs[name] = (name, "bfloat16", WP_WIDTH, TPZ_BATCH, per_step_launches({}),
+                      per_eval_launches({}))
     try:
         one = _wp_all(False, device)
         torch.cuda.synchronize()
         torch.cuda.empty_cache()
         rec["strip_kernels"] = _wp_strip_kernels(device)
+        t_ranks = time.perf_counter()
         ranks = run_ranks("--width-parallel-rank", tmp, WP_RANKS, WP_TIMEOUT,
                           "width parallel")
+        rec["ranks_s"] = time.perf_counter() - t_ranks
         if [(r["data"], r["model"]) for r in ranks] != [((0, 1), (m, WP_RANKS))
                                                          for m in range(WP_RANKS)]:
             raise AssertionError(f"[width parallel] grid {[r['model'] for r in ranks]}")
-        depth = ModelConfig().depth
-        for key in WP_RUNS + ("wide",):
-            switches, dtype = ("fully_fused", "bfloat16") if key == "wide" else key
-            width = WP_WIDE if key == "wide" else WP_WIDTH
-            want = (lever_launches("none", 1, flash=2 * depth) if key == "wide"
-                    else per_step_launches(WP_SWITCHES[switches]))
+        for key, (tag, dtype, width, rows, want, want_eval) in runs.items():
             got, ref = ranks[0][key], one[key]
             for r in ranks[1:]:
                 same = r[key]["metrics"] == got["metrics"] and all(
@@ -5033,59 +5244,100 @@ def phase_width_parallel(device, smi_line):
                         raise AssertionError(f"[width parallel] {key}: a step of {who} "
                                              f"launched {step}; expected {want}")
                     launches = {k: launches[k] + step[k] for k in COUNTERS}
-            ok, rel, held = held_to_one(got, ref, TP_BARS[dtype])
+            ok, rel, held = held_to_one(got, ref, TP_BARS[dtype], ref["noise_leaves"])
             peaks = [r[key]["peak_mib"] for r in ranks]
-            say(f"[width parallel {switches} {dtype}] {WP_RANKS} ranks on one card over "
-                f"gloo at mesh (1, {WP_RANKS}), {width // WP_RANKS} of {width} px a rank, "
-                f"bs {WIDE_BATCH}, {len(got['metrics'])} step(s), against one process on "
-                "the same weights, batch and masks: relative gaps a step "
-                + "; ".join(f"{k} " + " ".join(f"{v:.3e}" for v in vs)
-                            for k, vs in rel.items())
-                + f" (bars: the first step's losses {TP_BARS[dtype]['first_loss']} and "
-                f"grad_norm {TP_BARS[dtype]['first_grad_norm']}, every step's "
-                f"{TP_BARS[dtype]['loss']} and {TP_BARS[dtype]['grad_norm']}; "
-                f"{'deterministic algorithms' if dtype in DP_DETERMINISTIC else 'default mode'}"
-                f"); {gaps(held)}; launches a step {want}; ms a step, rank 0 "
-                f"{statistics.median(got['times']):.3f}, one process "
-                f"{statistics.median(ref['times']):.3f}; peak MiB a rank "
-                + " / ".join(f"{p:.1f}" for p in peaks)
-                + f", one process {ref['peak_mib']:.1f}; {smi_line}")
+            (rank_ms, rank_first), (one_ms, one_first) = (warm_ms(got["times"]),
+                                                          warm_ms(ref["times"]))
+            line = (f"[width parallel {tag}] {WP_RANKS} ranks on one card over gloo at mesh "
+                    f"(1, {WP_RANKS}), {width // WP_RANKS} of {width} px a rank, bs {rows}, "
+                    f"{len(got['metrics'])} compared step(s), against one process on the "
+                    "same weights, batch and masks: relative gaps a step "
+                    + "; ".join(f"{k} " + " ".join(f"{v:.3e}" for v in vs)
+                                for k, vs in rel.items())
+                    + f" (bars: the first step's losses {TP_BARS[dtype]['first_loss']} and "
+                    f"grad_norm {TP_BARS[dtype]['first_grad_norm']}, every step's "
+                    f"{TP_BARS[dtype]['loss']} and {TP_BARS[dtype]['grad_norm']}; "
+                    f"{'deterministic algorithms' if dtype in DP_DETERMINISTIC else 'default mode'}"
+                    f"); {gaps(held)}; launches a step {want}; warm ms a step (the median "
+                    f"after the first of {len(got['times'])}), rank 0 {rank_ms:.3f}, one process "
+                    f"{one_ms:.3f} (first step {rank_first:.3f} / {one_first:.3f}); peak "
+                    "MiB a rank " + " / ".join(f"{p:.1f}" for p in peaks)
+                    + f", one process {ref['peak_mib']:.1f}")
+            if key == "wide_remat":
+                plain_peaks = [r["wide"]["peak_mib"] for r in ranks]
+                line += (f"; remat 'all' against the ranks without it in this run "
+                         + " / ".join(f"{p:.1f}" for p in plain_peaks)
+                         + f" MiB and the one-step reading {WP_WIDE_RANK_PEAK_MIB} MiB")
             if not ok:
                 raise AssertionError(f"[width parallel {key}] two ranks outside the bars: "
                                      f"{held}, {rel}")
-            if key == "wide" and not max(peaks) < ref["peak_mib"]:
-                raise AssertionError(f"[width parallel] at {WP_WIDE} px a rank's peak "
+            if key in ("wide", "wide_remat") and not max(peaks) < ref["peak_mib"]:
+                raise AssertionError(f"[width parallel {key}] at {WP_WIDE} px a rank's peak "
                                      f"{peaks} MiB is not below one process's "
                                      f"{ref['peak_mib']:.1f}")
-            rec["/".join(key) if key != "wide" else "wide"] = dict(
-                rel=rel, held=held, rank_ms=statistics.median(got["times"]),
-                one_ms=statistics.median(ref["times"]), rank_peak_mib=peaks,
-                one_peak_mib=ref["peak_mib"], rank_launches=got["launches"][0])
-        ev, ev1 = ranks[0][WP_RUNS[0]]["eval"], one[WP_RUNS[0]]["eval"]
-        want_eval = per_eval_launches(FULLY_FUSED)
-        for who, e in [("one process", ev1)] + [(f"rank {i}", r[WP_RUNS[0]]["eval"])
-                                                for i, r in enumerate(ranks)]:
-            if {k: v for k, v in e["launches"].items() if v} != want_eval:
-                raise AssertionError(f"[width parallel] eval_step of {who} launched "
-                                     f"{e['launches']}; expected {want_eval}")
-            launches = {k: launches[k] + e["launches"][k] for k in COUNTERS}
-        if not torch.equal(ranks[1][WP_RUNS[0]]["eval"]["logits"], ev["logits"]):
-            raise AssertionError("[width parallel] the ranks' eval logits differ")
-        loss_rel = abs(ev["loss"] - ev1["loss"]) / abs(ev1["loss"])
-        agree = (ev["logits"].argmax(-1) == ev1["logits"].argmax(-1)).float().mean().item()
-        err = (ev["logits"] - ev1["logits"]).abs().max().item()
-        say(f"[width parallel] eval_step fully fused bf16 at {WP_WIDTH} px: loss "
-            f"{ev['loss']:.5f} (one process {ev1['loss']:.5f}, {loss_rel:.3e} rel), max "
-            f"|logit gap| {err:.3e}, frame argmax agreement {agree:.4%}; launches "
-            f"{want_eval}")
-        if loss_rel > TP_BARS["bfloat16"]["loss"] or agree < MIN_ARGMAX_AGREEMENT:
-            raise AssertionError(f"[width parallel] eval_step: loss {loss_rel:.3e} rel, "
-                                 f"argmax agreement {agree:.4%}")
-        rec["eval"] = dict(loss_rel=loss_rel, argmax_agreement=agree, max_abs_err=err)
+            rec["/".join(key) if isinstance(key, tuple) else key] = entry = dict(
+                rel=rel, held=held, rank_ms=rank_ms, one_ms=one_ms, rank_first_ms=rank_first,
+                one_first_ms=one_first, rank_peak_mib=peaks, one_peak_mib=ref["peak_mib"],
+                rank_launches=got["launches"][0])
+            if want_eval is not None:
+                ev, ev1 = got["eval"], ref["eval"]
+                for who, e in [("one process", ev1)] + [(f"rank {i}", r[key]["eval"])
+                                                        for i, r in enumerate(ranks)]:
+                    for counted in ("launches", "warm_launches"):
+                        if {k: v for k, v in e[counted].items() if v} != want_eval:
+                            raise AssertionError(f"[width parallel] {key} eval_step of {who} "
+                                                 f"launched {e[counted]}; expected "
+                                                 f"{want_eval}")
+                        launches = {k: launches[k] + e[counted][k] for k in COUNTERS}
+                if not all(torch.equal(r[key]["eval"]["logits"], ev["logits"]) for r in ranks):
+                    raise AssertionError(f"[width parallel] {key}: the ranks' eval logits "
+                                         "differ")
+                loss_rel = abs(ev["loss"] - ev1["loss"]) / abs(ev1["loss"])
+                agree = (ev["logits"].argmax(-1) == ev1["logits"].argmax(-1)).float().mean()
+                err = (ev["logits"] - ev1["logits"]).abs().max().item()
+                line += (f"; eval_step loss {ev['loss']:.5f} (one process {ev1['loss']:.5f}, "
+                         f"{loss_rel:.3e} rel), max |logit gap| {err:.3e}, frame argmax "
+                         f"agreement {agree.item():.4%}, launches {want_eval}, warm ms rank 0 "
+                         f"{ev['ms']:.3f}, one process {ev1['ms']:.3f}")
+                floor = MIN_ARGMAX_AGREEMENT if key == WP_RUNS[0] else 0.0
+                if loss_rel > TP_BARS["bfloat16"]["loss"] or agree.item() < floor:
+                    raise AssertionError(f"[width parallel] {key} eval_step: loss "
+                                         f"{loss_rel:.3e} rel, argmax agreement {agree:.4%}")
+                entry["eval"] = dict(loss_rel=loss_rel, argmax_agreement=agree.item(),
+                                     max_abs_err=err, rank_ms=ev["ms"], one_ms=ev1["ms"])
+            say(line + f"; {smi_line}")
+        for form, kw in WP_INT8_FORMS.items():
+            want = int8_eval_launches(kw, depth)
+            got, ref = ranks[0][form], one[form]
+            for who, run in [("one process", ref)] + [(f"rank {i}", r[form])
+                                                      for i, r in enumerate(ranks)]:
+                for counted in ("launches", "warm_launches"):
+                    if {k: v for k, v in run[counted].items() if v} != want:
+                        raise AssertionError(f"[width parallel {form}] eval_step of {who} "
+                                             f"launched {run[counted]}; expected {want}")
+                    launches = {k: launches[k] + run[counted][k] for k in COUNTERS}
+            held8 = _wp_held_int8(form, got, ref, one["float32"], ranks)
+            stats_off = sorted(k for k, v in ref["stats"].items() if got["stats"][k] != v)
+            rec[form] = dict(held8, stats_off=stats_off, rank_ms=got["eval_ms"],
+                             one_ms=ref["eval_ms"])
+            say(f"[width parallel {form}] the int8 flagship at {WP_WIDTH} px, bs {TPZ_BATCH}, "
+                f"{WP_WIDTH // WP_RANKS} px a rank, calibrated on one batch of strips, static "
+                "eval_step: logits "
+                + ("bit-equal to one process's" if held8["bit_equal"] else
+                   f"{held8['max_dlogits']:.4f} max |d| from one process's "
+                   f"({held8['rel']:.3e} relative L2; decidable argmax "
+                   f"{held8['decidable_agreement']:.4%} of {held8['decidable_share']:.2%})")
+                + f" (int8 against float32 {held8['int8_rel']:.3e}); abs-maxes that differ: "
+                f"{stats_off[:4] or 'none'} of {len(ref['stats'])}; launches {want}; warm "
+                f"ms rank 0 {got['eval_ms']:.3f}, one process {ref['eval_ms']:.3f}; "
+                f"{smi_line}")
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
-    say(f"[width parallel] phase {time.perf_counter() - t_phase:.1f} s; {smi_line}")
+    rec["phase_s"] = time.perf_counter() - t_phase
+    say(f"[width parallel] phase {rec['phase_s']:.1f} s (ranks {rec['ranks_s']:.1f} s); "
+        f"launches {launches}; {smi_line}")
     return launches, rec
+
 
 def main():
     smi_line, max_sm_mhz = phase_device()
@@ -5271,6 +5523,8 @@ def main():
         "shape": "bf16 [128, 256, 8, 512] channels-last with the BN prologue, "
                  "256 -> 256, 3x3/1 (stage 1's conv2 site, 2 a forward)",
         "sites": int8_rec["sites"],
+        "width_strips": {k: v for k, v in wp_rec["strip_kernels"].items()
+                         if k.startswith("conv_int8")},
     }]
     say(json.dumps({"kernels": ctc + stem_lines + conv_lines + flash_lines + int8_lines,
                     "bucket_serve": bucket_rec, "wide_train": wide_rec,

@@ -150,7 +150,8 @@ class HTRVT(nn.Module):
         cfg = self.cfg
         shards = self.width_shards
         if shards > 1:
-            check_width(image.shape[2] * shards, shards)
+            check_width(image.shape[2] * shards, shards,
+                        getattr(self.patch_embed, "width_halo", 1))
         x = image.float()
         if cfg.input_layer_norm:
             x = global_layer_norm(x, width_sharded=shards > 1)

@@ -17,6 +17,15 @@ that a recompute must not repeat:
   restores the default CPU and CUDA generators only). The generator's state
   at the wrapped call is saved, set again for the recompute, and the state
   it had at backward time put back after it.
+
+Collectives inside a wrapped call (a width-sharded stem's halo exchanges
+and BN all-reduces, ``parallel/mesh.py:shard_width``) run again in the
+recompute, inside the backward. Every rank builds the same graph, so every
+rank starts its recompute at the same node and issues them in the
+forward's order, on the same inputs and so to the same sums; the
+recomputed statistics equal the forward's bit for bit, and the running
+statistics move once (``recomputing()``). A rank that stalls there fails
+at the process group's timeout (``parallel/mesh.py:TIMEOUT``).
 """
 
 from __future__ import annotations

@@ -52,7 +52,15 @@ comes before their padding, so the image's edges keep the op's own
 padding. A W-stride-2 conv takes one column from the left, zeros at the
 image's edge, and pads nothing on W (``_conv_w2``), so that its outputs
 stay centred on even global columns; the strided 1x1 projection needs no
-halo. BN statistics are taken on the cropped outputs only.
+halo. BN statistics are taken on the cropped outputs only. Under int8
+serving the sites route as the float ones: Q1 runs unchanged on a
+halo-extended strip (its BN prologue, too, comes before its padding, so
+the halo carries the neighbour's raw columns), an s8 carry crosses
+``halo_extend`` as int8 with its scale, the s8 max-pool is windowed, and a
+W-stride-2 int8 conv takes its left column and its zero rows explicitly
+and pads nothing (``_left_column``). Every abs-max the int8 sites take
+on a strip is the max over the model group (``ops/quant.py:
+record_amax``, ``dynamic_amax``), so the scales are one process's.
 
 Module and parameter names follow the reference state_dict
 (``patch_embed.layer1.0.conv1.weight``, ...), so a checkpoint
@@ -223,30 +231,50 @@ def _max_pool_3x3(x: torch.Tensor, stride: Tuple[int, int]) -> torch.Tensor:
     return F.max_pool2d(x, kernel_size=3, stride=stride, padding=1)
 
 
-def _windowed(op, x: torch.Tensor, sharded: bool) -> torch.Tensor:
-    """``op`` (a 3x3 window at W-stride 1, padding 1) on x; on a width
-    strip, run on the strip extended by one neighbour column on each inner
-    side, the outputs at those columns cropped (channels-last, as the
-    kernels read it)."""
+def _windowed(op, x, sharded: bool, halo: int = 1,
+              memory_format=torch.channels_last) -> torch.Tensor:
+    """``op`` (a window at W-stride 1 that pads ``halo`` columns on each
+    side: a 3x3 window's 1) on x; on a width strip, run on the strip
+    extended by ``halo`` neighbour columns on each inner side, the outputs
+    at those columns cropped (channels-last, as the kernels read it, or
+    ``memory_format``). x may be an s8 carry (q, scale), whose int8 values
+    cross the exchange."""
     if not sharded:
         return op(x)
-    ext, lo, hi = halo_extend(x, 1, 1)
-    y = op(ext)
-    return y[..., lo:y.shape[-1] - hi].contiguous(memory_format=torch.channels_last)
+    if isinstance(x, tuple):
+        ext, lo, hi = halo_extend(x[0], halo, halo)
+        y = op((ext, x[1]))
+    else:
+        ext, lo, hi = halo_extend(x, halo, halo)
+        y = op(ext)
+    return y[..., lo:y.shape[-1] - hi].contiguous(memory_format=memory_format)
 
 
-def _conv_w2(x: torch.Tensor, weight: torch.Tensor,
-             stride: Tuple[int, int]) -> torch.Tensor:
-    """The 3x3 conv at W-stride 2, padding 1, in x's dtype, on a width
-    strip (an even number of columns from an even global column): one
-    column from the left neighbour or zeros at the image's edge, and no
-    padding on W, so output j reads the strip's columns 2j - 1 ... 2j + 1,
-    as on the whole image."""
+def _conv_w2(x: torch.Tensor, weight: torch.Tensor, stride: Tuple[int, int],
+             bias: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The 3x3 conv at W-stride 2, padding 1, in x's dtype (a bias added in
+    it), on a width strip (an even number of columns from an even global
+    column): one column from the left neighbour or zeros at the image's
+    edge, and no padding on W, so output j reads the strip's columns 2j -
+    1 ... 2j + 1, as on the whole image."""
     ext, lo, _ = halo_extend(x, 1, 0)
     if not lo:
         ext = F.pad(ext, (1, 0))
     ext = ext.contiguous(memory_format=torch.channels_last)
-    return F.conv2d(ext, weight.to(x.dtype), stride=stride, padding=(1, 0))
+    y = F.conv2d(ext, weight.to(x.dtype), stride=stride, padding=(1, 0))
+    return y if bias is None else y + bias.to(y.dtype)[:, None, None]
+
+
+def _left_column(x):
+    """A width strip (a tensor or an s8 carry (q, scale)) as a W-stride-2
+    3x3 conv with padding 0 reads it: one column from the left neighbour
+    (zeros at the image's edge) and a zero row above and below, channels
+    last. Zeros padded before the quantization are zeros after it, so an
+    int8 conv without a prologue gives ``_conv_w2``'s outputs."""
+    q = x[0] if isinstance(x, tuple) else x
+    ext, lo, _ = halo_extend(q, 1, 0)
+    ext = F.pad(ext, (0 if lo else 1, 0, 1, 1)).contiguous(memory_format=torch.channels_last)
+    return (ext, x[1]) if isinstance(x, tuple) else ext
 
 
 def _int8_pays(cin: int, cout: int) -> bool:
@@ -333,28 +361,45 @@ class BasicBlock(nn.Module):
         conv at a float site; at an int8 site the s8 carry goes straight in,
         else x (after the BN + ReLU prologue in the compute dtype) is
         quantized by the site's mode, or recorded with the float conv run
-        when calibrating. bf16 out."""
+        when calibrating. bf16 out. On a width strip each site routes as
+        the float stem's convs: W-stride 1 on the halo-extended strip
+        (``_windowed``), W-stride 2 (conv1, which has no prologue) through
+        ``_conv_w2`` at a float site and ``_left_column`` at an int8 one."""
         dt = self.dtype
+        wide = self.width_sharded
         if site not in self.int8_sites:
             if isinstance(x, tuple):
                 raise ValueError(f"{site}: an s8 carry reaches a float conv "
                                  "(an int8 stem at these widths is not a JAX "
                                  "configuration either)")
+            if wide and stride[1] == 2:
+                return _conv_w2(x, weight.to(dt), stride)
             scale, shift = prologue if prologue is not None else (None, None)
-            return conv3x3_bn_relu_reference(x, weight.to(dt), scale, shift, stride=stride)
+            return _windowed(lambda t: conv3x3_bn_relu_reference(
+                t, weight.to(dt), scale, shift, stride=stride), x, wide)
+        if wide and stride[1] == 2:
+            return self._qconv_int8(site, _left_column(x), weight, stride, prologue, 0)
+        return _windowed(lambda t: self._qconv_int8(site, t, weight, stride, prologue, 1),
+                         x, wide)
+
+    def _qconv_int8(self, site: str, x, weight: torch.Tensor, stride, prologue,
+                    padding: int):
+        """An int8 site's conv at ``padding`` on x, a tensor or an s8 carry."""
+        dt = self.dtype
         kw = dict(weight_dtype=dt, module=self, key=site)
         if isinstance(x, tuple):
-            return q8.conv_int8_bf16(None, weight, stride, 1, xq=x[0], sx=x[1], **kw)
+            return q8.conv_int8_bf16(None, weight, stride, padding, xq=x[0], sx=x[1], **kw)
         name = f"{site}_amax"
         mode, amax = q8.site_mode(self, name)
         if mode == "static":
-            return q8.conv_int8_bf16(x, weight, stride, 1, amax=amax, prologue=prologue,
-                                     **kw)
+            return q8.conv_int8_bf16(x, weight, stride, padding, amax=amax,
+                                     prologue=prologue, **kw)
         a = q8.apply_prologue(x, *prologue) if prologue is not None else x
         if mode == "calibrate":
             q8.record_amax(self, name, a)
-            return conv3x3_bn_relu_reference(a, weight.to(dt), stride=stride)
-        return q8.conv_int8_bf16(a, weight, stride, 1, **kw)
+            return F.conv2d(a, weight.to(dt), stride=tuple(stride), padding=padding)
+        return q8.conv_int8_bf16(a, weight, stride, padding,
+                                 amax=q8.dynamic_amax(self, a), **kw)
 
     def _quant_forward(self, x):
         """The int8 serving block (``stem.py:286-335``): x bf16, or the
@@ -381,6 +426,8 @@ class BasicBlock(nn.Module):
                 mode = None
                 if "proj" in self.int8_sites:
                     mode, amax = q8.activation_scale(self, "proj_amax", x)
+                    if mode == "dynamic":
+                        amax = q8.dynamic_amax(self, x)
                 if mode in ("static", "dynamic"):
                     p = q8.conv_int8(x, conv.weight, self.stride, 0, amax=amax,
                                      **kw).to(dt)
@@ -532,9 +579,9 @@ class ResNet18Stem(nn.Module):
                 q8.record_amax(self, "pool_amax", a.to(dt))
             if mode == "static":
                 xq, sx = q8.quantize_static(a, amax)
-                x = (q8.max_pool_s8(xq), sx)
+                x = (_windowed(q8.max_pool_s8, xq, wide), sx)
             else:
-                x = _max_pool_3x3(a.to(dt), (2, 1))
+                x = _windowed(lambda t: _max_pool_3x3(t, (2, 1)), a.to(dt), wide)
         elif self.pool_impl == "pallas":
             s1, t1 = self.bn1.fold(stats, stats_impl=self.bn_stats_impl)
             x = _windowed(lambda t: max_pool_bn_relu(t, s1, t1), x, wide)

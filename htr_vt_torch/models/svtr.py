@@ -18,7 +18,12 @@ base / large (``svtr.py:33-38``).
 
 Over a model axis a MixingBlock is sharded as Swin's block
 (``models/swin.py``): its heads' rows of qkv and its MLP units, the heads'
-outputs gathered for the replicated ``proj``.
+outputs gathered for the replicated ``proj``. With the image's width
+sharded over the model axis (``parallel/mesh.py:shard_width``), the two
+embeds run on this rank's strip of columns: each stride-2 conv takes one
+column from its left neighbour (``models/stem.py:_conv_w2``), each BN sums
+over the mesh, and the tokens are gathered on the width before masking;
+the mixing blocks and the merges see the whole map.
 """
 
 from __future__ import annotations
@@ -32,11 +37,11 @@ from torch import nn
 from htr_vt_torch.config import ModelConfig
 from htr_vt_torch.models.layers import Mlp, conv2d, dense, jax_init_
 from htr_vt_torch.models.sgm import SGMHead
-from htr_vt_torch.models.stem import BatchNorm
+from htr_vt_torch.models.stem import BatchNorm, _conv_w2
 from htr_vt_torch.models import masking
 from htr_vt_torch.models.swin import _combine_and_heads
 from htr_vt_torch.models.vit import multi_head_attention, split_heads
-from htr_vt_torch.parallel.mesh import copy_to_model, gather_from_model
+from htr_vt_torch.parallel.mesh import check_width, copy_to_model, gather_from_model
 
 SVTR_PRESETS = {
     "tiny": dict(embed_dims=(64, 128, 256), depths=(3, 6, 3), num_heads=(2, 4, 8)),
@@ -116,7 +121,11 @@ class SVTR(nn.Module):
     (``svtr.py:87-170``), with the SGM head on its combined features under
     ``cfg.sgm.enable``. Module names are the JAX ones (``embed_conv1``,
     ``embed_bn1``, ``stage{si}_block{j}``, ``merge{si}``,
-    ``merge{si}_norm``, ``combine_fc``, ``head``)."""
+    ``merge{si}_norm``, ``combine_fc``, ``head``). ``width_shards``: the
+    model ranks that share the image's width
+    (``parallel/mesh.py:shard_width``)."""
+
+    width_shards = 1
 
     def __init__(self, cfg: ModelConfig, device=None,
                  generator: Optional[torch.Generator] = None):
@@ -166,15 +175,23 @@ class SVTR(nn.Module):
                 sgm_batch: Optional[Dict[str, torch.Tensor]] = None,
                 return_features: bool = False):
         """[B, H, W, 1] float32 -> logits [B, W/4, nb_cls] float32; the
-        arguments and returns of ``HTRVT.forward``."""
+        arguments and returns of ``HTRVT.forward`` (a width-sharded model
+        takes this rank's strip [B, H, W / M, 1])."""
         dt = self.dtype
+        shards = self.width_shards
+        if shards > 1:
+            check_width(image.shape[2] * shards, shards)
         x = image.permute(0, 3, 1, 2).to(dt)
-        x = conv2d(self.embed_conv1, x, dt)
-        x = torch.relu(self.embed_bn1(x, train=train).to(dt))
-        x = conv2d(self.embed_conv2, x, dt)
-        x = torch.relu(self.embed_bn2(x, train=train).to(dt))
-        b, c, h, w = x.shape
-        tokens = x.permute(0, 2, 3, 1).reshape(b, h * w, c)
+        for conv, bn in ((self.embed_conv1, self.embed_bn1),
+                         (self.embed_conv2, self.embed_bn2)):
+            x = (_conv_w2(x, conv.weight, conv.stride, conv.bias) if shards > 1
+                 else conv2d(conv, x, dt))
+            x = torch.relu(bn(x, train=train).to(dt))
+        x = x.permute(0, 2, 3, 1)
+        if shards > 1:
+            x = gather_from_model(x, dim=2)
+        b, h, w, c = x.shape
+        tokens = x.reshape(b, h * w, c)
         tokens = masking.mask_tokens(tokens, self.cfg.masking, self.mask_token, train, keep,
                                      generator, mask_mode, mask_ratio)
         hw = (h, w)

@@ -24,7 +24,12 @@ in JAX.
 Over a model axis a block keeps its heads' rows of qkv and columns of
 ``rel_bias`` and its MLP units (JAX's rules shard ``qkv``, ``mlp/fc1`` and
 ``mlp/fc2``); the heads' outputs are gathered (``gather_from_model``) for
-the replicated ``proj``, which JAX's rules leave whole.
+the replicated ``proj``, which JAX's rules leave whole. With the image's
+width sharded over the model axis (``parallel/mesh.py:shard_width``), the
+stem and ``proj`` run on this rank's strip of columns
+(``models/stem.py``) and their tokens are gathered on the width before
+masking; the Swin stages, their windows and the merges see the whole map
+on every rank of the model group.
 """
 
 from __future__ import annotations
@@ -43,7 +48,7 @@ from htr_vt_torch.models.layers import (Mlp, conv2d, dense, dropout, jax_init_,
 from htr_vt_torch.models.sgm import SGMHead
 from htr_vt_torch.models.stem import ResNet18Stem
 from htr_vt_torch.models.vit import multi_head_attention, split_heads
-from htr_vt_torch.parallel.mesh import copy_to_model, gather_from_model
+from htr_vt_torch.parallel.mesh import check_width, copy_to_model, gather_from_model
 
 COMBINE_DROP = 0.1
 
@@ -208,7 +213,11 @@ class HTRSwin(nn.Module):
     6), windows (4, 8) / (2, 8) / (1, 8), ``mlp_ratio`` 2. With
     ``cfg.sgm.enable`` and a vocabulary the SGM head takes the combined
     features. Module names are the JAX ones (``stem``, ``proj``,
-    ``stage{si}_block{i}``, ``merge{si}``, ``combine_fc``, ``head``)."""
+    ``stage{si}_block{i}``, ``merge{si}``, ``combine_fc``, ``head``).
+    ``width_shards``: the model ranks that share the image's width
+    (``parallel/mesh.py:shard_width``)."""
+
+    width_shards = 1
 
     def __init__(self, cfg: ModelConfig, d_model: int = 192,
                  stage_depths: Sequence[int] = (1, 1, 2),
@@ -259,12 +268,18 @@ class HTRSwin(nn.Module):
                 sgm_batch: Optional[Dict[str, torch.Tensor]] = None,
                 return_features: bool = False):
         """[B, H, W, 1] float32 -> logits [B, W/4, nb_cls] float32; the
-        arguments and returns of ``HTRVT.forward``."""
+        arguments and returns of ``HTRVT.forward`` (a width-sharded model
+        takes this rank's strip [B, H, W / M, 1])."""
         cfg = self.cfg
+        shards = self.width_shards
+        if shards > 1:
+            check_width(image.shape[2] * shards, shards)
         x = self.stem(image.float().permute(0, 3, 1, 2), train=train)
-        x = conv2d(self.proj, x, self.dtype)
-        b, d, h, w = x.shape
-        tokens = x.permute(0, 2, 3, 1).reshape(b, h * w, d)
+        x = conv2d(self.proj, x, self.dtype).permute(0, 2, 3, 1)
+        if shards > 1:
+            x = gather_from_model(x, dim=2)
+        b, h, w, d = x.shape
+        tokens = x.reshape(b, h * w, d)
         tokens = masking.mask_tokens(tokens, cfg.masking, self.mask_token, train, keep,
                                      generator, mask_mode, mask_ratio)
         hw = (h, w)

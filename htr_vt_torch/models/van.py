@@ -17,6 +17,15 @@ ops whatever ``conv_impl`` / ``pool_impl`` / ``bn_stats_impl`` say. The
 depthwise and dilated convolutions are ``F.conv2d`` with groups (cuDNN on
 the card); no Pallas kernel computes them in JAX. Runs NCHW; the
 BatchNorms are flax's (biased batch variance, momentum 0.9).
+
+Width-sharded (``parallel/mesh.py:shard_width``): the truncated stem runs
+on the strip as ``models/stem.py`` describes; each depthwise window along
+the width (the 5x5, the 7x7 dilated by 3, the 1 x k mixer) runs on the
+strip extended by as many neighbour columns as it pads (2, 9, k // 2) and
+its outputs there are cropped (``stem.py:_windowed``); the 1x1 convs, the
+gate and the mean over the height read no neighbour; every BatchNorm sums
+over the mesh. ``VanStem.width_halo`` is the widest of those halos, which
+a strip of the quarter-width map must hold.
 """
 
 from __future__ import annotations
@@ -28,7 +37,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from htr_vt_torch.models.layers import DropPath, conv2d, lecun_normal_
-from htr_vt_torch.models.stem import BatchNorm, ResNet18Stem
+from htr_vt_torch.models.stem import BatchNorm, ResNet18Stem, _windowed
 
 VAN_PLANS = {
     "van": (lambda d: [d // 4, d // 2], ((2, 2), (2, 2))),
@@ -41,10 +50,22 @@ def _depthwise(d: int, k, padding, dilation=1, device=None) -> nn.Conv2d:
                      bias=False, device=device)
 
 
+def _width_window(conv: nn.Conv2d, x: torch.Tensor, dtype: torch.dtype,
+                  sharded: bool) -> torch.Tensor:
+    """``conv2d(conv, x)``; on a width strip, on the strip extended by the
+    conv's W padding (the columns its window reaches past a neighbour's
+    edge), those outputs cropped, NCHW."""
+    return _windowed(lambda t: conv2d(conv, t, dtype), x, sharded, conv.padding[1],
+                     torch.contiguous_format)
+
+
 class LargeKernelAttention(nn.Module):
     """Depthwise 5x5 -> depthwise 7x7 dilated by 3 (padding 9) -> 1x1 ->
     BN, multiplied onto the input as a gate in its dtype, after the BN's
-    float32 output is cast back (``van.py:30-49``)."""
+    float32 output is cast back (``van.py:30-49``). ``width_sharded``: x
+    is a strip of columns (``_width_window``)."""
+
+    width_sharded = False
 
     def __init__(self, d: int, dtype: torch.dtype, device=None):
         super().__init__()
@@ -55,8 +76,8 @@ class LargeKernelAttention(nn.Module):
         self.bn = BatchNorm(d, device=device)
 
     def forward(self, x: torch.Tensor, *, train: bool = False) -> torch.Tensor:
-        a = conv2d(self.dw, x, self.dtype)
-        a = conv2d(self.dwd, a, self.dtype)
+        a = _width_window(self.dw, x, self.dtype, self.width_sharded)
+        a = _width_window(self.dwd, a, self.dtype, self.width_sharded)
         a = conv2d(self.pw, a, self.dtype)
         return x * self.bn(a, train=train).to(x.dtype)
 
@@ -93,7 +114,10 @@ class VANBlock(nn.Module):
 
 class HorizontalMixer(nn.Module):
     """Depthwise 1 x k along the width -> 1x1 -> BN, residual, then exact
-    GELU (``van.py:72-91``)."""
+    GELU (``van.py:72-91``). ``width_sharded``: x is a strip of columns
+    (``_width_window``)."""
+
+    width_sharded = False
 
     def __init__(self, d: int, dtype: torch.dtype, kernel: int = 9, device=None):
         super().__init__()
@@ -103,7 +127,8 @@ class HorizontalMixer(nn.Module):
         self.bn = BatchNorm(d, device=device)
 
     def forward(self, x: torch.Tensor, *, train: bool = False) -> torch.Tensor:
-        y = conv2d(self.pw, conv2d(self.dw, x, self.dtype), self.dtype)
+        y = _width_window(self.dw, x, self.dtype, self.width_sharded)
+        y = conv2d(self.pw, y, self.dtype)
         y = self.bn(y, train=train).to(x.dtype)
         return F.gelu(x + y, approximate="none")
 
@@ -130,6 +155,14 @@ class VanStem(nn.Module):
             setattr(self, f"van{i}", VANBlock(d, dtype, device=device))
         self.hmix = HorizontalMixer(d, dtype, hmix_kernel, device=device)
         self.dtype = dtype
+
+    @property
+    def width_halo(self) -> int:
+        """The most neighbour columns a window of the quarter-width map reads
+        (the dilated 7x7's 9 at the defaults)."""
+        convs = [self.hmix.dw] + [getattr(self, f"van{i}").lka.dwd
+                                  for i in range(self.van_depth)]
+        return max(c.padding[1] for c in convs)
 
     def forward(self, x: torch.Tensor, *, train: bool = False,
                 generator: Optional[torch.Generator] = None) -> torch.Tensor:

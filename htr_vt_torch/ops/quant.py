@@ -117,17 +117,34 @@ def site_mode(module: nn.Module, name: str
     return ("dynamic", None) if amax is None else ("static", amax)
 
 
+def _sharded_amax(module: nn.Module, x: torch.Tensor, row_sharded: bool) -> torch.Tensor:
+    """max |x|; the whole tensor's over the model group
+    (``parallel/mesh.py:model_max``) where x is this rank's part of it: a
+    row-sharded linear's input columns (``row_sharded``), or a width strip
+    of a stem module that ``shard_width`` marked (``module.width_sharded``:
+    the strip may carry halo columns, which are the image's too)."""
+    m = x.float().abs().amax()
+    return model_max(m) if row_sharded or getattr(module, "width_sharded", False) else m
+
+
 def record_amax(module: nn.Module, name: str, x: torch.Tensor,
                 row_sharded: bool = False) -> None:
-    """The running max of |x| into the site's buffer (from 0 when unset).
-    ``row_sharded``: x is this rank's columns of a tensor sharded over the
-    model axis (a row-sharded linear's input), and the max is the whole
-    tensor's (``parallel/mesh.py:model_max``), as every rank records it."""
-    m = x.float().abs().amax()
-    if row_sharded:
-        m = model_max(m)
+    """The running max of |x| into the site's buffer (from 0 when unset),
+    the whole tensor's where x is this rank's part of it
+    (``_sharded_amax``), as every rank records it."""
+    m = _sharded_amax(module, x, row_sharded)
     cur = getattr(module, name)
     setattr(module, name, m if cur is None else torch.maximum(cur, m))
+
+
+def dynamic_amax(module: nn.Module, x: torch.Tensor) -> Optional[torch.Tensor]:
+    """The abs-max that dynamic quantization takes of x: None (x's own, on
+    the fly) except on a width strip of a stem module that ``shard_width``
+    marked, where it is the whole image's (``_sharded_amax``), so the scale
+    is one process's."""
+    if not getattr(module, "width_sharded", False):
+        return None
+    return _sharded_amax(module, x, False)
 
 
 def activation_scale(module: nn.Module, name: str, x: torch.Tensor,
@@ -185,7 +202,11 @@ def calibrate_quant_stats(model: nn.Module, image_batches: Iterable,
     ``quant.py:220-255``): the sites start unset, then up to ``max(1,
     n_batches)`` float eval forwards over ``image_batches`` ([B, H, W, 1]
     float32 arrays or tensors) record a running abs-max. The model keeps
-    them; returns ``quant_stats(model)``."""
+    them; returns ``quant_stats(model)``. A model whose width is sharded
+    over the model axis (``parallel/mesh.py:shard_width``) takes each
+    image's strip, as ``eval_step`` does (``rank_width``), and each site
+    records the whole image's abs-max (``record_amax``), so every rank
+    keeps one process's scales."""
     clear_quant_stats(model)
     device = next(model.parameters()).device
     with calibrating():

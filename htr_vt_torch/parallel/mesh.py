@@ -50,15 +50,18 @@ The model axis also shards the image's width (``shard_width``,
 ``P("data", None, "model", None)`` and GSPMD partitions the stem
 (``tests/test_parallel.py:180-199``). Model index m holds columns ``[m *
 W / M, (m + 1) * W / M)`` of every row its data index holds. The port
-makes GSPMD's collectives by hand: each 3x3 window of the ResNet18 stem
-reads its neighbours' edge columns (``halo_extend``), its BatchNorm sums
-run over the whole mesh (``all_reduce_sum(..., "mesh")``), the input
-LayerNorm's over the model group, and the stem's tokens are gathered over
-the model group before masking (``gather_from_model``), so that the
-encoder, the head and the loss see the whole line on every rank of a
-model group. Each rank's stem gradient covers its strip, and the step
-sums it over the model group (``width_sharded_mask``,
-``all_reduce_model_sum_``).
+makes GSPMD's collectives by hand, for every model's stem (``width_stem``:
+the ResNet18 and VAN stems, Swin's and SVTR's): each window along the
+width reads its neighbours' edge columns (``halo_extend``), its BatchNorm
+sums run over the whole mesh (``all_reduce_sum(..., "mesh")``), the input
+LayerNorm's over the model group, int8 scales take the max over the model
+group, and the stem's tokens are gathered over the model group before
+masking (``gather_from_model``), so that the encoder, the head and the
+loss see the whole line on every rank of a model group. Each rank's stem
+gradient covers its strip, and the step sums it over the model group
+(``width_sharded_mask``, ``all_reduce_model_sum_``). Under remat "all"
+the stem's recompute replays its exchanges and all-reduces inside the
+backward, in the forward's order on every rank.
 """
 
 from __future__ import annotations
@@ -70,6 +73,7 @@ from typing import Dict, Iterable, List, NamedTuple, Optional, Sequence, Tuple
 
 import torch
 import torch.distributed as dist
+from torch import nn
 
 COORDINATOR = "HTRVT_COORDINATOR"
 NUM_PROCESSES = "HTRVT_NUM_PROCESSES"
@@ -674,61 +678,75 @@ def shard_optimizer_state(model, sd: Dict) -> Dict:
 
 
 # --- the width (spatial) axis ------------------------------------------------------
-ITEM_12 = ("is not ported yet (ROADMAP item 12 lists it: width sharding covers the "
-           "HTRVT trunk behind the ResNet18 stem, float, without remat 'all')")
-
-
-def check_width(width: int, size: int) -> None:
+def check_width(width: int, size: int, halo: int = 1) -> None:
     """A global image width ``width`` that ``size`` model ranks can share:
-    every strip a whole number of tokens (the stem quarters the width) and
+    every strip a whole number of tokens (the stems quarter the width) and
     every stride-2 strip starting on an even column, so ``width % (4 *
-    size) == 0``; else ValueError."""
+    size) == 0``; and a strip of the quarter-width map at least ``halo``
+    columns wide, the most a window there reads from a neighbour (a VAN
+    stem's dilated 7x7: 9). Else ValueError, naming the width, M and the
+    halo."""
     if width % (4 * size):
         raise ValueError(f"an image width of {width} px does not split over a model "
                          f"axis of {size}: width sharding needs width % (4 * {size}) "
                          "== 0")
+    if width // (4 * size) < halo:
+        raise ValueError(f"an image width of {width} px over a model axis of {size} "
+                         f"leaves strips of {width // (4 * size)} columns at a quarter of "
+                         f"the width, narrower than the stem's halo of {halo} columns")
 
 
 def _trunk(model):
-    """The HTRVT that holds the ResNet18 stem: the model, or an
-    encoder-decoder's trunk."""
+    """The model that holds the stem: the model, or an encoder-decoder's
+    trunk (an ``HTRVT``)."""
     from htr_vt_torch.models.encoder_decoder import HTREncoderDecoder
     return model.encoder if isinstance(model, HTREncoderDecoder) else model
 
 
-def shard_width(model):
-    """Shard the image's width over the model axis for ``model`` (an
-    ``HTRVT``, or an encoder-decoder through its trunk): the ResNet18 stem
-    and the input LayerNorm run on this rank's strip of columns
-    (``rank_width``) and the stem's tokens are gathered before masking.
-    The weights stay as they are, so it composes with ``shard_model`` (the
-    encoder tensor-parallel after the gather) or without it (the encoder
-    replicated over the model group, JAX's layout in
-    ``tests/test_parallel.py:180-199``). What it does not cover raises,
-    naming ROADMAP item 12: the VAN stems, the standalone ``HTRSwin`` and
-    ``SVTR``, int8 serving and ``remat="all"`` (whose recompute would
-    replay the stem's collectives), at any model size. Returns ``model``;
-    at model size 1 it is left as it is. Mark the EMA copy too
-    (``create_train_state`` does both with ``width_parallel``)."""
-    from htr_vt_torch.models.htr_vt import HTRVT, VAN_STEMS
+def width_stem(model) -> List[nn.Module]:
+    """The modules that run on a width strip, before the tokens' gather:
+    ``HTRVT.patch_embed`` (the ResNet18 stem or a ``VanStem``), ``HTRSwin``'s
+    ``stem`` and ``proj``, ``SVTR``'s ``embed_conv1/2`` and ``embed_bn1/2``."""
+    from htr_vt_torch.models.svtr import SVTR
+    from htr_vt_torch.models.swin import HTRSwin
     trunk = _trunk(model)
-    what = None
-    if not isinstance(trunk, HTRVT):
-        what = f"width sharding of {type(model).__name__}"
-    elif trunk.cfg.stem in VAN_STEMS:
-        what = f"width sharding of the {trunk.cfg.stem} stem"
-    elif trunk.cfg.quant == "int8":
-        what = "width sharding of int8 serving"
-    elif trunk.cfg.remat == "all":
-        what = "width sharding under remat='all'"
-    if what is not None:
-        raise ValueError(f"{what} {ITEM_12}")
+    if isinstance(trunk, HTRSwin):
+        return [trunk.stem, trunk.proj]
+    if isinstance(trunk, SVTR):
+        return [trunk.embed_conv1, trunk.embed_bn1, trunk.embed_conv2, trunk.embed_bn2]
+    return [trunk.patch_embed]
+
+
+def width_halo(model) -> int:
+    """The most neighbour columns a window of ``model``'s stem reads at a
+    quarter of the width (``check_width``'s ``halo``)."""
+    return max(getattr(m, "width_halo", 1) for m in width_stem(model))
+
+
+def shard_width(model):
+    """Shard the image's width over the model axis for ``model`` (every
+    model ``build_model`` builds: ``HTRVT`` behind the ResNet18 or a VAN
+    stem, ``HTRSwin``, ``SVTR``, an encoder-decoder through its trunk; float
+    or int8, under any remat): its stem (``width_stem``) and an ``HTRVT``'s
+    input LayerNorm run on this rank's strip of columns (``rank_width``),
+    and the stem's tokens are gathered before masking. The weights stay as
+    they are, so it composes with ``shard_model`` (the encoder
+    tensor-parallel after the gather) or without it (the encoder replicated
+    over the model group, JAX's layout in
+    ``tests/test_parallel.py:180-199``). The configured width
+    (``cfg.img_size``) must split with the stem's halo (``check_width``);
+    each forward checks its own image's. Returns ``model``; at model size 1
+    it is left as it is. Mark the EMA copy too (``create_train_state`` does
+    both with ``width_parallel``)."""
     size = model_world()[1]
     if size == 1:
         return model
-    for m in trunk.patch_embed.modules():
-        if hasattr(type(m), "width_sharded"):
-            m.width_sharded = True
+    trunk = _trunk(model)
+    check_width(trunk.cfg.img_size[1], size, width_halo(model))
+    for stem in width_stem(model):
+        for m in stem.modules():
+            if hasattr(type(m), "width_sharded"):
+                m.width_sharded = True
     trunk.width_shards = size
     return model
 
@@ -737,10 +755,9 @@ def width_sharded_mask(model) -> Optional[List[bool]]:
     """For each of ``model.parameters()``, whether it is the stem's, whose
     gradient a rank holds for its strip only; None for a model whose width
     is not sharded."""
-    trunk = _trunk(model)
-    if getattr(trunk, "width_shards", 1) == 1:
+    if getattr(_trunk(model), "width_shards", 1) == 1:
         return None
-    stem = {id(p) for p in trunk.patch_embed.parameters()}
+    stem = {id(p) for m in width_stem(model) for p in m.parameters()}
     return [id(p) in stem for p in model.parameters()]
 
 

@@ -55,8 +55,9 @@ def create_train_state(cfg: ExperimentConfig, device, generator: torch.Generator
     ``tensor_parallel=False``, which keeps every weight replicated), and
     the EMA copy and AdamW's moments are made from the shards, so they are
     sharded as their parameters. ``width_parallel``: the image's width is
-    sharded over the model axis too (``shard_width``, both models), and
-    each step takes a rank's strip of columns (``rank_width``)."""
+    sharded over the model axis too (``shard_width``, both models: any
+    model, float or int8, under any remat), and each step takes a rank's
+    strip of columns (``rank_width``)."""
     model = build_model(cfg.model, device=device, generator=generator)
     assert_same_on_every_rank(list(model.state_dict().values())
                               + [generator.get_state()],

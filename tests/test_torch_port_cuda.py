@@ -1760,3 +1760,155 @@ def test_a_tensor_parallel_step_on_the_card_matches_one_process(cuda, tmp_path):
         got = ranks[0]["model"][k]
         assert torch.equal(got, ranks[1]["model"][k]), k
         torch.testing.assert_close(got, v.cpu(), rtol=1e-5, atol=2.01 * lr, msg=k)
+
+
+# --- width sharding: Q1 on strips, remat "all" on two ranks ------------------------
+# Q1 at a rank's strip of the int8 stem (stage 1 padded to 256) over M = 2
+# and 4 at 512 px: a W-stride-1 site on the strip and its halo columns
+# (stage 1's conv2 with the BN prologue, stage 2's conv1 from the s8
+# carry), and a W-stride-2 site in ``models/stem.py:_left_column``'s form
+# (the s8 carry with its left column and a zero row above and below, padding
+# 0: stage 2's and stage 3's entry conv1).
+Q1_STRIP_SITES = [
+    ((16, 256, 8, 256), 1, 256, (1, 1), 1, "bf16+bn"),
+    ((16, 256, 8, 128), 2, 256, (1, 1), 1, "bf16+bn"),
+    ((16, 384, 4, 64), 2, 384, (1, 1), 1, "s8"),
+    ((16, 256, 10, 256), 1, 384, (2, 2), 0, "s8"),
+    ((16, 384, 6, 64), 1, 768, (2, 2), 0, "s8"),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,sides,cout,stride,pad,kind", Q1_STRIP_SITES)
+def test_conv_int8_at_halo_extended_strips(cuda, shape, sides, cout, stride, pad, kind):
+    """Q1 on a strip made channels-last from a ``torch.cat`` of its halo
+    and its columns, as ``parallel/mesh.py:halo_extend`` hands it, equals
+    its float64 twin bit for bit, bf16 and int32 out; its BN prologue
+    comes before its padding, so the halo carries raw columns."""
+    from htr_vt_torch.ops import quant as q8
+    g = torch.Generator(device=cuda).manual_seed(sum(shape) + cout + sides)
+    w = torch.randn(cout, shape[1], 3, 3, generator=g, device=cuda) * 0.05
+    wq, w_packed, sw = q8.conv_weight(w.to(torch.bfloat16))
+    dtype = torch.int8 if kind == "s8" else torch.bfloat16
+    x = halo_extended(shape, torch.float32, cuda, shape[3] + sides, sides)
+    x = (x * 100).round().clamp(-127, 127).to(dtype) if kind == "s8" else x.to(dtype)
+    if pad == 0:
+        x[:, :, [0, -1]] = 0
+    x = x.contiguous(memory_format=torch.channels_last)
+    prologue = None
+    if kind == "bf16+bn":
+        prologue = (torch.rand(shape[1], generator=g, device=cuda) + 0.5,
+                    torch.randn(shape[1], generator=g, device=cuda))
+    sx = q8._scale_of(torch.tensor(3.0, device=cuda))
+    src = dict(xq=x) if kind == "s8" else dict(x=x)
+    for out in (torch.int32, torch.bfloat16):
+        kw = dict(xq=src.get("xq"), prologue=prologue)
+        got = q8.conv_int8_cuda(src.get("x"), w_packed, sx, sx * sw, stride, pad, out, **kw)
+        want = q8.conv_int8_reference(src.get("x"), wq, sx, sx * sw, stride, pad, out, **kw)
+        assert torch.equal(got, want), (out, (got.double() - want.double()).abs().max())
+
+
+WP_WORKER = r"""
+import os, sys
+import torch
+sys.path.insert(0, os.environ["HTRVT_REPO"])
+from htr_vt_torch.config import ExperimentConfig, config_from_dict
+from htr_vt_torch.ops import conv_fused
+from htr_vt_torch.parallel import mesh
+from htr_vt_torch.train.state import create_train_state
+from htr_vt_torch.train.step import train_step
+
+torch.cuda.set_device(0)
+torch.backends.cuda.matmul.allow_tf32 = False
+torch.backends.cudnn.allow_tf32 = False
+os.environ["CUBLAS_WORKSPACE_CONFIG"] = ":4096:8"
+torch.use_deterministic_algorithms(True)
+mesh.maybe_initialize_distributed(backend="gloo")
+mesh.init_mesh((1, 2))
+job = torch.load(os.environ["HTRVT_JOB"], weights_only=False)
+out = {}
+for name, cfg in job["cfgs"].items():
+    state = create_train_state(config_from_dict(ExperimentConfig, cfg), "cuda",
+                               torch.Generator(device="cuda").manual_seed(4),
+                               tensor_parallel=False, width_parallel=True)
+    before = conv_fused.conv3x3_bn_relu_fwd.launches
+    metrics = [{k: v.item() for k, v in train_step(state, mesh.rank_width(job["batch"])).items()}
+               for _ in range(2)]
+    out[name] = {"metrics": metrics, "k4f": conv_fused.conv3x3_bn_relu_fwd.launches - before,
+                 "model": {k: v.cpu() for k, v in state.model.state_dict().items()}}
+torch.save(out, os.path.join(os.environ["HTRVT_OUT"], f"rank{mesh.world()[0]}.pt"))
+mesh.barrier()
+"""
+
+
+@pytest.mark.cuda
+def test_remat_all_width_sharded_steps_on_the_card_give_the_plain_bits(cuda, tmp_path):
+    """Two gloo ranks share the card at ``mesh_shape=(1, 2)``, each holding
+    half of every image's columns, the fully fused stem in float32 under
+    ``torch.use_deterministic_algorithms``: two SAM steps under remat "all"
+    (the stem's recompute replaying its halo exchanges and BN all-reduces
+    in the backward, K4f twice a forward) give the bits of the same ranks
+    without remat, and the ranks hold equal weights; against one process
+    the losses and the gradient norm within the port's one-step SAM bar,
+    1e-4 (``tests/test_torch_port_width_parallel.py:STEP_RTOL``: at this
+    tiny stem the split BN sums move loss_second by ~1e-5)."""
+    import dataclasses
+    import os
+    import socket
+    import subprocess
+    import sys
+
+    from htr_vt_torch import ExperimentConfig, MaskConfig, OptimConfig
+    from htr_vt_torch.config import ParallelConfig, config_to_dict
+    from htr_vt_torch.train.state import create_train_state
+    cfg = ExperimentConfig(
+        model=ModelConfig(nb_cls=8, img_size=(64, 256), embed_dim=64, depth=1, num_heads=2,
+                          compute_dtype="float32", masking=MaskConfig(mode="none"),
+                          bn_stats_impl="pallas", pool_impl="pallas", conv_impl="pallas"),
+        optim=OptimConfig(max_lr=1e-3, warmup_iters=2), parallel=ParallelConfig(
+            mesh_shape=(1, 2)))
+    rng = np.random.default_rng(17)
+    _, labels, lengths = ctc_case(17, 4, 64, 8, 12)
+    batch = {"image": rng.random((4, 64, 256, 1), dtype=np.float32), "labels": labels,
+             "label_lengths": lengths}
+    cfgs = {remat: dataclasses.replace(cfg, model=dataclasses.replace(cfg.model, remat=remat))
+            for remat in ("none", "all")}
+    torch.save({"cfgs": {k: config_to_dict(c) for k, c in cfgs.items()}, "batch": batch},
+               str(tmp_path / "job.pt"))
+    with socket.socket() as sock:
+        sock.bind(("", 0))
+        port = sock.getsockname()[1]
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    procs = [subprocess.Popen(
+        [sys.executable, "-c", WP_WORKER], cwd=repo, stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True,
+        env=dict(os.environ, HTRVT_REPO=repo, HTRVT_COORDINATOR=f"localhost:{port}",
+                 HTRVT_NUM_PROCESSES="2", HTRVT_PROCESS_ID=str(r),
+                 HTRVT_JOB=str(tmp_path / "job.pt"), HTRVT_OUT=str(tmp_path)))
+        for r in range(2)]
+    logs = [p.communicate(timeout=300)[0] for p in procs]
+    assert all(p.returncode == 0 for p in procs), "\n".join(log[-3000:] for log in logs)
+    ranks = [torch.load(str(tmp_path / f"rank{r}.pt"), weights_only=False) for r in range(2)]
+    for r in ranks:
+        assert r["all"]["metrics"] == r["none"]["metrics"]
+        assert r["all"]["k4f"] == 2 * r["none"]["k4f"] > 0
+        for k, v in r["none"]["model"].items():
+            assert torch.equal(r["all"]["model"][k], v), k
+            assert torch.equal(ranks[0]["all"]["model"][k], ranks[1]["all"]["model"][k]), k
+
+    one = dataclasses.replace(cfgs["all"], parallel=ParallelConfig())
+    env = os.environ.get("CUBLAS_WORKSPACE_CONFIG")
+    os.environ["CUBLAS_WORKSPACE_CONFIG"] = ":4096:8"
+    torch.use_deterministic_algorithms(True)
+    try:
+        state = create_train_state(one, cuda, torch.Generator(device=cuda).manual_seed(4))
+        want = [{k: v.item() for k, v in train_step(state, batch).items()} for _ in range(2)]
+    finally:
+        torch.use_deterministic_algorithms(False)
+        if env is None:
+            del os.environ["CUBLAS_WORKSPACE_CONFIG"]
+        else:
+            os.environ["CUBLAS_WORKSPACE_CONFIG"] = env
+    for key in ("loss", "loss_second", "grad_norm"):
+        np.testing.assert_allclose(ranks[0]["all"]["metrics"][0][key], want[0][key],
+                                   rtol=1e-4, err_msg=key)

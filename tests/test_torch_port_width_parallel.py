@@ -13,15 +13,19 @@ depth 1, two heads, 64x128 px, float32, batch 16):
   outputs, the stem's gradients summed over the model group, and the BN
   running statistics, equal on every rank;
 - the encoder-decoder through its width-sharded trunk at (1, 2);
-- what width sharding does not cover raising, naming ROADMAP item 12.
+- a width or a halo that the axis cannot split raising, naming the width
+  and M.
 
 The ranks' side of every width-sharded test is here (``rank_main``, the
 tasks). ``train_step`` and ``eval_step`` at (1, 2) against one process are
-in ``tests/test_torch_port_width_parallel_steps.py`` and ``_recipes.py``;
-JAX's ``train_step`` on a ``P("data", None, "model", None)`` image in
-``_jax.py``.
+in ``tests/test_torch_port_width_parallel_steps.py``, ``_recipes.py``,
+``_van.py`` (the VAN stems), ``_swin_svtr.py`` and ``_remat.py`` (remat
+"all"); int8 serving in ``_int8.py``; JAX's ``train_step`` on a
+``P("data", None, "model", None)`` image in ``_jax*.py``.
 """
 
+import contextlib
+import dataclasses
 import os
 
 import numpy as np
@@ -30,8 +34,10 @@ import torch
 
 from htr_vt_torch.config import (ExperimentConfig, MaskConfig, ModelConfig, OptimConfig,
                                  config_from_dict)
+from htr_vt_torch.models import layers, sgm, swin
 from htr_vt_torch.models.htr_vt import build_model
 from htr_vt_torch.models.stem import ResNet18Stem
+from htr_vt_torch.ops import quant as q8
 from htr_vt_torch.parallel import mesh
 from htr_vt_torch.train.state import create_train_state
 from htr_vt_torch.train.step import eval_step, train_step
@@ -184,10 +190,32 @@ def state_file(state):
             "step": state.step, "generator": state.generator.get_state()}
 
 
+@contextlib.contextmanager
+def port_no_dropout(on: bool = True):
+    """With ``on``, the port's dropout and drop-path as the identity (the
+    standalone models' combine dropout included), as
+    ``tests/test_torch_port_zoo_standalone.py:no_dropout`` makes them on
+    both stacks for a comparison with JAX's draws."""
+    if not on:
+        yield
+        return
+    with pytest.MonkeyPatch.context() as mp:
+        for mod in (layers, swin, sgm):
+            mp.setattr(mod, "dropout", lambda x, rate, train, generator: x)
+        mp.setattr(layers.DropPath, "forward", lambda self, x, **k: x)
+        yield
+
+
 def steps_task(task):
     """``eval_step`` on a probe's strip, then ``train_step`` on this
     rank's strips of the batches (its data index's rows), from a seeded
-    state or the one-process weights ``init``."""
+    state or the one-process weights ``init``; dropout off with
+    ``no_dropout``."""
+    with port_no_dropout(task.get("no_dropout", False)):
+        return _steps(task)
+
+
+def _steps(task):
     cfg = config_from_dict(ExperimentConfig, task["cfg"])
     state = create_train_state(cfg, "cpu", torch.Generator().manual_seed(task["seed"]),
                                tensor_parallel=task["tensor_parallel"],
@@ -258,8 +286,41 @@ def ed_task(task):
     return dict(logits=logits, grads=grads, served=served)
 
 
+def int8_weights(seed: int, cfg: ModelConfig) -> dict:
+    """The serving state_dict of the int8 ``cfg`` (stage 1 padded where that
+    applies) made from a seeded float model of the same config."""
+    float_cfg = dataclasses.replace(cfg, quant="none")
+    model = build_model(float_cfg, device="cpu", generator=torch.Generator().manual_seed(seed))
+    return q8.serving_arrays(cfg, model.state_dict())
+
+
+def int8_run(model, calib, batch):
+    """Calibrate ``model`` on ``calib``, a static ``eval_step`` of ``batch``,
+    then a dynamic one (the sites cleared): the abs-maxes and each step's
+    logits and loss."""
+    stats = {k: v.clone() for k, v in q8.calibrate_quant_stats(model, [calib], 1).items()}
+    out = {"stats": stats}
+    for mode in ("static", "dynamic"):
+        if mode == "dynamic":
+            q8.clear_quant_stats(model)
+        ev = eval_step(model, batch)
+        out[mode] = {"logits": ev["logits"], "loss": float(ev["loss"])}
+    return out
+
+
+def int8_task(task):
+    """The int8 model of ``task["cfg"]`` on ``task["weights"]``, its width
+    sharded: ``int8_run`` on this rank's strips."""
+    cfg = config_from_dict(ExperimentConfig, task["cfg"]).model
+    model = build_model(cfg, device="cpu")
+    model.load_state_dict(task["weights"])
+    mesh.shard_width(model)
+    strip = mesh.rank_width({"image": task["calib"]})["image"]
+    return int8_run(model, strip, mesh.rank_width(task["batch"]))
+
+
 TASKS = {"collectives": collectives_task, "stem": stem_task, "steps": steps_task,
-         "ed": ed_task}
+         "ed": ed_task, "int8": int8_task}
 
 
 def rank_main():
@@ -381,19 +442,41 @@ def test_the_encoder_decoder_trunk_on_strips_matches_one_process(tmp_path):
                                        msg=lambda m: f"{k}: {m}")
 
 
-# --- what is not covered -------------------------------------------------------------
-@pytest.mark.parametrize("what,kw", [
-    ("van stem", dict(stem="van")), ("van2 stem", dict(stem="van2")),
-    ("HTRSwin", dict(encoder="swin")), ("SVTR", dict(encoder="svtr")),
-    ("int8 serving", dict(quant="int8")), ("remat='all'", dict(remat="all"))])
-def test_what_width_sharding_does_not_cover_raises(what, kw):
-    """Refused at any model size, naming ROADMAP item 12; a width that the
-    axis does not split raises, naming the width and M."""
-    model = build_model(tiny_cfg(**kw).model, device="cpu",
-                        generator=torch.Generator().manual_seed(0))
-    with pytest.raises(ValueError, match="ROADMAP item 12") as err:
-        mesh.shard_width(model)
-    assert what in str(err.value)
+# --- what the axis cannot split -----------------------------------------------------
+def test_a_width_that_does_not_split_raises():
+    """``check_width``: a width that is not a multiple of 4 x M raises,
+    naming the width and M; one that is passes."""
     with pytest.raises(ValueError, match="130 px .* axis of 2"):
         mesh.check_width(130, 2)
+    with pytest.raises(ValueError, match="136 px .* axis of 4"):
+        mesh.check_width(136, 4)
     mesh.check_width(128, 4)
+    mesh.check_width(128, 2, halo=9)
+
+
+@pytest.mark.parametrize("stem,size,width", [("van", 4, 128), ("van2", 2, 64)])
+def test_a_halo_wider_than_a_strip_raises(monkeypatch, stem, size, width):
+    """A VAN stem's dilated 7x7 reads 9 neighbour columns of the
+    quarter-width map: ``shard_width`` refuses a configured width whose
+    strips there are narrower (128 px over 4 ranks: 8 columns; 64 px over
+    2: 8), naming the width, M and the halo, before it marks anything; the
+    forward refuses such an image at a width that passes. The ResNet18
+    stem's halo is 1, so the same widths shard."""
+    monkeypatch.setattr(mesh, "model_world", lambda: (0, size))
+    cfg = dataclasses.replace(tiny_cfg(stem=stem).model, img_size=(64, width))
+    model = build_model(cfg, device="cpu", generator=torch.Generator().manual_seed(0))
+    assert mesh.width_halo(model) == 9
+    with pytest.raises(ValueError, match=f"{width} px over a model axis of {size} .* "
+                                         "halo of 9 columns"):
+        mesh.shard_width(model)
+    assert model.width_shards == 1 and not model.patch_embed.hmix.width_sharded
+    model.cfg = dataclasses.replace(cfg, img_size=(64, 4 * size * 9))
+    mesh.shard_width(model)
+    assert model.width_shards == size and model.patch_embed.van0.lka.width_sharded
+    with pytest.raises(ValueError, match="halo of 9 columns"):
+        model(torch.zeros((1, 64, width // size, 1)))
+    flagship = build_model(dataclasses.replace(tiny_cfg().model, img_size=(64, width)),
+                           device="cpu")
+    assert mesh.width_halo(flagship) == 1
+    mesh.shard_width(flagship)
+    assert flagship.width_shards == size

@@ -74,32 +74,60 @@ SCENARIOS = {
     "fully_fused_tp": (SWITCHES["fully_fused"], True)}
 
 
-def check_switch_sets(tmp_path, names):
+def _same_run(got, same, name):
+    """Two runs of the ranks bit for bit: metrics, the whole state after the
+    first and the last step, the eval logits."""
+    assert got["metrics"] == same["metrics"], name
+    assert torch.equal(got["eval"]["logits"], same["eval"]["logits"]), name
+    for tag in ("first", "last"):
+        for part in ("model", "ema", "adamw"):
+            flat = (lambda d: d) if part != "adamw" else (
+                lambda d: {(i, k): v for i, st in d.items() for k, v in st.items()})
+            for k, v in flat(same[tag][part]).items():
+                assert torch.equal(flat(got[tag][part])[k], v), (name, tag, part, k)
+
+
+def check_configs(tmp_path, cfgs, bs=16, tensor_parallel=None, compare=None):
     """At (1, 2): ``eval_step`` and three SAM steps on strips against the
-    port's one process on the whole images, for the ``SCENARIOS`` named
-    (a switch set, the encoder replicated or tensor-parallel); both ranks
-    read the same metrics and hold the same weights and logits. A width
-    that does not split raises, naming it and M. The one-process runs go
-    while the ranks run."""
-    batches = [tiny_batch(40 + i) for i in range(STEPS)]
-    probe = tiny_batch(50)
-    tasks = {name: dict(kind="steps", cfg=config_to_dict(tiny_cfg(**SCENARIOS[name][0])),
-                        seed=SEED, tensor_parallel=SCENARIOS[name][1], batches=batches,
-                        probe=probe) for name in names}
+    port's one process on the whole images for each of ``cfgs`` (name ->
+    config), from one seed, on ``bs``-row batches, the encoder replicated
+    or tensor-parallel where ``tensor_parallel`` (name -> bool) says; both
+    ranks read the same metrics and hold the same weights and logits.
+    ``compare``: name -> the name whose ranks' run it must equal bit for
+    bit (``_same_run``), with no one-process run of its own. The
+    one-process runs go while the ranks run. Returns the ranks' records."""
+    compare, tensor_parallel = compare or {}, tensor_parallel or {}
+    batches = [tiny_batch(40 + i, bs) for i in range(STEPS)]
+    probe = tiny_batch(50, bs)
+    tasks = {name: dict(kind="steps", cfg=config_to_dict(cfg), seed=SEED,
+                        tensor_parallel=tensor_parallel.get(name, False), batches=batches,
+                        probe=probe) for name, cfg in cfgs.items()}
     procs = start_width(tmp_path, (1, 2), tasks)
-    want = {name: one_process(tiny_cfg(**SCENARIOS[name][0]), SEED, batches, probe)
-            for name in names}
+    want = {name: one_process(cfg, SEED, batches, probe) for name, cfg in cfgs.items()
+            if name not in compare}
     ranks = collect(procs, tmp_path)
     assert [(r["data"], r["model"]) for r in ranks] == [((0, 1), (0, 2)), ((0, 1), (1, 2))]
-    for name in names:
+    for name, cfg in cfgs.items():
         r0 = ranks[0][name]
-        assert r0["sharded"] == SCENARIOS[name][1]
+        assert r0["sharded"] == tensor_parallel.get(name, False)
         assert "132 px" in r0["bad_width"] and "axis of 2" in r0["bad_width"]
-        assert ranks[1][name]["metrics"] == r0["metrics"]
+        assert ranks[1][name]["metrics"] == r0["metrics"], name
         for k, v in r0["last"]["model"].items():
             assert torch.equal(ranks[1][name]["last"]["model"][k], v), (name, k)
         assert torch.equal(ranks[1][name]["eval"]["logits"], r0["eval"]["logits"])
-        check_steps(r0, want[name], tiny_cfg(**SCENARIOS[name][0]), name)
+        if name in compare:
+            _same_run(r0, ranks[0][compare[name]], name)
+        else:
+            check_steps(r0, want[name], cfg, name)
+    return ranks
+
+
+def check_switch_sets(tmp_path, names):
+    """``check_configs`` for the ``SCENARIOS`` named (a switch set, the
+    encoder replicated or tensor-parallel); a width that does not split
+    raises, naming it and M."""
+    check_configs(tmp_path, {name: tiny_cfg(**SCENARIOS[name][0]) for name in names},
+                  tensor_parallel={name: SCENARIOS[name][1] for name in names})
 
 
 def test_train_and_eval_steps_match_one_process(tmp_path):
