@@ -178,8 +178,10 @@ non-zero before the last line:
    ``csrc/conv_int8.cu``) against its plain twin at every distinct site
    shape of that forward at bs 128 (s8 input, bf16 input with and without
    the BN prologue, bf16 and float32 out): the s32 accumulator and the
-   output bit-equal; Q1's device time beside im2col + ``torch._int_mm`` and
-   the bound. One counted static ``eval_step``: 15 Q1, 16 ``_int_mm``, 1
+   output bit-equal; Q1's route at the site (``ops/quant.py:q1_route``), its
+   device time beside im2col + ``torch._int_mm`` and the bound, and the
+   sites' times summed over one forward beside their summed bound. One
+   counted static ``eval_step``: 15 Q1, 16 ``_int_mm``, 1
    K1a; its median ms, img/s and peak memory beside the float fully fused
    ``eval_step`` on the same weights, and its device time by kernel
    (``step_kernel_times``); its logits against the float32 model
@@ -3327,19 +3329,21 @@ def q1_case(name, shape, cout, k, stride, padding, kind, out_dtype, device, seed
                            [lambda c=c: im2col_int_mm(c, w_packed, stride, padding)
                             for c in lib_copies])
         plain_ms = median_ms(lambda: plain(out_dtype), 1, warmup=0)
+    route = q8.q1_route(src.dtype, shape[0], shape[1], cout, k, k, stride, padding,
+                        y.shape[2], y.shape[3])
     m = y.shape[0] * y.shape[2] * y.shape[3]
     kdim = k * k * shape[1]
     n_bytes = (src.numel() * src.element_size() + w_packed.numel()
                + m * cout * y.element_size())
     bound_ms, bound_by = bound(n_bytes, 2 * m * cout * kdim, INT8_OPS_PER_S)
     rec = dict(shape=list(shape), cout=cout, kernel=k, stride=list(stride), input=kind,
-               out=str(out_dtype).replace("torch.", ""), acc_bit_equal=acc_equal,
+               route=route, out=str(out_dtype).replace("torch.", ""), acc_bit_equal=acc_equal,
                out_bit_equal=out_equal, library_equal=lib_equal, max_abs_err=err,
                max_abs_acc=acc_ref.abs().max().item(), ms=ms, call_ms=call_ms,
                plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bound_ms,
                bound_by=bound_by, of_bound=bound_ms / ms)
     say(f"[int8 Q1 {name}] {kind} {tuple(shape)} -> {cout}, {k}x{k}/{tuple(stride)}, "
-        f"{rec['out']} out: s32 acc bit-equal {acc_equal} (max |acc| "
+        f"{rec['out']} out, {route} route: s32 acc bit-equal {acc_equal} (max |acc| "
         f"{rec['max_abs_acc']}), out bit-equal {out_equal} (max |err| {err:g}), "
         f"im2col + _int_mm equal {lib_equal}; device {ms:.4f} ms a launch (one call "
         f"{call_ms:.4f}), im2col + _int_mm {lib_ms:.4f} ms, plain twin {plain_ms:.2f} "
@@ -3348,6 +3352,13 @@ def q1_case(name, shape, cout, k, stride, padding, kind, out_dtype, device, seed
         raise AssertionError(f"Q1 at {name}: acc equal {acc_equal}, out equal "
                              f"{out_equal}, library equal {lib_equal}")
     return rec
+
+
+def is_q1_kernel(kernel):
+    """Whether a profiled kernel is one of Q1's (``csrc/conv_int8.cu``: the
+    wgmma and gather routes and the quantize kernel)."""
+    return short_name(kernel).startswith(("conv_int8_wgmma", "conv_int8_kernel",
+                                          "quantize_kernel"))
 
 
 def int8_logits_held(tag, l8, l32):
@@ -3400,6 +3411,13 @@ def phase_int8_serve(device, smi_line):
         rec["sites"][name] = q1_case(name, shape, cout, k, stride, padding, kind,
                                      out_dtype, device, SEED + 300 + i)
     rec["q1_per_forward"] = sum(s[-1] for s in INT8_SITES)
+    rec["q1_forward_ms"] = sum(rec["sites"][s[0]]["ms"] * s[-1] for s in INT8_SITES)
+    rec["q1_forward_bound_ms"] = sum(rec["sites"][s[0]]["bound_ms"] * s[-1]
+                                     for s in INT8_SITES)
+    say(f"[int8 Q1] one forward's {rec['q1_per_forward']} Q1 launches (the sites' device "
+        f"ms times their launches a forward): {rec['q1_forward_ms']:.4f} ms against a "
+        f"summed bound of {rec['q1_forward_bound_ms']:.4f} ms, "
+        f"{rec['q1_forward_bound_ms'] / rec['q1_forward_ms']:.1%} of it")
 
     cfg = ModelConfig()
     cfg8 = dataclasses.replace(cfg, quant="int8")
@@ -3454,14 +3472,13 @@ def phase_int8_serve(device, smi_line):
     # where the int8 step's device time goes, by kernel (torch.profiler)
     prof = step_kernel_times(lambda: eval_step(model8, batch))
     by_ms = sorted(prof["kernels"].items(), key=lambda kv: -kv[1][1])
-    q1_ms = sum(ms for k, (_, ms) in by_ms
-                if "conv_int8_kernel" in k or "quantize_kernel" in k)
+    q1_ms = sum(ms for k, (_, ms) in by_ms if is_q1_kernel(k))
     rec["profile"] = dict(prof, q1_ms=q1_ms,
                           kernels={short_name(k): v for k, v in by_ms[:12]})
     say(f"[int8 serve] one eval_step under torch.profiler (mean of "
         f"{STEP_PROFILE_CALLS}): {prof['kernels_a_call']:g} kernels, "
         f"{prof['busy_ms']:.3f} ms of kernels in a {prof['span_ms']:.3f} ms span; Q1 "
-        f"(conv + quantize kernels) {q1_ms:.3f} ms; the 12 longest: "
+        f"(its wgmma, gather and quantize kernels) {q1_ms:.3f} ms; the 12 longest: "
         + "; ".join(f"{short_name(k)} {ms:.3f} ms x {n:g}" for k, (n, ms) in by_ms[:12]))
     model32 = build_model(dataclasses.replace(cfg, compute_dtype="float32"), device=device)
     model32.load_state_dict(sd, strict=True)
@@ -5523,6 +5540,8 @@ def main():
         "shape": "bf16 [128, 256, 8, 512] channels-last with the BN prologue, "
                  "256 -> 256, 3x3/1 (stage 1's conv2 site, 2 a forward)",
         "sites": int8_rec["sites"],
+        "forward_ms": int8_rec["q1_forward_ms"],
+        "forward_bound_ms": int8_rec["q1_forward_bound_ms"],
         "width_strips": {k: v for k, v in wp_rec["strip_kernels"].items()
                          if k.startswith("conv_int8")},
     }]

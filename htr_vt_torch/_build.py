@@ -117,6 +117,8 @@ def load(path: Path) -> ctypes.CDLL:
     lib.htrvt_conv_int8.argtypes = ([ptr, i32] + [ptr] * 7 + [i32] + [i32] * 12
                                     + [ptr])
     lib.htrvt_conv_int8.restype = i32
+    lib.htrvt_conv_int8_route.argtypes = [i32] * 11
+    lib.htrvt_conv_int8_route.restype = i32
     lib.htrvt_conv3x3_dgrad_rows.argtypes = [i32] * 4
     lib.htrvt_conv3x3_dgrad_rows.restype = i64
     lib.htrvt_conv3x3_wgrad_splits.argtypes = [i32] * 6

@@ -43,9 +43,14 @@ AMAX_SUFFIX = "amax"
 # C codes of Q1's input and output element types (csrc/conv_int8.cu).
 _IN_CODES = {torch.int8: 0, torch.bfloat16: 1}
 _OUT_CODES = {torch.int32: 0, torch.float32: 1, torch.bfloat16: 2}
-# Q1's tile: 128 output pixels x 128 output channels x 64 input channels.
+# Q1's shape contract: input channels in multiples of TILE_K, output
+# channels in multiples of TILE_N (csrc/conv_int8.cu).
 TILE_N = 128
 TILE_K = 64
+# Q1's routes by shape (csrc/conv_int8.cu:Route): mma.sync on gathered rows;
+# wgmma fed by TMA; for a bf16 input, its quantize kernel, then wgmma (the
+# gather route, too, runs after the quantize kernel for a bf16 input).
+Q1_ROUTES = {0: "gather", 1: "wgmma", 2: "quantize+wgmma"}
 
 
 # --------------------------------------------------------------- quantizers
@@ -394,6 +399,14 @@ def _check_q1_layout(src: torch.Tensor) -> None:
     if not src.is_contiguous(memory_format=torch.channels_last) or src.data_ptr() % 16:
         raise ValueError("conv_int8_cuda: the input must be channels-last contiguous "
                          "and 16-byte aligned")
+
+
+def q1_route(in_dtype: torch.dtype, b: int, ci: int, co: int, kh: int, kw: int, stride,
+             padding: int, ho: int, wo: int) -> str:
+    """The route Q1 takes for a shape on the card (``Q1_ROUTES``)."""
+    from htr_vt_torch._build import library
+    return Q1_ROUTES[library().htrvt_conv_int8_route(
+        _IN_CODES[in_dtype], b, ci, co, kh, kw, stride[0], stride[1], padding, ho, wo)]
 
 
 def launch_conv_int8(src: torch.Tensor, w_packed: torch.Tensor, sx: torch.Tensor,

@@ -1431,32 +1431,63 @@ Q1_SITES = [
     ((3, 64, 5, 7), 128, 3, (2, 2), 1, "bf16"),  # a ragged last pixel tile
 ]
 
+# The routes of csrc/conv_int8.cu beyond the flagship's sites: pixel tiles
+# cut by the last rows and columns of each of several images (7 rows in
+# tiles of 4, 21 columns in tiles of 32); more tiles than SMs (a persistent
+# block walks several); Co 768 in three 256-wide passes, from s8 and from
+# bf16 + BN; Ci 192 (a second 128-channel chunk half past the input);
+# 1x1 kernels on their strided view; the padding-0 form of a W-stride-2
+# site on a rank's strip (``models/stem.py:_left_column``).
+Q1_ROUTE_CASES = [
+    ((3, 256, 7, 21), 256, 3, (1, 1), 1, "s8"),
+    ((3, 256, 7, 21), 256, 3, (1, 1), 1, "bf16+bn"),
+    ((6, 128, 16, 256), 128, 3, (1, 1), 1, "s8"),
+    ((6, 128, 16, 256), 384, 3, (1, 1), 1, "bf16"),
+    ((4, 768, 2, 128), 768, 3, (1, 1), 1, "s8"),
+    ((4, 768, 2, 128), 768, 3, (1, 1), 1, "bf16+bn"),
+    ((2, 192, 16, 64), 256, 3, (1, 1), 1, "s8"),
+    ((2, 192, 16, 64), 256, 3, (1, 1), 1, "bf16+bn"),
+    ((2, 192, 16, 40), 256, 1, (2, 1), 0, "bf16"),
+    ((2, 256, 8, 66), 384, 1, (2, 2), 0, "s8"),
+    ((3, 384, 6, 33), 768, 3, (2, 2), 0, "s8"),
+    ((2, 256, 10, 65), 384, 3, (2, 2), 0, "s8"),
+]
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("shape,cout,k,stride,pad,kind", Q1_SITES)
-def test_conv_int8_matches_its_plain_twin_bit_for_bit(cuda, shape, cout, k, stride, pad,
-                                                     kind):
-    """The s32 accumulator and the bf16 and float32 outputs of Q1 equal the
-    float64 twin's bits (``ops/quant.py:conv_int8_reference``); two calls
-    give the same bits; each call counts one launch."""
+
+def q1_inputs(shape, cout, k, kind, device, seed, shift=None):
+    """Q1's inputs for a card test: weights quantized from their bf16 cast;
+    an s8 carry, or a bf16 activation with the scale of an abs-max of 3
+    (clipping the tail) and, for "bf16+bn", folded BN terms (``shift``
+    overrides the shift). Returns (x, xq, prologue, wq, w_packed, sw, sx)."""
     from htr_vt_torch.ops import quant as q8
-    g = torch.Generator(device=cuda).manual_seed(sum(shape) + cout + k)
+    g = torch.Generator(device=device).manual_seed(seed)
     cl = torch.channels_last
-    w = torch.randn(cout, shape[1], k, k, generator=g, device=cuda) * 0.05
+    w = torch.randn(cout, shape[1], k, k, generator=g, device=device) * 0.05
     wq, w_packed, sw = q8.conv_weight(w.to(torch.bfloat16))
     x = xq = prologue = None
     if kind == "s8":
-        xq = torch.randint(-127, 128, shape, generator=g, device=cuda,
+        xq = torch.randint(-127, 128, shape, generator=g, device=device,
                            dtype=torch.int8).contiguous(memory_format=cl)
-        sx = torch.tensor(0.02, device=cuda)
+        sx = torch.tensor(0.02, device=device)
     else:
-        x = (torch.randn(shape, generator=g, device=cuda) * 2).to(torch.bfloat16)
+        x = (torch.randn(shape, generator=g, device=device) * 2).to(torch.bfloat16)
         x = x.contiguous(memory_format=cl)
         if kind == "bf16+bn":
-            prologue = (torch.rand(shape[1], generator=g, device=cuda) + 0.5,
-                        torch.randn(shape[1], generator=g, device=cuda))
-        sx = q8._scale_of(torch.tensor(3.0, device=cuda))  # clips the tail
+            prologue = (torch.rand(shape[1], generator=g, device=device) + 0.5,
+                        torch.randn(shape[1], generator=g, device=device)
+                        if shift is None else shift.to(device))
+        sx = q8._scale_of(torch.tensor(3.0, device=device))  # clips the tail
+    return x, xq, prologue, wq, w_packed, sw, sx
+
+
+def check_q1_bits(cuda, shape, cout, k, stride, pad, kind, seed, shift=None):
+    """The s32 accumulator and the bf16 and float32 outputs of Q1 equal the
+    float64 twin's bits; two calls give the same bits; one launch a call."""
+    from htr_vt_torch.ops import quant as q8
+    x, xq, prologue, wq, w_packed, sw, sx = q1_inputs(shape, cout, k, kind, cuda, seed,
+                                                      shift)
     dq = sx * sw
+    cl = torch.channels_last
     for out in (torch.int32, torch.bfloat16, torch.float32):
         before = q8.conv_int8_cuda.launches
         got = q8.conv_int8_cuda(x, w_packed, sx, dq, stride, pad, out, xq=xq,
@@ -1470,6 +1501,61 @@ def test_conv_int8_matches_its_plain_twin_bit_for_bit(cuda, shape, cout, k, stri
         assert got.is_contiguous(memory_format=cl) and got.dtype == out
         assert torch.equal(got, again), out
         assert torch.equal(got, want), (out, (got.double() - want.double()).abs().max())
+    return x, prologue, wq, sx
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,cout,k,stride,pad,kind", Q1_SITES)
+def test_conv_int8_matches_its_plain_twin_bit_for_bit(cuda, shape, cout, k, stride, pad,
+                                                     kind):
+    """The s32 accumulator and the bf16 and float32 outputs of Q1 equal the
+    float64 twin's bits (``ops/quant.py:conv_int8_reference``); two calls
+    give the same bits; each call counts one launch."""
+    check_q1_bits(cuda, shape, cout, k, stride, pad, kind, sum(shape) + cout + k)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,cout,k,stride,pad,kind", Q1_ROUTE_CASES)
+def test_conv_int8_routes_match_the_plain_twin_bit_for_bit(cuda, shape, cout, k, stride,
+                                                          pad, kind):
+    """Q1's tile edges, persistence, N passes, Ci 192, strided 1x1 views and
+    the padding-0 form, bit for bit against the float64 twin."""
+    check_q1_bits(cuda, shape, cout, k, stride, pad, kind, sum(shape) + cout + k + 1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cout", [256, 768])
+def test_conv_int8_pads_the_quantized_input_with_code_zero(cuda, cout):
+    """A bf16 + BN input whose shift makes relu(shift) quantize to about
+    +85: the padding is the quantized tensor's zero, so the border outputs
+    differ from a conv whose halo held quantize(relu(shift))."""
+    import torch.nn.functional as F
+
+    from htr_vt_torch.ops import quant as q8
+    shape = (2, 256, 6, 40)
+    shift = torch.full((256,), 2.0)
+    x, prologue, wq, sx = check_q1_bits(cuda, shape, cout, 3, (1, 1), 1, "bf16+bn", cout,
+                                        shift=shift)
+    xq = q8._quantize(q8.apply_prologue(x, *prologue), sx)
+    edge = q8._quantize(torch.relu(shift.to(cuda).to(torch.bfloat16)), sx)[0].item()
+    assert edge > 0
+    wrong = q8.conv_s8_reference(F.pad(xq.double(), (1, 1, 1, 1), value=edge), wq,
+                                 (1, 1), 0)
+    assert not torch.equal(wrong, q8.conv_s8_reference(xq, wq, (1, 1), 1))
+
+
+@pytest.mark.cuda
+def test_conv_int8_takes_the_wgmma_route_at_the_3x3_stride1_sites(cuda):
+    """Every 3x3 stride-1 site of the int8 forward runs wgmma fed by TMA
+    (``ops/quant.py:q1_route``), a bf16 + BN input after Q1's quantize
+    kernel."""
+    from htr_vt_torch.ops import quant as q8
+    for (b, ci, h, w), cout, k, stride, pad, kind in Q1_SITES:
+        if k == 3 and tuple(stride) == (1, 1):
+            dtype = torch.int8 if kind == "s8" else torch.bfloat16
+            route = q8.q1_route(dtype, b, ci, cout, k, k, stride, pad, h, w)
+            assert route == ("wgmma" if kind == "s8" else "quantize+wgmma"), (
+                route, kind, ci, h, w)
 
 
 @pytest.mark.cuda
