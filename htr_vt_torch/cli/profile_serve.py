@@ -311,8 +311,10 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict:
 
     from torch.autograd import DeviceType
     rows = [row for row in prof.key_averages() if _device_us(row) > 0]
-    # the kernels themselves; operators' rows would count their time twice
-    rows = [row for row in rows if row.device_type == DeviceType.CUDA] or rows
+    # the kernels themselves; operators' rows, and the device ranges of the
+    # program's spans (user annotations), would count their time twice
+    rows = [row for row in rows if row.device_type == DeviceType.CUDA
+            and not row.is_user_annotation] or rows
     kernels: List = [(row.key, _device_us(row) / 1e3 / args.steps)
                      for row in rows]
     if not kernels:

@@ -58,6 +58,7 @@ from htr_vt_torch.ops.quant import calibrate_quant_stats, serving_arrays
 from htr_vt_torch.train.checkpoint import CheckpointManager, load_ema_model, saved_config
 from htr_vt_torch.train.step import eval_step
 from htr_vt_torch.utils.convert import load_reference_checkpoint
+from htr_vt_torch.utils.logging import span
 
 # Dummy labels of the serving step (``serve.py:211-212``): the CTC loss
 # runs on every served batch, over zero-length labels.
@@ -94,19 +95,24 @@ def transcribe(model: nn.Module, images: np.ndarray,
     each batch's rescored by ``rescore`` where given (``beam_lm_texts``).
 
     Runs ``eval_step`` on fixed-size batches; the last one is padded with
-    white rows (``serve.py:205-207``), whose outputs are dropped."""
+    white rows (``serve.py:205-207``), whose outputs are dropped. Spans
+    (``utils/logging.py``): ``serve.pad`` and ``serve.decode`` (after the
+    ids' ``.cpu()``, which waits for the device)."""
     texts: List[str] = []
     for start in range(0, len(images), batch_size):
         chunk = np.asarray(images[start:start + batch_size], np.float32)
         n = len(chunk)
         if n < batch_size:
-            pad = np.ones((batch_size - n,) + chunk.shape[1:], np.float32)
-            chunk = np.concatenate([chunk, pad])
+            with span("serve.pad"):
+                pad = np.ones((batch_size - n,) + chunk.shape[1:], np.float32)
+                chunk = np.concatenate([chunk, pad])
         out = eval_step(model, {
             "image": chunk,
             "labels": np.zeros((batch_size, DUMMY_LABEL_LEN), np.int32),
             "label_lengths": np.zeros((batch_size,), np.int32)})
-        greedy = converter.decode_batch(out["pred_ids"][:n].cpu().numpy())
+        ids = out["pred_ids"][:n].cpu().numpy()
+        with span("serve.decode"):
+            greedy = converter.decode_batch(ids)
         texts.extend(greedy if rescore is None else rescore(out["logits"][:n], greedy))
     return texts
 
@@ -137,23 +143,54 @@ def transcribe_buckets(model: nn.Module, load: Callable[[int, int], np.ndarray],
     its lines (``transcribe``: the last batch white-padded), loading one
     batch at a time (``serve.py:236-254``). An int8 model is calibrated
     first on each bucket's first ``calib_batches`` batches
-    (``serve.py:163-190``). ``rescore`` as in ``transcribe``."""
-    bucket_widths, owner = route_to_buckets(widths, buckets,
-                                            model.cfg.patch_size[0])
+    (``serve.py:163-190``). ``rescore`` as in ``transcribe``.
+
+    Spans (``utils/logging.py``): ``serve.route`` (``buckets``),
+    ``serve.calibrate`` a bucket (``width``, ``rows`` forwarded), and a
+    request ``serve.batch`` a bucket batch (``width``, ``lines``, ``rows``
+    forwarded, ``pad_rows``), each holding its ``serve.load`` and
+    ``serve.stack``."""
+    with span("serve.route") as sp:
+        bucket_widths, owner = route_to_buckets(widths, buckets,
+                                                model.cfg.patch_size[0])
+        sp.set(buckets=len(bucket_widths))
     texts: List[Optional[str]] = [None] * len(widths)
     for bi, width in enumerate(bucket_widths):
         idxs = [i for i, o in enumerate(owner) if o == bi]
         if model.cfg.quant == "int8":
-            calibrate_quant_stats(model, (
-                np.stack([load(i, width) for i in idxs[s:s + batch_size]])
-                for s in range(0, len(idxs), batch_size)), calib_batches)
+            with span("serve.calibrate", width=width, rows=0) as sp:
+                calibrate_quant_stats(model, _calibration_batches(
+                    load, idxs, width, batch_size, sp), calib_batches)
         for start in range(0, len(idxs), batch_size):
             sel = idxs[start:start + batch_size]
-            images = np.stack([load(i, width) for i in sel])
-            for i, text in zip(sel, transcribe(model, images, converter,
-                                               batch_size, rescore)):
-                texts[i] = text
+            with span("serve.batch", request=True, width=width, lines=len(sel),
+                      rows=batch_size, pad_rows=batch_size - len(sel)):
+                images = _stack_lines(load, sel, width)
+                for i, text in zip(sel, transcribe(model, images, converter,
+                                                   batch_size, rescore)):
+                    texts[i] = text
     return texts
+
+
+def _stack_lines(load: Callable[[int, int], np.ndarray], sel: Sequence[int],
+                 width: int) -> np.ndarray:
+    """Lines ``sel`` loaded at ``width`` and stacked [len(sel), H, width, 1]."""
+    with span("serve.load"):
+        lines = [load(i, width) for i in sel]
+    with span("serve.stack"):
+        return np.stack(lines)
+
+
+def _calibration_batches(load: Callable[[int, int], np.ndarray], idxs: Sequence[int],
+                         width: int, batch_size: int, sp):
+    """A bucket's batches for calibration, each loaded and stacked when
+    drawn; the span ``sp`` counts the rows drawn."""
+    rows = 0
+    for start in range(0, len(idxs), batch_size):
+        images = _stack_lines(load, idxs[start:start + batch_size], width)
+        rows += len(images)
+        sp.set(rows=rows)
+        yield images
 
 
 class _TrainAlphabet:

@@ -268,7 +268,7 @@ class TrainConfig:
     keep_checkpoints: int = 5
     use_wandb: bool = False
     wandb_project: str = "None"
-    profile_dir: Optional[str] = None  # jax.profiler trace output
+    profile_dir: Optional[str] = None  # torch.profiler trace output
     # Number of masked forwards averaged per loss (tri-masked MMS trainer uses
     # 3: random/block/span — reference model_sgm_mms_attach/train.py:76-97).
     tri_masked: bool = False

@@ -28,6 +28,7 @@ stage-1 pad (port of ``htr_vt_tpu/ops/quant.py``).
 from __future__ import annotations
 
 import contextlib
+import itertools
 from typing import Dict, Iterable, Optional, Sequence, Tuple
 
 import torch
@@ -206,18 +207,16 @@ def calibrate_quant_stats(model: nn.Module, image_batches: Iterable,
     """Static activation scales (``calibrate_quant_stats``,
     ``quant.py:220-255``): the sites start unset, then up to ``max(1,
     n_batches)`` float eval forwards over ``image_batches`` ([B, H, W, 1]
-    float32 arrays or tensors) record a running abs-max. The model keeps
-    them; returns ``quant_stats(model)``. A model whose width is sharded
-    over the model axis (``parallel/mesh.py:shard_width``) takes each
-    image's strip, as ``eval_step`` does (``rank_width``), and each site
-    records the whole image's abs-max (``record_amax``), so every rank
-    keeps one process's scales."""
+    float32 arrays or tensors, drawn no further than that) record a running
+    abs-max. The model keeps them; returns ``quant_stats(model)``. A model
+    whose width is sharded over the model axis (``parallel/mesh.py:
+    shard_width``) takes each image's strip, as ``eval_step`` does
+    (``rank_width``), and each site records the whole image's abs-max
+    (``record_amax``), so every rank keeps one process's scales."""
     clear_quant_stats(model)
     device = next(model.parameters()).device
     with calibrating():
-        for bi, img in enumerate(image_batches):
-            if bi >= max(1, n_batches):
-                break
+        for img in itertools.islice(image_batches, max(1, n_batches)):
             model(torch.as_tensor(img, dtype=torch.float32, device=device),
                   train=False)
     return quant_stats(model)

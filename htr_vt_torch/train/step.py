@@ -42,6 +42,7 @@ from htr_vt_torch.optim.schedule import warmup_cosine_lr
 from htr_vt_torch.parallel.mesh import (all_reduce_mean_, all_reduce_model_sum_,
                                         data_world, sharded_mask, width_sharded_mask)
 from htr_vt_torch.train.state import TrainState
+from htr_vt_torch.utils.logging import span
 
 
 # The tri-masked trainer's (mode, ratio) forwards (step.py:34).
@@ -96,15 +97,20 @@ def _grads(loss: torch.Tensor, params) -> list:
 def _masked_pass(state: TrainState, batch: Mapping[str, torch.Tensor], params
                  ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor], list]:
     """One batch's loss, terms and gradient: one masked forward, or the
-    tri-masked mean of three."""
+    tri-masked mean of three; each forward in a ``train.forward`` span and
+    its gradient in a ``train.backward`` one."""
     if not state.cfg.train.tri_masked:
-        loss, terms = forward_loss(state, batch)
-        return loss, terms, _grads(loss, params)
+        with span("train.forward"):
+            loss, terms = forward_loss(state, batch)
+        with span("train.backward"):
+            return loss, terms, _grads(loss, params)
     k = len(TRI_MASK_MODES)
     total, terms, grads = 0.0, {}, None
     for mode, ratio in TRI_MASK_MODES:
-        loss, parts = forward_loss(state, batch, mode, ratio)
-        g = _grads(loss / k, params)
+        with span("train.forward"):
+            loss, parts = forward_loss(state, batch, mode, ratio)
+        with span("train.backward"):
+            g = _grads(loss / k, params)
         if grads is None:
             grads = list(g)
         else:
@@ -199,37 +205,45 @@ def train_step(state: TrainState, batch: Mapping) -> Dict[str, torch.Tensor]:
     rank (``pass_loss_and_grads``). SAM's perturbation, its norm and the
     clip read the pass's mean gradient, whatever ``grad_accum``; over a
     model axis the norm is the whole model's (``optim/sam.py:
-    global_grad_norm``)."""
+    global_grad_norm``).
+
+    Spans (``utils/logging.py``): the request ``train.step`` (``step``),
+    holding each pass's ``train.forward`` / ``train.backward`` pairs,
+    ``train.perturb`` (the weights' copy and ``sam_perturb``),
+    ``train.update`` (restore, clip, lr, AdamW) and ``train.ema``."""
     cfg = state.cfg
     opt = cfg.optim
     model = state.model
     params = list(model.parameters())
-    batch = _put(batch, params[0].device)
+    with span("train.step", request=True, step=state.step):
+        batch = _put(batch, params[0].device)
+        sharded = sharded_mask(model)
+        loss1, terms1, grads1 = pass_loss_and_grads(state, batch, params)
+        with span("train.perturb"):
+            with torch.no_grad():
+                w = [p.detach().clone() for p in params]
+            gnorm = sam_perturb(params, grads1, opt.sam_rho, opt.sam_adaptive, sharded)
+        del grads1
 
-    sharded = sharded_mask(model)
-    loss1, terms1, grads1 = pass_loss_and_grads(state, batch, params)
-    with torch.no_grad():
-        w = [p.detach().clone() for p in params]
-    gnorm = sam_perturb(params, grads1, opt.sam_rho, opt.sam_adaptive, sharded)
-    del grads1
+        loss2, _, grads2 = pass_loss_and_grads(state, batch, params)
+        with span("train.update"):
+            with torch.no_grad():
+                torch._foreach_copy_(params, w)
+            del w
+            if opt.grad_clip_norm > 0:
+                clip_by_global_norm_(grads2, opt.grad_clip_norm, sharded)
+            for p, g in zip(params, grads2):
+                p.grad = g
+            set_lr(state.optimizer, warmup_cosine_lr(
+                state.step, max_lr=opt.max_lr, warmup_iters=opt.warmup_iters,
+                total_iters=opt.total_iters, min_lr=opt.min_lr))
+            state.optimizer.step()
+            state.optimizer.zero_grad(set_to_none=True)
 
-    loss2, _, grads2 = pass_loss_and_grads(state, batch, params)
-    with torch.no_grad():
-        torch._foreach_copy_(params, w)
-    del w
-    if opt.grad_clip_norm > 0:
-        clip_by_global_norm_(grads2, opt.grad_clip_norm, sharded)
-    for p, g in zip(params, grads2):
-        p.grad = g
-    set_lr(state.optimizer, warmup_cosine_lr(
-        state.step, max_lr=opt.max_lr, warmup_iters=opt.warmup_iters,
-        total_iters=opt.total_iters, min_lr=opt.min_lr))
-    state.optimizer.step()
-    state.optimizer.zero_grad(set_to_none=True)
-
-    n = state.step / 2.0 if opt.ema_halved_updates else float(state.step)
-    ema_update(state.ema_model, model, n, opt.ema_decay)
-    state.step += 1
+        n = state.step / 2.0 if opt.ema_halved_updates else float(state.step)
+        with span("train.ema"):
+            ema_update(state.ema_model, model, n, opt.ema_decay)
+        state.step += 1
     metrics = {"loss": loss1.detach(), "loss_second": loss2.detach(),
                "grad_norm": gnorm}
     if "loss_sgm" in terms1:
@@ -250,12 +264,18 @@ def eval_step(model: nn.Module, batch: Mapping) -> Dict[str, torch.Tensor]:
     line's results, the same on every rank of its model group. Returns
     ``logits`` [B, T, C] float32,
     ``pred_ids`` [B, T] int32 frame argmax, ``loss_per_sample`` [B] and its
-    batch mean ``loss``."""
-    batch = _put(batch, next(model.parameters()).device)
-    logits = model(batch["image"], train=False)
-    loss_per_sample = ctc_loss_auto(logits, batch["labels"], batch["label_lengths"])
-    return {"logits": logits, "pred_ids": greedy_ids(logits),
-            "loss": loss_per_sample.mean(),
+    batch mean ``loss``. Spans (``utils/logging.py``): ``eval.h2d``,
+    ``eval.forward``, ``eval.loss`` and ``eval.argmax``."""
+    with span("eval.h2d"):
+        batch = _put(batch, next(model.parameters()).device)
+    with span("eval.forward"):
+        logits = model(batch["image"], train=False)
+    with span("eval.loss"):
+        loss_per_sample = ctc_loss_auto(logits, batch["labels"], batch["label_lengths"])
+        loss = loss_per_sample.mean()
+    with span("eval.argmax"):
+        pred_ids = greedy_ids(logits)
+    return {"logits": logits, "pred_ids": pred_ids, "loss": loss,
             "loss_per_sample": loss_per_sample}
 
 

@@ -1,4 +1,4 @@
-"""Observability: logger, scalar writers, profiler hooks.
+"""Observability: logger, scalar writers, profiler hooks, spans.
 
 Reference set (SURVEY §2.7): file+stdout logger (model_v1/utils/utils.py:25-39),
 TensorBoard scalars, optional wandb (model_v1/train.py:46-57). Added here
@@ -10,16 +10,32 @@ The port's own copy of ``htr_vt_tpu/utils/logging.py``, held to it by
 a ``torch.profiler`` trace over the same step window, and ``StepTimer``'s
 windows close after the loss fetch, which on the card is ``float(loss)``,
 a host sync on the step's device work.
+
+``span(name, ...)`` marks a phase of the program's own work (serving's
+route, load, stack, copy, forward and decode; a SAM step's passes, perturb,
+update and EMA). A span records only while a ``torch.profiler`` session is
+recording, so outside one it costs a boolean check and a shared null
+context. While recording it opens ``record_function("htrvt." + name)``, on
+the trace's own timeline beside the kernels it launches, and keeps its
+name, parent, request, host start and end (``time.time_ns``, the clock of
+the profiler's CPU events) and attributes; ``spans()`` reads them. A
+span's device time is that of the kernels launched inside its
+``record_function`` range, read from the trace. The JAX package has no
+spans.
 """
 
 from __future__ import annotations
 
+import itertools
 import json
 import logging
 import os
 import sys
+import threading
 import time
-from typing import Dict, Optional
+from typing import Dict, List, Optional
+
+import torch
 
 
 def get_logger(out_dir: str, name: str = "htrvt",
@@ -136,13 +152,11 @@ def maybe_profile(profile_dir: Optional[str], step: int,
     if step == start_step:
         from torch.profiler import ProfilerActivity, profile
         activities = [ProfilerActivity.CPU]
-        import torch
         if torch.cuda.is_available():
             activities.append(ProfilerActivity.CUDA)
         _PROFILER = profile(activities=activities)
         _PROFILER.__enter__()
     elif step == start_step + num_steps and _PROFILER is not None:
-        import torch
         if torch.cuda.is_available():
             torch.cuda.synchronize()
         _PROFILER.__exit__(None, None, None)
@@ -150,3 +164,87 @@ def maybe_profile(profile_dir: Optional[str], step: int,
         _PROFILER.export_chrome_trace(
             os.path.join(profile_dir, f"trace_step{start_step}.json"))
         _PROFILER = None
+
+
+# --------------------------------------------------------------------- spans
+
+_SPANS: List[dict] = []      # every span recorded in this process, in opening order
+_IDS = itertools.count()
+_REQUESTS = itertools.count()
+_LOCAL = threading.local()   # this thread's open spans (autograd runs backward elsewhere)
+
+
+class _NullSpan:
+    """What ``span`` returns while no profiler records: does nothing."""
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        return False
+
+    def set(self, **attrs) -> None:
+        pass
+
+
+_NULL = _NullSpan()
+
+
+class _Span:
+    """A recording span; ``set(**attrs)`` adds attributes (counts known
+    only inside it)."""
+
+    def __init__(self, name: str, request: bool, attrs: dict):
+        self.name, self.request, self.attrs = name, request, attrs
+
+    def __enter__(self):
+        stack = getattr(_LOCAL, "stack", None)
+        if stack is None:
+            stack = _LOCAL.stack = []
+        parent = stack[-1] if stack else None
+        self.rec = rec = {
+            "name": self.name, "id": next(_IDS),
+            "parent": parent["id"] if parent else None,
+            "request": (next(_REQUESTS) if self.request
+                        else parent["request"] if parent else None),
+            "start_ns": time.time_ns(), "end_ns": None, "attrs": self.attrs}
+        self.rf = torch.profiler.record_function("htrvt." + self.name)
+        self.rf.__enter__()
+        stack.append(rec)
+        _SPANS.append(rec)
+        return self
+
+    def __exit__(self, *exc):
+        self.rf.__exit__(*exc)
+        self.rec["end_ns"] = time.time_ns()
+        _LOCAL.stack.pop()
+        return False
+
+    def set(self, **attrs) -> None:
+        self.rec["attrs"].update(attrs)
+
+
+def span(name: str, request: bool = False, **attrs):
+    """A context manager that records the phase ``name`` while a
+    ``torch.profiler`` session records, and is a shared no-op otherwise.
+
+    ``request=True`` opens a request (a served batch, a SAM step): the span
+    takes the next request id, and the spans inside it inherit it.
+    ``attrs`` (counts: lines, rows, widths) are kept with the span; the
+    context's ``set(**attrs)`` adds more from inside it."""
+    if not torch.autograd._profiler_enabled():
+        return _NULL
+    return _Span(name, request, attrs)
+
+
+def spans() -> List[dict]:
+    """The spans recorded so far, in opening order: each a dict of
+    ``name``, ``id``, ``parent`` (its enclosing span's id, or None),
+    ``request``, ``start_ns`` / ``end_ns`` (``time.time_ns``) and
+    ``attrs``."""
+    return list(_SPANS)
+
+
+def clear_spans() -> None:
+    """Forget every span recorded so far."""
+    _SPANS.clear()

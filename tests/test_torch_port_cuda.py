@@ -1998,3 +1998,131 @@ def test_remat_all_width_sharded_steps_on_the_card_give_the_plain_bits(cuda, tmp
     for key in ("loss", "loss_second", "grad_norm"):
         np.testing.assert_allclose(ranks[0]["all"]["metrics"][0][key], want[0][key],
                                    rtol=1e-4, err_msg=key)
+
+
+# --- the program's spans (utils/logging.py) on the card --------------------
+def _span_model(cuda):
+    """A small bf16 model on the fully fused stem, and a serving batch."""
+    cfg = ModelConfig(nb_cls=80, img_size=(64, 256), embed_dim=256, depth=1, num_heads=2,
+                      compute_dtype="bfloat16", bn_stats_impl="pallas", pool_impl="pallas",
+                      conv_impl="pallas")
+    model = build_model(cfg, device=cuda, generator=torch.Generator(device=cuda).manual_seed(5))
+    rng = np.random.default_rng(5)
+    batch = {"image": rng.random((8, 64, 256, 1), dtype=np.float32),
+             "labels": np.zeros((8, 8), np.int32), "label_lengths": np.zeros((8,), np.int32)}
+    return model, batch
+
+
+def _profiled_eval(cuda):
+    """``eval_step`` under a profiler schedule's warm-up step, then its
+    active step, with CUDA activity: (spans after the warm-up, spans after
+    the active step, the profiler's events)."""
+    from torch.profiler import ProfilerActivity, profile, schedule
+    from htr_vt_torch.utils import logging as obs
+    model, batch = _span_model(cuda)
+    eval_step(model, batch)
+    torch.cuda.synchronize()
+    obs.clear_spans()
+    events = []
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=1, repeat=1),
+                 on_trace_ready=lambda p: events.extend(p.profiler.kineto_results.events())
+                 ) as prof:
+        eval_step(model, batch)
+        torch.cuda.synchronize()
+        warm = obs.spans()
+        prof.step()
+        eval_step(model, batch)
+        torch.cuda.synchronize()
+        prof.step()
+    recs = obs.spans()
+    obs.clear_spans()
+    return warm, recs, events
+
+
+@pytest.mark.cuda
+def test_spans_skip_the_profiler_warmup_step(cuda):
+    warm, recs, _ = _profiled_eval(cuda)
+    assert warm == []
+    assert [r["name"] for r in recs] == ["eval.h2d", "eval.forward", "eval.loss",
+                                         "eval.argmax"]
+
+
+@pytest.mark.cuda
+def test_span_clock_matches_the_profiler_events(cuda):
+    """Each span's ``time.time_ns`` start lies within 100 us of its
+    ``htrvt.*`` event on the profiler's CPU timeline."""
+    _, recs, events = _profiled_eval(cuda)
+    cpu = {ev.name(): ev for ev in events
+           if ev.device_type() == torch.autograd.DeviceType.CPU
+           and ev.name().startswith("htrvt.")}
+    assert set(cpu) == {"htrvt." + r["name"] for r in recs}
+    for r in recs:
+        ev = cpu["htrvt." + r["name"]]
+        assert abs(ev.start_ns() - r["start_ns"]) < 100_000, (r["name"],
+                                                              ev.start_ns() - r["start_ns"])
+
+
+@pytest.mark.cuda
+def test_kernels_under_eval_forward_start_after_it_opens(cuda):
+    _, recs, events = _profiled_eval(cuda)
+    (fwd,) = [r for r in recs if r["name"] == "eval.forward"]
+    (ev,) = [e for e in events if e.name() == "htrvt.eval.forward"
+             and e.device_type() == torch.autograd.DeviceType.CPU]
+    launched = {e.correlation_id() for e in events
+                if e.device_type() == torch.autograd.DeviceType.CPU and "aunch" in e.name()
+                and ev.start_ns() <= e.start_ns() <= ev.end_ns()}
+    kernels = [e for e in events if e.device_type() == torch.autograd.DeviceType.CUDA
+               and not e.is_user_annotation() and e.correlation_id() in launched]
+    assert kernels
+    assert min(k.start_ns() for k in kernels) >= fwd["start_ns"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("step", ["eval", "train"])
+def test_trace_reduce_is_the_same_with_spans_recording(cuda, monkeypatch, step):
+    """``htrbench.trace.reduce`` counts the same kernels in the same
+    categories over a traced step whether the program's spans record or
+    ``span`` is stubbed out: their ``htrvt.*`` GPU annotations are not
+    kernels."""
+    import dataclasses
+
+    from htrbench.trace import Tracer, reduce
+    from htr_vt_torch import ExperimentConfig, MaskConfig, OptimConfig
+    from htr_vt_torch.train import step as step_mod
+    from htr_vt_torch.train.state import create_train_state
+    from htr_vt_torch.utils import logging as obs
+    model, batch = _span_model(cuda)
+    if step == "train":
+        cfg = ExperimentConfig(model=dataclasses.replace(model.cfg, masking=MaskConfig(
+            mode="none")), optim=OptimConfig(max_lr=1e-3, warmup_iters=2))
+        state = create_train_state(cfg, cuda, torch.Generator(device=cuda).manual_seed(4))
+        _, labels, lengths = ctc_case(4, 8, 64, 80, 10)
+        batch = dict(batch, labels=labels, label_lengths=lengths)
+
+        def unit():
+            train_step(state, batch)
+    else:
+        def unit():
+            eval_step(model, batch)
+    for _ in range(2):
+        unit()
+    torch.cuda.synchronize()
+
+    def traced():
+        tracer = Tracer(True)
+        tracer.trace(unit, 2, torch.cuda.synchronize, dict)
+        return reduce(tracer.events)
+
+    obs.clear_spans()
+    on = traced()
+    names = {r["name"] for r in obs.spans()}
+    assert names == ({"train.step", "train.forward", "train.backward", "train.perturb",
+                      "train.update", "train.ema"} if step == "train"
+                     else {"eval.h2d", "eval.forward", "eval.loss", "eval.argmax"})
+    obs.clear_spans()
+    monkeypatch.setattr(step_mod, "span", lambda *a, **k: obs._NULL)
+    off = traced()
+    assert obs.spans() == []
+    assert on["n_kernels"] == off["n_kernels"] > 0
+    assert set(on["category_s"]) == set(off["category_s"])
