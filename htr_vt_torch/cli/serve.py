@@ -54,6 +54,7 @@ from htr_vt_torch.data.loader import make_converter
 from htr_vt_torch.decode.beam import prefix_beam_search
 from htr_vt_torch.decode.lm import NgramScorer, rescore_candidates
 from htr_vt_torch.models.htr_vt import HTRVT, build_model
+from htr_vt_torch.ops.decode import collapse_ids, collapsed_texts
 from htr_vt_torch.ops.quant import calibrate_quant_stats, serving_arrays
 from htr_vt_torch.train.checkpoint import CheckpointManager, load_ema_model, saved_config
 from htr_vt_torch.train.step import eval_step
@@ -94,27 +95,95 @@ def transcribe(model: nn.Module, images: np.ndarray,
     """Greedy transcriptions of ``images`` [N, H, W, 1] float32 in [0, 1],
     each batch's rescored by ``rescore`` where given (``beam_lm_texts``).
 
-    Runs ``eval_step`` on fixed-size batches; the last one is padded with
-    white rows (``serve.py:205-207``), whose outputs are dropped. Spans
-    (``utils/logging.py``): ``serve.pad`` and ``serve.decode`` (after the
-    ids' ``.cpu()``, which waits for the device)."""
-    texts: List[str] = []
+    Runs fixed-size batches through ``ServingLoop``; the last one is padded
+    with white rows (``serve.py:205-207``), whose outputs are dropped. Spans
+    (``utils/logging.py``): a batch's ``serve.stack`` (the copy into the
+    staging memory), ``serve.pad``, ``eval_step``'s, the previous batch's
+    ``serve.decode`` and ``serve.wait``; the last batch's decode after it."""
+    loop = ServingLoop(model, converter, batch_size, len(images), rescore)
     for start in range(0, len(images), batch_size):
-        chunk = np.asarray(images[start:start + batch_size], np.float32)
-        n = len(chunk)
-        if n < batch_size:
+        sel = range(start, min(start + batch_size, len(images)))
+        loop.submit(loop.stage(images[start:sel.stop], batch_size), sel)
+    return loop.finish()
+
+
+class ServingLoop:
+    """Batches through ``eval_step`` with one blocking call a batch: the wait
+    on that batch's own results.
+
+    For each batch, the caller stages its lines (``stage``: stacked into
+    page-locked host memory on the card, the rows past them white) and
+    submits it. ``submit`` queues the batch's copy to the card and its
+    ``eval_step`` (the dummy CTC labels are zeros made on the device once),
+    then ``ops/decode.py:collapse_ids`` of its lines' frame ids and their
+    asynchronous fetch to the host; then decodes the previous batch on the
+    host while this one runs; then waits for this batch's fetch (a CUDA
+    event). So the caller loads the next batch only after that wait, and
+    each forward's rows are the lines staged since the one before. ``finish``
+    decodes the last batch and returns the texts, by line index. On the CPU
+    nothing is page-locked and nothing waits, in the same order.
+
+    Spans (``utils/logging.py``): ``serve.stack`` and ``serve.pad`` (in
+    ``stage``), ``serve.decode`` (``overlapped`` 1 where a later batch was
+    queued while it ran, 0 for the last) and ``serve.wait``."""
+
+    def __init__(self, model: nn.Module, converter: CTCLabelConverter, batch_size: int,
+                 n_lines: int, rescore: Optional[Rescore] = None):
+        device = next(model.parameters()).device
+        self.model, self.character, self.rescore = model, converter.character, rescore
+        self.device, self.cuda = device, device.type == "cuda"
+        self.labels = torch.zeros((batch_size, DUMMY_LABEL_LEN), dtype=torch.int32,
+                                  device=device)
+        self.label_lengths = torch.zeros((batch_size,), dtype=torch.int32, device=device)
+        self.texts: List[Optional[str]] = [None] * n_lines
+        self.pending = None
+
+    def stage(self, lines: Sequence[np.ndarray], rows: int) -> torch.Tensor:
+        """``lines`` (each [H, W, 1]) stacked into [rows, H, W, 1] float32
+        host memory, page-locked on the card (the caching host allocator
+        hands a block back only once the copy that read it is done), the rows
+        past them white (1.0)."""
+        n = len(lines)
+        with span("serve.stack"):
+            buf = torch.empty((rows,) + lines[0].shape, dtype=torch.float32,
+                              pin_memory=self.cuda)
+            np.stack(lines, out=buf.numpy()[:n])
+        if n < rows:
             with span("serve.pad"):
-                pad = np.ones((batch_size - n,) + chunk.shape[1:], np.float32)
-                chunk = np.concatenate([chunk, pad])
-        out = eval_step(model, {
-            "image": chunk,
-            "labels": np.zeros((batch_size, DUMMY_LABEL_LEN), np.int32),
-            "label_lengths": np.zeros((batch_size,), np.int32)})
-        ids = out["pred_ids"][:n].cpu().numpy()
-        with span("serve.decode"):
-            greedy = converter.decode_batch(ids)
-        texts.extend(greedy if rescore is None else rescore(out["logits"][:n], greedy))
-    return texts
+                buf[n:] = 1.0
+        return buf
+
+    @torch.inference_mode()
+    def submit(self, image: torch.Tensor, sel: Sequence[int]) -> None:
+        """Serve the staged batch ``image``, whose first ``len(sel)`` rows are
+        lines ``sel``; returns once its collapsed ids are on the host."""
+        out = eval_step(self.model, {"image": image, "labels": self.labels,
+                                     "label_lengths": self.label_lengths})
+        ids, lengths = collapse_ids(out["pred_ids"][:len(sel)])
+        fetched = (ids.to("cpu", non_blocking=True), lengths.to("cpu", non_blocking=True))
+        done = None
+        if self.cuda:
+            done = torch.cuda.Event()
+            done.record()
+        if self.pending is not None:
+            self._decode(*self.pending, overlapped=1)
+        self.pending = (sel, fetched, out["logits"][:len(sel)] if self.rescore else None)
+        with span("serve.wait"):
+            if done is not None:
+                done.synchronize()
+
+    def finish(self) -> List[Optional[str]]:
+        """Decode the last batch; the texts, by line index."""
+        if self.pending is not None:
+            self._decode(*self.pending, overlapped=0)
+            self.pending = None
+        return self.texts
+
+    def _decode(self, sel, fetched, logits, overlapped: int) -> None:
+        with span("serve.decode", overlapped=overlapped):
+            greedy = collapsed_texts(fetched[0].numpy(), fetched[1].numpy(), self.character)
+        for i, text in zip(sel, greedy if logits is None else self.rescore(logits, greedy)):
+            self.texts[i] = text
 
 
 def route_to_buckets(widths: Sequence[int], buckets: Sequence[int],
@@ -139,58 +208,59 @@ def transcribe_buckets(model: nn.Module, load: Callable[[int, int], np.ndarray],
     """Greedy transcriptions of lines of natural ``widths``, in input order.
 
     ``load(i, width)`` returns line i as float32 [H, width, 1] at its
-    bucket's width. Each bucket runs ``eval_step`` on fixed-size batches of
-    its lines (``transcribe``: the last batch white-padded), loading one
-    batch at a time (``serve.py:236-254``). An int8 model is calibrated
-    first on each bucket's first ``calib_batches`` batches
-    (``serve.py:163-190``). ``rescore`` as in ``transcribe``.
+    bucket's width. Each bucket runs fixed-size batches of its lines
+    (``transcribe``: the last batch white-padded) through one
+    ``ServingLoop`` across the buckets, loading a batch only once the one
+    before it has come back (``serve.py:236-254``). An int8 model is
+    calibrated first on each bucket's first ``calib_batches`` batches
+    (``serve.py:163-190``), each copied to the card as it is drawn.
+    ``rescore`` as in ``transcribe``.
 
     Spans (``utils/logging.py``): ``serve.route`` (``buckets``),
     ``serve.calibrate`` a bucket (``width``, ``rows`` forwarded), and a
     request ``serve.batch`` a bucket batch (``width``, ``lines``, ``rows``
-    forwarded, ``pad_rows``), each holding its ``serve.load`` and
-    ``serve.stack``."""
+    forwarded, ``pad_rows``), each holding its ``serve.load``,
+    ``serve.stack``, ``eval_step``'s spans, the previous batch's
+    ``serve.decode`` and its ``serve.wait``; the last batch's
+    ``serve.decode`` follows the last ``serve.batch``."""
     with span("serve.route") as sp:
         bucket_widths, owner = route_to_buckets(widths, buckets,
                                                 model.cfg.patch_size[0])
         sp.set(buckets=len(bucket_widths))
-    texts: List[Optional[str]] = [None] * len(widths)
+    loop = ServingLoop(model, converter, batch_size, len(widths), rescore)
     for bi, width in enumerate(bucket_widths):
         idxs = [i for i, o in enumerate(owner) if o == bi]
         if model.cfg.quant == "int8":
             with span("serve.calibrate", width=width, rows=0) as sp:
                 calibrate_quant_stats(model, _calibration_batches(
-                    load, idxs, width, batch_size, sp), calib_batches)
+                    loop, load, idxs, width, batch_size, sp), calib_batches)
         for start in range(0, len(idxs), batch_size):
             sel = idxs[start:start + batch_size]
             with span("serve.batch", request=True, width=width, lines=len(sel),
                       rows=batch_size, pad_rows=batch_size - len(sel)):
-                images = _stack_lines(load, sel, width)
-                for i, text in zip(sel, transcribe(model, images, converter,
-                                                   batch_size, rescore)):
-                    texts[i] = text
-    return texts
+                loop.submit(loop.stage(_load_lines(load, sel, width), batch_size), sel)
+    return loop.finish()
 
 
-def _stack_lines(load: Callable[[int, int], np.ndarray], sel: Sequence[int],
-                 width: int) -> np.ndarray:
-    """Lines ``sel`` loaded at ``width`` and stacked [len(sel), H, width, 1]."""
+def _load_lines(load: Callable[[int, int], np.ndarray], sel: Sequence[int],
+                width: int) -> List[np.ndarray]:
+    """Lines ``sel`` loaded at ``width``."""
     with span("serve.load"):
-        lines = [load(i, width) for i in sel]
-    with span("serve.stack"):
-        return np.stack(lines)
+        return [load(i, width) for i in sel]
 
 
-def _calibration_batches(load: Callable[[int, int], np.ndarray], idxs: Sequence[int],
-                         width: int, batch_size: int, sp):
-    """A bucket's batches for calibration, each loaded and stacked when
-    drawn; the span ``sp`` counts the rows drawn."""
+def _calibration_batches(loop: ServingLoop, load: Callable[[int, int], np.ndarray],
+                         idxs: Sequence[int], width: int, batch_size: int, sp):
+    """A bucket's batches for calibration, each loaded, staged and copied to
+    the model's device (without blocking) when drawn; the span ``sp``
+    counts the rows drawn."""
     rows = 0
     for start in range(0, len(idxs), batch_size):
-        images = _stack_lines(load, idxs[start:start + batch_size], width)
-        rows += len(images)
+        sel = idxs[start:start + batch_size]
+        images = loop.stage(_load_lines(load, sel, width), len(sel))
+        rows += len(sel)
         sp.set(rows=rows)
-        yield images
+        yield images.to(loop.device, non_blocking=True)
 
 
 class _TrainAlphabet:

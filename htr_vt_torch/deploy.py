@@ -33,7 +33,7 @@ import torch
 from torch import nn
 
 from htr_vt_torch.ops import library as _library  # noqa: F401  registers htrvt::
-from htr_vt_torch.ops.decode import collapse_ids, greedy_ids
+from htr_vt_torch.ops.decode import collapse_ids, collapsed_texts, greedy_ids
 
 META_NAME = "meta.json"
 FORMAT_VERSION = 1
@@ -142,8 +142,7 @@ class ServingBundle:
 
     def decode(self, ids: np.ndarray, lengths: np.ndarray) -> List[str]:
         # charset[0] is the blank; the ids are already collapsed in-program.
-        return ["".join(self.charset[i] for i in row[:n])
-                for row, n in zip(ids, lengths)]
+        return collapsed_texts(ids, lengths, self.charset)
 
     def transcribe(self, images: np.ndarray) -> List[str]:
         """Pad the batch to the bundle's batch size with white (ones) rows,

@@ -108,8 +108,10 @@ def dense(layer: nn.Linear, x: torch.Tensor, dtype: torch.dtype,
 
 def quick_gelu(x: torch.Tensor) -> torch.Tensor:
     """``x * sigmoid(1.702 x)`` in x's dtype, the constant rounded to it
-    first (``layers.py:119-127``)."""
-    return x * torch.sigmoid(torch.tensor(1.702, dtype=x.dtype, device=x.device) * x)
+    first (``layers.py:119-127``). The constant is a 0-dim host tensor: a
+    CUDA kernel takes it as a scalar argument, with no copy to the device
+    (which would synchronize the host)."""
+    return x * torch.sigmoid(torch.tensor(1.702, dtype=x.dtype) * x)
 
 
 def conv2d(conv: nn.Conv2d, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:

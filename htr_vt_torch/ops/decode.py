@@ -1,13 +1,15 @@
 """Greedy CTC decoding on the device (port of ``htr_vt_tpu/ops/decode.py``).
 
 Only [B, T] ids leave the device; the strings are assembled on the host by
-``htr_vt_torch.text.converter.CTCLabelConverter``.
+``htr_vt_torch.text.converter.CTCLabelConverter`` from frame ids, or by
+``collapsed_texts`` from the ids ``collapse_ids`` leaves.
 """
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import List, Sequence, Tuple
 
+import numpy as np
 import torch
 
 
@@ -25,3 +27,17 @@ def collapse_ids(ids: torch.Tensor, blank: int = 0) -> Tuple[torch.Tensor, torch
     order = torch.argsort((~keep).to(torch.int32), dim=1, stable=True)
     compacted = torch.gather(torch.where(keep, ids, torch.zeros_like(ids)), 1, order)
     return compacted, lengths
+
+
+def collapsed_texts(ids: np.ndarray, lengths: np.ndarray,
+                    character: Sequence[str]) -> List[str]:
+    """The texts of ``collapse_ids``' output (ids [B, T], lengths [B]) on the
+    host: each kept id an index into ``character``, an id past it dropped.
+    Both collapses test a repeat against the raw previous frame, so this is
+    ``CTCLabelConverter.decode_batch`` of the frame ids."""
+    table = np.asarray(character, dtype=object)
+    texts = []
+    for row, n in zip(ids, lengths):
+        kept = row[:n]
+        texts.append("".join(table[kept[kept < len(table)]]))
+    return texts

@@ -55,7 +55,16 @@ ED_KEYS = ("ed_input", "ed_output", "ed_lengths")
 def _put(batch: Mapping, device) -> Dict[str, torch.Tensor]:
     keys = ("image", "labels", "label_lengths") + tuple(
         k for k in SGM_KEYS + ED_KEYS if k in batch)
-    return {k: torch.as_tensor(batch[k], device=device) for k in keys}
+    return {k: _to_device(batch[k], device) for k in keys}
+
+
+def _to_device(x, device) -> torch.Tensor:
+    """``x`` on ``device``: a page-locked host tensor by a copy queued on the
+    current stream, which does not block the host; anything else by
+    ``torch.as_tensor`` (a tensor already there as it is)."""
+    if isinstance(x, torch.Tensor) and x.is_pinned():
+        return x.to(device, non_blocking=True)
+    return torch.as_tensor(x, device=device)
 
 
 def forward_loss(state: TrainState, batch: Mapping[str, torch.Tensor],
@@ -259,7 +268,8 @@ def eval_step(model: nn.Module, batch: Mapping) -> Dict[str, torch.Tensor]:
 
     batch: ``image`` [B, H, W, 1] float32 in [0, 1], ``labels`` [B, Lmax]
     and ``label_lengths`` [B] int, as tensors or numpy arrays; they are moved
-    to the model's device; a width-sharded model takes this rank's strip of
+    to the model's device (a page-locked host tensor without blocking the
+    host, ``_to_device``); a width-sharded model takes this rank's strip of
     the image (``parallel/mesh.py:rank_width``) and returns the whole
     line's results, the same on every rank of its model group. Returns
     ``logits`` [B, T, C] float32,

@@ -2126,3 +2126,143 @@ def test_trace_reduce_is_the_same_with_spans_recording(cuda, monkeypatch, step):
     assert obs.spans() == []
     assert on["n_kernels"] == off["n_kernels"] > 0
     assert set(on["category_s"]) == set(off["category_s"])
+
+
+# --- the serving loop (cli/serve.py:ServingLoop) on the card ---------------
+def _serving_model(cuda, quant):
+    """The benchmark's flagship (``htrbench/configs/htrvt-iam*.json``: bf16 on
+    the fully fused stem; int8 static A8W8 with quick GELU), seeded
+    weights."""
+    import dataclasses
+
+    from htr_vt_torch.ops import quant as q8
+    cfg = ModelConfig(nb_cls=80, compute_dtype="bfloat16", bn_stats_impl="pallas",
+                      pool_impl="pallas", conv_impl="pallas")
+    model = build_model(cfg, device=cuda, generator=torch.Generator(device=cuda).manual_seed(3))
+    if quant == "none":
+        return model
+    c8 = dataclasses.replace(cfg, quant="int8", quant_stage1_pad=256, quant_gelu="quick")
+    model8 = build_model(c8, device=cuda)
+    model8.load_state_dict(q8.serving_arrays(c8, model.state_dict()), strict=True)
+    return model8
+
+
+def _serving_lines(n, width, seed):
+    """n line images [64, width, 1] float32, ink on white, and ``load``."""
+    rng = np.random.default_rng(seed)
+    lines = np.where(rng.random((n, 64, width, 1)) < 0.25, 0.2, 1.0).astype(np.float32)
+    return lines, lambda i, w: lines[i]
+
+
+def _logits_hook(model, out):
+    return model.register_forward_hook(lambda m, a, y: out.append(y.detach().clone()))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("quant", ["none", "int8"])
+@pytest.mark.parametrize("width", [512, 1024])
+def test_serving_loop_matches_a_serial_loop_on_the_card(cuda, quant, width):
+    """``transcribe_buckets`` (pinned staging, the non-blocking copy, the
+    collapse on the card, a batch decoded behind the next) against a serial
+    loop of ``eval_step`` on numpy batches and ``decode_batch``: every
+    forward's logits bit for bit (int8's calibration forwards included, its
+    scales calibrated on the same 2 batches) and the texts equal. 80 lines
+    at bs 32: two full batches and a ragged one of 16."""
+    from htr_vt_torch import CTCLabelConverter
+    from htr_vt_torch.cli import serve
+    from htr_vt_torch.ops import quant as q8
+    model = _serving_model(cuda, quant)
+    converter = CTCLabelConverter([chr(33 + i) for i in range(79)])
+    lines, load = _serving_lines(80, width, 4)
+    bs, calib = 32, 2
+    got_logits, want_logits = [], []
+    h = _logits_hook(model, got_logits)
+    got = serve.transcribe_buckets(model, load, [width] * 80, [width], converter, bs,
+                                   calib_batches=calib)
+    h.remove()
+    h = _logits_hook(model, want_logits)
+    if quant == "int8":
+        q8.calibrate_quant_stats(model, [lines[s:s + bs] for s in range(0, 80, bs)], calib)
+    want = []
+    for s in range(0, 80, bs):
+        n = len(lines[s:s + bs])
+        chunk = np.ones((bs, 64, width, 1), np.float32)
+        chunk[:n] = lines[s:s + bs]
+        out = eval_step(model, {"image": chunk,
+                                "labels": np.zeros((bs, serve.DUMMY_LABEL_LEN), np.int32),
+                                "label_lengths": np.zeros((bs,), np.int32)})
+        want += converter.decode_batch(out["pred_ids"][:n].cpu().numpy())
+    h.remove()
+    assert len(got_logits) == len(want_logits) == 3 + (calib if quant == "int8" else 0)
+    for a, b in zip(got_logits, want_logits):
+        assert torch.equal(a, b)
+    assert got == want
+
+
+@pytest.mark.cuda
+def test_serving_loop_pads_a_ragged_batch_white_after_a_full_one(cuda):
+    """Two warm jobs of 40 lines at bs 32 (a full batch, then a ragged one of
+    8, whose staging block the caching host allocator may hand back from an
+    earlier batch): the second batch's forward sees its 8 lines, then 24
+    rows of 1.0."""
+    from htr_vt_torch import CTCLabelConverter
+    from htr_vt_torch.cli import serve
+    model = _serving_model(cuda, "none")
+    lines, load = _serving_lines(40, 512, 6)
+    seen = []
+    h = model.register_forward_pre_hook(lambda m, a: seen.append(a[0].clone()))
+    for _ in range(2):
+        serve.transcribe_buckets(model, load, [512] * 40, [512], CTCLabelConverter("ab"), 32)
+    h.remove()
+    assert len(seen) == 4
+    for x in seen[1::2]:
+        assert x.shape == (32, 64, 512, 1)
+        assert torch.equal(x[:8].cpu(), torch.from_numpy(lines[32:]))
+        assert bool((x[8:] == 1.0).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("quant", ["none", "int8"])
+def test_warm_serving_job_makes_no_synchronizing_call(cuda, quant):
+    """A warmed job (2 buckets, 3 batches each, the last ragged; int8's
+    calibration and its quick-GELU forwards included) under
+    ``torch.cuda.set_sync_debug_mode("error")``: nothing synchronizes the
+    host with the card but the loop's CUDA-event wait, which that mode does
+    not flag."""
+    from htr_vt_torch import CTCLabelConverter
+    from htr_vt_torch.cli import serve
+    model = _serving_model(cuda, quant)
+    pool = {w: _serving_lines(4, w, w)[0] for w in (512, 1024)}
+    widths = [400, 900] * 40
+
+    def load(i, w):
+        return pool[w][i % 4]
+
+    def job():
+        return serve.transcribe_buckets(model, load, widths, [512, 1024],
+                                        CTCLabelConverter("abc"), 16, calib_batches=2)
+    want = job()
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = job()
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert got == want
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.float16])
+def test_quick_gelu_on_the_card_is_the_tensor_constant_bit_for_bit(cuda, dtype):
+    """``quick_gelu``'s constant, a 0-dim host tensor taken as a kernel's
+    scalar argument, gives the bits of the 0-dim device tensor it replaced
+    (every 16-bit value; 2**20 float32 ones)."""
+    from htr_vt_torch.models import layers
+    if dtype == torch.float32:
+        x = torch.randn(1 << 20, generator=torch.Generator().manual_seed(0)) * 8
+    else:
+        x = torch.arange(-(1 << 15), 1 << 15, dtype=torch.int32).to(torch.int16).view(dtype)
+    x = x.to(cuda)
+    old = x * torch.sigmoid(torch.tensor(1.702, dtype=dtype, device=cuda) * x)
+    bits = torch.int32 if dtype == torch.float32 else torch.int16
+    assert torch.equal(layers.quick_gelu(x).view(bits), old.view(bits))

@@ -4,8 +4,9 @@ Without a profiler ``transcribe_buckets`` and ``train_step`` record
 nothing. Under the active step of a ``torch.profiler`` schedule (its
 warm-up step records nothing) the serving spans form the tree the
 benchmark's readers walk: one ``serve.route``, a ``serve.calibrate`` a
-bucket for int8, and a request ``serve.batch`` a bucket batch holding its
-loads, stack, padding, ``eval_step``'s phases and decode; a SAM step is one
+bucket for int8, a request ``serve.batch`` a bucket batch holding its
+loads, stack, padding, ``eval_step``'s phases, the previous batch's decode
+and its wait, and the last batch's decode after them; a SAM step is one
 request ``train.step`` holding a ``train.forward`` / ``train.backward`` pair
 a masked forward (tri-masked, under ``grad_accum``) and one perturb, update
 and EMA. Each span lies inside the profiler's own ``htrvt.*`` event. Also
@@ -41,8 +42,10 @@ BS = 4
 # the 256-px bucket (one ragged batch)
 WIDTHS = [100, 300, 128, 90, 250, 60, 120, 200, 110]
 BUCKETS = [128, 256]
-BATCH_CHILDREN = {"serve.load", "serve.stack", "serve.pad", "eval.h2d", "eval.forward",
-                  "eval.loss", "eval.argmax", "serve.decode"}
+# a served batch's spans in order; the first batch of a job has no previous
+# batch to decode, and a full batch no padding
+BATCH_CHILDREN = ("serve.load", "serve.stack", "serve.pad", "eval.h2d", "eval.forward",
+                  "eval.loss", "eval.argmax", "serve.decode", "serve.wait")
 
 
 @pytest.fixture(autouse=True)
@@ -138,16 +141,34 @@ def test_serving_span_tree(quant):
                                                           (256, 3, 4, 1)]
     requests = [b["request"] for b in batches]
     assert None not in requests and len(set(requests)) == 3
-    for b in batches:
+    for j, b in enumerate(batches):
         kids = _children(recs, b)
-        want = BATCH_CHILDREN - ({"serve.pad"} if b["attrs"]["pad_rows"] == 0 else set())
-        assert Counter(k["name"] for k in kids) == Counter(want)
+        want = [n for n in BATCH_CHILDREN
+                if not (n == "serve.pad" and b["attrs"]["pad_rows"] == 0)
+                and not (n == "serve.decode" and j == 0)]
+        assert [k["name"] for k in kids] == want
         assert {k["request"] for k in kids} == {b["request"]}
         assert all(not _children(recs, k) for k in kids)
 
+    # one wait and one decode a batch, in order: batch j's decode after its
+    # wait, inside batch j + 1 once that batch is queued (overlapped), the
+    # job's last after the last batch
+    waits = [r for r in recs if r["name"] == "serve.wait"]
+    decodes = [r for r in recs if r["name"] == "serve.decode"]
+    assert len(waits) == len(decodes) == len(batches)
+    assert [w["parent"] for w in waits] == [b["id"] for b in batches]
+    assert [d["parent"] for d in decodes] == [b["id"] for b in batches[1:]] + [None]
+    assert [d["attrs"] for d in decodes] == [{"overlapped": 1}] * 2 + [{"overlapped": 0}]
+    for d, w in zip(decodes, waits):
+        assert d["start_ns"] >= w["end_ns"]
+    for d, b in zip(decodes, batches[1:]):
+        (argmax,) = [k for k in _children(recs, b) if k["name"] == "eval.argmax"]
+        assert d["start_ns"] >= argmax["end_ns"]
+    assert tops[-1] is decodes[-1] and decodes[-1]["start_ns"] >= batches[-1]["end_ns"]
+
     calib = [r for r in tops if r["name"] == "serve.calibrate"]
     if quant == "none":
-        assert len(tops) == 4
+        assert len(tops) == 5
         assert len(loads) == 2 * len(WIDTHS)  # the warm-up job, then the traced one
         rows_per_line = 12 / 9
     else:
@@ -208,8 +229,9 @@ def test_train_step_spans(tri_masked, grad_accum):
 
 
 def test_transcribe_pads_only_the_ragged_batch():
-    """``transcribe`` alone over 6 lines at batch 4: a decode a batch, the
-    white padding only in the second; its spans open no request."""
+    """``transcribe`` alone over 6 lines at batch 4: a stack, a wait and a
+    decode a batch (the first batch's once the second is queued), the white
+    padding only in the second; its spans open no request."""
     model = build_model(TINY, device="cpu", generator=torch.Generator().manual_seed(1))
     images = np.random.default_rng(4).random((6, 64, 128, 1), dtype=np.float32)
     out = []
@@ -217,8 +239,11 @@ def test_transcribe_pads_only_the_ragged_batch():
         model, images, CTCLabelConverter(list("abcdefg")), BS)))
     assert len(out[-1]) == 6
     assert [r["name"] for r in recs] == [
-        "eval.h2d", "eval.forward", "eval.loss", "eval.argmax", "serve.decode",
-        "serve.pad", "eval.h2d", "eval.forward", "eval.loss", "eval.argmax", "serve.decode"]
+        "serve.stack", "eval.h2d", "eval.forward", "eval.loss", "eval.argmax", "serve.wait",
+        "serve.stack", "serve.pad", "eval.h2d", "eval.forward", "eval.loss", "eval.argmax",
+        "serve.decode", "serve.wait", "serve.decode"]
+    assert [r["attrs"] for r in recs if r["name"] == "serve.decode"] == [
+        {"overlapped": 1}, {"overlapped": 0}]
     assert all(r["parent"] is None and r["request"] is None for r in recs)
 
 
